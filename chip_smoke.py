@@ -1,0 +1,409 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch port on one NVIDIA GPU (H100).
+
+    python3 chip_smoke.py
+
+It takes no arguments and runs every phase, in order (each prints its
+findings on its own line; any failure exits non-zero before the final
+line):
+
+  1. device   — require CUDA; print the card's name and power limit
+                (nvidia-smi), torch and CUDA versions; TF32 off.
+  2. build    — compile the kernels from ``src/repro_torch/kernels/csrc``
+                with nvcc for sm_90a; print build seconds and ptxas usage.
+  3. kernels  — each kernel against its plain PyTorch version at the main
+                path's shapes, fp32 (tol 2e-5) and bf16 (tol 3e-2), with
+                kernel / plain times and the card's bound.
+  4. reduced  — the reduced qwen3-moe config served by the port on the card
+                and on the CPU from the same weights: identical greedy
+                tokens, both kernels launched on the card.
+  5. serve    — the full-width qwen3-moe-30b-a3b (48 layers, bf16, random
+                weights from a seeded generator on the card) serves six
+                requests sharing a system prompt through the paged engine.
+  6. the kernels line: one JSON object per ported kernel.
+  7. the last line: {"ok": true, "device": {...}}.
+
+It imports nothing of JAX or of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, no tensor-core fp32
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+ARCH = "qwen3_moe_30b_a3b"
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def check(cond, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def emit(phase: str, **kw) -> None:
+    print(json.dumps({"phase": phase, **kw}, default=float), flush=True)
+
+
+def time_ms(fn, iters: int, warmup: int = 2) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare(got, want, tol: float, valid=None) -> float:
+    """(max abs error, that error relative to max |want|) of ``got``
+    against ``want`` over ``valid`` rows; fails beyond tol * (1 + |want|)
+    elementwise or on an all-zero reference."""
+    import torch
+    g, w = got.float(), want.float()
+    if valid is not None:
+        g, w = g[valid], w[valid]
+    check(bool(torch.isfinite(g).all()), "kernel output is not finite")
+    check(w.numel() > 0 and bool(w.abs().max() > 0),
+          "the plain version's output is empty or all zero")
+    err = (g - w).abs()
+    check(bool((err <= tol * (1 + w.abs())).all()),
+          f"kernel disagrees with its plain version: max abs err "
+          f"{float(err.max()):.3g} > tol {tol}")
+    return float(err.max()), float(err.max() / w.abs().max())
+
+
+def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def paged_case(torch, dtype, t: int, window, seed: int = 0):
+    """Main-path attention shapes: B=4, Hq=32, Hkv=4, hd=128, ps=16, ragged
+    lengths and seg_lens, block tables over a shuffled pool whose
+    unreferenced pages hold NaN."""
+    b, hq, hkv, hd, ps = 4, 32, 4, 128, 16
+    lengths = np.array([0, 17, 100, 250], np.int32)
+    seg = (np.array([1, 0, 1, 1], np.int32) if t == 1
+           else np.array([t, 0, 13, t], np.int32))
+    nb = -(-(int(lengths.max()) + t) // ps) + 1
+    num_pages = b * nb + 8
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(num_pages)
+    bt = perm[:b * nb].reshape(b, nb).astype(np.int32)
+    dev = "cuda"
+    g = torch.Generator(device=dev).manual_seed(seed)
+    mk = lambda shape: torch.randn(shape, generator=g, device=dev).to(dtype)
+    q = mk((b, t, hq, hd))
+    kp, vp = mk((num_pages, ps, hkv, hd)), mk((num_pages, ps, hkv, hd))
+    unused = torch.as_tensor(perm[b * nb:], device=dev)
+    kp[unused] = float("nan")
+    vp[unused] = float("nan")
+    to = lambda a: torch.as_tensor(a, device=dev)
+    return q, kp, vp, to(bt), to(lengths), to(seg), window
+
+
+def paged_bound(q, kp, lengths, seg, window, dtype: str):
+    """Bytes: q and out once, each attended K/V slot once, the tables;
+    operations: QK and PV over the attended slots of the valid tokens."""
+    b, t, hq, hd = q.shape
+    hkv = kp.shape[2]
+    elt = q.element_size()
+    kv_slots, pairs = 0, 0
+    for i in range(b):
+        slots = set()
+        for j in range(int(seg[i])):
+            qp = int(lengths[i]) + j
+            lo = 0 if window is None else max(qp - window + 1, 0)
+            slots.update(range(lo, qp + 1))
+            pairs += qp + 1 - lo
+        kv_slots += len(slots)
+    nbytes = 2 * q.numel() * elt + 2 * kv_slots * hkv * hd * elt + 16 * b
+    flops = 4.0 * pairs * hq * hd
+    return bound(nbytes, flops, dtype)
+
+
+def check_paged_attention(torch, results):
+    from repro_torch.kernels import paged_attn
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for t in (1, 32):
+            for window in (None, 64):
+                q, kp, vp, bt, ln, sg, win = paged_case(torch, dtype, t, window)
+                run_k = lambda: paged_attn.paged_attention(
+                    q, kp, vp, bt, ln, sg, window=win)
+                run_p = lambda: paged_attn.paged_attention_plain(
+                    q, kp, vp, bt, ln, sg, window=win)
+                got, want = run_k(), run_p()
+                torch.cuda.synchronize()
+                tmask = (torch.arange(t, device="cuda")[None, :]
+                         < sg[:, None].long())             # (B, T) valid
+                check(bool((got[~tmask] == 0).all()),
+                      "paged_attention: padding rows are not exactly zero")
+                err, rel = compare(got, want, TOL[dname], tmask)
+                ms, plain_ms = time_ms(run_k, 50), time_ms(run_p, 10)
+                bms, by = paged_bound(q, kp, ln.cpu().numpy(),
+                                      sg.cpu().numpy(), win, dname)
+                row = dict(kernel="paged_attention", dtype=dname, T=t,
+                           window=win, max_abs_err=err, max_rel_err=rel,
+                           kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by)
+                emit("kernels", **row)
+                results.append(row)
+
+
+def check_moe_ffn(torch, results):
+    from repro_torch.kernels import moe_gemm
+    e, d, f = 128, 2048, 768
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for c in (16, 40):
+            g = torch.Generator(device="cuda").manual_seed(c)
+            mk = lambda shape, s: (torch.randn(shape, generator=g,
+                                               device="cuda") * s).to(dtype)
+            x = mk((e, c, d), 1.0)
+            wg, wu = mk((e, d, f), d ** -0.5), mk((e, d, f), d ** -0.5)
+            wd = mk((e, f, d), f ** -0.5)
+            run_k = lambda: moe_gemm.moe_ffn_kernel(x, wg, wu, wd)
+            run_p = lambda: moe_gemm.moe_ffn_plain(x, wg, wu, wd)
+            got, want = run_k(), run_p()
+            torch.cuda.synchronize()
+            err, rel = compare(got, want, TOL[dname])
+            ms, plain_ms = time_ms(run_k, 10), time_ms(run_p, 5)
+            elt = x.element_size()
+            bms, by = bound((2 * e * c * d + 3 * e * d * f) * elt,
+                            6.0 * e * c * d * f, dname)
+            row = dict(kernel="moe_ffn", dtype=dname, E=e, C=c, D=d, F=f,
+                       max_abs_err=err, max_rel_err=rel, kernel_ms=ms,
+                       plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            emit("kernels", **row)
+            results.append(row)
+            del x, wg, wu, wd, got, want
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the port's serving path
+# ---------------------------------------------------------------------------
+
+def traffic(vocab: int, n: int, sys_len: int, lo: int, hi: int, seed: int):
+    """``n`` prompts of lo..hi tokens sharing a ``sys_len``-token system
+    prompt; the last one resubmits the first, so the prefix cache hits
+    into a partial tail page (copy-on-write)."""
+    rng = np.random.default_rng(seed)
+    sysp = rng.integers(0, vocab, sys_len)
+    prompts = [np.concatenate([sysp, rng.integers(
+        0, vocab, int(rng.integers(lo, hi + 1)) - sys_len)])
+        for _ in range(n - 1)]
+    return prompts + [prompts[0].copy()]
+
+
+def serve(engine, prompts, new_tokens: int):
+    uids = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
+    engine.run_until_done()
+    reqs = [engine._all[u] for u in uids]
+    n_done = sum(r.done and r.status == "done" for r in reqs)
+    check(n_done == len(reqs), f"only {n_done}/{len(reqs)} requests completed")
+    return [list(r.generated) for r in reqs]
+
+
+def check_reduced(torch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = get_config(ARCH).reduced().replace(capacity_factor=8.0)
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    to_cuda = lambda tree: {k: to_cuda(v) if isinstance(v, dict)
+                            else v.to("cuda") for k, v in tree.items()}
+    ecfg = EngineConfig(max_batch=2, max_cache=32, chunk_len=3, page_size=5)
+    prompts = traffic(cfg.vocab_size, 5, 7, 9, 14, seed=1)
+    cpu = serve(ServingEngine(cfg, ecfg, params=params, device="cpu"),
+                prompts, 5)
+    ops.reset_launch_counts()
+    eng = ServingEngine(cfg, ecfg, params=to_cuda(params), device="cuda")
+    gpu = serve(eng, prompts, 5)
+    launches = ops.launch_counts()
+    check(gpu == cpu, f"card tokens {gpu} != CPU tokens {cpu}")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel never launched on the reduced path: {launches}")
+    emit("reduced", tokens_identical=True, requests=len(prompts),
+         launches=launches, cow_copies=eng.stats["cow_copies"],
+         prefix_hits=eng.stats["prefix_hits"])
+
+
+def check_serve(torch):
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = get_config(ARCH)
+    t0 = time.perf_counter()
+    # a pool roomy enough that no prefix entry is evicted: the resubmitted
+    # prompt must find its original's partial tail page
+    ecfg = EngineConfig(max_batch=4, max_cache=192, chunk_len=32,
+                        page_size=16, num_pages=96)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warm = ServingEngine(cfg, ecfg, generator=gen, device="cuda")
+    params = warm.params
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # warm-up on its own engine (cuBLAS handles, allocator), then reset
+    serve(warm, traffic(cfg.vocab_size, 2, 8, 24, 40, seed=7), 2)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ServingEngine(cfg, ecfg, params=params, device="cuda")
+    prompts = traffic(cfg.vocab_size, 6, 40, 48, 160, seed=0)
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    out = serve(eng, prompts, 16)
+    wall = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    check(all(len(g) == 16 and max(g) < cfg.vocab_size and min(g) >= 0
+              for g in out), "generated tokens out of range")
+    check(all(v > 0 for v in launches.values()),
+          f"a kernel never launched on the main path: {launches}")
+    ps = eng.paged_stats()
+    check(ps["prefix_hits"] > 0, "no prefix-cache hit")
+    check(ps["cow_copies"] > 0, "no copy-on-write of a shared tail page")
+    tp, tt, ms = eng.throughput(), eng.ttft(), eng.memory_stats()
+    emit("serve", arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         params=cfg.n_params(), init_s=init_s, wall_s=wall,
+         requests=len(prompts),
+         prompt_tokens=int(sum(len(p) for p in prompts)),
+         prefill_tok_per_s=tp["prefill_tok_per_s"],
+         decode_tok_per_s=tp["decode_tok_per_s"],
+         total_tok_per_s=tp["total_tok_per_s"], ttft_p50_s=tt["p50"],
+         ttft_p95_s=tt["p95"], memory_stats=ms,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches, decode_steps=eng.stats["decode_steps"],
+         prefix_hits=ps["prefix_hits"],
+         prefix_hit_tokens=ps["prefix_hit_tokens"],
+         cow_copies=ps["cow_copies"],
+         experts_per_node_2=eng.expected_experts_per_node(2))
+    profile_window(torch, eng,
+                   traffic(cfg.vocab_size, 2, 40, 48, 160, seed=3))
+    return launches
+
+
+def profile_window(torch, eng, prompts):
+    """Where the device time goes: two more requests under torch.profiler;
+    prints the device-busy share of the window and the top kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        serve(eng, prompts, 8)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+    dev = lambda e: e.self_device_time_total / 1e3                   # ms
+    # device-side events only (kernels, copies); host ops would count twice
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and dev(e) > 0]
+    busy_ms = sum(dev(e) for e in events)
+    top = sorted(events, key=dev, reverse=True)[:8]
+    emit("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+         device_busy_share=busy_ms / wall_ms if wall_ms else None,
+         top=[{"name": e.key[:90], "ms": dev(e), "calls": e.count}
+              for e in top])
+
+
+def kernels_line(results, launches) -> dict:
+    """One entry per ported kernel at its main-path bf16 shape."""
+    pick = {
+        "paged_attention": dict(dtype="bfloat16", T=32, window=None),
+        "moe_ffn": dict(dtype="bfloat16", C=16),
+    }
+    meta = {
+        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
+                            "src/repro/kernels/paged_attn.py:121"),
+        "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
+                    "src/repro/kernels/moe_gemm.py:52"),
+    }
+    entries = []
+    for name, want in pick.items():
+        row = next(r for r in results if r["kernel"] == name
+                   and all(r.get(k) == v for k, v in want.items()))
+        src, replaces = meta[name]
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": None,
+            "check": "pass", "tolerance": TOL[row["dtype"]],
+            "shape": {k: v for k, v in row.items()
+                      if k in ("dtype", "T", "window", "E", "C", "D", "F")},
+        })
+    return {"kernels": entries}
+
+
+def main() -> int:
+    t_start = time.perf_counter()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this script runs on a GPU",
+              file=sys.stderr)
+        return 1
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kind = torch.cuda.get_device_name(0)
+    emit("device", name=kind, count=torch.cuda.device_count(),
+         torch=torch.__version__, cuda=torch.version.cuda,
+         python=sys.version.split()[0])
+
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+    path, info = build.build()
+    ptxas = [line.strip() for rep in info["ptxas"].values()
+             for line in rep.splitlines()
+             if "registers" in line or "spill" in line]
+    emit("build", seconds=info["seconds"], cached=info["cached"],
+         library=path.name, ptxas=ptxas)
+    build.library()
+
+    results = []
+    check_paged_attention(torch, results)
+    check_moe_ffn(torch, results)
+    torch.cuda.empty_cache()
+    check_reduced(torch)
+    torch.cuda.empty_cache()
+    launches = check_serve(torch)
+    print(json.dumps(kernels_line(results, launches)), flush=True)
+    emit("done", seconds=time.perf_counter() - t_start)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,77 @@
+"""Weight bridge between the JAX package's parameter tree and the port's.
+
+Both keep the same layout (weights (D_in, D_out), experts (L, E, D, F) /
+(L, E, F, D), layer-stacked blocks), so the bridge is a copy.  The JAX
+side is handed over as numpy (``jax.tree.map(np.asarray, params)``); this
+module imports no JAX.  The tests need it because ``jax.random`` and
+``torch`` cannot draw the same weights.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import resolve_device
+
+
+def param_shapes(cfg) -> dict:
+    """The port's parameter tree for ``cfg`` (``Model.init``), as shapes."""
+    L, d, e, f = (cfg.num_layers, cfg.d_model, cfg.num_experts_padded,
+                  cfg.d_ff)
+    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    attn = {"wq": (L, d, hq * hd), "wk": (L, d, hkv * hd),
+            "wv": (L, d, hkv * hd), "wo": (L, hq * hd, d)}
+    if cfg.qkv_bias:
+        attn.update(bq=(L, hq * hd), bk=(L, hkv * hd), bv=(L, hkv * hd))
+    if cfg.qk_norm:
+        attn.update(q_norm=(L, hd), k_norm=(L, hd))
+    params = {
+        "embed": (cfg.vocab_padded, d),
+        "blocks": {"ln1": (L, d), "attn": attn, "ln2": (L, d),
+                   "router": (L, d, e),
+                   "experts": {"w_gate": (L, e, d, f), "w_up": (L, e, d, f),
+                               "w_down": (L, e, f, d)}},
+        "final_norm": (d,),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = (d, cfg.vocab_padded)
+    return params
+
+
+def _to_torch(a: np.ndarray, device) -> torch.Tensor:
+    a = np.array(a)                         # a writable contiguous copy
+    if a.dtype.name == "bfloat16":          # ml_dtypes bfloat16 from JAX
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def from_jax_params(tree: dict, cfg, device) -> dict:
+    """The JAX param tree (as numpy) -> the port's parameters on ``device``.
+    Raises if the tree's structure or shapes differ from what the port's
+    ``Model.init`` builds for ``cfg``."""
+    got = _tree_map(lambda a: tuple(np.shape(a)), tree)
+    want = param_shapes(cfg)
+    if got != want:
+        raise ValueError(f"JAX params do not match the port's layout for "
+                         f"{cfg.name}: {got} != {want}")
+    resolve_device(device)
+    return _tree_map(lambda a: _to_torch(np.asarray(a), device), tree)
+
+
+def to_numpy(params: dict) -> dict:
+    """Inverse of ``from_jax_params``: the port's parameters as numpy (bf16
+    tensors come back as ml_dtypes bfloat16, as JAX hands them out)."""
+    def conv(t: torch.Tensor) -> np.ndarray:
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy().copy()
+    return _tree_map(conv, params)

@@ -1,0 +1,126 @@
+"""MoE expert execution forms on one device (the JAX package's
+``core/moe.py``).
+
+* ``dense_moe``    — every local expert computes every token (L_B);
+* ``dispatch_moe`` — fixed-capacity dispatch (L_R): drops above capacity,
+                     pads below;
+* ``gather_moe``   — capacity-free per-token gather for small decode blocks.
+
+``expert_ffn`` always goes through ``kernels/ops.moe_ffn``: the grouped
+expert FFN kernel on a CUDA tensor, its plain version on a CPU tensor.
+Out-of-range indices are clamped or routed to a spare buffer row
+explicitly (JAX clamps gathers and drops scatters silently).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops
+
+
+def round_capacity(tokens: int, k: int, num_experts: int,
+                   capacity_factor: float, multiple: int = 8) -> int:
+    """Static per-expert capacity, rounded up to a multiple of 8."""
+    raw = math.ceil(tokens * k / num_experts * capacity_factor)
+    return max(multiple, math.ceil(raw / multiple) * multiple)
+
+
+def expert_ffn(experts: dict, xe: torch.Tensor) -> torch.Tensor:
+    """Grouped SwiGLU FFN. xe: (E_local, C, D) -> (E_local, C, D)."""
+    return ops.moe_ffn(xe, experts["w_gate"], experts["w_up"],
+                       experts["w_down"])
+
+
+def dense_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
+              top_w: torch.Tensor, e_start: int) -> torch.Tensor:
+    """x: (T, D).  Every local expert computes every token; the combine
+    masks out what the router did not select.  Returns the local partial
+    sum (T, D)."""
+    e_local = experts["w_gate"].shape[0]
+    t, d = x.shape
+    xe = x[None].expand(e_local, t, d).contiguous()
+    ye = expert_ffn(experts, xe)                              # (E_local, T, D)
+    local_ids = e_start + torch.arange(e_local, device=x.device)
+    sel = top_idx[None, :, :] == local_ids[:, None, None]     # (E_local, T, K)
+    w = torch.where(sel, top_w[None], 0.0).sum(dim=-1)        # (E_local, T)
+    return torch.einsum("et,etd->td", w.to(ye.dtype), ye)
+
+
+def make_dispatch_plan(top_idx: torch.Tensor, num_experts: int, e_start: int,
+                       e_local: int, capacity: int):
+    """Gather/scatter indices for capacity dispatch.
+
+    Returns (dispatch_tok, slot_valid, slot_of):
+      dispatch_tok: (E_local * C,) int64 — source token per expert slot
+                    (padding slots point at token 0 and are masked)
+      slot_valid:   (E_local * C,) bool — slot actually holds a token
+      slot_of:      (T, K) int64 — destination slot per routing decision,
+                    == E_local*C (one past the end) when dropped / non-local
+    Ties keep token order (stable sort), so drops hit the latest tokens."""
+    t, k = top_idx.shape
+    dev = top_idx.device
+    flat_e = top_idx.reshape(-1).long()
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e, torch.arange(num_experts, device=dev),
+                               side="left")
+    # dead-routed decisions carry the E_pad sentinel: clamp the lookup
+    # (their rank is irrelevant, they are never local)
+    rank = (torch.arange(t * k, device=dev)
+            - first[sorted_e.clamp(max=num_experts - 1)])
+    is_local = (sorted_e >= e_start) & (sorted_e < e_start + e_local)
+    ok = is_local & (rank < capacity)
+    nbuf = e_local * capacity
+    dest = torch.where(ok, (sorted_e - e_start) * capacity + rank, nbuf)
+    # one spare row (index nbuf) takes every dropped decision
+    dispatch_tok = torch.zeros((nbuf + 1,), dtype=torch.long, device=dev)
+    dispatch_tok[dest] = order // k
+    slot_valid = torch.zeros((nbuf + 1,), dtype=torch.bool, device=dev)
+    slot_valid[dest] = True
+    slot_of = torch.empty((t * k,), dtype=torch.long, device=dev)
+    slot_of[order] = dest
+    return dispatch_tok[:nbuf], slot_valid[:nbuf], slot_of.reshape(t, k)
+
+
+def dispatch_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
+                 top_w: torch.Tensor, num_experts: int, e_start: int,
+                 capacity: int) -> torch.Tensor:
+    """Capacity-based dispatch on the local shard. x: (T, D).  Returns the
+    local partial sum (T, D)."""
+    e_local = experts["w_gate"].shape[0]
+    t, d = x.shape
+    dispatch_tok, slot_valid, slot_of = make_dispatch_plan(
+        top_idx, num_experts, e_start, e_local, capacity)
+    xe = x[dispatch_tok] * slot_valid[:, None].to(x.dtype)
+    xe = xe.reshape(e_local, capacity, d)
+    ye = expert_ffn(experts, xe).reshape(e_local * capacity, d)
+    ye_pad = torch.cat([ye, ye.new_zeros((1, d))], dim=0)
+    y_tk = ye_pad[slot_of]                                   # (T, K, D)
+    return torch.einsum("tk,tkd->td", top_w.to(y_tk.dtype), y_tk)
+
+
+def gather_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
+               top_w: torch.Tensor, e_start: int) -> torch.Tensor:
+    """Capacity-free per-token expert gather on the local shard: T*K FFN
+    rows, no padding, no drops; only the selected experts' weights are
+    read.  Non-local selections (including the E_pad dead-route sentinel)
+    contribute zero.  x: (T, D) -> local partial sum (T, D).
+
+    Products run on fp32 copies of the operands, so g, u and y stay fp32
+    as in the reference; only h is rounded to x's dtype, at the
+    reference's point.  This path has no TPU kernel; it stays in torch
+    ops."""
+    e_local = experts["w_gate"].shape[0]
+    local = (top_idx >= e_start) & (top_idx < e_start + e_local)
+    idx = (top_idx - e_start).clamp(0, e_local - 1)
+    w = torch.where(local, top_w, 0.0)
+    xf = x.float()
+    g = torch.einsum("td,tkdf->tkf", xf, experts["w_gate"][idx].float())
+    u = torch.einsum("td,tkdf->tkf", xf, experts["w_up"][idx].float())
+    h = (F.silu(g) * u).to(x.dtype)
+    y = torch.einsum("tkf,tkfd->tkd", h.float(),
+                     experts["w_down"][idx].float())
+    return torch.einsum("tk,tkd->td", w.float(), y).to(x.dtype)

@@ -1,0 +1,106 @@
+"""Serving launcher of the port: continuous batching through the unified
+paged ``ServingEngine`` on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b
+
+runs the full-width model (bf16, random weights from a seeded generator);
+``--reduced`` runs the smoke-test variant and ``--device cpu`` the plain
+versions of the kernels on the CPU.  Prints prompt-eval and generation
+tok/s, TTFT, device memory, prefix-cache statistics, each kernel's launch
+count and the paper's E[#exec experts/node/layer] statistic.
+"""
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import get_config
+from repro_torch.kernels import ops
+from repro_torch.models.model import resolve_device
+from repro_torch.serving.engine import EngineConfig, ServingEngine
+
+
+def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
+               device="cuda", max_batch: int = 4, seed: int = 0,
+               chunk_len: int = 32, page_size: int = 16, num_pages: int = 0,
+               shared_prefix: int = 0):
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    eng = ServingEngine(cfg, EngineConfig(
+        max_batch=max_batch, max_cache=prompt_len + new_tokens + 8,
+        chunk_len=chunk_len, page_size=page_size, num_pages=num_pages),
+        generator=gen, device=device)
+    rng = np.random.default_rng(seed)
+    sysp = rng.integers(0, cfg.vocab_size, shared_prefix)
+    for _ in range(requests):
+        plen = int(rng.integers(prompt_len // 2, prompt_len + 1))
+        plen = max(plen, min(shared_prefix + 1, prompt_len))
+        tail = rng.integers(0, cfg.vocab_size, max(plen - shared_prefix, 1))
+        eng.submit(np.concatenate([sysp, tail])[:prompt_len], new_tokens)
+    ops.reset_launch_counts()
+    done = eng.run_until_done()
+    tp = eng.throughput()
+    print(f"completed {len(done)} requests [paged unified, {eng.device}]")
+    print(f"prompt-eval throughput : {tp['prefill_tok_per_s']:.1f} tok/s")
+    print(f"generation throughput  : {tp['decode_tok_per_s']:.1f} tok/s")
+    print(f"overall throughput     : {tp['total_tok_per_s']:.1f} tok/s")
+    ms = eng.memory_stats()
+    print(f"device memory          : weights {ms['weight_bytes'] / 1e6:.2f} "
+          f"MB, KV pool {ms['kv_pool_bytes'] / 1e6:.2f} MB, total "
+          f"{ms['total_bytes'] / 1e6:.2f} MB")
+    tt = eng.ttft()
+    if tt["n"]:
+        print(f"TTFT p50/p95           : {tt['p50'] * 1e3:.1f} / "
+              f"{tt['p95'] * 1e3:.1f} ms over {tt['n']} requests")
+    ps = eng.paged_stats()
+    print(f"page pool              : {ps['pages_in_use']}/{ps['num_pages']} "
+          f"pages in use, high-water {ps['pages_hwm']} "
+          f"({ps['pool_utilization']:.1%} of pool), page_size "
+          f"{ps['page_size']}")
+    print(f"prefix cache           : hit rate {ps['prefix_hit_rate']:.1%} "
+          f"({ps['prefix_hits']}/{ps['prefix_lookups']} lookups), "
+          f"{ps['prefix_hit_tokens']} prefill tokens skipped, "
+          f"{ps['prefix_cached_pages']} pages cached, "
+          f"{ps['prefix_evictions']} evictions, {ps['cow_copies']} CoW copies")
+    print("kernel launches        : " + ", ".join(
+        f"{k} {v}" for k, v in ops.launch_counts().items()))
+    for n in (2, 3, 4):
+        print(f"E[#exec experts/node/layer] @ {n} nodes: "
+              f"{eng.expected_experts_per_node(n):.2f}")
+    return eng, done
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu (the kernels' plain versions)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--chunk-len", type=int, default=32,
+                    help="unified block width / prefill chunk size")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per page")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="pool size in pages (0 = max_batch * "
+                         "ceil(max_cache / page_size))")
+    ap.add_argument("--shared-prefix", type=int, default=0,
+                    help="tokens of system prompt shared by every request "
+                         "(exercises the prefix cache)")
+    args = ap.parse_args()
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    serve_demo(cfg, requests=args.requests, new_tokens=args.new_tokens,
+               prompt_len=args.prompt_len, device=args.device,
+               max_batch=args.max_batch, chunk_len=args.chunk_len,
+               page_size=args.page_size, num_pages=args.num_pages,
+               shared_prefix=args.shared_prefix)
+
+
+if __name__ == "__main__":
+    main()

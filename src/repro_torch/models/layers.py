@@ -1,0 +1,80 @@
+"""Core NN layers of the ported slice (the JAX package's ``models/layers.py``).
+
+Plain functions over tensors.  Compute follows the reference's
+bf16-weights / fp32-accumulate policy; norms and rotary angles always run
+in fp32.  Initializers draw from an explicit ``torch.Generator`` on the
+generator's device.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch import not_ported
+
+
+# ---------------------------------------------------------------------------
+# initializers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               lead: tuple = ()) -> torch.Tensor:
+    """(*lead, d_in, d_out) weights ~ N(0, 1/d_in), drawn in fp32 one
+    (d_in, d_out) matrix at a time, so the fp32 transient stays one matrix
+    even for a full-width expert stack."""
+    out = torch.empty(lead + (d_in, d_out), dtype=dtype, device=gen.device)
+    scale = 1.0 / math.sqrt(d_in)
+    for mat in out.view(-1, d_in, d_out):
+        mat.copy_(torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                              dtype=torch.float32).mul_(scale))
+    return out
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
+    w = torch.randn((vocab, d), generator=gen, device=gen.device,
+                    dtype=torch.float32)
+    return w.mul_(0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# normalization
+# ---------------------------------------------------------------------------
+
+def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * w.float()).to(dt)
+
+
+def norm_apply(kind: str, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    if kind != "rmsnorm":
+        raise not_ported(f"norm {kind!r}",
+                         "the dense family and the reference path")
+    return rms_norm(w, x)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies, shape (head_dim // 2,), fp32."""
+    exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                            device=device) / head_dim
+    return 1.0 / (theta ** exponent)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S) int."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    ang = positions[..., None].float() * inv              # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                    # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

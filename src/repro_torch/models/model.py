@@ -1,0 +1,128 @@
+"""Public model API of the port: ``build_model(cfg, device)`` -> ``Model``.
+
+  init(generator)                      -> params
+  init_paged_cache(num_pages, page_size) -> {"k", "v"} page pools
+  forward_routed(params, batch, cache, context_len) -> (logits, routing)
+
+Parameters are a plain dict in the JAX package's layout: weights
+(D_in, D_out), experts (L, E, D, F) / (L, E, F, D), the page pool
+(L, P, ps, Hkv, hd), so the weight bridge (``repro_torch.bridge``) is a
+copy.  Entry points run on the card unless the caller passes
+``device="cpu"``; without CUDA they raise rather than run on the CPU.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import not_ported
+from repro_torch.models import layers, transformer
+
+
+def resolve_device(device) -> torch.device:
+    """The torch device an entry point runs on; raises when CUDA is asked
+    for (the default) but absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available: the port runs on the GPU by default; "
+            "pass device='cpu' explicitly to run its plain versions on the "
+            "CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    return dev
+
+
+def _lm_head(cfg, params, x: torch.Tensor) -> torch.Tensor:
+    """Logits in fp32: the weight is rounded to x's dtype, as the reference
+    does, then the product runs on fp32 copies, so bf16 logits are never
+    rounded back to bf16 (close logits would tie and move the argmax).
+    ``x`` holds only the B last-valid rows, so the fp32 copy of the
+    weight is the one transient of the call."""
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return x.float() @ w.to(x.dtype).float()
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+    cfg: object
+    device: torch.device
+
+    def init(self, gen: torch.Generator | None = None) -> dict:
+        """Random parameters drawn from ``gen`` (seed 0 on the model's
+        device when omitted)."""
+        cfg = self.cfg
+        if gen is None:
+            gen = torch.Generator(device=self.device).manual_seed(0)
+        if gen.device.type != self.device.type:
+            raise ValueError(f"generator on {gen.device}, model on "
+                             f"{self.device}")
+        pdt = cfg.param_torch_dtype
+        params = {
+            "embed": layers.embed_init(gen, cfg.vocab_padded, cfg.d_model, pdt),
+            "blocks": transformer.init_blocks(cfg, gen),
+            "final_norm": torch.ones((cfg.d_model,), dtype=pdt,
+                                     device=self.device),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = layers.dense_init(gen, cfg.d_model,
+                                                  cfg.vocab_padded, pdt)
+        return params
+
+    def init_paged_cache(self, num_pages: int, page_size: int) -> dict:
+        return transformer.init_paged_stack_cache(
+            self.cfg, num_pages, page_size, self.cfg.torch_dtype, self.device)
+
+    def forward_routed(self, params: dict, batch: dict, cache: dict,
+                       context_len: int | None = None):
+        """Length-agnostic unified step: one (B, T) token block at per-row
+        cache offsets over the paged pool.
+
+        batch: {"tokens": (B, T) int, "lengths": (B,) int32 cache offsets,
+        "seg_lens": (B,) int32 valid-token counts, "block_tables": (B, NB)
+        int32, optional "token_mask" (B, T) bool}.  Row b appends its first
+        seg_lens[b] tokens at positions lengths[b]..; the pool ``cache``
+        is updated IN PLACE.  ``context_len`` pins the windowing decision
+        to the logical context (the block tables' reach rounds up to whole
+        pages).
+
+        Returns (logits (B, V_padded) fp32 at each row's LAST VALID
+        position, routing (L, B*T, K) int32)."""
+        cfg = self.cfg
+        block_tables = batch.get("block_tables")
+        if block_tables is None:
+            raise not_ported("the contiguous KV cache (paged=False)",
+                             "the dense family and the reference path")
+        tokens = batch["tokens"]
+        lengths = batch["lengths"]
+        seg_lens = batch["seg_lens"]
+        b, t = tokens.shape
+        tok = tokens.long().clamp(0, cfg.vocab_size - 1)
+        x = params["embed"][tok].to(cfg.torch_dtype)
+        positions = lengths[:, None].long() + torch.arange(
+            t, device=tokens.device)[None]
+        token_mask = batch.get("token_mask")
+        if token_mask is None:
+            token_mask = (torch.arange(t, device=tokens.device)[None]
+                          < seg_lens[:, None])
+        cache_len = block_tables.shape[1] * cache["k"].shape[2]
+        window = transformer.effective_window(cfg, context_len or cache_len)
+        x, routing = transformer.unified_stack(
+            cfg, params["blocks"], x, positions, lengths, seg_lens, cache,
+            window, token_mask, block_tables)
+        sel = (seg_lens.long() - 1).clamp(0, t - 1)
+        x_sel = torch.gather(x, 1, sel[:, None, None].expand(b, 1, x.shape[2]))
+        x_sel = layers.norm_apply(cfg.norm, params["final_norm"], x_sel)
+        return _lm_head(cfg, params, x_sel)[:, 0], routing
+
+
+def build_model(cfg, device="cuda") -> Model:
+    if cfg.family != "moe":
+        raise not_ported(f"the {cfg.family!r} family",
+                         "the dense family and the reference path")
+    if cfg.weight_quant != "none":
+        raise not_ported("the quantized weight store", "the quantized slice")
+    if cfg.positional != "rope":
+        raise not_ported(f"positional {cfg.positional!r}", "other families")
+    return Model(cfg, resolve_device(device))

@@ -1,0 +1,584 @@
+"""Serving engine of the port: continuous batching over the unified paged
+step (the JAX package's ``serving/engine.py``, unified paged path, greedy).
+
+Every iteration packs the active decode rows and pending prefill chunks
+into ONE (max_batch, chunk_len) token block at per-row cache offsets
+(``Model.forward_routed``); long prompts stream through the cache
+``chunk_len`` tokens per iteration and admission never stalls decode.  The
+KV cache is one page pool per layer plus per-row block tables: admission is
+gated on free pages (``serving/paging.PageAllocator``) and a radix prefix
+cache maps requests sharing a system prompt onto the same pages (partial
+tail pages shared by copy-on-write).
+
+The hot loop is asynchronous on the card: each step uploads its host
+snapshots (tokens, lengths, block tables, ...) in one pinned
+non-blocking copy of a freshly built buffer the host never mutates, keeps
+the decode feedback token on the device, and ``_harvest`` is the only
+point that waits for the device.
+
+Not in this slice (each raises ``NotImplementedError``): the contiguous
+cache (``paged=False``), the two-program reference path
+(``unified_step=False``), overcommit and preemption, stochastic sampling
+(``temperature > 0``), deadlines, fault injection, the int8 KV cache, the
+quantized weight store and meshes (ROADMAP queue A).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import not_ported
+from repro_torch.core.dynamic_load import LRUExpertTracker
+from repro_torch.models.model import build_model, resolve_device
+from repro_torch.models.transformer import effective_window
+from repro_torch.serving import scheduler as sched
+from repro_torch.serving.paging import PageAllocator, PrefixCache
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray            # (prompt_len,) int32
+    max_new_tokens: int = 32
+    priority: int = 0             # higher admits first; ties admit FIFO
+    # filled by the engine
+    generated: list = dataclasses.field(default_factory=list)
+    done: bool = False
+    submit_s: float = 0.0         # wall clock at submit()
+    first_token_s: float | None = None  # wall clock when token 1 harvested
+    status: str = "queued"        # queued -> running -> done
+    seq: int = 0                  # submission order
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Engine knobs, named as in the JAX package's ``EngineConfig``.  Only
+    the unified paged path is ported, so ``paged`` defaults to True and
+    ``paged=False``, ``unified_step=False`` and ``overcommit=True`` raise."""
+    max_batch: int = 8            # decode slots
+    max_cache: int = 256          # per-request cache positions
+    track_experts: bool = True
+    async_steps: bool = True      # False: harvest (sync) every step
+    unified_step: bool = True
+    chunk_len: int = 32           # unified block width / prefill chunk size
+    # per-iteration cap on scheduled prefill tokens (0 = unlimited); decode
+    # rows are exempt
+    token_budget: int = 0
+    paged: bool = True
+    page_size: int = 16           # tokens per page
+    # pool size in pages; 0 = max_batch * ceil(max_cache / page_size)
+    num_pages: int = 0
+    overcommit: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class _Pending:
+    """One dispatched-but-unharvested device step.  ``rows`` binds batch
+    rows to their requests at dispatch time; ``tok`` is the post-step (B,)
+    last-token tensor, ``routing`` the (L, B*T, K) capture; ``obs_rows``
+    the rows whose routing feeds the tracker."""
+    kind: str                     # "prefill" | "decode" | "mixed"
+    rows: tuple                   # ((slot, Request), ...)
+    tok: Any
+    routing: Any
+    obs_rows: tuple
+
+
+class ServingEngine:
+    """Continuous-batching engine over the port's Model API."""
+
+    def __init__(self, cfg_model, engine_cfg: EngineConfig | None = None,
+                 params: dict | None = None,
+                 generator: torch.Generator | None = None,
+                 device="cuda", mesh=None, fault_plan=None):
+        ecfg = engine_cfg or EngineConfig()
+        ref_path = "the dense family and the reference path"
+        resilience = "resilience paths and sampling"
+        if not ecfg.paged:
+            raise not_ported("the contiguous KV cache (paged=False)",
+                             ref_path)
+        if not ecfg.unified_step:
+            raise not_ported("the two-program reference engine "
+                             "(unified_step=False)", ref_path)
+        if ecfg.overcommit:
+            raise not_ported("overcommit admission and preemption",
+                             resilience)
+        if fault_plan is not None:
+            raise not_ported("fault injection", resilience)
+        if mesh is not None:
+            raise not_ported("mesh-sharded serving", "meshes")
+        if cfg_model.kv_cache_dtype != "native":
+            raise not_ported("the int8 KV cache", "the quantized slice")
+        if cfg_model.weight_quant != "none":
+            raise not_ported("the quantized weight store",
+                             "the quantized slice")
+        if ecfg.chunk_len < 1 or ecfg.token_budget < 0:
+            raise ValueError(
+                f"chunk_len must be >= 1 and token_budget >= 0, got "
+                f"chunk_len={ecfg.chunk_len} "
+                f"token_budget={ecfg.token_budget}")
+        if ecfg.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {ecfg.page_size}")
+        win = effective_window(cfg_model, ecfg.max_cache)
+        if win is not None and win <= ecfg.max_cache:
+            raise not_ported("a ring (sliding-window) cache", "other families")
+        self.cfg = cfg_model
+        self.ecfg = ecfg
+        self.device = resolve_device(device)
+        self.model = build_model(cfg_model, self.device)
+        self.params = (params if params is not None
+                       else self.model.init(generator))
+        if self.params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {self.params['embed'].device}, "
+                             f"the engine on {self.device}")
+        self.tracker = (LRUExpertTracker(cfg_model.num_layers,
+                                         cfg_model.num_experts)
+                        if cfg_model.is_moe and ecfg.track_experts else None)
+        self.queue = sched.AdmissionQueue()
+        b, c = ecfg.max_batch, ecfg.max_cache
+        self.slots: list[Request | None] = [None] * b
+        # per-slot admission context: the tokens the occupant prefills
+        self.slot_ctx: list[np.ndarray | None] = [None] * b
+        self._all: dict[int, Request] = {}
+        self._uid = 0
+        self._seq = 0
+        self.lengths = np.zeros((b,), np.int32)
+        self.budgets = np.zeros((b,), np.int32)
+        self.prefill_pos = np.zeros((b,), np.int64)
+        self.last_tok = torch.zeros((b,), dtype=torch.int32,
+                                    device=self.device)
+        self._pending: list[_Pending] = []
+        self.chunk_len = min(ecfg.chunk_len, c)
+        self.page_size = ecfg.page_size
+        self.max_blocks = -(-c // self.page_size)
+        self.num_pages = ecfg.num_pages or b * self.max_blocks
+        self.cache = self.model.init_paged_cache(self.num_pages,
+                                                 self.page_size)
+        self.block_tables = np.zeros((b, self.max_blocks), np.int32)
+        self.allocator = PageAllocator(self.num_pages)
+        self.prefix = PrefixCache(self.page_size, self.allocator)
+        self.slot_pages: list[list[int]] = [[] for _ in range(b)]
+        self.stats = {"prefill_tokens": 0, "decode_steps": 0,
+                      "decode_tokens": 0,
+                      # per-phase token counts of MIXED iterations only —
+                      # throughput() apportions mixed_s by their share
+                      "mixed_prefill_tokens": 0, "mixed_decode_tokens": 0,
+                      "prefill_s": 0.0, "decode_s": 0.0, "mixed_s": 0.0,
+                      "prefix_lookups": 0, "prefix_hits": 0,
+                      "prefix_hit_tokens": 0, "cow_copies": 0,
+                      "pages_hwm": 0}
+
+    # -- device step ------------------------------------------------------
+
+    def _upload(self, *arrays: np.ndarray) -> list[torch.Tensor]:
+        """Hand this step's host snapshots to the device in ONE copy.
+
+        The int32 staging buffer is built fresh here and never mutated by
+        the host afterwards, so on the card it is pinned and copied
+        without blocking (the scheduler mutates ``lengths`` and the block
+        tables right after dispatch; the device sees the snapshot)."""
+        flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
+                               for a in arrays])
+        host = torch.from_numpy(flat)
+        if self.device.type == "cuda":
+            dev = host.pin_memory().to(self.device, non_blocking=True)
+        else:
+            dev = host
+        out, off = [], 0
+        for a in arrays:
+            out.append(dev[off:off + a.size].view(a.shape))
+            off += a.size
+        return out
+
+    def _unified(self, tokens, lengths, seg_lens, block_tables, is_decode,
+                 sample_mask):
+        """ONE step for prefill chunks, decode rows, and any mix.
+
+        Decode rows take their input token from the device-resident
+        ``last_tok`` (column 0), so the decode feedback loop never syncs.
+        Rows in ``sample_mask`` (decode rows and final prefill chunks)
+        replace ``last_tok`` with the greedy argmax of their last valid
+        logit.  The page pool is updated in place.  Returns (last_tok',
+        routing (L, B*T, K))."""
+        tok0 = torch.where(is_decode, self.last_tok, tokens[:, 0])
+        tokens = torch.cat([tok0[:, None], tokens[:, 1:]], dim=1)
+        # context_len pins the windowing decision to the logical context:
+        # the block tables' reach rounds up to whole pages
+        logits, routing = self.model.forward_routed(
+            self.params, {"tokens": tokens, "lengths": lengths,
+                          "seg_lens": seg_lens,
+                          "block_tables": block_tables},
+            self.cache, context_len=self.ecfg.max_cache)
+        nxt = torch.argmax(logits[:, :self.cfg.vocab_size], dim=-1)
+        return (torch.where(sample_mask, nxt.to(torch.int32), self.last_tok),
+                routing)
+
+    def _copy_pages(self, src: list[int], dst: list[int]) -> None:
+        """Device half of copy-on-write: duplicate pool pages ``src`` into
+        ``dst`` across every layer, in place (page-sized traffic)."""
+        for s, d in zip(src, dst):
+            for pool in self.cache.values():
+                pool[:, d].copy_(pool[:, s])
+
+    # -- public API ---------------------------------------------------------
+
+    def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
+               temperature: float = 0.0, priority: int = 0,
+               deadline_ms: float | None = None) -> int:
+        """Queue a request (greedy).  Prompts up to ``max_cache`` tokens
+        stream through the cache in chunks; ``priority`` orders admission
+        (higher first, FIFO within a class)."""
+        if temperature > 0:
+            raise not_ported("stochastic sampling (temperature > 0)",
+                             "resilience paths and sampling")
+        if deadline_ms is not None:
+            raise not_ported("deadlines", "resilience paths and sampling")
+        prompt = np.asarray(prompt, np.int32)
+        if len(prompt) == 0:
+            # a zero-length prompt would be scheduled as a decode row seeded
+            # from the slot's stale last token
+            raise ValueError("empty prompt")
+        if len(prompt) > self.ecfg.max_cache:
+            raise ValueError(
+                f"prompt of {len(prompt)} tokens exceeds the engine's limit "
+                f"of {self.ecfg.max_cache} (max_cache); refusing to "
+                f"silently truncate")
+        if len(prompt) + max_new_tokens - 1 > self.ecfg.max_cache:
+            raise ValueError(
+                f"context of {len(prompt)} tokens + {max_new_tokens} new "
+                f"tokens does not fit the {self.ecfg.max_cache}-slot cache; "
+                f"lower max_new_tokens or raise max_cache")
+        blocks = -(-(len(prompt) + max_new_tokens - 1) // self.page_size)
+        if blocks > self.num_pages:
+            raise ValueError(
+                f"request needs {blocks} pages but the pool holds only "
+                f"{self.num_pages}; raise num_pages or lower max_new_tokens")
+        self._uid += 1
+        self._seq += 1
+        req = Request(self._uid, prompt, max_new_tokens,
+                      priority=int(priority), submit_s=time.perf_counter(),
+                      seq=self._seq)
+        self.queue.append(req)
+        self._all[req.uid] = req
+        return self._uid
+
+    def step(self) -> int:
+        """One engine iteration: admit (host state only), then pack decode
+        rows and prefill chunks into one device step.  Returns the number
+        of rows that did work.  In async mode the step is only dispatched;
+        tokens reach requests at the next harvest."""
+        return self._step_unified()
+
+    def _step_unified(self) -> int:
+        """One token-budget iteration: (a) every decode row, one token each,
+        exempt from the budget; (b) pending prefill chunks, lowest slot
+        first, until ``token_budget`` (0 = unlimited) is spent.  A row whose
+        chunk completes its prompt samples its first token from that
+        chunk's last logit."""
+        b, t = self.ecfg.max_batch, self.chunk_len
+        for i in range(b):
+            # page-gated admission in priority order; stop at the first
+            # request the pool cannot hold (never skip ahead)
+            if (self.slots[i] is None and self.queue
+                    and not self._admit_paged(i)):
+                break
+        tokens = np.zeros((b, t), np.int32)
+        seg = np.zeros((b,), np.int32)
+        is_dec = np.zeros((b,), bool)
+        sample = np.zeros((b,), bool)
+        budget = self.ecfg.token_budget or (b * t + b)   # 0 = unlimited
+        decode_rows, prefill_rows = [], []
+        for i, req in enumerate(self.slots):
+            if (req is not None and self.prefill_pos[i] >= len(self.slot_ctx[i])
+                    and self._covered(i)):
+                seg[i] = 1
+                is_dec[i] = sample[i] = True
+                decode_rows.append(i)   # budget-exempt: decode never starves
+        for i, req in enumerate(self.slots):
+            if req is None or is_dec[i] or budget <= 0:
+                continue
+            ctx = self.slot_ctx[i]
+            pos = int(self.prefill_pos[i])
+            n = min(t, len(ctx) - pos, budget,
+                    self.ecfg.max_cache - int(self.lengths[i]))
+            if n <= 0:
+                continue
+            tokens[i, :n] = ctx[pos:pos + n]
+            seg[i] = n
+            budget -= n
+            sample[i] = pos + n == len(ctx)
+            prefill_rows.append(i)
+        if not decode_rows and not prefill_rows:
+            return 0
+        # decode-only iterations shrink the block to width 1: the step is
+        # length-agnostic, so the steady-state decode iteration costs a
+        # decode step, never chunk_len columns of dead compute
+        if not prefill_rows:
+            tokens = tokens[:, :1]
+        t0 = time.perf_counter()
+        d_tok, d_len, d_seg, d_bt, d_dec, d_sample = self._upload(
+            tokens, self.lengths, seg, self.block_tables, is_dec, sample)
+        self.last_tok, routing = self._unified(
+            d_tok, d_len, d_seg, d_bt, d_dec != 0, d_sample != 0)
+        dt = time.perf_counter() - t0
+        kind = ("decode" if not prefill_rows
+                else "prefill" if not decode_rows else "mixed")
+        self.stats[kind + "_s"] += dt
+        if kind == "mixed":
+            self.stats["mixed_decode_tokens"] += len(decode_rows)
+            self.stats["mixed_prefill_tokens"] += int(
+                sum(int(seg[i]) for i in prefill_rows))
+        rows = []
+        finishing = False
+        for i in decode_rows:
+            self.lengths[i] = min(self.lengths[i] + 1, self.ecfg.max_cache)
+            self.stats["decode_tokens"] += 1
+            self.budgets[i] -= 1
+            rows.append((i, self.slots[i]))
+            if self.budgets[i] <= 0:
+                self._finish_slot(i)
+                finishing = True
+        if decode_rows:
+            self.stats["decode_steps"] += 1
+        for i in prefill_rows:
+            n = int(seg[i])
+            self.lengths[i] += n
+            self.prefill_pos[i] += n
+            self.stats["prefill_tokens"] += n
+            if sample[i]:                 # prompt complete: token 1 sampled
+                # the prompt's pages are final from this dispatch on: cache
+                # them for prefix reuse BEFORE any release
+                self._prefix_insert(i)
+                rows.append((i, self.slots[i]))
+                self.budgets[i] -= 1
+                if self.budgets[i] <= 0:
+                    self._finish_slot(i)
+                    finishing = True
+        self._pending.append(_Pending(
+            kind, tuple(rows), self.last_tok, routing,
+            obs_rows=tuple(i for i in range(b) if seg[i])))
+        if finishing or not self.ecfg.async_steps:
+            self._harvest()
+        return len(decode_rows) + len(prefill_rows)
+
+    # -- paged-cache bookkeeping -------------------------------------------
+
+    def _admit_paged(self, slot: int) -> bool:
+        """Map the queue head into ``slot`` if the pool can hold its whole
+        lifetime — ceil((context + max_new - 1) / page_size) pages — minus
+        every page shared through the prefix cache, so an admitted request
+        never runs out of pages mid-generation.  Returns False with the
+        queue untouched when pages stay short after LRU eviction."""
+        req = self.queue[0]
+        ctx = req.prompt
+        remaining = req.max_new_tokens - len(req.generated)
+        need_total = sched.lifetime_pages(len(ctx), remaining, self.page_size)
+        hit = self.prefix.lookup(ctx)
+        need = need_total - len(hit.pages)
+        if self.allocator.free_pages < need:
+            # evict only when it can close the gap: a request merely
+            # waiting for in-flight pages must not drain the tree
+            if (self.allocator.free_pages + self.prefix.reclaimable_pages()
+                    >= need):
+                self.prefix.evict(need)
+        if self.allocator.free_pages < need:
+            # hand the lookup references back; the request stays queued
+            self.allocator.free(hit.pages)
+            if hit.tail_page >= 0:
+                self.allocator.free([hit.tail_page])
+            return False
+        self.stats["prefix_lookups"] += 1
+        new_pages = self.allocator.alloc(need)
+        pages = list(hit.pages) + new_pages
+        if hit.tail_len:
+            # copy-on-write the shared partial tail page: its owner may
+            # still append decode tokens to the original
+            self._copy_pages([hit.tail_page], [new_pages[0]])
+            self.allocator.free([hit.tail_page])   # drop the lookup ref
+            self.stats["cow_copies"] += 1
+        self.queue.popleft()
+        self.slots[slot] = req
+        self.slot_ctx[slot] = ctx
+        self.slot_pages[slot] = pages
+        self.block_tables[slot] = 0
+        self.block_tables[slot, :len(pages)] = pages
+        # the shared prefix is already in the cache: prefill starts there
+        self.lengths[slot] = hit.tokens
+        self.prefill_pos[slot] = hit.tokens
+        self.budgets[slot] = remaining
+        req.status = "running"
+        if hit.tokens:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_hit_tokens"] += hit.tokens
+        self.stats["pages_hwm"] = max(self.stats["pages_hwm"],
+                                      self.allocator.pages_in_use)
+        return True
+
+    def _covered(self, i: int) -> bool:
+        """Row ``i``'s next decode write (cache position ``lengths[i]``)
+        has a page under its block table."""
+        return int(self.lengths[i]) < len(self.slot_pages[i]) * self.page_size
+
+    def _release_slot(self, i: int) -> None:
+        """Free slot ``i``'s page references and binding (exactly once);
+        pages the prefix tree also holds stay resident for future hits."""
+        if self.slot_pages[i]:
+            self.allocator.free(self.slot_pages[i])
+            self.slot_pages[i] = []
+            self.block_tables[i] = 0
+        self.slots[i] = None
+        self.slot_ctx[i] = None
+
+    def _finish_slot(self, i: int) -> None:
+        """Normal completion: the budget is spent and the final token is in
+        flight to the harvest (which flips ``done``)."""
+        req = self.slots[i]
+        if req.status == "running":
+            req.status = "done"
+        self._release_slot(i)
+
+    def _prefix_insert(self, i: int) -> None:
+        """Record row ``i``'s freshly prefilled context in the prefix tree:
+        full page-aligned chunks become radix nodes, a non-aligned remainder
+        the node's partial-tail record (shareable via copy-on-write)."""
+        ctx = self.slot_ctx[i]
+        ps = self.page_size
+        k = len(ctx) // ps
+        pages = [int(p) for p in self.block_tables[i, :k]]
+        tail_len = len(ctx) - k * ps
+        tail_page = int(self.block_tables[i, k]) if tail_len else -1
+        self.prefix.insert(ctx, pages, tail_page, tail_len)
+
+    # -- reporting ----------------------------------------------------------
+
+    def paged_stats(self) -> dict:
+        """Page-pool / prefix-cache counters."""
+        s = self.stats
+        return {
+            "paged": True,
+            "num_pages": self.num_pages,
+            "page_size": self.page_size,
+            "pages_in_use": self.allocator.pages_in_use,
+            "pages_hwm": s["pages_hwm"],
+            "pool_utilization": s["pages_hwm"] / self.num_pages,
+            "prefix_lookups": s["prefix_lookups"],
+            "prefix_hits": s["prefix_hits"],
+            "prefix_hit_rate": s["prefix_hits"] / max(s["prefix_lookups"], 1),
+            "prefix_hit_tokens": s["prefix_hit_tokens"],
+            "prefix_cached_pages": self.prefix.cached_pages,
+            "prefix_evictions": self.prefix.evictions,
+            "cow_copies": s["cow_copies"],
+        }
+
+    def memory_stats(self) -> dict:
+        """Device bytes of the weights and the KV page pool."""
+        nbytes = lambda tree: sum(
+            nbytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+            for v in tree.values())
+        weight, pool = nbytes(self.params), nbytes(self.cache)
+        return {"weight_bytes": weight, "kv_pool_bytes": pool,
+                "total_bytes": weight + pool,
+                "weight_quant": self.cfg.weight_quant}
+
+    # -- harvest: the only device sync in the loop --------------------------
+
+    def _harvest(self) -> None:
+        """Fetch every pending step's tokens (and routing) and apply them to
+        requests and the tracker in dispatch order.  Each record is fetched
+        with its own timed copy: steps complete in dispatch order, so the
+        per-record wait is that step's remaining device time."""
+        if not self._pending:
+            return
+        recs, self._pending = self._pending, []
+        for rec in recs:
+            t0 = time.perf_counter()
+            tok = rec.tok.cpu().numpy()
+            routing = (rec.routing.cpu().numpy() if self.tracker is not None
+                       else None)
+            now = time.perf_counter()
+            self.stats[rec.kind + "_s"] += now - t0
+            for slot, req in rec.rows:
+                req.generated.append(int(tok[slot]))
+                if req.first_token_s is None:
+                    req.first_token_s = now
+                if len(req.generated) >= req.max_new_tokens:
+                    req.done = True
+                    req.status = "done"
+            self._observe_routing(rec, routing)
+
+    def _observe_routing(self, rec: _Pending, routing) -> None:
+        """Feed the tracker from the device capture (no host routing)."""
+        if self.tracker is None:
+            return
+        per_row = routing.reshape(routing.shape[0], self.ecfg.max_batch, -1)
+        for layer in range(self.cfg.num_layers):
+            ids = per_row[layer, list(rec.obs_rows)]
+            # dead-routed invalid tokens read the E_pad sentinel: padding,
+            # not executed experts
+            self.tracker.observe(layer, ids[ids < self.cfg.num_experts])
+        self.tracker.tick()
+
+    def flush(self) -> None:
+        """Sync: harvest every dispatched-but-unapplied step."""
+        self._harvest()
+
+    def run_until_done(self, max_steps: int = 10_000) -> list[Request]:
+        done: list[Request] = []
+        seen: set[int] = set()
+        pending = lambda: self.queue or any(s is not None for s in self.slots)
+        steps = 0
+        while pending() and steps < max_steps:
+            self.step()
+            steps += 1
+            for r in self._all.values():
+                if r.done and r.uid not in seen:
+                    seen.add(r.uid)
+                    done.append(r)
+        self.flush()
+        for r in self._all.values():
+            if r.done and r.uid not in seen:
+                seen.add(r.uid)
+                done.append(r)
+        return done
+
+    def expected_experts_per_node(self, n_nodes: int) -> float:
+        """The paper's Table-1 statistic E[#exec experts/node/layer] from the
+        device-captured routing of every served step."""
+        if self.tracker is None:
+            return float("nan")
+        self.flush()
+        return self.tracker.mean_executed_per_node(n_nodes)
+
+    def throughput(self) -> dict:
+        """Per-phase tok/s.  ``*_s`` hold dispatch time plus each phase's
+        harvest wait; mixed-iteration time is apportioned between the two
+        phases by their token share of those iterations."""
+        s = self.stats
+        work_s = s["prefill_s"] + s["decode_s"] + s["mixed_s"]
+        mp, md = s["mixed_prefill_tokens"], s["mixed_decode_tokens"]
+        p_share = mp / (mp + md) if (mp + md) else 0.0
+        prefill_den = s["prefill_s"] + s["mixed_s"] * p_share
+        decode_den = s["decode_s"] + s["mixed_s"] * (1.0 - p_share)
+        return {
+            "prefill_tok_per_s": s["prefill_tokens"] / max(prefill_den, 1e-9),
+            "decode_tok_per_s": s["decode_tokens"] / max(decode_den, 1e-9),
+            "total_tok_per_s": (s["prefill_tokens"] + s["decode_tokens"])
+                               / max(work_s, 1e-9),
+        }
+
+    def ttft(self, since: float = 0.0) -> dict:
+        """Time-to-first-token over completed requests (seconds, at harvest
+        resolution: pair with ``async_steps=False`` when TTFT is the metric
+        under study).  ``since`` drops requests submitted before that
+        ``time.perf_counter()`` stamp."""
+        ts = sorted(r.first_token_s - r.submit_s for r in self._all.values()
+                    if r.first_token_s is not None and r.submit_s >= since)
+        if not ts:
+            return {"n": 0, "p50": float("nan"), "p95": float("nan")}
+        pct = lambda p: ts[min(int(p * (len(ts) - 1) + 0.5), len(ts) - 1)]
+        return {"n": len(ts), "p50": pct(0.50), "p95": pct(0.95),
+                "mean": sum(ts) / len(ts)}

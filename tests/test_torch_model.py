@@ -1,0 +1,231 @@
+"""Port vs JAX at the model level: the weight bridge, and
+``forward_routed`` over the paged pool on the same weights and tokens.
+
+The JAX side runs ``paged_kernel=True`` with ``use_kernel=True`` (its
+Pallas kernels in interpret mode on the CPU); the port takes its plain
+versions on the CPU.  In fp32, logits agree to 1e-4 (the two sum in
+different orders over two layers) and routing decisions are equal; in
+bf16 the logits stay fp32, as the reference's do."""
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import get_config as jax_get_config
+from repro.models import model as jax_model
+from repro.models.model import build_model as jax_build_model
+from repro_torch import bridge
+from repro_torch.configs.base import get_config
+from repro_torch.models import model as model_mod
+from repro_torch.models.model import build_model
+
+ARCH = "qwen3_moe_30b_a3b"
+
+
+def _configs(**kw):
+    jcfg = jax_get_config(ARCH).reduced().replace(capacity_factor=8.0,
+                                                  use_kernel=True, **kw)
+    return jcfg, get_config(ARCH).reduced().replace(capacity_factor=8.0, **kw)
+
+
+def _leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bridge_round_trip_bit_exact(dtype):
+    jcfg, cfg = _configs(dtype=dtype, param_dtype=dtype)
+    jparams = jax.tree.map(np.asarray,
+                           jax_build_model(jcfg).init(jax.random.PRNGKey(1)))
+    params = bridge.from_jax_params(jparams, cfg, "cpu")
+    back = dict(_leaves(bridge.to_numpy(params)))
+    for name, want in _leaves(jparams):
+        got = back.pop(name)
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        assert got.tobytes() == want.tobytes(), name
+    assert not back
+    torch_dtype = getattr(torch, dtype)
+    assert all(t.dtype == torch_dtype for _, t in _leaves(params))
+
+
+def test_bridge_layout_matches_port_init():
+    _, cfg = _configs()
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    shapes = {n: tuple(t.shape) for n, t in _leaves(params)}
+    assert shapes == dict(_leaves(bridge.param_shapes(cfg)))
+
+
+def test_bridge_rejects_other_layout():
+    jcfg, cfg = _configs()
+    jparams = jax.tree.map(np.asarray,
+                           jax_build_model(jcfg).init(jax.random.PRNGKey(0)))
+    with pytest.raises(ValueError, match="layout"):
+        bridge.from_jax_params(jparams, cfg.replace(d_ff=cfg.d_ff * 2), "cpu")
+
+
+@pytest.fixture(scope="module")
+def models():
+    jcfg, cfg = _configs()
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    params = bridge.from_jax_params(jax.tree.map(np.asarray, jparams), cfg,
+                                    "cpu")
+    return jmodel, jparams, build_model(cfg, "cpu"), params
+
+
+def _step(models, state, tokens, lengths, seg_lens, bt):
+    jmodel, jparams, model, params = models
+    batch = {"tokens": tokens, "lengths": lengths, "seg_lens": seg_lens,
+             "block_tables": bt}
+    jlogits, state["jcache"], jrouting = jmodel.forward_routed(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()},
+        state["jcache"], paged_kernel=True)
+    logits, routing = model.forward_routed(
+        params, {k: torch.from_numpy(v) for k, v in batch.items()},
+        state["cache"])
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_array_equal(routing.numpy(), np.asarray(jrouting))
+    for leaf in ("k", "v"):
+        np.testing.assert_allclose(state["cache"][leaf].numpy(),
+                                   np.asarray(state["jcache"][leaf]),
+                                   rtol=1e-5, atol=1e-5)
+    return np.asarray(jnp.argmax(jlogits, -1)).astype(np.int32)
+
+
+def _fresh(models, num_pages, ps):
+    jmodel, _, model, _ = models
+    return {"jcache": jmodel.init_paged_cache(num_pages, ps),
+            "cache": model.init_paged_cache(num_pages, ps)}
+
+
+def test_forward_routed_chunked_prefill_then_decode(models):
+    """Chunks of 3 over an 8-token prompt, then 4 greedy decode steps, at
+    page size 5 (divides neither the prompt nor the 35-slot reach)."""
+    b, s, ps, nb = 2, 8, 5, 7
+    state = _fresh(models, b * nb, ps)
+    toks = np.random.default_rng(0).integers(0, 100, (b, s)).astype(np.int32)
+    bt = np.arange(b * nb, dtype=np.int32).reshape(b, nb)
+    for lo in range(0, s, 3):
+        hi = min(lo + 3, s)
+        last = _step(models, state, toks[:, lo:hi],
+                     np.full((b,), lo, np.int32),
+                     np.full((b,), hi - lo, np.int32), bt)
+    for i in range(4):
+        last = _step(models, state, last[:, None],
+                     np.full((b,), s + i, np.int32), np.ones((b,), np.int32),
+                     bt)
+
+
+def test_forward_routed_mixed_block_shared_pages(models):
+    """One block mixing a prefill chunk, a decode row and an empty row,
+    with two rows sharing their first page (a prefix hit) and shuffled
+    block tables."""
+    b, ps, nb, num_pages = 3, 5, 4, 12
+    state = _fresh(models, num_pages, ps)
+    rng = np.random.default_rng(3)
+    bt = rng.permutation(num_pages)[:b * nb].astype(np.int32).reshape(b, nb)
+    bt[1, 0] = bt[0, 0]
+    prompt = rng.integers(0, 100, (1, 6)).astype(np.int32)
+    # row 0 prefills 6 tokens (its first page is row 1's shared prefix)
+    _step(models, state, np.repeat(prompt, b, 0),
+          np.zeros((b,), np.int32), np.asarray([6, 0, 0], np.int32), bt)
+    tokens = rng.integers(0, 100, (b, 4)).astype(np.int32)
+    _step(models, state, tokens, np.asarray([6, 5, 0], np.int32),
+          np.asarray([1, 4, 0], np.int32), bt)
+
+
+@pytest.mark.parametrize("tie", [False, True])
+def test_lm_head_bf16_logits_stay_fp32(tie):
+    """bf16 hidden states and weights give fp32 logits equal to the
+    reference's fp32-output product; bf16-rounded logits (errors of about
+    2**-9 relative) would fail this tolerance."""
+    jcfg, cfg = _configs(dtype="bfloat16", param_dtype="bfloat16",
+                         tie_embeddings=tie)
+    rng = np.random.default_rng(21)
+    d, v = cfg.d_model, cfg.vocab_padded
+    bf = lambda a: a.astype(ml_dtypes.bfloat16)
+    x = bf(rng.standard_normal((3, 1, d)))
+    jparams = {"embed": bf(rng.standard_normal((v, d)) * 0.2)}
+    if not tie:
+        jparams["lm_head"] = bf(rng.standard_normal((d, v)) / np.sqrt(d))
+    want = np.asarray(jax_model._lm_head(
+        jcfg, {k: jnp.asarray(a) for k, a in jparams.items()},
+        jnp.asarray(x)))
+    params = {k: torch.from_numpy(a.astype(np.float32)).bfloat16()
+              for k, a in jparams.items()}
+    got = model_mod._lm_head(cfg, params,
+                             torch.from_numpy(x.astype(np.float32)).bfloat16())
+    assert got.dtype == torch.float32 and want.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                               atol=1e-5 * np.abs(want).max())
+
+
+@pytest.fixture(scope="module")
+def bf16_models():
+    jcfg, cfg = _configs(dtype="bfloat16", param_dtype="bfloat16")
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    params = bridge.from_jax_params(jax.tree.map(np.asarray, jparams), cfg,
+                                    "cpu")
+    return jmodel, jparams, build_model(cfg, "cpu"), params
+
+
+def test_forward_routed_bf16_logits_are_fp32(bf16_models):
+    """The bf16 main path's logits come out in fp32, not rounded to bf16,
+    and stay within the JAX suite's bf16 tolerance of the reference over
+    chunked prefill and decode.  (XLA on the CPU skips some of the
+    reference's bf16 roundings, so the two bf16 paths agree only to bf16
+    tolerance; the tight check of the head is the test above.)"""
+    jmodel, jparams, model, params = bf16_models
+    b, s, ps, nb = 2, 6, 5, 4
+    state = {"jcache": jmodel.init_paged_cache(b * nb, ps),
+             "cache": model.init_paged_cache(b * nb, ps)}
+    toks = np.random.default_rng(5).integers(0, 100, (b, s)).astype(np.int32)
+    bt = np.arange(b * nb, dtype=np.int32).reshape(b, nb)
+    steps = [(toks[:, :4], 0, 4), (toks[:, 4:], 4, 2)]
+    for i in range(3):
+        steps.append((None, s + i, 1))
+    last = None
+    for tokens, lo, n in steps:
+        tokens = last[:, None] if tokens is None else tokens
+        batch = {"tokens": tokens, "lengths": np.full((b,), lo, np.int32),
+                 "seg_lens": np.full((b,), n, np.int32), "block_tables": bt}
+        jlogits, state["jcache"], _ = jmodel.forward_routed(
+            jparams, {k: jnp.asarray(v) for k, v in batch.items()},
+            state["jcache"], paged_kernel=True)
+        logits, _ = model.forward_routed(
+            params, {k: torch.from_numpy(v) for k, v in batch.items()},
+            state["cache"])
+        assert logits.dtype == torch.float32
+        on_bf16_grid = (logits == logits.bfloat16().float()).float().mean()
+        assert float(on_bf16_grid) < 0.05
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   rtol=3e-2, atol=3e-2)
+        last = np.asarray(jnp.argmax(jlogits, -1)).astype(np.int32)
+
+
+def test_forward_routed_requires_block_tables(models):
+    _, _, model, params = models
+    with pytest.raises(NotImplementedError, match="contiguous KV cache"):
+        model.forward_routed(params, {
+            "tokens": torch.zeros((1, 1), dtype=torch.int32),
+            "lengths": torch.zeros((1,), dtype=torch.int32),
+            "seg_lens": torch.ones((1,), dtype=torch.int32)},
+            model.init_paged_cache(2, 4))
+
+
+def test_bf16_params_round_through_ml_dtypes():
+    """bf16 tensors leave the port as ml_dtypes bfloat16, as JAX hands
+    them out."""
+    t = torch.tensor([1.0, -2.5, 3.140625], dtype=torch.bfloat16)
+    out = bridge.to_numpy({"w": t})["w"]
+    assert out.dtype == ml_dtypes.bfloat16
+    np.testing.assert_array_equal(out.astype(np.float32),
+                                  t.float().numpy())

@@ -1,0 +1,73 @@
+"""Rules of the PyTorch port: it stands alone beside the JAX package, keeps
+the reference configs field for field, and runs on the card by default."""
+import ast
+import dataclasses
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.configs import base as jax_base
+from repro_torch.configs import base
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+# switches of the JAX config the port replaces by device dispatch
+JAX_ONLY_FIELDS = {"use_kernel", "use_flash_kernel"}
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_neither_jax_nor_repro(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_audit_covers_the_package():
+    assert len(PORT_FILES) > 15
+    assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir()
+
+
+@pytest.mark.parametrize("reduced", [False, True])
+def test_config_matches_reference_field_by_field(reduced):
+    ref = jax_base.get_config("qwen3_moe_30b_a3b")
+    port = base.get_config("qwen3_moe_30b_a3b")
+    if reduced:
+        ref, port = ref.reduced(), port.reduced()
+    ref_fields = {f.name for f in dataclasses.fields(ref)}
+    port_fields = {f.name for f in dataclasses.fields(port)}
+    assert ref_fields - port_fields == JAX_ONLY_FIELDS
+    assert port_fields <= ref_fields
+    for name in sorted(port_fields):
+        assert getattr(port, name) == getattr(ref, name), name
+    assert port.vocab_padded == ref.vocab_padded
+    assert port.n_params() == ref.n_params()
+    assert port.torch_dtype == getattr(torch, port.dtype)
+
+
+def test_unknown_arch_raises():
+    with pytest.raises(ValueError, match="not yet ported"):
+        base.get_config("qwen3_0_6b")
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import ServingEngine
+    cfg = base.get_config("qwen3_moe_30b_a3b").reduced()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServingEngine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        build_model(cfg)
