@@ -13,20 +13,28 @@ line):
                 with nvcc for sm_90a; print build seconds and ptxas usage.
   3. kernels  — each kernel against its plain PyTorch version at the main
                 path's shapes, fp32 (tol 2e-5) and bf16 (tol 3e-2), with
-                kernel / plain times and the card's bound.
+                kernel / plain times and the card's bound: paged attention
+                over fp and int8 pools, the grouped FFN over bf16/fp32,
+                int8 and int4 weights.
   4. reduced  — the reduced qwen3-moe config served by the port on the card
                 and on the CPU from the same weights: identical greedy
-                tokens, both kernels launched on the card.
+                tokens, fp and quantized (int8 weights + int8 KV, int4
+                weights, int8 KV alone), each path's kernels launched on
+                the card.
   5. serve    — the full-width qwen3-moe-30b-a3b (48 layers, bf16, random
                 weights from a seeded generator on the card) serves six
                 requests sharing a system prompt through the paged engine.
-  6. the kernels line: one JSON object per ported kernel.
+  5b. serve_quant — the same model and traffic with int8 weights
+                (quantized on load, on the card) and an int8 KV pool,
+                after the bf16 model is freed.
+  6. the kernels line: one JSON object per ported kernel entry.
   7. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -49,6 +57,13 @@ class SmokeFailure(Exception):
 def check(cond, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def check_path_kernels(launches: dict, want: tuple, what: str) -> None:
+    """The run launched exactly the kernels of its path: each of ``want``
+    at least once and no other (no fallback to another entry)."""
+    check(all((n > 0) == (k in want) for k, n in launches.items()),
+          f"{what}: the path's kernels are {want}, launched {launches}")
 
 
 def emit(phase: str, **kw) -> None:
@@ -98,10 +113,11 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def paged_case(torch, dtype, t: int, window, seed: int = 0):
+def paged_case(torch, dtype, t: int, window, seed: int = 0, int8=False):
     """Main-path attention shapes: B=4, Hq=32, Hkv=4, hd=128, ps=16, ragged
     lengths and seg_lens, block tables over a shuffled pool whose
-    unreferenced pages hold NaN."""
+    unreferenced pages hold NaN (an int8 pool: NaN scales).  Returns the
+    pools as (k, v) or, int8, (k, v, k_scale, v_scale)."""
     b, hq, hkv, hd, ps = 4, 32, 4, 128, 16
     lengths = np.array([0, 17, 100, 250], np.int32)
     seg = (np.array([1, 0, 1, 1], np.int32) if t == 1
@@ -117,18 +133,28 @@ def paged_case(torch, dtype, t: int, window, seed: int = 0):
     q = mk((b, t, hq, hd))
     kp, vp = mk((num_pages, ps, hkv, hd)), mk((num_pages, ps, hkv, hd))
     unused = torch.as_tensor(perm[b * nb:], device=dev)
-    kp[unused] = float("nan")
-    vp[unused] = float("nan")
+    if int8:
+        from repro_torch.models.attention import quantize_kv
+        (kp, ks), (vp, vs) = quantize_kv(kp), quantize_kv(vp)
+        ks[unused] = float("nan")
+        vs[unused] = float("nan")
+        pools = (kp, vp, ks.contiguous(), vs.contiguous())
+    else:
+        kp[unused] = float("nan")
+        vp[unused] = float("nan")
+        pools = (kp, vp)
     to = lambda a: torch.as_tensor(a, device=dev)
-    return q, kp, vp, to(bt), to(lengths), to(seg), window
+    return q, pools, to(bt), to(lengths), to(seg), window
 
 
 def paged_bound(q, kp, lengths, seg, window, dtype: str):
-    """Bytes: q and out once, each attended K/V slot once, the tables;
-    operations: QK and PV over the attended slots of the valid tokens."""
+    """Bytes: q and out once, each attended K/V slot once (an int8 slot:
+    hd bytes plus its 4-byte scale), the tables; operations: QK and PV over
+    the attended slots of the valid tokens."""
     b, t, hq, hd = q.shape
     hkv = kp.shape[2]
     elt = q.element_size()
+    slot_bytes = hd + 4 if kp.element_size() == 1 else hd * elt
     kv_slots, pairs = 0, 0
     for i in range(b):
         slots = set()
@@ -138,38 +164,43 @@ def paged_bound(q, kp, lengths, seg, window, dtype: str):
             slots.update(range(lo, qp + 1))
             pairs += qp + 1 - lo
         kv_slots += len(slots)
-    nbytes = 2 * q.numel() * elt + 2 * kv_slots * hkv * hd * elt + 16 * b
+    nbytes = 2 * q.numel() * elt + 2 * kv_slots * hkv * slot_bytes + 16 * b
     flops = 4.0 * pairs * hq * hd
     return bound(nbytes, flops, dtype)
 
 
 def check_paged_attention(torch, results):
     from repro_torch.kernels import paged_attn
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
-        for t in (1, 32):
-            for window in (None, 64):
-                q, kp, vp, bt, ln, sg, win = paged_case(torch, dtype, t, window)
-                run_k = lambda: paged_attn.paged_attention(
-                    q, kp, vp, bt, ln, sg, window=win)
-                run_p = lambda: paged_attn.paged_attention_plain(
-                    q, kp, vp, bt, ln, sg, window=win)
-                got, want = run_k(), run_p()
-                torch.cuda.synchronize()
-                tmask = (torch.arange(t, device="cuda")[None, :]
-                         < sg[:, None].long())             # (B, T) valid
-                check(bool((got[~tmask] == 0).all()),
-                      "paged_attention: padding rows are not exactly zero")
-                err, rel = compare(got, want, TOL[dname], tmask)
-                ms, plain_ms = time_ms(run_k, 50), time_ms(run_p, 10)
-                bms, by = paged_bound(q, kp, ln.cpu().numpy(),
-                                      sg.cpu().numpy(), win, dname)
-                row = dict(kernel="paged_attention", dtype=dname, T=t,
-                           window=win, max_abs_err=err, max_rel_err=rel,
-                           kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
-                           bound_by=by)
-                emit("kernels", **row)
-                results.append(row)
+    for int8 in (False, True):
+        name = "paged_attention_int8" if int8 else "paged_attention"
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for t in (1, 32):
+                for window in (None, 64):
+                    q, pools, bt, ln, sg, win = paged_case(
+                        torch, dtype, t, window, int8=int8)
+                    kp, vp = pools[:2]
+                    scales = dict(zip(("k_scale", "v_scale"), pools[2:]))
+                    run_k = lambda: getattr(paged_attn, name)(
+                        q, *pools, bt, ln, sg, window=win)
+                    run_p = lambda: paged_attn.paged_attention_plain(
+                        q, kp, vp, bt, ln, sg, window=win, **scales)
+                    got, want = run_k(), run_p()
+                    torch.cuda.synchronize()
+                    tmask = (torch.arange(t, device="cuda")[None, :]
+                             < sg[:, None].long())         # (B, T) valid
+                    check(bool((got[~tmask] == 0).all()),
+                          f"{name}: padding rows are not exactly zero")
+                    err, rel = compare(got, want, TOL[dname], tmask)
+                    ms, plain_ms = time_ms(run_k, 50), time_ms(run_p, 10)
+                    bms, by = paged_bound(q, kp, ln.cpu().numpy(),
+                                          sg.cpu().numpy(), win, dname)
+                    row = dict(kernel=name, dtype=dname, T=t, window=win,
+                               max_abs_err=err, max_rel_err=rel,
+                               kernel_ms=ms, plain_ms=plain_ms,
+                               bound_ms=bms, bound_by=by)
+                    emit("kernels", **row)
+                    results.append(row)
 
 
 def check_moe_ffn(torch, results):
@@ -201,6 +232,41 @@ def check_moe_ffn(torch, results):
             del x, wg, wu, wd, got, want
 
 
+def check_moe_ffn_quant(torch, results):
+    """The quantized grouped FFN at the main path's shapes: weights drawn in
+    fp32 on the card and quantized (block 128) as the engine does on load."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import moe_gemm
+    e, d, f = 128, 2048, 768
+    for level, bits in (("int8", 8), ("int4", 4)):
+        g = torch.Generator(device="cuda").manual_seed(bits)
+        mk = lambda shape, s: torch.randn(shape, generator=g,
+                                          device="cuda") * s
+        ws = [quant.quantize(mk(shape, shape[1] ** -0.5), level, block=128)
+              for shape in ((e, d, f), (e, d, f), (e, f, d))]
+        wbytes = sum(w.nbytes() for w in ws)
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            for c in (16, 40):
+                x = mk((e, c, d), 1.0).to(dtype)
+                run_k = lambda: moe_gemm.moe_ffn_kernel_quant(x, *ws)
+                run_p = lambda: moe_gemm.moe_ffn_quant_plain(x, *ws)
+                got, want = run_k(), run_p()
+                torch.cuda.synchronize()
+                err, rel = compare(got, want, TOL[dname])
+                ms, plain_ms = time_ms(run_k, 10), time_ms(run_p, 5)
+                bms, by = bound(2 * x.numel() * x.element_size() + wbytes,
+                                6.0 * e * c * d * f, dname)
+                row = dict(kernel="moe_ffn_quant", bits=bits, dtype=dname,
+                           E=e, C=c, D=d, F=f, max_abs_err=err,
+                           max_rel_err=rel, kernel_ms=ms, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by)
+                emit("kernels", **row)
+                results.append(row)
+                del x, got, want
+        del ws
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the port's serving path
 # ---------------------------------------------------------------------------
@@ -226,29 +292,63 @@ def serve(engine, prompts, new_tokens: int):
     return [list(r.generated) for r in reqs]
 
 
+# reduced configs: (weight_quant, kv_cache_dtype) -> the kernels its path
+# must launch on the card (and the others it must not)
+REDUCED = {("none", "native"): ("moe_ffn", "paged_attention"),
+           ("int8", "int8"): ("moe_ffn_quant", "paged_attention_int8"),
+           ("int4", "native"): ("moe_ffn_quant", "paged_attention"),
+           ("none", "int8"): ("moe_ffn", "paged_attention_int8")}
+
+
 def check_reduced(torch):
+    """Card vs CPU greedy tokens on the same raw weights and prompts, for
+    the fp path and each quantized one; each engine quantizes on load on
+    its own device.  Returns each config's launch counts."""
     from repro_torch.configs.base import get_config
+    from repro_torch.core import quant
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import EngineConfig, ServingEngine
-    cfg = get_config(ARCH).reduced().replace(capacity_factor=8.0)
-    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    base = get_config(ARCH).reduced().replace(capacity_factor=8.0)
+    params = build_model(base, "cpu").init(torch.Generator().manual_seed(0))
     to_cuda = lambda tree: {k: to_cuda(v) if isinstance(v, dict)
                             else v.to("cuda") for k, v in tree.items()}
     ecfg = EngineConfig(max_batch=2, max_cache=32, chunk_len=3, page_size=5)
-    prompts = traffic(cfg.vocab_size, 5, 7, 9, 14, seed=1)
-    cpu = serve(ServingEngine(cfg, ecfg, params=params, device="cpu"),
-                prompts, 5)
-    ops.reset_launch_counts()
-    eng = ServingEngine(cfg, ecfg, params=to_cuda(params), device="cuda")
-    gpu = serve(eng, prompts, 5)
-    launches = ops.launch_counts()
-    check(gpu == cpu, f"card tokens {gpu} != CPU tokens {cpu}")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel never launched on the reduced path: {launches}")
-    emit("reduced", tokens_identical=True, requests=len(prompts),
-         launches=launches, cow_copies=eng.stats["cow_copies"],
-         prefix_hits=eng.stats["prefix_hits"])
+    prompts = traffic(base.vocab_size, 5, 7, 9, 14, seed=1)
+    out = {}
+    for (wq, kv), want in REDUCED.items():
+        cfg = base.replace(weight_quant=wq, kv_cache_dtype=kv)
+        cpu_eng = ServingEngine(cfg, ecfg, params=params, device="cpu")
+        cpu = serve(cpu_eng, prompts, 5)
+        ops.reset_launch_counts()
+        eng = ServingEngine(cfg, ecfg, params=to_cuda(params), device="cuda")
+        gpu = serve(eng, prompts, 5)
+        launches = ops.launch_counts()
+        check(gpu == cpu, f"{wq}/{kv}: card tokens {gpu} != CPU tokens {cpu}")
+        check_path_kernels(launches, want, f"reduced {wq}/{kv}")
+        check(eng.stats["cow_copies"] > 0 and eng.stats["prefix_hits"] > 0,
+              f"{wq}/{kv}: no prefix hit or copy-on-write")
+        # quantize-on-load on the card builds the CPU's store bit for bit
+        same_store = all(
+            torch.equal(a.data.cpu(), b.data) and torch.equal(
+                a.scale.cpu(), b.scale)
+            for a, b in zip(leaves(eng.params), leaves(cpu_eng.params))
+            if isinstance(a, quant.QuantTensor))
+        check(same_store, f"{wq}/{kv}: the card's quantized store differs "
+              f"from the CPU's")
+        emit("reduced", weight_quant=wq, kv_cache_dtype=kv,
+             tokens_identical=True, requests=len(prompts), launches=launches,
+             store_bit_identical_to_cpu=same_store,
+             weight_bytes=eng.memory_stats()["weight_bytes"],
+             cow_copies=eng.stats["cow_copies"],
+             prefix_hits=eng.stats["prefix_hits"])
+        out[(wq, kv)] = launches
+    return out
+
+
+def leaves(tree):
+    for v in tree.values():
+        yield from (leaves(v) if isinstance(v, dict) else (v,))
 
 
 def check_serve(torch):
@@ -280,8 +380,7 @@ def check_serve(torch):
     launches = ops.launch_counts()
     check(all(len(g) == 16 and max(g) < cfg.vocab_size and min(g) >= 0
               for g in out), "generated tokens out of range")
-    check(all(v > 0 for v in launches.values()),
-          f"a kernel never launched on the main path: {launches}")
+    check_path_kernels(launches, ("moe_ffn", "paged_attention"), "serve")
     ps = eng.paged_stats()
     check(ps["prefix_hits"] > 0, "no prefix-cache hit")
     check(ps["cow_copies"] > 0, "no copy-on-write of a shared tail page")
@@ -300,6 +399,65 @@ def check_serve(torch):
          prefix_hit_tokens=ps["prefix_hit_tokens"],
          cow_copies=ps["cow_copies"],
          experts_per_node_2=eng.expected_experts_per_node(2))
+    profile_window(torch, eng,
+                   traffic(cfg.vocab_size, 2, 40, 48, 160, seed=3))
+    return launches
+
+
+def check_serve_quant(torch):
+    """Phase 5b: the full-width model with int8 weights, quantized on load
+    on the card (the bf16 tree, 61 GB, is drawn first and replaced leaf by
+    leaf), and an int8 KV pool; the bf16 serve's model is freed first.
+    Same traffic, prefix hit and copy-on-write as phase 5."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = get_config(ARCH).replace(weight_quant="int8", kv_cache_dtype="int8")
+    ecfg = EngineConfig(max_batch=4, max_cache=192, chunk_len=32,
+                        page_size=16, num_pages=96)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warm = ServingEngine(cfg, ecfg, generator=gen, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated()
+    serve(warm, traffic(cfg.vocab_size, 2, 8, 24, 40, seed=7), 2)
+    params = warm.params              # already quantized: passes through
+    del warm
+    eng = ServingEngine(cfg, ecfg, params=params, device="cuda")
+    prompts = traffic(cfg.vocab_size, 6, 40, 48, 160, seed=0)
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    out = serve(eng, prompts, 16)
+    wall = time.perf_counter() - t1
+    launches = ops.launch_counts()
+    check(all(len(g) == 16 and max(g) < cfg.vocab_size and min(g) >= 0
+              for g in out), "generated tokens out of range")
+    check_path_kernels(launches, ("moe_ffn_quant", "paged_attention_int8"),
+                       "serve_quant")
+    ps = eng.paged_stats()
+    check(ps["prefix_hits"] > 0, "no prefix-cache hit")
+    check(ps["cow_copies"] > 0, "no copy-on-write of a shared tail page")
+    peak = torch.cuda.max_memory_allocated()
+    check(peak < 80e9, f"peak allocation {peak / 1e9:.2f} GB")
+    tp, tt, ms = eng.throughput(), eng.ttft(), eng.memory_stats()
+    emit("serve_quant", arch=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, weight_quant=cfg.weight_quant,
+         kv_cache_dtype=cfg.kv_cache_dtype, init_and_quantize_s=init_s,
+         wall_s=wall, requests=len(prompts),
+         prompt_tokens=int(sum(len(p) for p in prompts)),
+         prefill_tok_per_s=tp["prefill_tok_per_s"],
+         decode_tok_per_s=tp["decode_tok_per_s"],
+         total_tok_per_s=tp["total_tok_per_s"], ttft_p50_s=tt["p50"],
+         ttft_p95_s=tt["p95"], memory_stats=ms,
+         load_peak_allocated=load_peak, max_memory_allocated=peak,
+         launches=launches, decode_steps=eng.stats["decode_steps"],
+         prefix_hits=ps["prefix_hits"],
+         prefix_hit_tokens=ps["prefix_hit_tokens"],
+         cow_copies=ps["cow_copies"])
     profile_window(torch, eng,
                    traffic(cfg.vocab_size, 2, 40, 48, 160, seed=3))
     return launches
@@ -329,33 +487,45 @@ def profile_window(torch, eng, prompts):
               for e in top])
 
 
-def kernels_line(results, launches) -> dict:
-    """One entry per ported kernel at its main-path bf16 shape."""
-    pick = {
-        "paged_attention": dict(dtype="bfloat16", T=32, window=None),
-        "moe_ffn": dict(dtype="bfloat16", C=16),
-    }
-    meta = {
-        "paged_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
-                            "src/repro/kernels/paged_attn.py:121"),
-        "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
-                    "src/repro/kernels/moe_gemm.py:52"),
-    }
+# kernels-line entries: (name, shape picked from phase 3, source, the TPU
+# kernel it replaces, the run whose launches it reports)
+LINE = [
+    ("paged_attention", dict(dtype="bfloat16", T=32, window=None),
+     "src/repro_torch/kernels/csrc/paged_attn.cu",
+     "src/repro/kernels/paged_attn.py:121", "serve"),
+    ("paged_attention_int8", dict(dtype="bfloat16", T=32, window=None),
+     "src/repro_torch/kernels/csrc/paged_attn.cu",
+     "src/repro/kernels/paged_attn.py:121", "serve_quant"),
+    ("moe_ffn", dict(dtype="bfloat16", C=16),
+     "src/repro_torch/kernels/csrc/moe_ffn.cu",
+     "src/repro/kernels/moe_gemm.py:52", "serve"),
+    ("moe_ffn_quant", dict(dtype="bfloat16", C=16, bits=8),
+     "src/repro_torch/kernels/csrc/moe_ffn_quant.cu",
+     "src/repro/kernels/moe_gemm.py:145", "serve_quant"),
+    ("moe_ffn_quant", dict(dtype="bfloat16", C=16, bits=4),
+     "src/repro_torch/kernels/csrc/moe_ffn_quant.cu",
+     "src/repro/kernels/moe_gemm.py:145", "reduced_int4"),
+]
+
+
+def kernels_line(results, runs) -> dict:
+    """One entry per ported kernel (and quantization width) at its
+    main-path bf16 shape, with the launches of the run that drives it."""
     entries = []
-    for name, want in pick.items():
+    for name, want, src, replaces, run in LINE:
         row = next(r for r in results if r["kernel"] == name
                    and all(r.get(k) == v for k, v in want.items()))
-        src, replaces = meta[name]
         entries.append({
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces,
-            "launches": launches[name],
+            "replaces": replaces, "launches_from": run,
+            "launches": runs[run][name],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": None,
             "check": "pass", "tolerance": TOL[row["dtype"]],
             "shape": {k: v for k, v in row.items()
-                      if k in ("dtype", "T", "window", "E", "C", "D", "F")},
+                      if k in ("dtype", "bits", "T", "window", "E", "C", "D",
+                               "F")},
         })
     return {"kernels": entries}
 
@@ -393,11 +563,14 @@ def main() -> int:
     results = []
     check_paged_attention(torch, results)
     check_moe_ffn(torch, results)
+    check_moe_ffn_quant(torch, results)
     torch.cuda.empty_cache()
-    check_reduced(torch)
+    reduced = check_reduced(torch)
     torch.cuda.empty_cache()
-    launches = check_serve(torch)
-    print(json.dumps(kernels_line(results, launches)), flush=True)
+    runs = {"reduced_int4": reduced[("int4", "native")],
+            "serve": check_serve(torch)}
+    runs["serve_quant"] = check_serve_quant(torch)
+    print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,13 +5,23 @@ Both keep the same layout (weights (D_in, D_out), experts (L, E, D, F) /
 side is handed over as numpy (``jax.tree.map(np.asarray, params)``); this
 module imports no JAX.  The tests need it because ``jax.random`` and
 ``torch`` cannot draw the same weights.
+
+A quantized tree comes over too: a JAX ``QuantTensor`` leaf arrives as an
+object with ``data``/``scale`` (numpy) and ``bits``/``block``/
+``orig_dim``/``out_dtype`` attributes; the bridge reads those attributes
+(without importing the class) and builds the port's ``QuantTensor``.
 """
 from __future__ import annotations
+
+import types
 
 import numpy as np
 import torch
 
+from repro_torch.core.quant import QuantTensor
 from repro_torch.models.model import resolve_device
+
+_QUANT_META = ("bits", "block", "orig_dim", "out_dtype")
 
 
 def param_shapes(cfg) -> dict:
@@ -52,26 +62,56 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _is_quant(leaf) -> bool:
+    # the metadata first: ``ndarray.data`` raises for ml_dtypes bfloat16
+    return all(hasattr(leaf, a) for a in _QUANT_META + ("data", "scale"))
+
+
+def _logical_shape(leaf) -> tuple:
+    if _is_quant(leaf):
+        shape = list(np.shape(leaf.data))
+        shape[-2] = int(leaf.orig_dim)
+        return tuple(shape)
+    return tuple(np.shape(leaf))
+
+
 def from_jax_params(tree: dict, cfg, device) -> dict:
     """The JAX param tree (as numpy) -> the port's parameters on ``device``.
-    Raises if the tree's structure or shapes differ from what the port's
-    ``Model.init`` builds for ``cfg``."""
-    got = _tree_map(lambda a: tuple(np.shape(a)), tree)
+    Raises if the tree's structure or (logical) shapes differ from what the
+    port's ``Model.init`` builds for ``cfg``."""
+    got = _tree_map(_logical_shape, tree)
     want = param_shapes(cfg)
     if got != want:
         raise ValueError(f"JAX params do not match the port's layout for "
                          f"{cfg.name}: {got} != {want}")
     resolve_device(device)
-    return _tree_map(lambda a: _to_torch(np.asarray(a), device), tree)
+
+    def conv(leaf):
+        if _is_quant(leaf):
+            return QuantTensor(
+                _to_torch(np.asarray(leaf.data), device),
+                _to_torch(np.asarray(leaf.scale), device), int(leaf.bits),
+                int(leaf.block), int(leaf.orig_dim), str(leaf.out_dtype))
+        return _to_torch(np.asarray(leaf), device)
+    return _tree_map(conv, tree)
 
 
 def to_numpy(params: dict) -> dict:
     """Inverse of ``from_jax_params``: the port's parameters as numpy (bf16
-    tensors come back as ml_dtypes bfloat16, as JAX hands them out)."""
-    def conv(t: torch.Tensor) -> np.ndarray:
+    tensors come back as ml_dtypes bfloat16, as JAX hands them out; a
+    QuantTensor as a namespace with numpy ``data``/``scale`` and its
+    metadata)."""
+    def arr(t: torch.Tensor) -> np.ndarray:
         t = t.detach().cpu()
         if t.dtype == torch.bfloat16:
             import ml_dtypes
             return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
         return t.numpy().copy()
+
+    def conv(leaf):
+        if isinstance(leaf, QuantTensor):
+            return types.SimpleNamespace(
+                data=arr(leaf.data), scale=arr(leaf.scale),
+                **{a: getattr(leaf, a) for a in _QUANT_META})
+        return arr(leaf)
     return _tree_map(conv, params)

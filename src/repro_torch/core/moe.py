@@ -7,7 +7,8 @@
 * ``gather_moe``   — capacity-free per-token gather for small decode blocks.
 
 ``expert_ffn`` always goes through ``kernels/ops.moe_ffn``: the grouped
-expert FFN kernel on a CUDA tensor, its plain version on a CPU tensor.
+expert FFN kernel on a CUDA tensor, its plain version on a CPU tensor, for
+raw or QuantTensor expert weights alike.
 Out-of-range indices are clamped or routed to a spare buffer row
 explicitly (JAX clamps gathers and drops scatters silently).
 """
@@ -18,6 +19,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import quant
 from repro_torch.kernels import ops
 
 
@@ -111,16 +113,18 @@ def gather_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
 
     Products run on fp32 copies of the operands, so g, u and y stay fp32
     as in the reference; only h is rounded to x's dtype, at the
-    reference's point.  This path has no TPU kernel; it stays in torch
-    ops."""
+    reference's point.  QuantTensor experts gather only the selected
+    experts' payload and scales (``w[idx]``) and dequantize that slice to
+    the weights' own dtype, as the reference's ``qdot`` does.  This path
+    has no TPU kernel; it stays in torch ops."""
     e_local = experts["w_gate"].shape[0]
     local = (top_idx >= e_start) & (top_idx < e_start + e_local)
     idx = (top_idx - e_start).clamp(0, e_local - 1)
     w = torch.where(local, top_w, 0.0)
     xf = x.float()
-    g = torch.einsum("td,tkdf->tkf", xf, experts["w_gate"][idx].float())
-    u = torch.einsum("td,tkdf->tkf", xf, experts["w_up"][idx].float())
+    sel = lambda name: quant.materialize(experts[name][idx]).float()
+    g = torch.einsum("td,tkdf->tkf", xf, sel("w_gate"))
+    u = torch.einsum("td,tkdf->tkf", xf, sel("w_up"))
     h = (F.silu(g) * u).to(x.dtype)
-    y = torch.einsum("tkf,tkfd->tkd", h.float(),
-                     experts["w_down"][idx].float())
+    y = torch.einsum("tkf,tkfd->tkd", h.float(), sel("w_down"))
     return torch.einsum("tk,tkd->td", w.float(), y).to(x.dtype)

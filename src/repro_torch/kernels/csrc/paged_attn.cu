@@ -1,23 +1,28 @@
-// Paged flash attention over the block-table page pool (fp pools).
+// Paged flash attention over the block-table page pool (fp or int8 pools).
 //
 // Replaces the TPU kernel src/repro/kernels/paged_attn.py::paged_attention
-// (_kernel, _page_index).  q (B, T, Hq, hd); k/v pools (P, ps, Hkv, hd);
-// block_tables (B, NB), lengths / seg_lens (B,) int32 -> out (B, T, Hq, hd).
+// (_kernel, _page_index), both branches.  q (B, T, Hq, hd); k/v pools
+// (P, ps, Hkv, hd) in q's type, or int8 with fp32 scale pools
+// (P, ps, Hkv, 1); block_tables (B, NB), lengths / seg_lens (B,) int32
+// -> out (B, T, Hq, hd).
 // Token t of row b sits at absolute position lengths[b] + t and attends every
 // slot at or before it (optionally within a window); tokens t >= seg_lens[b]
 // are padding and get exactly zero rows.
 //
 // Bound on an H100: the bytes of the live K/V pages.  Each K/V byte feeds
-// about G FLOP (G = Hq / Hkv = 8 at the main path's shapes, in bf16), far
-// below the card's ~295 FLOP/byte ridge, so it is memory-bound.  The design
-// reads only what the rows attend:
+// about G FLOP (G = Hq / Hkv = 8 at the main path's shapes, in bf16; twice
+// that per int8 byte), far below the card's ~295 FLOP/byte ridge, so it is
+// memory-bound.  The design reads only what the rows attend:
 //   * one block per (row b, kv head h, tile of 16 grouped q rows); grouped
 //     row r is (token r / G, q head h*G + r % G), so each K/V page is
 //     staged once for all G query heads that share it (no GQA repeat);
 //   * the block loops only over the live pages of its valid tokens
 //     (pages 0 .. (lengths + last valid t) / ps, and with a window not the
 //     pages wholly below it), clamping each table entry into [0, P);
-//   * each page's K and V (ps x hd) are staged in shared memory; online
+//   * each page's K and V (ps x hd) are staged in shared memory as fp32;
+//     an int8 pool is dequantized while staging, each value rounded to q's
+//     type as T(float(q) * scale) before the dot, as the reference does
+//     (one scale per slot and kv head); online
 //     softmax state (m, l) is kept per row and the fp32 accumulator in
 //     registers (thread = head dim).
 // Rounding follows the reference: logits are an fp32 dot times hd^-0.5,
@@ -25,6 +30,9 @@
 // unrounded p, and the output is acc / max(l, 1e-30).  Masked slots never
 // touch the accumulator, so garbage in an attended page's dead slots
 // cannot leak in.  Split-K decode (flash-decoding) is later work.
+#include <cstdint>
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -48,10 +56,25 @@ __device__ __forceinline__ bool attends(int row, int slot, int len, int seg,
   return slot <= qp && (window <= 0 || slot > qp - window);
 }
 
-template <typename T>
+// One pool value as fp32: an fp pool's value, or an int8 pool's value
+// dequantized to q's type T.
+template <typename T, typename P>
+__device__ __forceinline__ float pool_value(const P* __restrict__ pool,
+                                            const float* __restrict__ scale,
+                                            size_t off, size_t soff) {
+  if constexpr (std::is_same_v<P, int8_t>) {
+    return round_to<T>(static_cast<float>(pool[off]) * scale[soff]);
+  } else {
+    return Num<T>::to_f(pool[off]);
+  }
+}
+
+template <typename T, typename P>
 __global__ void __launch_bounds__(kThreads)
-    paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
-                      const T* __restrict__ vpool,
+    paged_attn_kernel(const T* __restrict__ q, const P* __restrict__ kpool,
+                      const P* __restrict__ vpool,
+                      const float* __restrict__ kscale,
+                      const float* __restrict__ vscale,
                       const int* __restrict__ block_tables,
                       const int* __restrict__ lengths,
                       const int* __restrict__ seg_lens, T* __restrict__ out,
@@ -102,13 +125,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int pi = p_lo; pi <= p_hi; ++pi) {
     const int page =
         min(max(block_tables[static_cast<size_t>(b) * geo.NB + pi], 0), geo.P - 1);
-    const size_t base = (static_cast<size_t>(page) * ps * geo.Hkv + h) * hd;
+    const size_t sbase = static_cast<size_t>(page) * ps * geo.Hkv + h;
+    const size_t base = sbase * hd;
     __syncthreads();   // q staged / previous page fully consumed
     for (int i = tid; i < ps * hd; i += kThreads) {
       const int j = i / hd, d = i - j * hd;
       const size_t off = base + j * slot_stride + d;
-      ks[j * ldk + d] = Num<T>::to_f(kpool[off]);
-      vs[j * hd + d] = Num<T>::to_f(vpool[off]);
+      const size_t soff = sbase + static_cast<size_t>(j) * geo.Hkv;
+      ks[j * ldk + d] = pool_value<T, P>(kpool, kscale, off, soff);
+      vs[j * hd + d] = pool_value<T, P>(vpool, vscale, off, soff);
     }
     __syncthreads();
     for (int i = tid; i < kRows * ps; i += kThreads) {
@@ -180,23 +205,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, typename P>
 int launch(const void* q, const void* kpool, const void* vpool,
-           const void* block_tables, const void* lengths, const void* seg_lens,
-           void* out, int B, Geometry geo, void* stream) {
+           const void* kscale, const void* vscale, const void* block_tables,
+           const void* lengths, const void* seg_lens, void* out, int B,
+           Geometry geo, void* stream) {
   const size_t smem =
       static_cast<size_t>(kRows * geo.hd + geo.ps * (geo.hd + 1) +
                           geo.ps * geo.hd + kRows * geo.ps + kRows) *
       sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      paged_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      paged_attn_kernel<T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int TG = geo.T * (geo.Hq / geo.Hkv);
   const dim3 grid(B, geo.Hkv, (TG + kRows - 1) / kRows);
-  paged_attn_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kpool),
-      static_cast<const T*>(vpool), static_cast<const int*>(block_tables),
+  paged_attn_kernel<T, P><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(q), static_cast<const P*>(kpool),
+      static_cast<const P*>(vpool), static_cast<const float*>(kscale),
+      static_cast<const float*>(vscale), static_cast<const int*>(block_tables),
       static_cast<const int*>(lengths), static_cast<const int*>(seg_lens),
       static_cast<T*>(out), geo);
   return static_cast<int>(cudaGetLastError());
@@ -211,9 +238,26 @@ int launch(const void* q, const void* kpool, const void* vpool,
                       int Hkv, int hd, int P, int ps, int NB, int window,    \
                       float scale, void* stream) {                           \
     const Geometry geo{T, Hq, Hkv, hd, P, ps, NB, window, scale};            \
-    return launch<TYPE>(q, kpool, vpool, block_tables, lengths, seg_lens,    \
-                        out, B, geo, stream);                                \
+    return launch<TYPE, TYPE>(q, kpool, vpool, nullptr, nullptr,             \
+                              block_tables, lengths, seg_lens, out, B, geo,  \
+                              stream);                                       \
+  }
+
+// int8 pools: the fp32 scale pools (P, ps, Hkv, 1) follow the payload pools
+#define PAGED_ATTN_INT8_ENTRY(NAME, TYPE)                                     \
+  extern "C" int NAME(const void* q, const void* kpool, const void* vpool,   \
+                      const void* kscale, const void* vscale,                \
+                      const void* block_tables, const void* lengths,         \
+                      const void* seg_lens, void* out, int B, int T, int Hq, \
+                      int Hkv, int hd, int P, int ps, int NB, int window,    \
+                      float scale, void* stream) {                           \
+    const Geometry geo{T, Hq, Hkv, hd, P, ps, NB, window, scale};            \
+    return launch<TYPE, int8_t>(q, kpool, vpool, kscale, vscale,             \
+                                block_tables, lengths, seg_lens, out, B,     \
+                                geo, stream);                                \
   }
 
 PAGED_ATTN_ENTRY(paged_attention_f32, float)
 PAGED_ATTN_ENTRY(paged_attention_bf16, __nv_bfloat16)
+PAGED_ATTN_INT8_ENTRY(paged_attention_int8_f32, float)
+PAGED_ATTN_INT8_ENTRY(paged_attention_int8_bf16, __nv_bfloat16)

@@ -1,16 +1,18 @@
 """Paged flash attention over the block-table page pool: the CUDA kernel's
-wrapper and its plain PyTorch version.
+wrappers and its plain PyTorch version.
 
 Replaces the TPU kernel ``src/repro/kernels/paged_attn.py::paged_attention``
-(``_kernel``, ``_page_index``) for fp pools; int8 pools are a later slice.
-The kernel (``csrc/paged_attn.cu``) is memory-bound on an H100: one block
-per (row, kv head, 16 grouped q rows) walks only the row's live pages,
-staging each K/V page once for every query head of its group (see the
-source note).
+(``_kernel``, ``_page_index``) for fp pools (``paged_attention``) and for
+int8 pools with fp32 scale pools (``paged_attention_int8``, the
+``quantized=True`` branch).  The kernel (``csrc/paged_attn.cu``, templated
+on the pool's element type) is memory-bound on an H100: one block per
+(row, kv head, 16 grouped q rows) walks only the row's live pages, staging
+each K/V page once for every query head of its group (see the source
+note).
 
-``paged_attention`` launches the kernel on CUDA tensors and counts the
-launch in ``paged_attention.launches``; ``paged_attention_plain`` is the
-page walk of ``kernels/ref.py::paged_attention_ref`` in torch ops,
+Each wrapper launches the kernel on CUDA tensors and counts the launch in
+its own ``launches``; ``paged_attention_plain`` is the page walk of
+``kernels/ref.py::paged_attention_ref`` in torch ops (fp and int8 pools),
 used on the CPU and as the yardstick on the card.
 """
 from __future__ import annotations
@@ -22,24 +24,37 @@ from repro_torch.kernels import build
 NEG_INF = -1e30
 _ENTRY = {torch.float32: "paged_attention_f32",
           torch.bfloat16: "paged_attention_bf16"}
+_ENTRY_INT8 = {torch.float32: "paged_attention_int8_f32",
+               torch.bfloat16: "paged_attention_int8_bf16"}
 
 
 def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
                           v_pool: torch.Tensor, block_tables: torch.Tensor,
                           lengths: torch.Tensor, seg_lens: torch.Tensor, *,
+                          k_scale: torch.Tensor | None = None,
+                          v_scale: torch.Tensor | None = None,
                           window: int | None = None) -> torch.Tensor:
     """q (B, T, Hq, hd) + pool (P, ps, Hkv, hd) + block_tables (B, NB)
     -> (B, T, Hq, hd).  Token t of row b attends the slots at absolute
     positions <= lengths[b] + t (and > that - window); tokens with
     t >= seg_lens[b] come out exactly zero.  Table entries are clamped into
-    the pool."""
+    the pool.  An int8 pool comes with fp32 ``k_scale``/``v_scale``
+    (P, ps, Hkv, 1) and is dequantized to q's dtype before the dot,
+    ``(pool.float() * scale).to(q.dtype)``, as the reference does."""
     b, t, hq, hd = q.shape
     num_pages, ps, hkv, _ = k_pool.shape
     nb = block_tables.shape[1]
     g = hq // hkv
     bt = block_tables.long().clamp(0, num_pages - 1)
-    k = k_pool[bt].reshape(b, nb * ps, hkv, hd)        # (B, S, Hkv, hd)
-    v = v_pool[bt].reshape(b, nb * ps, hkv, hd)
+
+    def walk(pool, scale):
+        lin = pool[bt].reshape(b, nb * ps, hkv, hd)    # (B, S, Hkv, hd)
+        if scale is not None:
+            s = scale[bt].reshape(b, nb * ps, hkv, 1)
+            lin = (lin.float() * s).to(q.dtype)
+        return lin
+
+    k, v = walk(k_pool, k_scale), walk(v_pool, v_scale)
     qg = q.reshape(b, t, hkv, g, hd)
     logits = torch.einsum("bqhgd,bshd->bhgqs", qg.float(),
                           k.float()) * hd ** -0.5
@@ -60,51 +75,81 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, hd).to(q.dtype)
 
 
-def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
-                    v_pool: torch.Tensor, block_tables: torch.Tensor,
-                    lengths: torch.Tensor, seg_lens: torch.Tensor, *,
-                    window: int | None = None) -> torch.Tensor:
-    """Launch ``csrc/paged_attn.cu`` on CUDA tensors (same contract as
-    ``paged_attention_plain``).  Raises on anything the kernel does not
-    take."""
+def _launch(entries: dict, q, k_pool, v_pool, scales, block_tables,
+            lengths, seg_lens, window, who: str) -> torch.Tensor:
+    """Check the operands and launch one of ``csrc/paged_attn.cu``'s
+    entries; ``scales`` is () for an fp pool, (k_scale, v_scale) for int8."""
     b, t, hq, hd = q.shape
     num_pages, ps, hkv, _ = k_pool.shape
     nb = block_tables.shape[1]
-    checks = (("q", q, q.dtype, (b, t, hq, hd)),
-              ("k_pool", k_pool, q.dtype, (num_pages, ps, hkv, hd)),
-              ("v_pool", v_pool, q.dtype, (num_pages, ps, hkv, hd)),
-              ("block_tables", block_tables, torch.int32, (b, nb)),
-              ("lengths", lengths, torch.int32, (b,)),
-              ("seg_lens", seg_lens, torch.int32, (b,)))
+    pool_dtype = torch.int8 if scales else q.dtype
+    checks = [("q", q, q.dtype, (b, t, hq, hd)),
+              ("k_pool", k_pool, pool_dtype, (num_pages, ps, hkv, hd)),
+              ("v_pool", v_pool, pool_dtype, (num_pages, ps, hkv, hd))]
+    checks += [(name, s, torch.float32, (num_pages, ps, hkv, 1))
+               for name, s in zip(("k_scale", "v_scale"), scales)]
+    checks += [("block_tables", block_tables, torch.int32, (b, nb)),
+               ("lengths", lengths, torch.int32, (b,)),
+               ("seg_lens", seg_lens, torch.int32, (b,))]
     for name, x, dtype, shape in checks:
         if not x.is_cuda or x.device != q.device:
-            raise ValueError(f"paged_attention: {name} must be on "
-                             f"{q.device}")
+            raise ValueError(f"{who}: {name} must be on {q.device}")
         if x.dtype != dtype:
-            raise ValueError(f"paged_attention: {name} has dtype "
-                             f"{x.dtype}, expected {dtype}")
+            raise ValueError(f"{who}: {name} has dtype {x.dtype}, expected "
+                             f"{dtype}")
         if tuple(x.shape) != shape or not x.is_contiguous():
-            raise ValueError(f"paged_attention: {name} must be "
-                             f"contiguous {shape}, got {tuple(x.shape)}")
-    if q.dtype not in _ENTRY:
-        raise ValueError(f"paged_attention: dtype {q.dtype} is not "
-                         f"ported (fp32 and bf16 pools)")
+            raise ValueError(f"{who}: {name} must be contiguous {shape}, "
+                             f"got {tuple(x.shape)}")
+    if q.dtype not in entries:
+        raise ValueError(f"{who}: dtype {q.dtype} is not ported (fp32 and "
+                         f"bf16 queries)")
     if hkv == 0 or hq % hkv or hd > 256 or num_pages < 1 or nb < 1:
-        raise ValueError(f"paged_attention: unsupported geometry "
-                         f"Hq={hq} Hkv={hkv} hd={hd} P={num_pages} NB={nb}")
+        raise ValueError(f"{who}: unsupported geometry Hq={hq} Hkv={hkv} "
+                         f"hd={hd} P={num_pages} NB={nb}")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    entry = _ENTRY[q.dtype]
+    entry = entries[q.dtype]
     build.check(getattr(lib, entry)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        block_tables.data_ptr(), lengths.data_ptr(), seg_lens.data_ptr(),
-        out.data_ptr(), b, t, hq, hkv, hd, num_pages, ps, nb,
-        0 if window is None else int(window), hd ** -0.5, stream), entry)
-    paged_attention.launches += 1
+        *(s.data_ptr() for s in scales), block_tables.data_ptr(),
+        lengths.data_ptr(), seg_lens.data_ptr(), out.data_ptr(), b, t, hq,
+        hkv, hd, num_pages, ps, nb, 0 if window is None else int(window),
+        hd ** -0.5, stream), entry)
+    return out
+
+
+def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                    v_pool: torch.Tensor, block_tables: torch.Tensor,
+                    lengths: torch.Tensor, seg_lens: torch.Tensor, *,
+                    window: int | None = None) -> torch.Tensor:
+    """Launch ``csrc/paged_attn.cu`` over fp pools in q's dtype (same
+    contract as ``paged_attention_plain``).  Raises on anything the kernel
+    does not take."""
+    out = _launch(_ENTRY, q, k_pool, v_pool, (), block_tables, lengths,
+                  seg_lens, window, "paged_attention")
+    if q.numel():
+        paged_attention.launches += 1
+    return out
+
+
+def paged_attention_int8(q: torch.Tensor, k_pool: torch.Tensor,
+                         v_pool: torch.Tensor, k_scale: torch.Tensor,
+                         v_scale: torch.Tensor, block_tables: torch.Tensor,
+                         lengths: torch.Tensor, seg_lens: torch.Tensor, *,
+                         window: int | None = None) -> torch.Tensor:
+    """Launch ``csrc/paged_attn.cu`` over int8 pools with fp32 scale pools
+    (P, ps, Hkv, 1) (same contract as ``paged_attention_plain`` with
+    scales).  Raises on anything the kernel does not take."""
+    out = _launch(_ENTRY_INT8, q, k_pool, v_pool, (k_scale, v_scale),
+                  block_tables, lengths, seg_lens, window,
+                  "paged_attention_int8")
+    if q.numel():
+        paged_attention_int8.launches += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention_int8.launches = 0

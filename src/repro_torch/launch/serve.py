@@ -5,7 +5,8 @@ paged ``ServingEngine`` on the card.
 
 runs the full-width model (bf16, random weights from a seeded generator);
 ``--reduced`` runs the smoke-test variant and ``--device cpu`` the plain
-versions of the kernels on the CPU.  Prints prompt-eval and generation
+versions of the kernels on the CPU.  ``--weight-quant int8|int4`` quantizes
+the weights on load and ``--kv-cache-dtype int8`` keeps an int8 page pool.  Prints prompt-eval and generation
 tok/s, TTFT, device memory, prefix-cache statistics, each kernel's launch
 count and the paper's E[#exec experts/node/layer] statistic.
 """
@@ -47,7 +48,8 @@ def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
     print(f"overall throughput     : {tp['total_tok_per_s']:.1f} tok/s")
     ms = eng.memory_stats()
     print(f"device memory          : weights {ms['weight_bytes'] / 1e6:.2f} "
-          f"MB, KV pool {ms['kv_pool_bytes'] / 1e6:.2f} MB, total "
+          f"MB (weight_quant={ms['weight_quant']}), KV pool "
+          f"{ms['kv_pool_bytes'] / 1e6:.2f} MB ({cfg.kv_cache_dtype}), total "
           f"{ms['total_bytes'] / 1e6:.2f} MB")
     tt = eng.ttft()
     if tt["n"]:
@@ -88,6 +90,15 @@ def main():
     ap.add_argument("--num-pages", type=int, default=0,
                     help="pool size in pages (0 = max_batch * "
                          "ceil(max_cache / page_size))")
+    ap.add_argument("--weight-quant", choices=["none", "int8", "int4"],
+                    default="none",
+                    help="quantize attn/experts/lm_head weights on load "
+                         "(blockwise, block 128; router and embedding stay "
+                         "fp)")
+    ap.add_argument("--kv-cache-dtype", choices=["native", "int8"],
+                    default="native",
+                    help="int8: int8 page pool with one fp32 scale per "
+                         "(slot, kv head)")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="tokens of system prompt shared by every request "
                          "(exercises the prefix cache)")
@@ -95,6 +106,8 @@ def main():
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    cfg = cfg.replace(weight_quant=args.weight_quant,
+                      kv_cache_dtype=args.kv_cache_dtype)
     serve_demo(cfg, requests=args.requests, new_tokens=args.new_tokens,
                prompt_len=args.prompt_len, device=args.device,
                max_batch=args.max_batch, chunk_len=args.chunk_len,

@@ -5,13 +5,18 @@ The cache is a page pool per layer, ``(num_pages, page_size, Hkv, hd)``,
 shared by every row; row b reaches its cache positions through its block
 table.  ``attn_block_step_paged`` writes the block's K/V into the pool IN
 PLACE and attends through ``kernels/ops.paged_attention`` (the CUDA kernel
-on the card, its plain page walk on the CPU).
+on the card, its plain page walk on the CPU).  With
+``kv_cache_dtype="int8"`` the pool holds int8 K/V plus fp32 scale pools
+``k_scale``/``v_scale`` ``(num_pages, page_size, Hkv, 1)``, one scale per
+(slot, head) (``quantize_kv``).  Projection weights may be QuantTensors
+(``core/quant.qdot``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch import not_ported
+from repro_torch.core import quant
 from repro_torch.kernels import ops
 from repro_torch.models import layers
 
@@ -42,7 +47,7 @@ def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
                          "other families")
     b, s, _ = x.shape
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q, k, v = (quant.qdot(x, p[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     q = q.reshape(b, s, hq, hd)
@@ -56,12 +61,33 @@ def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
+def kv_quantized(cfg) -> bool:
+    if cfg.kv_cache_dtype not in ("native", "int8"):
+        raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r}")
+    return cfg.kv_cache_dtype == "int8"
+
+
 def paged_layer_cache_spec(cfg, num_pages: int, page_size: int, dtype):
-    """Per-layer paged pool: {"k", "v"} -> (shape, dtype)."""
-    if cfg.kv_cache_dtype != "native":
-        raise not_ported("the int8 KV cache", "the quantized slice")
+    """Per-layer paged pool: {"k", "v"} (+ {"k_scale", "v_scale"} for an
+    int8 cache) -> (shape, dtype)."""
     shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    if kv_quantized(cfg):
+        sshape = shape[:-1] + (1,)
+        return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                "k_scale": (sshape, torch.float32),
+                "v_scale": (sshape, torch.float32)}
     return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
+def quantize_kv(x: torch.Tensor):
+    """Per-(token, head) symmetric int8: x (..., hd) -> (int8, fp32 scale
+    (..., 1)); ``core/quant.absmax_quantize`` with one block over hd."""
+    return quant.absmax_quantize(x, bits=8, block=x.shape[-1], axis=-1)
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype):
+    return quant.absmax_dequantize(q, scale, block=q.shape[-1], axis=-1,
+                                   dtype=dtype)
 
 
 def _paged_scatter(pool: torch.Tensor, new: torch.Tensor, page: torch.Tensor,
@@ -94,9 +120,10 @@ def attn_block_step_paged(p: dict, cfg, cache: dict, x: torch.Tensor,
     Row b's token j sits at absolute position ``positions[b, j] ==
     lengths[b] + j`` and is valid when ``j < seg_lens[b]``.  Valid tokens
     write their K/V IN PLACE at page ``block_tables[b, pos // ps]`` slot
-    ``pos % ps`` of ``cache["k"]`` / ``cache["v"]``; invalid tokens and
-    positions past the table write nothing.  Attention then walks the
-    block table.  x: (B, T, D) -> (B, T, D)."""
+    ``pos % ps`` of ``cache["k"]`` / ``cache["v"]`` (an int8 cache writes
+    payload and scales); invalid tokens and positions past the table write
+    nothing.  Attention then walks the block table.
+    x: (B, T, D) -> (B, T, D)."""
     b, t, _ = x.shape
     page_size = cache["k"].shape[1]
     nb = block_tables.shape[1]
@@ -106,8 +133,15 @@ def attn_block_step_paged(p: dict, cfg, cache: dict, x: torch.Tensor,
     page = torch.gather(block_tables, 1, blk.clamp(0, nb - 1))
     ok = valid & (blk < nb)
     slot = positions % page_size
-    _paged_scatter(cache["k"], k_new, page, slot, ok)
-    _paged_scatter(cache["v"], v_new, page, slot, ok)
+    if kv_quantized(cfg):
+        (kq, ks), (vq, vs) = quantize_kv(k_new), quantize_kv(v_new)
+        new = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        new = {"k": k_new, "v": v_new}
+    for kk, vals in new.items():
+        _paged_scatter(cache[kk], vals, page, slot, ok)
     out = ops.paged_attention(q, cache["k"], cache["v"], block_tables,
-                              lengths, seg_lens, window=window)
-    return out.reshape(b, t, cfg.num_heads * cfg.head_dim) @ p["wo"]
+                              lengths, seg_lens, k_scale=cache.get("k_scale"),
+                              v_scale=cache.get("v_scale"), window=window)
+    return quant.qdot(out.reshape(b, t, cfg.num_heads * cfg.head_dim),
+                      p["wo"])

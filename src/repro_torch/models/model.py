@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from repro_torch import not_ported
+from repro_torch.core import quant
 from repro_torch.models import layers, transformer
 
 
@@ -35,13 +36,14 @@ def resolve_device(device) -> torch.device:
 
 
 def _lm_head(cfg, params, x: torch.Tensor) -> torch.Tensor:
-    """Logits in fp32: the weight is rounded to x's dtype, as the reference
-    does, then the product runs on fp32 copies, so bf16 logits are never
-    rounded back to bf16 (close logits would tie and move the argmax).
-    ``x`` holds only the B last-valid rows, so the fp32 copy of the
-    weight is the one transient of the call."""
+    """Logits in fp32: the weight is rounded (or a quantized head
+    dequantized) to x's dtype, as the reference does, then the product runs
+    on fp32 copies, so bf16 logits are never rounded back to bf16 (close
+    logits would tie and move the argmax).  ``x`` holds only the B
+    last-valid rows, so the fp32 copy of the weight is the one transient
+    of the call."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x.float() @ w.to(x.dtype).float()
+    return x.float() @ quant.materialize(w, x.dtype).to(x.dtype).float()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,8 +123,9 @@ def build_model(cfg, device="cuda") -> Model:
     if cfg.family != "moe":
         raise not_ported(f"the {cfg.family!r} family",
                          "the dense family and the reference path")
-    if cfg.weight_quant != "none":
-        raise not_ported("the quantized weight store", "the quantized slice")
+    if cfg.weight_quant not in quant.LEVELS:
+        raise ValueError(f"unknown weight_quant {cfg.weight_quant!r}; "
+                         f"expected one of {quant.LEVELS}")
     if cfg.positional != "rope":
         raise not_ported(f"positional {cfg.positional!r}", "other families")
     return Model(cfg, resolve_device(device))

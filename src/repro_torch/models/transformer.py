@@ -60,7 +60,8 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l, token_mask,
 
 
 def paged_stack_cache_spec(cfg, num_pages: int, page_size: int, dtype):
-    """Stacked paged pool: {"k", "v"} -> ((L, P, ps, Hkv, hd), dtype)."""
+    """Stacked paged pool: {"k", "v"} -> ((L, P, ps, Hkv, hd), dtype), and
+    for an int8 cache {"k_scale", "v_scale"} -> ((L, P, ps, Hkv, 1), fp32)."""
     if cfg.family != "moe":
         raise not_ported(f"a paged cache for the {cfg.family!r} family",
                          "the dense family and the reference path")
@@ -88,6 +89,8 @@ def effective_window(cfg, seq_len: int) -> int | None:
 
 
 def _layer(tree: dict, l: int) -> dict:
+    """Layer ``l`` of a layer-stacked tree (QuantTensor leaves slice payload
+    and scales together)."""
     return {k: (_layer(v, l) if isinstance(v, dict) else v[l])
             for k, v in tree.items()}
 

@@ -16,11 +16,16 @@ non-blocking copy of a freshly built buffer the host never mutates, keeps
 the decode feedback token on the device, and ``_harvest`` is the only
 point that waits for the device.
 
-Not in this slice (each raises ``NotImplementedError``): the contiguous
+Quantized serving: ``weight_quant`` int8/int4 quantizes the eligible
+weights on load (``core/quant.quantize_params``; already quantized leaves
+pass through), and ``kv_cache_dtype="int8"`` keeps an int8 page pool with
+fp32 scale pools beside it.
+
+Not ported yet (each raises ``NotImplementedError``): the contiguous
 cache (``paged=False``), the two-program reference path
 (``unified_step=False``), overcommit and preemption, stochastic sampling
-(``temperature > 0``), deadlines, fault injection, the int8 KV cache, the
-quantized weight store and meshes (ROADMAP queue A).
+(``temperature > 0``), deadlines, fault injection and meshes (ROADMAP
+queue A).
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch import not_ported
+from repro_torch.core import quant
 from repro_torch.core.dynamic_load import LRUExpertTracker
 from repro_torch.models.model import build_model, resolve_device
 from repro_torch.models.transformer import effective_window
@@ -111,11 +117,6 @@ class ServingEngine:
             raise not_ported("fault injection", resilience)
         if mesh is not None:
             raise not_ported("mesh-sharded serving", "meshes")
-        if cfg_model.kv_cache_dtype != "native":
-            raise not_ported("the int8 KV cache", "the quantized slice")
-        if cfg_model.weight_quant != "none":
-            raise not_ported("the quantized weight store",
-                             "the quantized slice")
         if ecfg.chunk_len < 1 or ecfg.token_budget < 0:
             raise ValueError(
                 f"chunk_len must be >= 1 and token_budget >= 0, got "
@@ -135,6 +136,12 @@ class ServingEngine:
         if self.params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {self.params['embed'].device}, "
                              f"the engine on {self.device}")
+        # quantize-on-load, leaf by leaf; parameters the engine drew itself
+        # are quantized in place, so each fp leaf is freed as soon as its
+        # QuantTensor exists (the fp tree and a quantized copy of it would
+        # not fit one card together at full width)
+        self.params = quant.quantize_params(self.params, cfg_model,
+                                            inplace=params is None)
         self.tracker = (LRUExpertTracker(cfg_model.num_layers,
                                          cfg_model.num_experts)
                         if cfg_model.is_moe and ecfg.track_experts else None)
@@ -219,7 +226,8 @@ class ServingEngine:
 
     def _copy_pages(self, src: list[int], dst: list[int]) -> None:
         """Device half of copy-on-write: duplicate pool pages ``src`` into
-        ``dst`` across every layer, in place (page-sized traffic)."""
+        ``dst`` across every layer and every pool leaf (an int8 cache's
+        scale pools too), in place (page-sized traffic)."""
         for s, d in zip(src, dst):
             for pool in self.cache.values():
                 pool[:, d].copy_(pool[:, s])
@@ -475,11 +483,10 @@ class ServingEngine:
         }
 
     def memory_stats(self) -> dict:
-        """Device bytes of the weights and the KV page pool."""
-        nbytes = lambda tree: sum(
-            nbytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
-            for v in tree.values())
-        weight, pool = nbytes(self.params), nbytes(self.cache)
+        """Device bytes of the weights and the KV page pool (QuantTensor
+        leaves count payload plus scales, an int8 pool its scale pools)."""
+        weight = quant.tree_bytes(self.params)
+        pool = quant.tree_bytes(self.cache)
         return {"weight_bytes": weight, "kv_pool_bytes": pool,
                 "total_bytes": weight + pool,
                 "weight_quant": self.cfg.weight_quant}

@@ -6,7 +6,10 @@ port runs the same weights (bridged) on the CPU, where its kernels take
 their plain versions.  ``capacity_factor=8.0`` keeps MoE capacity
 non-binding.  One traffic mix covers slot reuse (more requests than
 ``max_batch``), prompts longer than ``chunk_len``, and a shared system
-prompt whose resubmission hits a partial tail page (copy-on-write).
+prompt whose resubmission hits a partial tail page (copy-on-write).  The
+quantized cases run the same traffic over an int8 KV pool, int8 or int4
+weights quantized on load from the same raw weights, or both; their decode
+steps take ``gather_moe`` over quantized experts.
 """
 import jax
 import numpy as np
@@ -14,10 +17,13 @@ import pytest
 import torch
 
 from repro.configs.base import get_config as jax_get_config
+from repro.models.model import build_model as jax_build_model
 from repro.serving.engine import EngineConfig as JaxEngineConfig
 from repro.serving.engine import ServingEngine as JaxServingEngine
 from repro_torch.bridge import from_jax_params
 from repro_torch.configs.base import get_config
+from repro_torch.core import moe
+from repro_torch.core.quant import QuantTensor
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 
 ARCH = "qwen3_moe_30b_a3b"
@@ -41,27 +47,52 @@ def _serve(eng, traffic):
     return [list(eng._all[u].generated) for u in uids]
 
 
-# the port runs asynchronously by default; the second case syncs every
-# step and caps prefill tokens per iteration (the stall-free scheduler's
-# budget), so decode rows and partial chunks share iterations differently
-@pytest.fixture(scope="module", params=[{}, {"token_budget": 2,
-                                             "async_steps": False}],
-                ids=["async", "budget"])
+# case -> (port engine knobs, config fields).  The port runs asynchronously
+# by default; "budget" syncs every step and caps prefill tokens per
+# iteration (the stall-free scheduler's budget), so decode rows and partial
+# chunks share iterations differently.  The rest are the quantized path.
+CASES = {
+    "async": ({}, {}),
+    "budget": ({"token_budget": 2, "async_steps": False}, {}),
+    "kv_int8": ({}, {"kv_cache_dtype": "int8"}),
+    "w_int8": ({}, {"weight_quant": "int8"}),
+    "w_int4": ({}, {"weight_quant": "int4"}),
+    "w_int8_kv_int8": ({}, {"weight_quant": "int8",
+                            "kv_cache_dtype": "int8"}),
+}
+
+
+@pytest.fixture(scope="module", params=list(CASES))
 def served(request):
+    engine_kw, quant_kw = CASES[request.param]
     traffic = _traffic()
-    jcfg = jax_get_config(ARCH).reduced().replace(capacity_factor=8.0,
-                                                  use_kernel=True)
+    jcfg = jax_get_config(ARCH).reduced().replace(
+        capacity_factor=8.0, use_kernel=True, **quant_kw)
+    # both engines quantize the same raw weights on load
+    raw = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
     jeng = JaxServingEngine(jcfg, JaxEngineConfig(
         async_steps=False, paged=True, paged_kernel=True,
-        token_budget=request.param.get("token_budget", 0), **ENGINE),
-        rng=jax.random.PRNGKey(0))
-    cfg = get_config(ARCH).reduced().replace(capacity_factor=8.0)
-    params = from_jax_params(jax.tree.map(np.asarray, jeng.params), cfg,
-                             "cpu")
-    peng = ServingEngine(cfg, EngineConfig(**ENGINE, **request.param),
+        token_budget=engine_kw.get("token_budget", 0), **ENGINE),
+        params=raw)
+    cfg = get_config(ARCH).reduced().replace(capacity_factor=8.0, **quant_kw)
+    params = from_jax_params(jax.tree.map(np.asarray, raw), cfg, "cpu")
+    peng = ServingEngine(cfg, EngineConfig(**ENGINE, **engine_kw),
                          params=params, device="cpu")
+    gathered = []                 # was each decode gather's w_gate quantized?
+    orig = moe.gather_moe
+
+    def spy(experts, *args):
+        gathered.append(isinstance(experts["w_gate"], QuantTensor))
+        return orig(experts, *args)
+
+    moe.gather_moe = spy
+    try:
+        port_out = _serve(peng, traffic)
+    finally:
+        moe.gather_moe = orig
     return {"traffic": traffic, "jax": (jeng, _serve(jeng, traffic)),
-            "port": (peng, _serve(peng, traffic))}
+            "port": (peng, port_out), "quant": quant_kw,
+            "gathered": gathered}
 
 
 def test_greedy_streams_token_identical(served):
@@ -98,6 +129,50 @@ def test_expert_tracker_matches(served):
                                   jeng.tracker.exec_counts)
     assert peng.expected_experts_per_node(2) == \
         jeng.expected_experts_per_node(2)
+
+
+def test_store_and_pool_match_reference(served):
+    """Same weight and pool bytes as the reference (QuantTensor payload +
+    scales, int8 pool + scale pools), and the decode gather read the
+    quantized experts."""
+    jeng, _ = served["jax"]
+    peng, _ = served["port"]
+    js, ps = jeng.memory_stats(), peng.memory_stats()
+    assert ps == js
+    assert sorted(peng.cache) == sorted(jeng.cache)
+    for kk, pool in peng.cache.items():
+        assert str(pool.dtype).split(".")[-1] == str(jeng.cache[kk].dtype)
+        assert tuple(pool.shape) == jeng.cache[kk].shape
+    quantized = served["quant"].get("weight_quant", "none") != "none"
+    experts = peng.params["blocks"]["experts"]
+    assert isinstance(experts["w_down"], QuantTensor) == quantized
+    assert isinstance(peng.params["blocks"]["router"], torch.Tensor)
+    assert served["gathered"]
+    assert set(served["gathered"]) == {quantized}
+
+
+def test_copy_pages_copies_scale_pools():
+    """Copy-on-write duplicates a page in every pool leaf of an int8 cache
+    (payload and scales, every layer) and touches no other page."""
+    cfg = get_config(ARCH).reduced().replace(kv_cache_dtype="int8")
+    eng = ServingEngine(cfg, EngineConfig(max_batch=1, max_cache=16,
+                                          page_size=4),
+                        generator=torch.Generator().manual_seed(0),
+                        device="cpu")
+    assert sorted(eng.cache) == ["k", "k_scale", "v", "v_scale"]
+    gen = torch.Generator().manual_seed(1)
+    for pool in eng.cache.values():
+        if pool.dtype == torch.int8:
+            pool.copy_(torch.randint(-127, 128, pool.shape, generator=gen,
+                                     dtype=torch.int8))
+        else:
+            pool.copy_(torch.rand(pool.shape, generator=gen))
+    before = {kk: v.clone() for kk, v in eng.cache.items()}
+    eng._copy_pages([1], [3])
+    for kk, pool in eng.cache.items():
+        assert torch.equal(pool[:, 3], before[kk][:, 1]), kk
+        keep = [p for p in range(pool.shape[1]) if p != 3]
+        assert torch.equal(pool[:, keep], before[kk][:, keep]), kk
 
 
 def test_paging_copy_matches_reference():
@@ -160,10 +235,6 @@ def test_out_of_slice_requests_raise():
         eng.submit(np.arange(4), 2, temperature=0.7)
     with pytest.raises(NotImplementedError, match="deadlines"):
         eng.submit(np.arange(4), 2, deadline_ms=10.0)
-    with pytest.raises(NotImplementedError, match="int8 KV cache"):
-        ServingEngine(cfg.replace(kv_cache_dtype="int8"), device="cpu")
-    with pytest.raises(NotImplementedError, match="quantized weight"):
-        ServingEngine(cfg.replace(weight_quant="int8"), device="cpu")
     with pytest.raises(NotImplementedError, match="fault injection"):
         ServingEngine(cfg, device="cpu", fault_plan=object())
     with pytest.raises(NotImplementedError, match="mesh"):

@@ -8,9 +8,11 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import quant as jq
 from repro.kernels import ref
-from repro.kernels.moe_gemm import moe_ffn_kernel
+from repro.kernels.moe_gemm import moe_ffn_kernel, moe_ffn_kernel_quant
 from repro.kernels.paged_attn import paged_attention
+from repro_torch.core import quant
 from repro_torch.kernels import ops
 
 TOL = 2e-5
@@ -32,17 +34,32 @@ def _paged_case(seed, *, b, t, hq, hkv, hd, ps, nb, num_pages):
     return q, kp, vp, bt, lengths, seg
 
 
-def _port_paged(q, kp, vp, bt, ln, sg, window):
+def _port_paged(q, kp, vp, bt, ln, sg, window, scales=None):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    ks, vs = (None, None) if scales is None else (t(s) for s in scales)
     return ops.paged_attention(t(q), t(kp), t(vp), t(bt), t(ln), t(sg),
-                               window=window).numpy()
+                               k_scale=ks, v_scale=vs, window=window).numpy()
 
 
-def _jax_paged(q, kp, vp, bt, ln, sg, window):
+def _jax_paged(q, kp, vp, bt, ln, sg, window, scales=None):
     args = [jnp.asarray(a) for a in (q, kp, vp, bt, ln, sg)]
-    got = paged_attention(*args, window=window, interpret=True)
-    want = jit_paged_ref(*args, window=window)
+    kw = {} if scales is None else dict(
+        k_scale=jnp.asarray(scales[0]), v_scale=jnp.asarray(scales[1]))
+    got = paged_attention(*args, window=window, interpret=True, **kw)
+    want = jit_paged_ref(*args, window=window, **kw)
     return np.asarray(got), np.asarray(want)
+
+
+def _int8_pools(kp, vp):
+    """Quantize fp pools the way the engine writes them: one scale per
+    (slot, kv head)."""
+    out = []
+    for pool in (kp, vp):
+        q, s = jq.absmax_quantize(jnp.asarray(pool), bits=8,
+                                  block=pool.shape[-1], axis=-1)
+        out += [np.array(q), np.array(s)]
+    kq, ks, vq, vs = out
+    return kq, vq, (ks, vs)
 
 
 def _valid_rows(sg, t):
@@ -65,6 +82,44 @@ def test_paged_attention_matches_jax(t, hq, hkv, ps, window):
     np.testing.assert_allclose(got[valid], pallas[valid], rtol=TOL, atol=TOL)
     np.testing.assert_allclose(got[valid], oracle[valid], rtol=TOL, atol=TOL)
     assert np.all(got[~valid] == 0.0)
+
+
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("ps", [4, 5])
+@pytest.mark.parametrize("t", [1, 8])
+def test_paged_attention_int8_matches_jax(t, ps, window):
+    """int8 pools with fp32 scale pools: K/V dequantized to q's dtype
+    before the dot, as the reference's quantized branch does."""
+    nb = -(-(t + 12) // ps) + 1
+    q, kp, vp, bt, ln, sg = _paged_case(t * 10 + ps, b=3, t=t, hq=8, hkv=2,
+                                        hd=32, ps=ps, nb=nb,
+                                        num_pages=nb + 3)
+    kq, vq, scales = _int8_pools(kp, vp)
+    case = (q, kq, vq, bt, ln, sg, window, scales)
+    got = _port_paged(*case)
+    pallas, oracle = _jax_paged(*case)
+    valid = _valid_rows(sg, t)
+    np.testing.assert_allclose(got[valid], pallas[valid], rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got[valid], oracle[valid], rtol=1e-5,
+                               atol=1e-5)
+    assert np.all(got[~valid] == 0.0)
+
+
+def test_paged_attention_int8_garbage_scales_masked():
+    """Unreferenced pages of an int8 pool with NaN/Inf scales never reach
+    a valid row."""
+    q, kp, vp, bt, ln, sg = _paged_case(8, b=2, t=3, hq=4, hkv=2, hd=32,
+                                        ps=4, nb=4, num_pages=8)
+    kq, vq, (ks, vs) = _int8_pools(kp, vp)
+    garbage = np.setdiff1d(np.arange(8), np.unique(bt))
+    assert garbage.size
+    ks[garbage], vs[garbage] = np.nan, np.inf
+    case = (q, kq, vq, bt, ln, sg, None, (ks, vs))
+    got = _port_paged(*case)
+    pallas, _ = _jax_paged(*case)
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, pallas, rtol=1e-5, atol=1e-5)
 
 
 def test_paged_attention_padding_rows_zero():
@@ -122,6 +177,57 @@ def test_moe_ffn_matches_jax(e, c, d, f):
                                rtol=1e-5, atol=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(oracle),
                                rtol=1e-5, atol=1e-5)
+
+
+def _quant_weights(rng, e, d, f, level, block, scale=None):
+    mk = lambda *s: (rng.standard_normal(s) / np.sqrt(scale or s[-2])
+                     ).astype(np.float32)
+    raw = (mk(e, d, f), mk(e, d, f), mk(e, f, d))
+    jw = [jq.quantize(jnp.asarray(w), level, block=block) for w in raw]
+    tw = [quant.quantize(torch.from_numpy(w), level, block=block)
+          for w in raw]
+    return jw, tw
+
+
+# F (and D) not multiples of the quantization block exercise the
+# reference's zero-scale padding (moe_gemm.py:174-185); F=75 is odd too,
+# so int4 w_down packs a zero nibble
+@pytest.mark.parametrize("level", ["int8", "int4"])
+@pytest.mark.parametrize("e,c,d,f,block", [
+    (2, 8, 64, 128, 32),
+    (3, 17, 96, 80, 32),
+    (2, 5, 72, 75, 16),
+])
+def test_moe_ffn_quant_matches_jax(level, e, c, d, f, block):
+    rng = np.random.default_rng(e * 100 + f)
+    x = (rng.standard_normal((e, c, d))).astype(np.float32)
+    jw, tw = _quant_weights(rng, e, d, f, level, block)
+    got = ops.moe_ffn(torch.from_numpy(x), *tw)
+    pallas = moe_ffn_kernel_quant(jnp.asarray(x), *jw, block_c=8,
+                                  block_f=64, interpret=True)
+    oracle = ref.moe_ffn_ref_quant(jnp.asarray(x), *jw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("level", ["int8", "int4"])
+def test_moe_ffn_quant_bf16_rounds_like_the_reference(level):
+    """bf16 activations: each weight value is bf16(float(q) * s) and h is
+    rounded to bf16, as in the reference's quant kernel and oracle."""
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((2, 8, 64)).astype(np.float32)
+    jw, tw = _quant_weights(rng, 2, 64, 96, level, 32)
+    xt = torch.from_numpy(x).bfloat16()
+    got = ops.moe_ffn(xt, *tw)
+    assert got.dtype == torch.bfloat16
+    oracle = ref.moe_ffn_ref_quant(jnp.asarray(x, jnp.bfloat16), *jw)
+    pallas = moe_ffn_kernel_quant(jnp.asarray(x, jnp.bfloat16), *jw,
+                                  block_c=8, block_f=32, interpret=True)
+    assert float(np.abs(np.asarray(oracle, np.float32)).max()) > 1.0
+    assert _same_bf16_rounding(got, oracle)
+    assert _same_bf16_rounding(got, pallas)
 
 
 def test_moe_ffn_zero_rows_exact():
@@ -190,4 +296,14 @@ def test_cuda_wrappers_reject_cpu_tensors():
     with pytest.raises(ValueError, match="must be on"):
         port_paged_attn.paged_attention(q, pool, pool, i32(1, 1), i32(1),
                                         i32(1))
-    assert ops.launch_counts() == {"moe_ffn": 0, "paged_attention": 0}
+    scale = torch.zeros(2, 2, 1, 1)
+    with pytest.raises(ValueError, match="must be on"):
+        port_paged_attn.paged_attention_int8(
+            q, pool.to(torch.int8), pool.to(torch.int8), scale, scale,
+            i32(1, 1), i32(1), i32(1))
+    w = quant.quantize(torch.ones(1, 4, 4), "int8", block=4)
+    with pytest.raises(ValueError, match="must be on"):
+        moe_gemm.moe_ffn_kernel_quant(x, w, w, w)
+    assert ops.launch_counts() == {"moe_ffn": 0, "moe_ffn_quant": 0,
+                                   "paged_attention": 0,
+                                   "paged_attention_int8": 0}
