@@ -23,6 +23,10 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
+from repro_torch import not_ported
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -123,3 +127,13 @@ def check(code: int, name: str) -> None:
     if code != 0:
         msg = library().kernel_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} ({msg})")
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would record a call of ``kernel``: its output is a
+    fresh tensor with no ``grad_fn``, so gradients would silently skip it.
+    Called first by every kernel wrapper, before any other check."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise not_ported(f"gradients through the {kernel} kernel",
+                         "full-sequence forward and training")

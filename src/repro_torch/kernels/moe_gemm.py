@@ -44,6 +44,7 @@ def moe_ffn_kernel(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
                    w_down: torch.Tensor) -> torch.Tensor:
     """Launch ``csrc/moe_ffn.cu`` on CUDA tensors (same contract as
     ``moe_ffn_plain``).  Raises on anything the kernel does not take."""
+    build.refuse_grad("moe_ffn", x, w_gate, w_up, w_down)
     e, c, d = x.shape
     f = w_gate.shape[-1]
     for name, t, shape in (("x", x, (e, c, d)), ("w_gate", w_gate, (e, d, f)),
@@ -93,6 +94,8 @@ def moe_ffn_kernel_quant(x: torch.Tensor, w_gate: quant.QuantTensor,
     ``moe_ffn_quant_plain``).  w_gate/w_up: (E, D, F) quantized along D,
     w_down: (E, F, D) quantized along F, all with one bits and block.
     Raises on anything the kernel does not take."""
+    build.refuse_grad("moe_ffn_quant", x,
+                      *(w.scale for w in (w_gate, w_up, w_down)))
     e, c, d = x.shape
     f = w_gate.shape[-1]
     bits, qb = w_gate.bits, w_gate.block

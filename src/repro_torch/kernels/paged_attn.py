@@ -79,6 +79,7 @@ def _launch(entries: dict, q, k_pool, v_pool, scales, block_tables,
             lengths, seg_lens, window, who: str) -> torch.Tensor:
     """Check the operands and launch one of ``csrc/paged_attn.cu``'s
     entries; ``scales`` is () for an fp pool, (k_scale, v_scale) for int8."""
+    build.refuse_grad(who, q, k_pool, v_pool, *scales)
     b, t, hq, hd = q.shape
     num_pages, ps, hkv, _ = k_pool.shape
     nb = block_tables.shape[1]

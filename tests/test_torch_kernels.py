@@ -307,3 +307,41 @@ def test_cuda_wrappers_reject_cpu_tensors():
     assert ops.launch_counts() == {"moe_ffn": 0, "moe_ffn_quant": 0,
                                    "paged_attention": 0,
                                    "paged_attention_int8": 0}
+
+
+def _grad_cases():
+    """Each kernel entry with CPU inputs, one of which requires grad."""
+    from repro_torch.kernels import moe_gemm
+    from repro_torch.kernels import paged_attn as port_paged_attn
+    x = torch.zeros(1, 1, 4, requires_grad=True)
+    w = torch.zeros(1, 4, 4)
+    wq = quant.quantize(torch.ones(1, 4, 4), "int8", block=4)
+    q = torch.zeros(1, 1, 2, 4, requires_grad=True)
+    pool, scale = torch.zeros(2, 2, 1, 4), torch.zeros(2, 2, 1, 1)
+    i32 = lambda *s: torch.zeros(s, dtype=torch.int32)
+    tables = (i32(1, 1), i32(1), i32(1))
+    return {
+        "moe_ffn": lambda: moe_gemm.moe_ffn_kernel(x, w, w, w),
+        "moe_ffn_quant": lambda: moe_gemm.moe_ffn_kernel_quant(x, wq, wq, wq),
+        "paged_attention": lambda: port_paged_attn.paged_attention(
+            q, pool, pool, *tables),
+        "paged_attention_int8": lambda: port_paged_attn.paged_attention_int8(
+            q, pool.to(torch.int8), pool.to(torch.int8), scale, scale,
+            *tables),
+    }
+
+
+@pytest.mark.parametrize("entry", sorted(_grad_cases()))
+def test_kernel_wrappers_refuse_grad(entry):
+    """A kernel's output has no grad_fn, so a wrapper given an input that
+    requires grad raises (as the reference does) instead of returning a
+    tensor whose gradient silently skips the kernel; the check comes
+    before the device check, so the CPU shows it without launching.
+    Under no_grad the same call reaches the device check."""
+    call = _grad_cases()[entry]
+    with pytest.raises(NotImplementedError,
+                       match=f"gradients through the {entry} kernel"):
+        call()
+    with torch.no_grad(), pytest.raises(ValueError, match="must be on"):
+        call()
+    assert ops.launch_counts()[entry] == 0
