@@ -15,20 +15,26 @@ line):
                 path's shapes, fp32 (tol 2e-5) and bf16 (tol 3e-2), with
                 kernel / plain times and the card's bound: paged attention
                 over fp and int8 pools, the grouped FFN over bf16/fp32,
-                int8 and int4 weights.
+                int8 and int4 weights, full-sequence flash attention
+                (causal, windowed, non-causal over a ragged S; beside it
+                the time of PyTorch's scaled_dot_product_attention).
   4. reduced  — the reduced qwen3-moe config served by the port on the card
                 and on the CPU from the same weights: identical greedy
                 tokens, fp and quantized (int8 weights + int8 KV, int4
                 weights, int8 KV alone), each path's kernels launched on
-                the card.
+                the card; then its full-sequence forward and loss on the
+                card against the CPU's.
   5. serve    — the full-width qwen3-moe-30b-a3b (48 layers, bf16, random
                 weights from a seeded generator on the card) serves six
                 requests sharing a system prompt through the paged engine.
+  6. forward  — on phase 5's weights, before they are freed: the full-
+                sequence forward and loss at B=2, S=2048 (48 flash and 48
+                grouped-FFN launches each), with a profile window.
   5b. serve_quant — the same model and traffic with int8 weights
                 (quantized on load, on the card) and an int8 KV pool,
                 after the bf16 model is freed.
-  6. the kernels line: one JSON object per ported kernel entry.
-  7. the last line: {"ok": true, "device": {...}}.
+  7. the kernels line: one JSON object per ported kernel entry.
+  8. the last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -267,8 +273,72 @@ def check_moe_ffn_quant(torch, results):
         del ws
 
 
+# (B, S, Hq, Hkv, hd, causal, window): the main path's widths at two
+# lengths (1000 is ragged against the kernel's 64-row tiles), a window, a
+# non-causal ragged case, and the reduced config's head dim
+FLASH_CASES = [(2, 2048, 32, 4, 128, True, None),
+               (2, 1000, 32, 4, 128, True, None),
+               (2, 2048, 32, 4, 128, True, 256),
+               (2, 1000, 32, 4, 128, True, 256),
+               (2, 1000, 32, 4, 128, False, None),
+               (2, 1000, 4, 2, 64, True, None)]
+
+
+def attended_pairs(s: int, causal: bool, window) -> int:
+    """(query, key) pairs the mask lets through for one head."""
+    i = np.arange(s)
+    hi = i + 1 if causal else np.full(s, s)
+    lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, int)
+    return int((hi - lo).sum())
+
+
+def check_flash_attention(torch, results):
+    """The flash kernel against its dense plain version.  k and v are views
+    of one (B, S, 2 Hkv, hd) tensor, so the kernel reads them by strides."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attn
+    for b, s, hq, hkv, hd, causal, window in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            dname = str(dtype).split(".")[-1]
+            g = torch.Generator(device="cuda").manual_seed(s + hd)
+            q = torch.randn((b, s, hq, hd), generator=g,
+                            device="cuda").to(dtype)
+            kv = torch.randn((b, s, 2 * hkv, hd), generator=g,
+                             device="cuda").to(dtype)
+            k, v = kv[:, :, :hkv], kv[:, :, hkv:]
+            kw = dict(causal=causal, window=window)
+            run_k = lambda: flash_attn.flash_attention(q, k, v, **kw)
+            run_p = lambda: flash_attn.flash_attention_plain(q, k, v, **kw)
+            got, want = run_k(), run_p()
+            torch.cuda.synchronize()
+            err, rel = compare(got, want, TOL[dname])
+            ms, plain_ms = time_ms(run_k, 10), time_ms(run_p, 3)
+            elt = q.element_size()
+            bms, by = bound(2 * b * s * (hq + hkv) * hd * elt,
+                            4.0 * b * hq * hd * attended_pairs(s, causal,
+                                                               window),
+                            dname)
+            row = dict(kernel="flash_attention", dtype=dname, B=b, S=s,
+                       Hq=hq, Hkv=hkv, hd=hd, causal=causal, window=window,
+                       max_abs_err=err, max_rel_err=rel, kernel_ms=ms,
+                       plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+            if (dname, s, hd, causal, window) == ("bfloat16", 2048, 128,
+                                                  True, None):
+                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+                run_l = lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+                lib = run_l().transpose(1, 2)
+                lib_err, _ = compare(lib, want, TOL[dname])
+                row.update(library_ms=time_ms(run_l, 10),
+                           library_max_abs_err=lib_err)
+                del lib
+            emit("kernels", **row)
+            results.append(row)
+            del q, kv, k, v, got, want
+
+
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the port's serving path
+# phases 4 to 6: the port's serving path and full-sequence forward
 # ---------------------------------------------------------------------------
 
 def traffic(vocab: int, n: int, sys_len: int, lo: int, hi: int, seed: int):
@@ -311,8 +381,6 @@ def check_reduced(torch):
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     base = get_config(ARCH).reduced().replace(capacity_factor=8.0)
     params = build_model(base, "cpu").init(torch.Generator().manual_seed(0))
-    to_cuda = lambda tree: {k: to_cuda(v) if isinstance(v, dict)
-                            else v.to("cuda") for k, v in tree.items()}
     ecfg = EngineConfig(max_batch=2, max_cache=32, chunk_len=3, page_size=5)
     prompts = traffic(base.vocab_size, 5, 7, 9, 14, seed=1)
     out = {}
@@ -344,6 +412,108 @@ def check_reduced(torch):
              prefix_hits=eng.stats["prefix_hits"])
         out[(wq, kv)] = launches
     return out
+
+
+def seq_batch(torch, vocab: int, b: int, s: int, seed: int, device):
+    """Seeded (B, S) tokens and labels."""
+    rng = np.random.default_rng(seed)
+    return {k: torch.as_tensor(rng.integers(0, vocab, (b, s)).astype(
+        np.int32), device=device) for k in ("tokens", "labels")}
+
+
+def check_reduced_forward(torch):
+    """The reduced config's full-sequence forward and loss (fp32, B=2,
+    S=96) on the card against the CPU's, on the same weights and tokens;
+    each forward launches one flash and one grouped-FFN kernel per layer."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    cfg = get_config(ARCH).reduced()
+    cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg, "cuda")
+    params = cpu_model.init(torch.Generator().manual_seed(0))
+    gparams = to_cuda(params)
+    batch = seq_batch(torch, cfg.vocab_size, 2, 96, 2, "cpu")
+    gbatch = {k: v.to("cuda") for k, v in batch.items()}
+    tol = 2e-4
+    with torch.no_grad():
+        want_logits, want_aux = cpu_model.forward(params, batch)
+        want_total, want_m = cpu_model.loss(params, batch)
+        ops.reset_launch_counts()
+        logits, aux = gpu_model.forward(gparams, gbatch)
+        launches = ops.launch_counts()
+        total, m = gpu_model.loss(gparams, gbatch)
+    want = {"flash_attention": cfg.num_layers, "moe_ffn": cfg.num_layers}
+    check(launches == {**dict.fromkeys(launches, 0), **want},
+          f"reduced forward launched {launches}, expected {want}")
+    err, _ = compare(logits.cpu(), want_logits, tol)
+    for name, got, ref in (("aux", aux, want_aux), ("total", total, want_total),
+                           ("ce", m["ce"], want_m["ce"])):
+        check(abs(float(got) - float(ref)) <= tol * (1 + abs(float(ref))),
+              f"reduced {name}: card {float(got)} != CPU {float(ref)}")
+    emit("reduced_forward", B=2, S=96, dtype=cfg.dtype,
+         logits_max_abs_err=err, loss=float(total), cpu_loss=float(want_total),
+         aux=float(aux), cpu_aux=float(want_aux), tolerance=tol,
+         launches=launches)
+
+
+def check_forward(torch, params):
+    """Phase 6: the full-width forward and loss on phase 5's bf16 weights,
+    B=2, S=2048 seeded tokens, under no_grad.  Returns the forward's
+    launch counts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    cfg = get_config(ARCH)
+    model = build_model(cfg, "cuda")
+    b, s = 2, 2048
+    batch = seq_batch(torch, cfg.vocab_size, b, s, 0, "cuda")
+    want = {"flash_attention": cfg.num_layers, "moe_ffn": cfg.num_layers}
+    with torch.no_grad():
+        model.forward(params, batch)          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits, aux = model.forward(params, batch)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        check(launches == {**dict.fromkeys(launches, 0), **want},
+              f"forward launched {launches}, expected {want}")
+        check(tuple(logits.shape) == (b, s, cfg.vocab_padded)
+              and logits.dtype == torch.float32, "forward logits shape/dtype")
+        check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux)),
+              "forward logits or aux not finite")
+        logit_std = float(logits[..., :cfg.vocab_size].std())
+        fwd_peak = torch.cuda.max_memory_allocated()
+        del logits
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        total, m = model.loss(params, batch)
+        torch.cuda.synchronize()
+        loss_s = time.perf_counter() - t0
+        loss_launches = ops.launch_counts()
+        check(loss_launches == launches,
+              f"loss launched {loss_launches}, expected {want}")
+        ce = float(m["ce"])
+        check(np.isfinite(float(total)) and abs(ce - np.log(cfg.vocab_size))
+              < 2.0, f"loss ce {ce} not near ln(vocab) "
+              f"{np.log(cfg.vocab_size):.2f}")
+    emit("forward", arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         B=b, S=s, forward_s=fwd_s, prompt_tok_per_s=b * s / fwd_s,
+         loss_s=loss_s, loss_tok_per_s=b * s / loss_s, loss=float(total),
+         ce=ce, aux=float(m["aux"]), ln_vocab=float(np.log(cfg.vocab_size)),
+         logit_std=logit_std, forward_peak_allocated=fwd_peak,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         launches=launches)
+    with torch.no_grad():
+        profile_window(torch, lambda: model.forward(params, batch), "forward")
+    return launches
+
+
+def to_cuda(tree: dict) -> dict:
+    return {k: to_cuda(v) if isinstance(v, dict) else v.to("cuda")
+            for k, v in tree.items()}
 
 
 def leaves(tree):
@@ -399,9 +569,9 @@ def check_serve(torch):
          prefix_hit_tokens=ps["prefix_hit_tokens"],
          cow_copies=ps["cow_copies"],
          experts_per_node_2=eng.expected_experts_per_node(2))
-    profile_window(torch, eng,
-                   traffic(cfg.vocab_size, 2, 40, 48, 160, seed=3))
-    return launches
+    extra = traffic(cfg.vocab_size, 2, 40, 48, 160, seed=3)
+    profile_window(torch, lambda: serve(eng, extra, 8), "serve")
+    return launches, params
 
 
 def check_serve_quant(torch):
@@ -458,20 +628,21 @@ def check_serve_quant(torch):
          prefix_hits=ps["prefix_hits"],
          prefix_hit_tokens=ps["prefix_hit_tokens"],
          cow_copies=ps["cow_copies"])
-    profile_window(torch, eng,
-                   traffic(cfg.vocab_size, 2, 40, 48, 160, seed=3))
+    extra = traffic(cfg.vocab_size, 2, 40, 48, 160, seed=3)
+    profile_window(torch, lambda: serve(eng, extra, 8), "serve_quant")
     return launches
 
 
-def profile_window(torch, eng, prompts):
-    """Where the device time goes: two more requests under torch.profiler;
-    prints the device-busy share of the window and the top kernels."""
+def profile_window(torch, work, of: str):
+    """Where the device time goes: ``work`` (two more requests, or one
+    forward) under torch.profiler; prints the device-busy share of the
+    window and the top kernels."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        serve(eng, prompts, 8)
+        work()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
@@ -481,7 +652,7 @@ def profile_window(torch, eng, prompts):
               if e.device_type == DeviceType.CUDA and dev(e) > 0]
     busy_ms = sum(dev(e) for e in events)
     top = sorted(events, key=dev, reverse=True)[:8]
-    emit("profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
+    emit("profile", of=of, wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / wall_ms if wall_ms else None,
          top=[{"name": e.key[:90], "ms": dev(e), "calls": e.count}
               for e in top])
@@ -505,6 +676,10 @@ LINE = [
     ("moe_ffn_quant", dict(dtype="bfloat16", C=16, bits=4),
      "src/repro_torch/kernels/csrc/moe_ffn_quant.cu",
      "src/repro/kernels/moe_gemm.py:145", "reduced_int4"),
+    ("flash_attention", dict(dtype="bfloat16", S=2048, hd=128, causal=True,
+                             window=None),
+     "src/repro_torch/kernels/csrc/flash_attn.cu",
+     "src/repro/kernels/flash_attn.py:82", "forward"),
 ]
 
 
@@ -521,11 +696,12 @@ def kernels_line(results, runs) -> dict:
             "launches": runs[run][name],
             "max_abs_err": row["max_abs_err"], "ms": row["kernel_ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None,
+            "bound_by": row["bound_by"],
+            "library_ms": row.get("library_ms"),
             "check": "pass", "tolerance": TOL[row["dtype"]],
             "shape": {k: v for k, v in row.items()
                       if k in ("dtype", "bits", "T", "window", "E", "C", "D",
-                               "F")},
+                               "F", "B", "S", "Hq", "Hkv", "hd", "causal")},
         })
     return {"kernels": entries}
 
@@ -564,11 +740,15 @@ def main() -> int:
     check_paged_attention(torch, results)
     check_moe_ffn(torch, results)
     check_moe_ffn_quant(torch, results)
+    check_flash_attention(torch, results)
     torch.cuda.empty_cache()
     reduced = check_reduced(torch)
+    check_reduced_forward(torch)
     torch.cuda.empty_cache()
-    runs = {"reduced_int4": reduced[("int4", "native")],
-            "serve": check_serve(torch)}
+    runs = {"reduced_int4": reduced[("int4", "native")]}
+    runs["serve"], params = check_serve(torch)
+    runs["forward"] = check_forward(torch, params)
+    del params
     runs["serve_quant"] = check_serve_quant(torch)
     print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)

@@ -34,6 +34,7 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
     "moe_ffn_f32": [_P] * 5 + [_I] * 4 + [_P],
@@ -44,6 +45,10 @@ SIGNATURES = {
     "paged_attention_int8_bf16": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
     "moe_ffn_quant_f32": [_P] * 8 + [_I] * 6 + [_P],
     "moe_ffn_quant_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "flash_attention_f32": [_P] * 4 + [_L] * 9 + [_I] * 7
+    + [ctypes.c_float, _P],
+    "flash_attention_bf16": [_P] * 4 + [_L] * 9 + [_I] * 7
+    + [ctypes.c_float, _P],
 }
 
 
@@ -133,7 +138,6 @@ def refuse_grad(kernel: str, *tensors) -> None:
     """Raise if autograd would record a call of ``kernel``: its output is a
     fresh tensor with no ``grad_fn``, so gradients would silently skip it.
     Called first by every kernel wrapper, before any other check."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise not_ported(f"gradients through the {kernel} kernel",
                          "full-sequence forward and training")

@@ -1,0 +1,107 @@
+"""Causal / sliding-window flash attention over a full sequence: the CUDA
+kernel's wrapper and its plain PyTorch version.
+
+Replaces the TPU kernel ``src/repro/kernels/flash_attn.py::flash_attention``
+(``_kernel``).  The reference takes q/k/v as (B, H, S, hd) after the caller
+repeats K/V to every query head (``gqa_repeat``); the port takes the
+projection's layout, q (B, S, Hq, hd) and k/v (B, S, Hkv, hd), and query
+head h reads kv head h // (Hq / Hkv), so neither a repeat nor a transpose
+is materialised.  Keys at or beyond S are masked whatever ``causal`` is
+(the Pallas kernel pads S to whole blocks with zero keys that only the
+causal or window mask hides, so with ``causal=False`` and a ragged S it
+attends to the padding; ``kernels/ref.py::flash_attention_ref`` does not).
+
+The kernel (``csrc/flash_attn.cu``) is bound by operations on an H100; it
+runs both products in fp32 FMA on the CUDA cores, one block per 64 grouped
+query rows of one kv head, and skips key tiles wholly above the diagonal
+or wholly below the window (see the source note).  ``flash_attention``
+launches it on CUDA tensors and counts the launch in its ``launches``;
+``flash_attention_plain`` is the dense masked oracle
+(``kernels/ref.py::flash_attention_ref``) in torch ops, used on the CPU and
+as the yardstick on the card.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+HEAD_DIMS = (64, 128)          # the reduced and the full width
+_ENTRY = {torch.float32: "flash_attention_f32",
+          torch.bfloat16: "flash_attention_bf16"}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: int | None = None) -> torch.Tensor:
+    """q (B, S, Hq, hd), k/v (B, S, Hkv, hd) -> (B, S, Hq, hd) in q's
+    dtype.  Dense masked attention: fp32 logits times hd**-0.5, masked at
+    -1e30, softmax in fp32, probabilities rounded to V's dtype before the
+    fp32 P.V product.  Query head h reads kv head h // (Hq / Hkv).  No
+    key lies at or beyond S: nothing is padded."""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.reshape(b, s, hkv, hq // hkv, hd)
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(),
+                          k.float()) * hd ** -0.5
+    qp = torch.arange(s, device=q.device)[:, None]
+    kp = torch.arange(s, device=q.device)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kp <= qp)
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.reshape(b, s, hq, hd).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Launch ``csrc/flash_attn.cu`` on CUDA tensors (same contract as
+    ``flash_attention_plain``).  q/k/v may be strided views as long as the
+    head dim is contiguous; the output is contiguous.  Raises on anything
+    the kernel does not take."""
+    build.refuse_grad("flash_attention", q, k, v)
+    if q.dim() != 4:
+        raise ValueError(f"flash_attention: q must be (B, S, Hq, hd), got "
+                         f"{tuple(q.shape)}")
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2] if k.dim() == 4 else 0
+    for name, t, shape in (("q", q, (b, s, hq, hd)),
+                           ("k", k, (b, s, hkv, hd)),
+                           ("v", v, (b, s, hkv, hd))):
+        if not t.is_cuda or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be on {q.device}")
+        if t.dtype != q.dtype or q.dtype not in _ENTRY:
+            raise ValueError(f"flash_attention: {name} has dtype {t.dtype}; "
+                             f"q, k and v must share fp32 or bf16")
+        if tuple(t.shape) != shape or t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name} must be {shape} with "
+                             f"a contiguous head dim, got {tuple(t.shape)} "
+                             f"strides {t.stride()}")
+    if hkv == 0 or hq % hkv or hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: unsupported geometry Hq={hq} "
+                         f"Hkv={hkv} hd={hd} (hd in {HEAD_DIMS})")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got "
+                         f"{window}")
+    out = torch.empty((b, s, hq, hd), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = build.library()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    entry = _ENTRY[q.dtype]
+    build.check(getattr(lib, entry)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        *(st for t in (q, k, v) for st in t.stride()[:3]), b, s, hq, hkv, hd,
+        int(causal), 0 if window is None else int(window), hd ** -0.5,
+        stream), entry)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

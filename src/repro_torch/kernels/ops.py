@@ -11,12 +11,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import quant
-from repro_torch.kernels import moe_gemm, paged_attn
+from repro_torch.kernels import flash_attn, moe_gemm, paged_attn
 
 _KERNELS = {"moe_ffn": moe_gemm.moe_ffn_kernel,
             "moe_ffn_quant": moe_gemm.moe_ffn_kernel_quant,
             "paged_attention": paged_attn.paged_attention,
-            "paged_attention_int8": paged_attn.paged_attention_int8}
+            "paged_attention_int8": paged_attn.paged_attention_int8,
+            "flash_attention": flash_attn.flash_attention}
 
 
 def _on_cuda(x: torch.Tensor) -> bool:
@@ -58,6 +59,18 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return paged_attn.paged_attention_plain(
         q, k_pool, v_pool, block_tables, lengths, seg_lens, k_scale=k_scale,
         v_scale=v_scale, window=window)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    window: int | None = None) -> torch.Tensor:
+    """Full-sequence attention: q (B, S, Hq, hd) over unrepeated k/v
+    (B, S, Hkv, hd) -> (B, S, Hq, hd), causal and/or windowed."""
+    if _on_cuda(q):
+        return flash_attn.flash_attention(q, k, v, causal=causal,
+                                          window=window)
+    return flash_attn.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,5 +1,5 @@
-"""GQA attention for the unified paged step (the paged branch of the JAX
-package's ``models/attention.py``).
+"""GQA attention (the JAX package's ``models/attention.py``): the unified
+paged step and the cache-free full-sequence forward.
 
 The cache is a page pool per layer, ``(num_pages, page_size, Hkv, hd)``,
 shared by every row; row b reaches its cache positions through its block
@@ -10,6 +10,10 @@ on the card, its plain page walk on the CPU).  With
 ``k_scale``/``v_scale`` ``(num_pages, page_size, Hkv, 1)``, one scale per
 (slot, head) (``quantize_kv``).  Projection weights may be QuantTensors
 (``core/quant.qdot``).
+
+``attn_forward`` is the full-sequence forward with no cache, the port of
+the reference's ``use_flash_kernel`` branch: causal (optionally windowed)
+attention through ``kernels/ops.flash_attention`` on the unrepeated K/V.
 """
 from __future__ import annotations
 
@@ -144,4 +148,15 @@ def attn_block_step_paged(p: dict, cfg, cache: dict, x: torch.Tensor,
                               lengths, seg_lens, k_scale=cache.get("k_scale"),
                               v_scale=cache.get("v_scale"), window=window)
     return quant.qdot(out.reshape(b, t, cfg.num_heads * cfg.head_dim),
+                      p["wo"])
+
+
+def attn_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+                 window: int | None) -> torch.Tensor:
+    """Causal self-attention over a full sequence with no cache.
+    x: (B, S, D); positions: (B, S) for RoPE.  Returns (B, S, D)."""
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    return quant.qdot(out.reshape(b, s, cfg.num_heads * cfg.head_dim),
                       p["wo"])

@@ -78,3 +78,21 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# misc
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          valid_vocab: int) -> torch.Tensor:
+    """CE over possibly vocab-padded logits (..., V_pad): the padded
+    columns are masked at -1e9.  labels: (...) int.  Returns (...) fp32."""
+    lf = logits.float()
+    vpad = lf.shape[-1]
+    if vpad != valid_vocab:
+        valid = torch.arange(vpad, device=lf.device) < valid_vocab
+        lf = torch.where(valid, lf, -1e9)
+    logz = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+    return logz - gold

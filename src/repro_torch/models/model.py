@@ -3,6 +3,8 @@
   init(generator)                      -> params
   init_paged_cache(num_pages, page_size) -> {"k", "v"} page pools
   forward_routed(params, batch, cache, context_len) -> (logits, routing)
+  forward(params, batch)               -> (logits, aux)   full sequence
+  loss(params, batch)                  -> (total, {"ce", "aux"})
 
 Parameters are a plain dict in the JAX package's layout: weights
 (D_in, D_out), experts (L, E, D, F) / (L, E, F, D), the page pool
@@ -39,11 +41,23 @@ def _lm_head(cfg, params, x: torch.Tensor) -> torch.Tensor:
     """Logits in fp32: the weight is rounded (or a quantized head
     dequantized) to x's dtype, as the reference does, then the product runs
     on fp32 copies, so bf16 logits are never rounded back to bf16 (close
-    logits would tie and move the argmax).  ``x`` holds only the B
-    last-valid rows, so the fp32 copy of the weight is the one transient
-    of the call."""
+    logits would tie and move the argmax).  ``x`` is (B, rows, D): the B
+    last-valid rows of a serving step, or a whole sequence (or one chunk
+    of it) in ``forward`` and ``loss``; besides the (B, rows, V) fp32
+    logits, the fp32 copy of the weight is the call's one transient."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
     return x.float() @ quant.materialize(w, x.dtype).to(x.dtype).float()
+
+
+def _embed_inputs(cfg, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+    """Text tokens -> (x (B, S, D) in the compute dtype, positions (B, S));
+    every position counts in the loss.  (Frame and patch inputs belong to
+    families ``build_model`` refuses.)"""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    x = params["embed"][tokens.long().clamp(0, cfg.vocab_size - 1)]
+    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    return x.to(cfg.torch_dtype), positions
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +131,47 @@ class Model:
         x_sel = torch.gather(x, 1, sel[:, None, None].expand(b, 1, x.shape[2]))
         x_sel = layers.norm_apply(cfg.norm, params["final_norm"], x_sel)
         return _lm_head(cfg, params, x_sel)[:, 0], routing
+
+    def _trunk(self, params: dict, batch: dict):
+        """Embedding, all layers and the final norm over a full sequence:
+        (x (B, S, D), aux)."""
+        cfg = self.cfg
+        x, positions = _embed_inputs(cfg, params, batch)
+        window = transformer.effective_window(cfg, x.shape[1])
+        x, aux = transformer.forward_stack(cfg, params["blocks"], x,
+                                           positions, window)
+        return layers.norm_apply(cfg.norm, params["final_norm"], x), aux
+
+    def forward(self, params: dict, batch: dict):
+        """Full-sequence forward with no cache.  batch: {"tokens": (B, S)
+        int}.  Returns (logits (B, S, V_padded) fp32, aux load-balance
+        loss summed over layers)."""
+        x, aux = self._trunk(params, batch)
+        return _lm_head(self.cfg, params, x), aux
+
+    def _chunked_ce(self, params: dict, x: torch.Tensor, labels: torch.Tensor,
+                    chunk: int = 512) -> torch.Tensor:
+        """LM head + cross-entropy one sequence chunk at a time, so the
+        (B, S, V) logits are never held whole: (B, S) fp32.  As in the
+        reference, a sequence that is no longer than a chunk or not a
+        whole number of chunks takes one pass."""
+        s = x.shape[1]
+        ce = lambda xx, ll: layers.softmax_cross_entropy(
+            _lm_head(self.cfg, params, xx), ll, self.cfg.vocab_size)
+        if s <= chunk or s % chunk != 0:
+            return ce(x, labels)
+        return torch.cat([ce(x[:, i:i + chunk], labels[:, i:i + chunk])
+                          for i in range(0, s, chunk)], dim=1)
+
+    def loss(self, params: dict, batch: dict):
+        """Mean next-token cross-entropy plus 0.01 x the aux loss.
+        batch: {"tokens": (B, S), "labels": (B, S) int in [0, vocab)}.
+        Returns (total, {"ce", "aux"}), fp32 scalars.  On the card nothing
+        here is differentiated: the kernels refuse inputs that require
+        grad (training is ROADMAP queue A)."""
+        x, aux = self._trunk(params, batch)
+        ce = self._chunked_ce(params, x, batch["labels"]).mean()
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def build_model(cfg, device="cuda") -> Model:

@@ -1,5 +1,5 @@
-"""The MoE decoder stack on the unified paged path (the JAX package's
-``models/transformer.py``).
+"""The MoE decoder stack (the JAX package's ``models/transformer.py``):
+the unified paged path and the cache-free full-sequence forward.
 
 Parameters are stacked along a leading layer axis, as in the reference.
 Where the reference runs the stack under ``jax.lax.scan`` with the whole
@@ -44,14 +44,19 @@ def init_blocks(cfg, gen: torch.Generator) -> dict:
     return _moe_layer_init(cfg, gen, cfg.param_torch_dtype)
 
 
-def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l, token_mask,
-                    block_lens, block_tables):
-    """Paged attention + MoE block.  Returns (x, aux, routed (B*T, K))."""
-    lengths, seg_lens = block_lens
+def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
+                    token_mask=None, block_lens=None, block_tables=None):
+    """Attention + MoE block: paged attention over ``cache_l`` when given,
+    else the cache-free full-sequence forward.  Returns (x, aux, routed
+    (B*T, K))."""
     h = layers.norm_apply(cfg.norm, layer_p["ln1"], x)
-    h = attention.attn_block_step_paged(
-        layer_p["attn"], cfg, cache_l, h, positions, lengths, seg_lens,
-        block_tables, window)
+    if cache_l is None:
+        h = attention.attn_forward(layer_p["attn"], cfg, h, positions, window)
+    else:
+        lengths, seg_lens = block_lens
+        h = attention.attn_block_step_paged(
+            layer_p["attn"], cfg, cache_l, h, positions, lengths, seg_lens,
+            block_tables, window)
     x = x + h
     h = layers.norm_apply(cfg.norm, layer_p["ln2"], x)
     moe_p = {"router": layer_p["router"], "experts": layer_p["experts"]}
@@ -93,6 +98,17 @@ def _layer(tree: dict, l: int) -> dict:
     and scales together)."""
     return {k: (_layer(v, l) if isinstance(v, dict) else v[l])
             for k, v in tree.items()}
+
+
+def forward_stack(cfg, blocks, x, positions, window):
+    """Run all layers over a full sequence with no cache.
+    x: (B, S, D); positions: (B, S).  Returns (x, total aux loss)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for l in range(cfg.num_layers):
+        x, a, _ = _attn_mlp_block(cfg, _layer(blocks, l), x, positions,
+                                  window)
+        aux = aux + a
+    return x, aux
 
 
 def unified_stack(cfg, blocks, x, positions, lengths, seg_lens, cache, window,

@@ -1,0 +1,118 @@
+"""The port's full-sequence flash attention on the CPU (its plain version,
+``flash_attention_plain``) against the JAX package's Pallas
+``flash_attention`` in interpret mode and its oracle
+``kernels/ref.py::flash_attention_ref``, on the same numpy inputs.
+
+The port takes q (B, S, Hq, hd) and unrepeated k/v (B, S, Hkv, hd); the
+reference takes (B, H, S, hd) with K/V repeated to Hq heads, which the
+tests do on the JAX side.  The Pallas kernel runs with 32-wide blocks so
+that S=40 and S=96 span several key tiles.  The CUDA kernel is held to the
+plain version on the card by ``chip_smoke.py``."""
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref
+from repro_torch.kernels import flash_attn, ops
+
+TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+B, HQ, HKV, HD = 2, 4, 2, 64
+
+
+def _case(seed: int, s: int, dtype: str):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, s, HQ, HD)).astype(np.float32)
+    k = rng.standard_normal((B, s, HKV, HD)).astype(np.float32)
+    v = rng.standard_normal((B, s, HKV, HD)).astype(np.float32)
+    if dtype == "bfloat16":        # round once, hand both sides the same bits
+        q, k, v = (a.astype(ml_dtypes.bfloat16).astype(np.float32)
+                   for a in (q, k, v))
+    return q, k, v
+
+
+def _jax_inputs(q, k, v, dtype):
+    """(B, S, H, hd) -> (B, H, S, hd), K/V repeated to every query head
+    (head h reads kv head h // (Hq / Hkv), as ``gqa_repeat`` does)."""
+    rep = q.shape[2] // k.shape[2]
+    to = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3), getattr(jnp, dtype))
+    return to(q), to(np.repeat(k, rep, axis=2)), to(np.repeat(v, rep, axis=2))
+
+
+def _port(q, k, v, dtype, **kw):
+    t = lambda a: torch.from_numpy(a).to(getattr(torch, dtype))
+    out = ops.flash_attention(t(q), t(k), t(v), **kw)
+    assert out.dtype == getattr(torch, dtype)
+    return out.float().numpy()
+
+
+def _from_jax(y):
+    return np.asarray(y, np.float32).transpose(0, 2, 1, 3)
+
+
+def _pallas(q, k, v, dtype, **kw):
+    return _from_jax(jax_ops.flash_attention(*_jax_inputs(q, k, v, dtype),
+                                             block_q=32, block_k=32, **kw))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 8, 32])
+@pytest.mark.parametrize("s", [16, 40, 64, 96])
+def test_causal_matches_pallas_kernel(s, window, dtype):
+    """Causal, with and without a window, ragged S (40) included: the
+    padded keys of the Pallas kernel lie above every query's diagonal."""
+    q, k, v = _case(s, s, dtype)
+    got = _port(q, k, v, dtype, causal=True, window=window)
+    want = _pallas(q, k, v, dtype, causal=True, window=window)
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_non_causal_matches_pallas_kernel(dtype):
+    """Non-causal at S=64, a whole number of blocks: no padding exists."""
+    q, k, v = _case(7, 64, dtype)
+    got = _port(q, k, v, dtype, causal=False)
+    want = _pallas(q, k, v, dtype, causal=False)
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_non_causal_ragged_matches_oracle_not_kernel(dtype):
+    """Non-causal at S=40 with 32-wide blocks: the Pallas kernel pads S to
+    64 with zero keys and, with no causal mask, attends to them (a defect
+    of the reference that no JAX path reaches: ``attn_forward`` always
+    passes causal=True).  The port masks keys at or beyond S, so it is
+    held to ``flash_attention_ref`` here, and the kernel is shown to fail
+    the same check."""
+    q, k, v = _case(11, 40, dtype)
+    got = _port(q, k, v, dtype, causal=False)
+    oracle = _from_jax(ref.flash_attention_ref(*_jax_inputs(q, k, v, dtype),
+                                               causal=False))
+    np.testing.assert_allclose(got, oracle, rtol=TOL[dtype], atol=TOL[dtype])
+    kernel = _pallas(q, k, v, dtype, causal=False)
+    assert not np.allclose(kernel, oracle, rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_gqa_reads_kv_head_of_its_group():
+    """Query head h reads kv head h // (Hq / Hkv): swapping the two kv
+    heads changes exactly the outputs of the query heads that read them."""
+    q, k, v = _case(3, 24, "float32")
+    base = _port(q, k, v, "float32")
+    swapped = _port(q, k[:, :, ::-1].copy(), v[:, :, ::-1].copy(), "float32")
+    g = HQ // HKV
+    np.testing.assert_allclose(swapped[:, :, :g], _port(
+        q[:, :, :g], k[:, :, 1:], v[:, :, 1:], "float32"), rtol=1e-6,
+        atol=1e-6)
+    assert np.abs(swapped - base).max() > 0.1
+
+
+def test_cpu_dispatch_launches_no_kernel():
+    """A CPU tensor takes the plain version; the CUDA wrapper refuses it."""
+    ops.reset_launch_counts()
+    q, k, v = (torch.from_numpy(a) for a in _case(5, 8, "float32"))
+    ops.flash_attention(q, k, v)
+    assert ops.launch_counts()["flash_attention"] == 0
+    with pytest.raises(ValueError, match="must be on"):
+        flash_attn.flash_attention(q, k, v)

@@ -306,12 +306,13 @@ def test_cuda_wrappers_reject_cpu_tensors():
         moe_gemm.moe_ffn_kernel_quant(x, w, w, w)
     assert ops.launch_counts() == {"moe_ffn": 0, "moe_ffn_quant": 0,
                                    "paged_attention": 0,
-                                   "paged_attention_int8": 0}
+                                   "paged_attention_int8": 0,
+                                   "flash_attention": 0}
 
 
 def _grad_cases():
     """Each kernel entry with CPU inputs, one of which requires grad."""
-    from repro_torch.kernels import moe_gemm
+    from repro_torch.kernels import flash_attn, moe_gemm
     from repro_torch.kernels import paged_attn as port_paged_attn
     x = torch.zeros(1, 1, 4, requires_grad=True)
     w = torch.zeros(1, 4, 4)
@@ -328,6 +329,9 @@ def _grad_cases():
         "paged_attention_int8": lambda: port_paged_attn.paged_attention_int8(
             q, pool.to(torch.int8), pool.to(torch.int8), scale, scale,
             *tables),
+        "flash_attention": lambda: flash_attn.flash_attention(
+            torch.zeros(1, 2, 2, 64), torch.zeros(1, 2, 1, 64),
+            torch.zeros(1, 2, 1, 64, requires_grad=True)),
     }
 
 
