@@ -214,7 +214,9 @@ def check_moe_ffn(torch, results):
     e, d, f = 128, 2048, 768
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for c in (16, 40):
+        # 16 and 40: the serve's prefill blocks; 320: the forward's B=2,
+        # S=2048 (round_capacity(4096, 8, 128, 1.25))
+        for c in (16, 40, 320):
             g = torch.Generator(device="cuda").manual_seed(c)
             mk = lambda shape, s: (torch.randn(shape, generator=g,
                                                device="cuda") * s).to(dtype)
