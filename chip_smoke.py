@@ -10,14 +10,19 @@ line):
   1. device   — require CUDA; print the card's name and power limit
                 (nvidia-smi), torch and CUDA versions; TF32 off.
   2. build    — compile the kernels from ``src/repro_torch/kernels/csrc``
-                with nvcc for sm_90a; print build seconds and ptxas usage.
+                with nvcc for sm_90a; print build seconds, ptxas usage and
+                (where cuobjdump is present) each kernel's count of
+                tensor-core instructions (HGMMA, HMMA) in its SASS.
   3. kernels  — each kernel against its plain PyTorch version at the main
                 path's shapes, fp32 (tol 2e-5) and bf16 (tol 3e-2), with
                 kernel / plain times and the card's bound: paged attention
-                over fp and int8 pools, the grouped FFN over bf16/fp32,
+                over fp and int8 pools, the grouped FFN over bf16/fp32
+                (capacities 16, 40, 320, and the reduced widths at 5 and
+                16; a zero row of x must give an exactly zero row of y),
                 int8 and int4 weights, full-sequence flash attention
-                (causal, windowed, non-causal over a ragged S; beside it
-                the time of PyTorch's scaled_dot_product_attention).
+                (causal, windowed, non-causal over a ragged S, one partial
+                tile at S=37; hd 128 and 64; beside each bf16 case the
+                time of PyTorch's scaled_dot_product_attention).
   4. reduced  — the reduced qwen3-moe config served by the port on the card
                 and on the CPU from the same weights: identical greedy
                 tokens, fp and quantized (int8 weights + int8 KV, int4
@@ -115,6 +120,34 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sass_mma_counts(lib: Path):
+    """Per kernel of the built library, its HGMMA (wgmma) and HMMA
+    (mma.sync) instructions in the SASS, as cuobjdump lists them; None
+    where the toolkit has no cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            for op in ("HGMMA", "HMMA"):
+                counts[fn][op] += f" {op}." in line
+    filt = shutil.which("cu++filt") or shutil.which("c++filt")
+    names = list(counts)
+    if filt and names:
+        names = subprocess.run([filt], input="\n".join(names),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+    short = lambda n: n.replace("(anonymous namespace)::", "").split("(")[0]
+    return {short(n): c for n, c in zip(names, counts.values())}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -209,24 +242,32 @@ def check_paged_attention(torch, results):
                     results.append(row)
 
 
+# (E, C, D, F): the model's widths at the serve's prefill blocks (16, 40)
+# and the forward's B=2, S=2048 (320 = round_capacity(4096, 8, 128,
+# 1.25)); the reduced config's widths at a ragged and a whole C-tile
+FFN_CASES = [(128, 16, 2048, 768), (128, 40, 2048, 768),
+             (128, 320, 2048, 768), (4, 5, 256, 512), (4, 16, 256, 512)]
+
+
 def check_moe_ffn(torch, results):
     from repro_torch.kernels import moe_gemm
-    e, d, f = 128, 2048, 768
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        # 16 and 40: the serve's prefill blocks; 320: the forward's B=2,
-        # S=2048 (round_capacity(4096, 8, 128, 1.25))
-        for c in (16, 40, 320):
+        for e, c, d, f in FFN_CASES:
             g = torch.Generator(device="cuda").manual_seed(c)
             mk = lambda shape, s: (torch.randn(shape, generator=g,
                                                device="cuda") * s).to(dtype)
             x = mk((e, c, d), 1.0)
+            x[:, -1] = 0          # a padding row of every expert
             wg, wu = mk((e, d, f), d ** -0.5), mk((e, d, f), d ** -0.5)
             wd = mk((e, f, d), f ** -0.5)
             run_k = lambda: moe_gemm.moe_ffn_kernel(x, wg, wu, wd)
             run_p = lambda: moe_gemm.moe_ffn_plain(x, wg, wu, wd)
             got, want = run_k(), run_p()
             torch.cuda.synchronize()
+            check(bool((got[:, -1] == 0).all()),
+                  f"moe_ffn {dname} C={c}: a zero row of x gave a nonzero "
+                  f"row of y")
             err, rel = compare(got, want, TOL[dname])
             ms, plain_ms = time_ms(run_k, 10), time_ms(run_p, 5)
             elt = x.element_size()
@@ -277,13 +318,17 @@ def check_moe_ffn_quant(torch, results):
 
 # (B, S, Hq, Hkv, hd, causal, window): the main path's widths at two
 # lengths (1000 is ragged against the kernel's 64-row tiles), a window, a
-# non-causal ragged case, and the reduced config's head dim
+# non-causal ragged case, one partial tile (S=37), and the reduced
+# config's head dim
 FLASH_CASES = [(2, 2048, 32, 4, 128, True, None),
                (2, 1000, 32, 4, 128, True, None),
                (2, 2048, 32, 4, 128, True, 256),
                (2, 1000, 32, 4, 128, True, 256),
                (2, 1000, 32, 4, 128, False, None),
-               (2, 1000, 4, 2, 64, True, None)]
+               (2, 37, 32, 4, 128, True, None),
+               (2, 1000, 4, 2, 64, True, None),
+               (2, 1000, 4, 2, 64, True, 256),
+               (2, 37, 4, 2, 64, True, None)]
 
 
 def attended_pairs(s: int, causal: bool, window) -> int:
@@ -294,10 +339,28 @@ def attended_pairs(s: int, causal: bool, window) -> int:
     return int((hi - lo).sum())
 
 
+def sdpa_call(torch, q, k, v, causal: bool, window):
+    """PyTorch's one call for the same attention, on (B, H, S, hd) views
+    (the yardstick only; the port never calls it): is_causal for the
+    causal cases, no mask for the non-causal one, an explicit boolean mask
+    for a window."""
+    import torch.nn.functional as F
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    kw = dict(enable_gqa=True)
+    if window is not None:
+        i = torch.arange(q.shape[1], device=q.device)
+        mask = i[None, :] > i[:, None] - window
+        if causal:
+            mask &= i[None, :] <= i[:, None]
+        kw["attn_mask"] = mask
+    else:
+        kw["is_causal"] = causal
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+
 def check_flash_attention(torch, results):
     """The flash kernel against its dense plain version.  k and v are views
     of one (B, S, 2 Hkv, hd) tensor, so the kernel reads them by strides."""
-    import torch.nn.functional as F
     from repro_torch.kernels import flash_attn
     for b, s, hq, hkv, hd, causal, window in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -324,11 +387,8 @@ def check_flash_attention(torch, results):
                        Hq=hq, Hkv=hkv, hd=hd, causal=causal, window=window,
                        max_abs_err=err, max_rel_err=rel, kernel_ms=ms,
                        plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-            if (dname, s, hd, causal, window) == ("bfloat16", 2048, 128,
-                                                  True, None):
-                qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                run_l = lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            if dname == "bfloat16":
+                run_l = sdpa_call(torch, q, k, v, causal, window)
                 lib = run_l().transpose(1, 2)
                 lib_err, _ = compare(lib, want, TOL[dname])
                 row.update(library_ms=time_ms(run_l, 10),
@@ -669,9 +729,12 @@ LINE = [
     ("paged_attention_int8", dict(dtype="bfloat16", T=32, window=None),
      "src/repro_torch/kernels/csrc/paged_attn.cu",
      "src/repro/kernels/paged_attn.py:121", "serve_quant"),
-    ("moe_ffn", dict(dtype="bfloat16", C=16),
+    ("moe_ffn", dict(dtype="bfloat16", E=128, C=16),
      "src/repro_torch/kernels/csrc/moe_ffn.cu",
      "src/repro/kernels/moe_gemm.py:52", "serve"),
+    ("moe_ffn", dict(dtype="bfloat16", E=128, C=320),
+     "src/repro_torch/kernels/csrc/moe_ffn.cu",
+     "src/repro/kernels/moe_gemm.py:52", "forward"),
     ("moe_ffn_quant", dict(dtype="bfloat16", C=16, bits=8),
      "src/repro_torch/kernels/csrc/moe_ffn_quant.cu",
      "src/repro/kernels/moe_gemm.py:145", "serve_quant"),
@@ -735,7 +798,8 @@ def main() -> int:
              for line in rep.splitlines()
              if "registers" in line or "spill" in line]
     emit("build", seconds=info["seconds"], cached=info["cached"],
-         library=path.name, ptxas=ptxas)
+         library=path.name, ptxas=ptxas,
+         tensor_core_instructions=sass_mma_counts(path))
     build.library()
 
     results = []

@@ -38,7 +38,7 @@ _L = ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
     "moe_ffn_f32": [_P] * 5 + [_I] * 4 + [_P],
-    "moe_ffn_bf16": [_P] * 5 + [_I] * 4 + [_P],
+    "moe_ffn_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "paged_attention_f32": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P],
     "paged_attention_bf16": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P],
     "paged_attention_int8_f32": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],

@@ -10,11 +10,10 @@
 //
 // Bound on an H100: operations.  At the main path's shape (B=2, S=2048,
 // Hq=32, hd=128) the causal half alone is 4*B*Hq*S(S+1)/2*hd = 69 GFLOP
-// against 50 MB of q/k/v/out, far above the card's ridge.  This first
-// kernel runs the two products on the CUDA cores in fp32 FMA (both types;
-// fp32 inputs must not go through TF32), so it is held to the fp32 FMA
-// rate, not the bf16 tensor-core peak; wgmma with TMA is later work.
-// The design:
+// against 50 MB of q/k/v/out, far above the card's ridge: 0.07 ms at the
+// bf16 tensor-core peak, 1.03 ms at the fp32 rate of the CUDA cores.
+//
+// Both types share the work split:
 //   * one block per (64 grouped query rows, kv head, batch row); grouped
 //     row r is (position r / G, query head h*G + r % G), G = Hq / Hkv, so
 //     each K/V tile is staged once for all G query heads that read it;
@@ -22,13 +21,28 @@
 //     window reaches to its last row's diagonal, skipping the tiles wholly
 //     above the diagonal or wholly at or below i - w (exact: such a tile
 //     leaves m, l and acc unchanged); blocks start with the longest rows;
-//   * q (once) and each K tile are staged transposed in shared memory as
-//     fp32 ([hd][64 + 4]), V as [64][hd]; 256 threads form a 16 x 16 grid,
-//     each owning a 4 x 4 tile of logits and a 4 x hd/16 tile of the fp32
-//     accumulator, read with 16-byte shared loads; row max and row sum are
-//     reduced across the 16 threads of a row with warp shuffles;
 //   * keys at or beyond S (the ragged last tile) are masked whatever
 //     causal is, and rows at or beyond S are neither computed nor written.
+//
+// bf16 runs on the tensor cores (flash_attention_bf16, tc::): one
+// warpgroup of 128 threads per block.  S = Q K^T is a wgmma m64n64k16
+// chain with Q and K from 128-byte-swizzled shared memory (both K-major);
+// the online softmax runs on S in registers, and P, rounded to bf16 in
+// registers, is the A operand of O += P V (wgmma m64n{hd}k16, V read as
+// an MN-major operand), so P never goes to shared memory.  Q (16 KB at
+// hd 128) and K/V tiles are bf16 in shared memory; K/V come through a
+// ring of two stages (2 x 32 KB) fed by 16-byte cp.async copies and
+// guarded by mbarriers, so tile n+1 lands while tile n is computed, and
+// two blocks fit on an SM.  The mask is applied only on tiles that need
+// it: the diagonal, the window's edge and the ragged end.
+//
+// fp32 stays on the CUDA cores (flash_attention_f32): the port holds fp32
+// to 2e-5, which TF32 cannot meet.  q (once) and each K tile are staged
+// transposed in shared memory as fp32 ([hd][64 + 4]), V as [64][hd]; 256
+// threads form a 16 x 16 grid, each owning a 4 x 4 tile of logits and a
+// 4 x hd/16 tile of the accumulator; row max and row sum are reduced with
+// warp shuffles.
+//
 // Rounding follows the reference (_kernel): logits are an fp32 dot times
 // hd^-0.5, masked logits are -1e30, p = exp(logit - m_new) with masked p
 // forced to 0, l sums the unrounded p, P.V uses p rounded to V's type with
@@ -36,7 +50,10 @@
 // rounded p depends on each tile's running max, so bf16 agrees with the
 // dense oracle (which rounds normalised probabilities) only to bf16
 // tolerance.
+#include <cstdint>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -246,30 +263,341 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out,
-             const Strides& st, int B, int hd, const Geometry& geo,
-             void* stream) {
-  if (hd == 64) return launch<T, 64>(q, k, v, out, st, B, geo, stream);
-  if (hd == 128) return launch<T, 128>(q, k, v, out, st, B, geo, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kThreads = 128;    // one warpgroup: 64 grouped rows
+constexpr int kKStages = 2;      // K ring: K_i is read in step i
+constexpr int kVStages = 3;      // V ring: V_i is read in step i + 1
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int HD>
+__host__ __device__ constexpr uint32_t tile_bytes() {
+  return 64 * HD * 2;            // 64 rows of HD bf16 (Q, a K or a V tile)
 }
+
+template <int HD>
+constexpr size_t smem_bytes() {
+  return 1024 + tile_bytes<HD>() * (kKStages + kVStages) +
+         8 * (kKStages + kVStages);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Copy 64 rows of HD bf16 (row r from the address row_ptr sets, or zeros
+// where it returns false) into a tile of HD / 64 swizzled 64-column
+// blocks.
+template <int HD, typename RowPtr>
+__device__ __forceinline__ void load_rows(uint32_t dst, RowPtr row_ptr) {
+  constexpr int kChunks = HD / 8;
+#pragma unroll
+  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
+    const int r = i / kChunks, c = i % kChunks;
+    const bf16* src = nullptr;
+    const bool ok = row_ptr(r, src);
+    cp_async16(dst + (c >> 3) * (64 * 128) + swizzle128(r, c & 7), src + c * 8,
+               ok);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v, bf16* __restrict__ out,
+                         Strides st, Geometry geo) {
+  constexpr uint32_t kTile = tile_bytes<HD>();
+  constexpr int kO = HD / 2;                  // O accumulators a thread
+  extern __shared__ uint8_t smem[];
+  const uint32_t k_ring = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t v_ring = k_ring + kKStages * kTile;
+  const uint32_t k_bars = v_ring + kVStages * kTile;
+  const uint32_t v_bars = k_bars + 8 * kKStages;
+
+  const int G = geo.Hq / geo.Hkv;
+  const int rows_total = geo.S * G;
+  const int tile = gridDim.x - 1 - blockIdx.x;   // longest rows first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int r0 = tile * 64;
+  const int t = threadIdx.x, lane = t & 31;
+
+  const bf16* qb = q + b * st.q_b + h * G * st.q_h;
+  const bf16* kb = k + b * st.k_b + h * st.k_h;
+  const bf16* vb = v + b * st.v_b + h * st.v_h;
+
+  // the keys this block's rows can attend, in whole 64-key tiles
+  const int p_lo = r0 / G;
+  const int p_hi = (min(rows_total, r0 + 64) - 1) / G;
+  const int k_lo = geo.window > 0 ? max(p_lo - geo.window + 1, 0) : 0;
+  const int k_hi = geo.causal ? p_hi : geo.S - 1;
+  const int t_lo = k_lo / 64, n_tiles = k_hi / 64 - t_lo + 1;
+
+  if (t == 0) {
+    for (int s = 0; s < kKStages; ++s) mbar_init(k_bars + 8 * s, kThreads);
+    for (int s = 0; s < kVStages; ++s) mbar_init(v_bars + 8 * s, kThreads);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // key tile i: K into K slot i % 2, V into V slot i % 3
+  auto load_tile = [&](int i) {
+    const int key0 = (t_lo + i) * 64;
+    load_rows<HD>(k_ring + (i % kKStages) * kTile,
+                  [&](int r, const bf16*& src) {
+                    const bool ok = key0 + r < geo.S;
+                    src = kb + (ok ? (key0 + r) * st.k_s : 0);
+                    return ok;
+                  });
+    mbar_arrive_cp_async(k_bars + 8 * (i % kKStages));
+    load_rows<HD>(v_ring + (i % kVStages) * kTile,
+                  [&](int r, const bf16*& src) {
+                    const bool ok = key0 + r < geo.S;
+                    src = vb + (ok ? (key0 + r) * st.v_s : 0);
+                    return ok;
+                  });
+    mbar_arrive_cp_async(v_bars + 8 * (i % kVStages));
+  };
+
+  load_tile(0);
+  if (n_tiles > 1) load_tile(1);
+
+  // this thread's two rows (accumulator rows 16 w + lane / 4, and + 8);
+  // grouped row r is position r / G, query head h G + r % G; rows past
+  // the end take the last position, read zero queries and are not written
+  const int ra = r0 + 16 * (t >> 5) + (lane >> 2), rb = ra + 8;
+  const int pos_a = min(ra, rows_total - 1) / G;
+  const int pos_b = min(rb, rows_total - 1) / G;
+  // Q stays in registers as the A operand of S = Q K^T: per 16-wide step
+  // kk of hd, {row a, hd 16 kk + 2 (lane % 4) + 0..1}, {row b, ...},
+  // {row a, ... + 8}, {row b, ... + 8}
+  uint32_t qa[HD / 16][4];
+  {
+    const int d0 = 2 * (lane & 3);
+    const bf16* q_a = qb + (ra % G) * st.q_h + (ra / G) * st.q_s + d0;
+    const bf16* q_b = qb + (rb % G) * st.q_h + (rb / G) * st.q_s + d0;
+    const bool ok_a = ra < rows_total, ok_b = rb < rows_total;
+    auto ld = [](const bf16* p, bool ok) {
+      return ok ? __ldg(reinterpret_cast<const unsigned int*>(p)) : 0u;
+    };
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      qa[kk][0] = ld(q_a + 16 * kk, ok_a);
+      qa[kk][1] = ld(q_b + 16 * kk, ok_b);
+      qa[kk][2] = ld(q_a + 16 * kk + 8, ok_a);
+      qa[kk][3] = ld(q_b + 16 * kk + 8, ok_b);
+    }
+  }
+  float o[kO];
+#pragma unroll
+  for (int i = 0; i < kO; ++i) o[i] = 0.f;
+  float m_a = kNegInf, m_b = kNegInf, l_a = 0.f, l_b = 0.f;
+  float s[32];
+  uint32_t pa[4][4];
+
+  auto issue_s = [&](int i) {   // S_i = Q K_i^T, K K-major, along hd
+    const uint32_t ks = k_ring + (i % kKStages) * kTile;
+    mbar_wait(k_bars + 8 * (i % kKStages), (i / kKStages) & 1);
+    fence_proxy_async();
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
+      WgmmaRS<64, 0>::run(s, qa[kk], desc_sw128(ks + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+  auto issue_pv = [&](int i) {  // O += P_i V_i, V MN-major, along keys
+    const uint32_t vs = v_ring + (i % kVStages) * kTile;
+    mbar_wait(v_bars + 8 * (i % kVStages), (i / kVStages) & 1);
+    fence_proxy_async();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      WgmmaRS<HD, 1>::run(o, pa[kk], desc_sw128(vs + kk * 2048, 64 * 128, 1024),
+                          1);
+    wgmma_commit();
+  };
+  // the online softmax of S_i in place (s becomes p, unrounded), with the
+  // factors that rescale O from the old running max to the new one
+  float corr_a, corr_b;
+  auto softmax = [&](int i) {
+    const int key0 = (t_lo + i) * 64;
+    // the mask, only where a tile crosses the diagonal, the window's edge
+    // or the end of the sequence
+    const bool edge = key0 + 63 >= geo.S ||
+                      (geo.causal && key0 + 63 > p_lo) ||
+                      (geo.window > 0 && key0 <= p_hi - geo.window);
+    uint32_t ok_bits = 0xffffffffu;
+    float mx_a = kNegInf, mx_b = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      float x = s[j] * geo.scale;
+      if (edge) {
+        const int key = key0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
+        const int pos = (j & 2) ? pos_b : pos_a;
+        const bool ok = key < geo.S && (!geo.causal || key <= pos) &&
+                        (geo.window <= 0 || key > pos - geo.window);
+        if (!ok) {
+          x = kNegInf;
+          ok_bits &= ~(1u << j);
+        }
+      }
+      s[j] = x;
+      if (j & 2) mx_b = fmaxf(mx_b, x);
+      else mx_a = fmaxf(mx_a, x);
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx_a = fmaxf(mx_a, __shfl_xor_sync(0xffffffffu, mx_a, off));
+      mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
+    }
+    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
+    corr_a = ex2((m_a - mn_a) * kLog2e);
+    corr_b = ex2((m_b - mn_b) * kLog2e);
+    const float ml_a = mn_a * kLog2e, ml_b = mn_b * kLog2e;
+    m_a = mn_a;
+    m_b = mn_b;
+    float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float p = ((ok_bits >> j) & 1)
+                          ? ex2(fmaf(s[j], kLog2e, (j & 2) ? -ml_b : -ml_a))
+                          : 0.f;
+      s[j] = p;
+      if (j & 2) sum_b += p;
+      else sum_a += p;
+    }
+    l_a = l_a * corr_a + sum_a;     // this thread's share of the row sums
+    l_b = l_b * corr_b + sum_b;
+  };
+  auto pack_p = [&]() {          // P_i in bf16: wgmma's A fragment
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+      pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+  };
+
+  wgmma_fence();
+  issue_s(0);
+  wgmma_wait<0>();
+  fence_regs(s);
+  softmax(0);                      // O is zero: nothing to rescale
+  pack_p();
+  if (n_tiles > 2) load_tile(2);   // into K_0's slot and a fresh V slot
+
+  // Step i: S_i = Q K_i^T and O += P_{i-1} V_{i-1} are issued together;
+  // the softmax of S_i runs while the tensor cores finish P_{i-1} V_{i-1};
+  // then O is rescaled to S_i's running max and P_i packed.
+  for (int i = 1; i < n_tiles; ++i) {
+    wgmma_fence();
+    issue_s(i);
+    issue_pv(i - 1);
+    wgmma_wait<1>();               // S_i has landed
+    fence_regs(s);
+    softmax(i);
+    wgmma_wait<0>();               // P_{i-1} V_{i-1} has landed in O
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+#pragma unroll
+    for (int j = 0; j < kO; ++j) o[j] *= (j & 2) ? corr_b : corr_a;
+    pack_p();
+    // K_i's slot and V_{i-1}'s are free: tile i + 2 goes into them
+    if (i + 2 < n_tiles) load_tile(i + 2);
+  }
+  wgmma_fence();
+  issue_pv(n_tiles - 1);
+  wgmma_wait<0>();
+  fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fence_regs(pa[kk]);
+
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l_a += __shfl_xor_sync(0xffffffffu, l_a, off);
+    l_b += __shfl_xor_sync(0xffffffffu, l_b, off);
+  }
+  l_a = fmaxf(l_a, 1e-30f);
+  l_b = fmaxf(l_b, 1e-30f);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (row >= rows_total) continue;
+    const int pos = row / G, g = row - pos * G;
+    bf16* orow = out + ((static_cast<long long>(b) * geo.S + pos) * geo.Hq +
+                        h * G + g) * HD;
+    const float l = half ? l_b : l_a;
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) {
+      const int d = 8 * j + 2 * (lane & 3);
+      *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+          o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
+    }
+  }
+}
+
+template <int HD>
+int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
+           const Strides& st, int B, const Geometry& geo, cudaStream_t s) {
+  const size_t smem = smem_bytes<HD>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attn_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int G = geo.Hq / geo.Hkv;
+  const long long tiles = (static_cast<long long>(geo.S) * G + 63) / 64;
+  const dim3 grid(static_cast<unsigned>(tiles), geo.Hkv, B);
+  flash_attn_tc_kernel<HD><<<grid, kThreads, smem, s>>>(q, k, v, out, st, geo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
 
 }  // namespace
 
-// Strides are in elements; the head dim of q, k and v is contiguous.
+// Strides are in elements; the head dim of q, k and v is contiguous (bf16:
+// base addresses and strides 16-byte aligned, which the wrapper checks).
 // window <= 0 means no window.
-#define FLASH_ATTN_ENTRY(NAME, TYPE)                                          \
-  extern "C" int NAME(const void* q, const void* k, const void* v, void* out, \
-                      long long q_b, long long q_s, long long q_h,            \
-                      long long k_b, long long k_s, long long k_h,            \
-                      long long v_b, long long v_s, long long v_h, int B,     \
-                      int S, int Hq, int Hkv, int hd, int causal, int window, \
-                      float scale, void* stream) {                            \
-    const Strides st{q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h};            \
-    const Geometry geo{S, Hq, Hkv, causal, window, scale};                    \
-    return dispatch<TYPE>(q, k, v, out, st, B, hd, geo, stream);              \
-  }
+extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
+                                   void* out, long long q_b, long long q_s,
+                                   long long q_h, long long k_b, long long k_s,
+                                   long long k_h, long long v_b, long long v_s,
+                                   long long v_h, int B, int S, int Hq, int Hkv,
+                                   int hd, int causal, int window, float scale,
+                                   void* stream) {
+  const Strides st{q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h};
+  const Geometry geo{S, Hq, Hkv, causal, window, scale};
+  if (hd == 64) return launch<float, 64>(q, k, v, out, st, B, geo, stream);
+  if (hd == 128) return launch<float, 128>(q, k, v, out, st, B, geo, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
 
-FLASH_ATTN_ENTRY(flash_attention_f32, float)
-FLASH_ATTN_ENTRY(flash_attention_bf16, __nv_bfloat16)
+extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
+                                    void* out, long long q_b, long long q_s,
+                                    long long q_h, long long k_b, long long k_s,
+                                    long long k_h, long long v_b, long long v_s,
+                                    long long v_h, int B, int S, int Hq,
+                                    int Hkv, int hd, int causal, int window,
+                                    float scale, void* stream) {
+  const Strides st{q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h};
+  const Geometry geo{S, Hq, Hkv, causal, window, scale};
+  const auto* qp = static_cast<const bf16*>(q);
+  const auto* kp = static_cast<const bf16*>(k);
+  const auto* vp = static_cast<const bf16*>(v);
+  auto* op = static_cast<bf16*>(out);
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (hd == 64) return tc::launch<64>(qp, kp, vp, op, st, B, geo, s);
+  if (hd == 128) return tc::launch<128>(qp, kp, vp, op, st, B, geo, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -11,11 +11,17 @@ is materialised.  Keys at or beyond S are masked whatever ``causal`` is
 causal or window mask hides, so with ``causal=False`` and a ragged S it
 attends to the padding; ``kernels/ref.py::flash_attention_ref`` does not).
 
-The kernel (``csrc/flash_attn.cu``) is bound by operations on an H100; it
-runs both products in fp32 FMA on the CUDA cores, one block per 64 grouped
-query rows of one kv head, and skips key tiles wholly above the diagonal
-or wholly below the window (see the source note).  ``flash_attention``
-launches it on CUDA tensors and counts the launch in its ``launches``;
+The kernel (``csrc/flash_attn.cu``) is bound by operations on an H100
+(0.07 ms of bf16 tensor-core work at B=2, S=2048, Hq=32, hd=128, causal).
+Both types run one block per 64 grouped query rows of one kv head and skip
+key tiles wholly above the diagonal or wholly below the window.  bf16 runs
+both products on the tensor cores (wgmma, fp32 accumulation, P kept in
+registers) with K/V tiles streamed through a two-stage shared-memory ring
+by 16-byte asynchronous copies, so q, k and v must have 16-byte-aligned
+base addresses and strides (``check_copy_alignment``).  fp32 stays on the
+CUDA cores in fp32 FMA: the port holds it to 2e-5, which TF32 cannot meet
+(see the source note).  ``flash_attention`` launches the kernel on CUDA
+tensors and counts the launch in its ``launches``;
 ``flash_attention_plain`` is the dense masked oracle
 (``kernels/ref.py::flash_attention_ref``) in torch ops, used on the CPU and
 as the yardstick on the card.
@@ -58,6 +64,29 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, s, hq, hd).to(q.dtype)
 
 
+def flash_entry(dtype: torch.dtype) -> str:
+    """The C entry of ``csrc/flash_attn.cu`` for ``dtype``."""
+    if dtype not in _ENTRY:
+        raise ValueError(f"flash_attention: no kernel for {dtype}; "
+                         f"fp32 or bf16")
+    return _ENTRY[dtype]
+
+
+def check_copy_alignment(name: str, dtype: torch.dtype, data_ptr: int,
+                         strides: tuple[int, ...]) -> None:
+    """Raise unless the kernel for ``dtype`` can copy ``name``'s rows: the
+    bf16 kernel moves each head row in 16-byte chunks, so the base address
+    and the (batch, sequence, head) strides must be 16-byte aligned.  The
+    fp32 kernel reads element by element and takes any."""
+    if dtype != torch.bfloat16:
+        return
+    elt = dtype.itemsize
+    if data_ptr % 16 or any(st * elt % 16 for st in strides[:3]):
+        raise ValueError(
+            f"flash_attention: bf16 {name} needs a 16-byte-aligned address "
+            f"and strides, got address {data_ptr:#x} strides {strides}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: int | None = None) -> torch.Tensor:
@@ -83,6 +112,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: {name} must be {shape} with "
                              f"a contiguous head dim, got {tuple(t.shape)} "
                              f"strides {t.stride()}")
+        check_copy_alignment(name, t.dtype, t.data_ptr(), t.stride())
     if hkv == 0 or hq % hkv or hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: unsupported geometry Hq={hq} "
                          f"Hkv={hkv} hd={hd} (hd in {HEAD_DIMS})")
@@ -94,7 +124,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    entry = _ENTRY[q.dtype]
+    entry = flash_entry(q.dtype)
     build.check(getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         *(st for t in (q, k, v) for st in t.stride()[:3]), b, s, hq, hkv, hd,

@@ -4,16 +4,29 @@ CUDA kernels' wrappers and their plain PyTorch versions.
 ``moe_ffn_kernel`` replaces the TPU kernel
 ``src/repro/kernels/moe_gemm.py::moe_ffn_kernel`` (``_kernel``) and
 ``moe_ffn_kernel_quant`` replaces ``moe_ffn_kernel_quant`` (``_kernel_q``,
-``_dequant_tile``).  Both kernels (``csrc/moe_ffn.cu``,
-``csrc/moe_ffn_quant.cu``) are memory-bound on an H100 at the main path's
-shapes: they read each expert weight byte once per 16-row C-tile and keep
-x and the rounded h on chip (see the source notes); the quantized one
-reads int8 or packed int4 payload plus one fp32 scale per 128-row block.
+``_dequant_tile``).  Both are memory-bound on an H100 at the serve's
+capacities (they must read every expert weight byte once; the bf16 call
+reads 1.21 GB, 0.36 ms at 3.35 TB/s) and near the card's ridge at the
+forward's capacity 320 (see the source notes).
 
-Each wrapper launches its kernel on CUDA tensors and counts the launch in
-its ``launches``; ``moe_ffn_plain`` / ``moe_ffn_quant_plain`` are the same
-functions in torch ops (``kernels/ref.py::moe_ffn_ref`` and
-``moe_ffn_ref_quant``), used on the CPU and as the yardstick on the card.
+``csrc/moe_ffn.cu`` has one design per type.  bf16 runs on the tensor
+cores (wgmma, swap-AB: 64-column weight slabs as the M side, the C-tile of
+16 to 160 tokens as N) with the slabs streamed through a ring of
+shared-memory stages by asynchronous copies, in two launches per call: one
+writes h = silu(x Wg) * (x Wu), rounded to bf16, into a scratch
+(E, C, F) that the wrapper allocates, one multiplies it by Wd.  F must be
+a multiple of 64 and D of 128.  fp32 stays on the CUDA cores in
+fp32 FMA (the port holds fp32 to 2e-5, which TF32 cannot meet): one block
+per (expert, 16-row C-tile) with x and h in shared memory, so D + F is
+bounded by a block's shared memory.  ``csrc/moe_ffn_quant.cu`` keeps that
+CUDA-core design for both types, reading int8 or packed int4 payload plus
+one fp32 scale per 128-row block.
+
+Each wrapper launches its kernel on CUDA tensors and counts the call (one
+per call, whatever the launches inside) in its ``launches``;
+``moe_ffn_plain`` / ``moe_ffn_quant_plain`` are the same functions in
+torch ops (``kernels/ref.py::moe_ffn_ref`` and ``moe_ffn_ref_quant``), used
+on the CPU and as the yardstick on the card.
 """
 from __future__ import annotations
 
@@ -23,8 +36,9 @@ import torch.nn.functional as F
 from repro_torch.core import quant
 from repro_torch.kernels import build
 
-_ROWS = 16                    # C-tile rows per block (csrc/moe_ffn.cu)
-_SMEM_LIMIT = 232448          # dynamic shared memory a Hopper block may use
+_ROWS = 16            # C-tile rows of the CUDA-core kernels (fp32, quantized)
+_SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use
+TILE = 64             # bf16 tensor-core kernel: F tile; D tiles by 2 * TILE
 _ENTRY = {torch.float32: "moe_ffn_f32", torch.bfloat16: "moe_ffn_bf16"}
 _ENTRY_QUANT = {torch.float32: "moe_ffn_quant_f32",
                 torch.bfloat16: "moe_ffn_quant_bf16"}
@@ -38,6 +52,36 @@ def moe_ffn_plain(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     u = torch.bmm(x.float(), w_up.float())
     h = (F.silu(g) * u).to(x.dtype)
     return torch.bmm(h.float(), w_down.float()).to(x.dtype)
+
+
+def ffn_entry(dtype: torch.dtype) -> str:
+    """The C entry of ``csrc/moe_ffn.cu`` for activations of ``dtype``."""
+    if dtype not in _ENTRY:
+        raise ValueError(f"moe_ffn_kernel: no kernel for {dtype}; "
+                         f"fp32 or bf16")
+    return _ENTRY[dtype]
+
+
+def check_ffn_dims(d: int, f: int, dtype: torch.dtype) -> None:
+    """Raise unless the kernel for ``dtype`` takes widths D and F: bf16
+    tiles F by 64 and D by 128 (its down-projection blocks own 128 columns
+    of D); fp32 keeps a 16-row tile of x and h in one block's shared
+    memory."""
+    if dtype == torch.bfloat16:
+        if d % (2 * TILE) or f % TILE:
+            raise ValueError(f"moe_ffn_kernel: bf16 needs D a multiple of "
+                             f"{2 * TILE} and F of {TILE}, got D={d} F={f}")
+    elif (d + f) * _ROWS * dtype.itemsize > _SMEM_LIMIT:
+        raise ValueError(f"moe_ffn_kernel: D + F = {d + f} exceeds the "
+                         f"shared-memory tile of one block")
+
+
+def h_scratch_spec(e: int, c: int, f: int, dtype: torch.dtype
+                   ) -> tuple[tuple[int, int, int], torch.dtype] | None:
+    """Shape and dtype of the h scratch the bf16 kernel passes between its
+    two launches (h rounded to bf16, as the reference rounds it); None for
+    fp32, which keeps h in shared memory."""
+    return ((e, c, f), torch.bfloat16) if dtype == torch.bfloat16 else None
 
 
 def moe_ffn_kernel(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -58,18 +102,21 @@ def moe_ffn_kernel(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"moe_ffn_kernel: {name} must be contiguous "
                              f"{shape}, got {tuple(t.shape)}")
-    if (d + f) * _ROWS * x.element_size() > _SMEM_LIMIT:
-        raise ValueError(f"moe_ffn_kernel: D + F = {d + f} exceeds the "
-                         f"shared-memory tile of one block")
+    check_ffn_dims(d, f, x.dtype)
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     lib = build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    entry = _ENTRY[x.dtype]
-    build.check(getattr(lib, entry)(
-        x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(), w_down.data_ptr(),
-        y.data_ptr(), e, c, d, f, stream), entry)
+    entry = ffn_entry(x.dtype)
+    ptrs = [x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
+            w_down.data_ptr()]
+    scratch = h_scratch_spec(e, c, f, x.dtype)
+    if scratch is not None:
+        h = torch.empty(scratch[0], dtype=scratch[1], device=x.device)
+        ptrs.append(h.data_ptr())
+    build.check(getattr(lib, entry)(*ptrs, y.data_ptr(), e, c, d, f, stream),
+                entry)
     moe_ffn_kernel.launches += 1
     return y
 

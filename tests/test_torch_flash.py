@@ -116,3 +116,89 @@ def test_cpu_dispatch_launches_no_kernel():
     assert ops.launch_counts()["flash_attention"] == 0
     with pytest.raises(ValueError, match="must be on"):
         flash_attn.flash_attention(q, k, v)
+
+
+def _replay_tiled(q, k, v, *, causal, window, tile=64):
+    """The bf16 CUDA kernel's order of operations in torch: key tiles of
+    ``tile`` keys from key 0; per tile, fp32 logits times hd**-0.5, masked
+    at -1e30, a running max, p = exp(logit - running max) with masked p 0,
+    l summing the unrounded p, and P rounded to bf16 before the fp32 P.V
+    product; out = acc / max(l, 1e-30) in bf16.  (Tiles the kernel skips
+    leave m, l and acc unchanged, so visiting every tile is the same.)"""
+    b, s, hq, hd = q.shape
+    hkv = k.shape[2]
+    qg = q.float().reshape(b, s, hkv, hq // hkv, hd)
+    qp = torch.arange(s)[:, None]
+    m = torch.full((b, hkv, hq // hkv, s), flash_attn.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(b, hkv, hq // hkv, s, hd)
+    for key0 in range(0, s, tile):
+        kt, vt = k[:, key0:key0 + tile].float(), v[:, key0:key0 + tile]
+        kp = torch.arange(key0, key0 + kt.shape[1])[None, :]
+        ok = torch.ones(s, kt.shape[1], dtype=torch.bool)
+        if causal:
+            ok &= kp <= qp
+        if window is not None:
+            ok &= kp > qp - window
+        logit = torch.einsum("bqhgd,bkhd->bhgqk", qg, kt) * hd ** -0.5
+        logit = torch.where(ok, logit, flash_attn.NEG_INF)
+        m_new = torch.maximum(m, logit.amax(-1))
+        p = torch.where(ok, torch.exp(logit - m_new[..., None]), 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.bfloat16().float(), vt.float())
+        m = m_new
+    out = acc / l.clamp_min(1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, hq, hd).bfloat16()
+
+
+@pytest.mark.parametrize("window", [None, 40])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_kernel_tiling_fits_bf16_tolerance(hd, window):
+    """The bf16 kernel rounds p against each 64-key tile's running max, not
+    the final one; replayed in torch at S=300 (ragged against the tiles),
+    that order stays within chip_smoke's bf16 tolerance of the plain
+    version, so the card's check can hold the kernel to it."""
+    rng = np.random.default_rng(hd + (window or 0))
+    mk = lambda *sh: torch.from_numpy(
+        rng.standard_normal(sh).astype(np.float32)).bfloat16()
+    q, k, v = mk(1, 300, 8, hd), mk(1, 300, 2, hd), mk(1, 300, 2, hd)
+    got = _replay_tiled(q, k, v, causal=True, window=window)
+    want = flash_attn.flash_attention_plain(q, k, v, causal=True,
+                                            window=window)
+    err = (got.float() - want.float()).abs()
+    assert float(err.max()) > 0       # the tiled order does round apart
+    np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                               rtol=TOL["bfloat16"], atol=TOL["bfloat16"])
+
+
+# the main path's views: k and v are halves of one (B, S, 2 Hkv, hd) tensor
+_KV_STRIDES = (2048 * 8 * 128, 8 * 128, 128, 1)
+
+
+@pytest.mark.parametrize("dtype,ptr,strides,ok", [
+    (torch.bfloat16, 0x7f0000000000, _KV_STRIDES, True),
+    (torch.bfloat16, 0x7f0000000000 + 4 * 128 * 2, _KV_STRIDES, True),
+    (torch.bfloat16, 0x7f0000000000 + 2, _KV_STRIDES, False),
+    (torch.bfloat16, 0x7f0000000000, (2048 * 900, 900, 128, 1), False),
+    (torch.bfloat16, 0x7f0000000000, (2048 * 1028, 1028, 68, 1), False),
+    (torch.bfloat16, 0x7f0000000000, (2048 * 1032, 1032, 128, 1), True),
+    (torch.float32, 0x7f0000000000 + 4, (2048 * 900, 900, 68, 1), True),
+])
+def test_copy_alignment_check(dtype, ptr, strides, ok):
+    """The bf16 kernel copies head rows in 16-byte chunks: its base address
+    and batch/sequence/head strides must be 16-byte aligned (a misaligned
+    view raises; nothing falls back).  fp32 reads element by element."""
+    if ok:
+        flash_attn.check_copy_alignment("k", dtype, ptr, strides)
+    else:
+        with pytest.raises(ValueError, match="16-byte-aligned"):
+            flash_attn.check_copy_alignment("k", dtype, ptr, strides)
+
+
+def test_entries_by_dtype():
+    assert flash_attn.flash_entry(torch.float32) == "flash_attention_f32"
+    assert flash_attn.flash_entry(torch.bfloat16) == "flash_attention_bf16"
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attn.flash_entry(torch.float16)

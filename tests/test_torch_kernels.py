@@ -349,3 +349,41 @@ def test_kernel_wrappers_refuse_grad(entry):
     with torch.no_grad(), pytest.raises(ValueError, match="must be on"):
         call()
     assert ops.launch_counts()[entry] == 0
+
+
+@pytest.mark.parametrize("d,f,dtype,ok", [
+    (2048, 768, torch.bfloat16, True),      # qwen3-moe-30b-a3b
+    (256, 512, torch.bfloat16, True),       # its reduced config
+    (96, 80, torch.bfloat16, False),
+    (2048, 700, torch.bfloat16, False),
+    (2040, 768, torch.bfloat16, False),
+    (192, 768, torch.bfloat16, False),      # D tiles by 128
+    (96, 80, torch.float32, True),          # fp32: any D + F that fits
+    (2048, 768, torch.float32, True),
+    (2048, 2048, torch.float32, False),
+])
+def test_ffn_dims_check(d, f, dtype, ok):
+    """bf16 tiles F by 64 and D by 128 and raises on anything else (no
+    fallback); fp32 keeps its shared-memory bound on D + F."""
+    from repro_torch.kernels import moe_gemm
+    if ok:
+        moe_gemm.check_ffn_dims(d, f, dtype)
+    else:
+        with pytest.raises(ValueError, match="moe_ffn_kernel"):
+            moe_gemm.check_ffn_dims(d, f, dtype)
+
+
+def test_ffn_h_scratch_and_entries():
+    """bf16 passes h (E, C, F), rounded to bf16, between its two launches
+    through a scratch the wrapper allocates, and its C entry takes that
+    pointer; fp32 keeps h on chip."""
+    from repro_torch.kernels import build, moe_gemm
+    assert moe_gemm.h_scratch_spec(128, 320, 768, torch.bfloat16) == (
+        (128, 320, 768), torch.bfloat16)
+    assert moe_gemm.h_scratch_spec(4, 5, 512, torch.float32) is None
+    assert moe_gemm.ffn_entry(torch.float32) == "moe_ffn_f32"
+    assert moe_gemm.ffn_entry(torch.bfloat16) == "moe_ffn_bf16"
+    with pytest.raises(ValueError, match="no kernel"):
+        moe_gemm.ffn_entry(torch.float16)
+    pointers = lambda name: build.SIGNATURES[name].count(build._P)
+    assert pointers("moe_ffn_bf16") == pointers("moe_ffn_f32") + 1
