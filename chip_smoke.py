@@ -144,7 +144,12 @@ def sass_mma_counts(lib: Path):
         names = subprocess.run([filt], input="\n".join(names),
                                capture_output=True, text=True,
                                timeout=60).stdout.splitlines()
-    short = lambda n: n.replace("(anonymous namespace)::", "").split("(")[0]
+    def short(name: str) -> str:      # "tc::flash_attn_tc_kernel<128>"
+        for junk in ("void ", "(anonymous namespace)::", "<unnamed>::",
+                     "(int)"):
+            name = name.replace(junk, "")
+        end = name.find(">(")
+        return name[:end + 1] if end >= 0 else name.split("(")[0]
     return {short(n): c for n, c in zip(names, counts.values())}
 
 

@@ -1,8 +1,10 @@
-// Shared helpers of the port's hand-written Hopper kernels.
+// Shared helpers of the port's CUDA-core kernels (paged attention, the
+// quantized grouped FFN, and the fp32 grouped FFN and flash attention).
 //
-// Every kernel is instantiated for float and __nv_bfloat16 storage; all
+// These kernels are templates over float and __nv_bfloat16 storage; all
 // arithmetic runs in fp32 (FMA), and values are rounded back to the storage
 // type with round-to-nearest-even exactly where the JAX reference rounds.
+// The bf16 tensor-core kernels use hopper.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -25,16 +25,18 @@
 //     causal is, and rows at or beyond S are neither computed nor written.
 //
 // bf16 runs on the tensor cores (flash_attention_bf16, tc::): one
-// warpgroup of 128 threads per block.  S = Q K^T is a wgmma m64n64k16
-// chain with Q and K from 128-byte-swizzled shared memory (both K-major);
-// the online softmax runs on S in registers, and P, rounded to bf16 in
-// registers, is the A operand of O += P V (wgmma m64n{hd}k16, V read as
-// an MN-major operand), so P never goes to shared memory.  Q (16 KB at
-// hd 128) and K/V tiles are bf16 in shared memory; K/V come through a
-// ring of two stages (2 x 32 KB) fed by 16-byte cp.async copies and
-// guarded by mbarriers, so tile n+1 lands while tile n is computed, and
-// two blocks fit on an SM.  The mask is applied only on tiles that need
-// it: the diagonal, the window's edge and the ragged end.
+// warpgroup of 128 threads per block, two blocks an SM.  Q stays in
+// registers as the A operand of S = Q K^T (wgmma m64n64k16, K read from
+// 128-byte-swizzled shared memory, K-major); the online softmax runs on S
+// in registers, and P, rounded to bf16 in registers, is the A operand of
+// O += P V (wgmma m64n{hd}k16, V read as an MN-major operand), so neither
+// Q nor P goes to shared memory.  Thread 0 streams the K/V tiles with TMA
+// (a 4-d tensor map over the strided k/v views; keys past S read as zero)
+// into a ring of two K and three V slots guarded by mbarriers, two tiles
+// ahead.  Step i issues S_i and P_{i-1} V_{i-1} together and runs the
+// softmax of S_i while the tensor cores finish P_{i-1} V_{i-1}.  The mask
+// is applied only on tiles that need it: the diagonal, the window's edge
+// and the ragged end.
 //
 // fp32 stays on the CUDA cores (flash_attention_f32): the port holds fp32
 // to 2e-5, which TF32 cannot meet.  q (once) and each K tile are staged
@@ -280,7 +282,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <int HD>
 __host__ __device__ constexpr uint32_t tile_bytes() {
-  return 64 * HD * 2;            // 64 rows of HD bf16 (Q, a K or a V tile)
+  return 64 * HD * 2;            // 64 rows of HD bf16 (a K or a V tile)
 }
 
 template <int HD>
@@ -295,27 +297,12 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// Copy 64 rows of HD bf16 (row r from the address row_ptr sets, or zeros
-// where it returns false) into a tile of HD / 64 swizzled 64-column
-// blocks.
-template <int HD, typename RowPtr>
-__device__ __forceinline__ void load_rows(uint32_t dst, RowPtr row_ptr) {
-  constexpr int kChunks = HD / 8;
-#pragma unroll
-  for (int i = threadIdx.x; i < 64 * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bf16* src = nullptr;
-    const bool ok = row_ptr(r, src);
-    cp_async16(dst + (c >> 3) * (64 * 128) + swizzle128(r, c & 7), src + c * 8,
-               ok);
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kThreads, 2)
-    flash_attn_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                         const bf16* __restrict__ v, bf16* __restrict__ out,
-                         Strides st, Geometry geo) {
+    flash_attn_tc_kernel(const bf16* __restrict__ q,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         bf16* __restrict__ out, Strides st, Geometry geo) {
   constexpr uint32_t kTile = tile_bytes<HD>();
   constexpr int kO = HD / 2;                  // O accumulators a thread
   extern __shared__ uint8_t smem[];
@@ -332,8 +319,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int t = threadIdx.x, lane = t & 31;
 
   const bf16* qb = q + b * st.q_b + h * G * st.q_h;
-  const bf16* kb = k + b * st.k_b + h * st.k_h;
-  const bf16* vb = v + b * st.v_b + h * st.v_h;
 
   // the keys this block's rows can attend, in whole 64-key tiles
   const int p_lo = r0 / G;
@@ -343,29 +328,29 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int t_lo = k_lo / 64, n_tiles = k_hi / 64 - t_lo + 1;
 
   if (t == 0) {
-    for (int s = 0; s < kKStages; ++s) mbar_init(k_bars + 8 * s, kThreads);
-    for (int s = 0; s < kVStages; ++s) mbar_init(v_bars + 8 * s, kThreads);
+    for (int s = 0; s < kKStages; ++s) mbar_init(k_bars + 8 * s, 1);
+    for (int s = 0; s < kVStages; ++s) mbar_init(v_bars + 8 * s, 1);
     mbar_fence_init();
   }
   __syncthreads();
 
-  // key tile i: K into K slot i % 2, V into V slot i % 3
+  // key tile i, by thread 0: K into K slot i % 2, V into V slot i % 3, each
+  // as HD / 64 TMA boxes of 64 keys x 64 dims (keys past S read as zero)
   auto load_tile = [&](int i) {
+    if (t != 0) return;
     const int key0 = (t_lo + i) * 64;
-    load_rows<HD>(k_ring + (i % kKStages) * kTile,
-                  [&](int r, const bf16*& src) {
-                    const bool ok = key0 + r < geo.S;
-                    src = kb + (ok ? (key0 + r) * st.k_s : 0);
-                    return ok;
-                  });
-    mbar_arrive_cp_async(k_bars + 8 * (i % kKStages));
-    load_rows<HD>(v_ring + (i % kVStages) * kTile,
-                  [&](int r, const bf16*& src) {
-                    const bool ok = key0 + r < geo.S;
-                    src = vb + (ok ? (key0 + r) * st.v_s : 0);
-                    return ok;
-                  });
-    mbar_arrive_cp_async(v_bars + 8 * (i % kVStages));
+    const uint32_t kbar = k_bars + 8 * (i % kKStages);
+    const uint32_t vbar = v_bars + 8 * (i % kVStages);
+    mbar_arrive_expect_tx(kbar, kTile);
+#pragma unroll
+    for (int blk = 0; blk < HD / 64; ++blk)
+      tma_load_4d(k_ring + (i % kKStages) * kTile + blk * (64 * 128), &k_map,
+                  blk * 64, h, key0, b, kbar);
+    mbar_arrive_expect_tx(vbar, kTile);
+#pragma unroll
+    for (int blk = 0; blk < HD / 64; ++blk)
+      tma_load_4d(v_ring + (i % kVStages) * kTile + blk * (64 * 128), &v_map,
+                  blk * 64, h, key0, b, vbar);
   };
 
   load_tile(0);
@@ -407,7 +392,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto issue_s = [&](int i) {   // S_i = Q K_i^T, K K-major, along hd
     const uint32_t ks = k_ring + (i % kKStages) * kTile;
     mbar_wait(k_bars + 8 * (i % kKStages), (i / kKStages) & 1);
-    fence_proxy_async();
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
@@ -418,7 +402,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   auto issue_pv = [&](int i) {  // O += P_i V_i, V MN-major, along keys
     const uint32_t vs = v_ring + (i % kVStages) * kTile;
     mbar_wait(v_bars + 8 * (i % kVStages), (i / kVStages) & 1);
-    fence_proxy_async();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
       WgmmaRS<HD, 1>::run(o, pa[kk], desc_sw128(vs + kk * 2048, 64 * 128, 1024),
@@ -426,7 +409,10 @@ __global__ void __launch_bounds__(kThreads, 2)
     wgmma_commit();
   };
   // the online softmax of S_i in place (s becomes p, unrounded), with the
-  // factors that rescale O from the old running max to the new one
+  // factors that rescale O from the old running max to the new one.  m
+  // runs over the unscaled dots (the scale is positive), and the scale
+  // folds into the exponent: p = 2^((dot - m) scale log2 e)
+  const float c = geo.scale * kLog2e;
   float corr_a, corr_b;
   auto softmax = [&](int i) {
     const int key0 = (t_lo + i) * 64;
@@ -439,7 +425,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      float x = s[j] * geo.scale;
+      float x = s[j];
       if (edge) {
         const int key = key0 + 8 * (j >> 2) + 2 * (lane & 3) + (j & 1);
         const int pos = (j & 2) ? pos_b : pos_a;
@@ -460,16 +446,16 @@ __global__ void __launch_bounds__(kThreads, 2)
       mx_b = fmaxf(mx_b, __shfl_xor_sync(0xffffffffu, mx_b, off));
     }
     const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    corr_a = ex2((m_a - mn_a) * kLog2e);
-    corr_b = ex2((m_b - mn_b) * kLog2e);
-    const float ml_a = mn_a * kLog2e, ml_b = mn_b * kLog2e;
+    corr_a = ex2((m_a - mn_a) * c);
+    corr_b = ex2((m_b - mn_b) * c);
+    const float ml_a = mn_a * c, ml_b = mn_b * c;
     m_a = mn_a;
     m_b = mn_b;
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const float p = ((ok_bits >> j) & 1)
-                          ? ex2(fmaf(s[j], kLog2e, (j & 2) ? -ml_b : -ml_a))
+                          ? ex2(fmaf(s[j], c, (j & 2) ? -ml_b : -ml_a))
                           : 0.f;
       s[j] = p;
       if (j & 2) sum_b += p;
@@ -547,9 +533,30 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// The TMA map of k or v (B, S, Hkv, HD) read by its strides (elements);
+// a box is 64 dims of one head at 64 positions of one batch row.
+int kv_map(CUtensorMap* map, const bf16* base, long long b_stride,
+           long long s_stride, long long h_stride, int B, int S, int Hkv,
+           int hd) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(hd),
+                              static_cast<cuuint64_t>(Hkv),
+                              static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(h_stride) * 2,
+                                 static_cast<cuuint64_t>(s_stride) * 2,
+                                 static_cast<cuuint64_t>(b_stride) * 2};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  return encode_tma_bf16(map, base, 4, dims, strides, box);
+}
+
 template <int HD>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
            const Strides& st, int B, const Geometry& geo, cudaStream_t s) {
+  CUtensorMap k_map, v_map;
+  int rc = kv_map(&k_map, k, st.k_b, st.k_s, st.k_h, B, geo.S, geo.Hkv, HD);
+  if (rc != 0) return rc;
+  rc = kv_map(&v_map, v, st.v_b, st.v_s, st.v_h, B, geo.S, geo.Hkv, HD);
+  if (rc != 0) return rc;
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_attn_tc_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -558,7 +565,8 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
   const int G = geo.Hq / geo.Hkv;
   const long long tiles = (static_cast<long long>(geo.S) * G + 63) / 64;
   const dim3 grid(static_cast<unsigned>(tiles), geo.Hkv, B);
-  flash_attn_tc_kernel<HD><<<grid, kThreads, smem, s>>>(q, k, v, out, st, geo);
+  flash_attn_tc_kernel<HD><<<grid, kThreads, smem, s>>>(q, k_map, v_map, out,
+                                                        st, geo);
   return static_cast<int>(cudaGetLastError());
 }
 

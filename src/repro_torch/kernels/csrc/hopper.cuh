@@ -1,7 +1,8 @@
 // Hopper building blocks of the port's bf16 tensor-core kernels
-// (csrc/flash_attn.cu, csrc/moe_ffn.cu): 16-byte cp.async copies into
-// 128-byte-swizzled shared-memory tiles, mbarriers that track them, wgmma
-// matrix descriptors and the warpgroup matrix multiplies themselves.
+// (csrc/flash_attn.cu, csrc/moe_ffn.cu): 16-byte cp.async copies and TMA
+// tile loads into 128-byte-swizzled shared-memory tiles, mbarriers that
+// track them, wgmma matrix descriptors and the warpgroup matrix
+// multiplies themselves.
 //
 // Tile layout.  Every operand tile is a stack of rows of 64 bf16 (128
 // bytes) whose 16-byte chunk j of row r sits at chunk j ^ (r % 8): the
@@ -15,9 +16,12 @@
 //     byte offset the distance to the next 64 values of M or N, and the
 //     k-th 16-deep slice starts 2048 * k bytes in.
 // wgmma reads shared memory through the async proxy, so data that cp.async
-// wrote is fenced (fence.proxy.async) after its mbarrier completes.
+// wrote is fenced (fence.proxy.async) after its mbarrier completes; TMA
+// writes through the async proxy itself.  A TMA box of 64 rows of 64 bf16
+// with CU_TENSOR_MAP_SWIZZLE_128B lands in exactly this layout.
 #pragma once
 
+#include <cuda.h>            // CUtensorMap (no -lcuda: see encode_tma_bf16)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +77,63 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "r"(bar), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// The barrier's current phase also waits for ``bytes`` of TMA traffic;
+// this is the phase's one arrival.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+// TMA: the box of ``map`` at coordinates {c0, c1, c2, c3} (innermost
+// first) into shared memory at ``dst``, completing on barrier ``bar``.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map, int c0,
+                                            int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// A bf16 tensor map of ``rank`` dimensions (sizes and byte strides of
+// dims 1.., innermost first) with boxes of ``box`` elements, 128-byte
+// swizzle, out-of-range elements read as zero.  cuTensorMapEncodeTiled is
+// taken through the runtime's driver entry point, so the library needs no
+// -lcuda.  Returns a cudaError_t.
+inline int encode_tma_bf16(CUtensorMap* map, const void* base, int rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  using Encode = CUresult (*)(
+      CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+      const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+      const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+      CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint32_t elem_strides[5] = {1, 1, 1, 1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, static_cast<cuuint32_t>(rank),
+      const_cast<void*>(base), dims, strides, box, elem_strides,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Generic-proxy writes (cp.async) made visible to wgmma's async proxy.

@@ -15,13 +15,13 @@ The kernel (``csrc/flash_attn.cu``) is bound by operations on an H100
 (0.07 ms of bf16 tensor-core work at B=2, S=2048, Hq=32, hd=128, causal).
 Both types run one block per 64 grouped query rows of one kv head and skip
 key tiles wholly above the diagonal or wholly below the window.  bf16 runs
-both products on the tensor cores (wgmma, fp32 accumulation, P kept in
-registers) with K/V tiles streamed through a two-stage shared-memory ring
-by 16-byte asynchronous copies, so q, k and v must have 16-byte-aligned
-base addresses and strides (``check_copy_alignment``).  fp32 stays on the
-CUDA cores in fp32 FMA: the port holds it to 2e-5, which TF32 cannot meet
-(see the source note).  ``flash_attention`` launches the kernel on CUDA
-tensors and counts the launch in its ``launches``;
+both products on the tensor cores (wgmma, fp32 accumulation, Q and P kept
+in registers) with K/V tiles streamed into shared-memory rings by TMA, so
+q, k and v must have 16-byte-aligned base addresses and strides
+(``check_copy_alignment``).  fp32 stays on the CUDA cores in fp32 FMA: the
+port holds it to 2e-5, which TF32 cannot meet (see the source note).
+``flash_attention`` launches the kernel on CUDA tensors and counts the
+launch in its ``launches``;
 ``flash_attention_plain`` is the dense masked oracle
 (``kernels/ref.py::flash_attention_ref``) in torch ops, used on the CPU and
 as the yardstick on the card.
@@ -74,10 +74,10 @@ def flash_entry(dtype: torch.dtype) -> str:
 
 def check_copy_alignment(name: str, dtype: torch.dtype, data_ptr: int,
                          strides: tuple[int, ...]) -> None:
-    """Raise unless the kernel for ``dtype`` can copy ``name``'s rows: the
-    bf16 kernel moves each head row in 16-byte chunks, so the base address
-    and the (batch, sequence, head) strides must be 16-byte aligned.  The
-    fp32 kernel reads element by element and takes any."""
+    """Raise unless the kernel for ``dtype`` can read ``name``: the bf16
+    kernel reads k and v through TMA tensor maps, which need 16-byte-aligned
+    base addresses and (batch, sequence, head) strides, and holds q to the
+    same.  The fp32 kernel reads element by element and takes any."""
     if dtype != torch.bfloat16:
         return
     elt = dtype.itemsize

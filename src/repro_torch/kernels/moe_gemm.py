@@ -102,6 +102,9 @@ def moe_ffn_kernel(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
         if tuple(t.shape) != shape or not t.is_contiguous():
             raise ValueError(f"moe_ffn_kernel: {name} must be contiguous "
                              f"{shape}, got {tuple(t.shape)}")
+        if x.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"moe_ffn_kernel: bf16 {name} needs a "
+                             f"16-byte-aligned address (16-byte copies)")
     check_ffn_dims(d, f, x.dtype)
     y = torch.empty_like(x)
     if x.numel() == 0:

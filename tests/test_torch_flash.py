@@ -187,9 +187,9 @@ _KV_STRIDES = (2048 * 8 * 128, 8 * 128, 128, 1)
     (torch.float32, 0x7f0000000000 + 4, (2048 * 900, 900, 68, 1), True),
 ])
 def test_copy_alignment_check(dtype, ptr, strides, ok):
-    """The bf16 kernel copies head rows in 16-byte chunks: its base address
-    and batch/sequence/head strides must be 16-byte aligned (a misaligned
-    view raises; nothing falls back).  fp32 reads element by element."""
+    """The bf16 kernel reads k/v through TMA: base addresses and
+    batch/sequence/head strides must be 16-byte aligned (a misaligned view
+    raises; nothing falls back).  fp32 reads element by element."""
     if ok:
         flash_attn.check_copy_alignment("k", dtype, ptr, strides)
     else:
