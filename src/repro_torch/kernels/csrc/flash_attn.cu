@@ -421,7 +421,6 @@ __global__ void __launch_bounds__(kThreads, 2)
     const bool edge = key0 + 63 >= geo.S ||
                       (geo.causal && key0 + 63 > p_lo) ||
                       (geo.window > 0 && key0 <= p_hi - geo.window);
-    uint32_t ok_bits = 0xffffffffu;
     float mx_a = kNegInf, mx_b = kNegInf;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
@@ -431,10 +430,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         const int pos = (j & 2) ? pos_b : pos_a;
         const bool ok = key < geo.S && (!geo.causal || key <= pos) &&
                         (geo.window <= 0 || key > pos - geo.window);
-        if (!ok) {
-          x = kNegInf;
-          ok_bits &= ~(1u << j);
-        }
+        if (!ok) x = kNegInf;
       }
       s[j] = x;
       if (j & 2) mx_b = fmaxf(mx_b, x);
@@ -448,15 +444,17 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
     corr_a = ex2((m_a - mn_a) * c);
     corr_b = ex2((m_b - mn_b) * c);
-    const float ml_a = mn_a * c, ml_b = mn_b * c;
+    // p of a masked key is exactly 0: it underflows against a live row's
+    // max, and a row with no live key yet (max still -1e30) exponentiates
+    // against +inf
+    const float ml_a = mn_a == kNegInf ? INFINITY : mn_a * c;
+    const float ml_b = mn_b == kNegInf ? INFINITY : mn_b * c;
     m_a = mn_a;
     m_b = mn_b;
     float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      const float p = ((ok_bits >> j) & 1)
-                          ? ex2(fmaf(s[j], c, (j & 2) ? -ml_b : -ml_a))
-                          : 0.f;
+      const float p = ex2(fmaf(s[j], c, (j & 2) ? -ml_b : -ml_a));
       s[j] = p;
       if (j & 2) sum_b += p;
       else sum_a += p;
