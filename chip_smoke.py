@@ -12,14 +12,18 @@ line):
   2. build    — compile the kernels from ``src/repro_torch/kernels/csrc``
                 with nvcc for sm_90a; print build seconds, ptxas usage and
                 (where cuobjdump is present) each kernel's count of
-                tensor-core instructions (HGMMA, HMMA) in its SASS.
+                tensor-core instructions (HGMMA, HMMA) in its SASS; the
+                bf16 kernels must hold them, the fp32 ones none.
   3. kernels  — each kernel against its plain PyTorch version at the main
                 path's shapes, fp32 (tol 2e-5) and bf16 (tol 3e-2), with
                 kernel / plain times and the card's bound: paged attention
-                over fp and int8 pools, the grouped FFN over bf16/fp32
+                over fp and int8 pools (decode and prefill at the serve's
+                lengths, windowed, a long-context decode to 4000 tokens;
+                NaN in every row's dead slots), the grouped FFN over bf16/fp32
                 (capacities 16, 40, 320, and the reduced widths at 5 and
                 16; a zero row of x must give an exactly zero row of y),
-                int8 and int4 weights, full-sequence flash attention
+                int8 and int4 weights (at the model's and the reduced
+                widths, zero rows exact), full-sequence flash attention
                 (causal, windowed, non-causal over a ragged S, one partial
                 tile at S=37; hd 128 and 64; beside each bf16 case the
                 time of PyTorch's scaled_dot_product_attention).
@@ -46,6 +50,7 @@ It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import subprocess
 import sys
@@ -82,12 +87,22 @@ def emit(phase: str, **kw) -> None:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches (CUDA events)."""
+    """Mean device time of ``fn`` over ``iters`` launches (CUDA events).
+    A sleep kernel holds the stream while the host enqueues the launches,
+    so a kernel shorter than its wrapper's Python is timed on the device,
+    not at the rate the host can launch it."""
     import torch
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0          # one call, host and device
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # at most 2 GHz: the sleep outlasts twice the enqueue time (capped)
+    torch.cuda._sleep(int(min(2 * iters * host_s, 0.5) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -153,19 +168,47 @@ def sass_mma_counts(lib: Path):
     return {short(n): c for n, c in zip(names, counts.values())}
 
 
+# kernels whose every instantiation must (or must not) hold tensor-core
+# instructions: the bf16 ones on wgmma (HGMMA), the bf16 paged kernel on
+# mma.sync (HMMA) or wgmma, the fp32 ones on the CUDA cores
+SASS_RULES = {"moe_quant_gate_up_kernel": "HGMMA", "moe_quant_down_kernel":
+              "HGMMA", "moe_gate_up_kernel": "HGMMA",
+              "moe_down_kernel": "HGMMA", "flash_attn_tc_kernel": "HGMMA",
+              "paged_attn_tc_kernel": "HMMA|HGMMA",
+              "paged_attn_f32_kernel": "none",
+              "moe_ffn_quant_kernel": "none"}
+
+
+def check_sass(counts) -> dict:
+    """Hold each kernel of SASS_RULES to its rule; each must be found."""
+    check(counts is not None, "no cuobjdump: tensor-core use unchecked")
+    seen = {}
+    for rule_name, rule in SASS_RULES.items():
+        found = {n: c for n, c in counts.items() if f"{rule_name}<" in n}
+        check(found, f"SASS: no instantiation of {rule_name}")
+        for n, c in found.items():
+            held = (c["HGMMA"] + c["HMMA"] == 0 if rule == "none"
+                    else sum(c[op] for op in rule.split("|")) > 0)
+            check(held, f"SASS: {n} has {c}, expected {rule}")
+        seen[rule_name] = len(found)
+    return seen
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def paged_case(torch, dtype, t: int, window, seed: int = 0, int8=False):
+def paged_case(torch, dtype, t: int, window, seed: int = 0, int8=False,
+               lengths=(0, 17, 100, 250), seg=None, hd: int = 128):
     """Main-path attention shapes: B=4, Hq=32, Hkv=4, hd=128, ps=16, ragged
     lengths and seg_lens, block tables over a shuffled pool whose
     unreferenced pages hold NaN (an int8 pool: NaN scales).  Returns the
     pools as (k, v) or, int8, (k, v, k_scale, v_scale)."""
-    b, hq, hkv, hd, ps = 4, 32, 4, 128, 16
-    lengths = np.array([0, 17, 100, 250], np.int32)
-    seg = (np.array([1, 0, 1, 1], np.int32) if t == 1
-           else np.array([t, 0, 13, t], np.int32))
+    b, hq, hkv, ps = 4, 32, 4, 16
+    lengths = np.array(lengths, np.int32)
+    if seg is None:
+        seg = [1, 0, 1, 1] if t == 1 else [t, 0, 13, t]
+    seg = np.array(seg, np.int32)
     nb = -(-(int(lengths.max()) + t) // ps) + 1
     num_pages = b * nb + 8
     rng = np.random.default_rng(seed)
@@ -213,38 +256,86 @@ def paged_bound(q, kp, lengths, seg, window, dtype: str):
     return bound(nbytes, flops, dtype)
 
 
+def dead_slots_nan(pools, bt, lengths, seg, ps: int):
+    """NaN into the dead slots of each row's last live page (past its last
+    position, lengths + seg - 1; an int8 pool: their scales).  Returns the
+    pools the kernel reads and a copy with those slots zeroed for the plain
+    version, which multiplies p = 0 by V as the reference does."""
+    nan_pools, clean = [p.clone() for p in pools], [p.clone() for p in pools]
+    idx = (2, 3) if len(pools) == 4 else (0, 1)
+    for r in range(bt.shape[0]):
+        last = int(lengths[r]) + int(seg[r]) - 1
+        if last < 0 or last % ps == ps - 1:
+            continue
+        page = int(bt[r, last // ps])
+        for i in idx:
+            nan_pools[i][page, last % ps + 1:] = float("nan")
+            clean[i][page, last % ps + 1:] = 0
+    return nan_pools, clean
+
+
+# (T, window, lengths, seg_lens, hd): decode and prefill/mixed at the
+# serve's lengths, windowed, a long-context decode (about 14 MB of live
+# K/V), and the widest head dim the kernels take (fp32 pools then stage one
+# step at a time)
+PAGED_CASES = [(1, None, None, None, 128), (1, 64, None, None, 128),
+               (32, None, None, None, 128), (32, 64, None, None, 128),
+               (1, None, (0, 1000, 2000, 4000), (1, 1, 1, 1), 128),
+               (32, None, None, None, 256)]
+
+
 def check_paged_attention(torch, results):
+    """Each paged entry against its plain version; every case also holds
+    NaN in the dead slots of each row's last live page."""
     from repro_torch.kernels import paged_attn
     for int8 in (False, True):
         name = "paged_attention_int8" if int8 else "paged_attention"
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
-            for t in (1, 32):
-                for window in (None, 64):
-                    q, pools, bt, ln, sg, win = paged_case(
-                        torch, dtype, t, window, int8=int8)
-                    kp, vp = pools[:2]
-                    scales = dict(zip(("k_scale", "v_scale"), pools[2:]))
-                    run_k = lambda: getattr(paged_attn, name)(
-                        q, *pools, bt, ln, sg, window=win)
-                    run_p = lambda: paged_attn.paged_attention_plain(
-                        q, kp, vp, bt, ln, sg, window=win, **scales)
-                    got, want = run_k(), run_p()
-                    torch.cuda.synchronize()
-                    tmask = (torch.arange(t, device="cuda")[None, :]
-                             < sg[:, None].long())         # (B, T) valid
-                    check(bool((got[~tmask] == 0).all()),
-                          f"{name}: padding rows are not exactly zero")
-                    err, rel = compare(got, want, TOL[dname], tmask)
-                    ms, plain_ms = time_ms(run_k, 50), time_ms(run_p, 10)
-                    bms, by = paged_bound(q, kp, ln.cpu().numpy(),
-                                          sg.cpu().numpy(), win, dname)
-                    row = dict(kernel=name, dtype=dname, T=t, window=win,
-                               max_abs_err=err, max_rel_err=rel,
-                               kernel_ms=ms, plain_ms=plain_ms,
-                               bound_ms=bms, bound_by=by)
-                    emit("kernels", **row)
-                    results.append(row)
+            for t, window, lengths, seg, hd in PAGED_CASES:
+                if lengths is not None and dname != "bfloat16":
+                    continue
+                kw = {} if lengths is None else dict(lengths=lengths, seg=seg)
+                kw["hd"] = hd
+                q, pools, bt, ln, sg, win = paged_case(
+                    torch, dtype, t, window, int8=int8, **kw)
+                pools, clean = dead_slots_nan(pools, bt.cpu(),
+                                              ln.cpu(), sg.cpu(), 16)
+                kp, vp = clean[:2]
+                scales = dict(zip(("k_scale", "v_scale"), clean[2:]))
+                run_k = lambda: getattr(paged_attn, name)(
+                    q, *pools, bt, ln, sg, window=win)
+                run_p = lambda: paged_attn.paged_attention_plain(
+                    q, kp, vp, bt, ln, sg, window=win, **scales)
+                got, want = run_k(), run_p()
+                torch.cuda.synchronize()
+                tmask = (torch.arange(t, device="cuda")[None, :]
+                         < sg[:, None].long())         # (B, T) valid
+                check(bool((got[~tmask] == 0).all()),
+                      f"{name}: padding rows are not exactly zero")
+                err, rel = compare(got, want, TOL[dname], tmask)
+                ms, plain_ms = time_ms(run_k, 50), time_ms(run_p, 10)
+                bms, by = paged_bound(q, kp, ln.cpu().numpy(),
+                                      sg.cpu().numpy(), win, dname)
+                row = dict(kernel=name, dtype=dname, T=t, window=win, hd=hd,
+                           lengths=[int(v) for v in ln.cpu()],
+                           splits=paged_splits(paged_attn, q, kp, bt),
+                           dead_slots_nan=True, max_abs_err=err,
+                           max_rel_err=rel, kernel_ms=ms, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by)
+                emit("kernels", **row)
+                results.append(row)
+                del q, pools, clean, kp, vp, scales, got, want
+
+
+def paged_splits(paged_attn, q, kp, bt) -> int:
+    """The split count the wrapper chose for this case (shapes only)."""
+    import torch
+    b, t, hq, _ = q.shape
+    _, ps, hkv, _ = kp.shape
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    return paged_attn.num_splits(b, t * (hq // hkv), hkv, bt.shape[1], ps,
+                                 sms)
 
 
 # (E, C, D, F): the model's widths at the serve's prefill blocks (16, 40)
@@ -286,14 +377,20 @@ def check_moe_ffn(torch, results):
             del x, wg, wu, wd, got, want
 
 
+# (E, D, F, capacities): the model's widths at the serve's prefill blocks,
+# and the reduced config's widths at a ragged and a whole C-tile
+QUANT_CASES = [(128, 2048, 768, (16, 40)), (4, 256, 512, (5, 16))]
+
+
 def check_moe_ffn_quant(torch, results):
-    """The quantized grouped FFN at the main path's shapes: weights drawn in
-    fp32 on the card and quantized (block 128) as the engine does on load."""
+    """The quantized grouped FFN: weights drawn in fp32 on the card and
+    quantized (block 128) as the engine does on load; a zero row of x must
+    give an exactly zero row of y."""
     from repro_torch.core import quant
     from repro_torch.kernels import moe_gemm
-    e, d, f = 128, 2048, 768
-    for level, bits in (("int8", 8), ("int4", 4)):
-        g = torch.Generator(device="cuda").manual_seed(bits)
+    for (e, d, f, caps), (level, bits) in itertools.product(
+            QUANT_CASES, (("int8", 8), ("int4", 4))):
+        g = torch.Generator(device="cuda").manual_seed(bits + e)
         mk = lambda shape, s: torch.randn(shape, generator=g,
                                           device="cuda") * s
         ws = [quant.quantize(mk(shape, shape[1] ** -0.5), level, block=128)
@@ -301,12 +398,16 @@ def check_moe_ffn_quant(torch, results):
         wbytes = sum(w.nbytes() for w in ws)
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
-            for c in (16, 40):
+            for c in caps:
                 x = mk((e, c, d), 1.0).to(dtype)
+                x[:, -1] = 0          # a padding row of every expert
                 run_k = lambda: moe_gemm.moe_ffn_kernel_quant(x, *ws)
                 run_p = lambda: moe_gemm.moe_ffn_quant_plain(x, *ws)
                 got, want = run_k(), run_p()
                 torch.cuda.synchronize()
+                check(bool((got[:, -1] == 0).all()),
+                      f"moe_ffn_quant {level} {dname} C={c}: a zero row of "
+                      f"x gave a nonzero row of y")
                 err, rel = compare(got, want, TOL[dname])
                 ms, plain_ms = time_ms(run_k, 10), time_ms(run_p, 5)
                 bms, by = bound(2 * x.numel() * x.element_size() + wbytes,
@@ -700,6 +801,12 @@ def check_serve_quant(torch):
     return launches
 
 
+# the port's kernels, as the profiler names them
+PORT_KERNELS = ("paged_attn_", "paged_combine_kernel", "moe_ffn_kernel",
+                "moe_ffn_quant_kernel", "moe_gate_up_kernel",
+                "moe_down_kernel", "moe_quant_", "flash_attn_")
+
+
 def profile_window(torch, work, of: str):
     """Where the device time goes: ``work`` (two more requests, or one
     forward) under torch.profiler; prints the device-busy share of the
@@ -719,19 +826,23 @@ def profile_window(torch, work, of: str):
               if e.device_type == DeviceType.CUDA and dev(e) > 0]
     busy_ms = sum(dev(e) for e in events)
     top = sorted(events, key=dev, reverse=True)[:8]
+    row = lambda e: {"name": e.key[:90], "ms": dev(e), "calls": e.count}
     emit("profile", of=of, wall_ms=wall_ms, device_busy_ms=busy_ms,
          device_busy_share=busy_ms / wall_ms if wall_ms else None,
-         top=[{"name": e.key[:90], "ms": dev(e), "calls": e.count}
-              for e in top])
+         top=[row(e) for e in top],
+         port_kernels=[row(e) for e in events
+                       if any(k in e.key for k in PORT_KERNELS)])
 
 
 # kernels-line entries: (name, shape picked from phase 3, source, the TPU
 # kernel it replaces, the run whose launches it reports)
 LINE = [
-    ("paged_attention", dict(dtype="bfloat16", T=32, window=None),
+    ("paged_attention", dict(dtype="bfloat16", T=32, window=None, hd=128,
+                             lengths=[0, 17, 100, 250]),
      "src/repro_torch/kernels/csrc/paged_attn.cu",
      "src/repro/kernels/paged_attn.py:121", "serve"),
-    ("paged_attention_int8", dict(dtype="bfloat16", T=32, window=None),
+    ("paged_attention_int8", dict(dtype="bfloat16", T=32, window=None,
+                                  hd=128, lengths=[0, 17, 100, 250]),
      "src/repro_torch/kernels/csrc/paged_attn.cu",
      "src/repro/kernels/paged_attn.py:121", "serve_quant"),
     ("moe_ffn", dict(dtype="bfloat16", E=128, C=16),
@@ -740,10 +851,10 @@ LINE = [
     ("moe_ffn", dict(dtype="bfloat16", E=128, C=320),
      "src/repro_torch/kernels/csrc/moe_ffn.cu",
      "src/repro/kernels/moe_gemm.py:52", "forward"),
-    ("moe_ffn_quant", dict(dtype="bfloat16", C=16, bits=8),
+    ("moe_ffn_quant", dict(dtype="bfloat16", E=128, C=16, bits=8),
      "src/repro_torch/kernels/csrc/moe_ffn_quant.cu",
      "src/repro/kernels/moe_gemm.py:145", "serve_quant"),
-    ("moe_ffn_quant", dict(dtype="bfloat16", C=16, bits=4),
+    ("moe_ffn_quant", dict(dtype="bfloat16", E=128, C=16, bits=4),
      "src/repro_torch/kernels/csrc/moe_ffn_quant.cu",
      "src/repro/kernels/moe_gemm.py:145", "reduced_int4"),
     ("flash_attention", dict(dtype="bfloat16", S=2048, hd=128, causal=True,
@@ -802,9 +913,10 @@ def main() -> int:
     ptxas = [line.strip() for rep in info["ptxas"].values()
              for line in rep.splitlines()
              if "registers" in line or "spill" in line]
+    counts = sass_mma_counts(path)
     emit("build", seconds=info["seconds"], cached=info["cached"],
-         library=path.name, ptxas=ptxas,
-         tensor_core_instructions=sass_mma_counts(path))
+         library=path.name, ptxas=ptxas, tensor_core_instructions=counts,
+         sass_rules_held=check_sass(counts))
     build.library()
 
     results = []

@@ -39,12 +39,13 @@ _L = ctypes.c_longlong
 SIGNATURES = {
     "moe_ffn_f32": [_P] * 5 + [_I] * 4 + [_P],
     "moe_ffn_bf16": [_P] * 6 + [_I] * 4 + [_P],
-    "paged_attention_f32": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P],
-    "paged_attention_bf16": [_P] * 7 + [_I] * 9 + [ctypes.c_float, _P],
-    "paged_attention_int8_f32": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
-    "paged_attention_int8_bf16": [_P] * 9 + [_I] * 9 + [ctypes.c_float, _P],
+    "paged_attention_f32": [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
+    "paged_attention_bf16": [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
+    "paged_attention_int8_f32": [_P] * 11 + [_I] * 10 + [ctypes.c_float, _P],
+    "paged_attention_int8_bf16": [_P] * 11 + [_I] * 10
+    + [ctypes.c_float, _P],
     "moe_ffn_quant_f32": [_P] * 8 + [_I] * 6 + [_P],
-    "moe_ffn_quant_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "moe_ffn_quant_bf16": [_P] * 9 + [_I] * 6 + [_P],
     "flash_attention_f32": [_P] * 4 + [_L] * 9 + [_I] * 7
     + [ctypes.c_float, _P],
     "flash_attention_bf16": [_P] * 4 + [_L] * 9 + [_I] * 7

@@ -1,8 +1,9 @@
 // Hopper building blocks of the port's bf16 tensor-core kernels
-// (csrc/flash_attn.cu, csrc/moe_ffn.cu): 16-byte cp.async copies and TMA
-// tile loads into 128-byte-swizzled shared-memory tiles, mbarriers that
-// track them, wgmma matrix descriptors and the warpgroup matrix
-// multiplies themselves.
+// (csrc/flash_attn.cu, csrc/moe_ffn.cu, csrc/moe_ffn_quant.cu,
+// csrc/paged_attn.cu): cp.async copies and TMA tile loads into
+// 128-byte-swizzled shared-memory tiles, mbarriers that track them, wgmma
+// matrix descriptors and the warpgroup matrix multiplies themselves, and
+// the warp-level mma.sync / ldmatrix pair for 16-row tiles.
 //
 // Tile layout.  Every operand tile is a stack of rows of 64 bf16 (128
 // bytes) whose 16-byte chunk j of row r sits at chunk j ^ (r % 8): the
@@ -45,6 +46,25 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(valid ? 16 : 0)
                : "memory");
+}
+
+// 4-byte global -> shared copy (through L1), zero-filled when !valid.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// cp.async groups: close the copies issued so far into a group; wait
+// until at most N of this thread's groups are still in flight.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -333,6 +353,43 @@ struct WgmmaSS<160, TA, TB> {
 };
 
 template <int TB>
+struct WgmmaRS<16, TB> {
+  static __device__ __forceinline__ void run(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <int TB>
+struct WgmmaRS<32, TB> {
+  static __device__ __forceinline__ void run(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+template <int TB>
 struct WgmmaRS<64, TB> {
   static __device__ __forceinline__ void run(float (&d)[32],
                                              const uint32_t (&a)[4],
@@ -395,5 +452,116 @@ struct WgmmaRS<128, TB> {
           "n"(TB));
   }
 };
+
+template <int TB>
+struct WgmmaRS<160, TB> {
+  static __device__ __forceinline__ void run(float (&d)[80],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63,"
+        "%64, %65, %66, %67, %68, %69, %70, %71,"
+        "%72, %73, %74, %75, %76, %77, %78, %79}, "
+        "{%80, %81, %82, %83}, %84, p, 1, 1, %86;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+          "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+          "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+          "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+          "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+          "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+          "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+          "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d),
+          "n"(TB));
+  }
+};
+
+// Accumulator value i of this thread in a wgmma m64nN tile: its row of
+// the 64 and its column of the N.
+__device__ __forceinline__ int wgmma_acc_row(int i) {
+  const int t = threadIdx.x & 127;
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int wgmma_acc_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// int8 -> fp32 without the conversion pipe: byte n of ``biased`` (the
+// payload word XOR 0x80808080) becomes the float 2^23 + (q + 128), and
+// subtracting 2^23 + 128 leaves q exactly (byte_perm, then one add).
+__device__ __forceinline__ float s8_to_f32(uint32_t biased, int n) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440u | n)) -
+         8388736.f;
+}
+
+// The same for a sign-extended nibble: byte n of ``biased`` holds the
+// nibble XOR 8 (so q + 8); subtracting 2^23 + 8 leaves q.
+__device__ __forceinline__ float s4_to_f32(uint32_t biased, int n) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440u | n)) -
+         8388616.f;
+}
+
+// ---------------------------------------------------------------------------
+// Warp-level tensor-core products for 16-row tiles (mma.sync m16n8k16).
+// Fragments of lane l (g = l / 4, c = l % 4), two bf16 per register, the
+// lower index in the low half:
+//   A (16 x 16, row-major): {row g, k 2c..2c+1}, {row g+8, k 2c..},
+//                           {row g, k 2c+8..}, {row g+8, k 2c+8..};
+//   B (16 x 8):             {k 2c..2c+1, col g}, {k 2c+8.., col g};
+//   C (16 x 8, fp32):       {row g, col 2c}, {g, 2c+1}, {g+8, 2c}, {g+8, 2c+1}.
+// ldmatrix x4 loads four 8 x 8 bf16 matrices whose row addresses come from
+// lanes 0-7, 8-15, 16-23 and 24-31; lane l receives row l / 4, columns
+// 2 (l % 4)..+1 of each (with .trans: column l / 4, rows 2 (l % 4)..+1).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// d (16 x 8, fp32) += a (16 x 16) * b (16 x 8), bf16 operands.
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
 
 }  // namespace hopper

@@ -233,16 +233,6 @@ struct Mainloop {
   }
 };
 
-// Accumulator value i of this thread: its row of the 64-row tile and its
-// column (token) of the N-wide tile.
-__device__ __forceinline__ int acc_row(int i) {
-  const int t = threadIdx.x;
-  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
-}
-__device__ __forceinline__ int acc_col(int i) {
-  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
-}
-
 // h[e, c, f0 + 64) = bf16(silu(x Wg) * (x Wu)) for one C-tile.
 template <int N, int STAGES>
 __global__ void __launch_bounds__(kThreads)
@@ -261,10 +251,10 @@ __global__ void __launch_bounds__(kThreads)
   bf16* he = h + static_cast<size_t>(e) * C * F + f0;
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
-    const int c = c0 + acc_col(i);
+    const int c = c0 + wgmma_acc_col(i);
     if (c < C) {
       const float g = acc[0][i];
-      he[static_cast<size_t>(c) * F + acc_row(i)] =
+      he[static_cast<size_t>(c) * F + wgmma_acc_row(i)] =
           __float2bfloat16(g / (1.f + expf(-g)) * acc[1][i]);
     }
   }
@@ -288,11 +278,11 @@ __global__ void __launch_bounds__(kThreads)
   bf16* ye = y + static_cast<size_t>(e) * C * D + d0;
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
-    const int c = c0 + acc_col(i);
+    const int c = c0 + wgmma_acc_col(i);
     if (c < C) {
 #pragma unroll
       for (int s = 0; s < 2; ++s)
-        ye[static_cast<size_t>(c) * D + s * kTile + acc_row(i)] =
+        ye[static_cast<size_t>(c) * D + s * kTile + wgmma_acc_row(i)] =
             __float2bfloat16(acc[s][i]);
     }
   }

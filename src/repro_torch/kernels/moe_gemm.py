@@ -18,9 +18,11 @@ writes h = silu(x Wg) * (x Wu), rounded to bf16, into a scratch
 a multiple of 64 and D of 128.  fp32 stays on the CUDA cores in
 fp32 FMA (the port holds fp32 to 2e-5, which TF32 cannot meet): one block
 per (expert, 16-row C-tile) with x and h in shared memory, so D + F is
-bounded by a block's shared memory.  ``csrc/moe_ffn_quant.cu`` keeps that
-CUDA-core design for both types, reading int8 or packed int4 payload plus
-one fp32 scale per 128-row block.
+bounded by a block's shared memory.  ``csrc/moe_ffn_quant.cu`` has the same
+two designs over int8 or packed int4 payload with fp32 block scales: bf16
+streams the compressed slabs through the same kind of ring and
+dequantizes each value straight into ``wgmma``'s register operand (same
+geometry and h scratch as bf16 ``moe_ffn``); fp32 keeps the CUDA cores.
 
 Each wrapper launches its kernel on CUDA tensors and counts the call (one
 per call, whatever the launches inside) in its ``launches``;
@@ -36,7 +38,7 @@ import torch.nn.functional as F
 from repro_torch.core import quant
 from repro_torch.kernels import build
 
-_ROWS = 16            # C-tile rows of the CUDA-core kernels (fp32, quantized)
+_ROWS = 16            # C-tile rows of the fp32 CUDA-core kernels
 _SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use
 TILE = 64             # bf16 tensor-core kernel: F tile; D tiles by 2 * TILE
 _ENTRY = {torch.float32: "moe_ffn_f32", torch.bfloat16: "moe_ffn_bf16"}
@@ -62,25 +64,39 @@ def ffn_entry(dtype: torch.dtype) -> str:
     return _ENTRY[dtype]
 
 
-def check_ffn_dims(d: int, f: int, dtype: torch.dtype) -> None:
-    """Raise unless the kernel for ``dtype`` takes widths D and F: bf16
-    tiles F by 64 and D by 128 (its down-projection blocks own 128 columns
-    of D); fp32 keeps a 16-row tile of x and h in one block's shared
-    memory."""
+def check_ffn_dims(d: int, f: int, dtype: torch.dtype,
+                   who: str = "moe_ffn_kernel") -> None:
+    """Raise unless the kernel for ``dtype`` takes widths D and F (the
+    same rule for the fp and the quantized FFN): bf16 tiles F by 64 and D
+    by 128 (its down-projection blocks own 128 columns of D); fp32 keeps a
+    16-row tile of x and h in one block's shared memory."""
     if dtype == torch.bfloat16:
         if d % (2 * TILE) or f % TILE:
-            raise ValueError(f"moe_ffn_kernel: bf16 needs D a multiple of "
+            raise ValueError(f"{who}: bf16 needs D a multiple of "
                              f"{2 * TILE} and F of {TILE}, got D={d} F={f}")
     elif (d + f) * _ROWS * dtype.itemsize > _SMEM_LIMIT:
-        raise ValueError(f"moe_ffn_kernel: D + F = {d + f} exceeds the "
+        raise ValueError(f"{who}: D + F = {d + f} exceeds the "
                          f"shared-memory tile of one block")
+
+
+def check_quant_dims(d: int, f: int, bits: int, qb: int,
+                     dtype: torch.dtype) -> None:
+    """Raise unless the quantized kernel for ``dtype`` takes widths D and F
+    with ``bits``-bit payload in blocks of ``qb``: int8 or int4 with an
+    even block (int4 rows pair up within a block), any even block for bf16
+    (each value takes its own row's scale), and the widths of
+    ``check_ffn_dims``."""
+    if bits not in (4, 8) or qb < 2 or qb % 2:
+        raise ValueError(f"moe_ffn_kernel_quant: bits={bits} block={qb} "
+                         f"not supported")
+    check_ffn_dims(d, f, dtype, "moe_ffn_kernel_quant")
 
 
 def h_scratch_spec(e: int, c: int, f: int, dtype: torch.dtype
                    ) -> tuple[tuple[int, int, int], torch.dtype] | None:
-    """Shape and dtype of the h scratch the bf16 kernel passes between its
-    two launches (h rounded to bf16, as the reference rounds it); None for
-    fp32, which keeps h in shared memory."""
+    """Shape and dtype of the h scratch the bf16 kernels (fp and quantized
+    weights) pass between their two launches (h rounded to bf16, as the
+    reference rounds it); None for fp32, which keeps h in shared memory."""
     return ((e, c, f), torch.bfloat16) if dtype == torch.bfloat16 else None
 
 
@@ -155,9 +171,7 @@ def moe_ffn_kernel_quant(x: torch.Tensor, w_gate: quant.QuantTensor,
     if x.dtype not in _ENTRY_QUANT or not x.is_contiguous():
         raise ValueError(f"moe_ffn_kernel_quant: x must be contiguous fp32 "
                          f"or bf16, got {x.dtype}")
-    if bits not in (4, 8) or qb < 2 or qb % 2:
-        raise ValueError(f"moe_ffn_kernel_quant: bits={bits} block={qb} "
-                         f"not supported")
+    check_quant_dims(d, f, bits, qb, x.dtype)
     rows = lambda k: -(-k // 2) if bits == 4 else k
     for name, w, (kdim, n) in (("w_gate", w_gate, (d, f)),
                                ("w_up", w_up, (d, f)),
@@ -179,20 +193,26 @@ def moe_ffn_kernel_quant(x: torch.Tensor, w_gate: quant.QuantTensor,
         if w.orig_dim != kdim:
             raise ValueError(f"moe_ffn_kernel_quant: {name} reduces over "
                              f"{w.orig_dim}, expected {kdim}")
-    if (d + f) * _ROWS * x.element_size() > _SMEM_LIMIT:
-        raise ValueError(f"moe_ffn_kernel_quant: D + F = {d + f} exceeds the "
-                         f"shared-memory tile of one block")
+    operands = [x] + [t for w in (w_gate, w_up, w_down)
+                      for t in (w.data, w.scale)]
+    if x.dtype == torch.bfloat16 and any(t.data_ptr() % 16 for t in operands):
+        raise ValueError("moe_ffn_kernel_quant: bf16 operands need "
+                         "16-byte-aligned addresses (16-byte copies)")
     y = torch.empty_like(x)
     if x.numel() == 0:
         return y
     lib = build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     entry = _ENTRY_QUANT[x.dtype]
-    build.check(getattr(lib, entry)(
-        x.data_ptr(), w_gate.data.data_ptr(), w_gate.scale.data_ptr(),
-        w_up.data.data_ptr(), w_up.scale.data_ptr(), w_down.data.data_ptr(),
-        w_down.scale.data_ptr(), y.data_ptr(), e, c, d, f, bits, qb, stream),
-        entry)
+    ptrs = [x.data_ptr(), w_gate.data.data_ptr(), w_gate.scale.data_ptr(),
+            w_up.data.data_ptr(), w_up.scale.data_ptr(),
+            w_down.data.data_ptr(), w_down.scale.data_ptr()]
+    scratch = h_scratch_spec(e, c, f, x.dtype)
+    if scratch is not None:
+        h = torch.empty(scratch[0], dtype=scratch[1], device=x.device)
+        ptrs.append(h.data_ptr())
+    build.check(getattr(lib, entry)(*ptrs, y.data_ptr(), e, c, d, f, bits,
+                                    qb, stream), entry)
     moe_ffn_kernel_quant.launches += 1
     return y
 

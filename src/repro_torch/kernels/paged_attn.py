@@ -4,16 +4,20 @@ wrappers and its plain PyTorch version.
 Replaces the TPU kernel ``src/repro/kernels/paged_attn.py::paged_attention``
 (``_kernel``, ``_page_index``) for fp pools (``paged_attention``) and for
 int8 pools with fp32 scale pools (``paged_attention_int8``, the
-``quantized=True`` branch).  The kernel (``csrc/paged_attn.cu``, templated
-on the pool's element type) is memory-bound on an H100: one block per
-(row, kv head, 16 grouped q rows) walks only the row's live pages, staging
-each K/V page once for every query head of its group (see the source
-note).
+``quantized=True`` branch).  The kernel (``csrc/paged_attn.cu``) is
+memory-bound on an H100, and latency-bound at the serve's shapes: a block
+per (row, kv head, 16 grouped q rows, split) walks one of ``num_splits``
+contiguous ranges of the tile's live pages, 64 keys a step, staging each
+K/V page once for every query head of its group; with more than one split
+a second launch merges the blocks' partial softmax states.  bf16 runs both
+products on the tensor cores (``mma.sync``), fp32 on the CUDA cores (see
+the source note).
 
-Each wrapper launches the kernel on CUDA tensors and counts the launch in
+Each wrapper launches the kernel on CUDA tensors and counts the call in
 its own ``launches``; ``paged_attention_plain`` is the page walk of
 ``kernels/ref.py::paged_attention_ref`` in torch ops (fp and int8 pools),
-used on the CPU and as the yardstick on the card.
+used on the CPU and as the yardstick on the card.  ``num_splits`` and
+``split_keys`` are the kernel's work split, written out for the tests.
 """
 from __future__ import annotations
 
@@ -22,6 +26,10 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
+ROWS = 16             # grouped q rows of a block
+KEYS = 64             # keys of a step
+MAX_SPLITS = 64       # csrc/paged_attn.cu::kMaxSplits
+BLOCKS_PER_SM = 3     # blocks of the bf16 kernel an SM holds at hd 128
 _ENTRY = {torch.float32: "paged_attention_f32",
           torch.bfloat16: "paged_attention_bf16"}
 _ENTRY_INT8 = {torch.float32: "paged_attention_int8_f32",
@@ -75,6 +83,42 @@ def paged_attention_plain(q: torch.Tensor, k_pool: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, hd).to(q.dtype)
 
 
+def num_splits(b: int, tg: int, hkv: int, nb: int, ps: int,
+               sms: int) -> int:
+    """How many blocks share one row tile's page walk: enough to fill the
+    card's SMs ``BLOCKS_PER_SM`` deep (B * Hkv * ceil(T*G / 16) blocks
+    without a split), never more than the table's 64-key steps.  A function
+    of shapes alone: the lengths live on the device, and reading them would
+    synchronise the host."""
+    base = b * hkv * -(-tg // ROWS)
+    steps = -(-(nb * ps) // KEYS)
+    return max(1, min(steps, MAX_SPLITS, BLOCKS_PER_SM * sms // base))
+
+
+def split_keys(length: int, t_lo: int, t_hi: int, window: int | None,
+               ps: int, nb: int, splits: int, s: int) -> tuple[int, int]:
+    """The slots [js, je) that split ``s`` of a row tile walks (as the
+    kernel computes them on the device): the tile's valid tokens t_lo..t_hi
+    at positions length + t attend the slots s_lo..s_hi; their pages are cut
+    into ``splits`` ranges of whole 64-key steps' worth of pages.  Empty
+    when js >= je."""
+    if t_lo > t_hi:
+        return 0, 0
+    s_lo = max(length + t_lo - window + 1, 0) if window else 0
+    s_hi = min(length + t_hi, nb * ps - 1)
+    if s_lo > s_hi:
+        return 0, 0
+    p_lo, p_hi = s_lo // ps, s_hi // ps
+    step = max(1, KEYS // ps)
+    per = -(-(p_hi - p_lo + 1) // splits)
+    per = -(-per // step) * step
+    a = p_lo + s * per
+    e = min(a + per, p_hi + 1)
+    if a >= e:
+        return 0, 0
+    return max(a * ps, s_lo), min(e * ps, s_hi + 1)
+
+
 def _launch(entries: dict, q, k_pool, v_pool, scales, block_tables,
             lengths, seg_lens, window, who: str) -> torch.Tensor:
     """Check the operands and launch one of ``csrc/paged_attn.cu``'s
@@ -104,21 +148,37 @@ def _launch(entries: dict, q, k_pool, v_pool, scales, block_tables,
     if q.dtype not in entries:
         raise ValueError(f"{who}: dtype {q.dtype} is not ported (fp32 and "
                          f"bf16 queries)")
-    if hkv == 0 or hq % hkv or hd > 256 or num_pages < 1 or nb < 1:
+    if (hkv == 0 or hq % hkv or hd % 16 or hd > 256 or num_pages < 1
+            or nb < 1):
         raise ValueError(f"{who}: unsupported geometry Hq={hq} Hkv={hkv} "
-                         f"hd={hd} P={num_pages} NB={nb}")
+                         f"hd={hd} (a multiple of 16, at most 256) "
+                         f"P={num_pages} NB={nb}")
+    for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{who}: {name} needs a 16-byte-aligned "
+                             f"address (16-byte copies)")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = num_splits(b, t * (hq // hkv), hkv, nb, ps, sms)
+    parts = [0, 0]
+    if splits > 1:
+        part_acc = torch.empty((b, t, hq, splits, hd), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((b, t, hq, splits, 2), dtype=torch.float32,
+                              device=q.device)
+        parts = [part_acc.data_ptr(), part_ml.data_ptr()]
     lib = build.library()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     entry = entries[q.dtype]
     build.check(getattr(lib, entry)(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         *(s.data_ptr() for s in scales), block_tables.data_ptr(),
-        lengths.data_ptr(), seg_lens.data_ptr(), out.data_ptr(), b, t, hq,
-        hkv, hd, num_pages, ps, nb, 0 if window is None else int(window),
-        hd ** -0.5, stream), entry)
+        lengths.data_ptr(), seg_lens.data_ptr(), out.data_ptr(), *parts, b,
+        t, hq, hkv, hd, num_pages, ps, nb,
+        0 if window is None else int(window), splits, hd ** -0.5, stream),
+        entry)
     return out
 
 

@@ -387,3 +387,162 @@ def test_ffn_h_scratch_and_entries():
         moe_gemm.ffn_entry(torch.float16)
     pointers = lambda name: build.SIGNATURES[name].count(build._P)
     assert pointers("moe_ffn_bf16") == pointers("moe_ffn_f32") + 1
+
+
+# ---------------------------------------------------------------------------
+# the paged kernel's work split (csrc/paged_attn.cu): split plan and combine
+# ---------------------------------------------------------------------------
+
+def _tile_tokens(r0, seg, t, g):
+    """A 16-row tile's valid tokens t_lo..t_hi (the kernel's tile_tokens)."""
+    from repro_torch.kernels import paged_attn as pa
+    return r0 // g, min((r0 + pa.ROWS - 1) // g, t - 1, seg - 1)
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_paged_split_plan_covers_live_pages_once(seed):
+    """Over random shapes, lengths, seg_lens and windows, the splits of
+    every row tile cut its live pages into disjoint ranges whose union is
+    exactly the slots its valid tokens attend; the number of splits comes
+    from shapes alone (num_splits takes no length)."""
+    import inspect
+    from repro_torch.kernels import paged_attn as pa
+    assert "length" not in " ".join(inspect.signature(pa.num_splits).parameters)
+    rng = np.random.default_rng(seed)
+    for _ in range(40):
+        b, t = int(rng.integers(1, 5)), int(rng.choice([1, 2, 3, 8, 32]))
+        hkv, g = int(rng.choice([1, 2, 4])), int(rng.choice([1, 2, 8]))
+        ps, nb = int(rng.choice([4, 5, 16])), int(rng.integers(1, 300))
+        splits = pa.num_splits(b, t * g, hkv, nb, ps,
+                               int(rng.choice([8, 132])))
+        assert 1 <= splits <= min(pa.MAX_SPLITS, -(-nb * ps // pa.KEYS))
+        window = None if rng.random() < 0.5 else int(rng.integers(1, 200))
+        for _ in range(b):
+            length = int(rng.integers(0, nb * ps + 4))
+            seg = int(rng.integers(0, t + 1))
+            for r0 in range(0, t * g, pa.ROWS):
+                t_lo, t_hi = _tile_tokens(r0, seg, t, g)
+                want = set()
+                for tok in range(t_lo, t_hi + 1):
+                    qp = length + tok
+                    lo = max(qp - window + 1, 0) if window else 0
+                    want.update(range(lo, min(qp, nb * ps - 1) + 1))
+                got, pages = [], []
+                for s in range(splits):
+                    js, je = pa.split_keys(length, t_lo, t_hi, window, ps,
+                                           nb, splits, s)
+                    if js < je:
+                        got += range(js, je)
+                        pages.append(set(range(js // ps, (je - 1) // ps + 1)))
+                assert len(got) == len(set(got)) and set(got) == want
+                assert sum(map(len, pages)) == len(set().union(*pages))
+
+
+def _split_combine_emulation(q, kp, vp, bt, ln, sg, window, splits):
+    """The kernel's split-then-combine in torch, fp32: each split's (m, l,
+    unnormalized acc) over its slots, merged as
+    out = sum_s e^{m_s - M} acc_s / max(sum_s e^{m_s - M} l_s, 1e-30) over
+    the splits with l_s > 0; padding rows exactly zero."""
+    from repro_torch.kernels import paged_attn as pa
+    b, t, hq, hd = q.shape
+    num_pages, ps, hkv, _ = kp.shape
+    nb, g = bt.shape[1], hq // hkv
+    out = torch.zeros_like(q)
+    for i in range(b):
+        pages = bt[i].long().clamp(0, num_pages - 1)
+        k = kp[pages].reshape(nb * ps, hkv, hd)
+        v = vp[pages].reshape(nb * ps, hkv, hd)
+        length, seg = int(ln[i]), int(sg[i])
+        for h in range(hkv):
+            for r0 in range(0, t * g, pa.ROWS):
+                t_lo, t_hi = _tile_tokens(r0, seg, t, g)
+                parts = [pa.split_keys(length, t_lo, t_hi, window, ps, nb,
+                                       splits, s) for s in range(splits)]
+                for r in range(r0, min(r0 + pa.ROWS, t * g)):
+                    tok, head = r // g, h * g + r % g
+                    if tok >= seg:
+                        continue
+                    qp = length + tok
+                    ms, ls, accs = [], [], []
+                    for js, je in parts:
+                        j = torch.arange(js, max(js, je))
+                        j = j[(j <= qp) & ((j > qp - window) if window
+                                           else True)]
+                        if j.numel() == 0:
+                            ms.append(pa.NEG_INF)
+                            ls.append(0.0)
+                            accs.append(None)
+                            continue
+                        logit = (k[j, h] @ q[i, tok, head]) * hd ** -0.5
+                        m = logit.max()
+                        p = torch.exp(logit - m)
+                        ms.append(float(m))
+                        ls.append(float(p.sum()))
+                        accs.append(p @ v[j, h])
+                    live = [s for s in range(splits) if ls[s] > 0]
+                    if not live:
+                        continue
+                    big_m = max(ms[s] for s in live)
+                    w = {s: float(np.exp(ms[s] - big_m)) for s in live}
+                    num = sum(w[s] * accs[s] for s in live)
+                    den = max(sum(w[s] * ls[s] for s in live), 1e-30)
+                    out[i, tok, head] = num / den
+    return out
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5])
+@pytest.mark.parametrize("window", [None, 6])
+@pytest.mark.parametrize("t,ps", [(1, 4), (3, 5), (8, 4)])
+def test_paged_split_combine_matches_plain(t, ps, window, splits):
+    """Split-then-combine with the combine kernel's formula equals the
+    plain page walk in fp32 (2e-5), with splits that come out empty (short
+    rows, rows of seg 0), windows and exactly-zero padding rows."""
+    nb = -(-(t + 140) // ps) + 1     # rows long enough for several splits
+    q, kp, vp, bt, ln, sg = (torch.from_numpy(a) for a in _paged_case(
+        t * 7 + ps + splits, b=3, t=t, hq=4, hkv=2, hd=32, ps=ps, nb=nb,
+        num_pages=nb + 3))
+    ln[0] = 0                      # a one-page row, an all-padding row
+    sg[:] = torch.tensor([t, 0, max(t - 1, 1)])
+    got = _split_combine_emulation(q, kp, vp, bt, ln, sg, window, splits)
+    want = ops.paged_attention(q, kp, vp, bt, ln, sg, window=window)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=TOL, atol=TOL)
+    valid = _valid_rows(sg.numpy(), t)
+    assert np.all(got.numpy()[~valid] == 0.0)
+    assert np.any(got.numpy()[valid] != 0.0)
+
+
+@pytest.mark.parametrize("d,f,bits,qb,dtype,ok", [
+    (2048, 768, 8, 128, torch.bfloat16, True),     # qwen3-moe-30b-a3b
+    (2048, 768, 4, 128, torch.bfloat16, True),
+    (6144, 10752, 8, 128, torch.bfloat16, True),   # DBRX, now on wgmma
+    (256, 512, 4, 2, torch.bfloat16, True),        # any even block
+    (256, 512, 8, 6, torch.bfloat16, True),
+    (256, 512, 8, 3, torch.bfloat16, False),       # odd block
+    (256, 512, 2, 128, torch.bfloat16, False),
+    (192, 512, 8, 128, torch.bfloat16, False),     # D tiles by 128
+    (256, 500, 8, 128, torch.bfloat16, False),     # F tiles by 64
+    (96, 80, 8, 32, torch.float32, True),          # fp32: any D + F that fits
+    (2048, 768, 4, 128, torch.float32, True),
+    (6144, 10752, 8, 128, torch.float32, False),   # fp32 keeps its limit
+])
+def test_quant_ffn_dims_check(d, f, bits, qb, dtype, ok):
+    """The quantized FFN's bf16 path takes the bf16 FFN's geometry (D % 128,
+    F % 64, any even block), so DBRX's widths fit; fp32 keeps the
+    shared-memory bound on D + F."""
+    from repro_torch.kernels import moe_gemm
+    if ok:
+        moe_gemm.check_quant_dims(d, f, bits, qb, dtype)
+    else:
+        with pytest.raises(ValueError, match="moe_ffn_kernel_quant"):
+            moe_gemm.check_quant_dims(d, f, bits, qb, dtype)
+
+
+def test_quant_ffn_h_scratch_and_entries():
+    """The quantized bf16 entry passes h (E, C, F) in bf16 between its two
+    launches, as bf16 moe_ffn does; fp32 keeps h on chip."""
+    from repro_torch.kernels import build, moe_gemm
+    assert moe_gemm.h_scratch_spec(128, 16, 768, torch.bfloat16) == (
+        (128, 16, 768), torch.bfloat16)
+    assert moe_gemm.h_scratch_spec(128, 16, 768, torch.float32) is None
+    pointers = lambda name: build.SIGNATURES[name].count(build._P)
+    assert pointers("moe_ffn_quant_bf16") == pointers("moe_ffn_quant_f32") + 1

@@ -12,7 +12,7 @@ from repro_torch.configs import base
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 # switches of the JAX config the port replaces by device dispatch
 JAX_ONLY_FIELDS = {"use_kernel", "use_flash_kernel"}
 
