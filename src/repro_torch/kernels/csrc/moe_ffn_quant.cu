@@ -393,6 +393,13 @@ struct QuantMainloop {
   }
 };
 
+// Blocks an SM must hold: four at int8's small C-tiles (128 registers, no
+// spills; 6 % faster on an H100 than the three its 130 registers allowed).
+// int4 runs about 3 % slower under any explicit bound than under none, but
+// int8 carries the quantized serve.
+template <int N, int BITS>
+constexpr int kMinBlocks = BITS == 8 && N <= 32 ? 4 : 1;
+
 // Accumulator value i of this thread: its slab column (see QuantMainloop)
 // and its token.
 __device__ __forceinline__ int quant_acc_col(int i) {
@@ -402,7 +409,7 @@ __device__ __forceinline__ int quant_acc_col(int i) {
 
 // h[e, c, f0 + 64) = bf16(silu(x Wg) * (x Wu)) for one C-tile.
 template <int N, int BITS, int STAGES>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<N, BITS>)
     moe_quant_gate_up_kernel(const bf16* __restrict__ x,
                              const int8_t* __restrict__ wg,
                              const float* __restrict__ wgs,
@@ -437,7 +444,7 @@ __global__ void __launch_bounds__(kThreads)
 // y[e, c, d0 + 128) = bf16(h Wd) for one C-tile: two 64-column slabs of
 // Wd share each h tile.
 template <int N, int BITS, int STAGES>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<N, BITS>)
     moe_quant_down_kernel(const bf16* __restrict__ h,
                           const int8_t* __restrict__ wd,
                           const float* __restrict__ wds,

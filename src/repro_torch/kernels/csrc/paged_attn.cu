@@ -270,8 +270,10 @@ struct Smem {
   static constexpr uint32_t kBytes = kQ + (kKV > kMerge ? kKV : kMerge);
 };
 
+// three blocks an SM (shared memory allows three at hd 128): up to 168
+// registers, where the compiler's own choice of 128 spilled more
 template <typename P, int HD>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
     paged_attn_tc_kernel(const bf16* __restrict__ q,
                          const P* __restrict__ kpool,
                          const P* __restrict__ vpool,
