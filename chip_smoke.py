@@ -276,12 +276,38 @@ def dead_slots_nan(pools, bt, lengths, seg, ps: int):
 
 # (T, window, lengths, seg_lens, hd): decode and prefill/mixed at the
 # serve's lengths, windowed, a long-context decode (about 14 MB of live
-# K/V), and the widest head dim the kernels take (fp32 pools then stage one
-# step at a time)
+# K/V), the reduced configs' head dim (the bf16 kernel's 64-wide variant),
+# head dims below their variant's width (96 and 160: Q, K and V padded
+# with zero columns) and the widest the kernels take (fp32 pools then
+# stage one step at a time)
 PAGED_CASES = [(1, None, None, None, 128), (1, 64, None, None, 128),
                (32, None, None, None, 128), (32, 64, None, None, 128),
                (1, None, (0, 1000, 2000, 4000), (1, 1, 1, 1), 128),
-               (32, None, None, None, 256)]
+               (32, None, None, None, 64), (1, None, None, None, 96),
+               (32, 64, None, None, 160), (32, None, None, None, 256)]
+
+
+def paged_run(torch, paged_attn, int8: bool, dtype, t: int, window,
+              **kw):
+    """One ``paged_case`` with NaN in each row's dead slots, its kernel
+    entry held to the plain version (on the zeroed copy) and its padding
+    rows to exact zeros.  Returns the errors, both calls and the case."""
+    name = "paged_attention_int8" if int8 else "paged_attention"
+    q, pools, bt, ln, sg, win = paged_case(torch, dtype, t, window,
+                                           int8=int8, **kw)
+    pools, clean = dead_slots_nan(pools, bt.cpu(), ln.cpu(), sg.cpu(), 16)
+    scales = dict(zip(("k_scale", "v_scale"), clean[2:]))
+    run_k = lambda: getattr(paged_attn, name)(q, *pools, bt, ln, sg,
+                                              window=win)
+    run_p = lambda: paged_attn.paged_attention_plain(
+        q, *clean[:2], bt, ln, sg, window=win, **scales)
+    got, want = run_k(), run_p()
+    torch.cuda.synchronize()
+    tmask = torch.arange(t, device="cuda")[None, :] < sg[:, None].long()
+    check(bool((got[~tmask] == 0).all()),
+          f"{name}: padding rows are not exactly zero")
+    err, rel = compare(got, want, TOL[str(dtype).split(".")[-1]], tmask)
+    return err, rel, run_k, run_p, (q, clean[0], bt, ln, sg, win)
 
 
 def check_paged_attention(torch, results):
@@ -296,24 +322,9 @@ def check_paged_attention(torch, results):
                 if lengths is not None and dname != "bfloat16":
                     continue
                 kw = {} if lengths is None else dict(lengths=lengths, seg=seg)
-                kw["hd"] = hd
-                q, pools, bt, ln, sg, win = paged_case(
-                    torch, dtype, t, window, int8=int8, **kw)
-                pools, clean = dead_slots_nan(pools, bt.cpu(),
-                                              ln.cpu(), sg.cpu(), 16)
-                kp, vp = clean[:2]
-                scales = dict(zip(("k_scale", "v_scale"), clean[2:]))
-                run_k = lambda: getattr(paged_attn, name)(
-                    q, *pools, bt, ln, sg, window=win)
-                run_p = lambda: paged_attn.paged_attention_plain(
-                    q, kp, vp, bt, ln, sg, window=win, **scales)
-                got, want = run_k(), run_p()
-                torch.cuda.synchronize()
-                tmask = (torch.arange(t, device="cuda")[None, :]
-                         < sg[:, None].long())         # (B, T) valid
-                check(bool((got[~tmask] == 0).all()),
-                      f"{name}: padding rows are not exactly zero")
-                err, rel = compare(got, want, TOL[dname], tmask)
+                err, rel, run_k, run_p, case = paged_run(
+                    torch, paged_attn, int8, dtype, t, window, hd=hd, **kw)
+                q, kp, bt, ln, sg, win = case
                 ms, plain_ms = time_ms(run_k, 50), time_ms(run_p, 10)
                 bms, by = paged_bound(q, kp, ln.cpu().numpy(),
                                       sg.cpu().numpy(), win, dname)
@@ -325,7 +336,37 @@ def check_paged_attention(torch, results):
                            bound_ms=bms, bound_by=by)
                 emit("kernels", **row)
                 results.append(row)
-                del q, pools, clean, kp, vp, scales, got, want
+                del case, run_k, run_p
+
+
+def check_paged_sweep(torch, draws: int = 32):
+    """The kernel's own split plan: random lengths, seg_lens (some rows
+    all padding) and windows at T 1 and 5, where the wrapper splits every
+    tile's page walk, each entry and type against the plain version with
+    NaN in the dead slots (``paged_attn.split_keys`` is the host's copy of
+    the plan, which the CPU tests hold; this holds the device's)."""
+    from repro_torch.kernels import paged_attn
+    rng = np.random.default_rng(5)
+    worst, splits = 0.0, set()
+    for i in range(draws):
+        t = (1, 5)[i % 2]
+        int8 = bool(i // 2 % 2)
+        dtype = (torch.bfloat16, torch.float32)[i // 4 % 2]
+        lengths = rng.integers(0, 700, 4)
+        seg = rng.integers(0, t + 1, 4)
+        seg[i % 4] = t                    # a row with every token valid
+        window = (None, 1, 16, 50, 300)[int(rng.integers(5))]
+        err, _, _, _, case = paged_run(
+            torch, paged_attn, int8, dtype, t, window, seed=100 + i,
+            lengths=tuple(int(v) for v in lengths),
+            seg=tuple(int(v) for v in seg))
+        q, kp, bt = case[:3]
+        s = paged_splits(paged_attn, q, kp, bt)
+        check(s > 1, f"paged sweep draw {i}: the walk was not split")
+        worst, splits = max(worst, err), splits | {s}
+        del case
+    emit("kernels", kernel="paged_attention_sweep", draws=draws,
+         splits=sorted(splits), dead_slots_nan=True, max_abs_err=worst)
 
 
 def paged_splits(paged_attn, q, kp, bt) -> int:
@@ -921,6 +962,7 @@ def main() -> int:
 
     results = []
     check_paged_attention(torch, results)
+    check_paged_sweep(torch)
     check_moe_ffn(torch, results)
     check_moe_ffn_quant(torch, results)
     check_flash_attention(torch, results)

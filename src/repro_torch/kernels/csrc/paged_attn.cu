@@ -70,7 +70,8 @@ struct Geometry {
 // The slots [js, je) block ``s`` of a tile walks: the tile's valid tokens
 // t_lo..t_hi attend slots s_lo..s_hi (their union); those slots' pages are
 // cut into ``splits`` ranges of whole 64-key steps' worth of pages.  Empty
-// when js >= je.  Mirrored by paged_attn.py::split_keys.
+// when js >= je.  Copied in paged_attn.py::split_keys for the CPU tests:
+// the two must stay in step.
 __device__ __forceinline__ void split_keys(int len, int t_lo, int t_hi,
                                            const Geometry& g, int s, int& js,
                                            int& je) {

@@ -97,11 +97,13 @@ def num_splits(b: int, tg: int, hkv: int, nb: int, ps: int,
 
 def split_keys(length: int, t_lo: int, t_hi: int, window: int | None,
                ps: int, nb: int, splits: int, s: int) -> tuple[int, int]:
-    """The slots [js, je) that split ``s`` of a row tile walks (as the
-    kernel computes them on the device): the tile's valid tokens t_lo..t_hi
-    at positions length + t attend the slots s_lo..s_hi; their pages are cut
-    into ``splits`` ranges of whole 64-key steps' worth of pages.  Empty
-    when js >= je."""
+    """The slots [js, je) that split ``s`` of a row tile walks: the
+    tile's valid tokens t_lo..t_hi at positions length + t attend the slots
+    s_lo..s_hi; their pages are cut into ``splits`` ranges of whole 64-key
+    steps' worth of pages.  Empty when js >= je.  A copy of the device's
+    plan (``csrc/paged_attn.cu::split_keys``) for the CPU tests: the two
+    must stay in step (``chip_smoke.py``'s paged sweep holds the device's
+    own plan to the plain version)."""
     if t_lo > t_hi:
         return 0, 0
     s_lo = max(length + t_lo - window + 1, 0) if window else 0

@@ -404,7 +404,9 @@ def test_paged_split_plan_covers_live_pages_once(seed):
     """Over random shapes, lengths, seg_lens and windows, the splits of
     every row tile cut its live pages into disjoint ranges whose union is
     exactly the slots its valid tokens attend; the number of splits comes
-    from shapes alone (num_splits takes no length)."""
+    from shapes alone (num_splits takes no length).  ``split_keys`` is the
+    host's copy of the kernel's plan and must stay in step with it;
+    ``chip_smoke.py``'s paged sweep holds the device's plan."""
     import inspect
     from repro_torch.kernels import paged_attn as pa
     assert "length" not in " ".join(inspect.signature(pa.num_splits).parameters)
@@ -442,7 +444,8 @@ def _split_combine_emulation(q, kp, vp, bt, ln, sg, window, splits):
     """The kernel's split-then-combine in torch, fp32: each split's (m, l,
     unnormalized acc) over its slots, merged as
     out = sum_s e^{m_s - M} acc_s / max(sum_s e^{m_s - M} l_s, 1e-30) over
-    the splits with l_s > 0; padding rows exactly zero."""
+    the splits with l_s > 0; padding rows exactly zero.  The splits come
+    from ``split_keys``, the host's copy of the kernel's plan."""
     from repro_torch.kernels import paged_attn as pa
     b, t, hq, hd = q.shape
     num_pages, ps, hkv, _ = kp.shape

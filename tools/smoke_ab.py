@@ -1,0 +1,72 @@
+#!/usr/bin/env python3
+"""Run some of ``chip_smoke.py``'s phases on the kernels and port of one
+source tree, so that a parent tree and a change can be timed in turns
+(parent, change, change, parent) in one call on one card.
+
+    python3 tools/smoke_ab.py [--src DIR] [--label NAME] [--only PHASE ...]
+
+``--src`` is the ``src`` directory whose ``repro_torch`` is imported (this
+checkout's by default); the phases, their cases, checks and bounds are this
+checkout's ``chip_smoke.py``.  PHASE is ``paged`` (phase 3's paged-attention
+cases and split sweep; the tree's wrapper must have ``num_splits``),
+``quant`` (phase 3's quantized-FFN cases) or ``serve`` (phases 5, 6 and 5b:
+the full-width serve, forward and quantized serve, each with its profile
+window).  Prints the card's name and power limit, the build's ptxas lines
+and every row the phases print, each tagged with the label; exits non-zero
+if a phase fails.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", default=str(ROOT / "src"))
+    ap.add_argument("--label", default="change")
+    ap.add_argument("--only", nargs="*", default=["paged", "quant"],
+                    choices=["paged", "quant", "serve"])
+    args = ap.parse_args()
+    import torch
+    if not torch.cuda.is_available():
+        print("smoke_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, args.src)
+    sys.path.insert(1, str(ROOT))
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    cs.emit = lambda phase, **kw: print(json.dumps(
+        {"label": args.label, "phase": phase, **kw}, default=float),
+        flush=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, info = build.build()
+    cs.emit("build", seconds=info["seconds"], ptxas=[
+        line.strip() for rep in info["ptxas"].values()
+        for line in rep.splitlines() if "registers" in line or "spill" in line])
+    build.library()
+    results = []
+    if "paged" in args.only:
+        cs.check_paged_attention(torch, results)
+        cs.check_paged_sweep(torch)
+    if "quant" in args.only:
+        cs.check_moe_ffn_quant(torch, results)
+    if "serve" in args.only:
+        _, params = cs.check_serve(torch)
+        cs.check_forward(torch, params)
+        del params
+        cs.check_serve_quant(torch)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
