@@ -14,34 +14,51 @@ line):
                 (where cuobjdump is present) each kernel's count of
                 tensor-core instructions (HGMMA, HMMA) in its SASS; the
                 bf16 kernels must hold them, the fp32 ones none.
-  3. kernels  — each kernel against its plain PyTorch version at the main
-                path's shapes, fp32 (tol 2e-5) and bf16 (tol 3e-2), with
-                kernel / plain times and the card's bound: paged attention
-                over fp and int8 pools (decode and prefill at the serve's
-                lengths, windowed, a long-context decode to 4000 tokens;
-                NaN in every row's dead slots), the grouped FFN over bf16/fp32
-                (capacities 16, 40, 320, and the reduced widths at 5 and
-                16; a zero row of x must give an exactly zero row of y),
-                int8 and int4 weights (at the model's and the reduced
+  3. kernels  — each kernel against its plain PyTorch version at every
+                path's shapes (qwen3-moe's, granite's and DBRX's), fp32
+                (tol 2e-5) and bf16 (tol 3e-2), with kernel / plain times
+                and the card's bound: paged attention over fp and int8
+                pools (decode and prefill at the serve's lengths, windowed,
+                a long-context decode to 4000 tokens, query groups of 3 and
+                6 heads; NaN in every row's dead slots), the grouped FFN
+                over bf16/fp32 (capacities 16, 40, 320, the reduced widths
+                at 5 and 16, granite's 48 experts with 8 empty at 16, 32
+                and 856, DBRX's widths in bf16 at 16, 40 and 640; a zero
+                row of x, and a dead expert's empty slice, must give exact
+                zeros; fp32 at DBRX's widths must be refused), int8 and
+                int4 weights (at the model's, the reduced and DBRX's
                 widths, zero rows exact), full-sequence flash attention
                 (causal, windowed, non-causal over a ragged S, one partial
-                tile at S=37; hd 128 and 64; beside each bf16 case the
-                time of PyTorch's scaled_dot_product_attention).
+                tile at S=37; hd 128 and 64; granite's and DBRX's heads;
+                beside each bf16 case the time of PyTorch's
+                scaled_dot_product_attention).
   4. reduced  — the reduced qwen3-moe config served by the port on the card
                 and on the CPU from the same weights: identical greedy
                 tokens, fp and quantized (int8 weights + int8 KV, int4
                 weights, int8 KV alone), each path's kernels launched on
                 the card; then its full-sequence forward and loss on the
-                card against the CPU's.
+                card against the CPU's.  Then the same (fp, and int8
+                weights + int8 KV) for granite and DBRX reduced with
+                router-dead experts (6 live of 8) and padded vocab columns.
   5. serve    — the full-width qwen3-moe-30b-a3b (48 layers, bf16, random
                 weights from a seeded generator on the card) serves six
-                requests sharing a system prompt through the paged engine.
+                requests sharing a system prompt through the paged engine;
+                its weight bytes must equal the performance model's, and
+                the keep-warm touch (standby) is timed against its bound.
   6. forward  — on phase 5's weights, before they are freed: the full-
                 sequence forward and loss at B=2, S=2048 (48 flash and 48
                 grouped-FFN launches each), with a profile window.
   5b. serve_quant — the same model and traffic with int8 weights
                 (quantized on load, on the card) and an int8 KV pool,
                 after the bf16 model is freed.
+  granite     — granite-moe-3b-a800m at full width and depth (32 layers,
+                bf16; 8 of 48 experts router-dead, a tied head over a
+                vocab padded 49155 -> 49408): phase 5's serve, then the
+                forward and loss at B=2, S=2048.
+  dbrx        — DBRX at full width, depth cut to 8 of 40 layers (bf16,
+                about 55 GB): phase 5's serve, the forward and loss at
+                B=1, S=2048, then the same weights quantized to int8 on
+                load with an int8 KV pool and served again.
   7. the kernels line: one JSON object per ported kernel entry.
   8. the last line: {"ok": true, "device": {...}}.
 
@@ -199,12 +216,13 @@ def check_sass(counts) -> dict:
 # ---------------------------------------------------------------------------
 
 def paged_case(torch, dtype, t: int, window, seed: int = 0, int8=False,
-               lengths=(0, 17, 100, 250), seg=None, hd: int = 128):
+               lengths=(0, 17, 100, 250), seg=None, hd: int = 128,
+               hq: int = 32, hkv: int = 4):
     """Main-path attention shapes: B=4, Hq=32, Hkv=4, hd=128, ps=16, ragged
     lengths and seg_lens, block tables over a shuffled pool whose
     unreferenced pages hold NaN (an int8 pool: NaN scales).  Returns the
     pools as (k, v) or, int8, (k, v, k_scale, v_scale)."""
-    b, hq, hkv, ps = 4, 32, 4, 16
+    b, ps = 4, 16
     lengths = np.array(lengths, np.int32)
     if seg is None:
         seg = [1, 0, 1, 1] if t == 1 else [t, 0, 13, t]
@@ -285,6 +303,9 @@ PAGED_CASES = [(1, None, None, None, 128), (1, 64, None, None, 128),
                (1, None, (0, 1000, 2000, 4000), (1, 1, 1, 1), 128),
                (32, None, None, None, 64), (1, None, None, None, 96),
                (32, 64, None, None, 160), (32, None, None, None, 256)]
+# (Hq, Hkv, hd): granite's and DBRX's heads, groups of 3 and 6 query
+# heads, which no 16-row tile holds whole (each at T 1 and 32)
+GQA_HEADS = [(24, 8, 64), (48, 8, 128)]
 
 
 def paged_run(torch, paged_attn, int8: bool, dtype, t: int, window,
@@ -314,22 +335,26 @@ def check_paged_attention(torch, results):
     """Each paged entry against its plain version; every case also holds
     NaN in the dead slots of each row's last live page."""
     from repro_torch.kernels import paged_attn
+    cases = [(t, w, ln, sg, hd, 32, 4) for t, w, ln, sg, hd in PAGED_CASES]
+    cases += [(t, None, None, None, hd, hq, hkv) for hq, hkv, hd in GQA_HEADS
+              for t in (1, 32)]
     for int8 in (False, True):
         name = "paged_attention_int8" if int8 else "paged_attention"
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
-            for t, window, lengths, seg, hd in PAGED_CASES:
+            for t, window, lengths, seg, hd, hq, hkv in cases:
                 if lengths is not None and dname != "bfloat16":
                     continue
                 kw = {} if lengths is None else dict(lengths=lengths, seg=seg)
                 err, rel, run_k, run_p, case = paged_run(
-                    torch, paged_attn, int8, dtype, t, window, hd=hd, **kw)
+                    torch, paged_attn, int8, dtype, t, window, hd=hd, hq=hq,
+                    hkv=hkv, **kw)
                 q, kp, bt, ln, sg, win = case
                 ms, plain_ms = time_ms(run_k, 50), time_ms(run_p, 10)
                 bms, by = paged_bound(q, kp, ln.cpu().numpy(),
                                       sg.cpu().numpy(), win, dname)
                 row = dict(kernel=name, dtype=dname, T=t, window=win, hd=hd,
-                           lengths=[int(v) for v in ln.cpu()],
+                           Hq=hq, Hkv=hkv, lengths=[int(v) for v in ln.cpu()],
                            splits=paged_splits(paged_attn, q, kp, bt),
                            dead_slots_nan=True, max_abs_err=err,
                            max_rel_err=rel, kernel_ms=ms, plain_ms=plain_ms,
@@ -379,23 +404,35 @@ def paged_splits(paged_attn, q, kp, bt) -> int:
                                  sms)
 
 
-# (E, C, D, F): the model's widths at the serve's prefill blocks (16, 40)
-# and the forward's B=2, S=2048 (320 = round_capacity(4096, 8, 128,
-# 1.25)); the reduced config's widths at a ragged and a whole C-tile
-FFN_CASES = [(128, 16, 2048, 768), (128, 40, 2048, 768),
-             (128, 320, 2048, 768), (4, 5, 256, 512), (4, 16, 256, 512)]
+# (E, C, D, F, dead experts): the model's widths at the serve's prefill
+# blocks (16, 40) and the forward's B=2, S=2048 (320 = round_capacity(4096,
+# 8, 128, 1.25)); the reduced config's widths at a ragged and a whole
+# C-tile; granite's (8 of 48 experts router-dead: their slices all padding)
+# at C 16, its serve's 32 and its forward's 856; DBRX's (bf16 only: fp32's
+# shared-memory tile refuses D + F = 16896) at C 16, its serve's 40 and its
+# B=1 forward's 640
+FFN_CASES = [(128, 16, 2048, 768, 0), (128, 40, 2048, 768, 0),
+             (128, 320, 2048, 768, 0), (4, 5, 256, 512, 0),
+             (4, 16, 256, 512, 0), (48, 16, 1536, 512, 8),
+             (48, 32, 1536, 512, 8), (48, 856, 1536, 512, 8),
+             (16, 16, 6144, 10752, 0), (16, 40, 6144, 10752, 0),
+             (16, 640, 6144, 10752, 0)]
+DBRX_WIDTHS = (6144, 10752)
 
 
 def check_moe_ffn(torch, results):
     from repro_torch.kernels import moe_gemm
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for e, c, d, f in FFN_CASES:
+        for e, c, d, f, dead in FFN_CASES:
+            if dtype == torch.float32 and (d, f) == DBRX_WIDTHS:
+                continue
             g = torch.Generator(device="cuda").manual_seed(c)
             mk = lambda shape, s: (torch.randn(shape, generator=g,
                                                device="cuda") * s).to(dtype)
             x = mk((e, c, d), 1.0)
             x[:, -1] = 0          # a padding row of every expert
+            x[e - dead:] = 0      # router-dead experts: no token at all
             wg, wu = mk((e, d, f), d ** -0.5), mk((e, d, f), d ** -0.5)
             wd = mk((e, f, d), f ** -0.5)
             run_k = lambda: moe_gemm.moe_ffn_kernel(x, wg, wu, wd)
@@ -405,22 +442,56 @@ def check_moe_ffn(torch, results):
             check(bool((got[:, -1] == 0).all()),
                   f"moe_ffn {dname} C={c}: a zero row of x gave a nonzero "
                   f"row of y")
+            check(bool((got[e - dead:] == 0).all()),
+                  f"moe_ffn {dname} E={e}: a dead expert's empty slice gave "
+                  f"a nonzero output")
             err, rel = compare(got, want, TOL[dname])
             ms, plain_ms = time_ms(run_k, 10), time_ms(run_p, 5)
             elt = x.element_size()
             bms, by = bound((2 * e * c * d + 3 * e * d * f) * elt,
                             6.0 * e * c * d * f, dname)
             row = dict(kernel="moe_ffn", dtype=dname, E=e, C=c, D=d, F=f,
-                       max_abs_err=err, max_rel_err=rel, kernel_ms=ms,
-                       plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                       dead_experts=dead, max_abs_err=err, max_rel_err=rel,
+                       kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by)
             emit("kernels", **row)
             results.append(row)
             del x, wg, wu, wd, got, want
+    check_fp32_dbrx_refused(torch)
 
 
-# (E, D, F, capacities): the model's widths at the serve's prefill blocks,
-# and the reduced config's widths at a ragged and a whole C-tile
-QUANT_CASES = [(128, 2048, 768, (16, 40)), (4, 256, 512, (5, 16))]
+def check_fp32_dbrx_refused(torch):
+    """fp32 at DBRX's widths is outside both fp32 kernels' shared-memory
+    tile: the dispatching wrapper raises with that message on the card
+    (no fallback to the plain version)."""
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops
+    d, f = DBRX_WIDTHS
+    x = torch.zeros((1, 16, d), device="cuda")
+    w = [torch.zeros(shape, device="cuda") for shape in
+         ((1, d, f), (1, d, f), (1, f, d))]
+    for what, ws in (("fp", w), ("int8", [quant.quantize(t, "int8", block=128)
+                                          for t in w])):
+        ops.reset_launch_counts()
+        try:
+            ops.moe_ffn(x, *ws)
+        except ValueError as exc:
+            check("shared-memory tile" in str(exc),
+                  f"fp32 {what} FFN at D={d} F={f}: {exc}")
+        else:
+            raise SmokeFailure(f"fp32 {what} FFN at D={d} F={f} ran")
+        check(not any(ops.launch_counts().values()),
+              f"fp32 {what} FFN at DBRX's widths launched a kernel")
+    emit("kernels", kernel="moe_ffn", dtype="float32", D=d, F=f,
+         refused="shared-memory tile", fallback=False)
+
+
+# (E, D, F, capacities, dtypes): the model's widths at the serve's prefill
+# blocks, the reduced config's widths at a ragged and a whole C-tile, and
+# DBRX's widths (bf16: fp32 refuses them) at C 16 and its serve's 40
+QUANT_CASES = [(128, 2048, 768, (16, 40), ("float32", "bfloat16")),
+               (4, 256, 512, (5, 16), ("float32", "bfloat16")),
+               (16, 6144, 10752, (16, 40), ("bfloat16",))]
 
 
 def check_moe_ffn_quant(torch, results):
@@ -429,7 +500,7 @@ def check_moe_ffn_quant(torch, results):
     give an exactly zero row of y."""
     from repro_torch.core import quant
     from repro_torch.kernels import moe_gemm
-    for (e, d, f, caps), (level, bits) in itertools.product(
+    for (e, d, f, caps, dtypes), (level, bits) in itertools.product(
             QUANT_CASES, (("int8", 8), ("int4", 4))):
         g = torch.Generator(device="cuda").manual_seed(bits + e)
         mk = lambda shape, s: torch.randn(shape, generator=g,
@@ -437,8 +508,8 @@ def check_moe_ffn_quant(torch, results):
         ws = [quant.quantize(mk(shape, shape[1] ** -0.5), level, block=128)
               for shape in ((e, d, f), (e, d, f), (e, f, d))]
         wbytes = sum(w.nbytes() for w in ws)
-        for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
+        for dname in dtypes:
+            dtype = getattr(torch, dname)
             for c in caps:
                 x = mk((e, c, d), 1.0).to(dtype)
                 x[:, -1] = 0          # a padding row of every expert
@@ -475,7 +546,13 @@ FLASH_CASES = [(2, 2048, 32, 4, 128, True, None),
                (2, 37, 32, 4, 128, True, None),
                (2, 1000, 4, 2, 64, True, None),
                (2, 1000, 4, 2, 64, True, 256),
-               (2, 37, 4, 2, 64, True, None)]
+               (2, 37, 4, 2, 64, True, None),
+               # granite's heads (G=3) at its forward's B=2, DBRX's (G=6)
+               # at its B=1: a 64-row tile ends mid-position
+               (2, 2048, 24, 8, 64, True, None),
+               (2, 37, 24, 8, 64, True, None),
+               (1, 2048, 48, 8, 128, True, None),
+               (1, 37, 48, 8, 128, True, None)]
 
 
 def attended_pairs(s: int, causal: bool, window) -> int:
@@ -577,23 +654,38 @@ REDUCED = {("none", "native"): ("moe_ffn", "paged_attention"),
            ("int8", "int8"): ("moe_ffn_quant", "paged_attention_int8"),
            ("int4", "native"): ("moe_ffn_quant", "paged_attention"),
            ("none", "int8"): ("moe_ffn", "paged_attention_int8")}
+# granite and DBRX: the fp path and int8 weights + int8 KV, on a reduced
+# variant with what reduced() drops (router-dead experts, 6 live of 8;
+# padded vocab columns, 500 of 512), the same on both devices
+NEW_ARCHS = ("granite_moe_3b_a800m", "dbrx")
+NEW_REDUCED = {k: REDUCED[k] for k in (("none", "native"), ("int8", "int8"))}
+DEAD_AND_PADDED = dict(num_experts=6, num_experts_padded=8, vocab_size=500)
+# DBRX at full width, depth cut to fit one card: 8 layers in bf16 are
+# about 55 GB (its 40 would be about 264 GB)
+DBRX_LAYERS = 8
 
 
-def check_reduced(torch):
-    """Card vs CPU greedy tokens on the same raw weights and prompts, for
-    the fp path and each quantized one; each engine quantizes on load on
-    its own device.  Returns each config's launch counts."""
+def reduced_config(arch: str):
     from repro_torch.configs.base import get_config
+    cfg = get_config(arch).reduced()
+    return cfg if arch == ARCH else cfg.replace(**DEAD_AND_PADDED)
+
+
+def check_reduced(torch, arch: str = ARCH, paths: dict = REDUCED):
+    """Card vs CPU greedy tokens on the same raw weights and prompts, for
+    each of ``paths`` (the fp path and quantized ones); each engine
+    quantizes on load on its own device.  Returns each path's launch
+    counts."""
     from repro_torch.core import quant
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     from repro_torch.serving.engine import EngineConfig, ServingEngine
-    base = get_config(ARCH).reduced().replace(capacity_factor=8.0)
+    base = reduced_config(arch).replace(capacity_factor=8.0)
     params = build_model(base, "cpu").init(torch.Generator().manual_seed(0))
     ecfg = EngineConfig(max_batch=2, max_cache=32, chunk_len=3, page_size=5)
     prompts = traffic(base.vocab_size, 5, 7, 9, 14, seed=1)
     out = {}
-    for (wq, kv), want in REDUCED.items():
+    for (wq, kv), want in paths.items():
         cfg = base.replace(weight_quant=wq, kv_cache_dtype=kv)
         cpu_eng = ServingEngine(cfg, ecfg, params=params, device="cpu")
         cpu = serve(cpu_eng, prompts, 5)
@@ -601,22 +693,26 @@ def check_reduced(torch):
         eng = ServingEngine(cfg, ecfg, params=to_cuda(params), device="cuda")
         gpu = serve(eng, prompts, 5)
         launches = ops.launch_counts()
-        check(gpu == cpu, f"{wq}/{kv}: card tokens {gpu} != CPU tokens {cpu}")
-        check_path_kernels(launches, want, f"reduced {wq}/{kv}")
+        check(gpu == cpu, f"{cfg.name} {wq}/{kv}: card tokens {gpu} != CPU "
+              f"tokens {cpu}")
+        check_path_kernels(launches, want, f"reduced {cfg.name} {wq}/{kv}")
         check(eng.stats["cow_copies"] > 0 and eng.stats["prefix_hits"] > 0,
-              f"{wq}/{kv}: no prefix hit or copy-on-write")
+              f"{cfg.name} {wq}/{kv}: no prefix hit or copy-on-write")
         # quantize-on-load on the card builds the CPU's store bit for bit
         same_store = all(
             torch.equal(a.data.cpu(), b.data) and torch.equal(
                 a.scale.cpu(), b.scale)
             for a, b in zip(leaves(eng.params), leaves(cpu_eng.params))
             if isinstance(a, quant.QuantTensor))
-        check(same_store, f"{wq}/{kv}: the card's quantized store differs "
-              f"from the CPU's")
-        emit("reduced", weight_quant=wq, kv_cache_dtype=kv,
+        check(same_store, f"{cfg.name} {wq}/{kv}: the card's quantized store "
+              f"differs from the CPU's")
+        emit("reduced", arch=cfg.name, weight_quant=wq, kv_cache_dtype=kv,
+             num_experts=cfg.num_experts,
+             num_experts_padded=cfg.num_experts_padded,
+             vocab_size=cfg.vocab_size, vocab_padded=cfg.vocab_padded,
              tokens_identical=True, requests=len(prompts), launches=launches,
              store_bit_identical_to_cpu=same_store,
-             weight_bytes=eng.memory_stats()["weight_bytes"],
+             weight_bytes=check_weight_bytes(eng, cfg),
              cow_copies=eng.stats["cow_copies"],
              prefix_hits=eng.stats["prefix_hits"])
         out[(wq, kv)] = launches
@@ -630,14 +726,13 @@ def seq_batch(torch, vocab: int, b: int, s: int, seed: int, device):
         np.int32), device=device) for k in ("tokens", "labels")}
 
 
-def check_reduced_forward(torch):
+def check_reduced_forward(torch, arch: str = ARCH):
     """The reduced config's full-sequence forward and loss (fp32, B=2,
     S=96) on the card against the CPU's, on the same weights and tokens;
     each forward launches one flash and one grouped-FFN kernel per layer."""
-    from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
-    cfg = get_config(ARCH).reduced()
+    cfg = reduced_config(arch)
     cpu_model, gpu_model = build_model(cfg, "cpu"), build_model(cfg, "cuda")
     params = cpu_model.init(torch.Generator().manual_seed(0))
     gparams = to_cuda(params)
@@ -653,28 +748,67 @@ def check_reduced_forward(torch):
         total, m = gpu_model.loss(gparams, gbatch)
     want = {"flash_attention": cfg.num_layers, "moe_ffn": cfg.num_layers}
     check(launches == {**dict.fromkeys(launches, 0), **want},
-          f"reduced forward launched {launches}, expected {want}")
+          f"reduced {cfg.name} forward launched {launches}, expected {want}")
     err, _ = compare(logits.cpu(), want_logits, tol)
     for name, got, ref in (("aux", aux, want_aux), ("total", total, want_total),
                            ("ce", m["ce"], want_m["ce"])):
         check(abs(float(got) - float(ref)) <= tol * (1 + abs(float(ref))),
-              f"reduced {name}: card {float(got)} != CPU {float(ref)}")
-    emit("reduced_forward", B=2, S=96, dtype=cfg.dtype,
+              f"reduced {cfg.name} {name}: card {float(got)} != CPU "
+              f"{float(ref)}")
+    emit("reduced_forward", arch=cfg.name, B=2, S=96, dtype=cfg.dtype,
          logits_max_abs_err=err, loss=float(total), cpu_loss=float(want_total),
          aux=float(aux), cpu_aux=float(want_aux), tolerance=tol,
          launches=launches)
 
 
-def check_forward(torch, params):
-    """Phase 6: the full-width forward and loss on phase 5's bf16 weights,
-    B=2, S=2048 seeded tokens, under no_grad.  Returns the forward's
-    launch counts."""
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi reads them now."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def check_weight_bytes(eng, cfg) -> int:
+    """The engine's weight bytes equal the performance model's, exactly."""
+    from repro_torch.core import perf_model
+    got = eng.memory_stats()["weight_bytes"]
+    want = perf_model.model_weight_bytes(cfg)
+    check(got == want, f"{cfg.name}: memory_stats weight_bytes {got} != "
+          f"perf_model.model_weight_bytes {want}")
+    return got
+
+
+def standby_stats(torch, eng) -> dict:
+    """The keep-warm touch over every expert weight (payload and scales),
+    timed on the device, against the least time its bytes take."""
+    from repro_torch.core import quant
+    nbytes = quant.tree_bytes(eng.params["blocks"]["experts"])
+    total = eng.standby()
+    check(bool(torch.isfinite(total)), "standby sum is not finite")
+    return {"standby_ms": time_ms(eng.standby, 3, warmup=1),
+            "standby_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "standby_bytes": nbytes, "standby_sum": float(total)}
+
+
+def free_device(torch) -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def check_forward(torch, params, cfg=None, b: int = 2, phase="forward"):
+    """Phase 6 (and the other archs' forwards): the full-width forward and
+    loss on the serve's bf16 weights, B x S=2048 seeded tokens, under
+    no_grad, with a profile window.  Returns the forward's launch counts."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
-    cfg = get_config(ARCH)
+    cfg = cfg or get_config(ARCH)
+    t_phase = time.perf_counter()
     model = build_model(cfg, "cuda")
-    b, s = 2, 2048
+    s = 2048
     batch = seq_batch(torch, cfg.vocab_size, b, s, 0, "cuda")
     want = {"flash_attention": cfg.num_layers, "moe_ffn": cfg.num_layers}
     with torch.no_grad():
@@ -688,7 +822,7 @@ def check_forward(torch, params):
         fwd_s = time.perf_counter() - t0
         launches = ops.launch_counts()
         check(launches == {**dict.fromkeys(launches, 0), **want},
-              f"forward launched {launches}, expected {want}")
+              f"{phase} launched {launches}, expected {want}")
         check(tuple(logits.shape) == (b, s, cfg.vocab_padded)
               and logits.dtype == torch.float32, "forward logits shape/dtype")
         check(bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux)),
@@ -703,20 +837,22 @@ def check_forward(torch, params):
         loss_s = time.perf_counter() - t0
         loss_launches = ops.launch_counts()
         check(loss_launches == launches,
-              f"loss launched {loss_launches}, expected {want}")
+              f"{phase} loss launched {loss_launches}, expected {want}")
         ce = float(m["ce"])
         check(np.isfinite(float(total)) and abs(ce - np.log(cfg.vocab_size))
               < 2.0, f"loss ce {ce} not near ln(vocab) "
               f"{np.log(cfg.vocab_size):.2f}")
-    emit("forward", arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+        peak = torch.cuda.max_memory_allocated()
+        prof = profile_window(torch, lambda: model.forward(params, batch),
+                              phase)
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
          B=b, S=s, forward_s=fwd_s, prompt_tok_per_s=b * s / fwd_s,
          loss_s=loss_s, loss_tok_per_s=b * s / loss_s, loss=float(total),
          ce=ce, aux=float(m["aux"]), ln_vocab=float(np.log(cfg.vocab_size)),
          logit_std=logit_std, forward_peak_allocated=fwd_peak,
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches)
-    with torch.no_grad():
-        profile_window(torch, lambda: model.forward(params, batch), "forward")
+         max_memory_allocated=peak, launches=launches,
+         device_busy_share=prof["device_busy_share"],
+         phase_s=time.perf_counter() - t_phase, card=card())
     return launches
 
 
@@ -730,27 +866,22 @@ def leaves(tree):
         yield from (leaves(v) if isinstance(v, dict) else (v,))
 
 
-def check_serve(torch):
-    from repro_torch.configs.base import get_config
+# a pool roomy enough that no prefix entry is evicted: the resubmitted
+# prompt must find its original's partial tail page
+SERVE_ENGINE = dict(max_batch=4, max_cache=192, chunk_len=32, page_size=16,
+                    num_pages=96)
+
+
+def serve_phase(torch, cfg, phase: str, want: tuple, t_phase: float,
+                init: dict, params):
+    """Phase 5's traffic through a new engine on ``params`` (six requests
+    sharing a 40-token system prompt, the last resubmitting the first; 16
+    new tokens), then the weight-byte identity, the keep-warm touch and a
+    profile window of two more requests.  Returns the launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.serving.engine import EngineConfig, ServingEngine
-    cfg = get_config(ARCH)
-    t0 = time.perf_counter()
-    # a pool roomy enough that no prefix entry is evicted: the resubmitted
-    # prompt must find its original's partial tail page
-    ecfg = EngineConfig(max_batch=4, max_cache=192, chunk_len=32,
-                        page_size=16, num_pages=96)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    warm = ServingEngine(cfg, ecfg, generator=gen, device="cuda")
-    params = warm.params
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    # warm-up on its own engine (cuBLAS handles, allocator), then reset
-    serve(warm, traffic(cfg.vocab_size, 2, 8, 24, 40, seed=7), 2)
-    del warm
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    eng = ServingEngine(cfg, ecfg, params=params, device="cuda")
+    eng = ServingEngine(cfg, EngineConfig(**SERVE_ENGINE), params=params,
+                        device="cuda")
     prompts = traffic(cfg.vocab_size, 6, 40, 48, 160, seed=0)
     ops.reset_launch_counts()
     t1 = time.perf_counter()
@@ -759,87 +890,87 @@ def check_serve(torch):
     launches = ops.launch_counts()
     check(all(len(g) == 16 and max(g) < cfg.vocab_size and min(g) >= 0
               for g in out), "generated tokens out of range")
-    check_path_kernels(launches, ("moe_ffn", "paged_attention"), "serve")
-    ps = eng.paged_stats()
-    check(ps["prefix_hits"] > 0, "no prefix-cache hit")
-    check(ps["cow_copies"] > 0, "no copy-on-write of a shared tail page")
-    tp, tt, ms = eng.throughput(), eng.ttft(), eng.memory_stats()
-    emit("serve", arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
-         params=cfg.n_params(), init_s=init_s, wall_s=wall,
-         requests=len(prompts),
-         prompt_tokens=int(sum(len(p) for p in prompts)),
-         prefill_tok_per_s=tp["prefill_tok_per_s"],
-         decode_tok_per_s=tp["decode_tok_per_s"],
-         total_tok_per_s=tp["total_tok_per_s"], ttft_p50_s=tt["p50"],
-         ttft_p95_s=tt["p95"], memory_stats=ms,
-         max_memory_allocated=torch.cuda.max_memory_allocated(),
-         launches=launches, decode_steps=eng.stats["decode_steps"],
-         prefix_hits=ps["prefix_hits"],
-         prefix_hit_tokens=ps["prefix_hit_tokens"],
-         cow_copies=ps["cow_copies"],
-         experts_per_node_2=eng.expected_experts_per_node(2))
-    extra = traffic(cfg.vocab_size, 2, 40, 48, 160, seed=3)
-    profile_window(torch, lambda: serve(eng, extra, 8), "serve")
-    return launches, params
-
-
-def check_serve_quant(torch):
-    """Phase 5b: the full-width model with int8 weights, quantized on load
-    on the card (the bf16 tree, 61 GB, is drawn first and replaced leaf by
-    leaf), and an int8 KV pool; the bf16 serve's model is freed first.
-    Same traffic, prefix hit and copy-on-write as phase 5."""
-    from repro_torch.configs.base import get_config
-    from repro_torch.kernels import ops
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
-    cfg = get_config(ARCH).replace(weight_quant="int8", kv_cache_dtype="int8")
-    ecfg = EngineConfig(max_batch=4, max_cache=192, chunk_len=32,
-                        page_size=16, num_pages=96)
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    warm = ServingEngine(cfg, ecfg, generator=gen, device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    load_peak = torch.cuda.max_memory_allocated()
-    serve(warm, traffic(cfg.vocab_size, 2, 8, 24, 40, seed=7), 2)
-    params = warm.params              # already quantized: passes through
-    del warm
-    eng = ServingEngine(cfg, ecfg, params=params, device="cuda")
-    prompts = traffic(cfg.vocab_size, 6, 40, 48, 160, seed=0)
-    ops.reset_launch_counts()
-    t1 = time.perf_counter()
-    out = serve(eng, prompts, 16)
-    wall = time.perf_counter() - t1
-    launches = ops.launch_counts()
-    check(all(len(g) == 16 and max(g) < cfg.vocab_size and min(g) >= 0
-              for g in out), "generated tokens out of range")
-    check_path_kernels(launches, ("moe_ffn_quant", "paged_attention_int8"),
-                       "serve_quant")
+    check_path_kernels(launches, want, phase)
     ps = eng.paged_stats()
     check(ps["prefix_hits"] > 0, "no prefix-cache hit")
     check(ps["cow_copies"] > 0, "no copy-on-write of a shared tail page")
     peak = torch.cuda.max_memory_allocated()
     check(peak < 80e9, f"peak allocation {peak / 1e9:.2f} GB")
     tp, tt, ms = eng.throughput(), eng.ttft(), eng.memory_stats()
-    emit("serve_quant", arch=cfg.name, layers=cfg.num_layers,
-         dtype=cfg.dtype, weight_quant=cfg.weight_quant,
-         kv_cache_dtype=cfg.kv_cache_dtype, init_and_quantize_s=init_s,
-         wall_s=wall, requests=len(prompts),
-         prompt_tokens=int(sum(len(p) for p in prompts)),
-         prefill_tok_per_s=tp["prefill_tok_per_s"],
-         decode_tok_per_s=tp["decode_tok_per_s"],
-         total_tok_per_s=tp["total_tok_per_s"], ttft_p50_s=tt["p50"],
-         ttft_p95_s=tt["p95"], memory_stats=ms,
-         load_peak_allocated=load_peak, max_memory_allocated=peak,
-         launches=launches, decode_steps=eng.stats["decode_steps"],
-         prefix_hits=ps["prefix_hits"],
-         prefix_hit_tokens=ps["prefix_hit_tokens"],
-         cow_copies=ps["cow_copies"])
+    row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+               weight_quant=cfg.weight_quant,
+               kv_cache_dtype=cfg.kv_cache_dtype, params=cfg.n_params(),
+               wall_s=wall, requests=len(prompts),
+               prompt_tokens=int(sum(len(p) for p in prompts)),
+               prefill_tok_per_s=tp["prefill_tok_per_s"],
+               decode_tok_per_s=tp["decode_tok_per_s"],
+               total_tok_per_s=tp["total_tok_per_s"], ttft_p50_s=tt["p50"],
+               ttft_p95_s=tt["p95"], memory_stats=ms,
+               weight_bytes_equal_perf_model=check_weight_bytes(eng, cfg),
+               **init, max_memory_allocated=peak,
+               launches=launches, decode_steps=eng.stats["decode_steps"],
+               prefix_hits=ps["prefix_hits"],
+               prefix_hit_tokens=ps["prefix_hit_tokens"],
+               cow_copies=ps["cow_copies"],
+               experts_per_node_2=eng.expected_experts_per_node(2),
+               **standby_stats(torch, eng))
     extra = traffic(cfg.vocab_size, 2, 40, 48, 160, seed=3)
-    profile_window(torch, lambda: serve(eng, extra, 8), "serve_quant")
+    prof = profile_window(torch, lambda: serve(eng, extra, 8), phase)
+    emit(phase, **row, device_busy_share=prof["device_busy_share"],
+         phase_s=time.perf_counter() - t_phase, card=card())
     return launches
+
+
+def check_serve(torch, cfg=None, phase: str = "serve"):
+    """Phase 5 (and the other archs' serves): the full-width model in bf16,
+    random weights from a seeded generator on the card.  Returns the launch
+    counts and the weights (the forward runs on them next)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = cfg or get_config(ARCH)
+    free_device(torch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warm = ServingEngine(cfg, EngineConfig(**SERVE_ENGINE), generator=gen,
+                         device="cuda")
+    params = warm.params
+    torch.cuda.synchronize()
+    init = dict(init_s=time.perf_counter() - t0,
+                load_peak_allocated=torch.cuda.max_memory_allocated())
+    # warm-up on its own engine (cuBLAS handles, allocator), then reset
+    serve(warm, traffic(cfg.vocab_size, 2, 8, 24, 40, seed=7), 2)
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    launches = serve_phase(torch, cfg, phase, ("moe_ffn", "paged_attention"),
+                           t0, init, params)
+    return launches, params
+
+
+def check_serve_quant(torch, cfg=None, phase: str = "serve_quant"):
+    """Phase 5b (and DBRX's quantized serve): the full-width model with
+    int8 weights, quantized on load on the card (the bf16 tree is drawn
+    first and replaced leaf by leaf), and an int8 KV pool; the bf16
+    model is freed first.  Same traffic, prefix hit and copy-on-write as
+    phase 5.  Returns the launch counts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = cfg or get_config(ARCH).replace(weight_quant="int8",
+                                          kv_cache_dtype="int8")
+    free_device(torch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    warm = ServingEngine(cfg, EngineConfig(**SERVE_ENGINE), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init = dict(init_and_quantize_s=time.perf_counter() - t0,
+                load_peak_allocated=torch.cuda.max_memory_allocated())
+    serve(warm, traffic(cfg.vocab_size, 2, 8, 24, 40, seed=7), 2)
+    params = warm.params              # already quantized: passes through
+    del warm
+    return serve_phase(torch, cfg, phase,
+                       ("moe_ffn_quant", "paged_attention_int8"), t0, init,
+                       params)
 
 
 # the port's kernels, as the profiler names them
@@ -851,7 +982,7 @@ PORT_KERNELS = ("paged_attn_", "paged_combine_kernel", "moe_ffn_kernel",
 def profile_window(torch, work, of: str):
     """Where the device time goes: ``work`` (two more requests, or one
     forward) under torch.profiler; prints the device-busy share of the
-    window and the top kernels."""
+    window and the top kernels, and returns them."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -868,50 +999,66 @@ def profile_window(torch, work, of: str):
     busy_ms = sum(dev(e) for e in events)
     top = sorted(events, key=dev, reverse=True)[:8]
     row = lambda e: {"name": e.key[:90], "ms": dev(e), "calls": e.count}
-    emit("profile", of=of, wall_ms=wall_ms, device_busy_ms=busy_ms,
-         device_busy_share=busy_ms / wall_ms if wall_ms else None,
-         top=[row(e) for e in top],
-         port_kernels=[row(e) for e in events
-                       if any(k in e.key for k in PORT_KERNELS)])
+    out = dict(of=of, wall_ms=wall_ms, device_busy_ms=busy_ms,
+               device_busy_share=busy_ms / wall_ms if wall_ms else None,
+               top=[row(e) for e in top],
+               port_kernels=[row(e) for e in events
+                             if any(k in e.key for k in PORT_KERNELS)])
+    emit("profile", **out)
+    return out
 
 
-# kernels-line entries: (name, shape picked from phase 3, source, the TPU
-# kernel it replaces, the run whose launches it reports)
+# each kernel entry's source and the TPU kernel it replaces
+SOURCES = {
+    "paged_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
+                        "src/repro/kernels/paged_attn.py:121"),
+    "paged_attention_int8": ("src/repro_torch/kernels/csrc/paged_attn.cu",
+                             "src/repro/kernels/paged_attn.py:121"),
+    "moe_ffn": ("src/repro_torch/kernels/csrc/moe_ffn.cu",
+                "src/repro/kernels/moe_gemm.py:52"),
+    "moe_ffn_quant": ("src/repro_torch/kernels/csrc/moe_ffn_quant.cu",
+                      "src/repro/kernels/moe_gemm.py:145"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn.py:82"),
+}
+PAGED_T32 = dict(dtype="bfloat16", T=32, window=None,
+                 lengths=[0, 17, 100, 250])
+CAUSAL_2048 = dict(dtype="bfloat16", S=2048, causal=True, window=None)
+# kernels-line entries: (name, shape picked from phase 3, the run whose
+# launches it reports); each path's kernels at the shapes it gives them
 LINE = [
-    ("paged_attention", dict(dtype="bfloat16", T=32, window=None, hd=128,
-                             lengths=[0, 17, 100, 250]),
-     "src/repro_torch/kernels/csrc/paged_attn.cu",
-     "src/repro/kernels/paged_attn.py:121", "serve"),
-    ("paged_attention_int8", dict(dtype="bfloat16", T=32, window=None,
-                                  hd=128, lengths=[0, 17, 100, 250]),
-     "src/repro_torch/kernels/csrc/paged_attn.cu",
-     "src/repro/kernels/paged_attn.py:121", "serve_quant"),
-    ("moe_ffn", dict(dtype="bfloat16", E=128, C=16),
-     "src/repro_torch/kernels/csrc/moe_ffn.cu",
-     "src/repro/kernels/moe_gemm.py:52", "serve"),
-    ("moe_ffn", dict(dtype="bfloat16", E=128, C=320),
-     "src/repro_torch/kernels/csrc/moe_ffn.cu",
-     "src/repro/kernels/moe_gemm.py:52", "forward"),
+    ("paged_attention", dict(PAGED_T32, hd=128, Hq=32), "serve"),
+    ("paged_attention_int8", dict(PAGED_T32, hd=128, Hq=32), "serve_quant"),
+    ("moe_ffn", dict(dtype="bfloat16", E=128, C=16), "serve"),
+    ("moe_ffn", dict(dtype="bfloat16", E=128, C=320), "forward"),
     ("moe_ffn_quant", dict(dtype="bfloat16", E=128, C=16, bits=8),
-     "src/repro_torch/kernels/csrc/moe_ffn_quant.cu",
-     "src/repro/kernels/moe_gemm.py:145", "serve_quant"),
+     "serve_quant"),
     ("moe_ffn_quant", dict(dtype="bfloat16", E=128, C=16, bits=4),
-     "src/repro_torch/kernels/csrc/moe_ffn_quant.cu",
-     "src/repro/kernels/moe_gemm.py:145", "reduced_int4"),
-    ("flash_attention", dict(dtype="bfloat16", S=2048, hd=128, causal=True,
-                             window=None),
-     "src/repro_torch/kernels/csrc/flash_attn.cu",
-     "src/repro/kernels/flash_attn.py:82", "forward"),
+     "reduced_int4"),
+    ("flash_attention", dict(CAUSAL_2048, hd=128, Hq=32), "forward"),
+    ("paged_attention", dict(PAGED_T32, hd=64, Hq=24), "granite_serve"),
+    ("moe_ffn", dict(dtype="bfloat16", E=48, C=32), "granite_serve"),
+    ("moe_ffn", dict(dtype="bfloat16", E=48, C=856), "granite_forward"),
+    ("flash_attention", dict(CAUSAL_2048, hd=64, Hq=24), "granite_forward"),
+    ("paged_attention", dict(PAGED_T32, hd=128, Hq=48), "dbrx_serve"),
+    ("paged_attention_int8", dict(PAGED_T32, hd=128, Hq=48),
+     "dbrx_serve_quant"),
+    ("moe_ffn", dict(dtype="bfloat16", E=16, C=40), "dbrx_serve"),
+    ("moe_ffn", dict(dtype="bfloat16", E=16, C=640), "dbrx_forward"),
+    ("moe_ffn_quant", dict(dtype="bfloat16", E=16, C=40, bits=8),
+     "dbrx_serve_quant"),
+    ("flash_attention", dict(CAUSAL_2048, hd=128, Hq=48), "dbrx_forward"),
 ]
 
 
 def kernels_line(results, runs) -> dict:
-    """One entry per ported kernel (and quantization width) at its
-    main-path bf16 shape, with the launches of the run that drives it."""
+    """One entry per ported kernel (and quantization width) at each path's
+    bf16 shape, with the launches of the run that drives it."""
     entries = []
-    for name, want, src, replaces, run in LINE:
+    for name, want, run in LINE:
         row = next(r for r in results if r["kernel"] == name
                    and all(r.get(k) == v for k, v in want.items()))
+        src, replaces = SOURCES[name]
         entries.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches_from": run,
@@ -923,7 +1070,8 @@ def kernels_line(results, runs) -> dict:
             "check": "pass", "tolerance": TOL[row["dtype"]],
             "shape": {k: v for k, v in row.items()
                       if k in ("dtype", "bits", "T", "window", "E", "C", "D",
-                               "F", "B", "S", "Hq", "Hkv", "hd", "causal")},
+                               "F", "B", "S", "Hq", "Hkv", "hd", "causal",
+                               "dead_experts")},
         })
     return {"kernels": entries}
 
@@ -936,11 +1084,7 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script runs on a GPU",
               file=sys.stderr)
         return 1
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
-    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(card(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kind = torch.cuda.get_device_name(0)
@@ -969,12 +1113,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     reduced = check_reduced(torch)
     check_reduced_forward(torch)
+    for arch in NEW_ARCHS:
+        check_reduced(torch, arch, NEW_REDUCED)
+        check_reduced_forward(torch, arch)
     torch.cuda.empty_cache()
     runs = {"reduced_int4": reduced[("int4", "native")]}
     runs["serve"], params = check_serve(torch)
     runs["forward"] = check_forward(torch, params)
     del params
     runs["serve_quant"] = check_serve_quant(torch)
+    from repro_torch.configs.base import get_config
+    granite = get_config("granite_moe_3b_a800m")
+    runs["granite_serve"], params = check_serve(torch, granite,
+                                                "granite_serve")
+    runs["granite_forward"] = check_forward(torch, params, granite, 2,
+                                            "granite_forward")
+    del params
+    dbrx = get_config("dbrx").replace(num_layers=DBRX_LAYERS)
+    runs["dbrx_serve"], params = check_serve(torch, dbrx, "dbrx_serve")
+    runs["dbrx_forward"] = check_forward(torch, params, dbrx, 1,
+                                         "dbrx_forward")
+    del params
+    runs["dbrx_serve_quant"] = check_serve_quant(
+        torch, dbrx.replace(weight_quant="int8", kv_cache_dtype="int8"),
+        "dbrx_serve_quant")
     print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

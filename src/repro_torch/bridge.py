@@ -35,13 +35,15 @@ def param_shapes(cfg) -> dict:
         attn.update(bq=(L, hq * hd), bk=(L, hkv * hd), bv=(L, hkv * hd))
     if cfg.qk_norm:
         attn.update(q_norm=(L, hd), k_norm=(L, hd))
+    norm = lambda *shape: ({"scale": shape, "bias": shape}
+                           if cfg.norm == "layernorm" else shape)
     params = {
         "embed": (cfg.vocab_padded, d),
-        "blocks": {"ln1": (L, d), "attn": attn, "ln2": (L, d),
+        "blocks": {"ln1": norm(L, d), "attn": attn, "ln2": norm(L, d),
                    "router": (L, d, e),
                    "experts": {"w_gate": (L, e, d, f), "w_up": (L, e, d, f),
                                "w_down": (L, e, f, d)}},
-        "final_norm": (d,),
+        "final_norm": norm(d),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = (d, cfg.vocab_padded)

@@ -138,6 +138,17 @@ class ModelConfig:
             return emb + n_attn * (attn + ffn) + n_rec * (rec + ffn)
         return emb + L * (attn + ffn)
 
+    def n_active_params(self) -> int:
+        """Active per-token params (MoE: top-k experts only)."""
+        if not self.is_moe:
+            return self.n_params()
+        d, L = self.d_model, self.num_layers
+        attn = d * (self.num_heads + 2 * self.num_kv_heads) * self.head_dim \
+            + self.num_heads * self.head_dim * d
+        ffn = self.experts_per_token * 3 * d * self.d_ff + d * self.num_experts
+        emb = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        return emb + L * (attn + ffn)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -171,11 +182,15 @@ class ModelConfig:
 # registry
 # ---------------------------------------------------------------------------
 
-ARCH_IDS = ["qwen3_moe_30b_a3b"]
+ARCH_IDS = ["qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "dbrx"]
+
+# the reference's aliases: hyphenated ids and DBRX's model name
+_ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
+_ALIAS.update({"dbrx": "dbrx", "dbrx-132b": "dbrx"})
 
 
 def get_config(arch: str) -> ModelConfig:
-    arch_mod = arch.replace("-", "_").replace(".", "_")
+    arch_mod = _ALIAS.get(arch, arch).replace("-", "_").replace(".", "_")
     if arch_mod not in ARCH_IDS:
         raise ValueError(f"unknown or not yet ported arch {arch!r}; the port "
                          f"has {ARCH_IDS}")

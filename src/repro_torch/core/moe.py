@@ -119,7 +119,9 @@ def gather_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
     has no TPU kernel; it stays in torch ops."""
     e_local = experts["w_gate"].shape[0]
     local = (top_idx >= e_start) & (top_idx < e_start + e_local)
-    idx = (top_idx - e_start).clamp(0, e_local - 1)
+    # a non-local selection reads local expert 0 (weight 0), never the
+    # router-dead padding at the end of the stack that a clamp would reach
+    idx = torch.where(local, top_idx - e_start, 0)
     w = torch.where(local, top_w, 0.0)
     xf = x.float()
     sel = lambda name: quant.materialize(experts[name][idx]).float()

@@ -4,11 +4,17 @@ paged ``ServingEngine`` on the card.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b
 
 runs the full-width model (bf16, random weights from a seeded generator);
-``--reduced`` runs the smoke-test variant and ``--device cpu`` the plain
-versions of the kernels on the CPU.  ``--weight-quant int8|int4`` quantizes
-the weights on load and ``--kv-cache-dtype int8`` keeps an int8 page pool.  Prints prompt-eval and generation
-tok/s, TTFT, device memory, prefix-cache statistics, each kernel's launch
-count and the paper's E[#exec experts/node/layer] statistic.
+``--arch`` takes ``qwen3_moe_30b_a3b``, ``granite_moe_3b_a800m`` or
+``dbrx`` (or the reference's aliases, e.g. ``dbrx-132b``).  ``--reduced``
+runs the smoke-test variant and ``--device cpu`` the plain versions of the
+kernels on the CPU.  ``--weight-quant int8|int4`` quantizes the weights on
+load and ``--kv-cache-dtype int8`` keeps an int8 page pool.  Prints
+prompt-eval and generation tok/s, TTFT, device memory, prefix-cache
+statistics, each kernel's launch count, and from the paper's performance
+model (``core/perf_model``): the modelled paged-attention reads, the
+E[#exec experts/node/layer] statistic beside Eq. 1's bound on two to four
+M2-Ultra nodes, and which weight-quant level lets two such nodes host the
+full-size arch.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import get_config
+from repro_torch.core import perf_model
 from repro_torch.kernels import ops
 from repro_torch.models.model import resolve_device
 from repro_torch.serving.engine import EngineConfig, ServingEngine
@@ -26,7 +33,8 @@ from repro_torch.serving.engine import EngineConfig, ServingEngine
 def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
                device="cuda", max_batch: int = 4, seed: int = 0,
                chunk_len: int = 32, page_size: int = 16, num_pages: int = 0,
-               shared_prefix: int = 0):
+               shared_prefix: int = 0, fit_cfg=None):
+    fit_cfg = fit_cfg or cfg
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     eng = ServingEngine(cfg, EngineConfig(
         max_batch=max_batch, max_cache=prompt_len + new_tokens + 8,
@@ -60,6 +68,18 @@ def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
           f"pages in use, high-water {ps['pages_hwm']} "
           f"({ps['pool_utilization']:.1%} of pool), page_size "
           f"{ps['page_size']}")
+    # attention-read model over the decode trajectory (not its last step,
+    # where every row fills its block table and both reads are equal): the
+    # pages the kernel walks against a gather of the whole block table
+    rb = perf_model.paged_attention_read_bytes(
+        cfg, lengths=[prompt_len + i for i in range(new_tokens)
+                      for _ in range(max_batch)],
+        page_size=page_size, max_blocks=eng.max_blocks)
+    steps = max(new_tokens, 1)
+    print(f"paged-attention reads  : {rb['kernel_bytes'] / steps / 1e6:.2f} "
+          f"MB/step over live pages (the kernel, device memory) vs "
+          f"{rb['gather_bytes'] / steps / 1e6:.2f} MB gathering whole block "
+          f"tables ({rb['ratio']:.1f}x)")
     print(f"prefix cache           : hit rate {ps['prefix_hit_rate']:.1%} "
           f"({ps['prefix_hits']}/{ps['prefix_lookups']} lookups), "
           f"{ps['prefix_hit_tokens']} prefill tokens skipped, "
@@ -68,8 +88,20 @@ def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
     print("kernel launches        : " + ", ".join(
         f"{k} {v}" for k, v in ops.launch_counts().items()))
     for n in (2, 3, 4):
-        print(f"E[#exec experts/node/layer] @ {n} nodes: "
-              f"{eng.expected_experts_per_node(n):.2f}")
+        e = eng.expected_experts_per_node(n)
+        est = perf_model.estimate(perf_model.MoEWorkload.from_config(cfg),
+                                  perf_model.M2_ULTRA_10GBE, n,
+                                  expected_experts=e)
+        print(f"E[#exec experts/node/layer] @ {n} nodes: {e:.2f}  "
+              f"(paper-model bound {est.throughput:.1f} tok/s)")
+    # which quant level lets two of the paper's nodes host the arch, from
+    # ``fit_cfg`` (main() passes the full-size config, so a --reduced run
+    # still prints the real answer)
+    fit = perf_model.max_model_at_budget(fit_cfg, n_nodes=2)
+    print(f"memory fit @ 2 M2-Ultra nodes ({fit_cfg.name}): "
+          f"{fit['level'] or 'does not fit (even int4)'}  "
+          + " ".join(f"{k}={v / 1e9:.1f}GB"
+                     for k, v in fit["per_node_bytes"].items()))
     return eng, done
 
 
@@ -112,7 +144,8 @@ def main():
                prompt_len=args.prompt_len, device=args.device,
                max_batch=args.max_batch, chunk_len=args.chunk_len,
                page_size=args.page_size, num_pages=args.num_pages,
-               shared_prefix=args.shared_prefix)
+               shared_prefix=args.shared_prefix,
+               fit_cfg=get_config(args.arch))
 
 
 if __name__ == "__main__":

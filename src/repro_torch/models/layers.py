@@ -11,8 +11,6 @@ import math
 
 import torch
 
-from repro_torch import not_ported
-
 
 # ---------------------------------------------------------------------------
 # initializers
@@ -49,11 +47,30 @@ def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-6) -> torch.Tenso
     return (out * w.float()).to(dt)
 
 
-def norm_apply(kind: str, w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    if kind != "rmsnorm":
-        raise not_ported(f"norm {kind!r}",
-                         "the dense family and the reference path")
-    return rms_norm(w, x)
+def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Statistics in fp32; the variance is the biased one (``jnp.var``)."""
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps)
+    return (out * params["scale"].float() + params["bias"].float()).to(dt)
+
+
+def norm_apply(kind: str, params, x: torch.Tensor) -> torch.Tensor:
+    """``params`` is the rmsnorm weight, or layernorm's {"scale", "bias"}."""
+    if kind == "layernorm":
+        return layer_norm(params, x)
+    return rms_norm(params, x)
+
+
+def norm_init(kind: str, d: int, dtype, device, lead: tuple = ()):
+    """Unit norm parameters of width ``d`` (stacked over ``lead``): the
+    rmsnorm weight, or layernorm's {"scale": ones, "bias": zeros}."""
+    ones = torch.ones(lead + (d,), dtype=dtype, device=device)
+    if kind == "layernorm":
+        return {"scale": ones, "bias": torch.zeros_like(ones)}
+    return ones
 
 
 # ---------------------------------------------------------------------------

@@ -78,8 +78,8 @@ class Model:
         params = {
             "embed": layers.embed_init(gen, cfg.vocab_padded, cfg.d_model, pdt),
             "blocks": transformer.init_blocks(cfg, gen),
-            "final_norm": torch.ones((cfg.d_model,), dtype=pdt,
-                                     device=self.device),
+            "final_norm": layers.norm_init(cfg.norm, cfg.d_model, pdt,
+                                           self.device),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = layers.dense_init(gen, cfg.d_model,

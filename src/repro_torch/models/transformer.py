@@ -19,11 +19,11 @@ from repro_torch.models import attention, layers
 def _moe_layer_init(cfg, gen: torch.Generator, dtype) -> dict:
     L, e, d, f = (cfg.num_layers, cfg.num_experts_padded, cfg.d_model,
                   cfg.d_ff)
-    ones = lambda: torch.ones((L, d), dtype=dtype, device=gen.device)
+    norm = lambda: layers.norm_init(cfg.norm, d, dtype, gen.device, (L,))
     return {
-        "ln1": ones(),
+        "ln1": norm(),
         "attn": attention.attn_init(gen, cfg, dtype, (L,)),
-        "ln2": ones(),
+        "ln2": norm(),
         "router": layers.dense_init(gen, d, e, dtype, (L,)),
         "experts": {
             "w_gate": layers.dense_init(gen, d, f, dtype, (L, e)),
@@ -37,9 +37,6 @@ def init_blocks(cfg, gen: torch.Generator) -> dict:
     """Layer-stacked block parameters, drawn from ``gen`` on its device."""
     if cfg.family != "moe":
         raise not_ported(f"the {cfg.family!r} family",
-                         "the dense family and the reference path")
-    if cfg.norm != "rmsnorm":
-        raise not_ported(f"norm {cfg.norm!r}",
                          "the dense family and the reference path")
     return _moe_layer_init(cfg, gen, cfg.param_torch_dtype)
 

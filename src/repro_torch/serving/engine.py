@@ -552,6 +552,27 @@ class ServingEngine:
                 done.append(r)
         return done
 
+    # -- paper policy artifacts ---------------------------------------------
+
+    def standby(self) -> torch.Tensor:
+        """The paper's between-request keep-warm (§4.2 'standby
+        calculation'): a summing touch over every expert weight, in fp32.
+        A QuantTensor leaf contributes its payload and its fp32 scales, the
+        leaves the reference's tree walk yields.  Summed one layer at a
+        time, so an int8 payload's fp32 copy is one layer's slice (bf16
+        sums on the card cast as they read)."""
+        total = torch.zeros((), dtype=torch.float32, device=self.device)
+        if not self.cfg.is_moe:
+            return total
+        ex = self.params["blocks"]["experts"]
+        for name in sorted(ex):
+            w = ex[name]
+            for leaf in ((w.data, w.scale) if isinstance(w, quant.QuantTensor)
+                         else (w,)):
+                for layer in leaf:
+                    total += layer.sum(dtype=torch.float32)
+        return total
+
     def expected_experts_per_node(self, n_nodes: int) -> float:
         """The paper's Table-1 statistic E[#exec experts/node/layer] from the
         device-captured routing of every served step."""

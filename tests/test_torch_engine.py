@@ -16,7 +16,6 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs.base import get_config as jax_get_config
 from repro.models.model import build_model as jax_build_model
 from repro.serving.engine import EngineConfig as JaxEngineConfig
 from repro.serving.engine import ServingEngine as JaxServingEngine
@@ -25,8 +24,9 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import moe
 from repro_torch.core.quant import QuantTensor
 from repro_torch.serving.engine import EngineConfig, ServingEngine
+from torch_archs import ARCHS, reduced_pair
 
-ARCH = "qwen3_moe_30b_a3b"
+ARCH = ARCHS[0]
 ENGINE = dict(max_batch=2, max_cache=32, chunk_len=3, page_size=5)
 
 
@@ -62,19 +62,27 @@ CASES = {
 }
 
 
-@pytest.fixture(scope="module", params=list(CASES))
+# (arch, case): every case on the first arch (ids unchanged), the fp and
+# the int8-weights + int8-KV cases on the others, which have router-dead
+# experts and padded vocab columns (``torch_archs``)
+SERVED = [(ARCH, c) for c in CASES] + [
+    (a, c) for a in ARCHS[1:] for c in ("async", "w_int8_kv_int8")]
+
+
+@pytest.fixture(scope="module", params=SERVED, ids=[
+    c if a == ARCH else f"{a}-{c}" for a, c in SERVED])
 def served(request):
-    engine_kw, quant_kw = CASES[request.param]
+    arch, case = request.param
+    engine_kw, quant_kw = CASES[case]
     traffic = _traffic()
-    jcfg = jax_get_config(ARCH).reduced().replace(
-        capacity_factor=8.0, use_kernel=True, **quant_kw)
+    jcfg, cfg = reduced_pair(arch, {"use_kernel": True}, capacity_factor=8.0,
+                             **quant_kw)
     # both engines quantize the same raw weights on load
     raw = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
     jeng = JaxServingEngine(jcfg, JaxEngineConfig(
         async_steps=False, paged=True, paged_kernel=True,
         token_budget=engine_kw.get("token_budget", 0), **ENGINE),
         params=raw)
-    cfg = get_config(ARCH).reduced().replace(capacity_factor=8.0, **quant_kw)
     params = from_jax_params(jax.tree.map(np.asarray, raw), cfg, "cpu")
     peng = ServingEngine(cfg, EngineConfig(**ENGINE, **engine_kw),
                          params=params, device="cpu")

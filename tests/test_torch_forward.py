@@ -1,5 +1,6 @@
 """Port vs JAX for the full-sequence forward and the forward loss of the
-reduced ``qwen3_moe_30b_a3b``, on JAX-initialised weights bridged into the
+reduced ``qwen3_moe_30b_a3b`` (and of granite and DBRX with router-dead
+experts and padded vocab, ``torch_archs``), on JAX-initialised weights bridged into the
 port (``bridge.from_jax_params``: the forward reads the same tree as the
 serving step) and the same numpy tokens.
 
@@ -32,16 +33,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs.base import get_config as jax_get_config
 from repro.core import quant as jq
 from repro.models.model import build_model as jax_build_model
 from repro_torch import bridge
-from repro_torch.configs.base import get_config
 from repro_torch.kernels import ops
 from repro_torch.models import model as model_mod
 from repro_torch.models.model import build_model
+from torch_archs import ARCHS, reduced_pair
 
-ARCH = "qwen3_moe_30b_a3b"
+ARCH = ARCHS[0]
 BF16 = {"dtype": "bfloat16", "param_dtype": "bfloat16"}
 SOURCE_ROUNDING = "--xla_allow_excess_precision=false"
 WINDOW = {"long_context_threshold": 32, "long_context_window": 16}
@@ -53,14 +53,18 @@ CASES = {
     "window_flash": (WINDOW, True, 2, 64, 2e-4),
     "window_attend": (WINDOW, False, 2, 64, 2e-4),
     "chunked_ce_flash": ({}, True, 1, 1024, 2e-4),
+    "granite_flash": ({}, True, 2, 64, 2e-4),
+    "dbrx_flash": ({}, True, 2, 64, 2e-4),
 }
+# the cases of the other archs: router-dead experts, padded vocab, a tied
+# head (granite) and layernorm (DBRX)
+CASE_ARCH = {"granite_flash": "granite_moe_3b_a800m", "dbrx_flash": "dbrx"}
 
 
 def _setup(name):
     fields, flash, b, s, tol = CASES[name]
-    jcfg = jax_get_config(ARCH).reduced().replace(
-        use_kernel=True, use_flash_kernel=flash, **fields)
-    cfg = get_config(ARCH).reduced().replace(**fields)
+    jcfg, cfg = reduced_pair(CASE_ARCH.get(name, ARCH), dict(
+        use_kernel=True, use_flash_kernel=flash), **fields)
     jmodel = jax_build_model(jcfg)
     jparams = jq.quantize_params(jmodel.init(jax.random.PRNGKey(0)), jcfg)
     params = bridge.from_jax_params(jax.tree.map(np.asarray, jparams), cfg,

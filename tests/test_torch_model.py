@@ -13,21 +13,20 @@ import numpy as np
 import pytest
 import torch
 
-from repro.configs.base import get_config as jax_get_config
+from repro.models import layers as jax_layers
 from repro.models import model as jax_model
 from repro.models.model import build_model as jax_build_model
 from repro_torch import bridge
-from repro_torch.configs.base import get_config
+from repro_torch.models import layers
 from repro_torch.models import model as model_mod
 from repro_torch.models.model import build_model
+from torch_archs import ARCHS, reduced_pair
 
-ARCH = "qwen3_moe_30b_a3b"
+ARCH = ARCHS[0]
 
 
-def _configs(**kw):
-    jcfg = jax_get_config(ARCH).reduced().replace(capacity_factor=8.0,
-                                                  use_kernel=True, **kw)
-    return jcfg, get_config(ARCH).reduced().replace(capacity_factor=8.0, **kw)
+def _configs(arch=ARCH, **kw):
+    return reduced_pair(arch, {"use_kernel": True}, capacity_factor=8.0, **kw)
 
 
 def _leaves(tree, prefix=""):
@@ -38,9 +37,16 @@ def _leaves(tree, prefix=""):
         yield prefix, tree
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_bridge_round_trip_bit_exact(dtype):
-    jcfg, cfg = _configs(dtype=dtype, param_dtype=dtype)
+# (arch, dtype); the first arch's cases keep their original ids
+BRIDGE_CASES = [(a, d) for a in ARCHS for d in ("float32", "bfloat16")]
+
+
+@pytest.mark.parametrize("arch,dtype", BRIDGE_CASES, ids=[
+    d if a == ARCH else f"{a}-{d}" for a, d in BRIDGE_CASES])
+def test_bridge_round_trip_bit_exact(arch, dtype):
+    """Every leaf, layernorm's scale and bias dicts included, round-trips
+    bit for bit."""
+    jcfg, cfg = _configs(arch, dtype=dtype, param_dtype=dtype)
     jparams = jax.tree.map(np.asarray,
                            jax_build_model(jcfg).init(jax.random.PRNGKey(1)))
     params = bridge.from_jax_params(jparams, cfg, "cpu")
@@ -55,10 +61,42 @@ def test_bridge_round_trip_bit_exact(dtype):
 
 
 def test_bridge_layout_matches_port_init():
-    _, cfg = _configs()
-    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
-    shapes = {n: tuple(t.shape) for n, t in _leaves(params)}
-    assert shapes == dict(_leaves(bridge.param_shapes(cfg)))
+    for arch in ARCHS:
+        jcfg, cfg = _configs(arch)
+        params = build_model(cfg, "cpu").init(
+            torch.Generator().manual_seed(0))
+        shapes = {n: tuple(t.shape) for n, t in _leaves(params)}
+        assert shapes == dict(_leaves(bridge.param_shapes(cfg))), arch
+        want = jax.eval_shape(jax_build_model(jcfg).init,
+                              jax.random.PRNGKey(0))
+        assert shapes == {n: a.shape for n, a in _leaves(want)}, arch
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_matches_reference(dtype):
+    """layernorm (DBRX's norm): fp32 statistics, the biased variance, eps
+    1e-5, scale and bias in fp32, the result in x's dtype."""
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((3, 5, 96)) * 3 + 1.5).astype(np.float32)
+    p = {"scale": rng.standard_normal(96).astype(np.float32),
+         "bias": rng.standard_normal(96).astype(np.float32)}
+    jdt = jnp.dtype(dtype)
+    want = np.asarray(jax_layers.layer_norm(
+        {k: jnp.asarray(v).astype(jdt) for k, v in p.items()},
+        jnp.asarray(x).astype(jdt)).astype(jnp.float32))
+    tdt = getattr(torch, dtype)
+    got = layers.norm_apply("layernorm",
+                            {k: torch.from_numpy(v).to(tdt)
+                             for k, v in p.items()},
+                            torch.from_numpy(x).to(tdt))
+    assert got.dtype == tdt
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+    init = layers.norm_init("layernorm", 96, tdt, "cpu", (2,))
+    assert sorted(init) == ["bias", "scale"]
+    assert init["scale"].shape == (2, 96) and bool((init["scale"] == 1).all())
+    assert bool((init["bias"] == 0).all()) and init["bias"].dtype == tdt
+    assert layers.norm_init("rmsnorm", 96, tdt, "cpu").shape == (96,)
 
 
 def test_bridge_rejects_other_layout():
@@ -229,3 +267,38 @@ def test_bf16_params_round_through_ml_dtypes():
     assert out.dtype == ml_dtypes.bfloat16
     np.testing.assert_array_equal(out.astype(np.float32),
                                   t.float().numpy())
+
+
+def test_padded_vocab_columns_never_win():
+    """Granite ties its head to the embedding and pads its vocab (here 500
+    to 512): the rows past the vocab are never looked up as inputs, so as
+    head columns they only add logits, which greedy decoding must never
+    pick and the loss must mask.  Loud rows there win the argmax over the
+    padded width, yet change neither the engine's tokens nor the loss."""
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    _, cfg = _configs("granite_moe_3b_a800m")
+    assert cfg.tie_embeddings and cfg.vocab_padded > cfg.vocab_size
+    model = build_model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    loud = {**params, "embed": params["embed"].clone()}
+    loud["embed"][cfg.vocab_size:] = 1e3 * torch.randn(
+        (cfg.vocab_padded - cfg.vocab_size, cfg.d_model),
+        generator=torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 12)))
+    batch = {"tokens": tokens, "labels": tokens.roll(-1, 1)}
+    with torch.no_grad():
+        logits, _ = model.forward(loud, {"tokens": tokens})
+        assert float((logits.argmax(-1) >= cfg.vocab_size).float().mean()) > .9
+        want, got = model.loss(params, batch)[0], model.loss(loud, batch)[0]
+    assert float(got) == pytest.approx(float(want), rel=1e-6)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 5))
+    streams = []
+    for p in (params, loud):
+        eng = ServingEngine(cfg, EngineConfig(max_batch=2, max_cache=24),
+                            params=p, device="cpu")
+        uids = [eng.submit(prompt, 6) for prompt in prompts]
+        eng.run_until_done()
+        streams.append([eng._all[u].generated for u in uids])
+    assert streams[0] == streams[1]
+    assert max(max(s) for s in streams[1]) < cfg.vocab_size

@@ -107,6 +107,23 @@ def test_gather_moe_matches():
     _close(got, want)
 
 
+def test_gather_moe_never_reads_router_dead_experts():
+    """Padding tokens dead-routed to the E_pad sentinel read a live expert
+    (with weight 0), not the router-dead padding at the end of the stack:
+    NaN there leaves every output row finite."""
+    rng = np.random.default_rng(9)
+    ex = _experts(rng, 6, 8, 16)
+    for w in ex.values():
+        w[4:] = np.nan                         # experts 4, 5: router-dead
+    x = rng.standard_normal((3, 8)).astype(np.float32)
+    idx = np.array([[0, 3], [6, 6], [2, 1]], np.int32)
+    w = np.array([[0.7, 0.3], [0.0, 0.0], [0.5, 0.5]], np.float32)
+    got = moe.gather_moe({k: _t(v) for k, v in ex.items()}, _t(x), _t(idx),
+                         _t(w), 0)
+    assert bool(torch.isfinite(got).all())
+    assert bool((got[1] == 0).all())
+
+
 def _bf16_steps(got: torch.Tensor, want) -> np.ndarray:
     """How many bf16 values lie between ``got`` and ``want``, per element."""
     def ordered(bits):

@@ -2,6 +2,7 @@
 the reference configs field for field, and runs on the card by default."""
 import ast
 import dataclasses
+import importlib
 from pathlib import Path
 
 import pytest
@@ -9,6 +10,7 @@ import torch
 
 from repro.configs import base as jax_base
 from repro_torch.configs import base
+from torch_archs import ARCHS
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -39,10 +41,15 @@ def test_audit_covers_the_package():
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir()
 
 
-@pytest.mark.parametrize("reduced", [False, True])
-def test_config_matches_reference_field_by_field(reduced):
-    ref = jax_base.get_config("qwen3_moe_30b_a3b")
-    port = base.get_config("qwen3_moe_30b_a3b")
+# (arch, reduced); the first arch's cases keep their original ids
+CONFIG_CASES = [(a, r) for a in ARCHS for r in (False, True)]
+
+
+@pytest.mark.parametrize("arch,reduced", CONFIG_CASES, ids=[
+    str(r) if a == ARCHS[0] else f"{a}-{r}" for a, r in CONFIG_CASES])
+def test_config_matches_reference_field_by_field(arch, reduced):
+    ref = jax_base.get_config(arch)
+    port = base.get_config(arch)
     if reduced:
         ref, port = ref.reduced(), port.reduced()
     ref_fields = {f.name for f in dataclasses.fields(ref)}
@@ -53,7 +60,24 @@ def test_config_matches_reference_field_by_field(reduced):
         assert getattr(port, name) == getattr(ref, name), name
     assert port.vocab_padded == ref.vocab_padded
     assert port.n_params() == ref.n_params()
+    assert port.n_active_params() == ref.n_active_params()
     assert port.torch_dtype == getattr(torch, port.dtype)
+
+
+def test_ported_archs_are_registered():
+    assert base.ARCH_IDS == list(ARCHS)
+    for arch in ARCHS:
+        mod = importlib.import_module(f"repro_torch.configs.{arch}")
+        assert base.get_config(arch) is mod.CONFIG
+
+
+@pytest.mark.parametrize("alias,arch", [
+    ("dbrx-132b", "dbrx"), ("dbrx", "dbrx"),
+    ("granite-moe-3b-a800m", "granite_moe_3b_a800m"),
+    ("qwen3-moe-30b-a3b", "qwen3_moe_30b_a3b")])
+def test_get_config_accepts_reference_aliases(alias, arch):
+    assert base.get_config(alias) == base.get_config(arch)
+    assert base.get_config(alias).name == jax_base.get_config(alias).name
 
 
 def test_unknown_arch_raises():

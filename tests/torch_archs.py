@@ -1,0 +1,24 @@
+"""The archs the port runs, and the reduced configs its CPU parity tests
+hold against the JAX reference.
+
+``reduced()`` gives every arch all-live experts (4 of 4) and an unpadded
+512-token vocab, so for the archs that have them at full size (granite's
+router-dead experts and padded vocab, DBRX's layernorm and widths) the
+tests take a variant with both: 6 live experts of 8 and a 500-token vocab
+padded to 512, identically on both sides."""
+from repro.configs.base import get_config as jax_get_config
+from repro_torch.configs.base import get_config
+
+ARCHS = ("qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "dbrx")
+NEW_ARCHS = ARCHS[1:]
+DEAD_AND_PADDED = dict(num_experts=6, num_experts_padded=8, vocab_size=500)
+
+
+def reduced_pair(arch: str, jax_kw: dict | None = None, **kw):
+    """(JAX config, port config) of ``arch`` reduced, with ``kw`` on both
+    sides and ``jax_kw`` (the JAX-only kernel switches) on the JAX side;
+    the archs after the first take the dead-expert, padded-vocab variant."""
+    extra = {} if arch == ARCHS[0] else DEAD_AND_PADDED
+    jcfg = jax_get_config(arch).reduced().replace(**extra, **kw,
+                                                  **(jax_kw or {}))
+    return jcfg, get_config(arch).reduced().replace(**extra, **kw)
