@@ -40,6 +40,11 @@ line):
                 card against the CPU's.  Then the same (fp, and int8
                 weights + int8 KV) for granite and DBRX reduced with
                 router-dead experts (6 live of 8) and padded vocab columns.
+  4c. chaos   — the port's chaos matrix (every fault site, an overcommit
+                preemption and restore) on the reduced qwen3-moe, on the
+                card and on the CPU from the same weights, fp32 and int8
+                weights + int8 KV: gates 1-4 on each device, the card's
+                streams and counters equal the CPU's scenario by scenario.
   5. serve    — the full-width qwen3-moe-30b-a3b (48 layers, bf16, random
                 weights from a seeded generator on the card) serves six
                 requests sharing a system prompt through the paged engine;
@@ -48,6 +53,15 @@ line):
   6. forward  — on phase 5's weights, before they are freed: the full-
                 sequence forward and loss at B=2, S=2048 (48 flash and 48
                 grouped-FFN launches each), with a profile window.
+  5c. serve_resilience — on the same weights: overcommit on a 24-page
+                pool with priorities, two sampled requests, a cancel, an
+                expired deadline and 2 alloc + 3 dispatch + 3 NaN faults,
+                every counter gated; a replay must repeat every stream;
+                conservative admission on the same traffic prints its
+                agreement with phase 5 and the overcommit run, and both
+                again at capacity_factor 8 print theirs; each greedy
+                stream of those two runs is held to the full-sequence
+                forward of its own tokens (FORCED_SHARE_MAX).
   5b. serve_quant — the same model and traffic with int8 weights
                 (quantized on load, on the card) and an int8 KV pool,
                 after the bf16 model is freed.
@@ -918,13 +932,14 @@ def serve_phase(torch, cfg, phase: str, want: tuple, t_phase: float,
     prof = profile_window(torch, lambda: serve(eng, extra, 8), phase)
     emit(phase, **row, device_busy_share=prof["device_busy_share"],
          phase_s=time.perf_counter() - t_phase, card=card())
-    return launches
+    return launches, out
 
 
 def check_serve(torch, cfg=None, phase: str = "serve"):
     """Phase 5 (and the other archs' serves): the full-width model in bf16,
     random weights from a seeded generator on the card.  Returns the launch
-    counts and the weights (the forward runs on them next)."""
+    counts, the weights (the forward runs on them next) and the greedy
+    streams."""
     from repro_torch.configs.base import get_config
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     cfg = cfg or get_config(ARCH)
@@ -942,9 +957,10 @@ def check_serve(torch, cfg=None, phase: str = "serve"):
     del warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches = serve_phase(torch, cfg, phase, ("moe_ffn", "paged_attention"),
-                           t0, init, params)
-    return launches, params
+    launches, streams = serve_phase(torch, cfg, phase,
+                                    ("moe_ffn", "paged_attention"), t0, init,
+                                    params)
+    return launches, params, streams
 
 
 def check_serve_quant(torch, cfg=None, phase: str = "serve_quant"):
@@ -970,7 +986,269 @@ def check_serve_quant(torch, cfg=None, phase: str = "serve_quant"):
     del warm
     return serve_phase(torch, cfg, phase,
                        ("moe_ffn_quant", "paged_attention_int8"), t0, init,
-                       params)
+                       params)[0]
+
+
+def check_chaos(torch):
+    """Phase 4c: the port's chaos matrix (``serving/chaos.run_matrix``) on
+    the reduced qwen3-moe, on the card and on the CPU from the same
+    weights, fp32 and with int8 weights + an int8 KV pool.  Each device
+    must pass gates 1-4 in every scenario, the card's streams must equal
+    the CPU's scenario by scenario, the card must launch its path's
+    kernels, and the preempted request's restore must re-attend its own
+    cached pages through the CUDA paged kernel."""
+    from repro_torch.serving import chaos
+    for (wq, kv), want in ((("none", "native"), REDUCED[("none", "native")]),
+                           (("int8", "int8"), REDUCED[("int8", "int8")])):
+        t0 = time.perf_counter()
+        recs = {}
+        for dev in ("cpu", "cuda"):
+            recs[dev] = {}
+            errors = chaos.run_matrix(ARCH, device=dev, weight_quant=wq,
+                                      kv_cache_dtype=kv, verbose=False,
+                                      record=recs[dev])
+            check(not errors, f"chaos {wq}/{kv} on {dev}: {errors}")
+        gpu, cpu = recs["cuda"], recs["cpu"]
+        check(list(gpu) == list(cpu), f"chaos {wq}/{kv}: scenarios differ")
+        for name in gpu:
+            check(gpu[name]["tokens"] == cpu[name]["tokens"],
+                  f"chaos {wq}/{kv} {name}: card tokens "
+                  f"{gpu[name]['tokens']} != CPU {cpu[name]['tokens']}")
+            check(gpu[name]["stats"] == cpu[name]["stats"],
+                  f"chaos {wq}/{kv} {name}: card counters "
+                  f"{gpu[name]['stats']} != CPU {cpu[name]['stats']}")
+        launches = {k: sum(r["launches"][k] for r in gpu.values())
+                    for k in gpu["baseline"]["launches"]}
+        check_path_kernels(launches, want, f"chaos {wq}/{kv}")
+        pre = gpu["paged/preempt"]
+        check(pre["stats"]["restore_hit_tokens"] > 0
+              and pre["launches"][want[1]] > 0,
+              f"chaos {wq}/{kv}: no restore of cached pages through "
+              f"{want[1]} ({pre})")
+        emit("chaos", weight_quant=wq, kv_cache_dtype=kv,
+             scenarios=list(gpu), card_equals_cpu=True, launches=launches,
+             preempt=pre["stats"], seconds=time.perf_counter() - t0)
+
+
+# phase 5c: the resilient serve.  Phase 5's six prompts take these
+# priorities; the pool is small enough that overcommit must preempt and
+# restore; two more requests sample, one is cancelled in flight and one
+# expires in the queue; the plan injects 2 alloc, 3 dispatch and 3 NaN
+# faults (each NaN fault poisons one row that the step schedules)
+RESILIENCE_PRIORITIES = [0, 0, 0, 5, 0, 5]
+RESILIENCE_ENGINE = dict(max_batch=4, max_cache=192, chunk_len=32,
+                         page_size=16, num_pages=24, sample_seed=7)
+RESILIENCE_FAULTS = [(1, "alloc", ()), (2, "alloc", ()),
+                     (4, "dispatch", ()), (9, "dispatch", ()),
+                     (21, "dispatch", ()), (6, "nan", (0,)),
+                     (13, "nan", (1,)), (17, "nan", (2,))]
+
+
+def resilience_serve(torch, cfg, params, *, overcommit: bool = True,
+                     faults: bool = True, steps: int | None = None,
+                     device: str = "cuda") -> dict:
+    """One run of phase 5c's traffic on a new engine: the six prompts at
+    their priorities and, with ``faults``, the fault plan, the two sampled
+    requests, the one cancelled once it decodes and the one that expires.
+    ``steps`` stops after that many engine steps instead (a profile
+    window).  ``device`` is the card, or the CPU where a test holds the
+    phase's checks to the plain versions at reduced widths.  Returns the
+    engine, the plan and every request by role."""
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    from repro_torch.serving.faults import Fault, FaultPlan
+    plan = (FaultPlan([Fault(st, site, rows=rows)
+                       for st, site, rows in RESILIENCE_FAULTS])
+            if faults else None)
+    eng = ServingEngine(cfg, EngineConfig(**RESILIENCE_ENGINE,
+                                          overcommit=overcommit),
+                        params=params, device=device, fault_plan=plan)
+    prompts = traffic(cfg.vocab_size, 6, 40, 48, 160, seed=0)
+    roles = {"greedy": [eng.submit(p, 16, priority=pr) for p, pr in
+                        zip(prompts, RESILIENCE_PRIORITIES)]}
+    if faults:
+        more = traffic(cfg.vocab_size, 5, 40, 48, 160, seed=11)
+        roles["sampled"] = [eng.submit(p, 16, temperature=0.8, top_k=40)
+                            for p in more[:2]]
+        roles["cancelled"] = [eng.submit(more[2], 16)]
+        roles["expired"] = [eng.submit(more[3], 16, deadline_ms=0)]
+    if steps is not None:
+        for _ in range(steps):
+            eng.step()
+        eng.flush()
+        return {"eng": eng}
+    if faults:
+        victim = eng._all[roles["cancelled"][0]]
+        for _ in range(10_000):
+            eng.step()
+            slot = next((i for i, r in enumerate(eng.slots) if r is victim),
+                        None)
+            if (slot is not None
+                    and eng.prefill_pos[slot] >= len(eng.slot_ctx[slot])):
+                break
+        check(victim.status == "running" and eng.cancel(victim.uid),
+              f"serve_resilience: the cancel target was {victim.status!r}, "
+              f"not in flight")
+    eng.run_until_done()
+    reqs = {role: [eng._all[u] for u in uids] for role, uids in roles.items()}
+    return {"eng": eng, "plan": plan, "reqs": reqs}
+
+
+def forced_shares(torch, cfg, params, reqs) -> list:
+    """Each greedy stream held to the full-sequence forward of its own
+    tokens: at every generated position, how far the emitted token's
+    logit sits below the forward's largest, as a share of that largest
+    logit's distance from the mean (0: the forward's argmax; a token
+    picked at random sits near 1).  A near-tie that the serve's rounding
+    broke the other way costs a few hundredths; a restore that attended
+    to the wrong pages emits tokens the forward ranks far lower.  Returns
+    each request's largest share."""
+    from repro_torch.models.model import build_model
+    model = build_model(cfg, params["embed"].device)
+    out = []
+    with torch.no_grad():
+        for r in reqs:
+            seq = np.concatenate([r.prompt,
+                                  np.asarray(r.generated[:-1], np.int32)])
+            logits, _ = model.forward(params, {"tokens": torch.as_tensor(
+                seq[None].astype(np.int32), device=model.device)})
+            lg = logits[0, len(r.prompt) - 1:, :cfg.vocab_size]
+            gen = torch.as_tensor(r.generated, device=lg.device).long()
+            top = lg.max(-1).values
+            share = ((top - lg.gather(1, gen[:, None])[:, 0])
+                     / (top - lg.mean(-1)))
+            out.append(float(share.max()))
+    return out
+
+
+# the largest share (``forced_shares``) a greedy stream of phase 5c's
+# capacity-8 runs may reach
+FORCED_SHARE_MAX = 0.25
+
+
+def check_serve_resilience(torch, params, uncontended):
+    """Phase 5c: the resilient serve at full width on phase 5's weights
+    (after phase 6's forward, before they are freed): overcommit with
+    preemption and prefix-cache restore, priorities, sampling, a cancel, a
+    deadline and injected faults, each gated; then a replay of the same
+    traffic, plan and sample_seed (every stream, sampled ones included,
+    must repeat); then conservative admission on the same pool, traffic
+    and plan, whose greedy streams are printed against phase 5's and the
+    overcommit run's; then a profile window.  Returns the first run's
+    launch counts."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    cfg = get_config(ARCH)
+    t_phase = time.perf_counter()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    run = resilience_serve(torch, cfg, params)
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    eng, plan, reqs = run["eng"], run["plan"], run["reqs"]
+    check_path_kernels(launches, ("moe_ffn", "paged_attention"),
+                       "serve_resilience")
+    for role, rs in reqs.items():
+        status = {"cancelled": "cancelled", "expired": "expired"}.get(role,
+                                                                       "done")
+        check(all(r.status == status for r in rs),
+              f"serve_resilience {role}: statuses "
+              f"{[r.status for r in rs]}, expected {status!r}")
+    for r in reqs["greedy"] + reqs["sampled"]:
+        check(len(r.generated) == 16 and all(
+            0 <= t < cfg.vocab_size for t in r.generated),
+            f"serve_resilience: request {r.uid} generated {r.generated}")
+    check(reqs["expired"][0].generated == [],
+          "serve_resilience: the expired request generated tokens")
+    st = eng.resilience_stats()
+    n_nan = sum(1 for f in RESILIENCE_FAULTS if f[1] == "nan")
+    check(st["preemptions"] >= 1 and st["restores"] >= 1
+          and st["restore_hit_tokens"] > 0,
+          f"serve_resilience: no preempt/restore cycle with a prefix hit "
+          f"({st})")
+    check(st["alloc_stalls"] == 2 and st["dispatch_failures"] == 3
+          and st["nan_quarantines"] == n_nan and st["failed"] == 0,
+          f"serve_resilience: counters {st} disagree with the plan")
+    check(plan.all_fired(), f"serve_resilience: unfired {plan.unfired()}")
+    eng.prefix.clear()
+    check(eng.allocator.fully_free,
+          f"serve_resilience: {eng.allocator.pages_in_use} pages leaked")
+    eng.allocator.check_consistent()
+    tp, tt = eng.throughput(), eng.ttft()
+    streams = lambda rn: {role: [list(r.generated) for r in rs]
+                          for role, rs in rn["reqs"].items()}
+    first = streams(run)
+    check(streams(resilience_serve(torch, cfg, params)) == first,
+          "serve_resilience: the replay's streams differ from the first run")
+    # conservative admission on the same pool, traffic and plan: no row
+    # is ever preempted, so its agreement with phase 5 shows what the
+    # batch mix alone moves, and its agreement with the overcommit run
+    # what preemption and restore add
+    cons = resilience_serve(torch, cfg, params, overcommit=False)
+    conservative = cons["eng"].resilience_stats()
+    check(conservative["preemptions"] == 0,
+          f"serve_resilience: conservative admission preempted "
+          f"({conservative})")
+    cons_greedy = streams(cons)["greedy"]
+    agree = lambda a, b: f"{sum(x == y for x, y in zip(a, b))}/{len(a)}"
+    preempted = [r.preemptions > 0 for r in reqs["greedy"]]
+    pick = lambda xs, want: [x for x, p in zip(xs, preempted) if p == want]
+    # both admissions again with capacity that never binds (the chaos
+    # matrix's capacity_factor 8): what still differs is restore and the
+    # bf16 rounding of a different batch mix, no longer dropped tokens
+    wide = cfg.replace(capacity_factor=8.0)
+    wide_runs = [resilience_serve(torch, wide, params, overcommit=oc)
+                 for oc in (True, False)]
+    wide_oc, wide_cons = (streams(r)["greedy"] for r in wide_runs)
+    wide_pre = [r.preemptions > 0 for r in wide_runs[0]["reqs"]["greedy"]]
+    # the streams that differ are held to the forward of their own tokens
+    shares = [forced_shares(torch, wide, params, r["reqs"]["greedy"])
+              for r in wide_runs]
+    check(max(map(max, shares)) < FORCED_SHARE_MAX,
+          f"serve_resilience: a capacity-8 greedy stream strays from the "
+          f"forward of its own tokens (largest shares, overcommit then "
+          f"conservative: {shares})")
+    # the window: the first 16 steps of the same traffic and plan (alloc
+    # stalls, dispatch failures, NaN retries, both preemptions; the
+    # sampler runs every step once a stochastic request is queued).  A
+    # whole run's window takes the profiler minutes to digest
+    prof = profile_window(
+        torch, lambda: resilience_serve(torch, cfg, params, steps=16),
+        "serve_resilience", ranges=("sample_next",))
+    check(prof["ranges"]["sample_next"]["calls"] > 0,
+          "serve_resilience: the sampler never ran in the window")
+    emit("serve_resilience", arch=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, engine=RESILIENCE_ENGINE,
+         priorities=RESILIENCE_PRIORITIES, faults=RESILIENCE_FAULTS,
+         requests={k: len(v) for k, v in reqs.items()}, wall_s=wall,
+         resilience=st, launches=launches,
+         prefill_tok_per_s=tp["prefill_tok_per_s"],
+         decode_tok_per_s=tp["decode_tok_per_s"], ttft_p50_s=tt["p50"],
+         replay_identical=True,
+         greedy_equal_to_phase5=agree(first["greedy"], uncontended),
+         greedy_preempted=[r.uid for r in reqs["greedy"]
+                           if r.preemptions > 0],
+         preempted_equal_to_phase5=agree(pick(first["greedy"], True),
+                                         pick(uncontended, True)),
+         unpreempted_equal_to_phase5=agree(pick(first["greedy"], False),
+                                           pick(uncontended, False)),
+         conservative_equal_to_phase5=agree(cons_greedy, uncontended),
+         conservative_equal_to_overcommit=agree(cons_greedy,
+                                                first["greedy"]),
+         conservative=conservative,
+         cf8_preempted=[r.uid for r in wide_runs[0]["reqs"]["greedy"]
+                        if r.preemptions > 0],
+         cf8_overcommit_equal_to_conservative=agree(wide_oc, wide_cons),
+         cf8_preempted_equal=agree(
+             [x for x, p in zip(wide_oc, wide_pre) if p],
+             [x for x, p in zip(wide_cons, wide_pre) if p]),
+         cf8_forced_share_overcommit=shares[0],
+         cf8_forced_share_conservative=shares[1],
+         active_hwm_overcommit=st["active_hwm"],
+         active_hwm_conservative=conservative["active_hwm"],
+         device_busy_share=prof["device_busy_share"],
+         sampler_window=prof["ranges"]["sample_next"],
+         phase_s=time.perf_counter() - t_phase, card=card())
+    return launches
 
 
 # the port's kernels, as the profiler names them
@@ -979,10 +1257,11 @@ PORT_KERNELS = ("paged_attn_", "paged_combine_kernel", "moe_ffn_kernel",
                 "moe_down_kernel", "moe_quant_", "flash_attn_")
 
 
-def profile_window(torch, work, of: str):
+def profile_window(torch, work, of: str, ranges: tuple = ()):
     """Where the device time goes: ``work`` (two more requests, or one
     forward) under torch.profiler; prints the device-busy share of the
-    window and the top kernels, and returns them."""
+    window and the top kernels, and returns them, with the device time of
+    each named range in ``ranges`` (``record_function`` in the port)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -993,9 +1272,11 @@ def profile_window(torch, work, of: str):
         wall_ms = (time.perf_counter() - t0) * 1e3
     from torch.autograd import DeviceType
     dev = lambda e: e.self_device_time_total / 1e3                   # ms
-    # device-side events only (kernels, copies); host ops would count twice
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and dev(e) > 0]
+    avgs = prof.key_averages()
+    # device-side events only (kernels, copies); host ops would count twice,
+    # and so would a named range's span on the device timeline
+    events = [e for e in avgs if e.device_type == DeviceType.CUDA
+              and dev(e) > 0 and e.key not in ranges]
     busy_ms = sum(dev(e) for e in events)
     top = sorted(events, key=dev, reverse=True)[:8]
     row = lambda e: {"name": e.key[:90], "ms": dev(e), "calls": e.count}
@@ -1003,7 +1284,14 @@ def profile_window(torch, work, of: str):
                device_busy_share=busy_ms / wall_ms if wall_ms else None,
                top=[row(e) for e in top],
                port_kernels=[row(e) for e in events
-                             if any(k in e.key for k in PORT_KERNELS)])
+                             if any(k in e.key for k in PORT_KERNELS)],
+               # a range's host op: the device time of the kernels it
+               # launched, and its calls
+               ranges={name: {"device_ms": sum(
+                   e.device_time_total for e in avgs if e.key == name
+                   and e.device_type == DeviceType.CPU) / 1e3, "calls": sum(
+                   e.count for e in avgs if e.key == name
+                   and e.device_type == DeviceType.CPU)} for name in ranges})
     emit("profile", **out)
     return out
 
@@ -1116,21 +1404,23 @@ def main() -> int:
     for arch in NEW_ARCHS:
         check_reduced(torch, arch, NEW_REDUCED)
         check_reduced_forward(torch, arch)
+    check_chaos(torch)
     torch.cuda.empty_cache()
     runs = {"reduced_int4": reduced[("int4", "native")]}
-    runs["serve"], params = check_serve(torch)
+    runs["serve"], params, streams = check_serve(torch)
     runs["forward"] = check_forward(torch, params)
+    runs["serve_resilience"] = check_serve_resilience(torch, params, streams)
     del params
     runs["serve_quant"] = check_serve_quant(torch)
     from repro_torch.configs.base import get_config
     granite = get_config("granite_moe_3b_a800m")
-    runs["granite_serve"], params = check_serve(torch, granite,
-                                                "granite_serve")
+    runs["granite_serve"], params, _ = check_serve(torch, granite,
+                                                   "granite_serve")
     runs["granite_forward"] = check_forward(torch, params, granite, 2,
                                             "granite_forward")
     del params
     dbrx = get_config("dbrx").replace(num_layers=DBRX_LAYERS)
-    runs["dbrx_serve"], params = check_serve(torch, dbrx, "dbrx_serve")
+    runs["dbrx_serve"], params, _ = check_serve(torch, dbrx, "dbrx_serve")
     runs["dbrx_forward"] = check_forward(torch, params, dbrx, 1,
                                          "dbrx_forward")
     del params

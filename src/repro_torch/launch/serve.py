@@ -8,13 +8,17 @@ runs the full-width model (bf16, random weights from a seeded generator);
 ``dbrx`` (or the reference's aliases, e.g. ``dbrx-132b``).  ``--reduced``
 runs the smoke-test variant and ``--device cpu`` the plain versions of the
 kernels on the CPU.  ``--weight-quant int8|int4`` quantizes the weights on
-load and ``--kv-cache-dtype int8`` keeps an int8 page pool.  Prints
-prompt-eval and generation tok/s, TTFT, device memory, prefix-cache
-statistics, each kernel's launch count, and from the paper's performance
-model (``core/perf_model``): the modelled paged-attention reads, the
-E[#exec experts/node/layer] statistic beside Eq. 1's bound on two to four
-M2-Ultra nodes, and which weight-quant level lets two such nodes host the
-full-size arch.
+load and ``--kv-cache-dtype int8`` keeps an int8 page pool.
+``--overcommit`` admits on the context's pages and preempts under pool
+pressure, ``--priority`` (cycled over the requests) orders admission,
+``--deadline-ms`` expires unfinished requests, and ``--temperature`` /
+``--top-k`` sample instead of taking the argmax.  Prints prompt-eval and
+generation tok/s, TTFT, device memory, prefix-cache statistics, the
+resilience counters, each kernel's launch count, and from the paper's
+performance model (``core/perf_model``): the modelled paged-attention
+reads, the E[#exec experts/node/layer] statistic beside Eq. 1's bound on
+two to four M2-Ultra nodes, and which weight-quant level lets two such
+nodes host the full-size arch.
 """
 from __future__ import annotations
 
@@ -33,20 +37,26 @@ from repro_torch.serving.engine import EngineConfig, ServingEngine
 def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
                device="cuda", max_batch: int = 4, seed: int = 0,
                chunk_len: int = 32, page_size: int = 16, num_pages: int = 0,
-               shared_prefix: int = 0, fit_cfg=None):
+               shared_prefix: int = 0, fit_cfg=None, overcommit: bool = False,
+               priorities=None, deadline_ms: float | None = None,
+               temperature: float = 0.0, top_k: int = 0):
     fit_cfg = fit_cfg or cfg
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     eng = ServingEngine(cfg, EngineConfig(
         max_batch=max_batch, max_cache=prompt_len + new_tokens + 8,
-        chunk_len=chunk_len, page_size=page_size, num_pages=num_pages),
-        generator=gen, device=device)
+        chunk_len=chunk_len, page_size=page_size, num_pages=num_pages,
+        overcommit=overcommit), generator=gen, device=device)
     rng = np.random.default_rng(seed)
     sysp = rng.integers(0, cfg.vocab_size, shared_prefix)
-    for _ in range(requests):
+    for k in range(requests):
         plen = int(rng.integers(prompt_len // 2, prompt_len + 1))
         plen = max(plen, min(shared_prefix + 1, prompt_len))
         tail = rng.integers(0, cfg.vocab_size, max(plen - shared_prefix, 1))
-        eng.submit(np.concatenate([sysp, tail])[:prompt_len], new_tokens)
+        eng.submit(np.concatenate([sysp, tail])[:prompt_len], new_tokens,
+                   temperature=temperature, top_k=top_k,
+                   priority=(priorities[k % len(priorities)]
+                             if priorities else 0),
+                   deadline_ms=deadline_ms)
     ops.reset_launch_counts()
     done = eng.run_until_done()
     tp = eng.throughput()
@@ -85,6 +95,14 @@ def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
           f"{ps['prefix_hit_tokens']} prefill tokens skipped, "
           f"{ps['prefix_cached_pages']} pages cached, "
           f"{ps['prefix_evictions']} evictions, {ps['cow_copies']} CoW copies")
+    rs = eng.resilience_stats()
+    n_done = sum(1 for r in done if r.status == "done")
+    print(f"resilience             : {n_done}/{len(done)} done, "
+          f"{rs['expired']} expired, {rs['cancelled']} cancelled, "
+          f"{rs['failed']} failed; {rs['preemptions']} preemptions / "
+          f"{rs['restores']} restores ({rs['restore_hit_tokens']} tokens "
+          f"restored from prefix cache), admitted high-water "
+          f"{rs['active_hwm']}")
     print("kernel launches        : " + ", ".join(
         f"{k} {v}" for k, v in ops.launch_counts().items()))
     for n in (2, 3, 4):
@@ -134,6 +152,23 @@ def main():
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="tokens of system prompt shared by every request "
                          "(exercises the prefix cache)")
+    ap.add_argument("--overcommit", action="store_true",
+                    help="admit on the current context instead of reserving "
+                         "the whole lifetime; under pool pressure the "
+                         "scheduler preempts low-priority rows into the "
+                         "prefix cache and restores them later")
+    ap.add_argument("--priority", type=int, nargs="+", default=None,
+                    help="admission priorities, cycled across requests "
+                         "(e.g. --priority 0 5: every other request is "
+                         "high-priority; higher admits first and, with "
+                         "--overcommit, may preempt lower)")
+    ap.add_argument("--deadline-ms", type=float, default=None,
+                    help="per-request wall-clock deadline from submit; "
+                         "unfinished requests expire and release pages")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="per-request sampling temperature (0 = greedy)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="per-request top-k cut (0 = full vocab)")
     args = ap.parse_args()
     cfg = get_config(args.arch)
     if args.reduced:
@@ -145,7 +180,9 @@ def main():
                max_batch=args.max_batch, chunk_len=args.chunk_len,
                page_size=args.page_size, num_pages=args.num_pages,
                shared_prefix=args.shared_prefix,
-               fit_cfg=get_config(args.arch))
+               fit_cfg=get_config(args.arch), overcommit=args.overcommit,
+               priorities=args.priority, deadline_ms=args.deadline_ms,
+               temperature=args.temperature, top_k=args.top_k)
 
 
 if __name__ == "__main__":

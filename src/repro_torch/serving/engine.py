@@ -1,5 +1,5 @@
 """Serving engine of the port: continuous batching over the unified paged
-step (the JAX package's ``serving/engine.py``, unified paged path, greedy).
+step (the JAX package's ``serving/engine.py``, unified paged path).
 
 Every iteration packs the active decode rows and pending prefill chunks
 into ONE (max_batch, chunk_len) token block at per-row cache offsets
@@ -11,21 +11,33 @@ cache maps requests sharing a system prompt onto the same pages (partial
 tail pages shared by copy-on-write).
 
 The hot loop is asynchronous on the card: each step uploads its host
-snapshots (tokens, lengths, block tables, ...) in one pinned
-non-blocking copy of a freshly built buffer the host never mutates, keeps
-the decode feedback token on the device, and ``_harvest`` is the only
-point that waits for the device.
+snapshots (tokens, lengths, block tables, sampling parameters, the fault
+poison vector) in one pinned non-blocking copy of a freshly built buffer
+the host never mutates, keeps the decode feedback token on the device, and
+``_harvest`` is the only point that waits for the device (besides the
+documented sync points of preemption, cancellation, deadline expiry and
+the NaN guard).
 
 Quantized serving: ``weight_quant`` int8/int4 quantizes the eligible
 weights on load (``core/quant.quantize_params``; already quantized leaves
 pass through), and ``kv_cache_dtype="int8"`` keeps an int8 page pool with
 fp32 scale pools beside it.
 
+Resilience (docs/DESIGN.md §10): ``overcommit`` admits on the context's
+pages and grows decode rows a page at a time, preempting the least
+entitled row into the prefix cache when the pool runs dry (restore is a
+block-table remap plus at most one tail re-prefill chunk); ``priority``
+orders admission and may preempt lesser rows; ``cancel`` and
+``deadline_ms`` release a request's pages exactly once; a ``FaultPlan``
+(``serving/faults.py``) injects allocator exhaustion, failed dispatches
+and non-finite logits, which the NaN guard quarantines.  Sampling is
+greedy at ``temperature == 0`` and temperature-scaled top-k Gumbel
+otherwise, from a generator on the engine's device seeded by
+``(sample_seed, step index)``.
+
 Not ported yet (each raises ``NotImplementedError``): the contiguous
 cache (``paged=False``), the two-program reference path
-(``unified_step=False``), overcommit and preemption, stochastic sampling
-(``temperature > 0``), deadlines, fault injection and meshes (ROADMAP
-queue A).
+(``unified_step=False``) and meshes (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -42,7 +54,15 @@ from repro_torch.core.dynamic_load import LRUExpertTracker
 from repro_torch.models.model import build_model, resolve_device
 from repro_torch.models.transformer import effective_window
 from repro_torch.serving import scheduler as sched
+from repro_torch.serving.faults import InjectedFault
 from repro_torch.serving.paging import PageAllocator, PrefixCache
+
+# Terminal request states: a request in one of these never transitions
+# again (cancel() on it is a no-op returning False) and its pages are
+# already released.
+TERMINAL_STATES = ("done", "cancelled", "expired", "failed")
+# consecutive non-finite steps before a quarantined row is failed
+NAN_RETRY_LIMIT = 3
 
 
 @dataclasses.dataclass
@@ -50,21 +70,34 @@ class Request:
     uid: int
     prompt: np.ndarray            # (prompt_len,) int32
     max_new_tokens: int = 32
-    priority: int = 0             # higher admits first; ties admit FIFO
+    # per-request sampling params (greedy when temperature == 0)
+    temperature: float = 0.0
+    top_k: int = 0                # 0 = no top-k cut (full vocab)
+    # higher admits first; ties admit FIFO.  deadline_s is an absolute
+    # time.perf_counter() stamp past which the request is expired
+    priority: int = 0
+    deadline_s: float | None = None
     # filled by the engine
     generated: list = dataclasses.field(default_factory=list)
     done: bool = False
     submit_s: float = 0.0         # wall clock at submit()
     first_token_s: float | None = None  # wall clock when token 1 harvested
-    status: str = "queued"        # queued -> running -> done
-    seq: int = 0                  # submission order
+    # queued -> running <-> preempted -> done | cancelled | expired | failed
+    status: str = "queued"
+    seq: int = 0                  # submission order; kept across preemption
+    preemptions: int = 0          # times this request lost its slot
+    last_preempt_epoch: int = 0   # engine epoch of the last preemption
+    # virtual prompt at re-admission: the prompt plus every token generated
+    # before the preemption (its pages live in the prefix tree)
+    resume_tokens: np.ndarray | None = None
+    nan_retries: int = 0          # consecutive quarantined steps
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """Engine knobs, named as in the JAX package's ``EngineConfig``.  Only
     the unified paged path is ported, so ``paged`` defaults to True and
-    ``paged=False``, ``unified_step=False`` and ``overcommit=True`` raise."""
+    ``paged=False`` and ``unified_step=False`` raise."""
     max_batch: int = 8            # decode slots
     max_cache: int = 256          # per-request cache positions
     track_experts: bool = True
@@ -74,10 +107,14 @@ class EngineConfig:
     # per-iteration cap on scheduled prefill tokens (0 = unlimited); decode
     # rows are exempt
     token_budget: int = 0
+    sample_seed: int = 0          # seed of the stochastic sampler's draws
     paged: bool = True
     page_size: int = 16           # tokens per page
     # pool size in pages; 0 = max_batch * ceil(max_cache / page_size)
     num_pages: int = 0
+    # admit on the context's pages only and grow decode rows lazily,
+    # preempting under pool pressure; False reserves each request's whole
+    # lifetime at admission (it can never run out of pages mid-generation)
     overcommit: bool = False
 
 
@@ -94,6 +131,13 @@ class _Pending:
     obs_rows: tuple
 
 
+def _fold_seed(seed: int, step: int) -> int:
+    """The sampler's generator seed for engine step ``step``: a function
+    of (sample_seed, step) alone, so a replay draws the same stream."""
+    words = np.random.SeedSequence([seed, step]).generate_state(2, np.uint32)
+    return (int(words[0]) << 31 | int(words[1]) >> 1) & (2 ** 63 - 1)
+
+
 class ServingEngine:
     """Continuous-batching engine over the port's Model API."""
 
@@ -103,18 +147,12 @@ class ServingEngine:
                  device="cuda", mesh=None, fault_plan=None):
         ecfg = engine_cfg or EngineConfig()
         ref_path = "the dense family and the reference path"
-        resilience = "resilience paths and sampling"
         if not ecfg.paged:
             raise not_ported("the contiguous KV cache (paged=False)",
                              ref_path)
         if not ecfg.unified_step:
             raise not_ported("the two-program reference engine "
                              "(unified_step=False)", ref_path)
-        if ecfg.overcommit:
-            raise not_ported("overcommit admission and preemption",
-                             resilience)
-        if fault_plan is not None:
-            raise not_ported("fault injection", resilience)
         if mesh is not None:
             raise not_ported("mesh-sharded serving", "meshes")
         if ecfg.chunk_len < 1 or ecfg.token_budget < 0:
@@ -148,16 +186,32 @@ class ServingEngine:
         self.queue = sched.AdmissionQueue()
         b, c = ecfg.max_batch, ecfg.max_cache
         self.slots: list[Request | None] = [None] * b
-        # per-slot admission context: the tokens the occupant prefills
+        # per-slot admission context: the tokens the occupant prefills (the
+        # prompt, or on restore the longer resume_tokens)
         self.slot_ctx: list[np.ndarray | None] = [None] * b
         self._all: dict[int, Request] = {}
         self._uid = 0
         self._seq = 0
+        self._iter = 0                # step() count; the fault plan's key
+        self._preempt_epoch = 0       # bumps per preemption (fairness key)
+        self.preempt_log: list = []   # (iter, uid, running-snapshot) tuples
+        # a fault plan turns the NaN guard on: each step's per-row
+        # finiteness flag is read on the host (a per-step device sync) and
+        # non-finite rows are withheld from every host-state advance
+        self.faults = fault_plan
         self.lengths = np.zeros((b,), np.int32)
         self.budgets = np.zeros((b,), np.int32)
         self.prefill_pos = np.zeros((b,), np.int64)
+        self.temps = np.zeros((b,), np.float32)
+        self.topks = np.zeros((b,), np.int32)
         self.last_tok = torch.zeros((b,), dtype=torch.int32,
                                     device=self.device)
+        # the sampler's draws: reseeded per step from (sample_seed, step
+        # index) on the host, drawn on the engine's device.  The sort and
+        # the draws run only once a stochastic request was submitted
+        self._sample_gen = torch.Generator(device=self.device)
+        self._step_idx = 0
+        self._sampling = False
         self._pending: list[_Pending] = []
         self.chunk_len = min(ecfg.chunk_len, c)
         self.page_size = ecfg.page_size
@@ -177,7 +231,13 @@ class ServingEngine:
                       "prefill_s": 0.0, "decode_s": 0.0, "mixed_s": 0.0,
                       "prefix_lookups": 0, "prefix_hits": 0,
                       "prefix_hit_tokens": 0, "cow_copies": 0,
-                      "pages_hwm": 0}
+                      "pages_hwm": 0,
+                      # resilience counters
+                      "preemptions": 0, "restores": 0,
+                      "restore_hit_tokens": 0, "cancelled": 0,
+                      "expired": 0, "failed": 0,
+                      "alloc_stalls": 0, "dispatch_failures": 0,
+                      "nan_quarantines": 0, "active_hwm": 0}
 
     # -- device step ------------------------------------------------------
 
@@ -187,9 +247,13 @@ class ServingEngine:
         The int32 staging buffer is built fresh here and never mutated by
         the host afterwards, so on the card it is pinned and copied
         without blocking (the scheduler mutates ``lengths`` and the block
-        tables right after dispatch; the device sees the snapshot)."""
-        flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
-                               for a in arrays])
+        tables right after dispatch; the device sees the snapshot).  fp32
+        arrays (temperatures, the poison vector, which may hold NaN or
+        inf) travel as their bits and come back as fp32 views."""
+        flat = np.concatenate([
+            (a.view(np.int32) if a.dtype == np.float32
+             else np.asarray(a, np.int32)).reshape(-1)
+            for a in map(np.ascontiguousarray, arrays)])
         host = torch.from_numpy(flat)
         if self.device.type == "cuda":
             dev = host.pin_memory().to(self.device, non_blocking=True)
@@ -197,20 +261,64 @@ class ServingEngine:
             dev = host
         out, off = [], 0
         for a in arrays:
-            out.append(dev[off:off + a.size].view(a.shape))
+            t = dev[off:off + a.size].view(a.shape)
+            out.append(t.view(torch.float32) if a.dtype == np.float32 else t)
             off += a.size
         return out
 
+    def _sample_next(self, logits: torch.Tensor, temps: torch.Tensor,
+                     topks: torch.Tensor, step_idx: int) -> torch.Tensor:
+        """Per-row sampling on the device: greedy argmax where temperature
+        == 0, otherwise temperature-scaled top-k Gumbel over the real
+        vocabulary (never a padded column).  The draws come from the
+        engine's generator reseeded with (sample_seed, ``step_idx``); row
+        i's draws are row i of one (B, V) draw, so they depend on the slot,
+        and a replay with the same seed on the same device repeats them.
+        Ties at the k-th value are all kept (``scaled >= kth``).
+
+        Until the first stochastic submit() the sort and the draws do not
+        run: a greedy-only serve is one argmax.
+
+        logits: (B, V_padded) fp32; temps: (B,) fp32; topks: (B,) int32
+        (0 = full vocab).  Returns (B,) int32."""
+        v = self.cfg.vocab_size
+        logits = logits[:, :v].float()
+        greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+        if not self._sampling:
+            return greedy
+        # a named range, so a profile can read the sampler's device time
+        with torch.profiler.record_function("sample_next"):
+            gen = self._sample_gen
+            gen.manual_seed(_fold_seed(self.ecfg.sample_seed, step_idx))
+            u = torch.rand(logits.shape, generator=gen, device=logits.device)
+            gumbel = -torch.log(-torch.log(u.clamp_min(
+                torch.finfo(torch.float32).tiny)))
+            scaled = logits / temps.clamp_min(1e-6)[:, None]
+            desc = torch.sort(scaled, dim=-1, descending=True).values
+            kth = torch.gather(desc, 1,
+                               (topks.clamp(1, v) - 1).long()[:, None])
+            keep = (scaled >= kth) | (topks[:, None] <= 0)
+            samp = torch.argmax(torch.where(keep, scaled + gumbel,
+                                            -torch.inf),
+                                dim=-1).to(torch.int32)
+            return torch.where(temps > 0, samp, greedy)
+
     def _unified(self, tokens, lengths, seg_lens, block_tables, is_decode,
-                 sample_mask):
+                 sample_mask, temps, topks, poison, step_idx: int):
         """ONE step for prefill chunks, decode rows, and any mix.
 
         Decode rows take their input token from the device-resident
         ``last_tok`` (column 0), so the decode feedback loop never syncs.
         Rows in ``sample_mask`` (decode rows and final prefill chunks)
-        replace ``last_tok`` with the greedy argmax of their last valid
-        logit.  The page pool is updated in place.  Returns (last_tok',
-        routing (L, B*T, K))."""
+        replace ``last_tok`` with their sampled token.  The page pool is
+        updated in place.
+
+        ``poison`` (B,) fp32 is the fault-injection vector, or None (the
+        steady state, which injects nothing): a non-finite entry
+        overwrites that row's logits.  The step always returns a per-row ``bad``
+        finiteness flag and never lets a non-finite row overwrite
+        ``last_tok``, whether or not the host guard reads the flag.
+        Returns (last_tok', routing (L, B*T, K), bad (B,) bool)."""
         tok0 = torch.where(is_decode, self.last_tok, tokens[:, 0])
         tokens = torch.cat([tok0[:, None], tokens[:, 1:]], dim=1)
         # context_len pins the windowing decision to the logical context:
@@ -220,9 +328,13 @@ class ServingEngine:
                           "seg_lens": seg_lens,
                           "block_tables": block_tables},
             self.cache, context_len=self.ecfg.max_cache)
-        nxt = torch.argmax(logits[:, :self.cfg.vocab_size], dim=-1)
-        return (torch.where(sample_mask, nxt.to(torch.int32), self.last_tok),
-                routing)
+        if poison is not None:
+            logits = torch.where(torch.isfinite(poison)[:, None], logits,
+                                 poison[:, None])
+        bad = ~torch.isfinite(logits[:, :self.cfg.vocab_size]).all(dim=-1)
+        nxt = self._sample_next(logits, temps, topks, step_idx)
+        return (torch.where(sample_mask & ~bad, nxt, self.last_tok),
+                routing, bad)
 
     def _copy_pages(self, src: list[int], dst: list[int]) -> None:
         """Device half of copy-on-write: duplicate pool pages ``src`` into
@@ -235,16 +347,17 @@ class ServingEngine:
     # -- public API ---------------------------------------------------------
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
-               temperature: float = 0.0, priority: int = 0,
-               deadline_ms: float | None = None) -> int:
-        """Queue a request (greedy).  Prompts up to ``max_cache`` tokens
-        stream through the cache in chunks; ``priority`` orders admission
-        (higher first, FIFO within a class)."""
-        if temperature > 0:
-            raise not_ported("stochastic sampling (temperature > 0)",
-                             "resilience paths and sampling")
-        if deadline_ms is not None:
-            raise not_ported("deadlines", "resilience paths and sampling")
+               temperature: float = 0.0, top_k: int = 0,
+               priority: int = 0, deadline_ms: float | None = None) -> int:
+        """Queue a request.  ``temperature``/``top_k`` select per-request
+        sampling (greedy when temperature == 0).  Prompts up to
+        ``max_cache`` tokens stream through the cache in chunks.
+
+        ``priority`` orders admission (higher first, FIFO within a class;
+        under ``overcommit`` a higher-priority arrival may preempt
+        strictly-lower-priority running rows).  ``deadline_ms`` is a
+        wall-clock budget from submit: a request still unfinished when it
+        elapses is expired and its pages released."""
         prompt = np.asarray(prompt, np.int32)
         if len(prompt) == 0:
             # a zero-length prompt would be scheduled as a decode row seeded
@@ -267,26 +380,50 @@ class ServingEngine:
                 f"{self.num_pages}; raise num_pages or lower max_new_tokens")
         self._uid += 1
         self._seq += 1
+        if temperature > 0:
+            self._sampling = True     # the sort and the draws from now on
+        now = time.perf_counter()
         req = Request(self._uid, prompt, max_new_tokens,
-                      priority=int(priority), submit_s=time.perf_counter(),
-                      seq=self._seq)
+                      temperature=float(temperature), top_k=int(top_k),
+                      priority=int(priority), submit_s=now, seq=self._seq,
+                      deadline_s=(now + deadline_ms / 1e3
+                                  if deadline_ms is not None else None))
         self.queue.append(req)
         self._all[req.uid] = req
         return self._uid
 
     def step(self) -> int:
-        """One engine iteration: admit (host state only), then pack decode
-        rows and prefill chunks into one device step.  Returns the number
-        of rows that did work.  In async mode the step is only dispatched;
-        tokens reach requests at the next harvest."""
+        """One engine iteration: expire requests past their deadline, admit
+        (host state only), then pack decode rows and prefill chunks into
+        one device step.  Returns the number of rows that did work.  In
+        async mode the step is only dispatched; tokens reach requests at
+        the next harvest."""
+        self._iter += 1
+        self._sweep_deadlines()
         return self._step_unified()
+
+    def _next_step_idx(self) -> int:
+        """Monotone per-dispatch counter keying the sampler's draws."""
+        i = self._step_idx
+        self._step_idx += 1
+        return i
 
     def _step_unified(self) -> int:
         """One token-budget iteration: (a) every decode row, one token each,
         exempt from the budget; (b) pending prefill chunks, lowest slot
         first, until ``token_budget`` (0 = unlimited) is spent.  A row whose
         chunk completes its prompt samples its first token from that
-        chunk's last logit."""
+        chunk's last logit.
+
+        Resilience hooks: decode rows secure the page their next token
+        writes BEFORE anything is scheduled (lazy growth under overcommit;
+        a row that cannot get one idles this iteration or preempts a
+        peer); an injected dispatch fault aborts the iteration before any
+        host bookkeeping mutates, so the identical iteration re-dispatches
+        next step; with the NaN guard on, rows whose logits came back
+        non-finite are withheld from every host-state advance and retried
+        from their last durable cache state (the repeated pool writes are
+        idempotent, so neighbours never see the fault)."""
         b, t = self.ecfg.max_batch, self.chunk_len
         for i in range(b):
             # page-gated admission in priority order; stop at the first
@@ -294,6 +431,16 @@ class ServingEngine:
             if (self.slots[i] is None and self.queue
                     and not self._admit_paged(i)):
                 break
+        self.stats["active_hwm"] = max(
+            self.stats["active_hwm"],
+            sum(1 for s in self.slots if s is not None))
+        # lazy-growth pass: every decode-phase row secures its next page
+        # before any row is scheduled — growth may preempt a peer (or the
+        # grower), and a preempted row must not already be in the block
+        for i in range(b):
+            if (self.slots[i] is not None
+                    and self.prefill_pos[i] >= len(self.slot_ctx[i])):
+                self._ensure_decode_page(i)
         tokens = np.zeros((b, t), np.int32)
         seg = np.zeros((b,), np.int32)
         is_dec = np.zeros((b,), bool)
@@ -303,6 +450,8 @@ class ServingEngine:
         for i, req in enumerate(self.slots):
             if (req is not None and self.prefill_pos[i] >= len(self.slot_ctx[i])
                     and self._covered(i)):
+                # (an uncovered row is page-starved: it idles this
+                # iteration with its state intact and retries next step)
                 seg[i] = 1
                 is_dec[i] = sample[i] = True
                 decode_rows.append(i)   # budget-exempt: decode never starves
@@ -327,11 +476,33 @@ class ServingEngine:
         # decode step, never chunk_len columns of dead compute
         if not prefill_rows:
             tokens = tokens[:, :1]
+        # the poison vector exists only in a step a NaN fault fires in;
+        # every other step uploads and applies none
+        poison = None
+        if self.faults is not None:
+            f = self.faults.poll(self._iter, "nan")
+            if f is not None:
+                poison = np.zeros((b,), np.float32)
+                poison[list(f.rows) if f.rows else range(b)] = f.value
+            try:
+                # raised in place of the backend refusing the launch:
+                # nothing host-side has mutated yet (not even the sampler's
+                # step index), so the identical iteration re-dispatches on
+                # the next step().  Only an injected fault is caught
+                self.faults.maybe_raise(self._iter, "dispatch")
+            except InjectedFault:
+                self.stats["dispatch_failures"] += 1
+                return 0
         t0 = time.perf_counter()
-        d_tok, d_len, d_seg, d_bt, d_dec, d_sample = self._upload(
-            tokens, self.lengths, seg, self.block_tables, is_dec, sample)
-        self.last_tok, routing = self._unified(
-            d_tok, d_len, d_seg, d_bt, d_dec != 0, d_sample != 0)
+        step_idx = self._next_step_idx()
+        d_tok, d_len, d_seg, d_bt, d_dec, d_sample, d_temp, d_topk, \
+            *d_poison = self._upload(
+                tokens, self.lengths, seg, self.block_tables, is_dec, sample,
+                self.temps, self.topks,
+                *(() if poison is None else (poison,)))
+        self.last_tok, routing, bad = self._unified(
+            d_tok, d_len, d_seg, d_bt, d_dec != 0, d_sample != 0, d_temp,
+            d_topk, d_poison[0] if d_poison else None, step_idx)
         dt = time.perf_counter() - t0
         kind = ("decode" if not prefill_rows
                 else "prefill" if not decode_rows else "mixed")
@@ -340,9 +511,15 @@ class ServingEngine:
             self.stats["mixed_decode_tokens"] += len(decode_rows)
             self.stats["mixed_prefill_tokens"] += int(
                 sum(int(seg[i]) for i in prefill_rows))
+        bad_host = (self._quarantine_check(bad) if self.faults is not None
+                    else np.zeros((b,), bool))
         rows = []
         finishing = False
         for i in decode_rows:
+            if bad_host[i]:
+                finishing |= self._quarantine(i)
+                continue
+            self.slots[i].nan_retries = 0
             self.lengths[i] = min(self.lengths[i] + 1, self.ecfg.max_cache)
             self.stats["decode_tokens"] += 1
             self.budgets[i] -= 1
@@ -353,6 +530,10 @@ class ServingEngine:
         if decode_rows:
             self.stats["decode_steps"] += 1
         for i in prefill_rows:
+            if bad_host[i]:
+                finishing |= self._quarantine(i)
+                continue
+            self.slots[i].nan_retries = 0
             n = int(seg[i])
             self.lengths[i] += n
             self.prefill_pos[i] += n
@@ -368,7 +549,8 @@ class ServingEngine:
                     finishing = True
         self._pending.append(_Pending(
             kind, tuple(rows), self.last_tok, routing,
-            obs_rows=tuple(i for i in range(b) if seg[i])))
+            obs_rows=tuple(i for i in range(b)
+                           if seg[i] and not bad_host[i])))
         if finishing or not self.ecfg.async_steps:
             self._harvest()
         return len(decode_rows) + len(prefill_rows)
@@ -376,20 +558,54 @@ class ServingEngine:
     # -- paged-cache bookkeeping -------------------------------------------
 
     def _admit_paged(self, slot: int) -> bool:
-        """Map the queue head into ``slot`` if the pool can hold its whole
-        lifetime — ceil((context + max_new - 1) / page_size) pages — minus
-        every page shared through the prefix cache, so an admitted request
-        never runs out of pages mid-generation.  Returns False with the
-        queue untouched when pages stay short after LRU eviction."""
+        """Map the queue head into ``slot`` if the pool can hold its page
+        entitlement, minus every page shared through the prefix cache.
+
+        Entitlement: the whole lifetime — ceil((context + remaining_new -
+        1) / page_size) pages — by default, so an admitted request never
+        runs out of pages mid-generation; under ``overcommit`` only the
+        CONTEXT's pages, and ``_ensure_decode_page`` grows the rest one
+        page at a time.
+
+        Restore is the same operation: a preempted request's
+        ``resume_tokens`` (prompt + everything generated before the
+        preemption) is its context and its own pages in the prefix tree
+        are the hit, so restore is a block-table remap plus at most one
+        partial-tail re-prefill chunk.  Under overcommit a short pool
+        preempts strictly-lower-priority running rows until the head fits
+        or nobody lesser remains.
+
+        Returns False with the queue untouched when pages stay short after
+        LRU eviction and preemption."""
         req = self.queue[0]
-        ctx = req.prompt
+        if self.faults is not None and self.faults.poll(self._iter, "alloc"):
+            # injected pool exhaustion: nothing free, nothing reclaimable
+            # this iteration; the request stays queued (no refcount taken)
+            self.stats["alloc_stalls"] += 1
+            return False
+        ctx = (req.resume_tokens if req.resume_tokens is not None
+               else req.prompt)
         remaining = req.max_new_tokens - len(req.generated)
-        need_total = sched.lifetime_pages(len(ctx), remaining, self.page_size)
+        lifetime = sched.lifetime_pages(len(ctx), remaining, self.page_size)
+        upfront = (sched.pages_for(len(ctx), self.page_size)
+                   if self.ecfg.overcommit else lifetime)
         hit = self.prefix.lookup(ctx)
-        need = need_total - len(hit.pages)
+        need = upfront - len(hit.pages)
         if self.allocator.free_pages < need:
             # evict only when it can close the gap: a request merely
             # waiting for in-flight pages must not drain the tree
+            if (self.allocator.free_pages + self.prefix.reclaimable_pages()
+                    >= need):
+                self.prefix.evict(need)
+        while self.allocator.free_pages < need and self.ecfg.overcommit:
+            # priority preemption: a victim's pages land in the prefix tree
+            # (reclaimable once its row references drop), so each
+            # preemption is followed by another gap-closing eviction
+            victim = sched.select_victim(self._running_rows(),
+                                         below=req.priority)
+            if victim is None:
+                break
+            self._preempt_slot(victim)
             if (self.allocator.free_pages + self.prefix.reclaimable_pages()
                     >= need):
                 self.prefix.evict(need)
@@ -418,6 +634,11 @@ class ServingEngine:
         self.lengths[slot] = hit.tokens
         self.prefill_pos[slot] = hit.tokens
         self.budgets[slot] = remaining
+        self.temps[slot] = req.temperature
+        self.topks[slot] = req.top_k
+        if req.status == "preempted":
+            self.stats["restores"] += 1
+            self.stats["restore_hit_tokens"] += hit.tokens
         req.status = "running"
         if hit.tokens:
             self.stats["prefix_hits"] += 1
@@ -431,9 +652,105 @@ class ServingEngine:
         has a page under its block table."""
         return int(self.lengths[i]) < len(self.slot_pages[i]) * self.page_size
 
+    def _running_rows(self) -> list:
+        """Victim candidates for ``sched.select_victim``: every occupied
+        slot with its scheduling keys."""
+        return [sched.RunningRow(i, r.priority, r.last_preempt_epoch, r.seq)
+                for i, r in enumerate(self.slots) if r is not None]
+
+    def _ensure_decode_page(self, i: int) -> bool:
+        """Lazy decode-page growth: make sure row ``i``'s block table
+        covers the position its next token writes.
+
+        Whole-lifetime admission always covers it.  An overcommitted row
+        takes one page at a time: evict LRU prefix entries if that closes
+        the gap; if the pool is still dry, preempt the least-entitled
+        running row — possibly row ``i`` itself, which then yields.
+        Returns False when the row cannot advance this iteration
+        (preempted, or page-starved under an injected alloc fault)."""
+        if self._covered(i):
+            return True
+        if self.faults is not None and self.faults.poll(self._iter, "alloc"):
+            self.stats["alloc_stalls"] += 1
+            return False
+        if (self.allocator.free_pages < 1
+                and self.allocator.free_pages
+                + self.prefix.reclaimable_pages() >= 1):
+            self.prefix.evict(1)
+        while self.allocator.free_pages < 1 and self.ecfg.overcommit:
+            victim = sched.select_victim(self._running_rows())
+            if victim is None:
+                break
+            self._preempt_slot(victim)
+            if victim == i:
+                return False
+            if (self.allocator.free_pages
+                    + self.prefix.reclaimable_pages() >= 1):
+                self.prefix.evict(1)
+        got = self.allocator.alloc(1)
+        if got is None:
+            self.stats["alloc_stalls"] += 1
+            return False
+        self.slot_pages[i].append(got[0])
+        self.block_tables[i, len(self.slot_pages[i]) - 1] = got[0]
+        self.stats["pages_hwm"] = max(self.stats["pages_hwm"],
+                                      self.allocator.pages_in_use)
+        return True
+
+    def _preempt_slot(self, i: int) -> None:
+        """Evict row ``i`` to the prefix cache and requeue its request.
+
+        Order matters: (1) harvest (a device sync), so every in-flight
+        token of the row is on the host and the virtual prompt (prompt +
+        generated) is final; (2) insert the row's durable cache state —
+        ``lengths[i]`` tokens: every full page plus the partial tail —
+        into the prefix tree; (3) free the row's own page references (the
+        tree's keep the state alive, LRU-evictable); (4) requeue with
+        ``resume_tokens`` = the virtual prompt and the ORIGINAL submission
+        seq.  Restore (``_admit_paged``) then finds its own pages as a
+        prefix hit and re-prefills at most one partial chunk."""
+        self._harvest()
+        req = self.slots[i]
+        full = np.concatenate([req.prompt,
+                               np.asarray(req.generated, np.int32)])
+        n = int(self.lengths[i])
+        ps = self.page_size
+        k, tail = n // ps, n % ps
+        pages = self.slot_pages[i]
+        if n:
+            self.prefix.insert(full[:n], pages[:k],
+                               pages[k] if tail else -1, tail)
+        self.allocator.free(pages)
+        self.slot_pages[i] = []
+        self.block_tables[i] = 0
+        self.slots[i] = None
+        self.slot_ctx[i] = None
+        self._preempt_epoch += 1
+        req.resume_tokens = full
+        req.status = "preempted"
+        req.preemptions += 1
+        req.last_preempt_epoch = self._preempt_epoch
+        self.stats["preemptions"] += 1
+        self.preempt_log.append(
+            (self._iter, req.uid,
+             tuple((r.uid, r.priority) for r in self.slots
+                   if r is not None)))
+        self.queue.append(req)
+
+    def preempt(self, uid: int) -> bool:
+        """Preempt the running request ``uid`` now (a policy hook): its
+        pages move into the prefix tree and it restores through normal
+        admission.  Returns False if ``uid`` is not in a slot."""
+        for i, r in enumerate(self.slots):
+            if r is not None and r.uid == uid:
+                self._preempt_slot(i)
+                return True
+        return False
+
     def _release_slot(self, i: int) -> None:
-        """Free slot ``i``'s page references and binding (exactly once);
-        pages the prefix tree also holds stay resident for future hits."""
+        """Free slot ``i``'s page references and binding (exactly once: the
+        page list is emptied); pages the prefix tree also holds stay
+        resident for future hits."""
         if self.slot_pages[i]:
             self.allocator.free(self.slot_pages[i])
             self.slot_pages[i] = []
@@ -452,7 +769,8 @@ class ServingEngine:
     def _prefix_insert(self, i: int) -> None:
         """Record row ``i``'s freshly prefilled context in the prefix tree:
         full page-aligned chunks become radix nodes, a non-aligned remainder
-        the node's partial-tail record (shareable via copy-on-write)."""
+        the node's partial-tail record (shareable via copy-on-write).  A
+        restored request's context is its ``resume_tokens``."""
         ctx = self.slot_ctx[i]
         ps = self.page_size
         k = len(ctx) // ps
@@ -461,7 +779,97 @@ class ServingEngine:
         tail_page = int(self.block_tables[i, k]) if tail_len else -1
         self.prefix.insert(ctx, pages, tail_page, tail_len)
 
+    # -- cancellation, deadlines, quarantine --------------------------------
+
+    def _terminate_req(self, req: Request, status: str) -> None:
+        """Move ``req`` to a terminal state (its pages already released);
+        ``done`` flips so waiters see it finished, ``status`` says why."""
+        req.status = status
+        req.done = True
+        self.stats[status] += 1
+
+    def _terminate_slot(self, i: int, status: str) -> None:
+        req = self.slots[i]
+        self._release_slot(i)
+        self._terminate_req(req, status)
+
+    def cancel(self, uid: int) -> bool:
+        """Abandon request ``uid``, queued or in flight.  Only the row's
+        page references are dropped, exactly once; pages the prefix tree
+        shares stay cached.  In-flight tokens are harvested first (a device
+        sync), so ``generated`` holds everything produced before the
+        cancel.  Returns True if the request was live and is now
+        cancelled; False if unknown or already terminal."""
+        req = self._all.get(uid)
+        if req is None or req.done or req.status in TERMINAL_STATES:
+            return False
+        # a record in flight may complete the request (then the cancel is
+        # too late), and the bookkeeping below needs ``generated`` final
+        self._harvest()
+        if req.done:
+            return False
+        if self.queue.remove(uid) is not None:      # queued or preempted
+            self._terminate_req(req, "cancelled")
+            return True
+        for i, r in enumerate(self.slots):
+            if r is not None and r.uid == uid:
+                self._terminate_slot(i, "cancelled")
+                return True
+        return False
+
+    def _sweep_deadlines(self) -> None:
+        """Expire every request whose deadline passed (at the top of each
+        step; ``_now`` is patchable in tests).  Queued requests just leave
+        the queue; in-flight rows harvest (a device sync) and release their
+        pages through the same exactly-once path as cancel."""
+        now = self._now()
+        for r in list(self.queue):
+            if r.deadline_s is not None and now >= r.deadline_s:
+                if self.queue.remove(r.uid) is not None:
+                    self._terminate_req(r, "expired")
+        for i, req in enumerate(self.slots):
+            if (req is not None and req.deadline_s is not None
+                    and now >= req.deadline_s):
+                self._harvest()
+                if not req.done:
+                    self._terminate_slot(i, "expired")
+
+    def _now(self) -> float:
+        return time.perf_counter()
+
+    def _quarantine(self, i: int) -> bool:
+        """Row ``i``'s logits came back non-finite: withhold every
+        host-state advance so the row re-dispatches from its last durable
+        cache state (the repeated pool write is idempotent; on the device
+        ``last_tok`` was already shielded).  After ``NAN_RETRY_LIMIT``
+        consecutive bad steps the row is failed and its pages released.
+        Returns True when the row was failed (a harvest boundary)."""
+        req = self.slots[i]
+        self.stats["nan_quarantines"] += 1
+        req.nan_retries += 1
+        if req.nan_retries > NAN_RETRY_LIMIT:
+            self._terminate_slot(i, "failed")
+            return True
+        return False
+
+    def _quarantine_check(self, bad: torch.Tensor) -> np.ndarray:
+        """THE quarantine sync point (on while a fault plan is installed):
+        the step's per-row finiteness verdict, read once as numpy.  A
+        deliberate per-step device-to-host read, the guard's trade of
+        run-ahead for per-step integrity, like ``async_steps=False``."""
+        return bad.cpu().numpy()
+
     # -- reporting ----------------------------------------------------------
+
+    def resilience_stats(self) -> dict:
+        """Scheduler and fault-guard counters (launcher, chaos matrix)."""
+        s = self.stats
+        out = {k: s[k] for k in
+               ("preemptions", "restores", "restore_hit_tokens",
+                "cancelled", "expired", "failed", "alloc_stalls",
+                "dispatch_failures", "nan_quarantines", "active_hwm")}
+        out["preempt_log_len"] = len(self.preempt_log)
+        return out
 
     def paged_stats(self) -> dict:
         """Page-pool / prefix-cache counters."""
@@ -491,7 +899,7 @@ class ServingEngine:
                 "total_bytes": weight + pool,
                 "weight_quant": self.cfg.weight_quant}
 
-    # -- harvest: the only device sync in the loop --------------------------
+    # -- harvest: the loop's sync point ---------------------------------------
 
     def _harvest(self) -> None:
         """Fetch every pending step's tokens (and routing) and apply them to
@@ -514,7 +922,8 @@ class ServingEngine:
                     req.first_token_s = now
                 if len(req.generated) >= req.max_new_tokens:
                     req.done = True
-                    req.status = "done"
+                    if req.status not in TERMINAL_STATES:
+                        req.status = "done"
             self._observe_routing(rec, routing)
 
     def _observe_routing(self, rec: _Pending, routing) -> None:

@@ -16,7 +16,9 @@ accounting:
     bookkeeping is host-side integers; the device never sees an
     allocation, only block tables (per-row page-id vectors) handed to the
     step like ``lengths``.  ``fork`` shares pages between owners
-    (refcount++).
+    (refcount++), and ``writable`` implements copy-on-write: a page about
+    to be written that has other owners is re-homed to a fresh page and
+    the caller is told to issue a device page copy.
   * :class:`PrefixCache` — a radix tree over **page-sized token chunks**
     of completed prompts.  Requests sharing a system prompt map their
     leading block-table entries to the same physical pages and skip
@@ -50,9 +52,10 @@ class PageAllocator:
     refcount >= 1; ``free`` decrements and returns the page to the free
     list at zero.  ``alloc`` is all-or-nothing (returns None rather than a
     partial allocation), so admission control can gate on
-    ``free_pages`` without unwinding.  Invariants: a page is never in the
-    free list twice, never both free and referenced, and after every owner
-    releases its references the pool is fully free again.
+    ``free_pages`` without unwinding.  Invariants (property-tested in
+    tests/test_paged_cache.py): a page is never in the free list twice,
+    never both free and referenced, and after every owner releases its
+    references the pool is fully free again.
     """
 
     def __init__(self, num_pages: int):
@@ -73,8 +76,33 @@ class PageAllocator:
     def pages_in_use(self) -> int:
         return self.num_pages - len(self._free)
 
+    @property
+    def fully_free(self) -> bool:
+        """True when every page is back on the free list — the drain
+        invariant the resilience gates check after every preempt /
+        cancel / fault schedule."""
+        return len(self._free) == self.num_pages
+
     def refcount(self, page: int) -> int:
         return self._ref[page]
+
+    def check_consistent(self) -> None:
+        """Raise if the free list and refcounts disagree: a page on the
+        free list twice, a free page with owners, or a mapped page
+        without a reference.  The chaos harness and the resilience
+        property tests call this after every engine step, so a failure
+        path that corrupts the accounting fails loudly at the step that
+        broke it, not at drain."""
+        if len(set(self._free)) != len(self._free):
+            raise AssertionError("page on the free list twice")
+        free = set(self._free)
+        for p in range(self.num_pages):
+            if p in free and self._ref[p] != 0:
+                raise AssertionError(
+                    f"page {p} is free but has refcount {self._ref[p]}")
+            if p not in free and self._ref[p] <= 0:
+                raise AssertionError(
+                    f"page {p} is mapped but has refcount {self._ref[p]}")
 
     # -- ops ----------------------------------------------------------------
 
@@ -99,13 +127,33 @@ class PageAllocator:
     def free(self, pages: Iterable[int]) -> None:
         """Drop one reference per page; a page with no owners left returns
         to the free list.  Freeing an already-free page raises — the
-        double-free class of bug."""
+        double-free class of bug the property test hunts."""
         for p in pages:
             if self._ref[p] <= 0:
                 raise ValueError(f"double free of page {p}")
             self._ref[p] -= 1
             if self._ref[p] == 0:
                 self._free.append(p)
+
+    def writable(self, page: int) -> tuple[int, bool]:
+        """Copy-on-write: return a page the caller may write.
+
+        If the caller is the sole owner the page itself is returned.
+        Otherwise one reference is moved to a freshly allocated page and
+        ``(new_page, True)`` is returned — the caller must issue a device
+        copy ``page -> new_page`` before writing.  Returns ``(page,
+        False)`` on sole ownership; raises if no page is free for the
+        copy (callers gate admission on ``free_pages`` first)."""
+        if self._ref[page] <= 0:
+            raise ValueError(f"writable() on unreferenced page {page}")
+        if self._ref[page] == 1:
+            return page, False
+        got = self.alloc(1)
+        if got is None:
+            raise RuntimeError("no free page for copy-on-write")
+        self._ref[page] -= 1
+        return got[0], True
+
 
 @dataclasses.dataclass
 class _Node:
@@ -281,4 +329,14 @@ class PrefixCache:
                 self.cached_pages -= 1
                 self.evictions += 1
             dropped += 1
+        return dropped
+
+    def clear(self) -> int:
+        """Drop every tree reference (engine shutdown / benchmark warmup
+        resets).  NOT eviction pressure: the ``evictions`` counter is
+        preserved so reported stats only ever count admission-driven
+        evictions."""
+        before = self.evictions
+        dropped = self.evict(self.alloc.num_pages + 1)
+        self.evictions = before
         return dropped

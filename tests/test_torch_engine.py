@@ -226,7 +226,6 @@ def test_paging_copy_matches_reference():
 @pytest.mark.parametrize("kw,match", [
     (dict(paged=False), "contiguous KV cache"),
     (dict(unified_step=False), "reference engine"),
-    (dict(overcommit=True), "overcommit"),
 ])
 def test_out_of_slice_options_raise(kw, match):
     cfg = get_config(ARCH).reduced()
@@ -236,14 +235,5 @@ def test_out_of_slice_options_raise(kw, match):
 
 def test_out_of_slice_requests_raise():
     cfg = get_config(ARCH).reduced()
-    eng = ServingEngine(cfg, EngineConfig(max_batch=1, max_cache=16),
-                        generator=torch.Generator().manual_seed(0),
-                        device="cpu")
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.submit(np.arange(4), 2, temperature=0.7)
-    with pytest.raises(NotImplementedError, match="deadlines"):
-        eng.submit(np.arange(4), 2, deadline_ms=10.0)
-    with pytest.raises(NotImplementedError, match="fault injection"):
-        ServingEngine(cfg, device="cpu", fault_plan=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         ServingEngine(cfg, device="cpu", mesh=object())

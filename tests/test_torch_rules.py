@@ -39,6 +39,10 @@ def test_port_imports_neither_jax_nor_repro(path):
 def test_audit_covers_the_package():
     assert len(PORT_FILES) > 15
     assert (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir()
+    serving = ROOT / "src" / "repro_torch" / "serving"
+    for name in ("engine.py", "faults.py", "chaos.py", "scheduler.py",
+                 "paging.py"):
+        assert serving / name in PORT_FILES, name
 
 
 # (arch, reduced); the first arch's cases keep their original ids

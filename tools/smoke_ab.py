@@ -4,14 +4,17 @@ source tree, so that a parent tree and a change can be timed in turns
 (parent, change, change, parent) in one call on one card.
 
     python3 tools/smoke_ab.py [--src DIR] [--label NAME] [--only PHASE ...]
+                              [--repeat N]
 
 ``--src`` is the ``src`` directory whose ``repro_torch`` is imported (this
 checkout's by default); the phases, their cases, checks and bounds are this
 checkout's ``chip_smoke.py``.  PHASE is ``paged`` (phase 3's paged-attention
 cases and split sweep; the tree's wrapper must have ``num_splits``),
-``quant`` (phase 3's quantized-FFN cases) or ``serve`` (phases 5, 6 and 5b:
+``quant`` (phase 3's quantized-FFN cases), ``chaos`` (phase 4c, run
+before any serve; the tree must have ``serving/chaos.py``), ``serve`` (phases 5, 6 and 5b:
 the full-width serve, forward and quantized serve, each with its profile
-window).  Prints the card's name and power limit, the build's ptxas lines
+window) or ``serve5`` (phase 5's serve alone, ``--repeat`` times on the
+same weights, without the profile window: its decode rate is the reading).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -21,6 +24,7 @@ import argparse
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -31,7 +35,9 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="change")
     ap.add_argument("--only", nargs="*", default=["paged", "quant"],
-                    choices=["paged", "quant", "serve"])
+                    choices=["paged", "quant", "chaos", "serve",
+                             "serve5"])
+    ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -60,11 +66,21 @@ def main() -> int:
         cs.check_paged_sweep(torch)
     if "quant" in args.only:
         cs.check_moe_ffn_quant(torch, results)
+    if "chaos" in args.only:
+        cs.check_chaos(torch)
     if "serve" in args.only:
-        _, params = cs.check_serve(torch)
+        _, params, _ = cs.check_serve(torch)
         cs.check_forward(torch, params)
         del params
         cs.check_serve_quant(torch)
+    if "serve5" in args.only:
+        from repro_torch.configs.base import get_config
+        cs.profile_window = lambda *a, **kw: {"device_busy_share": None}
+        _, params, _ = cs.check_serve(torch)
+        for _ in range(args.repeat - 1):
+            cs.serve_phase(torch, get_config(cs.ARCH), "serve",
+                           ("moe_ffn", "paged_attention"),
+                           time.perf_counter(), {}, params)
     return 0
 
 
