@@ -28,6 +28,7 @@ def param_shapes(cfg) -> dict:
     """The port's parameter tree for ``cfg`` (``Model.init``), as shapes."""
     L, d, e, f = (cfg.num_layers, cfg.d_model, cfg.num_experts_padded,
                   cfg.d_ff)
+    er = e * max(cfg.expert_replication, 1)     # r stored expert copies
     hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     attn = {"wq": (L, d, hq * hd), "wk": (L, d, hkv * hd),
             "wv": (L, d, hkv * hd), "wo": (L, hq * hd, d)}
@@ -41,8 +42,8 @@ def param_shapes(cfg) -> dict:
         "embed": (cfg.vocab_padded, d),
         "blocks": {"ln1": norm(L, d), "attn": attn, "ln2": norm(L, d),
                    "router": (L, d, e),
-                   "experts": {"w_gate": (L, e, d, f), "w_up": (L, e, d, f),
-                               "w_down": (L, e, f, d)}},
+                   "experts": {"w_gate": (L, er, d, f), "w_up": (L, er, d, f),
+                               "w_down": (L, er, f, d)}},
         "final_norm": norm(d),
     }
     if not cfg.tie_embeddings:

@@ -46,12 +46,16 @@ def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
     """x: (B, S, D) -> (y (B, S, D), aux_loss (), top_idx (B*S, K)).
 
     ``layer_p``: {"router": (D, E_pad), "experts": {"w_gate": (E_pad, D, F),
-    "w_up": ..., "w_down": (E_pad, F, D)}}.  ``token_mask`` (B, S) bool:
-    False tokens are dead-routed to E_pad."""
+    "w_up": ..., "w_down": (E_pad, F, D)}} (r x E_pad rows with
+    ``expert_replication`` r).  ``token_mask`` (B, S) bool: False tokens
+    are dead-routed to E_pad."""
     if mesh is not None:
         raise not_ported("expert-parallel meshes", "meshes")
+    experts = layer_p["experts"]
     if cfg.expert_replication > 1:
-        raise not_ported("overlapping expert placement", "meshes")
+        # overlapping placement stores r copies of the stack; one device
+        # uses the first (QuantTensor leaves slice payload and scales)
+        experts = {k: w[:cfg.num_experts_padded] for k, w in experts.items()}
     b, s, d = x.shape
     x2d = x.reshape(b * s, d)
     rout = router_lib.route(layer_p["router"], x2d, cfg.experts_per_token,
@@ -62,5 +66,5 @@ def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
                           cfg.num_experts_padded)
     cap = moe_lib.round_capacity(b * s, cfg.experts_per_token,
                                  cfg.num_experts_padded, cfg.capacity_factor)
-    y = _local_moe(cfg, layer_p["experts"], x2d, rout, 0, cap)
+    y = _local_moe(cfg, experts, x2d, rout, 0, cap)
     return y.reshape(b, s, d), rout.aux_loss, rout.top_idx

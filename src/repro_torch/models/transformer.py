@@ -20,16 +20,22 @@ def _moe_layer_init(cfg, gen: torch.Generator, dtype) -> dict:
     L, e, d, f = (cfg.num_layers, cfg.num_experts_padded, cfg.d_model,
                   cfg.d_ff)
     norm = lambda: layers.norm_init(cfg.norm, d, dtype, gen.device, (L,))
+    experts = {
+        "w_gate": layers.dense_init(gen, d, f, dtype, (L, e)),
+        "w_up": layers.dense_init(gen, d, f, dtype, (L, e)),
+        "w_down": layers.dense_init(gen, f, d, dtype, (L, e)),
+    }
+    r = max(cfg.expert_replication, 1)
+    if r > 1:
+        # the paper's overlapping placement (§5.3) stores r copies of the
+        # expert stack, as the reference does; one device reads the first
+        experts = {k: torch.cat([w] * r, dim=1) for k, w in experts.items()}
     return {
         "ln1": norm(),
         "attn": attention.attn_init(gen, cfg, dtype, (L,)),
         "ln2": norm(),
         "router": layers.dense_init(gen, d, e, dtype, (L,)),
-        "experts": {
-            "w_gate": layers.dense_init(gen, d, f, dtype, (L, e)),
-            "w_up": layers.dense_init(gen, d, f, dtype, (L, e)),
-            "w_down": layers.dense_init(gen, f, d, dtype, (L, e)),
-        },
+        "experts": experts,
     }
 
 

@@ -237,3 +237,42 @@ def test_out_of_slice_requests_raise():
     cfg = get_config(ARCH).reduced()
     with pytest.raises(NotImplementedError, match="mesh"):
         ServingEngine(cfg, device="cpu", mesh=object())
+
+
+def test_expert_replication_matches_reference():
+    """Overlapping expert placement on one device (``expert_replication``
+    2): both sides store two copies of the expert stack and route over
+    the first, so the bridged weights give the reference's forward (2e-4)
+    and greedy engine streams, and the engine's weight bytes (both copies)
+    equal the performance model's."""
+    from repro_torch.core import perf_model
+    from repro_torch.models.model import build_model
+    jcfg, cfg = reduced_pair(ARCH, {"use_kernel": True},
+                             capacity_factor=8.0, expert_replication=2)
+    raw = jax_build_model(jcfg).init(jax.random.PRNGKey(0))
+    e = cfg.num_experts_padded
+    assert raw["blocks"]["experts"]["w_up"].shape[1] == 2 * e
+    params = from_jax_params(jax.tree.map(np.asarray, raw), cfg, "cpu")
+    port_init = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    w = port_init["blocks"]["experts"]["w_gate"]
+    assert w.shape[1] == 2 * e and torch.equal(w[:, :e], w[:, e:])
+    tokens = np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 24)).astype(np.int32)
+    want, _ = jax_build_model(jcfg).forward(raw, {"tokens": tokens})
+    with torch.no_grad():
+        got, _ = build_model(cfg, "cpu").forward(
+            params, {"tokens": torch.from_numpy(tokens)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-4,
+                               atol=2e-4)
+    traffic = _traffic()
+    jeng = JaxServingEngine(jcfg, JaxEngineConfig(
+        async_steps=False, paged=True, paged_kernel=True, **ENGINE),
+        params=raw)
+    peng = ServingEngine(cfg, EngineConfig(**ENGINE), params=params,
+                         device="cpu")
+    assert _serve(peng, traffic) == _serve(jeng, traffic)
+    weight = peng.memory_stats()["weight_bytes"]
+    assert weight == jeng.memory_stats()["weight_bytes"]
+    assert weight == perf_model.model_weight_bytes(cfg)
+    assert weight > perf_model.model_weight_bytes(
+        cfg.replace(expert_replication=1))
