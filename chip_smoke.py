@@ -318,8 +318,9 @@ PAGED_CASES = [(1, None, None, None, 128), (1, 64, None, None, 128),
                (32, None, None, None, 64), (1, None, None, None, 96),
                (32, 64, None, None, 160), (32, None, None, None, 256)]
 # (Hq, Hkv, hd): granite's and DBRX's heads, groups of 3 and 6 query
-# heads, which no 16-row tile holds whole (each at T 1 and 32)
-GQA_HEADS = [(24, 8, 64), (48, 8, 128)]
+# heads, which no 16-row tile holds whole, and stablelm-12b's (G=4 at hd
+# 160, padded to its variant's width), each at T 1 and 32
+GQA_HEADS = [(24, 8, 64), (48, 8, 128), (32, 8, 160)]
 
 
 def paged_run(torch, paged_attn, int8: bool, dtype, t: int, window,
@@ -566,7 +567,13 @@ FLASH_CASES = [(2, 2048, 32, 4, 128, True, None),
                (2, 2048, 24, 8, 64, True, None),
                (2, 37, 24, 8, 64, True, None),
                (1, 2048, 48, 8, 128, True, None),
-               (1, 37, 48, 8, 128, True, None)]
+               (1, 37, 48, 8, 128, True, None),
+               # stablelm-12b's heads (G=4, hd 160: the kernels' third
+               # instantiation) at its forward's B=2
+               (2, 2048, 32, 8, 160, True, None),
+               (2, 1000, 32, 8, 160, True, None),
+               (2, 2048, 32, 8, 160, True, 256),
+               (2, 37, 32, 8, 160, True, None)]
 
 
 def attended_pairs(s: int, causal: bool, window) -> int:

@@ -1,7 +1,8 @@
 """Weight bridge between the JAX package's parameter tree and the port's.
 
 Both keep the same layout (weights (D_in, D_out), experts (L, E, D, F) /
-(L, E, F, D), layer-stacked blocks), so the bridge is a copy.  The JAX
+(L, E, F, D), the dense MLP (L, D, F) / (L, F, D), layer-stacked blocks),
+so the bridge is a copy.  The JAX
 side is handed over as numpy (``jax.tree.map(np.asarray, params)``); this
 module imports no JAX.  The tests need it because ``jax.random`` and
 ``torch`` cannot draw the same weights.
@@ -38,14 +39,16 @@ def param_shapes(cfg) -> dict:
         attn.update(q_norm=(L, hd), k_norm=(L, hd))
     norm = lambda *shape: ({"scale": shape, "bias": shape}
                            if cfg.norm == "layernorm" else shape)
-    params = {
-        "embed": (cfg.vocab_padded, d),
-        "blocks": {"ln1": norm(L, d), "attn": attn, "ln2": norm(L, d),
-                   "router": (L, d, e),
-                   "experts": {"w_gate": (L, er, d, f), "w_up": (L, er, d, f),
-                               "w_down": (L, er, f, d)}},
-        "final_norm": norm(d),
-    }
+    blocks = {"ln1": norm(L, d), "attn": attn, "ln2": norm(L, d)}
+    if cfg.family == "moe":
+        blocks["router"] = (L, d, e)
+        blocks["experts"] = {"w_gate": (L, er, d, f), "w_up": (L, er, d, f),
+                             "w_down": (L, er, f, d)}
+    else:
+        blocks["mlp"] = {"w_gate": (L, d, f), "w_up": (L, d, f),
+                         "w_down": (L, f, d)}
+    params = {"embed": (cfg.vocab_padded, d), "blocks": blocks,
+              "final_norm": norm(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = (d, cfg.vocab_padded)
     return params

@@ -182,9 +182,11 @@ class ModelConfig:
 # registry
 # ---------------------------------------------------------------------------
 
-ARCH_IDS = ["qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "dbrx"]
+ARCH_IDS = ["qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "dbrx",
+            "qwen3_0_6b", "stablelm_12b"]
 
-# the reference's aliases: hyphenated ids and DBRX's model name
+# the reference's aliases: hyphenated ids and DBRX's model name (dotted
+# names such as "qwen3-0.6b" resolve as the reference resolves them)
 _ALIAS = {i.replace("_", "-"): i for i in ARCH_IDS}
 _ALIAS.update({"dbrx": "dbrx", "dbrx-132b": "dbrx"})
 

@@ -38,12 +38,22 @@
 // is applied only on tiles that need it: the diagonal, the window's edge
 // and the ragged end.
 //
+// Head dims 64, 128 and 160 (stablelm-12b).  hd 160 is not a whole number
+// of the 64-dim rows of the swizzled tiles, so bf16 stages K and V as
+// three 64-dim boxes (192 dims) whose last 32 dims TMA fills with zeros
+// (past the tensor map's hd); S = Q K^T reads only the first 160 (10
+// 16-wide steps, Q needs no padding), and O += P V runs at N = 192
+// (m64n192k16: an MN-major operand of 128-byte swizzle covers N in whole
+// 64-wide atoms), whose last 32 columns are exact zeros and never written.
+// Its 96 O registers and 120 KB ring hold it to one block an SM.
+//
 // fp32 stays on the CUDA cores (flash_attention_f32): the port holds fp32
 // to 2e-5, which TF32 cannot meet.  q (once) and each K tile are staged
 // transposed in shared memory as fp32 ([hd][64 + 4]), V as [64][hd]; 256
 // threads form a 16 x 16 grid, each owning a 4 x 4 tile of logits and a
-// 4 x hd/16 tile of the accumulator; row max and row sum are reduced with
-// warp shuffles.
+// 4 x hd/16 tile of the accumulator (dims c*64 + 4 tx..+3 for each whole
+// 64 dims, then 2 tx..+1 of a 32-dim tail); row max and row sum are
+// reduced with warp shuffles.
 //
 // Rounding follows the reference (_kernel): logits are an fp32 dot times
 // hd^-0.5, masked logits are -1e30, p = exp(logit - m_new) with masked p
@@ -75,6 +85,15 @@ struct Geometry {
   float scale;
 };
 
+// Accumulator column c of thread tx (of kDims = HD / 16): float4 groups
+// over each whole 64 dims, then float2 pairs over a 32-dim tail.
+template <int HD>
+__device__ __forceinline__ int acc_dim(int c, int tx) {
+  constexpr int kWhole = HD / 64 * 4;
+  return c < kWhole ? (c >> 2) * 64 + tx * 4 + (c & 3)
+                    : HD / 64 * 64 + tx * 2 + (c - kWhole);
+}
+
 template <int HD>
 constexpr size_t smem_floats() {
   // q^T [HD][kLd], K^T [HD][kLd], V [kKeys][HD], P [kRows][kLd]
@@ -91,6 +110,7 @@ __global__ void __launch_bounds__(kThreads)
                       const T* __restrict__ v, T* __restrict__ out,
                       Strides st, Geometry geo) {
   constexpr int kDims = HD / 16;   // accumulator columns per thread
+  static_assert(HD % 64 == 0 || HD % 64 == 32, "hd: whole 64s + 0 or 32");
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                  // [HD][kLd]   q^T
   float* ks = qs + HD * kLd;       // [HD][kLd]   K^T
@@ -218,15 +238,26 @@ __global__ void __launch_bounds__(kThreads)
       }
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
+        const float* vrow = vs + (j + jj) * HD;
 #pragma unroll
-        for (int c4 = 0; c4 < kDims / 4; ++c4) {
-          const float4 t = ld4(vs + (j + jj) * HD + c4 * 64 + tx * 4);
+        for (int c4 = 0; c4 < HD / 64; ++c4) {
+          const float4 t = ld4(vrow + c4 * 64 + tx * 4);
           const float vv[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
           for (int i = 0; i < 4; ++i)
 #pragma unroll
             for (int e = 0; e < 4; ++e)
               acc[i][c4 * 4 + e] = fmaf(pr[i][jj], vv[e], acc[i][c4 * 4 + e]);
+        }
+        if constexpr (HD % 64 != 0) {      // the 32-dim tail, 2 a thread
+          constexpr int c0 = HD / 64 * 4;
+          const float2 t = *reinterpret_cast<const float2*>(
+              vrow + HD / 64 * 64 + tx * 2);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][c0] = fmaf(pr[i][jj], t.x, acc[i][c0]);
+            acc[i][c0 + 1] = fmaf(pr[i][jj], t.y, acc[i][c0 + 1]);
+          }
         }
       }
     }
@@ -240,10 +271,8 @@ __global__ void __launch_bounds__(kThreads)
                   h * G + g) * HD;
     const float l = fmaxf(l_run[i], 1e-30f);
 #pragma unroll
-    for (int c4 = 0; c4 < kDims / 4; ++c4)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        o[c4 * 64 + tx * 4 + e] = Num<T>::from_f(acc[i][c4 * 4 + e] / l);
+    for (int c = 0; c < kDims; ++c)
+      o[acc_dim<HD>(c, tx)] = Num<T>::from_f(acc[i][c] / l);
   }
 }
 
@@ -280,9 +309,22 @@ constexpr int kKStages = 2;      // K ring: K_i is read in step i
 constexpr int kVStages = 3;      // V ring: V_i is read in step i + 1
 constexpr float kLog2e = 1.4426950408889634f;
 
+// K and V tiles hold whole 64-dim boxes: hd 160 is staged as 192 dims,
+// the last 32 zero-filled by TMA
+template <int HD>
+__host__ __device__ constexpr int padded_hd() {
+  return (HD + 63) / 64 * 64;
+}
+
 template <int HD>
 __host__ __device__ constexpr uint32_t tile_bytes() {
-  return 64 * HD * 2;            // 64 rows of HD bf16 (a K or a V tile)
+  return 64 * padded_hd<HD>() * 2;   // 64 rows of the padded hd in bf16
+}
+
+// hd 160's O accumulators (96 a thread) and 120 KB ring: one block an SM
+template <int HD>
+__host__ __device__ constexpr int min_blocks() {
+  return HD > 128 ? 1 : 2;
 }
 
 template <int HD>
@@ -298,13 +340,14 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, min_blocks<HD>())
     flash_attn_tc_kernel(const bf16* __restrict__ q,
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
                          bf16* __restrict__ out, Strides st, Geometry geo) {
   constexpr uint32_t kTile = tile_bytes<HD>();
-  constexpr int kO = HD / 2;                  // O accumulators a thread
+  constexpr int kHP = padded_hd<HD>();        // P V's N: whole 64-dim boxes
+  constexpr int kO = kHP / 2;                 // O accumulators a thread
   extern __shared__ uint8_t smem[];
   const uint32_t k_ring = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t v_ring = k_ring + kKStages * kTile;
@@ -335,7 +378,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
 
   // key tile i, by thread 0: K into K slot i % 2, V into V slot i % 3, each
-  // as HD / 64 TMA boxes of 64 keys x 64 dims (keys past S read as zero)
+  // as kHP / 64 TMA boxes of 64 keys x 64 dims (keys past S, and dims past
+  // HD, read as zero)
   auto load_tile = [&](int i) {
     if (t != 0) return;
     const int key0 = (t_lo + i) * 64;
@@ -343,12 +387,12 @@ __global__ void __launch_bounds__(kThreads, 2)
     const uint32_t vbar = v_bars + 8 * (i % kVStages);
     mbar_arrive_expect_tx(kbar, kTile);
 #pragma unroll
-    for (int blk = 0; blk < HD / 64; ++blk)
+    for (int blk = 0; blk < kHP / 64; ++blk)
       tma_load_4d(k_ring + (i % kKStages) * kTile + blk * (64 * 128), &k_map,
                   blk * 64, h, key0, b, kbar);
     mbar_arrive_expect_tx(vbar, kTile);
 #pragma unroll
-    for (int blk = 0; blk < HD / 64; ++blk)
+    for (int blk = 0; blk < kHP / 64; ++blk)
       tma_load_4d(v_ring + (i % kVStages) * kTile + blk * (64 * 128), &v_map,
                   blk * 64, h, key0, b, vbar);
   };
@@ -404,8 +448,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     mbar_wait(v_bars + 8 * (i % kVStages), (i / kVStages) & 1);
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      WgmmaRS<HD, 1>::run(o, pa[kk], desc_sw128(vs + kk * 2048, 64 * 128, 1024),
-                          1);
+      WgmmaRS<kHP, 1>::run(o, pa[kk],
+                           desc_sw128(vs + kk * 2048, 64 * 128, 1024), 1);
     wgmma_commit();
   };
   // the online softmax of S_i in place (s becomes p, unrounded), with the
@@ -523,7 +567,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                         h * G + g) * HD;
     const float l = half ? l_b : l_a;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {
+    for (int j = 0; j < HD / 8; ++j) {     // O's padding columns stay
       const int d = 8 * j + 2 * (lane & 3);
       *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
           o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
@@ -586,6 +630,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
   const Geometry geo{S, Hq, Hkv, causal, window, scale};
   if (hd == 64) return launch<float, 64>(q, k, v, out, st, B, geo, stream);
   if (hd == 128) return launch<float, 128>(q, k, v, out, st, B, geo, stream);
+  if (hd == 160) return launch<float, 160>(q, k, v, out, st, B, geo, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -605,5 +650,6 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   const auto s = static_cast<cudaStream_t>(stream);
   if (hd == 64) return tc::launch<64>(qp, kp, vp, op, st, B, geo, s);
   if (hd == 128) return tc::launch<128>(qp, kp, vp, op, st, B, geo, s);
+  if (hd == 160) return tc::launch<160>(qp, kp, vp, op, st, B, geo, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

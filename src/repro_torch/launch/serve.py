@@ -1,13 +1,19 @@
-"""Serving launcher of the port: continuous batching through the unified
-paged ``ServingEngine`` on the card.
+"""Serving launcher of the port: continuous batching through
+``ServingEngine`` on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b
 
 runs the full-width model (bf16, random weights from a seeded generator);
-``--arch`` takes ``qwen3_moe_30b_a3b``, ``granite_moe_3b_a800m`` or
-``dbrx`` (or the reference's aliases, e.g. ``dbrx-132b``).  ``--reduced``
-runs the smoke-test variant and ``--device cpu`` the plain versions of the
-kernels on the CPU.  ``--weight-quant int8|int4`` quantizes the weights on
+``--arch`` takes ``qwen3_moe_30b_a3b``, ``granite_moe_3b_a800m``,
+``dbrx``, ``qwen3_0_6b`` or ``stablelm_12b`` (or the reference's aliases,
+e.g. ``dbrx-132b``, ``stablelm-12b``).  ``--reduced`` runs the smoke-test
+variant and ``--device cpu`` the plain versions of the kernels on the CPU.
+The engine is the unified step over the paged pool by default;
+``--contiguous`` keeps the contiguous (max_batch, max_cache) cache,
+``--reference`` runs the two-program reference engine (prompts padded to
+``--prompt-len``, batched prefill, then one-token decode) and ``--legacy``
+the same with one prefill per request and a host sync every step; both
+take the contiguous cache, which the reference engine needs.  ``--weight-quant int8|int4`` quantizes the weights on
 load and ``--kv-cache-dtype int8`` keeps an int8 page pool.
 ``--overcommit`` admits on the context's pages and preempts under pool
 pressure, ``--priority`` (cycled over the requests) orders admission,
@@ -36,15 +42,21 @@ from repro_torch.serving.engine import EngineConfig, ServingEngine
 
 def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
                device="cuda", max_batch: int = 4, seed: int = 0,
-               chunk_len: int = 32, page_size: int = 16, num_pages: int = 0,
-               shared_prefix: int = 0, fit_cfg=None, overcommit: bool = False,
-               priorities=None, deadline_ms: float | None = None,
-               temperature: float = 0.0, top_k: int = 0):
+               legacy: bool = False, unified: bool = True,
+               paged: bool = True, chunk_len: int = 32, page_size: int = 16,
+               num_pages: int = 0, shared_prefix: int = 0, fit_cfg=None,
+               overcommit: bool = False, priorities=None,
+               deadline_ms: float | None = None, temperature: float = 0.0,
+               top_k: int = 0):
     fit_cfg = fit_cfg or cfg
+    unified = unified and not legacy
+    paged = paged and unified          # the reference engine is contiguous
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     eng = ServingEngine(cfg, EngineConfig(
-        max_batch=max_batch, max_cache=prompt_len + new_tokens + 8,
-        chunk_len=chunk_len, page_size=page_size, num_pages=num_pages,
+        max_batch=max_batch, prefill_len=prompt_len,
+        max_cache=prompt_len + new_tokens + 8, batched_prefill=not legacy,
+        async_steps=not legacy, unified_step=unified, chunk_len=chunk_len,
+        paged=paged, page_size=page_size, num_pages=num_pages,
         overcommit=overcommit), generator=gen, device=device)
     rng = np.random.default_rng(seed)
     sysp = rng.integers(0, cfg.vocab_size, shared_prefix)
@@ -60,10 +72,16 @@ def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
     ops.reset_launch_counts()
     done = eng.run_until_done()
     tp = eng.throughput()
-    print(f"completed {len(done)} requests [paged unified, {eng.device}]")
+    mode = ("legacy (sequential prefill, sync)" if legacy
+            else "paged unified" if paged
+            else "contiguous unified" if unified
+            else "batched + async (reference)")
+    print(f"completed {len(done)} requests [{mode}, {eng.device}]")
     print(f"prompt-eval throughput : {tp['prefill_tok_per_s']:.1f} tok/s")
     print(f"generation throughput  : {tp['decode_tok_per_s']:.1f} tok/s")
     print(f"overall throughput     : {tp['total_tok_per_s']:.1f} tok/s")
+    print(f"prefill padding overhead: {tp['prefill_padding_overhead']:.1%}  "
+          f"decode stall: {tp['decode_stall_s'] * 1e3:.1f} ms")
     ms = eng.memory_stats()
     print(f"device memory          : weights {ms['weight_bytes'] / 1e6:.2f} "
           f"MB (weight_quant={ms['weight_quant']}), KV pool "
@@ -74,27 +92,31 @@ def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
         print(f"TTFT p50/p95           : {tt['p50'] * 1e3:.1f} / "
               f"{tt['p95'] * 1e3:.1f} ms over {tt['n']} requests")
     ps = eng.paged_stats()
-    print(f"page pool              : {ps['pages_in_use']}/{ps['num_pages']} "
-          f"pages in use, high-water {ps['pages_hwm']} "
-          f"({ps['pool_utilization']:.1%} of pool), page_size "
-          f"{ps['page_size']}")
-    # attention-read model over the decode trajectory (not its last step,
-    # where every row fills its block table and both reads are equal): the
-    # pages the kernel walks against a gather of the whole block table
-    rb = perf_model.paged_attention_read_bytes(
-        cfg, lengths=[prompt_len + i for i in range(new_tokens)
-                      for _ in range(max_batch)],
-        page_size=page_size, max_blocks=eng.max_blocks)
-    steps = max(new_tokens, 1)
-    print(f"paged-attention reads  : {rb['kernel_bytes'] / steps / 1e6:.2f} "
-          f"MB/step over live pages (the kernel, device memory) vs "
-          f"{rb['gather_bytes'] / steps / 1e6:.2f} MB gathering whole block "
-          f"tables ({rb['ratio']:.1f}x)")
-    print(f"prefix cache           : hit rate {ps['prefix_hit_rate']:.1%} "
-          f"({ps['prefix_hits']}/{ps['prefix_lookups']} lookups), "
-          f"{ps['prefix_hit_tokens']} prefill tokens skipped, "
-          f"{ps['prefix_cached_pages']} pages cached, "
-          f"{ps['prefix_evictions']} evictions, {ps['cow_copies']} CoW copies")
+    if ps["paged"]:
+        print(f"page pool              : {ps['pages_in_use']}/"
+              f"{ps['num_pages']} pages in use, high-water "
+              f"{ps['pages_hwm']} ({ps['pool_utilization']:.1%} of pool), "
+              f"page_size {ps['page_size']}")
+        # attention-read model over the decode trajectory (not its last
+        # step, where every row fills its block table and both reads are
+        # equal): the pages the kernel walks against a gather of the whole
+        # block table
+        rb = perf_model.paged_attention_read_bytes(
+            cfg, lengths=[prompt_len + i for i in range(new_tokens)
+                          for _ in range(max_batch)],
+            page_size=page_size, max_blocks=eng.max_blocks)
+        steps = max(new_tokens, 1)
+        print(f"paged-attention reads  : "
+              f"{rb['kernel_bytes'] / steps / 1e6:.2f} MB/step over live "
+              f"pages (the kernel, device memory) vs "
+              f"{rb['gather_bytes'] / steps / 1e6:.2f} MB gathering whole "
+              f"block tables ({rb['ratio']:.1f}x)")
+        print(f"prefix cache           : hit rate "
+              f"{ps['prefix_hit_rate']:.1%} ({ps['prefix_hits']}/"
+              f"{ps['prefix_lookups']} lookups), {ps['prefix_hit_tokens']} "
+              f"prefill tokens skipped, {ps['prefix_cached_pages']} pages "
+              f"cached, {ps['prefix_evictions']} evictions, "
+              f"{ps['cow_copies']} CoW copies")
     rs = eng.resilience_stats()
     n_done = sum(1 for r in done if r.status == "done")
     print(f"resilience             : {n_done}/{len(done)} done, "
@@ -105,7 +127,7 @@ def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
           f"{rs['active_hwm']}")
     print("kernel launches        : " + ", ".join(
         f"{k} {v}" for k, v in ops.launch_counts().items()))
-    for n in (2, 3, 4):
+    for n in (2, 3, 4) if cfg.is_moe else ():
         e = eng.expected_experts_per_node(n)
         est = perf_model.estimate(perf_model.MoEWorkload.from_config(cfg),
                                   perf_model.M2_ULTRA_10GBE, n,
@@ -133,6 +155,16 @@ def main():
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--max-batch", type=int, default=4)
+    ap.add_argument("--legacy", action="store_true",
+                    help="the reference engine with one prefill per request "
+                         "and a host sync every step (for A/B comparison)")
+    ap.add_argument("--reference", action="store_true",
+                    help="two-program reference engine (batched padded "
+                         "prefill + decode; unified_step=False, contiguous "
+                         "cache)")
+    ap.add_argument("--contiguous", action="store_true",
+                    help="the unified step over the contiguous (max_batch, "
+                         "max_cache) cache instead of the page pool")
     ap.add_argument("--chunk-len", type=int, default=32,
                     help="unified block width / prefill chunk size")
     ap.add_argument("--page-size", type=int, default=16,
@@ -170,6 +202,10 @@ def main():
     ap.add_argument("--top-k", type=int, default=0,
                     help="per-request top-k cut (0 = full vocab)")
     args = ap.parse_args()
+    if args.overcommit and (args.contiguous or args.reference
+                            or args.legacy):
+        ap.error("--overcommit is a page-pool admission policy: it needs "
+                 "the paged unified engine")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -177,7 +213,9 @@ def main():
                       kv_cache_dtype=args.kv_cache_dtype)
     serve_demo(cfg, requests=args.requests, new_tokens=args.new_tokens,
                prompt_len=args.prompt_len, device=args.device,
-               max_batch=args.max_batch, chunk_len=args.chunk_len,
+               max_batch=args.max_batch, legacy=args.legacy,
+               unified=not args.reference, paged=not args.contiguous,
+               chunk_len=args.chunk_len,
                page_size=args.page_size, num_pages=args.num_pages,
                shared_prefix=args.shared_prefix,
                fit_cfg=get_config(args.arch), overcommit=args.overcommit,

@@ -14,15 +14,35 @@ on the card, its plain page walk on the CPU).  With
 ``attn_forward`` is the full-sequence forward with no cache, the port of
 the reference's ``use_flash_kernel`` branch: causal (optionally windowed)
 attention through ``kernels/ops.flash_attention`` on the unrepeated K/V.
+
+The contiguous cache is ``(B, S, Hkv, hd)`` per layer (int8: payload plus
+``(B, S, Hkv, 1)`` fp32 scales), one row per decode slot.  Three steps
+write it IN PLACE: ``attn_block_step`` (the unified step's contiguous
+form), ``attn_decode_step`` and ``attn_prefill`` (the two-program
+reference engine's).  The reference computes them in jnp with no Pallas
+kernel, and so does the port in torch ops: ``attend`` /
+``attend_chunked`` over repeated K/V for the prefill and
+``_attend_grouped_block`` for the cached steps.  Where JAX clamps an
+update's start (``dynamic_update_slice``), the port clamps explicitly,
+with integer indices only (no boolean-mask indexing, which syncs the
+host).  Ring caches (a sliding window as long as the cache) are not
+ported (ROADMAP queue A: other families).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import not_ported
 from repro_torch.core import quant
 from repro_torch.kernels import ops
 from repro_torch.models import layers
+
+NEG_INF = -1e9   # the reference's mask constant for its jnp attention paths
+# attn_prefill switches to chunked attention at or above this S
+CHUNK_THRESHOLD = 2048
+Q_CHUNK = 2048
+K_CHUNK = 1024
 
 
 def attn_init(gen: torch.Generator, cfg, dtype, lead: tuple = ()) -> dict:
@@ -160,3 +180,281 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     out = ops.flash_attention(q, k, v, causal=True, window=window)
     return quant.qdot(out.reshape(b, s, cfg.num_heads * cfg.head_dim),
                       p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# dense attention over repeated K/V (the reference's jnp paths)
+# ---------------------------------------------------------------------------
+
+def gqa_repeat(k: torch.Tensor, q_heads: int) -> torch.Tensor:
+    """(..., Hkv, hd) -> (..., Hq, hd) by repeating each kv head."""
+    rep = q_heads // k.shape[-2]
+    return k if rep == 1 else torch.repeat_interleave(k, rep, dim=-2)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: torch.Tensor, scale: float) -> torch.Tensor:
+    """q (B, Sq, H, hd), k/v (B, Sk, H, hd), mask (B, 1, Sq, Sk) bool ->
+    (B, Sq, H, hd): fp32 logits masked at -1e9, fp32 softmax, probabilities
+    in V's dtype, fp32 P.V, the result in q's dtype."""
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    probs = torch.softmax(torch.where(mask, logits, NEG_INF), dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
+                       v.float())
+    return out.to(q.dtype)
+
+
+def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   q_pos: torch.Tensor, k_pos: torch.Tensor,
+                   window: int | None, scale: float, q_chunk: int = Q_CHUNK,
+                   k_chunk: int = K_CHUNK) -> torch.Tensor:
+    """Online-softmax attention over chunks (never the whole (Sq, Sk)
+    logits), the reference's long-sequence path: causal (k_pos <= q_pos)
+    with an optional window.  q (B, Sq, H, hd), k/v (B, Sk, H, hd), q_pos
+    (B, Sq), k_pos (B, Sk).  Padding queries sit at position -1 and
+    padding keys at 2**30, so the mask kills them; every query chunk scans
+    every key chunk, as the reference's scan does."""
+    b, sq, h, hd = q.shape
+    sk = k.shape[1]
+    qc, kc = min(q_chunk, sq), min(k_chunk, sk)
+    nq, nk = -(-sq // qc), -(-sk // kc)
+    pad = lambda t, n: F.pad(t, (0, 0, 0, 0, 0, n - t.shape[1]))
+    qp, kp, vp = pad(q, nq * qc), pad(k, nk * kc), pad(v, nk * kc)
+    qpos = F.pad(q_pos, (0, nq * qc - sq), value=-1)
+    kpos = F.pad(k_pos, (0, nk * kc - sk), value=2 ** 30)
+    outs = []
+    for i in range(nq):
+        qb = qp[:, i * qc:(i + 1) * qc].transpose(1, 2).float()  # (B,H,qc,hd)
+        qpb = qpos[:, i * qc:(i + 1) * qc]
+        acc = torch.zeros((b, h, qc, hd), dtype=torch.float32,
+                          device=q.device)
+        m = torch.full((b, h, qc), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((b, h, qc), dtype=torch.float32, device=q.device)
+        for j in range(nk):
+            kb = kp[:, j * kc:(j + 1) * kc].transpose(1, 2)       # (B,H,kc,hd)
+            vb = vp[:, j * kc:(j + 1) * kc].transpose(1, 2)
+            kpb = kpos[:, j * kc:(j + 1) * kc]
+            logit = qb @ kb.float().transpose(-1, -2) * scale
+            msk = kpb[:, None, None, :] <= qpb[:, None, :, None]
+            if window is not None:
+                msk = msk & (kpb[:, None, None, :]
+                             > qpb[:, None, :, None] - window)
+            logit = torch.where(msk, logit, NEG_INF)
+            m_new = torch.maximum(m, logit.amax(-1))
+            p = torch.exp(logit - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p.to(vb.dtype).float() @ vb.float()
+            m = m_new
+        out = acc / torch.clamp(l[..., None], min=1e-30)
+        outs.append(out.transpose(1, 2).to(q.dtype))             # (B,qc,H,hd)
+    return torch.cat(outs, dim=1)[:, :sq]
+
+
+# ---------------------------------------------------------------------------
+# the contiguous cache: (B, S, Hkv, hd) per layer, one row per slot
+# ---------------------------------------------------------------------------
+
+def layer_cache_spec(cfg, batch: int, cache_len: int, dtype):
+    """Per-layer contiguous cache: {"k", "v"} (+ {"k_scale", "v_scale"}
+    for an int8 cache) -> (shape, dtype)."""
+    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+    if kv_quantized(cfg):
+        sshape = shape[:-1] + (1,)
+        return {"k": (shape, torch.int8), "v": (shape, torch.int8),
+                "k_scale": (sshape, torch.float32),
+                "v_scale": (sshape, torch.float32)}
+    return {"k": (shape, dtype), "v": (shape, dtype)}
+
+
+def init_layer_cache(cfg, batch: int, cache_len: int, dtype,
+                     device) -> dict:
+    return {kk: torch.zeros(shape, dtype=dt, device=device)
+            for kk, (shape, dt) in layer_cache_spec(cfg, batch, cache_len,
+                                                    dtype).items()}
+
+
+def _refuse_ring(ring: bool) -> None:
+    if ring:
+        raise not_ported("a ring (sliding-window) cache", "other families")
+
+
+def _update_cache(cache_kv: torch.Tensor, new_kv: torch.Tensor,
+                  lengths: torch.Tensor, ring: bool = False) -> None:
+    """Write new_kv (B, 1, ...) at slot ``lengths[b]`` of each row of
+    cache_kv (B, S, ...) IN PLACE; a slot past the end lands on the last
+    one, as ``dynamic_update_slice`` clamps it."""
+    _refuse_ring(ring)
+    b, s = cache_kv.shape[:2]
+    rows = torch.arange(b, device=cache_kv.device)
+    cache_kv[rows, lengths.long().clamp(0, s - 1)] = new_kv[:, 0].to(
+        cache_kv.dtype)
+
+
+def _update_cache_block(cache_kv: torch.Tensor, new_kv: torch.Tensor,
+                        lengths: torch.Tensor, seg_lens: torch.Tensor,
+                        ring: bool = False) -> None:
+    """Write each row's first ``seg_lens[b]`` tokens of new_kv (B, T, ...)
+    at cache offset ``lengths[b]`` of cache_kv (B, S, ...) IN PLACE.
+
+    As in the reference, each row rewrites one T-slot window whose start
+    is clamped to [0, S - T], keeping the old value wherever the window
+    holds no valid new token, so a row near the cache end never smears
+    earlier slots (and tokens past the end are dropped)."""
+    _refuse_ring(ring)
+    b, t = new_kv.shape[:2]
+    s = cache_kv.shape[1]
+    if t > s:
+        raise ValueError(f"block length {t} exceeds cache length {s}")
+    dev = cache_kv.device
+    off = lengths.long()[:, None]
+    ar = torch.arange(t, device=dev)[None, :]
+    slots = off.clamp(0, s - t) + ar                           # (B, T)
+    ci = slots - off                                           # new-block index
+    ok = (ci >= 0) & (ci < seg_lens.long()[:, None])
+    rows = torch.arange(b, device=dev)[:, None]
+    new = new_kv.to(cache_kv.dtype)[rows, ci.clamp(0, t - 1)]
+    okx = ok.reshape(ok.shape + (1,) * (new.dim() - 2))
+    cache_kv[rows, slots] = torch.where(okx, new, cache_kv[rows, slots])
+
+
+def block_slot_positions(lengths: torch.Tensor, seg_lens: torch.Tensor,
+                         cache_len: int, ring: bool = False) -> torch.Tensor:
+    """The absolute position each slot holds after a block write, (B, S):
+    slot s holds position s in a contiguous (non-ring) cache."""
+    _refuse_ring(ring)
+    sidx = torch.arange(cache_len, dtype=torch.int32, device=lengths.device)
+    return sidx[None, :].expand(lengths.shape[0], cache_len)
+
+
+def _attend_grouped_block(cfg, q: torch.Tensor, k_cache: torch.Tensor,
+                          v_cache: torch.Tensor,
+                          mask: torch.Tensor) -> torch.Tensor:
+    """Grouped-GQA attention of a (B, Tq) query block over the cache,
+    without repeating K/V: q (B, Tq, Hq, hd), k/v (B, S, Hkv, hd), mask
+    (B, Tq, S) bool -> (B, Tq, Hq, hd).  fp32 logits and P.V (the
+    reference's preferred_element_type), masked at -1e9."""
+    b, tq, _, hd = q.shape
+    hkv = k_cache.shape[2]
+    g = cfg.num_heads // hkv
+    qg = q.reshape(b, tq, hkv, g, hd)
+    logits = torch.einsum("bqhgd,bshd->bhgqs", qg.float(),
+                          k_cache.float()) * cfg.head_dim ** -0.5
+    logits = torch.where(mask[:, None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgqs,bshd->bhgqd", probs.to(v_cache.dtype).float(),
+                       v_cache.float())
+    out = out.to(q.dtype).permute(0, 3, 1, 2, 4)               # (B,Tq,Hkv,G,hd)
+    return out.reshape(b, tq, hkv * g, hd)
+
+
+def _cache_kv(cfg, cache: dict, dtype):
+    """The whole cache as K/V in the compute dtype (an int8 cache
+    dequantized)."""
+    if kv_quantized(cfg):
+        return (dequantize_kv(cache["k"], cache["k_scale"], dtype),
+                dequantize_kv(cache["v"], cache["v_scale"], dtype))
+    return cache["k"], cache["v"]
+
+
+def _new_kv(cfg, k: torch.Tensor, v: torch.Tensor) -> dict:
+    """The cache leaves' new values: K/V, or int8 payloads and scales."""
+    if kv_quantized(cfg):
+        (kq, ks), (vq, vs) = quantize_kv(k), quantize_kv(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k, "v": v}
+
+
+def attn_decode_step(p: dict, cfg, cache: dict, x: torch.Tensor,
+                     lengths: torch.Tensor, window: int | None) -> torch.Tensor:
+    """One new token per row against the contiguous cache.  x (B, 1, D);
+    lengths (B,) tokens already cached.  Row b writes its K/V at slot
+    ``lengths[b]`` (clamped to the last slot) IN PLACE and attends slots
+    <= lengths[b] (and > lengths[b] - window).  Returns (B, 1, D)."""
+    b = x.shape[0]
+    cache_len = cache["k"].shape[1]
+    _refuse_ring(window is not None and cache_len == window)
+    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None])
+    for kk, vals in _new_kv(cfg, k_new, v_new).items():
+        _update_cache(cache[kk], vals, lengths)
+    k_cache, v_cache = _cache_kv(cfg, cache, x.dtype)
+    idx = torch.arange(cache_len, device=x.device)[None, :]
+    ln = lengths.long()[:, None]
+    mask = idx <= ln
+    if window is not None:
+        mask = mask & (idx > ln - window)
+    out = _attend_grouped_block(cfg, q, k_cache, v_cache, mask[:, None, :])
+    return quant.qdot(out.reshape(b, 1, cfg.num_heads * cfg.head_dim),
+                      p["wo"])
+
+
+def attn_block_step(p: dict, cfg, cache: dict, x: torch.Tensor,
+                    positions: torch.Tensor, lengths: torch.Tensor,
+                    seg_lens: torch.Tensor,
+                    window: int | None) -> torch.Tensor:
+    """The unified step's contiguous form: row b's first ``seg_lens[b]``
+    tokens (absolute positions ``positions[b]``) continue its sequence at
+    cache offset ``lengths[b]``; they are written IN PLACE
+    (``_update_cache_block``) and then attend every slot holding a position
+    <= their own (and > pos - window).  Invalid tokens get a fully masked
+    row.  x (B, T, D) -> (B, T, D)."""
+    b, t, _ = x.shape
+    cache_len = cache["k"].shape[1]
+    _refuse_ring(window is not None and cache_len == window)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    for kk, vals in _new_kv(cfg, k_new, v_new).items():
+        _update_cache_block(cache[kk], vals, lengths, seg_lens)
+    k_cache, v_cache = _cache_kv(cfg, cache, x.dtype)
+    slot_pos = block_slot_positions(lengths, seg_lens, cache_len)
+    valid = torch.arange(t, device=x.device)[None, :] < seg_lens[:, None]
+    qp = torch.where(valid, positions, -1)
+    mask = (slot_pos[:, None, :] >= 0) & (slot_pos[:, None, :]
+                                          <= qp[:, :, None])
+    if window is not None:
+        mask = mask & (slot_pos[:, None, :] > qp[:, :, None] - window)
+    out = _attend_grouped_block(cfg, q, k_cache, v_cache, mask)
+    return quant.qdot(out.reshape(b, t, cfg.num_heads * cfg.head_dim),
+                      p["wo"])
+
+
+def attn_prefill(p: dict, cfg, cache: dict, x: torch.Tensor,
+                 positions: torch.Tensor, window: int | None,
+                 rows: torch.Tensor | None = None) -> torch.Tensor:
+    """Full-sequence forward that also fills the contiguous cache IN PLACE
+    (the reference engine's padded prefill).  x (B, S, D); positions
+    (B, S).  Attention is ``attend`` over repeated K/V, or
+    ``attend_chunked`` at S >= CHUNK_THRESHOLD.  The cache takes K/V at
+    slots [0, S); when S >= the cache length it takes the last cache_len
+    tokens, rolled so that position p sits at slot p % cache_len (the
+    reference rolls whenever ``S >= cache_len``, window or not).  ``rows``
+    (B,) bool limits the write to those rows (the batched prefill's admit
+    mask: in-flight rows keep their cache).  Returns (B, S, D)."""
+    b, s, _ = x.shape
+    cache_len = cache["k"].shape[1]
+    q, k, v = _project_qkv(p, cfg, x, positions)
+    kr, vr = gqa_repeat(k, cfg.num_heads), gqa_repeat(v, cfg.num_heads)
+    scale = cfg.head_dim ** -0.5
+    if s >= CHUNK_THRESHOLD:
+        out = attend_chunked(q, kr, vr, positions, positions, window, scale)
+    else:
+        qp = positions[:, None, :, None]
+        kp = positions[:, None, None, :]
+        mask = kp <= qp
+        if window is not None:
+            mask = mask & (kp > qp - window)
+        out = attend(q, kr, vr, mask, scale)
+    out = quant.qdot(out.reshape(b, s, cfg.num_heads * cfg.head_dim),
+                     p["wo"])
+    if s >= cache_len:
+        k = torch.roll(k[:, s - cache_len:], shifts=s, dims=1)
+        v = torch.roll(v[:, s - cache_len:], shifts=s, dims=1)
+    n = k.shape[1]
+    for kk, vals in _new_kv(cfg, k, v).items():
+        dst = cache[kk][:, :n]
+        vals = vals.to(dst.dtype)
+        if rows is not None:
+            vals = torch.where(rows.reshape((b,) + (1,) * (vals.dim() - 1)),
+                               vals, dst)
+        dst.copy_(vals)
+    return out

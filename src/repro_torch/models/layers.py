@@ -10,6 +10,9 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.core import quant
 
 
 # ---------------------------------------------------------------------------
@@ -95,6 +98,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GeGLU)
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d: int, f: int, dtype,
+             lead: tuple = ()) -> dict:
+    """The dense block's MLP weights, optionally stacked along ``lead``."""
+    return {"w_gate": dense_init(gen, d, f, dtype, lead),
+            "w_up": dense_init(gen, d, f, dtype, lead),
+            "w_down": dense_init(gen, f, d, dtype, lead)}
+
+
+def mlp_apply(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """act(x W_gate) * (x W_up) W_down through ``quant.qdot``, in x's dtype
+    (the reference's ``qdot`` here asks for no fp32 output, so a bf16 run
+    rounds g, u and the result to bf16 as it does).  ``gelu`` is the tanh
+    form, as ``jax.nn.gelu`` defaults to."""
+    g = quant.qdot(x, params["w_gate"])
+    u = quant.qdot(x, params["w_up"])
+    g = (F.gelu(g, approximate="tanh") if act == "gelu" else F.silu(g))
+    return quant.qdot(g * u, params["w_down"])
 
 
 # ---------------------------------------------------------------------------

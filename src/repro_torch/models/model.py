@@ -2,14 +2,23 @@
 
   init(generator)                      -> params
   init_paged_cache(num_pages, page_size) -> {"k", "v"} page pools
+  init_cache(batch, cache_len)         -> {"k", "v"} contiguous cache
   forward_routed(params, batch, cache, context_len) -> (logits, routing)
+  prefill_routed(params, batch, cache) -> (logits, routing)  reference
+  decode_step_routed(params, cache, batch, context_len) -> (logits, routing)
   forward(params, batch)               -> (logits, aux)   full sequence
   loss(params, batch)                  -> (total, {"ce", "aux"})
 
+Every cached entry point updates its cache IN PLACE (the reference returns
+a new one, which a donating caller aliases); ``prefill`` and
+``decode_step`` drop the routing.  ``routing`` is None for the dense
+family.
+
 Parameters are a plain dict in the JAX package's layout: weights
-(D_in, D_out), experts (L, E, D, F) / (L, E, F, D), the page pool
-(L, P, ps, Hkv, hd), so the weight bridge (``repro_torch.bridge``) is a
-copy.  Entry points run on the card unless the caller passes
+(D_in, D_out), experts (L, E, D, F) / (L, E, F, D), the dense MLP
+(L, D, F) / (L, F, D), the page pool (L, P, ps, Hkv, hd) and the
+contiguous cache (L, B, S, Hkv, hd), so the weight bridge
+(``repro_torch.bridge``) is a copy.  Entry points run on the card unless the caller passes
 ``device="cpu"``; without CUDA they raise rather than run on the CPU.
 """
 from __future__ import annotations
@@ -90,26 +99,77 @@ class Model:
         return transformer.init_paged_stack_cache(
             self.cfg, num_pages, page_size, self.cfg.torch_dtype, self.device)
 
+    def cache_specs(self, batch: int, cache_len: int) -> dict:
+        return transformer.stack_cache_spec(self.cfg, batch, cache_len,
+                                            self.cfg.torch_dtype)
+
+    def init_cache(self, batch: int, cache_len: int) -> dict:
+        return transformer.init_stack_cache(
+            self.cfg, batch, cache_len, self.cfg.torch_dtype, self.device)
+
+    def _head_last(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+        """Final norm and LM head of x (B, 1, D): (B, 1, V_padded) fp32."""
+        x = layers.norm_apply(self.cfg.norm, params["final_norm"], x)
+        return _lm_head(self.cfg, params, x)
+
+    def prefill_routed(self, params: dict, batch: dict, cache: dict):
+        """The reference engine's prefill: a whole (B, S) prompt block from
+        position 0 fills the contiguous ``cache`` IN PLACE.  batch:
+        {"tokens": (B, S), optional "token_mask" (B, S) bool (False tokens
+        are dead-routed past the MoE), optional "rows" (B,) bool (the rows
+        whose cache is written; all by default)}.  The window is decided at
+        S, as in the reference.  Returns (logits (B, 1, V_padded) fp32 at
+        the last position, routing (L, B*S, K) or None)."""
+        cfg = self.cfg
+        x, positions = _embed_inputs(cfg, params, batch)
+        window = transformer.effective_window(cfg, x.shape[1])
+        x, routing = transformer.prefill_stack(
+            cfg, params["blocks"], x, positions, cache, window,
+            token_mask=batch.get("token_mask"), rows=batch.get("rows"))
+        return self._head_last(params, x[:, -1:]), routing
+
+    def prefill(self, params: dict, batch: dict, cache: dict):
+        return self.prefill_routed(params, batch, cache)[0]
+
+    def decode_step_routed(self, params: dict, cache: dict, batch: dict,
+                           context_len: int | None = None):
+        """One token per row against the contiguous ``cache`` (updated IN
+        PLACE).  batch: {"tokens": (B, 1), "lengths": (B,) tokens already
+        cached, optional "token_mask" (B, 1)}.  The window is decided at
+        ``context_len`` or the cache length.  Returns (logits (B, 1,
+        V_padded) fp32, routing (L, B, K) or None)."""
+        cfg = self.cfg
+        tok = batch["tokens"].long().clamp(0, cfg.vocab_size - 1)
+        x = params["embed"][tok].to(cfg.torch_dtype)
+        window = transformer.effective_window(
+            cfg, context_len or cache["k"].shape[2])
+        x, routing = transformer.decode_stack(
+            cfg, params["blocks"], x, batch["lengths"], cache, window,
+            token_mask=batch.get("token_mask"))
+        return self._head_last(params, x), routing
+
+    def decode_step(self, params: dict, cache: dict, batch: dict,
+                    context_len: int | None = None):
+        return self.decode_step_routed(params, cache, batch, context_len)[0]
+
     def forward_routed(self, params: dict, batch: dict, cache: dict,
                        context_len: int | None = None):
         """Length-agnostic unified step: one (B, T) token block at per-row
-        cache offsets over the paged pool.
+        cache offsets over the paged pool or the contiguous cache.
 
         batch: {"tokens": (B, T) int, "lengths": (B,) int32 cache offsets,
-        "seg_lens": (B,) int32 valid-token counts, "block_tables": (B, NB)
-        int32, optional "token_mask" (B, T) bool}.  Row b appends its first
-        seg_lens[b] tokens at positions lengths[b]..; the pool ``cache``
-        is updated IN PLACE.  ``context_len`` pins the windowing decision
-        to the logical context (the block tables' reach rounds up to whole
-        pages).
+        "seg_lens": (B,) int32 valid-token counts, optional "block_tables"
+        (B, NB) int32 (the paged pool; absent: the contiguous cache),
+        optional "token_mask" (B, T) bool}.  Row b appends its first
+        seg_lens[b] tokens at positions lengths[b]..; ``cache`` is updated
+        IN PLACE.  ``context_len`` pins the windowing decision to the
+        logical context (the block tables' reach rounds up to whole pages).
 
         Returns (logits (B, V_padded) fp32 at each row's LAST VALID
-        position, routing (L, B*T, K) int32)."""
+        position, routing (L, B*T, K) int32, or None for the dense
+        family)."""
         cfg = self.cfg
         block_tables = batch.get("block_tables")
-        if block_tables is None:
-            raise not_ported("the contiguous KV cache (paged=False)",
-                             "the dense family and the reference path")
         tokens = batch["tokens"]
         lengths = batch["lengths"]
         seg_lens = batch["seg_lens"]
@@ -122,7 +182,8 @@ class Model:
         if token_mask is None:
             token_mask = (torch.arange(t, device=tokens.device)[None]
                           < seg_lens[:, None])
-        cache_len = block_tables.shape[1] * cache["k"].shape[2]
+        cache_len = (block_tables.shape[1] * cache["k"].shape[2]
+                     if block_tables is not None else cache["k"].shape[2])
         window = transformer.effective_window(cfg, context_len or cache_len)
         x, routing = transformer.unified_stack(
             cfg, params["blocks"], x, positions, lengths, seg_lens, cache,
@@ -175,9 +236,8 @@ class Model:
 
 
 def build_model(cfg, device="cuda") -> Model:
-    if cfg.family != "moe":
-        raise not_ported(f"the {cfg.family!r} family",
-                         "the dense family and the reference path")
+    if cfg.family not in ("dense", "moe"):
+        raise not_ported(f"the {cfg.family!r} family", "other families")
     if cfg.weight_quant not in quant.LEVELS:
         raise ValueError(f"unknown weight_quant {cfg.weight_quant!r}; "
                          f"expected one of {quant.LEVELS}")

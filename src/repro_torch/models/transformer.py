@@ -1,11 +1,18 @@
-"""The MoE decoder stack (the JAX package's ``models/transformer.py``):
-the unified paged path and the cache-free full-sequence forward.
+"""The decoder stacks of the attention families (the JAX package's
+``models/transformer.py``): ``dense`` (attention + SwiGLU MLP) and ``moe``
+(attention + the MoE layer).
+
+Four ways through the stack share one block body (``_attn_mlp_block``):
+the unified step over the paged pool or the contiguous cache
+(``unified_stack``), the cache-free full-sequence forward
+(``forward_stack``), and the two-program reference engine's padded
+prefill and one-token decode (``prefill_stack``, ``decode_stack``).
 
 Parameters are stacked along a leading layer axis, as in the reference.
 Where the reference runs the stack under ``jax.lax.scan`` with the whole
-page pool as the scan carry (so a donating caller aliases it in place), the
+cache as the scan carry (so a donating caller aliases it in place), the
 port runs a Python loop over layers that writes each layer's slice of the
-pool in place: PyTorch needs no donation for that.
+cache in place: PyTorch needs no donation for that.
 """
 from __future__ import annotations
 
@@ -39,40 +46,74 @@ def _moe_layer_init(cfg, gen: torch.Generator, dtype) -> dict:
     }
 
 
+def _dense_layer_init(cfg, gen: torch.Generator, dtype) -> dict:
+    L, d = cfg.num_layers, cfg.d_model
+    norm = lambda: layers.norm_init(cfg.norm, d, dtype, gen.device, (L,))
+    return {
+        "ln1": norm(),
+        "attn": attention.attn_init(gen, cfg, dtype, (L,)),
+        "ln2": norm(),
+        "mlp": layers.mlp_init(gen, d, cfg.d_ff, dtype, (L,)),
+    }
+
+
+def _check_family(cfg) -> None:
+    if cfg.family not in ("dense", "moe"):
+        raise not_ported(f"the {cfg.family!r} family", "other families")
+
+
 def init_blocks(cfg, gen: torch.Generator) -> dict:
     """Layer-stacked block parameters, drawn from ``gen`` on its device."""
-    if cfg.family != "moe":
-        raise not_ported(f"the {cfg.family!r} family",
-                         "the dense family and the reference path")
-    return _moe_layer_init(cfg, gen, cfg.param_torch_dtype)
+    _check_family(cfg)
+    init = _moe_layer_init if cfg.family == "moe" else _dense_layer_init
+    return init(cfg, gen, cfg.param_torch_dtype)
 
 
 def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
-                    token_mask=None, block_lens=None, block_tables=None):
-    """Attention + MoE block: paged attention over ``cache_l`` when given,
-    else the cache-free full-sequence forward.  Returns (x, aux, routed
-    (B*T, K))."""
+                    decode=False, token_mask=None, block_lens=None,
+                    block_tables=None, rows=None):
+    """Attention (+ cache) and the MLP or MoE layer.  The attention step:
+    with ``block_lens`` (lengths, seg_lens) the unified block step, over
+    the paged pool when ``block_tables`` is given and the contiguous
+    ``cache_l`` otherwise; with ``decode`` the one-token decode step
+    (``positions`` are then the lengths); with ``cache_l`` alone the
+    prefill that fills it (``rows``: the rows it writes); with no cache
+    the full-sequence forward.  Returns (x, aux, routed (B*T, K) or None
+    for the dense family)."""
     h = layers.norm_apply(cfg.norm, layer_p["ln1"], x)
+    ap = layer_p["attn"]
     if cache_l is None:
-        h = attention.attn_forward(layer_p["attn"], cfg, h, positions, window)
-    else:
+        h = attention.attn_forward(ap, cfg, h, positions, window)
+    elif block_lens is not None and block_tables is not None:
         lengths, seg_lens = block_lens
         h = attention.attn_block_step_paged(
-            layer_p["attn"], cfg, cache_l, h, positions, lengths, seg_lens,
-            block_tables, window)
+            ap, cfg, cache_l, h, positions, lengths, seg_lens, block_tables,
+            window)
+    elif block_lens is not None:
+        lengths, seg_lens = block_lens
+        h = attention.attn_block_step(ap, cfg, cache_l, h, positions,
+                                      lengths, seg_lens, window)
+    elif decode:
+        h = attention.attn_decode_step(ap, cfg, cache_l, h, positions, window)
+    else:
+        h = attention.attn_prefill(ap, cfg, cache_l, h, positions, window,
+                                   rows)
     x = x + h
     h = layers.norm_apply(cfg.norm, layer_p["ln2"], x)
-    moe_p = {"router": layer_p["router"], "experts": layer_p["experts"]}
-    h, aux, routed = expert_parallel.moe_layer(cfg, moe_p, h, token_mask)
+    if cfg.family == "moe":
+        moe_p = {"router": layer_p["router"], "experts": layer_p["experts"]}
+        h, aux, routed = expert_parallel.moe_layer(cfg, moe_p, h, token_mask)
+    else:
+        h = layers.mlp_apply(layer_p["mlp"], h, cfg.act)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        routed = None
     return x + h, aux, routed
 
 
 def paged_stack_cache_spec(cfg, num_pages: int, page_size: int, dtype):
     """Stacked paged pool: {"k", "v"} -> ((L, P, ps, Hkv, hd), dtype), and
     for an int8 cache {"k_scale", "v_scale"} -> ((L, P, ps, Hkv, 1), fp32)."""
-    if cfg.family != "moe":
-        raise not_ported(f"a paged cache for the {cfg.family!r} family",
-                         "the dense family and the reference path")
+    _check_family(cfg)
     per = attention.paged_layer_cache_spec(cfg, num_pages, page_size, dtype)
     return {kk: ((cfg.num_layers,) + shape, dt)
             for kk, (shape, dt) in per.items()}
@@ -83,6 +124,26 @@ def init_paged_stack_cache(cfg, num_pages: int, page_size: int, dtype,
     return {kk: torch.zeros(shape, dtype=dt, device=device)
             for kk, (shape, dt) in paged_stack_cache_spec(
                 cfg, num_pages, page_size, dtype).items()}
+
+
+def stack_cache_spec(cfg, batch: int, cache_len: int, dtype):
+    """Stacked contiguous cache: {"k", "v"} -> ((L, B, S, Hkv, hd), dtype)
+    (+ int8 scales (L, B, S, Hkv, 1) fp32).  As in the reference the cache
+    is clipped to the effective window, which makes it a ring buffer: not
+    ported (ROADMAP queue A: other families)."""
+    _check_family(cfg)
+    win = effective_window(cfg, cache_len)
+    if win is not None and win <= cache_len:
+        raise not_ported("a ring (sliding-window) cache", "other families")
+    per = attention.layer_cache_spec(cfg, batch, cache_len, dtype)
+    return {kk: ((cfg.num_layers,) + shape, dt)
+            for kk, (shape, dt) in per.items()}
+
+
+def init_stack_cache(cfg, batch: int, cache_len: int, dtype, device) -> dict:
+    return {kk: torch.zeros(shape, dtype=dt, device=device)
+            for kk, (shape, dt) in stack_cache_spec(
+                cfg, batch, cache_len, dtype).items()}
 
 
 def effective_window(cfg, seq_len: int) -> int | None:
@@ -114,21 +175,50 @@ def forward_stack(cfg, blocks, x, positions, window):
     return x, aux
 
 
-def unified_stack(cfg, blocks, x, positions, lengths, seg_lens, cache, window,
-                  token_mask, block_tables):
-    """Token-block forward through all layers over the paged pool.
-
-    x: (B, T, D); positions: (B, T) absolute; lengths/seg_lens: (B,);
-    block_tables: (B, NB).  Layer l writes ``cache[..][l]`` IN PLACE.
-    Returns (x, routing (L, B*T, K) int32) — invalid tokens read the E_pad
-    sentinel."""
+def _cached_stack(cfg, blocks, x, cache, **block_kw):
+    """Every layer over ``cache`` (layer l's slice written IN PLACE).
+    Returns (x, routing (L, B*T, K) int32, or None for the dense
+    family)."""
     b, t, _ = x.shape
-    routing = torch.empty((cfg.num_layers, b * t, cfg.experts_per_token),
-                          dtype=torch.int32, device=x.device)
+    routing = (torch.empty((cfg.num_layers, b * t, cfg.experts_per_token),
+                           dtype=torch.int32, device=x.device)
+               if cfg.family == "moe" else None)
     for l in range(cfg.num_layers):
         cache_l = {kk: v[l] for kk, v in cache.items()}
-        x, _, routed = _attn_mlp_block(
-            cfg, _layer(blocks, l), x, positions, window, cache_l, token_mask,
-            (lengths, seg_lens), block_tables)
-        routing[l] = routed
+        x, _, routed = _attn_mlp_block(cfg, _layer(blocks, l), x,
+                                       cache_l=cache_l, **block_kw)
+        if routing is not None:
+            routing[l] = routed
     return x, routing
+
+
+def unified_stack(cfg, blocks, x, positions, lengths, seg_lens, cache, window,
+                  token_mask, block_tables=None):
+    """Token-block forward through all layers, over the paged pool
+    (``block_tables`` (B, NB)) or the contiguous cache (None).
+
+    x: (B, T, D); positions: (B, T) absolute; lengths/seg_lens: (B,).
+    Layer l writes ``cache[..][l]`` IN PLACE.  Returns (x, routing (L,
+    B*T, K) int32, None for the dense family) — invalid tokens read the
+    E_pad sentinel."""
+    return _cached_stack(cfg, blocks, x, cache, positions=positions,
+                         window=window, token_mask=token_mask,
+                         block_lens=(lengths, seg_lens),
+                         block_tables=block_tables)
+
+
+def prefill_stack(cfg, blocks, x, positions, cache, window, token_mask=None,
+                  rows=None):
+    """Full-sequence forward that fills the contiguous cache IN PLACE (the
+    reference engine's prefill); ``rows`` (B,) bool: the rows it writes.
+    Returns (x, routing (L, B*S, K) or None)."""
+    return _cached_stack(cfg, blocks, x, cache, positions=positions,
+                         window=window, token_mask=token_mask, rows=rows)
+
+
+def decode_stack(cfg, blocks, x, lengths, cache, window, token_mask=None):
+    """One-token decode through all layers: x (B, 1, D) at positions
+    ``lengths``, written IN PLACE into the contiguous cache.  Returns
+    (x, routing (L, B, K) or None)."""
+    return _cached_stack(cfg, blocks, x, cache, positions=lengths,
+                         window=window, decode=True, token_mask=token_mask)

@@ -1,14 +1,25 @@
-"""Serving engine of the port: continuous batching over the unified paged
-step (the JAX package's ``serving/engine.py``, unified paged path).
+"""Serving engine of the port: continuous batching over the unified step
+(the JAX package's ``serving/engine.py``).
 
 Every iteration packs the active decode rows and pending prefill chunks
 into ONE (max_batch, chunk_len) token block at per-row cache offsets
 (``Model.forward_routed``); long prompts stream through the cache
-``chunk_len`` tokens per iteration and admission never stalls decode.  The
-KV cache is one page pool per layer plus per-row block tables: admission is
-gated on free pages (``serving/paging.PageAllocator``) and a radix prefix
-cache maps requests sharing a system prompt onto the same pages (partial
-tail pages shared by copy-on-write).
+``chunk_len`` tokens per iteration and admission never stalls decode.  By
+default the KV cache is one page pool per layer plus per-row block tables:
+admission is gated on free pages (``serving/paging.PageAllocator``) and a
+radix prefix cache maps requests sharing a system prompt onto the same
+pages (partial tail pages shared by copy-on-write).  ``paged=False`` keeps
+the contiguous (max_batch, max_cache) cache instead, one row per slot.
+
+``unified_step=False`` (with ``paged=False``) is the two-program reference
+engine, the A/B oracle the unified step is held to: each iteration admits
+queued requests with a prefill of their prompts zero-padded to
+``prefill_len`` (all of them in one (max_batch, prefill_len) call, or one
+call each with ``batched_prefill=False``), stalling in-flight rows, then
+decodes every active row by one token.  As in the reference, a prompt
+shorter than ``prefill_len`` decodes from position ``prefill_len`` and
+attends its zero padding, so its tokens equal the unified step's only for
+prompts of exactly ``prefill_len``.
 
 The hot loop is asynchronous on the card: each step uploads its host
 snapshots (tokens, lengths, block tables, sampling parameters, the fault
@@ -35,9 +46,8 @@ greedy at ``temperature == 0`` and temperature-scaled top-k Gumbel
 otherwise, from a generator on the engine's device seeded by
 ``(sample_seed, step index)``.
 
-Not ported yet (each raises ``NotImplementedError``): the contiguous
-cache (``paged=False``), the two-program reference path
-(``unified_step=False``) and meshes (ROADMAP queue A).
+Not ported yet (each raises ``NotImplementedError``): ring (sliding-
+window) caches and meshes (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -95,12 +105,17 @@ class Request:
 
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
-    """Engine knobs, named as in the JAX package's ``EngineConfig``.  Only
-    the unified paged path is ported, so ``paged`` defaults to True and
-    ``paged=False`` and ``unified_step=False`` raise."""
+    """Engine knobs, named as in the JAX package's ``EngineConfig``.  The
+    port's main path is the unified paged step, so ``paged`` defaults to
+    True (the reference's to False).  The reference engine
+    (``unified_step=False``) needs the contiguous cache, so
+    ``unified_step=False`` alone raises the reference's "paged KV cache
+    requires the unified engine path" error: pass ``paged=False`` too."""
     max_batch: int = 8            # decode slots
+    prefill_len: int = 128        # reference mode: prompts padded to this
     max_cache: int = 256          # per-request cache positions
     track_experts: bool = True
+    batched_prefill: bool = True  # reference mode; False: one per request
     async_steps: bool = True      # False: harvest (sync) every step
     unified_step: bool = True
     chunk_len: int = 32           # unified block width / prefill chunk size
@@ -122,13 +137,18 @@ class EngineConfig:
 class _Pending:
     """One dispatched-but-unharvested device step.  ``rows`` binds batch
     rows to their requests at dispatch time; ``tok`` is the post-step (B,)
-    last-token tensor, ``routing`` the (L, B*T, K) capture; ``obs_rows``
-    the rows whose routing feeds the tracker."""
+    last-token tensor, ``routing`` the (L, routing_batch * T, K) capture
+    (None for the dense family); ``obs_rows`` the rows of that capture
+    that feed the tracker (the reference's batch-1 prefill captures row 0
+    for its slot).  ``stalled``: a reference-mode prefill dispatched while
+    decode rows were in flight (its time is their stall)."""
     kind: str                     # "prefill" | "decode" | "mixed"
     rows: tuple                   # ((slot, Request), ...)
     tok: Any
     routing: Any
     obs_rows: tuple
+    routing_batch: int
+    stalled: bool = False
 
 
 def _fold_seed(seed: int, step: int) -> int:
@@ -146,25 +166,30 @@ class ServingEngine:
                  generator: torch.Generator | None = None,
                  device="cuda", mesh=None, fault_plan=None):
         ecfg = engine_cfg or EngineConfig()
-        ref_path = "the dense family and the reference path"
-        if not ecfg.paged:
-            raise not_ported("the contiguous KV cache (paged=False)",
-                             ref_path)
-        if not ecfg.unified_step:
-            raise not_ported("the two-program reference engine "
-                             "(unified_step=False)", ref_path)
         if mesh is not None:
             raise not_ported("mesh-sharded serving", "meshes")
+        # the reference's three configuration errors, in its order
+        if fault_plan is not None and not ecfg.unified_step:
+            raise ValueError("fault injection requires the unified engine "
+                             "path (unified_step=True)")
+        if ecfg.overcommit and not ecfg.paged:
+            raise ValueError("overcommit requires the paged KV cache "
+                             "(EngineConfig.paged=True)")
         if ecfg.chunk_len < 1 or ecfg.token_budget < 0:
             raise ValueError(
                 f"chunk_len must be >= 1 and token_budget >= 0, got "
                 f"chunk_len={ecfg.chunk_len} "
                 f"token_budget={ecfg.token_budget}")
-        if ecfg.page_size < 1:
-            raise ValueError(f"page_size must be >= 1, got {ecfg.page_size}")
         win = effective_window(cfg_model, ecfg.max_cache)
         if win is not None and win <= ecfg.max_cache:
             raise not_ported("a ring (sliding-window) cache", "other families")
+        if ecfg.paged and not ecfg.unified_step:
+            raise ValueError(
+                "paged KV cache requires the unified engine path "
+                "(token-input attention family, non-ring cache, "
+                "unified_step=True)")
+        if ecfg.paged and ecfg.page_size < 1:
+            raise ValueError(f"page_size must be >= 1, got {ecfg.page_size}")
         self.cfg = cfg_model
         self.ecfg = ecfg
         self.device = resolve_device(device)
@@ -213,22 +238,31 @@ class ServingEngine:
         self._step_idx = 0
         self._sampling = False
         self._pending: list[_Pending] = []
+        self.unified = ecfg.unified_step
+        self.paged = ecfg.paged
+        self._admit_stalled = False
         self.chunk_len = min(ecfg.chunk_len, c)
-        self.page_size = ecfg.page_size
-        self.max_blocks = -(-c // self.page_size)
-        self.num_pages = ecfg.num_pages or b * self.max_blocks
-        self.cache = self.model.init_paged_cache(self.num_pages,
-                                                 self.page_size)
-        self.block_tables = np.zeros((b, self.max_blocks), np.int32)
-        self.allocator = PageAllocator(self.num_pages)
-        self.prefix = PrefixCache(self.page_size, self.allocator)
-        self.slot_pages: list[list[int]] = [[] for _ in range(b)]
-        self.stats = {"prefill_tokens": 0, "decode_steps": 0,
-                      "decode_tokens": 0,
+        if self.paged:
+            self.page_size = ecfg.page_size
+            self.max_blocks = -(-c // self.page_size)
+            self.num_pages = ecfg.num_pages or b * self.max_blocks
+            self.cache = self.model.init_paged_cache(self.num_pages,
+                                                     self.page_size)
+            self.block_tables = np.zeros((b, self.max_blocks), np.int32)
+            self.allocator = PageAllocator(self.num_pages)
+            self.prefix = PrefixCache(self.page_size, self.allocator)
+            self.slot_pages: list[list[int]] = [[] for _ in range(b)]
+        else:
+            self.cache = self.model.init_cache(b, c)
+        self.stats = {"prefill_tokens": 0, "prefill_pad_tokens": 0,
+                      "decode_steps": 0, "decode_tokens": 0,
                       # per-phase token counts of MIXED iterations only —
                       # throughput() apportions mixed_s by their share
                       "mixed_prefill_tokens": 0, "mixed_decode_tokens": 0,
                       "prefill_s": 0.0, "decode_s": 0.0, "mixed_s": 0.0,
+                      # reference mode: time in-flight decode rows sat
+                      # behind a separate prefill call
+                      "stall_s": 0.0,
                       "prefix_lookups": 0, "prefix_hits": 0,
                       "prefix_hit_tokens": 0, "cow_copies": 0,
                       "pages_hwm": 0,
@@ -310,7 +344,8 @@ class ServingEngine:
         Decode rows take their input token from the device-resident
         ``last_tok`` (column 0), so the decode feedback loop never syncs.
         Rows in ``sample_mask`` (decode rows and final prefill chunks)
-        replace ``last_tok`` with their sampled token.  The page pool is
+        replace ``last_tok`` with their sampled token.  The cache (the page
+        pool, or with ``block_tables`` None the contiguous cache) is
         updated in place.
 
         ``poison`` (B,) fp32 is the fault-injection vector, or None (the
@@ -323,11 +358,11 @@ class ServingEngine:
         tokens = torch.cat([tok0[:, None], tokens[:, 1:]], dim=1)
         # context_len pins the windowing decision to the logical context:
         # the block tables' reach rounds up to whole pages
+        batch = {"tokens": tokens, "lengths": lengths, "seg_lens": seg_lens}
+        if block_tables is not None:
+            batch["block_tables"] = block_tables
         logits, routing = self.model.forward_routed(
-            self.params, {"tokens": tokens, "lengths": lengths,
-                          "seg_lens": seg_lens,
-                          "block_tables": block_tables},
-            self.cache, context_len=self.ecfg.max_cache)
+            self.params, batch, self.cache, context_len=self.ecfg.max_cache)
         if poison is not None:
             logits = torch.where(torch.isfinite(poison)[:, None], logits,
                                  poison[:, None])
@@ -344,14 +379,54 @@ class ServingEngine:
             for pool in self.cache.values():
                 pool[:, d].copy_(pool[:, s])
 
+    def _prefill_batch(self, tokens, admit, temps, topks, step_idx: int):
+        """Reference mode: admit up to max_batch requests in ONE call.
+        tokens (B, prefill_len), zeros on rows not admitted; admit (B,)
+        bool.  The whole block runs (in-flight rows dead-routed past the
+        MoE, so the dispatch capacity is the whole block's, as in the
+        reference), and only admitted rows write their cache.  Returns
+        (last_tok', routing)."""
+        tmask = admit[:, None].expand(tokens.shape)
+        logits, routing = self.model.prefill_routed(
+            self.params, {"tokens": tokens, "token_mask": tmask,
+                          "rows": admit}, self.cache)
+        nxt = self._sample_next(logits[:, -1], temps, topks, step_idx)
+        return torch.where(admit, nxt, self.last_tok), routing
+
+    def _prefill_one(self, tokens, slot: int, temps, topks, step_idx: int):
+        """Reference mode with ``batched_prefill=False``: a batch-1 prefill
+        of (1, prefill_len) tokens through slot ``slot``'s row of the
+        cache (a view, written in place).  Returns (last_tok', routing)."""
+        one = {kk: v[:, slot:slot + 1] for kk, v in self.cache.items()}
+        logits, routing = self.model.prefill_routed(
+            self.params, {"tokens": tokens}, one)
+        nxt = self._sample_next(logits[:, -1], temps[slot:slot + 1],
+                                topks[slot:slot + 1], step_idx)
+        last_tok = self.last_tok.clone()
+        last_tok[slot] = nxt[0]
+        return last_tok, routing
+
+    def _decode(self, lengths, active, temps, topks, step_idx: int):
+        """Reference mode: one token for every row at position
+        ``lengths``; inactive rows are dead-routed and keep ``last_tok``.
+        Returns (last_tok', routing (L, B, K))."""
+        logits, routing = self.model.decode_step_routed(
+            self.params, self.cache,
+            {"tokens": self.last_tok[:, None], "lengths": lengths,
+             "token_mask": active[:, None]})
+        nxt = self._sample_next(logits[:, -1], temps, topks, step_idx)
+        return torch.where(active, nxt, self.last_tok), routing
+
     # -- public API ---------------------------------------------------------
 
     def submit(self, prompt: np.ndarray, max_new_tokens: int = 32,
                temperature: float = 0.0, top_k: int = 0,
                priority: int = 0, deadline_ms: float | None = None) -> int:
         """Queue a request.  ``temperature``/``top_k`` select per-request
-        sampling (greedy when temperature == 0).  Prompts up to
-        ``max_cache`` tokens stream through the cache in chunks.
+        sampling (greedy when temperature == 0).  The unified step streams
+        prompts of up to ``max_cache`` tokens through the cache in chunks;
+        the reference engine pads prompts to ``prefill_len`` and refuses
+        longer ones (it never truncates).
 
         ``priority`` orders admission (higher first, FIFO within a class;
         under ``overcommit`` a higher-priority arrival may preempt
@@ -363,21 +438,29 @@ class ServingEngine:
             # a zero-length prompt would be scheduled as a decode row seeded
             # from the slot's stale last token
             raise ValueError("empty prompt")
-        if len(prompt) > self.ecfg.max_cache:
+        limit = (self.ecfg.max_cache if self.unified
+                 else self.ecfg.prefill_len)
+        if len(prompt) > limit:
+            mode = "unified" if self.unified else "reference"
             raise ValueError(
-                f"prompt of {len(prompt)} tokens exceeds the engine's limit "
-                f"of {self.ecfg.max_cache} (max_cache); refusing to "
-                f"silently truncate")
-        if len(prompt) + max_new_tokens - 1 > self.ecfg.max_cache:
+                f"prompt of {len(prompt)} tokens exceeds the {mode} "
+                f"engine's limit of {limit} "
+                f"({'max_cache' if self.unified else 'prefill_len'}); "
+                f"refusing to silently truncate")
+        # the reference path always decodes from offset prefill_len
+        context = len(prompt) if self.unified else self.ecfg.prefill_len
+        if context + max_new_tokens - 1 > self.ecfg.max_cache:
             raise ValueError(
-                f"context of {len(prompt)} tokens + {max_new_tokens} new "
+                f"context of {context} tokens + {max_new_tokens} new "
                 f"tokens does not fit the {self.ecfg.max_cache}-slot cache; "
                 f"lower max_new_tokens or raise max_cache")
-        blocks = -(-(len(prompt) + max_new_tokens - 1) // self.page_size)
-        if blocks > self.num_pages:
-            raise ValueError(
-                f"request needs {blocks} pages but the pool holds only "
-                f"{self.num_pages}; raise num_pages or lower max_new_tokens")
+        if self.paged:
+            blocks = -(-(context + max_new_tokens - 1) // self.page_size)
+            if blocks > self.num_pages:
+                raise ValueError(
+                    f"request needs {blocks} pages but the pool holds only "
+                    f"{self.num_pages}; raise num_pages or lower "
+                    f"max_new_tokens")
         self._uid += 1
         self._seq += 1
         if temperature > 0:
@@ -393,14 +476,137 @@ class ServingEngine:
         return self._uid
 
     def step(self) -> int:
-        """One engine iteration: expire requests past their deadline, admit
-        (host state only), then pack decode rows and prefill chunks into
-        one device step.  Returns the number of rows that did work.  In
+        """One engine iteration: expire requests past their deadline, then
+        (unified) admit, host state only, and pack decode rows and prefill
+        chunks into one device step, or (reference) admit with separate
+        prefill calls that stall in-flight rows, then decode every active
+        row by one token.  Returns the number of rows that did work.  In
         async mode the step is only dispatched; tokens reach requests at
         the next harvest."""
         self._iter += 1
         self._sweep_deadlines()
-        return self._step_unified()
+        if self.unified:
+            return self._step_unified()
+        self._admit()
+        active = [i for i, r in enumerate(self.slots) if r is not None]
+        if not active:
+            return 0
+        b = self.ecfg.max_batch
+        mask = np.zeros((b,), bool)
+        mask[active] = True
+        t0 = time.perf_counter()
+        step_idx = self._next_step_idx()
+        d_len, d_mask, d_temp, d_topk = self._upload(
+            self.lengths, mask, self.temps, self.topks)
+        self.last_tok, routing = self._decode(d_len, d_mask != 0, d_temp,
+                                              d_topk, step_idx)
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_steps"] += 1
+        self._pending.append(_Pending(
+            "decode", tuple((i, self.slots[i]) for i in active),
+            self.last_tok, routing, tuple(active), b))
+        finishing = False
+        for i in active:
+            self.lengths[i] = min(self.lengths[i] + 1, self.ecfg.max_cache)
+            self.stats["decode_tokens"] += 1
+            self.budgets[i] -= 1
+            if self.budgets[i] <= 0:
+                # budget-based completion is host-known at dispatch: free
+                # the slot now, collect the tokens at the harvest below
+                self._finish_slot(i)
+                finishing = True
+        if finishing or not self.ecfg.async_steps:
+            self._harvest()
+        return len(active)
+
+    # -- the reference engine's admission -----------------------------------
+
+    def _pad_prompt(self, req: Request) -> np.ndarray:
+        """The prompt zero-padded to ``prefill_len`` (enforced at submit)."""
+        pad = np.zeros((self.ecfg.prefill_len,), np.int32)
+        pad[:len(req.prompt)] = req.prompt
+        return pad
+
+    def _admit(self) -> None:
+        free = [i for i, r in enumerate(self.slots) if r is None]
+        if not free or not self.queue:
+            return
+        # every in-flight decode row sits idle for the whole separate
+        # prefill call (the unified step has no such window)
+        self._admit_stalled = any(r is not None for r in self.slots)
+        if self.ecfg.batched_prefill:
+            self._admit_batched(free)
+        else:
+            self._admit_sequential(free)
+
+    def _post_admit(self, rows, routing, obs_rows: tuple,
+                    routing_batch: int) -> None:
+        """Bind each admitted (slot, request): it decodes from position
+        ``prefill_len`` with its first token already sampled."""
+        for slot, req in rows:
+            self.slots[slot] = req
+            self.slot_ctx[slot] = req.prompt
+            req.status = "running"
+            self.lengths[slot] = self.ecfg.prefill_len
+            self.budgets[slot] = req.max_new_tokens - 1
+            # real prompt tokens, and the padding the fixed-length call
+            # computes anyway
+            self.stats["prefill_tokens"] += len(req.prompt)
+            self.stats["prefill_pad_tokens"] += (self.ecfg.prefill_len
+                                                 - len(req.prompt))
+        self._pending.append(_Pending("prefill", tuple(rows), self.last_tok,
+                                      routing, obs_rows, routing_batch,
+                                      stalled=self._admit_stalled))
+        if not self.ecfg.async_steps:
+            self._harvest()
+
+    def _timed_prefill(self, fn, *args) -> Any:
+        """Dispatch one prefill call, charging its time to ``prefill_s``
+        (and ``stall_s`` when decode rows are in flight); returns the
+        routing capture."""
+        t0 = time.perf_counter()
+        self.last_tok, routing = fn(*args, self._next_step_idx())
+        dt = time.perf_counter() - t0
+        self.stats["prefill_s"] += dt
+        if self._admit_stalled:
+            self.stats["stall_s"] += dt
+        return routing
+
+    def _admit_batched(self, free: list[int]) -> None:
+        b = self.ecfg.max_batch
+        rows = []
+        tokens = np.zeros((b, self.ecfg.prefill_len), np.int32)
+        admit = np.zeros((b,), bool)
+        for slot in free:
+            if not self.queue:
+                break
+            req = self.queue.popleft()
+            tokens[slot] = self._pad_prompt(req)
+            admit[slot] = True
+            self.temps[slot] = req.temperature
+            self.topks[slot] = req.top_k
+            rows.append((slot, req))
+        d_tok, d_admit, d_temp, d_topk = self._upload(
+            tokens, admit, self.temps, self.topks)
+        routing = self._timed_prefill(self._prefill_batch, d_tok,
+                                      d_admit != 0, d_temp, d_topk)
+        self._post_admit(rows, routing, tuple(s for s, _ in rows), b)
+
+    def _admit_sequential(self, free: list[int]) -> None:
+        for slot in free:
+            if not self.queue:
+                break
+            # re-checked per call: request N's prefill stalls the requests
+            # admitted earlier in this round too
+            self._admit_stalled = any(r is not None for r in self.slots)
+            req = self.queue.popleft()
+            self.temps[slot] = req.temperature
+            self.topks[slot] = req.top_k
+            d_tok, d_temp, d_topk = self._upload(
+                self._pad_prompt(req)[None], self.temps, self.topks)
+            routing = self._timed_prefill(self._prefill_one, d_tok, slot,
+                                          d_temp, d_topk)
+            self._post_admit([(slot, req)], routing, (0,), 1)
 
     def _next_step_idx(self) -> int:
         """Monotone per-dispatch counter keying the sampler's draws."""
@@ -426,11 +632,14 @@ class ServingEngine:
         idempotent, so neighbours never see the fault)."""
         b, t = self.ecfg.max_batch, self.chunk_len
         for i in range(b):
-            # page-gated admission in priority order; stop at the first
-            # request the pool cannot hold (never skip ahead)
-            if (self.slots[i] is None and self.queue
-                    and not self._admit_paged(i)):
-                break
+            if self.slots[i] is None and self.queue:
+                if self.paged:
+                    # page-gated admission in priority order; stop at the
+                    # first request the pool cannot hold (never skip ahead)
+                    if not self._admit_paged(i):
+                        break
+                    continue
+                self._admit_slot(i)
         self.stats["active_hwm"] = max(
             self.stats["active_hwm"],
             sum(1 for s in self.slots if s is not None))
@@ -438,7 +647,7 @@ class ServingEngine:
         # before any row is scheduled — growth may preempt a peer (or the
         # grower), and a preempted row must not already be in the block
         for i in range(b):
-            if (self.slots[i] is not None
+            if (self.paged and self.slots[i] is not None
                     and self.prefill_pos[i] >= len(self.slot_ctx[i])):
                 self._ensure_decode_page(i)
         tokens = np.zeros((b, t), np.int32)
@@ -449,7 +658,7 @@ class ServingEngine:
         decode_rows, prefill_rows = [], []
         for i, req in enumerate(self.slots):
             if (req is not None and self.prefill_pos[i] >= len(self.slot_ctx[i])
-                    and self._covered(i)):
+                    and (not self.paged or self._covered(i))):
                 # (an uncovered row is page-starved: it idles this
                 # iteration with its state intact and retries next step)
                 seg[i] = 1
@@ -495,14 +704,15 @@ class ServingEngine:
                 return 0
         t0 = time.perf_counter()
         step_idx = self._next_step_idx()
-        d_tok, d_len, d_seg, d_bt, d_dec, d_sample, d_temp, d_topk, \
-            *d_poison = self._upload(
-                tokens, self.lengths, seg, self.block_tables, is_dec, sample,
-                self.temps, self.topks,
-                *(() if poison is None else (poison,)))
+        tables = (self.block_tables,) if self.paged else ()
+        d_tok, d_len, d_seg, d_dec, d_sample, d_temp, d_topk, *rest = \
+            self._upload(tokens, self.lengths, seg, is_dec, sample,
+                         self.temps, self.topks, *tables,
+                         *(() if poison is None else (poison,)))
+        d_bt = rest.pop(0) if self.paged else None
         self.last_tok, routing, bad = self._unified(
             d_tok, d_len, d_seg, d_bt, d_dec != 0, d_sample != 0, d_temp,
-            d_topk, d_poison[0] if d_poison else None, step_idx)
+            d_topk, rest[0] if rest else None, step_idx)
         dt = time.perf_counter() - t0
         kind = ("decode" if not prefill_rows
                 else "prefill" if not decode_rows else "mixed")
@@ -541,7 +751,8 @@ class ServingEngine:
             if sample[i]:                 # prompt complete: token 1 sampled
                 # the prompt's pages are final from this dispatch on: cache
                 # them for prefix reuse BEFORE any release
-                self._prefix_insert(i)
+                if self.paged:
+                    self._prefix_insert(i)
                 rows.append((i, self.slots[i]))
                 self.budgets[i] -= 1
                 if self.budgets[i] <= 0:
@@ -550,10 +761,23 @@ class ServingEngine:
         self._pending.append(_Pending(
             kind, tuple(rows), self.last_tok, routing,
             obs_rows=tuple(i for i in range(b)
-                           if seg[i] and not bad_host[i])))
+                           if seg[i] and not bad_host[i]), routing_batch=b))
         if finishing or not self.ecfg.async_steps:
             self._harvest()
         return len(decode_rows) + len(prefill_rows)
+
+    def _admit_slot(self, slot: int) -> None:
+        """Contiguous-cache admission: bind the queue head to ``slot``; its
+        prompt streams into the slot's row from position 0."""
+        req = self.queue.popleft()
+        self.slots[slot] = req
+        self.slot_ctx[slot] = req.prompt
+        req.status = "running"
+        self.lengths[slot] = 0
+        self.prefill_pos[slot] = 0
+        self.budgets[slot] = req.max_new_tokens
+        self.temps[slot] = req.temperature
+        self.topks[slot] = req.top_k
 
     # -- paged-cache bookkeeping -------------------------------------------
 
@@ -751,7 +975,7 @@ class ServingEngine:
         """Free slot ``i``'s page references and binding (exactly once: the
         page list is emptied); pages the prefix tree also holds stay
         resident for future hits."""
-        if self.slot_pages[i]:
+        if self.paged and self.slot_pages[i]:
             self.allocator.free(self.slot_pages[i])
             self.slot_pages[i] = []
             self.block_tables[i] = 0
@@ -872,7 +1096,10 @@ class ServingEngine:
         return out
 
     def paged_stats(self) -> dict:
-        """Page-pool / prefix-cache counters."""
+        """Page-pool / prefix-cache counters; ``{"paged": False}`` on the
+        contiguous cache."""
+        if not self.paged:
+            return {"paged": False}
         s = self.stats
         return {
             "paged": True,
@@ -891,8 +1118,8 @@ class ServingEngine:
         }
 
     def memory_stats(self) -> dict:
-        """Device bytes of the weights and the KV page pool (QuantTensor
-        leaves count payload plus scales, an int8 pool its scale pools)."""
+        """Device bytes of the weights and the KV cache (QuantTensor leaves
+        count payload plus scales, an int8 cache its scales)."""
         weight = quant.tree_bytes(self.params)
         pool = quant.tree_bytes(self.cache)
         return {"weight_bytes": weight, "kv_pool_bytes": pool,
@@ -916,6 +1143,8 @@ class ServingEngine:
                        else None)
             now = time.perf_counter()
             self.stats[rec.kind + "_s"] += now - t0
+            if rec.stalled:
+                self.stats["stall_s"] += now - t0
             for slot, req in rec.rows:
                 req.generated.append(int(tok[slot]))
                 if req.first_token_s is None:
@@ -930,7 +1159,7 @@ class ServingEngine:
         """Feed the tracker from the device capture (no host routing)."""
         if self.tracker is None:
             return
-        per_row = routing.reshape(routing.shape[0], self.ecfg.max_batch, -1)
+        per_row = routing.reshape(routing.shape[0], rec.routing_batch, -1)
         for layer in range(self.cfg.num_layers):
             ids = per_row[layer, list(rec.obs_rows)]
             # dead-routed invalid tokens read the E_pad sentinel: padding,
@@ -993,8 +1222,13 @@ class ServingEngine:
     def throughput(self) -> dict:
         """Per-phase tok/s.  ``*_s`` hold dispatch time plus each phase's
         harvest wait; mixed-iteration time is apportioned between the two
-        phases by their token share of those iterations."""
+        phases by their token share of those iterations.  Prefill counts
+        real prompt tokens; ``prefill_padding_overhead`` is the share of
+        prefill positions the reference engine spent on padding and
+        ``decode_stall_s`` the time its decode rows waited behind a
+        prefill call (both 0 on the unified step)."""
         s = self.stats
+        pad = s["prefill_pad_tokens"]
         work_s = s["prefill_s"] + s["decode_s"] + s["mixed_s"]
         mp, md = s["mixed_prefill_tokens"], s["mixed_decode_tokens"]
         p_share = mp / (mp + md) if (mp + md) else 0.0
@@ -1005,6 +1239,9 @@ class ServingEngine:
             "decode_tok_per_s": s["decode_tokens"] / max(decode_den, 1e-9),
             "total_tok_per_s": (s["prefill_tokens"] + s["decode_tokens"])
                                / max(work_s, 1e-9),
+            "prefill_padding_overhead": pad / max(pad + s["prefill_tokens"],
+                                                  1),
+            "decode_stall_s": s["stall_s"],
         }
 
     def ttft(self, since: float = 0.0) -> dict:

@@ -224,13 +224,18 @@ def test_paging_copy_matches_reference():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(paged=False), "contiguous KV cache"),
-    (dict(unified_step=False), "reference engine"),
+    (dict(mesh=object()), "mesh-sharded serving"),
+    (dict(family="ssm"), "the 'ssm' family .*other families"),
 ])
 def test_out_of_slice_options_raise(kw, match):
+    """What a later slice ports still raises: a mesh, and a family other
+    than dense or moe (the contiguous cache and the reference engine are
+    ported: tests/test_torch_reference_engine.py)."""
     cfg = get_config(ARCH).reduced()
+    mesh = kw.pop("mesh", None)
     with pytest.raises(NotImplementedError, match=match):
-        ServingEngine(cfg, EngineConfig(**kw), device="cpu")
+        ServingEngine(cfg.replace(**kw), EngineConfig(), device="cpu",
+                      mesh=mesh)
 
 
 def test_out_of_slice_requests_raise():

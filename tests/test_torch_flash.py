@@ -154,7 +154,7 @@ def _replay_tiled(q, k, v, *, causal, window, tile=64):
 
 
 @pytest.mark.parametrize("window", [None, 40])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 160])
 def test_kernel_tiling_fits_bf16_tolerance(hd, window):
     """The bf16 kernel rounds p against each 64-key tile's running max, not
     the final one; replayed in torch at S=300 (ragged against the tiles),

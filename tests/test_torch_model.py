@@ -20,7 +20,7 @@ from repro_torch import bridge
 from repro_torch.models import layers
 from repro_torch.models import model as model_mod
 from repro_torch.models.model import build_model
-from torch_archs import ARCHS, reduced_pair
+from torch_archs import ARCHS, DENSE_ARCHS, reduced_pair
 
 ARCH = ARCHS[0]
 
@@ -38,7 +38,8 @@ def _leaves(tree, prefix=""):
 
 
 # (arch, dtype); the first arch's cases keep their original ids
-BRIDGE_CASES = [(a, d) for a in ARCHS for d in ("float32", "bfloat16")]
+BRIDGE_CASES = [(a, d) for a in ARCHS + DENSE_ARCHS
+                for d in ("float32", "bfloat16")]
 
 
 @pytest.mark.parametrize("arch,dtype", BRIDGE_CASES, ids=[
@@ -61,7 +62,7 @@ def test_bridge_round_trip_bit_exact(arch, dtype):
 
 
 def test_bridge_layout_matches_port_init():
-    for arch in ARCHS:
+    for arch in ARCHS + DENSE_ARCHS:
         jcfg, cfg = _configs(arch)
         params = build_model(cfg, "cpu").init(
             torch.Generator().manual_seed(0))
@@ -250,13 +251,38 @@ def test_forward_routed_bf16_logits_are_fp32(bf16_models):
 
 
 def test_forward_routed_requires_block_tables(models):
-    _, _, model, params = models
-    with pytest.raises(NotImplementedError, match="contiguous KV cache"):
-        model.forward_routed(params, {
-            "tokens": torch.zeros((1, 1), dtype=torch.int32),
-            "lengths": torch.zeros((1,), dtype=torch.int32),
-            "seg_lens": torch.ones((1,), dtype=torch.int32)},
-            model.init_paged_cache(2, 4))
+    """Without block tables ``forward_routed`` runs over the contiguous
+    cache (L, B, S, Hkv, hd), as the reference's does: chunks of 3 over an
+    8-token prompt, then greedy decode steps, with the reference's logits
+    (1e-4), routing and cache."""
+    jmodel, jparams, model, params = models
+    b, s, c = 2, 8, 14
+    jcache, cache = jmodel.init_cache(b, c), model.init_cache(b, c)
+    toks = np.random.default_rng(0).integers(0, 100, (b, s)).astype(np.int32)
+    steps = [(toks[:, lo:lo + 3], lo) for lo in range(0, s, 3)]
+    last = None
+    for i in range(len(steps) + 3):
+        if i < len(steps):
+            tokens, lo = steps[i]
+            n = tokens.shape[1]
+            tokens = np.pad(tokens, ((0, 0), (0, 3 - n)))
+        else:
+            tokens, lo, n = last[:, None], s + i - len(steps), 1
+        batch = {"tokens": tokens, "lengths": np.full((b,), lo, np.int32),
+                 "seg_lens": np.full((b,), n, np.int32)}
+        jlogits, jcache, jrouting = jmodel.forward_routed(
+            jparams, {k: jnp.asarray(v) for k, v in batch.items()}, jcache)
+        logits, routing = model.forward_routed(
+            params, {k: torch.from_numpy(v) for k, v in batch.items()},
+            cache)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
+                                   rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(routing.numpy(), np.asarray(jrouting))
+        for leaf in ("k", "v"):
+            np.testing.assert_allclose(cache[leaf].numpy(),
+                                       np.asarray(jcache[leaf]),
+                                       rtol=1e-5, atol=1e-5)
+        last = np.asarray(jnp.argmax(jlogits, -1)).astype(np.int32)
 
 
 def test_bf16_params_round_through_ml_dtypes():

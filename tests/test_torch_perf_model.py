@@ -23,7 +23,7 @@ from repro_torch.bridge import from_jax_params
 from repro_torch.configs.base import get_config
 from repro_torch.core import perf_model as pm
 from repro_torch.serving.engine import EngineConfig, ServingEngine
-from torch_archs import ARCHS, reduced_pair
+from torch_archs import ARCHS, DENSE_ARCHS, reduced_pair
 
 HARDWARE = ("M2_ULTRA_10GBE", "M2_ULTRA_ROCE", "M2_ULTRA_IB", "TPU_V5E",
             "DGX_H100x8")
@@ -215,7 +215,7 @@ def test_dbrx_memory_fit_headline():
     assert pm.max_model_at_budget(dbrx, n_nodes=2)["level"] == "none"
 
 
-WEIGHT_CASES = [(a, q) for a in ARCHS for q in LEVELS]
+WEIGHT_CASES = [(a, q) for a in ARCHS + DENSE_ARCHS for q in LEVELS]
 
 
 @pytest.mark.parametrize("arch,level", WEIGHT_CASES,

@@ -10,7 +10,7 @@ import torch
 
 from repro.configs import base as jax_base
 from repro_torch.configs import base
-from torch_archs import ARCHS
+from torch_archs import ARCHS, DENSE_ARCHS
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -46,7 +46,7 @@ def test_audit_covers_the_package():
 
 
 # (arch, reduced); the first arch's cases keep their original ids
-CONFIG_CASES = [(a, r) for a in ARCHS for r in (False, True)]
+CONFIG_CASES = [(a, r) for a in ARCHS + DENSE_ARCHS for r in (False, True)]
 
 
 @pytest.mark.parametrize("arch,reduced", CONFIG_CASES, ids=[
@@ -69,8 +69,8 @@ def test_config_matches_reference_field_by_field(arch, reduced):
 
 
 def test_ported_archs_are_registered():
-    assert base.ARCH_IDS == list(ARCHS)
-    for arch in ARCHS:
+    assert base.ARCH_IDS == list(ARCHS + DENSE_ARCHS)
+    for arch in ARCHS + DENSE_ARCHS:
         mod = importlib.import_module(f"repro_torch.configs.{arch}")
         assert base.get_config(arch) is mod.CONFIG
 
@@ -78,7 +78,8 @@ def test_ported_archs_are_registered():
 @pytest.mark.parametrize("alias,arch", [
     ("dbrx-132b", "dbrx"), ("dbrx", "dbrx"),
     ("granite-moe-3b-a800m", "granite_moe_3b_a800m"),
-    ("qwen3-moe-30b-a3b", "qwen3_moe_30b_a3b")])
+    ("qwen3-moe-30b-a3b", "qwen3_moe_30b_a3b"),
+    ("qwen3-0.6b", "qwen3_0_6b"), ("stablelm-12b", "stablelm_12b")])
 def test_get_config_accepts_reference_aliases(alias, arch):
     assert base.get_config(alias) == base.get_config(arch)
     assert base.get_config(alias).name == jax_base.get_config(alias).name
@@ -86,7 +87,7 @@ def test_get_config_accepts_reference_aliases(alias, arch):
 
 def test_unknown_arch_raises():
     with pytest.raises(ValueError, match="not yet ported"):
-        base.get_config("qwen3_0_6b")
+        base.get_config("mamba2_130m")
 
 
 def test_default_device_raises_without_cuda():

@@ -11,14 +11,16 @@ from repro_torch.configs.base import get_config
 
 ARCHS = ("qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "dbrx")
 NEW_ARCHS = ARCHS[1:]
+# the dense family (slice 6): reduced() as it is, on both sides
+DENSE_ARCHS = ("qwen3_0_6b", "stablelm_12b")
 DEAD_AND_PADDED = dict(num_experts=6, num_experts_padded=8, vocab_size=500)
 
 
 def reduced_pair(arch: str, jax_kw: dict | None = None, **kw):
     """(JAX config, port config) of ``arch`` reduced, with ``kw`` on both
     sides and ``jax_kw`` (the JAX-only kernel switches) on the JAX side;
-    the archs after the first take the dead-expert, padded-vocab variant."""
-    extra = {} if arch == ARCHS[0] else DEAD_AND_PADDED
+    granite and DBRX take the dead-expert, padded-vocab variant."""
+    extra = DEAD_AND_PADDED if arch in NEW_ARCHS else {}
     jcfg = jax_get_config(arch).reduced().replace(**extra, **kw,
                                                   **(jax_kw or {}))
     return jcfg, get_config(arch).reduced().replace(**extra, **kw)

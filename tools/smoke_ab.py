@@ -10,7 +10,8 @@ source tree, so that a parent tree and a change can be timed in turns
 checkout's by default); the phases, their cases, checks and bounds are this
 checkout's ``chip_smoke.py``.  PHASE is ``paged`` (phase 3's paged-attention
 cases and split sweep; the tree's wrapper must have ``num_splits``),
-``quant`` (phase 3's quantized-FFN cases), ``chaos`` (phase 4c, run
+``quant`` (phase 3's quantized-FFN cases), ``flash`` (phase 3's
+flash-attention cases), ``chaos`` (phase 4c, run
 before any serve; the tree must have ``serving/chaos.py``), ``serve`` (phases 5, 6 and 5b:
 the full-width serve, forward and quantized serve, each with its profile
 window) or ``serve5`` (phase 5's serve alone, ``--repeat`` times on the
@@ -35,7 +36,7 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="change")
     ap.add_argument("--only", nargs="*", default=["paged", "quant"],
-                    choices=["paged", "quant", "chaos", "serve",
+                    choices=["paged", "quant", "flash", "chaos", "serve",
                              "serve5"])
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
@@ -66,6 +67,8 @@ def main() -> int:
         cs.check_paged_sweep(torch)
     if "quant" in args.only:
         cs.check_moe_ffn_quant(torch, results)
+    if "flash" in args.only:
+        cs.check_flash_attention(torch, results)
     if "chaos" in args.only:
         cs.check_chaos(torch)
     if "serve" in args.only:
