@@ -40,6 +40,15 @@ line):
                 card against the CPU's.  Then the same (fp, and int8
                 weights + int8 KV) for granite and DBRX reduced with
                 router-dead experts (6 live of 8) and padded vocab columns.
+  4d. modes   — the reduced qwen3-0.6b and stablelm-12b (the dense
+                family) and qwen3-moe through all three engine layouts:
+                the unified step over the page pool and over the
+                contiguous cache, and the two-program reference engine
+                (batched and one-by-one padded prefill), fp32 and int8
+                weights + int8 KV, on the card and on the CPU from the same
+                weights: identical greedy tokens and counters; paged
+                attention launched only on the paged path, the grouped FFN
+                in the reference prefill of the MoE arch.
   4c. chaos   — the port's chaos matrix (every fault site, an overcommit
                 preemption and restore) on the reduced qwen3-moe, on the
                 card and on the CPU from the same weights, fp32 and int8
@@ -62,6 +71,11 @@ line):
                 again at capacity_factor 8 print theirs; each greedy
                 stream of those two runs is held to the full-sequence
                 forward of its own tokens (FORCED_SHARE_MAX).
+  5d. serve_reference — on the same weights: the reference engine
+                (padded batched prefill, then one-token decode) on six
+                prompts of exactly prefill_len; the prefill launches the
+                grouped FFN and no attention kernel; each stream is held
+                to the forward of its own tokens (FORCED_SHARE_MAX).
   5b. serve_quant — the same model and traffic with int8 weights
                 (quantized on load, on the card) and an int8 KV pool,
                 after the bf16 model is freed.
@@ -73,8 +87,15 @@ line):
                 about 55 GB): phase 5's serve, the forward and loss at
                 B=1, S=2048, then the same weights quantized to int8 on
                 load with an int8 KV pool and served again.
-  7. the kernels line: one JSON object per ported kernel entry.
-  8. the last line: {"ok": true, "device": {...}}.
+  7. stablelm — stablelm-12b at full width and depth (40 layers, bf16,
+                about 24.3 GB; hd 160, layernorm, an untied head): phase
+                5's paged serve, the reference engine as in 5d, the
+                forward and loss at B=2, S=2048 (40 launches of the flash
+                kernel's hd-160 instantiation), then int8 weights + int8
+                KV served.  Then qwen3-0.6b at full width (28 layers, a
+                tied head at V 151936) serves once and runs its forward.
+  Then the kernels line: one JSON object per ported kernel entry, and the
+  last line: {"ok": true, "device": {...}}.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -111,6 +132,20 @@ def check_path_kernels(launches: dict, want: tuple, what: str) -> None:
     at least once and no other (no fallback to another entry)."""
     check(all((n > 0) == (k in want) for k, n in launches.items()),
           f"{what}: the path's kernels are {want}, launched {launches}")
+
+
+def serve_kernels(cfg, paged: bool = True) -> tuple:
+    """The kernels a serve of ``cfg`` launches: the grouped FFN (quantized
+    with quantized weights) on MoE archs, paged attention (its int8 entry
+    over an int8 pool) on the paged path only."""
+    out = ()
+    if cfg.is_moe:
+        out += ("moe_ffn_quant" if cfg.weight_quant != "none"
+                else "moe_ffn",)
+    if paged:
+        out += ("paged_attention_int8" if cfg.kv_cache_dtype == "int8"
+                else "paged_attention",)
+    return out
 
 
 def emit(phase: str, **kw) -> None:
@@ -318,9 +353,10 @@ PAGED_CASES = [(1, None, None, None, 128), (1, 64, None, None, 128),
                (32, None, None, None, 64), (1, None, None, None, 96),
                (32, 64, None, None, 160), (32, None, None, None, 256)]
 # (Hq, Hkv, hd): granite's and DBRX's heads, groups of 3 and 6 query
-# heads, which no 16-row tile holds whole, and stablelm-12b's (G=4 at hd
-# 160, padded to its variant's width), each at T 1 and 32
-GQA_HEADS = [(24, 8, 64), (48, 8, 128), (32, 8, 160)]
+# heads, which no 16-row tile holds whole, stablelm-12b's (G=4 at hd 160,
+# padded to its variant's width) and qwen3-0.6b's (G=2), each at T 1 and
+# 32
+GQA_HEADS = [(24, 8, 64), (48, 8, 128), (32, 8, 160), (16, 8, 128)]
 
 
 def paged_run(torch, paged_attn, int8: bool, dtype, t: int, window,
@@ -425,13 +461,14 @@ def paged_splits(paged_attn, q, kp, bt) -> int:
 # C-tile; granite's (8 of 48 experts router-dead: their slices all padding)
 # at C 16, its serve's 32 and its forward's 856; DBRX's (bf16 only: fp32's
 # shared-memory tile refuses D + F = 16896) at C 16, its serve's 40 and its
-# B=1 forward's 640
+# B=1 forward's 640; and the model's widths at phase 5d's reference
+# prefill (256: four 128-token prompts at capacity factor 8)
 FFN_CASES = [(128, 16, 2048, 768, 0), (128, 40, 2048, 768, 0),
              (128, 320, 2048, 768, 0), (4, 5, 256, 512, 0),
              (4, 16, 256, 512, 0), (48, 16, 1536, 512, 8),
              (48, 32, 1536, 512, 8), (48, 856, 1536, 512, 8),
              (16, 16, 6144, 10752, 0), (16, 40, 6144, 10752, 0),
-             (16, 640, 6144, 10752, 0)]
+             (16, 640, 6144, 10752, 0), (128, 256, 2048, 768, 0)]
 DBRX_WIDTHS = (6144, 10752)
 
 
@@ -573,7 +610,9 @@ FLASH_CASES = [(2, 2048, 32, 4, 128, True, None),
                (2, 2048, 32, 8, 160, True, None),
                (2, 1000, 32, 8, 160, True, None),
                (2, 2048, 32, 8, 160, True, 256),
-               (2, 37, 32, 8, 160, True, None)]
+               (2, 37, 32, 8, 160, True, None),
+               # qwen3-0.6b's heads (G=2) at its forward's B=2
+               (2, 2048, 16, 8, 128, True, None)]
 
 
 def attended_pairs(s: int, causal: bool, window) -> int:
@@ -689,7 +728,7 @@ DBRX_LAYERS = 8
 def reduced_config(arch: str):
     from repro_torch.configs.base import get_config
     cfg = get_config(arch).reduced()
-    return cfg if arch == ARCH else cfg.replace(**DEAD_AND_PADDED)
+    return cfg.replace(**DEAD_AND_PADDED) if arch in NEW_ARCHS else cfg
 
 
 def check_reduced(torch, arch: str = ARCH, paths: dict = REDUCED):
@@ -805,6 +844,9 @@ def standby_stats(torch, eng) -> dict:
     """The keep-warm touch over every expert weight (payload and scales),
     timed on the device, against the least time its bytes take."""
     from repro_torch.core import quant
+    if not eng.cfg.is_moe:
+        check(float(eng.standby()) == 0.0, "standby of a dense model")
+        return {}
     nbytes = quant.tree_bytes(eng.params["blocks"]["experts"])
     total = eng.standby()
     check(bool(torch.isfinite(total)), "standby sum is not finite")
@@ -831,7 +873,9 @@ def check_forward(torch, params, cfg=None, b: int = 2, phase="forward"):
     model = build_model(cfg, "cuda")
     s = 2048
     batch = seq_batch(torch, cfg.vocab_size, b, s, 0, "cuda")
-    want = {"flash_attention": cfg.num_layers, "moe_ffn": cfg.num_layers}
+    want = {"flash_attention": cfg.num_layers}
+    if cfg.is_moe:
+        want["moe_ffn"] = cfg.num_layers
     with torch.no_grad():
         model.forward(params, batch)          # warm-up
         torch.cuda.synchronize()
@@ -964,9 +1008,8 @@ def check_serve(torch, cfg=None, phase: str = "serve"):
     del warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    launches, streams = serve_phase(torch, cfg, phase,
-                                    ("moe_ffn", "paged_attention"), t0, init,
-                                    params)
+    launches, streams = serve_phase(torch, cfg, phase, serve_kernels(cfg),
+                                    t0, init, params)
     return launches, params, streams
 
 
@@ -991,8 +1034,7 @@ def check_serve_quant(torch, cfg=None, phase: str = "serve_quant"):
     serve(warm, traffic(cfg.vocab_size, 2, 8, 24, 40, seed=7), 2)
     params = warm.params              # already quantized: passes through
     del warm
-    return serve_phase(torch, cfg, phase,
-                       ("moe_ffn_quant", "paged_attention_int8"), t0, init,
+    return serve_phase(torch, cfg, phase, serve_kernels(cfg), t0, init,
                        params)[0]
 
 
@@ -1035,6 +1077,169 @@ def check_chaos(torch):
         emit("chaos", weight_quant=wq, kv_cache_dtype=kv,
              scenarios=list(gpu), card_equals_cpu=True, launches=launches,
              preempt=pre["stats"], seconds=time.perf_counter() - t0)
+
+
+# phase 4d: each engine layout's knobs, and the engine they share (prompts
+# at and below prefill_len, more requests than slots)
+MODES = {"paged": dict(paged=True),
+         "contiguous": dict(paged=False),
+         "reference": dict(unified_step=False, paged=False),
+         "reference_sequential": dict(unified_step=False, paged=False,
+                                      batched_prefill=False)}
+MODES_ENGINE = dict(max_batch=2, prefill_len=12, max_cache=24, chunk_len=3,
+                    page_size=5)
+DENSE_ARCHS = ("qwen3_0_6b", "stablelm_12b")
+
+
+def check_reduced_modes(torch):
+    """Phase 4d: the reduced dense archs and qwen3-moe through every engine
+    layout, fp32 and int8 weights + int8 KV, on the card and on the CPU
+    from the same weights: identical greedy tokens and counters, and on
+    the card exactly the path's kernels (paged attention only on the paged
+    path; the grouped FFN wherever the MoE arch prefills, the reference
+    engine's padded prefill included; the contiguous cache attends in
+    torch ops, as the reference does in jnp)."""
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, 500, n) for n in (12, 7, 12, 4, 10)]
+    for arch in DENSE_ARCHS + (ARCH,):
+        t0 = time.perf_counter()
+        base = reduced_config(arch).replace(capacity_factor=8.0)
+        params = build_model(base, "cpu").init(
+            torch.Generator().manual_seed(0))
+        gparams = to_cuda(params)
+        rows = {}
+        for wq, kv in (("none", "native"), ("int8", "int8")):
+            cfg = base.replace(weight_quant=wq, kv_cache_dtype=kv)
+            for mode, knobs in MODES.items():
+                ecfg = EngineConfig(**knobs, **MODES_ENGINE)
+                cpu_eng = ServingEngine(cfg, ecfg, params=params,
+                                        device="cpu")
+                cpu = serve(cpu_eng, prompts, 5)
+                ops.reset_launch_counts()
+                eng = ServingEngine(cfg, ecfg, params=gparams, device="cuda")
+                gpu = serve(eng, prompts, 5)
+                launches = ops.launch_counts()
+                what = f"modes {cfg.name} {wq}/{kv} {mode}"
+                check(gpu == cpu, f"{what}: card tokens {gpu} != CPU {cpu}")
+                stats = ("prefill_tokens", "prefill_pad_tokens",
+                         "decode_steps", "decode_tokens")
+                check(all(eng.stats[k] == cpu_eng.stats[k] for k in stats),
+                      f"{what}: card counters differ from the CPU's")
+                check_path_kernels(launches, serve_kernels(
+                    cfg, paged=mode == "paged"), what)
+                check((eng.stats["prefill_pad_tokens"] > 0)
+                      == mode.startswith("reference"),
+                      f"{what}: prefill padding {eng.stats}")
+                rows[f"{wq}/{kv} {mode}"] = dict(
+                    launches={k: n for k, n in launches.items() if n},
+                    prefill_pad_tokens=eng.stats["prefill_pad_tokens"],
+                    decode_steps=eng.stats["decode_steps"])
+        emit("reduced_modes", arch=base.name, requests=len(prompts),
+             engine=MODES_ENGINE, tokens_identical=True, runs=rows,
+             seconds=time.perf_counter() - t0)
+
+
+# phases 5d and 7: the reference engine at full width, on prompts of
+# exactly prefill_len (shorter ones decode against their zero padding);
+# its batched prefill's grouped FFN runs at C = round_capacity(4 x 128, 8,
+# 128, 8.0) = 256 on qwen3-moe
+REFERENCE_ENGINE = dict(max_batch=4, prefill_len=128, max_cache=192,
+                        unified_step=False, paged=False)
+# new tokens per request: two finish early, so the last two are admitted
+# while rows decode (the reference engine's stall)
+REFERENCE_NEW_TOKENS = (16, 10, 16, 10, 16, 16)
+
+
+def check_serve_reference(torch, cfg, params, phase: str):
+    """Phase 5d (and stablelm's): six requests sharing a system prompt,
+    each prompt exactly prefill_len, through the two-program reference
+    engine on ``params``: four admitted in one padded batched prefill, two
+    more while two of those still decode (a stall).  The prefill launches
+    the grouped FFN on MoE archs and no attention kernel runs; each greedy
+    stream is held to the full-sequence forward of its own tokens
+    (``forced_shares``: bf16 near-ties break with the batch mix).  As in
+    phase 5c's gate, MoE
+    capacity never binds (capacity_factor 8): a token dropped from the
+    batched prefill's pooled capacity but kept by the forward would move
+    the stream for a reason other than rounding.  Returns the launch
+    counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    t_phase = time.perf_counter()
+    cfg = cfg.replace(capacity_factor=8.0)
+    eng = ServingEngine(cfg, EngineConfig(**REFERENCE_ENGINE), params=params,
+                        device="cuda")
+    p_len = REFERENCE_ENGINE["prefill_len"]
+    serve(eng, traffic(cfg.vocab_size, 2, 8, p_len, p_len, seed=7), 2)
+    eng = ServingEngine(cfg, EngineConfig(**REFERENCE_ENGINE), params=params,
+                        device="cuda")
+    prompts = traffic(cfg.vocab_size, 6, 40, p_len, p_len, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    uids = [eng.submit(p, max_new_tokens=n)
+            for p, n in zip(prompts, REFERENCE_NEW_TOKENS)]
+    eng.run_until_done()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    reqs = [eng._all[u] for u in uids]
+    check(all(r.status == "done" and len(r.generated) == n
+              for r, n in zip(reqs, REFERENCE_NEW_TOKENS)),
+          f"{phase}: requests {[(r.status, len(r.generated)) for r in reqs]}")
+    check_path_kernels(launches, serve_kernels(cfg, paged=False), phase)
+    st = eng.stats
+    check(st["prefill_pad_tokens"] == 0 and st["stall_s"] > 0,
+          f"{phase}: padding {st['prefill_pad_tokens']}, stall "
+          f"{st['stall_s']}")
+    peak = torch.cuda.max_memory_allocated()
+    shares = forced_shares(torch, cfg, params, reqs)
+    check(max(shares) < FORCED_SHARE_MAX,
+          f"{phase}: a greedy stream strays from the forward of its own "
+          f"tokens (largest shares {shares})")
+    tp, tt = eng.throughput(), eng.ttft()
+    emit(phase, arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+         engine=REFERENCE_ENGINE, requests=len(reqs), wall_s=wall,
+         prefill_tok_per_s=tp["prefill_tok_per_s"],
+         decode_tok_per_s=tp["decode_tok_per_s"],
+         total_tok_per_s=tp["total_tok_per_s"],
+         decode_stall_s=tp["decode_stall_s"],
+         prefill_padding_overhead=tp["prefill_padding_overhead"],
+         ttft_p50_s=tt["p50"], ttft_p95_s=tt["p95"],
+         decode_steps=st["decode_steps"], launches=launches,
+         forced_shares=shares, forced_share_max=FORCED_SHARE_MAX,
+         weight_bytes_equal_perf_model=check_weight_bytes(eng, cfg),
+         kv_cache_bytes=eng.memory_stats()["kv_pool_bytes"],
+         max_memory_allocated=peak, phase_s=time.perf_counter() - t_phase,
+         card=card())
+    return launches
+
+
+def check_dense(torch, runs: dict) -> None:
+    """Phase 7: stablelm-12b at full width and depth (bf16 serve, the
+    reference engine, forward and loss, then int8 weights + int8 KV), then
+    qwen3-0.6b at full width (serve and forward).  Fills ``runs``."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config("stablelm_12b")
+    runs["stablelm_serve"], params, _ = check_serve(torch, cfg,
+                                                    "stablelm_serve")
+    runs["stablelm_serve_reference"] = check_serve_reference(
+        torch, cfg, params, "stablelm_serve_reference")
+    runs["stablelm_forward"] = check_forward(torch, params, cfg, 2,
+                                             "stablelm_forward")
+    del params
+    runs["stablelm_serve_quant"] = check_serve_quant(
+        torch, cfg.replace(weight_quant="int8", kv_cache_dtype="int8"),
+        "stablelm_serve_quant")
+    qwen = get_config("qwen3_0_6b")
+    runs["qwen3_0_6b_serve"], params, _ = check_serve(torch, qwen,
+                                                      "qwen3_0_6b_serve")
+    runs["qwen3_0_6b_forward"] = check_forward(torch, params, qwen, 2,
+                                               "qwen3_0_6b_forward")
+    del params
+    free_device(torch)
 
 
 # phase 5c: the resilient serve.  Phase 5's six prompts take these
@@ -1343,6 +1548,16 @@ LINE = [
     ("moe_ffn_quant", dict(dtype="bfloat16", E=16, C=40, bits=8),
      "dbrx_serve_quant"),
     ("flash_attention", dict(CAUSAL_2048, hd=128, Hq=48), "dbrx_forward"),
+    ("moe_ffn", dict(dtype="bfloat16", E=128, C=256), "serve_reference"),
+    ("paged_attention", dict(PAGED_T32, hd=160, Hq=32, Hkv=8),
+     "stablelm_serve"),
+    ("paged_attention_int8", dict(PAGED_T32, hd=160, Hq=32, Hkv=8),
+     "stablelm_serve_quant"),
+    ("flash_attention", dict(CAUSAL_2048, hd=160, Hq=32), "stablelm_forward"),
+    ("paged_attention", dict(PAGED_T32, hd=128, Hq=16, Hkv=8),
+     "qwen3_0_6b_serve"),
+    ("flash_attention", dict(CAUSAL_2048, hd=128, Hq=16),
+     "qwen3_0_6b_forward"),
 ]
 
 
@@ -1412,14 +1627,17 @@ def main() -> int:
         check_reduced(torch, arch, NEW_REDUCED)
         check_reduced_forward(torch, arch)
     check_chaos(torch)
+    check_reduced_modes(torch)
     torch.cuda.empty_cache()
     runs = {"reduced_int4": reduced[("int4", "native")]}
     runs["serve"], params, streams = check_serve(torch)
     runs["forward"] = check_forward(torch, params)
     runs["serve_resilience"] = check_serve_resilience(torch, params, streams)
+    from repro_torch.configs.base import get_config
+    runs["serve_reference"] = check_serve_reference(
+        torch, get_config(ARCH), params, "serve_reference")
     del params
     runs["serve_quant"] = check_serve_quant(torch)
-    from repro_torch.configs.base import get_config
     granite = get_config("granite_moe_3b_a800m")
     runs["granite_serve"], params, _ = check_serve(torch, granite,
                                                    "granite_serve")
@@ -1434,6 +1652,7 @@ def main() -> int:
     runs["dbrx_serve_quant"] = check_serve_quant(
         torch, dbrx.replace(weight_quant="int8", kv_cache_dtype="int8"),
         "dbrx_serve_quant")
+    check_dense(torch, runs)
     print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -202,10 +202,6 @@ def main():
     ap.add_argument("--top-k", type=int, default=0,
                     help="per-request top-k cut (0 = full vocab)")
     args = ap.parse_args()
-    if args.overcommit and (args.contiguous or args.reference
-                            or args.legacy):
-        ap.error("--overcommit is a page-pool admission policy: it needs "
-                 "the paged unified engine")
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

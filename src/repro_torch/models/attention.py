@@ -281,11 +281,10 @@ def _refuse_ring(ring: bool) -> None:
 
 
 def _update_cache(cache_kv: torch.Tensor, new_kv: torch.Tensor,
-                  lengths: torch.Tensor, ring: bool = False) -> None:
+                  lengths: torch.Tensor) -> None:
     """Write new_kv (B, 1, ...) at slot ``lengths[b]`` of each row of
     cache_kv (B, S, ...) IN PLACE; a slot past the end lands on the last
     one, as ``dynamic_update_slice`` clamps it."""
-    _refuse_ring(ring)
     b, s = cache_kv.shape[:2]
     rows = torch.arange(b, device=cache_kv.device)
     cache_kv[rows, lengths.long().clamp(0, s - 1)] = new_kv[:, 0].to(
@@ -293,8 +292,8 @@ def _update_cache(cache_kv: torch.Tensor, new_kv: torch.Tensor,
 
 
 def _update_cache_block(cache_kv: torch.Tensor, new_kv: torch.Tensor,
-                        lengths: torch.Tensor, seg_lens: torch.Tensor,
-                        ring: bool = False) -> None:
+                        lengths: torch.Tensor,
+                        seg_lens: torch.Tensor) -> None:
     """Write each row's first ``seg_lens[b]`` tokens of new_kv (B, T, ...)
     at cache offset ``lengths[b]`` of cache_kv (B, S, ...) IN PLACE.
 
@@ -302,7 +301,6 @@ def _update_cache_block(cache_kv: torch.Tensor, new_kv: torch.Tensor,
     is clamped to [0, S - T], keeping the old value wherever the window
     holds no valid new token, so a row near the cache end never smears
     earlier slots (and tokens past the end are dropped)."""
-    _refuse_ring(ring)
     b, t = new_kv.shape[:2]
     s = cache_kv.shape[1]
     if t > s:
@@ -311,7 +309,7 @@ def _update_cache_block(cache_kv: torch.Tensor, new_kv: torch.Tensor,
     off = lengths.long()[:, None]
     ar = torch.arange(t, device=dev)[None, :]
     slots = off.clamp(0, s - t) + ar                           # (B, T)
-    ci = slots - off                                           # new-block index
+    ci = slots - off                                # index into the block
     ok = (ci >= 0) & (ci < seg_lens.long()[:, None])
     rows = torch.arange(b, device=dev)[:, None]
     new = new_kv.to(cache_kv.dtype)[rows, ci.clamp(0, t - 1)]
@@ -319,11 +317,11 @@ def _update_cache_block(cache_kv: torch.Tensor, new_kv: torch.Tensor,
     cache_kv[rows, slots] = torch.where(okx, new, cache_kv[rows, slots])
 
 
-def block_slot_positions(lengths: torch.Tensor, seg_lens: torch.Tensor,
-                         cache_len: int, ring: bool = False) -> torch.Tensor:
+def block_slot_positions(lengths: torch.Tensor,
+                         cache_len: int) -> torch.Tensor:
     """The absolute position each slot holds after a block write, (B, S):
-    slot s holds position s in a contiguous (non-ring) cache."""
-    _refuse_ring(ring)
+    slot s holds position s in a contiguous (non-ring) cache (the
+    reference's ring form, which needs ``seg_lens``, is not ported)."""
     sidx = torch.arange(cache_len, dtype=torch.int32, device=lengths.device)
     return sidx[None, :].expand(lengths.shape[0], cache_len)
 
@@ -345,7 +343,7 @@ def _attend_grouped_block(cfg, q: torch.Tensor, k_cache: torch.Tensor,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgqs,bshd->bhgqd", probs.to(v_cache.dtype).float(),
                        v_cache.float())
-    out = out.to(q.dtype).permute(0, 3, 1, 2, 4)               # (B,Tq,Hkv,G,hd)
+    out = out.to(q.dtype).permute(0, 3, 1, 2, 4)    # (B, Tq, Hkv, G, hd)
     return out.reshape(b, tq, hkv * g, hd)
 
 
@@ -367,7 +365,8 @@ def _new_kv(cfg, k: torch.Tensor, v: torch.Tensor) -> dict:
 
 
 def attn_decode_step(p: dict, cfg, cache: dict, x: torch.Tensor,
-                     lengths: torch.Tensor, window: int | None) -> torch.Tensor:
+                     lengths: torch.Tensor,
+                     window: int | None) -> torch.Tensor:
     """One new token per row against the contiguous cache.  x (B, 1, D);
     lengths (B,) tokens already cached.  Row b writes its K/V at slot
     ``lengths[b]`` (clamped to the last slot) IN PLACE and attends slots
@@ -406,7 +405,7 @@ def attn_block_step(p: dict, cfg, cache: dict, x: torch.Tensor,
     for kk, vals in _new_kv(cfg, k_new, v_new).items():
         _update_cache_block(cache[kk], vals, lengths, seg_lens)
     k_cache, v_cache = _cache_kv(cfg, cache, x.dtype)
-    slot_pos = block_slot_positions(lengths, seg_lens, cache_len)
+    slot_pos = block_slot_positions(lengths, cache_len)
     valid = torch.arange(t, device=x.device)[None, :] < seg_lens[:, None]
     qp = torch.where(valid, positions, -1)
     mask = (slot_pos[:, None, :] >= 0) & (slot_pos[:, None, :]

@@ -112,7 +112,8 @@ def mlp_init(gen: torch.Generator, d: int, f: int, dtype,
             "w_down": dense_init(gen, f, d, dtype, lead)}
 
 
-def mlp_apply(params: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor,
+              act: str = "silu") -> torch.Tensor:
     """act(x W_gate) * (x W_up) W_down through ``quant.qdot``, in x's dtype
     (the reference's ``qdot`` here asks for no fp32 output, so a bf16 run
     rounds g, u and the result to bf16 as it does).  ``gelu`` is the tanh

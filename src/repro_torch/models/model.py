@@ -18,8 +18,9 @@ Parameters are a plain dict in the JAX package's layout: weights
 (D_in, D_out), experts (L, E, D, F) / (L, E, F, D), the dense MLP
 (L, D, F) / (L, F, D), the page pool (L, P, ps, Hkv, hd) and the
 contiguous cache (L, B, S, Hkv, hd), so the weight bridge
-(``repro_torch.bridge``) is a copy.  Entry points run on the card unless the caller passes
-``device="cpu"``; without CUDA they raise rather than run on the CPU.
+(``repro_torch.bridge``) is a copy.  Entry points run on the card unless
+the caller passes ``device="cpu"``; without CUDA they raise rather than
+run on the CPU.
 """
 from __future__ import annotations
 

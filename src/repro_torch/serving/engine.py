@@ -657,7 +657,8 @@ class ServingEngine:
         budget = self.ecfg.token_budget or (b * t + b)   # 0 = unlimited
         decode_rows, prefill_rows = [], []
         for i, req in enumerate(self.slots):
-            if (req is not None and self.prefill_pos[i] >= len(self.slot_ctx[i])
+            if (req is not None
+                    and self.prefill_pos[i] >= len(self.slot_ctx[i])
                     and (not self.paged or self._covered(i))):
                 # (an uncovered row is page-starved: it idles this
                 # iteration with its state intact and retries next step)

@@ -135,10 +135,8 @@ def test_block_slot_positions_matches_reference():
     sl = np.array([3, 1, 0], np.int32)
     want = jax_attn.block_slot_positions(jnp.asarray(ln), jnp.asarray(sl),
                                          12, False)
-    got = attention.block_slot_positions(_t(ln), _t(sl), 12)
+    got = attention.block_slot_positions(_t(ln), 12)
     assert np.array_equal(got.numpy(), np.asarray(want))
-    with pytest.raises(NotImplementedError, match="ring"):
-        attention.block_slot_positions(_t(ln), _t(sl), 12, ring=True)
 
 
 # ---------------------------------------------------------------------------
@@ -301,12 +299,38 @@ def test_attend_chunked_matches_reference(window):
 
 
 def test_ring_caches_are_not_ported():
+    """A window as long as the cache makes it a ring buffer: every cached
+    step and the stacked cache's spec raise (ROADMAP queue A: other
+    families)."""
     _, cfg, p, rng = _attn_setup("native")
     cache = _torch_tree(_cache(cfg, rng, 1, 8))
-    x = torch.zeros(1, 1, cfg.d_model)
+    one = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ring"):
-        attention.attn_decode_step(_torch_tree(p), cfg, cache, x,
-                                   torch.zeros(1, dtype=torch.int32), 8)
+        attention.attn_decode_step(_torch_tree(p), cfg, cache,
+                                   torch.zeros(1, 1, cfg.d_model), one, 8)
+    with pytest.raises(NotImplementedError, match="ring"):
+        attention.attn_block_step(_torch_tree(p), cfg, cache,
+                                  torch.zeros(1, 2, cfg.d_model),
+                                  torch.arange(2)[None], one, one + 2, 8)
+    with pytest.raises(NotImplementedError, match="ring"):
+        build_model(cfg.replace(sliding_window=8), "cpu").init_cache(1, 8)
+
+
+@pytest.mark.parametrize("kv", ["native", "int8"])
+def test_cache_layout_matches_reference(kv):
+    """One layer's contiguous cache and the model's stacked one: the
+    reference's leaves, shapes and dtypes, zero-initialised."""
+    jcfg, cfg, _, _ = _attn_setup(kv)
+    want = jax_attn.init_layer_cache(jcfg, 3, 10, jnp.float32)
+    got = attention.init_layer_cache(cfg, 3, 10, torch.float32, "cpu")
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[-1])
+            for k, v in got.items()} == {
+        k: (v.shape, str(v.dtype)) for k, v in want.items()}
+    assert all(not v.any() for v in got.values())
+    jspec = jax_build_model(jcfg).cache_specs(3, 10)
+    spec = build_model(cfg, "cpu").cache_specs(3, 10)
+    assert {k: (s, str(d).split(".")[-1]) for k, (s, d) in spec.items()} \
+        == {k: (v.shape, str(v.dtype)) for k, v in jspec.items()}
 
 
 # ---------------------------------------------------------------------------
