@@ -94,6 +94,21 @@ line):
                 kernel's hd-160 instantiation), then int8 weights + int8
                 KV served.  Then qwen3-0.6b at full width (28 layers, a
                 tied head at V 151936) serves once and runs its forward.
+  8. train    — the trainer (``launch/train.py``), which reaches no
+                kernel, as the reference's trains through no Pallas
+                kernel: the five reduced archs take three steps on the
+                card and on the CPU from the same weights and batches
+                (fp32, remat on; losses and params within TRAIN_*_TOL, no
+                launch, router-dead experts stay zero), each kernel
+                wrapper refuses an input that requires grad; then
+                granite-moe-3b-a800m (32 layers, bf16, B=4, S=2048: the
+                chunked attention and CE, 12 steps) and qwen3-0.6b (28
+                layers, 6 steps) train at full width: finite losses that
+                fall, the step-0 loss equal to the kernel path's, peak
+                under 75 GB, granite's dead experts moved by decay alone,
+                the checkpoint restored bit for bit; step time, train
+                tokens/s, peak memory and a profile window over one step
+                with the optimizer's share.
   Then the kernels line: one JSON object per ported kernel entry, and the
   last line: {"ok": true, "device": {...}}.
 
@@ -1242,6 +1257,254 @@ def check_dense(torch, runs: dict) -> None:
     free_device(torch)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training (launch/train.py), which reaches no kernel
+# ---------------------------------------------------------------------------
+
+# the reduced archs trained on the card and on the CPU (fp32, remat on)
+TRAIN_ARCHS = ("qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "dbrx",
+               "qwen3_0_6b", "stablelm_12b")
+TRAIN_REDUCED = dict(lr=1e-3, total_steps=3, warmup_steps=1)
+# card vs CPU after three steps: losses (and norms, rates) to 1e-4
+# relative; each param leaf with at least 99.9% of its elements within
+# 1e-6 and all within lr: Adam moves a weight by lr x m/sqrt(v), and its
+# first step by lr x sign(g), so where a gradient sits within rounding of
+# zero the two sides may differ by a step (the same bound as the port's
+# CPU tests against the JAX step)
+TRAIN_LOSS_TOL, TRAIN_PARAM_TOL, TRAIN_PARAM_SHARE = 1e-4, 1e-6, 0.999
+# full width: (arch, B, S, steps, lr); granite fits one card with its
+# optimizer (bf16 params 7.8 GB, gradients 7.8 GB, fp32 moments 31.2 GB)
+TRAIN_FULL = (("granite_moe_3b_a800m", 4, 2048, 12, 1e-3),
+              ("qwen3_0_6b", 4, 2048, 6, 1e-3))
+TRAIN_SEED = 0
+# the trainer's step-0 loss (attend_chunked, the expert FFN in torch ops)
+# against the kernel path's (flash, the grouped-FFN kernel) on the same
+# bf16 params and batch, relative
+TRAIN_KERNEL_LOSS_TOL = 1e-2
+TRAIN_PEAK_BYTES = 75e9
+
+
+def check_train_reduced(torch) -> None:
+    """Three ``make_train_step`` steps of each reduced arch (fp32, remat on;
+    granite and DBRX with router-dead experts, zero as the prestacking
+    converter pads them) on the card and on the CPU from the same weights
+    and ``Pipeline`` batches; no kernel launched; then each kernel wrapper
+    refuses an input that requires grad."""
+    from repro_torch import optim
+    from repro_torch.data.pipeline import Pipeline, PipelineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import build_model
+    ocfg = optim.OptimizerConfig(**TRAIN_REDUCED)
+    for arch in TRAIN_ARCHS:
+        cfg = reduced_config(arch).replace(remat=True)
+        cpu_model = build_model(cfg, "cpu")
+        params = cpu_model.init(torch.Generator().manual_seed(0))
+        if cfg.is_moe:
+            for w in params["blocks"]["experts"].values():
+                w[:, cfg.num_experts:] = 0
+        gparams = to_cuda(params)
+        steps = {"cpu": make_train_step(cpu_model, ocfg),
+                 "cuda": make_train_step(build_model(cfg, "cuda"), ocfg)}
+        states = {"cpu": optim.init(params), "cuda": optim.init(gparams)}
+        trees = {"cpu": params, "cuda": gparams}
+        pipe = Pipeline(PipelineConfig(seq_len=64, global_batch=2,
+                                       vocab_size=cfg.vocab_size, seed=1))
+        ops.reset_launch_counts()
+        losses = []
+        for _ in range(3):
+            np_batch = pipe.next_batch()
+            m = {}
+            for dev in ("cpu", "cuda"):
+                batch = {k: torch.as_tensor(v, device=dev)
+                         for k, v in np_batch.items()}
+                trees[dev], states[dev], m[dev] = steps[dev](
+                    trees[dev], states[dev], batch)
+            for key in ("loss", "ce", "aux", "grad_norm", "lr"):
+                got, want = float(m["cuda"][key]), float(m["cpu"][key])
+                check(abs(got - want) <= TRAIN_LOSS_TOL * (1 + abs(want)),
+                      f"train {cfg.name} {key}: card {got} != CPU {want}")
+            losses.append((float(m["cuda"]["loss"]), float(m["cpu"]["loss"])))
+        launches = ops.launch_counts()
+        check(not any(launches.values()),
+              f"train {cfg.name}: the training step launched {launches}")
+        worst_err, worst_share = 0.0, 1.0
+        for a, b in zip(leaves(trees["cuda"]), leaves(trees["cpu"])):
+            err = (a.cpu() - b).abs()
+            worst_err = max(worst_err, float(err.max()))
+            worst_share = min(worst_share,
+                              float((err <= TRAIN_PARAM_TOL).float().mean()))
+        check(worst_err <= ocfg.lr and worst_share >= TRAIN_PARAM_SHARE,
+              f"train {cfg.name}: params after 3 steps differ by "
+              f"{worst_err} ({worst_share} within {TRAIN_PARAM_TOL})")
+        dead_zero = None
+        if cfg.num_experts_padded > cfg.num_experts:
+            dead_zero = all(
+                not bool(t["blocks"]["experts"][w][:, cfg.num_experts:].any())
+                for t in trees.values() for w in ("w_gate", "w_up", "w_down"))
+            check(dead_zero, f"train {cfg.name}: a router-dead expert moved")
+        emit("train_reduced", arch=cfg.name, steps=3, B=2, S=64,
+             dtype=cfg.dtype, remat=cfg.remat, losses_card_cpu=losses,
+             params_max_abs_err=worst_err, params_share_within=worst_share,
+             dead_experts_zero=dead_zero, launches=launches)
+    refused = {}
+    q = torch.zeros(1, 64, 2, 64, device="cuda", requires_grad=True)
+    x = torch.zeros(1, 16, 256, device="cuda", requires_grad=True)
+    w = torch.zeros(1, 256, 512, device="cuda")
+    for name, call in (("flash_attention", lambda: ops.flash_attention(q, q, q)),
+                       ("moe_ffn", lambda: ops.moe_ffn(
+                           x, w, w, w.transpose(1, 2).contiguous()))):
+        try:
+            call()
+        except NotImplementedError as e:
+            refused[name] = "kernels=False" in str(e)
+    check(refused == {"flash_attention": True, "moe_ffn": True}
+          and not any(ops.launch_counts().values()),
+          f"kernel wrappers under autograd: {refused}")
+    emit("train_grad_refused", refused=refused)
+
+
+def check_train_full(torch, arch: str, b: int, s: int, steps: int,
+                     lr: float) -> dict:
+    """``train()`` at full width and depth (bf16, remat on; at S=2048 the
+    path is ``attend_chunked`` and the chunked CE): every loss and norm
+    finite, the loss falls, no kernel launched, the peak under
+    TRAIN_PEAK_BYTES, the step-0 loss equal to the kernel path's on the
+    same params and batch, the router-dead experts' slices changed by
+    weight decay alone (bit for bit against a replay of the optimizer with
+    zero gradients), and save/restore of the trained tree bit-exact
+    without ml_dtypes.  Then a step's time split and a profile window.
+    Returns the training run's launch counts (all zero)."""
+    import tempfile
+    from repro_torch import optim
+    from repro_torch.ckpt import io as ckpt_io
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import Pipeline, PipelineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import make_train_step, train
+    from repro_torch.models.model import build_model
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    check(cfg.remat, f"{arch}: the full config trains with remat")
+    model = build_model(cfg, "cuda")
+    pipe_cfg = PipelineConfig(seq_len=s, global_batch=b,
+                              vocab_size=cfg.vocab_size, seed=TRAIN_SEED)
+    np_batch = Pipeline(pipe_cfg).next_batch()
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in np_batch.items()}
+    # the same params train() draws: the kernel path's loss on them
+    params = model.init(torch.Generator("cuda").manual_seed(TRAIN_SEED))
+    dead = cfg.num_experts_padded > cfg.num_experts
+    dead0 = ({w: params["blocks"]["experts"][w][:, cfg.num_experts:].clone()
+              for w in ("w_gate", "w_up", "w_down")} if dead else None)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        kernel_loss = float(model.loss(params, batch)[0])
+    kernel_launches = ops.launch_counts()
+    want = {"flash_attention": cfg.num_layers}
+    if cfg.is_moe:
+        want["moe_ffn"] = cfg.num_layers
+    check(kernel_launches == {**dict.fromkeys(kernel_launches, 0), **want},
+          f"{arch} kernel-path loss launched {kernel_launches}")
+    del params
+    free_device(torch)
+
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ckpt_dir) as tmp:
+        path = str(Path(tmp) / f"{arch}.npz")
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        params, history = train(cfg, steps=steps, global_batch=b, seq_len=s,
+                                lr=lr, log_every=1, ckpt_path=path,
+                                seed=TRAIN_SEED, device="cuda")
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        losses = [h["loss"] for h in history]
+        gnorms = [h["grad_norm"] for h in history]
+        check(not any(launches.values()), f"{arch} train launched {launches}")
+        check(len(history) == steps and all(np.isfinite(losses + gnorms)),
+              f"{arch} train: non-finite loss or norm {losses} {gnorms}")
+        check(losses[-1] < losses[0], f"{arch} train: the loss did not fall "
+              f"{losses}")
+        check(abs(losses[0] - kernel_loss)
+              <= TRAIN_KERNEL_LOSS_TOL * abs(kernel_loss),
+              f"{arch} step-0 loss {losses[0]} != kernel path {kernel_loss}")
+        check(peak < TRAIN_PEAK_BYTES, f"{arch} train peak {peak} bytes")
+        dead_ok = None
+        if dead:
+            # zero gradients: the optimizer alone, from the same values
+            ocfg = optim.OptimizerConfig(lr=lr, total_steps=steps,
+                                         warmup_steps=max(steps // 20, 5))
+            state = optim.init(dead0)
+            for _ in range(steps):
+                _, state, _ = optim.update(
+                    ocfg, {w: torch.zeros_like(v) for w, v in dead0.items()},
+                    state, dead0)
+            dead_ok = all(torch.equal(
+                params["blocks"]["experts"][w][:, cfg.num_experts:], v)
+                for w, v in dead0.items())
+            check(dead_ok, f"{arch}: a router-dead expert's slice moved by "
+                  f"more than weight decay")
+            del dead0, state
+        t0 = time.perf_counter()
+        restored, step = ckpt_io.restore(path, "cuda")
+        restore_s = time.perf_counter() - t0
+        ckpt_bytes = Path(path).stat().st_size
+    got, want = (ckpt_io.flatten_tree(t) for t in (restored, params))
+    same = step == steps and sorted(got) == sorted(want) and all(
+        got[k].dtype == v.dtype and torch.equal(got[k], v)
+        for k, v in want.items())
+    check(same, f"{arch}: the restored checkpoint differs from the trained "
+          f"params")
+    check("ml_dtypes" not in sys.modules, "the checkpoint path imported "
+          "ml_dtypes")
+    del restored
+    free_device(torch)
+
+    # one more step, timed in halves through the step's "optimizer" range
+    ocfg = optim.OptimizerConfig(lr=lr, total_steps=steps,
+                                 warmup_steps=max(steps // 20, 5))
+    opt_state = optim.init(params)
+    step_fn = make_train_step(model, ocfg)
+    step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    prof = profile_window(torch, lambda: step_fn(params, opt_state, batch),
+                          f"{arch}_train", ranges=("optimizer",))
+    opt_ms = prof["ranges"]["optimizer"]["device_ms"]
+    step_s = [h1["wall_s"] - h0["wall_s"]
+              for h0, h1 in zip(history, history[1:])]
+    med = float(np.median(step_s))
+    emit(f"{arch}_train", arch=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, B=b, S=s, steps=steps, lr=lr, remat=cfg.remat,
+         losses=losses, grad_norms=gnorms, kernel_path_loss=kernel_loss,
+         step0_vs_kernel_rel=abs(losses[0] - kernel_loss) / abs(kernel_loss),
+         step_s=step_s, median_step_s=med, train_tok_per_s=b * s / med,
+         train_s=train_s, max_memory_allocated=peak, launches=launches,
+         dead_experts_decay_only=dead_ok, ckpt_bytes=ckpt_bytes,
+         ckpt_bit_exact=same, restore_s=restore_s,
+         optimizer_device_ms=opt_ms,
+         optimizer_share_of_device=(opt_ms / prof["device_busy_ms"]
+                                    if prof["device_busy_ms"] else None),
+         device_busy_share=prof["device_busy_share"],
+         phase_s=time.perf_counter() - t_phase, card=card())
+    del params, opt_state
+    free_device(torch)
+    return launches
+
+
+def check_train(torch, runs: dict) -> None:
+    """Phase 8: the reduced archs trained on the card against the CPU,
+    then granite-moe-3b-a800m and qwen3-0.6b trained at full width and
+    depth.  Fills ``runs``."""
+    t0 = time.perf_counter()
+    check_train_reduced(torch)
+    for arch, b, s, steps, lr in TRAIN_FULL:
+        runs[f"{arch}_train"] = check_train_full(torch, arch, b, s, steps, lr)
+    emit("train_phase", seconds=time.perf_counter() - t0)
+
+
 # phase 5c: the resilient serve.  Phase 5's six prompts take these
 # priorities; the pool is small enough that overcommit must preempt and
 # restore; two more requests sample, one is cancelled in flight and one
@@ -1653,6 +1916,7 @@ def main() -> int:
         torch, dbrx.replace(weight_quant="int8", kv_cache_dtype="int8"),
         "dbrx_serve_quant")
     check_dense(torch, runs)
+    check_train(torch, runs)
     print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

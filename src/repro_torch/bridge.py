@@ -7,7 +7,9 @@ side is handed over as numpy (``jax.tree.map(np.asarray, params)``); this
 module imports no JAX.  The tests need it because ``jax.random`` and
 ``torch`` cannot draw the same weights.
 
-A quantized tree comes over too: a JAX ``QuantTensor`` leaf arrives as an
+A JAX gradient tree has the params' structure, so it comes over the same
+way (the training tests hold the port's gradients to it).  A quantized
+tree comes over too: a JAX ``QuantTensor`` leaf arrives as an
 object with ``data``/``scale`` (numpy) and ``bits``/``block``/
 ``orig_dim``/``out_dtype`` attributes; the bridge reads those attributes
 (without importing the class) and builds the port's ``QuantTensor``.

@@ -11,11 +11,11 @@ from repro_torch.core import router as router_lib
 
 
 def _local_moe(cfg, experts: dict, x2d: torch.Tensor,
-               rout: router_lib.RouterOut, e_start: int,
-               capacity: int) -> torch.Tensor:
+               rout: router_lib.RouterOut, e_start: int, capacity: int,
+               kernels: bool = True) -> torch.Tensor:
     if cfg.moe_strategy == "dense":
         return moe_lib.dense_moe(experts, x2d, rout.top_idx, rout.top_w,
-                                 e_start)
+                                 e_start, kernels)
     t, k = rout.top_idx.shape
     e_local = experts["w_gate"].shape[0]
     if 0 < t * k <= cfg.gather_decode_max_tk:
@@ -27,9 +27,10 @@ def _local_moe(cfg, experts: dict, x2d: torch.Tensor,
                                       e_start)
         if t < capacity:
             return moe_lib.dense_moe(experts, x2d, rout.top_idx, rout.top_w,
-                                     e_start)
+                                     e_start, kernels)
     return moe_lib.dispatch_moe(experts, x2d, rout.top_idx, rout.top_w,
-                                cfg.num_experts_padded, e_start, capacity)
+                                cfg.num_experts_padded, e_start, capacity,
+                                kernels)
 
 
 def _mask_rout(rout: router_lib.RouterOut, valid: torch.Tensor,
@@ -42,13 +43,15 @@ def _mask_rout(rout: router_lib.RouterOut, valid: torch.Tensor,
 
 
 def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
-              token_mask: torch.Tensor | None = None, mesh=None):
+              token_mask: torch.Tensor | None = None, mesh=None,
+              kernels: bool = True):
     """x: (B, S, D) -> (y (B, S, D), aux_loss (), top_idx (B*S, K)).
 
     ``layer_p``: {"router": (D, E_pad), "experts": {"w_gate": (E_pad, D, F),
     "w_up": ..., "w_down": (E_pad, F, D)}} (r x E_pad rows with
     ``expert_replication`` r).  ``token_mask`` (B, S) bool: False tokens
-    are dead-routed to E_pad."""
+    are dead-routed to E_pad.  ``kernels=False``: the expert FFN takes the
+    reference's jnp branch (``moe.expert_ffn``), the trainer's path."""
     if mesh is not None:
         raise not_ported("expert-parallel meshes", "meshes")
     experts = layer_p["experts"]
@@ -66,5 +69,5 @@ def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
                           cfg.num_experts_padded)
     cap = moe_lib.round_capacity(b * s, cfg.experts_per_token,
                                  cfg.num_experts_padded, cfg.capacity_factor)
-    y = _local_moe(cfg, experts, x2d, rout, 0, cap)
+    y = _local_moe(cfg, experts, x2d, rout, 0, cap, kernels)
     return y.reshape(b, s, d), rout.aux_loss, rout.top_idx

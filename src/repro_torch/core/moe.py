@@ -6,9 +6,12 @@
                      pads below;
 * ``gather_moe``   — capacity-free per-token gather for small decode blocks.
 
-``expert_ffn`` always goes through ``kernels/ops.moe_ffn``: the grouped
-expert FFN kernel on a CUDA tensor, its plain version on a CPU tensor, for
-raw or QuantTensor expert weights alike.
+``expert_ffn`` goes through ``kernels/ops.moe_ffn`` (the grouped expert
+FFN kernel on a CUDA tensor, its plain version on a CPU tensor, for raw or
+QuantTensor expert weights alike), or with ``kernels=False`` through the
+reference's jnp branch in torch ops, which autograd differentiates: the
+trainer's path (``launch/train.py``), as the reference trains with
+``use_kernel=False``.
 Out-of-range indices are clamped or routed to a spare buffer row
 explicitly (JAX clamps gathers and drops scatters silently).
 """
@@ -30,21 +33,35 @@ def round_capacity(tokens: int, k: int, num_experts: int,
     return max(multiple, math.ceil(raw / multiple) * multiple)
 
 
-def expert_ffn(experts: dict, xe: torch.Tensor) -> torch.Tensor:
-    """Grouped SwiGLU FFN. xe: (E_local, C, D) -> (E_local, C, D)."""
-    return ops.moe_ffn(xe, experts["w_gate"], experts["w_up"],
-                       experts["w_down"])
+def expert_ffn(experts: dict, xe: torch.Tensor,
+               kernels: bool = True) -> torch.Tensor:
+    """Grouped SwiGLU FFN. xe: (E_local, C, D) -> (E_local, C, D).
+
+    ``kernels=False`` runs the reference's jnp branch: the products on fp32
+    copies of the operands (``qdot`` with fp32 outputs; a QuantTensor is
+    dequantized to its own dtype first), h rounded to xe's dtype, the
+    result in xe's dtype.  It reaches nothing in ``kernels/``."""
+    if kernels:
+        return ops.moe_ffn(xe, experts["w_gate"], experts["w_up"],
+                           experts["w_down"])
+    w = lambda name: quant.materialize(experts[name]).float()
+    xf = xe.float()
+    g = torch.bmm(xf, w("w_gate"))
+    u = torch.bmm(xf, w("w_up"))
+    h = (F.silu(g) * u).to(xe.dtype)
+    return torch.bmm(h.float(), w("w_down")).to(xe.dtype)
 
 
 def dense_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
-              top_w: torch.Tensor, e_start: int) -> torch.Tensor:
+              top_w: torch.Tensor, e_start: int,
+              kernels: bool = True) -> torch.Tensor:
     """x: (T, D).  Every local expert computes every token; the combine
     masks out what the router did not select.  Returns the local partial
     sum (T, D)."""
     e_local = experts["w_gate"].shape[0]
     t, d = x.shape
     xe = x[None].expand(e_local, t, d).contiguous()
-    ye = expert_ffn(experts, xe)                              # (E_local, T, D)
+    ye = expert_ffn(experts, xe, kernels)                     # (E_local, T, D)
     local_ids = e_start + torch.arange(e_local, device=x.device)
     sel = top_idx[None, :, :] == local_ids[:, None, None]     # (E_local, T, K)
     w = torch.where(sel, top_w[None], 0.0).sum(dim=-1)        # (E_local, T)
@@ -89,18 +106,23 @@ def make_dispatch_plan(top_idx: torch.Tensor, num_experts: int, e_start: int,
 
 def dispatch_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
                  top_w: torch.Tensor, num_experts: int, e_start: int,
-                 capacity: int) -> torch.Tensor:
+                 capacity: int, kernels: bool = True) -> torch.Tensor:
     """Capacity-based dispatch on the local shard. x: (T, D).  Returns the
-    local partial sum (T, D)."""
+    local partial sum (T, D).
+
+    The gathers are ``index_select``s: their backward adds with atomics,
+    where advanced indexing's backward sorts the indices and sums each run
+    of equal ones serially (every padding slot reads token 0 and every
+    dropped decision the spare row, so those runs are long)."""
     e_local = experts["w_gate"].shape[0]
     t, d = x.shape
     dispatch_tok, slot_valid, slot_of = make_dispatch_plan(
         top_idx, num_experts, e_start, e_local, capacity)
-    xe = x[dispatch_tok] * slot_valid[:, None].to(x.dtype)
+    xe = x.index_select(0, dispatch_tok) * slot_valid[:, None].to(x.dtype)
     xe = xe.reshape(e_local, capacity, d)
-    ye = expert_ffn(experts, xe).reshape(e_local * capacity, d)
+    ye = expert_ffn(experts, xe, kernels).reshape(e_local * capacity, d)
     ye_pad = torch.cat([ye, ye.new_zeros((1, d))], dim=0)
-    y_tk = ye_pad[slot_of]                                   # (T, K, D)
+    y_tk = ye_pad.index_select(0, slot_of.reshape(-1)).reshape(t, -1, d)
     return torch.einsum("tk,tkd->td", top_w.to(y_tk.dtype), y_tk)
 
 

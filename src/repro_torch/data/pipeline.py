@@ -1,0 +1,113 @@
+"""Token data pipeline (the JAX package's ``data/pipeline.py``, in numpy):
+synthetic and memmap sources, document packing into fixed-length rows.
+
+Sources
+  * ``SyntheticSource`` — deterministic pseudo-corpus (zipf-ish unigram
+    over the vocab) from a seed, so everything runs offline;
+  * ``MemmapSource``    — a flat .bin of uint16/uint32 token ids (the usual
+    tokenized corpus on disk), read in windows.
+
+``Pipeline`` packs documents into (global_batch, seq_len) rows of tokens
+and next-token labels, EOS-separated.  The same seed gives the reference's
+batches bit for bit.  ``shard_batch`` (placing a batch on a mesh) waits
+for the meshes (ROADMAP queue A).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Iterator
+
+import numpy as np
+
+from repro_torch import not_ported
+
+
+class SyntheticSource:
+    """Deterministic document stream: doc lengths ~ U[32, 4 * mean_len),
+    zipf-ish unigram token distribution; reproducible per seed."""
+
+    def __init__(self, vocab_size: int, seed: int = 0, mean_len: int = 512):
+        self.vocab = max(vocab_size, 4)
+        self.rng = np.random.default_rng(seed)
+        self.mean_len = mean_len
+        ranks = np.arange(1, self.vocab + 1, dtype=np.float64)
+        p = 1.0 / ranks
+        self.p = p / p.sum()
+
+    def documents(self) -> Iterator[np.ndarray]:
+        while True:
+            n = int(self.rng.integers(32, 4 * self.mean_len))
+            yield self.rng.choice(self.vocab, size=n, p=self.p).astype(np.int32)
+
+
+class MemmapSource:
+    """Flat binary token file. ``dtype`` uint16 for vocab < 65536, else
+    uint32.  Without ``doc_sep`` the file is one stream of 2048-token
+    documents."""
+
+    def __init__(self, path: str, dtype=np.uint16, doc_sep: int | None = None):
+        self.data = np.memmap(path, dtype=dtype, mode="r")
+        self.doc_sep = doc_sep
+
+    def documents(self) -> Iterator[np.ndarray]:
+        if self.doc_sep is None:
+            step = 2048
+            while True:
+                for i in range(0, len(self.data) - step, step):
+                    yield np.asarray(self.data[i:i + step], dtype=np.int32)
+        else:
+            bounds = np.flatnonzero(self.data == self.doc_sep)
+            while True:
+                start = 0
+                for b in bounds:
+                    if b > start:
+                        yield np.asarray(self.data[start:b], dtype=np.int32)
+                    start = b + 1
+
+
+@dataclasses.dataclass
+class PipelineConfig:
+    seq_len: int
+    global_batch: int
+    vocab_size: int
+    eos_id: int = 0
+    seed: int = 0
+
+
+class Pipeline:
+    """Packs documents into (global_batch, seq_len) token/label rows."""
+
+    def __init__(self, cfg: PipelineConfig, source=None):
+        self.cfg = cfg
+        self.source = source or SyntheticSource(cfg.vocab_size, cfg.seed)
+        self._docs = self.source.documents()
+        self._buf = np.zeros((0,), np.int32)
+
+    def _fill(self, n: int) -> np.ndarray:
+        parts = [self._buf]
+        have = len(self._buf)
+        while have < n:
+            d = next(self._docs)
+            parts.append(np.append(d, self.cfg.eos_id).astype(np.int32))
+            have += len(d) + 1
+        flat = np.concatenate(parts)
+        self._buf = flat[n:]
+        return flat[:n]
+
+    def next_batch(self) -> dict:
+        """{"tokens": (B, S) int32, "labels": (B, S) int32}: each row packs
+        S + 1 tokens, and the labels are the next-token targets."""
+        b, s = self.cfg.global_batch, self.cfg.seq_len
+        rows = self._fill(b * (s + 1)).reshape(b, s + 1)
+        return {"tokens": np.ascontiguousarray(rows[:, :-1]),
+                "labels": np.ascontiguousarray(rows[:, 1:])}
+
+    def __iter__(self):
+        while True:
+            yield self.next_batch()
+
+
+def shard_batch(batch: dict, mesh, batch_axes=("pod", "data")) -> dict:
+    """Place a host batch on a mesh, the batch axis sharded over the data
+    axes: the meshes are a later slice."""
+    raise not_ported("sharding a batch over a mesh", "meshes")

@@ -25,8 +25,6 @@ from pathlib import Path
 
 import torch
 
-from repro_torch import not_ported
-
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -138,7 +136,12 @@ def check(code: int, name: str) -> None:
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise if autograd would record a call of ``kernel``: its output is a
     fresh tensor with no ``grad_fn``, so gradients would silently skip it.
-    Called first by every kernel wrapper, before any other check."""
+    No kernel has a backward (the reference's Pallas kernels have none);
+    the trainer differentiates the path that reaches no kernel.  Called
+    first by every kernel wrapper, before any other check."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise not_ported(f"gradients through the {kernel} kernel",
-                         "full-sequence forward and training")
+        raise NotImplementedError(
+            f"gradients through the {kernel} kernel: no kernel has a "
+            f"backward; differentiate the trainer's path, Model.loss(..., "
+            f"kernels=False) (launch/train.make_train_step), or call the "
+            f"kernel under torch.no_grad()")

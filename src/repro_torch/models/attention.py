@@ -11,9 +11,12 @@ on the card, its plain page walk on the CPU).  With
 (slot, head) (``quantize_kv``).  Projection weights may be QuantTensors
 (``core/quant.qdot``).
 
-``attn_forward`` is the full-sequence forward with no cache, the port of
-the reference's ``use_flash_kernel`` branch: causal (optionally windowed)
-attention through ``kernels/ops.flash_attention`` on the unrepeated K/V.
+``attn_forward`` is the full-sequence forward with no cache: by default
+the port of the reference's ``use_flash_kernel`` branch, causal
+(optionally windowed) attention through ``kernels/ops.flash_attention`` on
+the unrepeated K/V; with ``kernels=False`` (the trainer's path) the
+reference's jnp branches, ``attend`` / ``attend_chunked`` over repeated
+K/V, which autograd differentiates.
 
 The contiguous cache is ``(B, S, Hkv, hd)`` per layer (int8: payload plus
 ``(B, S, Hkv, 1)`` fp32 scales), one row per decode slot.  Three steps
@@ -32,6 +35,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import not_ported
 from repro_torch.core import quant
@@ -172,12 +176,18 @@ def attn_block_step_paged(p: dict, cfg, cache: dict, x: torch.Tensor,
 
 
 def attn_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-                 window: int | None) -> torch.Tensor:
+                 window: int | None, kernels: bool = True) -> torch.Tensor:
     """Causal self-attention over a full sequence with no cache.
-    x: (B, S, D); positions: (B, S) for RoPE.  Returns (B, S, D)."""
+    x: (B, S, D); positions: (B, S) for RoPE.  Returns (B, S, D).
+    ``kernels=False`` takes the reference's non-flash branches (``attend``,
+    or ``attend_chunked`` at S >= CHUNK_THRESHOLD, over repeated K/V),
+    which reach nothing in ``kernels/``: the trainer's path."""
     b, s, _ = x.shape
     q, k, v = _project_qkv(p, cfg, x, positions)
-    out = ops.flash_attention(q, k, v, causal=True, window=window)
+    if kernels:
+        out = ops.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        out = _attend_full(cfg, q, k, v, positions, window)
     return quant.qdot(out.reshape(b, s, cfg.num_heads * cfg.head_dim),
                       p["wo"])
 
@@ -213,7 +223,10 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with an optional window.  q (B, Sq, H, hd), k/v (B, Sk, H, hd), q_pos
     (B, Sq), k_pos (B, Sk).  Padding queries sit at position -1 and
     padding keys at 2**30, so the mask kills them; every query chunk scans
-    every key chunk, as the reference's scan does."""
+    every key chunk, as the reference's scan does.  Each query chunk runs
+    under ``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``
+    does: its key loop's logits are recomputed in the backward instead of
+    kept."""
     b, sq, h, hd = q.shape
     sk = k.shape[1]
     qc, kc = min(q_chunk, sq), min(k_chunk, sk)
@@ -222,19 +235,18 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qp, kp, vp = pad(q, nq * qc), pad(k, nk * kc), pad(v, nk * kc)
     qpos = F.pad(q_pos, (0, nq * qc - sq), value=-1)
     kpos = F.pad(k_pos, (0, nk * kc - sk), value=2 ** 30)
-    outs = []
-    for i in range(nq):
-        qb = qp[:, i * qc:(i + 1) * qc].transpose(1, 2).float()  # (B,H,qc,hd)
-        qpb = qpos[:, i * qc:(i + 1) * qc]
+    kts = [kp[:, j * kc:(j + 1) * kc].transpose(1, 2) for j in range(nk)]
+    vts = [vp[:, j * kc:(j + 1) * kc].transpose(1, 2) for j in range(nk)]
+    kpos_c = [kpos[:, j * kc:(j + 1) * kc] for j in range(nk)]
+
+    def q_block(qb: torch.Tensor, qpb: torch.Tensor) -> torch.Tensor:
+        qb = qb.transpose(1, 2).float()                         # (B,H,qc,hd)
         acc = torch.zeros((b, h, qc, hd), dtype=torch.float32,
                           device=q.device)
         m = torch.full((b, h, qc), NEG_INF, dtype=torch.float32,
                        device=q.device)
         l = torch.zeros((b, h, qc), dtype=torch.float32, device=q.device)
-        for j in range(nk):
-            kb = kp[:, j * kc:(j + 1) * kc].transpose(1, 2)       # (B,H,kc,hd)
-            vb = vp[:, j * kc:(j + 1) * kc].transpose(1, 2)
-            kpb = kpos[:, j * kc:(j + 1) * kc]
+        for kb, vb, kpb in zip(kts, vts, kpos_c):           # (B,H,kc,hd)
             logit = qb @ kb.float().transpose(-1, -2) * scale
             msk = kpb[:, None, None, :] <= qpb[:, None, :, None]
             if window is not None:
@@ -248,8 +260,29 @@ def attend_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             acc = acc * corr[..., None] + p.to(vb.dtype).float() @ vb.float()
             m = m_new
         out = acc / torch.clamp(l[..., None], min=1e-30)
-        outs.append(out.transpose(1, 2).to(q.dtype))             # (B,qc,H,hd)
+        return out.transpose(1, 2).to(q.dtype)                  # (B,qc,H,hd)
+
+    outs = [checkpoint(q_block, qp[:, i * qc:(i + 1) * qc],
+                       qpos[:, i * qc:(i + 1) * qc], use_reentrant=False)
+            for i in range(nq)]
     return torch.cat(outs, dim=1)[:, :sq]
+
+
+def _attend_full(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 positions: torch.Tensor, window: int | None) -> torch.Tensor:
+    """Causal (optionally windowed) attention of a full sequence over
+    repeated K/V, the reference's jnp paths: ``attend`` below
+    CHUNK_THRESHOLD, ``attend_chunked`` at or above it."""
+    kr, vr = gqa_repeat(k, cfg.num_heads), gqa_repeat(v, cfg.num_heads)
+    scale = cfg.head_dim ** -0.5
+    if q.shape[1] >= CHUNK_THRESHOLD:
+        return attend_chunked(q, kr, vr, positions, positions, window, scale)
+    qp = positions[:, None, :, None]
+    kp = positions[:, None, None, :]
+    mask = kp <= qp
+    if window is not None:
+        mask = mask & (kp > qp - window)
+    return attend(q, kr, vr, mask, scale)
 
 
 # ---------------------------------------------------------------------------
@@ -432,17 +465,7 @@ def attn_prefill(p: dict, cfg, cache: dict, x: torch.Tensor,
     b, s, _ = x.shape
     cache_len = cache["k"].shape[1]
     q, k, v = _project_qkv(p, cfg, x, positions)
-    kr, vr = gqa_repeat(k, cfg.num_heads), gqa_repeat(v, cfg.num_heads)
-    scale = cfg.head_dim ** -0.5
-    if s >= CHUNK_THRESHOLD:
-        out = attend_chunked(q, kr, vr, positions, positions, window, scale)
-    else:
-        qp = positions[:, None, :, None]
-        kp = positions[:, None, None, :]
-        mask = kp <= qp
-        if window is not None:
-            mask = mask & (kp > qp - window)
-        out = attend(q, kr, vr, mask, scale)
+    out = _attend_full(cfg, q, k, v, positions, window)
     out = quant.qdot(out.reshape(b, s, cfg.num_heads * cfg.head_dim),
                      p["wo"])
     if s >= cache_len:

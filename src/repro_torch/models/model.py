@@ -7,7 +7,7 @@
   prefill_routed(params, batch, cache) -> (logits, routing)  reference
   decode_step_routed(params, cache, batch, context_len) -> (logits, routing)
   forward(params, batch)               -> (logits, aux)   full sequence
-  loss(params, batch)                  -> (total, {"ce", "aux"})
+  loss(params, batch, kernels=True)    -> (total, {"ce", "aux"})
 
 Every cached entry point updates its cache IN PLACE (the reference returns
 a new one, which a donating caller aliases); ``prefill`` and
@@ -27,6 +27,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import not_ported
 from repro_torch.core import quant
@@ -65,7 +67,9 @@ def _embed_inputs(cfg, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
     families ``build_model`` refuses.)"""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    x = params["embed"][tokens.long().clamp(0, cfg.vocab_size - 1)]
+    # F.embedding: its backward sums each token's rows in parallel
+    x = F.embedding(tokens.long().clamp(0, cfg.vocab_size - 1),
+                    params["embed"])
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
     return x.to(cfg.torch_dtype), positions
 
@@ -194,14 +198,14 @@ class Model:
         x_sel = layers.norm_apply(cfg.norm, params["final_norm"], x_sel)
         return _lm_head(cfg, params, x_sel)[:, 0], routing
 
-    def _trunk(self, params: dict, batch: dict):
+    def _trunk(self, params: dict, batch: dict, kernels: bool = True):
         """Embedding, all layers and the final norm over a full sequence:
         (x (B, S, D), aux)."""
         cfg = self.cfg
         x, positions = _embed_inputs(cfg, params, batch)
         window = transformer.effective_window(cfg, x.shape[1])
         x, aux = transformer.forward_stack(cfg, params["blocks"], x,
-                                           positions, window)
+                                           positions, window, kernels)
         return layers.norm_apply(cfg.norm, params["final_norm"], x), aux
 
     def forward(self, params: dict, batch: dict):
@@ -214,24 +218,34 @@ class Model:
     def _chunked_ce(self, params: dict, x: torch.Tensor, labels: torch.Tensor,
                     chunk: int = 512) -> torch.Tensor:
         """LM head + cross-entropy one sequence chunk at a time, so the
-        (B, S, V) logits are never held whole: (B, S) fp32.  As in the
-        reference, a sequence that is no longer than a chunk or not a
-        whole number of chunks takes one pass."""
+        (B, S, V) logits are never held whole: (B, S) fp32.  Each chunk runs
+        under ``torch.utils.checkpoint``, as the reference's
+        ``jax.checkpoint``, so a backward recomputes its logits instead of
+        keeping them.  As in the reference, a sequence that is no longer
+        than a chunk or not a whole number of chunks takes one pass."""
         s = x.shape[1]
         ce = lambda xx, ll: layers.softmax_cross_entropy(
             _lm_head(self.cfg, params, xx), ll, self.cfg.vocab_size)
         if s <= chunk or s % chunk != 0:
             return ce(x, labels)
-        return torch.cat([ce(x[:, i:i + chunk], labels[:, i:i + chunk])
+        return torch.cat([checkpoint(ce, x[:, i:i + chunk],
+                                     labels[:, i:i + chunk],
+                                     use_reentrant=False)
                           for i in range(0, s, chunk)], dim=1)
 
-    def loss(self, params: dict, batch: dict):
+    def loss(self, params: dict, batch: dict, kernels: bool = True):
         """Mean next-token cross-entropy plus 0.01 x the aux loss.
         batch: {"tokens": (B, S), "labels": (B, S) int in [0, vocab)}.
-        Returns (total, {"ce", "aux"}), fp32 scalars.  On the card nothing
-        here is differentiated: the kernels refuse inputs that require
-        grad (training is ROADMAP queue A)."""
-        x, aux = self._trunk(params, batch)
+        Returns (total, {"ce", "aux"}), fp32 scalars.
+
+        By default the forward runs the flash and grouped-FFN kernels (the
+        scoring loss), which refuse inputs that require grad: no kernel has
+        a backward, as the reference's Pallas kernels have none.
+        ``kernels=False`` is the trainer's path (``launch/train.py``), the
+        reference's ``use_kernel=False`` / ``use_flash_kernel=False``:
+        ``attend`` / ``attend_chunked`` and the expert FFN in torch ops,
+        which autograd differentiates; it reaches nothing in ``kernels/``."""
+        x, aux = self._trunk(params, batch, kernels)
         ce = self._chunked_ce(params, x, batch["labels"]).mean()
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 

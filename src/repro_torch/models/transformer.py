@@ -17,6 +17,7 @@ cache in place: PyTorch needs no donation for that.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import not_ported
 from repro_torch.core import expert_parallel
@@ -71,19 +72,20 @@ def init_blocks(cfg, gen: torch.Generator) -> dict:
 
 def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
                     decode=False, token_mask=None, block_lens=None,
-                    block_tables=None, rows=None):
+                    block_tables=None, rows=None, kernels=True):
     """Attention (+ cache) and the MLP or MoE layer.  The attention step:
     with ``block_lens`` (lengths, seg_lens) the unified block step, over
     the paged pool when ``block_tables`` is given and the contiguous
     ``cache_l`` otherwise; with ``decode`` the one-token decode step
     (``positions`` are then the lengths); with ``cache_l`` alone the
     prefill that fills it (``rows``: the rows it writes); with no cache
-    the full-sequence forward.  Returns (x, aux, routed (B*T, K) or None
-    for the dense family)."""
+    the full-sequence forward (``kernels=False``: through no kernel, the
+    trainer's path).  Returns (x, aux, routed (B*T, K) or None for the
+    dense family)."""
     h = layers.norm_apply(cfg.norm, layer_p["ln1"], x)
     ap = layer_p["attn"]
     if cache_l is None:
-        h = attention.attn_forward(ap, cfg, h, positions, window)
+        h = attention.attn_forward(ap, cfg, h, positions, window, kernels)
     elif block_lens is not None and block_tables is not None:
         lengths, seg_lens = block_lens
         h = attention.attn_block_step_paged(
@@ -102,7 +104,8 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
     h = layers.norm_apply(cfg.norm, layer_p["ln2"], x)
     if cfg.family == "moe":
         moe_p = {"router": layer_p["router"], "experts": layer_p["experts"]}
-        h, aux, routed = expert_parallel.moe_layer(cfg, moe_p, h, token_mask)
+        h, aux, routed = expert_parallel.moe_layer(cfg, moe_p, h, token_mask,
+                                                   kernels=kernels)
     else:
         h = layers.mlp_apply(layer_p["mlp"], h, cfg.act)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -164,13 +167,21 @@ def _layer(tree: dict, l: int) -> dict:
             for k, v in tree.items()}
 
 
-def forward_stack(cfg, blocks, x, positions, window):
+def forward_stack(cfg, blocks, x, positions, window, kernels=True):
     """Run all layers over a full sequence with no cache.
-    x: (B, S, D); positions: (B, S).  Returns (x, total aux loss)."""
+    x: (B, S, D); positions: (B, S).  Returns (x, total aux loss).
+    ``kernels=False`` runs through no kernel (the trainer's path).  With
+    ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (as the
+    reference's ``jax.checkpoint``): a backward keeps only the layer
+    inputs and recomputes the rest."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for l in range(cfg.num_layers):
-        x, a, _ = _attn_mlp_block(cfg, _layer(blocks, l), x, positions,
-                                  window)
+        block = lambda xx, lp: _attn_mlp_block(cfg, lp, xx, positions, window,
+                                               kernels=kernels)[:2]
+        if cfg.remat:
+            x, a = checkpoint(block, x, _layer(blocks, l), use_reentrant=False)
+        else:
+            x, a = block(x, _layer(blocks, l))
         aux = aux + a
     return x, aux
 

@@ -45,6 +45,20 @@ def test_audit_covers_the_package():
         assert serving / name in PORT_FILES, name
 
 
+# the training slice's modules: the card machine has no ml_dtypes, so
+# they (and the smoke script) must not need it, bf16 checkpoints included
+TRAINING_FILES = [ROOT / "src" / "repro_torch" / f for f in (
+    "core/prestack.py", "ckpt/io.py", "data/pipeline.py", "optim/adamw.py",
+    "launch/train.py")] + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", TRAINING_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in TRAINING_FILES])
+def test_training_modules_need_no_ml_dtypes(path):
+    assert path in PORT_FILES
+    assert "ml_dtypes" not in _imported_roots(path)
+
+
 # (arch, reduced); the first arch's cases keep their original ids
 CONFIG_CASES = [(a, r) for a in ARCHS + DENSE_ARCHS for r in (False, True)]
 

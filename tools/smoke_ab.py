@@ -15,7 +15,9 @@ flash-attention cases), ``chaos`` (phase 4c, run
 before any serve; the tree must have ``serving/chaos.py``), ``serve`` (phases 5, 6 and 5b:
 the full-width serve, forward and quantized serve, each with its profile
 window) or ``serve5`` (phase 5's serve alone, ``--repeat`` times on the
-same weights, without the profile window: its decode rate is the reading).  Prints the card's name and power limit, the build's ptxas lines
+same weights, without the profile window: its decode rate is the reading)
+or ``train`` (phase 8: the reduced archs trained on the card against the
+CPU, then granite-moe-3b-a800m and qwen3-0.6b at full width).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -37,7 +39,7 @@ def main() -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--only", nargs="*", default=["paged", "quant"],
                     choices=["paged", "quant", "flash", "chaos", "serve",
-                             "serve5"])
+                             "serve5", "train"])
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     import torch
@@ -76,6 +78,8 @@ def main() -> int:
         cs.check_forward(torch, params)
         del params
         cs.check_serve_quant(torch)
+    if "train" in args.only:
+        cs.check_train(torch, {})
     if "serve5" in args.only:
         from repro_torch.configs.base import get_config
         cs.profile_window = lambda *a, **kw: {"device_busy_share": None}
