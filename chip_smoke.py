@@ -109,6 +109,26 @@ line):
                 the checkpoint restored bit for bit; step time, train
                 tokens/s, peak memory and a profile window over one step
                 with the optimizer's share.
+  9. expert_parallel — the paper's expert-parallel schedules
+                (decentralized, centralized, a2a, a2a_pipelined) over 2,
+                then 4, spawned rank processes sharing the one card (gloo
+                through a file store; each collective's operand staged
+                through pinned host memory), budget 180 s: the reduced
+                qwen3-moe and granite (6 live experts of 8), every schedule
+                and strategy at a prefill and a decode block, int8 and
+                int4 expert shards, r = 2 at 4 ranks, each against the
+                one-device moe_layer on the card (fp32, 1e-5, top_idx
+                identical); granite at full width and depth and DBRX at
+                full width cut to 4 of 40 layers through Model.forward on
+                the mesh (B=1, S=2048, bf16, capacity factor E_pad / K),
+                held to one-device forwards of the same seeded weights
+                (layer-0 routing identical, greedy argmax on at least 99 %
+                of positions, max |delta logit|); every rank's bytes equal
+                to the performance model's prediction and its flash and
+                grouped-FFN launches; and the paper's Table 3 / §5.2 split
+                of DBRX's MoE layer (expert FFN ms, collective ms, bytes,
+                peak memory, E[#experts per shard]).  Its times are ranks
+                time-sharing one card over gloo, no interconnect's.
   Then the kernels line: one JSON object per ported kernel entry, and the
   last line: {"ok": true, "device": {...}}.
 
@@ -116,6 +136,7 @@ It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import itertools
 import json
@@ -484,6 +505,12 @@ FFN_CASES = [(128, 16, 2048, 768, 0), (128, 40, 2048, 768, 0),
              (48, 32, 1536, 512, 8), (48, 856, 1536, 512, 8),
              (16, 16, 6144, 10752, 0), (16, 40, 6144, 10752, 0),
              (16, 640, 6144, 10752, 0), (128, 256, 2048, 768, 0)]
+# phase 9's per-rank shapes at B=1, S=2048 and capacity factor E_pad / K:
+# DBRX's 8 and 4 local experts and granite's 24 and 12 (the last rank's 8
+# router-dead) at C = 2048 (every schedule but a2a_pipelined, whose two
+# chunks give C = 1024), bf16 only
+MESH_FFN_CASES = [(8, 2048, 6144, 10752, 0), (4, 2048, 6144, 10752, 0),
+                  (24, 2048, 1536, 512, 8), (12, 2048, 1536, 512, 8)]
 DBRX_WIDTHS = (6144, 10752)
 
 
@@ -491,8 +518,9 @@ def check_moe_ffn(torch, results):
     from repro_torch.kernels import moe_gemm
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for e, c, d, f, dead in FFN_CASES:
-            if dtype == torch.float32 and (d, f) == DBRX_WIDTHS:
+        for e, c, d, f, dead in FFN_CASES + MESH_FFN_CASES:
+            if dtype == torch.float32 and ((d, f) == DBRX_WIDTHS or (
+                    e, c, d, f, dead) in MESH_FFN_CASES):
                 continue
             g = torch.Generator(device="cuda").manual_seed(c)
             mk = lambda shape, s: (torch.randn(shape, generator=g,
@@ -558,7 +586,10 @@ def check_fp32_dbrx_refused(torch):
 # DBRX's widths (bf16: fp32 refuses them) at C 16 and its serve's 40
 QUANT_CASES = [(128, 2048, 768, (16, 40), ("float32", "bfloat16")),
                (4, 256, 512, (5, 16), ("float32", "bfloat16")),
-               (16, 6144, 10752, (16, 40), ("bfloat16",))]
+               (16, 6144, 10752, (16, 40), ("bfloat16",)),
+               # phase 9's quantized shards at 4 ranks: one local expert,
+               # 256 slots of a (4, 16) block
+               (1, 256, 512, (256,), ("float32",))]
 
 
 def check_moe_ffn_quant(torch, results):
@@ -627,7 +658,9 @@ FLASH_CASES = [(2, 2048, 32, 4, 128, True, None),
                (2, 2048, 32, 8, 160, True, 256),
                (2, 37, 32, 8, 160, True, None),
                # qwen3-0.6b's heads (G=2) at its forward's B=2
-               (2, 2048, 16, 8, 128, True, None)]
+               (2, 2048, 16, 8, 128, True, None),
+               # granite's heads at phase 9's B=1 forward on every rank
+               (1, 2048, 24, 8, 64, True, None)]
 
 
 def attended_pairs(s: int, causal: bool, window) -> int:
@@ -1727,6 +1760,548 @@ def check_serve_resilience(torch, params, uncontended):
 
 
 # the port's kernels, as the profiler names them
+# ---------------------------------------------------------------------------
+# phase 9: the expert-parallel schedules on a mesh of rank processes
+# ---------------------------------------------------------------------------
+# The ranks share the one card and meet over gloo through a file store
+# (NCCL refuses two ranks of one communicator on one device, and gloo takes
+# no CUDA tensor: core/collectives stages each operand through pinned host
+# memory).  Every time below is several ranks time-sharing one card with
+# collectives over gloo on the host: no interconnect's time.
+EP_RANKS = (2, 4)
+EP_SCHEDULES = ("decentralized", "centralized", "a2a", "a2a_pipelined")
+EP_STRATEGIES = ("dispatch", "dense")
+EP_BLOCKS = ((4, 16), (4, 1))
+# the reduced cases: a capacity that never binds, the dispatch path at
+# decode too (gather_decode_max_tk=0)
+EP_REDUCED = dict(capacity_factor=8.0, ep_microchunks=2,
+                  gather_decode_max_tk=0)
+EP_REDUCED_ARCHS = ("qwen3_moe_30b_a3b", "granite_moe_3b_a800m")
+EP_TOL = 1e-5
+# full width: granite at full depth, DBRX cut to 4 of 40 layers (25.4 GB of
+# experts split over the ranks, about 3.2 GB replicated on each)
+EP_FULL = (("granite_moe_3b_a800m", None), ("dbrx", 4))
+EP_SEED = 0
+EP_S = 2048
+EP_ARGMAX_MIN = 0.99
+# the paper's Table 3 / §5.2 split: DBRX's MoE layer alone at decode and
+# prefill blocks
+EP_TABLE3 = ((8, 1), (1, 2048))
+EP_REPS = 3
+EP_BUDGET_S = 180.0
+EP_TIMEOUT_S = 600
+
+
+def ep_full_config(arch: str, layers):
+    """Full width, capacity factor E_pad / K (no token can be dropped), two
+    microchunks for a2a_pipelined."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=layers or cfg.num_layers,
+                       capacity_factor=cfg.num_experts_padded
+                       / cfg.experts_per_token, ep_microchunks=2)
+
+
+def ep_tokens(torch, cfg):
+    rng = np.random.default_rng(EP_SEED)
+    return torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, EP_S)).astype(
+        np.int32), device="cuda")
+
+
+@contextlib.contextmanager
+def partial_sums(n: int):
+    """The one-device MoE layer with the rounding points of the schedules
+    that sum partial outputs (decentralized, centralized) over n shards:
+    each shard's local MoE rounded to the compute dtype, the n partials
+    summed exactly (fp64) and rounded once, as ``core/collectives`` sums
+    them.  Only the card's reference forwards run under it."""
+    from repro_torch.core import expert_parallel
+    local = expert_parallel._local_moe
+
+    def summed(cfg, experts, x2d, rout, e_start, capacity, kernels=True):
+        e_local = experts["w_gate"].shape[0] // n
+        acc = 0
+        for r in range(n):
+            shard = {k: w[r * e_local:(r + 1) * e_local]
+                     for k, w in experts.items()}
+            acc = acc + local(cfg, shard, x2d, rout, e_start + r * e_local,
+                              capacity, kernels).double()
+        return acc.to(x2d.dtype)
+    expert_parallel._local_moe = summed
+    try:
+        yield
+    finally:
+        expert_parallel._local_moe = local
+
+
+@contextlib.contextmanager
+def a2a_arithmetic(n: int, m: int):
+    """The one-device MoE layer with the a2a schedules' arithmetic over n
+    sequence blocks (a2a: m = 1; a2a_pipelined: m chunks a block): the
+    router over each block and the combine over each chunk, at the shapes
+    the ranks give cuBLAS; the expert FFN over one dispatch of every token
+    (each of its output columns is summed in a fixed order whatever its
+    neighbours, ``csrc/moe_ffn.cu``).  B = 1, as in phase 9's forwards.
+    Only the card's reference forwards run under it."""
+    import torch
+    from repro_torch.core import expert_parallel, moe as moe_lib
+    layer = expert_parallel.moe_layer
+
+    def blockwise(cfg, layer_p, x, token_mask=None, mesh=None, kernels=True,
+                  batch_axes=None):
+        b, s, d = x.shape
+        check(b == 1 and token_mask is None and mesh is None,
+              "a2a_arithmetic models one row, no mask, one device")
+        sl, e_pad = s // n, cfg.num_experts_padded
+        x2d = x.reshape(s, d)
+        every = torch.ones((sl,), dtype=torch.bool, device=x.device)
+        routs = [expert_parallel._route(cfg, layer_p,
+                                        x2d[i * sl:(i + 1) * sl], every)
+                 for i in range(n)]
+        top_idx = torch.cat([r.top_idx for r in routs])
+        top_w = torch.cat([r.top_w for r in routs])
+        cap = moe_lib.round_capacity(s, cfg.experts_per_token, e_pad,
+                                     cfg.capacity_factor)
+        tok, valid, slot_of = moe_lib.make_dispatch_plan(top_idx, e_pad, 0,
+                                                         e_pad, cap)
+        xe = x2d.index_select(0, tok) * valid[:, None].to(x.dtype)
+        ye = moe_lib.expert_ffn(layer_p["experts"],
+                                xe.reshape(e_pad, cap, d), kernels)
+        ye = torch.cat([ye.reshape(e_pad * cap, d), ye.new_zeros((1, d))])
+        y_tk = ye.index_select(0, slot_of.reshape(-1)).reshape(s, -1, d)
+        tc = sl // m
+        y = torch.cat([torch.einsum("tk,tkd->td",
+                                    top_w[c:c + tc].to(y_tk.dtype),
+                                    y_tk[c:c + tc])
+                       for c in range(0, s, tc)])
+        return y.reshape(1, s, d), routs[0].aux_loss, top_idx
+    expert_parallel.moe_layer = blockwise
+    try:
+        yield
+    finally:
+        expert_parallel.moe_layer = layer
+
+
+# the reference each schedule's mesh forward is held to: the one-device
+# forward with the schedule's own rounding points and GEMM shapes
+EP_REFERENCE = {"decentralized": "partial", "centralized": "partial",
+                "a2a": "a2a", "a2a_pipelined": "a2a_pipelined"}
+
+
+def ep_references(torch, arch: str, layers, tmp: str) -> dict:
+    """The one-device forwards the mesh forwards are held to, on the same
+    seeded weights and tokens, saved under ``tmp`` for the ranks (the
+    weights are freed before the ranks start): the plain forward (its
+    logits and layer-0 routing) and, per rank count, the forward with each
+    schedule's arithmetic (``partial_sums``, ``a2a_arithmetic``)."""
+    from repro_torch.models.model import build_model
+    cfg = ep_full_config(arch, layers)
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(EP_SEED))
+    batch = {"tokens": ep_tokens(torch, cfg)}
+    with torch.no_grad():
+        logits, _, routing = model.forward_seq_routed(params, batch)
+        torch.save(logits.cpu(), f"{tmp}/{arch}_plain.pt")
+        torch.save(routing[0].cpu(), f"{tmp}/{arch}_routing0.pt")
+        del logits
+        for n in EP_RANKS:
+            for kind, ctx in (("partial", partial_sums(n)),
+                              ("a2a", a2a_arithmetic(n, 1)),
+                              ("a2a_pipelined", a2a_arithmetic(
+                                  n, cfg.ep_microchunks))):
+                with ctx:
+                    torch.save(model.forward(params, batch)[0].cpu(),
+                               f"{tmp}/{arch}_{kind}{n}.pt")
+    del params
+    free_device(torch)
+    return {"arch": cfg.name, "layers": cfg.num_layers,
+            "reference_s": time.perf_counter() - t0}
+
+
+def _ep_rank(rank: int, world: int, store: str, tmp: str, q) -> None:
+    """A rank process of phase 9: puts (rank, results), or (rank, the
+    traceback) and exits non-zero."""
+    import traceback
+    try:
+        q.put((rank, ep_rank_work(rank, world, store, tmp)))
+    except BaseException:
+        q.put((rank, traceback.format_exc()))
+        raise
+
+
+def ep_rank_work(rank: int, world: int, store: str, tmp: str) -> dict:
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        raise RuntimeError("a phase-9 rank process without CUDA")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib
+    build.library()                 # the parent's build, loaded
+    mesh_lib.init_ranks(rank, world, store,
+                        timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
+    mesh = mesh_lib.make_mesh((1, world), ("data", "model"))
+    t0 = time.perf_counter()
+    out = {"reduced": ep_reduced(torch, mesh)}
+    out["reduced_s"] = time.perf_counter() - t0
+    out["full"] = {}
+    for arch, layers in EP_FULL:
+        cfg = ep_full_config(arch, layers)
+        out["full"][arch], params = ep_full(torch, mesh, arch, cfg, tmp)
+        if arch == "dbrx":
+            out["table3"] = ep_table3(torch, mesh, cfg, params)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _schedule_bytes(mesh) -> dict:
+    from repro_torch.core import collectives
+    return {k: v for k, v in mesh.bytes.items()
+            if k not in (collectives.AUX, collectives.LAYOUT)}
+
+
+def ep_reduced(torch, mesh) -> dict:
+    """The reduced cases on this rank, each against the one-device
+    ``moe_layer`` on the same card and inputs (fp32): qwen3-moe and
+    granite with 6 live experts of 8; every schedule and strategy at a
+    prefill and a decode block; int8 and int4 expert shards through every
+    schedule; replication r = 2 (decentralized) at 4 ranks.  y within
+    EP_TOL, top_idx identical, schedule bytes equal to the prediction, the
+    grouped FFN (quantized for quantized shards) launched."""
+    from repro_torch.core import expert_parallel as ep
+    from repro_torch.core import perf_model, quant
+    from repro_torch.kernels import ops
+    n = mesh.shape["model"]
+    worst, cases, launched = 0.0, 0, {}
+    for arch in EP_REDUCED_ARCHS:
+        base = reduced_config(arch).replace(**EP_REDUCED)
+        d, f, e = base.d_model, base.d_ff, base.num_experts_padded
+        g = torch.Generator(device="cuda").manual_seed(3)
+        rand = lambda shape, s: torch.randn(shape, generator=g,
+                                            device="cuda") * s
+        router = rand((d, e), 0.1)
+        fp = {"w_gate": rand((e, d, f), 0.05), "w_up": rand((e, d, f), 0.05),
+              "w_down": rand((e, f, d), 0.05)}
+        xs = {blk: rand((*blk, d), 1.0) for blk in EP_BLOCKS}
+        runs = [("fp", fp, strat, sched, 1) for sched in EP_SCHEDULES
+                for strat in EP_STRATEGIES]
+        for level in ("int8", "int4"):
+            qexp = {k: quant.quantize(w, level) for k, w in fp.items()}
+            runs += [(level, qexp, "dispatch", sched, 1)
+                     for sched in EP_SCHEDULES]
+        if n == 4:
+            runs.append(("fp", fp, "dispatch", "decentralized", 2))
+        for wq, experts, strat, sched, r in runs:
+            cfg = base.replace(expert_parallel=sched, moe_strategy=strat,
+                               expert_replication=r)
+            stack = ({k: torch.cat([w] * r) for k, w in experts.items()}
+                     if r > 1 else experts)
+            shard = {"router": router,
+                     "experts": ep.expert_shard(cfg, stack, mesh)}
+            want_kernel = "moe_ffn" if wq == "fp" else "moe_ffn_quant"
+            for (b, s), x in xs.items():
+                want_y, _, want_ti = ep.moe_layer(
+                    cfg, {"router": router, "experts": stack}, x)
+                mesh.reset_counters()
+                ops.reset_launch_counts()
+                y, aux, ti = ep.moe_layer(cfg, shard, x, mesh=mesh)
+                torch.cuda.synchronize()
+                launches = ops.launch_counts()
+                what = f"ep reduced {cfg.name} {wq} {strat} {sched} r={r} " \
+                       f"{b}x{s} on {n} ranks"
+                err, _ = compare(y, want_y, EP_TOL)
+                worst = max(worst, err)
+                check(torch.equal(ti, want_ti), f"{what}: top_idx differs")
+                check(bool(torch.isfinite(aux)), f"{what}: aux not finite")
+                want_b = perf_model.predicted_collective_bytes(
+                    cfg, batch=b, seq=s, n_exp_shards=n, n_moe_layers=1,
+                    include_tp=False)
+                check(_schedule_bytes(mesh) == {k: int(v) for k, v in
+                                                want_b.items()},
+                      f"{what}: bytes {mesh.bytes} != predicted {want_b}")
+                check_path_kernels(launches, (want_kernel,), what)
+                for k, v in launches.items():
+                    launched[k] = launched.get(k, 0) + v
+                cases += 1
+    return {"cases": cases, "max_abs_err": worst, "launches": _live(launched)}
+
+
+def ep_full(torch, mesh, arch: str, cfg, tmp: str):
+    """``Model.forward`` on the mesh at full width under each schedule, on
+    the seeded weights (this rank keeps its expert rows of every draw),
+    held to the one-device forwards of ``ep_references``: layer-0 routing
+    identical to the plain forward's on every rank; on rank 0 the greedy
+    argmax against the forward with the schedule's own arithmetic
+    (``EP_REFERENCE``) on at least EP_ARGMAX_MIN of the positions, and the
+    agreement and max |delta logit| against both printed; schedule bytes
+    equal to the prediction; flash (once a layer) and the grouped FFN
+    launched, nothing else.  Returns (rows, params)."""
+    import torch.distributed as dist
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    n = mesh.shape["model"]
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    params = build_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(EP_SEED), mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = {"tokens": ep_tokens(torch, cfg)}
+    routing0 = torch.load(f"{tmp}/{arch}_routing0.pt", map_location="cuda")
+    refs = ({kind: torch.load(f"{tmp}/{arch}_{kind}{n}.pt",
+                              map_location="cuda")
+             for kind in set(EP_REFERENCE.values())} if rank == 0 else None)
+    plain = (torch.load(f"{tmp}/{arch}_plain.pt", map_location="cuda")
+             if rank == 0 else None)
+    v = cfg.vocab_size
+    rows = []
+    for sched in EP_SCHEDULES:
+        c = cfg.replace(expert_parallel=sched)
+        model = build_model(c, "cuda")
+        dist.barrier()
+        mesh.reset_counters()
+        ops.reset_launch_counts()
+        t = time.perf_counter()
+        with torch.no_grad():
+            logits, aux, routing = model.forward_seq_routed(params, batch,
+                                                            mesh)
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t
+        launches = ops.launch_counts()
+        what = f"ep {c.name} {sched} on {n} ranks, rank {rank}"
+        check_path_kernels(launches, ("flash_attention", "moe_ffn"), what)
+        check(launches["flash_attention"] == c.num_layers,
+              f"{what}: flash launched {launches['flash_attention']} times")
+        check(bool(torch.isfinite(logits).all()) and bool(
+            torch.isfinite(aux)), f"{what}: logits or aux not finite")
+        check(torch.equal(routing[0], routing0.to(routing.dtype)),
+              f"{what}: layer-0 routing differs from the one-device "
+              f"forward's")
+        want_b = perf_model.predicted_collective_bytes(
+            c, batch=1, seq=EP_S, n_exp_shards=n, include_tp=False)
+        got_b = _schedule_bytes(mesh)
+        check(got_b == {k: int(val) for k, val in want_b.items()},
+              f"{what}: bytes {got_b} != predicted {want_b}")
+        row = dict(schedule=sched, forward_s=fwd_s, launches=_live(launches),
+                   bytes=dict(mesh.bytes), predicted_bytes=want_b,
+                   collective_s=dict(mesh.seconds), aux=float(aux))
+        if rank == 0:
+            top = logits[0, :, :v].argmax(-1)
+            kind = EP_REFERENCE[sched]
+            ref = refs[kind]
+            agree = float((top == ref[0, :, :v].argmax(-1)).float().mean())
+            row.update(
+                reference=kind,
+                argmax_agreement=agree,
+                max_abs_logit_delta=float((logits - ref)[..., :v].abs()
+                                          .max()),
+                argmax_agreement_plain=float(
+                    (top == plain[0, :, :v].argmax(-1)).float().mean()),
+                max_abs_logit_delta_plain=float(
+                    (logits - plain)[..., :v].abs().max()))
+            check(agree >= EP_ARGMAX_MIN,
+                  f"{what}: greedy argmax agrees with the reference on "
+                  f"{agree:.4f} of the positions (< {EP_ARGMAX_MIN})")
+        del logits, routing
+        rows.append(row)
+    del refs, plain
+    return {"init_s": init_s, "layers": cfg.num_layers, "rows": rows}, params
+
+
+def ep_table3(torch, mesh, cfg, params) -> list:
+    """The paper's Table 3 / §5.2 split on DBRX's layer 0 alone, per
+    schedule, at a decode block (B=8, S=1) and a prefill block (B=1,
+    S=2048) of seeded bf16 activations: the layer's median host-clock ms
+    over EP_REPS runs (after one warm-up), the median device ms of each
+    local expert FFN call (CUDA events around ``moe.expert_ffn``), the
+    collectives' host ms by kind (``mesh.seconds``: the waits and the
+    host staging), bytes by kind, this rank's peak memory, and at decode
+    ``expected_experts_per_shard`` of the routing.  The ranks time-share
+    one card and exchange over gloo on the host."""
+    import torch.distributed as dist
+    from repro_torch.core import expert_parallel as ep
+    from repro_torch.core import moe as moe_lib
+    from repro_torch.core import router
+    n = mesh.shape["model"]
+    layer_p = {"router": params["blocks"]["router"][0],
+               "experts": {k: w[0] for k, w in
+                           params["blocks"]["experts"].items()}}
+    g = torch.Generator(device="cuda").manual_seed(EP_SEED + 1)
+    ffn = moe_lib.expert_ffn
+    events = []
+
+    def timed_ffn(experts, xe, kernels=True):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = ffn(experts, xe, kernels)
+        ev[1].record()
+        events.append(ev)
+        return out
+    rows = []
+    moe_lib.expert_ffn = timed_ffn
+    try:
+        for b, s in EP_TABLE3:
+            x = torch.randn((b, s, cfg.d_model), generator=g,
+                            device="cuda").to(cfg.torch_dtype)
+            for sched in EP_SCHEDULES:
+                c = cfg.replace(expert_parallel=sched)
+                walls, coll, ffn_ms = [], {}, []
+                torch.cuda.reset_peak_memory_stats()
+                for i in range(1 + EP_REPS):
+                    dist.barrier()
+                    torch.cuda.synchronize()
+                    mesh.reset_counters()
+                    events.clear()
+                    t = time.perf_counter()
+                    with torch.no_grad():
+                        y, _, ti = ep.moe_layer(c, layer_p, x, mesh=mesh)
+                    torch.cuda.synchronize()
+                    if i:
+                        walls.append(time.perf_counter() - t)
+                        ffn_ms += [a.elapsed_time(z) for a, z in events]
+                        for k, sec in mesh.seconds.items():
+                            coll.setdefault(k, []).append(sec * 1e3)
+                check(bool(torch.isfinite(y).all()),
+                      f"table3 {sched} {b}x{s}: y not finite")
+                row = dict(B=b, S=s, schedule=sched,
+                           layer_ms=float(np.median(walls)) * 1e3,
+                           ffn_ms=float(np.median(ffn_ms)) if ffn_ms
+                           else None, ffn_calls=len(events),
+                           collective_ms={k: float(np.median(v))
+                                          for k, v in coll.items()},
+                           bytes=dict(mesh.bytes),
+                           peak_bytes=torch.cuda.max_memory_allocated())
+                if s == 1:
+                    row["expected_experts_per_shard"] = float(
+                        router.expected_experts_per_shard(
+                            ti, cfg.num_experts, n))
+                rows.append(row)
+    finally:
+        moe_lib.expert_ffn = ffn
+    return rows
+
+
+def ep_spawn(world: int, tmp: str) -> list:
+    """Phase 9's ranks on the one card: ``world`` spawned processes meeting
+    through a file store in ``tmp``.  Returns each rank's results; any
+    rank's failure fails the phase, and every process is stopped."""
+    import multiprocessing as mp
+    import queue
+    ctx = mp.get_context("spawn")
+    q = ctx.Queue()
+    store = f"{tmp}/store_{world}"
+    procs = [ctx.Process(target=_ep_rank, args=(r, world, store, tmp, q))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    res = {}
+    deadline = time.monotonic() + EP_TIMEOUT_S
+    try:
+        while len(res) < world and time.monotonic() < deadline:
+            try:
+                rank, val = q.get(timeout=5)
+            except queue.Empty:
+                if not all(p.is_alive() for p in procs):
+                    break
+                continue
+            check(not isinstance(val, str),
+                  f"phase 9 rank {rank} of {world} failed:\n{val}")
+            res[rank] = val
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    check(len(res) == world, f"phase 9: ranks {sorted(res)} of {world} "
+          f"reported; exit codes {[p.exitcode for p in procs]}")
+    check(all(p.exitcode == 0 for p in procs),
+          f"phase 9: exit codes {[p.exitcode for p in procs]}")
+    return [res[r] for r in range(world)]
+
+
+def check_expert_parallel(torch, runs: dict) -> None:
+    """Phase 9: the expert-parallel schedules over 2, then 4, rank
+    processes on the one card (one spawn each; the kernels built by this
+    process, loaded by the ranks): the reduced cases, granite at full
+    width and depth and DBRX at full width (4 of 40 layers) through
+    ``Model.forward`` on the mesh, and the Table 3 split.  Fills ``runs``
+    with each spawn's launches, summed over its ranks."""
+    import tempfile
+    t0 = time.perf_counter()
+    free_device(torch)
+    dev = card()
+    with tempfile.TemporaryDirectory() as tmp:
+        for arch, layers in EP_FULL:
+            emit("ep_reference", **ep_references(torch, arch, layers, tmp),
+                 card=dev)
+        for n in EP_RANKS:
+            t = time.perf_counter()
+            ranks = ep_spawn(n, tmp)
+            red = [r["reduced"] for r in ranks]
+            runs[f"ep_reduced_{n}"] = _summed([r["launches"] for r in red])
+            emit("ep_reduced", ranks=n, cases=red[0]["cases"],
+                 max_abs_err=max(r["max_abs_err"] for r in red),
+                 tolerance=EP_TOL, launches_per_rank=[r["launches"]
+                                                      for r in red],
+                 seconds=max(r["reduced_s"] for r in ranks))
+            for arch, _ in EP_FULL:
+                full = [r["full"][arch] for r in ranks]
+                runs[f"ep_{arch}_{n}"] = _summed(
+                    [row["launches"] for f in full for row in f["rows"]])
+                for i, sched in enumerate(EP_SCHEDULES):
+                    rows = [f["rows"][i] for f in full]
+                    emit("ep_forward", arch=arch, layers=full[0]["layers"],
+                         ranks=n, B=1, S=EP_S, dtype="bfloat16", **{
+                             k: v for k, v in rows[0].items()
+                             if k not in ("launches", "collective_s")},
+                         forward_s_per_rank=[r["forward_s"] for r in rows],
+                         launches_per_rank=[r["launches"] for r in rows],
+                         collective_s_rank0=rows[0]["collective_s"],
+                         init_s=max(f["init_s"] for f in full), card=dev)
+            for i, row in enumerate(ranks[0]["table3"]):
+                emit("ep_table3", ranks=n, arch="dbrx", **row,
+                     ffn_ms_per_rank=[r["table3"][i]["ffn_ms"]
+                                      for r in ranks],
+                     layer_ms_per_rank=[r["table3"][i]["layer_ms"]
+                                        for r in ranks],
+                     peak_bytes_per_rank=[r["table3"][i]["peak_bytes"]
+                                          for r in ranks],
+                     timing="ranks time-sharing one card, collectives over "
+                            "gloo on the host", card=dev)
+            emit("ep_spawn", ranks=n, seconds=time.perf_counter() - t,
+                 peak_bytes_per_rank=[r["peak_bytes"] for r in ranks])
+    phase_s = time.perf_counter() - t0
+    emit("expert_parallel", seconds=phase_s, budget_s=EP_BUDGET_S, card=dev)
+    check(phase_s <= EP_BUDGET_S, f"phase 9 took {phase_s:.1f} s of its "
+          f"{EP_BUDGET_S} s budget")
+
+
+def _live(launches: dict) -> dict:
+    """The kernels a run launched (the counts that are not zero)."""
+    return {k: v for k, v in launches.items() if v}
+
+
+def _summed(launch_dicts) -> dict:
+    out = {}
+    for d in launch_dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 PORT_KERNELS = ("paged_attn_", "paged_combine_kernel", "moe_ffn_kernel",
                 "moe_ffn_quant_kernel", "moe_gate_up_kernel",
                 "moe_down_kernel", "moe_quant_", "flash_attn_")
@@ -1821,6 +2396,20 @@ LINE = [
      "qwen3_0_6b_serve"),
     ("flash_attention", dict(CAUSAL_2048, hd=128, Hq=16),
      "qwen3_0_6b_forward"),
+    # phase 9: each rank's grouped FFN and flash at full width on 2 and 4
+    # ranks (launches summed over the ranks and the four schedules), the
+    # reduced quantized shards
+    ("moe_ffn", dict(dtype="bfloat16", E=8, C=2048), "ep_dbrx_2"),
+    ("moe_ffn", dict(dtype="bfloat16", E=4, C=2048), "ep_dbrx_4"),
+    ("flash_attention", dict(CAUSAL_2048, hd=128, Hq=48), "ep_dbrx_4"),
+    ("moe_ffn", dict(dtype="bfloat16", E=24, C=2048),
+     "ep_granite_moe_3b_a800m_2"),
+    ("moe_ffn", dict(dtype="bfloat16", E=12, C=2048),
+     "ep_granite_moe_3b_a800m_4"),
+    ("flash_attention", dict(CAUSAL_2048, hd=64, Hq=24, B=1),
+     "ep_granite_moe_3b_a800m_4"),
+    ("moe_ffn_quant", dict(dtype="float32", E=1, C=256, bits=8),
+     "ep_reduced_4"),
 ]
 
 
@@ -1917,6 +2506,7 @@ def main() -> int:
         "dbrx_serve_quant")
     check_dense(torch, runs)
     check_train(torch, runs)
+    check_expert_parallel(torch, runs)
     print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -13,6 +13,7 @@ tree comes over too: a JAX ``QuantTensor`` leaf arrives as an
 object with ``data``/``scale`` (numpy) and ``bits``/``block``/
 ``orig_dim``/``out_dtype`` attributes; the bridge reads those attributes
 (without importing the class) and builds the port's ``QuantTensor``.
+On a mesh, ``from_jax_params(..., mesh=)`` gives one rank its parameters.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ import types
 import numpy as np
 import torch
 
+from repro_torch.core import expert_parallel
 from repro_torch.core.quant import QuantTensor
 from repro_torch.models.model import resolve_device
 
@@ -83,16 +85,30 @@ def _logical_shape(leaf) -> tuple:
     return tuple(np.shape(leaf))
 
 
-def from_jax_params(tree: dict, cfg, device) -> dict:
+def from_jax_params(tree: dict, cfg, device, mesh=None) -> dict:
     """The JAX param tree (as numpy) -> the port's parameters on ``device``.
     Raises if the tree's structure or (logical) shapes differ from what the
-    port's ``Model.init`` builds for ``cfg``."""
+    port's ``Model.init`` builds for ``cfg``.  With a ``mesh``
+    (``launch/mesh.py``) it is this rank's parameters: every leaf whole but
+    the expert stacks, which keep this rank's rows
+    (``expert_parallel.expert_rows``; QuantTensor payload and scales
+    alike), as ``Model.init(gen, mesh)`` builds them."""
     got = _tree_map(_logical_shape, tree)
     want = param_shapes(cfg)
     if got != want:
         raise ValueError(f"JAX params do not match the port's layout for "
                          f"{cfg.name}: {got} != {want}")
     resolve_device(device)
+    if mesh is not None and "experts" in tree.get("blocks", {}):
+        rows = (slice(None), expert_parallel.expert_rows(cfg, mesh))
+        cut = lambda leaf: (types.SimpleNamespace(
+            data=np.asarray(leaf.data)[rows],
+            scale=np.asarray(leaf.scale)[rows],
+            **{a: getattr(leaf, a) for a in _QUANT_META})
+            if _is_quant(leaf) else np.asarray(leaf)[rows])
+        blocks = dict(tree["blocks"],
+                      experts=_tree_map(cut, tree["blocks"]["experts"]))
+        tree = dict(tree, blocks=blocks)
 
     def conv(leaf):
         if _is_quant(leaf):

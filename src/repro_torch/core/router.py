@@ -1,5 +1,5 @@
 """Top-k MoE router with dead-expert masking and the load-balance loss
-(the JAX package's ``core/router.py``).
+(the JAX package's ``core/router.py``), and the paper's Table 1 statistic.
 
 The router computes in fp32; on the card that needs TF32 off
 (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
@@ -48,3 +48,19 @@ def load_balance_loss(probs: torch.Tensor, top_idx: torch.Tensor,
     f = counts / (t * k)
     p = probs.mean(dim=0)
     return num_experts * torch.sum(f * p)
+
+
+def expected_experts_per_shard(top_idx: torch.Tensor, num_experts: int,
+                               n_shards: int) -> torch.Tensor:
+    """E[#distinct experts executed per shard], the paper's Table 1
+    statistic (``E[#exec. experts/node/layer]``), from routing decisions.
+    Indices outside [0, num_experts) (the E_pad dead-route sentinel) hit
+    nothing, as the reference's dropped scatter does."""
+    eps = num_experts // n_shards
+    flat = top_idx.reshape(-1).long()
+    flat = torch.where((flat >= 0) & (flat < num_experts), flat, num_experts)
+    hit = torch.zeros((num_experts + 1,), dtype=torch.bool,
+                      device=top_idx.device)
+    hit[flat] = True
+    per_shard = hit[:num_experts].reshape(n_shards, eps).sum(dim=1)
+    return per_shard.float().mean()

@@ -20,15 +20,25 @@ from repro_torch.core import quant
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
-               lead: tuple = ()) -> torch.Tensor:
+               lead: tuple = (), keep: slice | None = None) -> torch.Tensor:
     """(*lead, d_in, d_out) weights ~ N(0, 1/d_in), drawn in fp32 one
     (d_in, d_out) matrix at a time, so the fp32 transient stays one matrix
-    even for a full-width expert stack."""
-    out = torch.empty(lead + (d_in, d_out), dtype=dtype, device=gen.device)
+    even for a full-width expert stack.  ``keep``: store only these indices
+    of the last lead axis (a rank's expert rows); every matrix is still
+    drawn, so the kept ones equal the whole stack's."""
+    kept = range(lead[-1])[keep] if keep is not None else None
+    shape = lead if kept is None else lead[:-1] + (len(kept),)
+    out = torch.empty(shape + (d_in, d_out), dtype=dtype, device=gen.device)
+    mats = out.view(-1, d_in, d_out)
     scale = 1.0 / math.sqrt(d_in)
-    for mat in out.view(-1, d_in, d_out):
-        mat.copy_(torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                              dtype=torch.float32).mul_(scale))
+    for i in range(math.prod(lead)):
+        mat = torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                          dtype=torch.float32).mul_(scale)
+        if kept is None:
+            mats[i].copy_(mat)
+        elif i % lead[-1] in kept:
+            mats[i // lead[-1] * len(kept)
+                 + kept.index(i % lead[-1])].copy_(mat)
     return out
 
 

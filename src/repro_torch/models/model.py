@@ -6,13 +6,21 @@
   forward_routed(params, batch, cache, context_len) -> (logits, routing)
   prefill_routed(params, batch, cache) -> (logits, routing)  reference
   decode_step_routed(params, cache, batch, context_len) -> (logits, routing)
-  forward(params, batch)               -> (logits, aux)   full sequence
+  forward(params, batch, mesh=None)    -> (logits, aux)   full sequence
+  forward_seq_routed(params, batch, mesh=None) -> (logits, aux, routing)
   loss(params, batch, kernels=True)    -> (total, {"ce", "aux"})
 
 Every cached entry point updates its cache IN PLACE (the reference returns
 a new one, which a donating caller aliases); ``prefill`` and
 ``decode_step`` drop the routing.  ``routing`` is None for the dense
 family.
+
+On a mesh (``launch/mesh.py``, one rank process per mesh position) the
+full-sequence forward runs the paper's expert-parallel schedules
+(``core/expert_parallel.py``): ``init(gen, mesh)`` keeps this rank's
+expert rows, and ``forward(params, batch, mesh)`` takes the global batch
+and returns this rank's rows of it (``expert_parallel.batch_shard``).  The
+other entry points on a mesh are a later slice and raise.
 
 Parameters are a plain dict in the JAX package's layout: weights
 (D_in, D_out), experts (L, E, D, F) / (L, E, F, D), the dense MLP
@@ -31,7 +39,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import not_ported
-from repro_torch.core import quant
+from repro_torch.core import expert_parallel, quant
 from repro_torch.models import layers, transformer
 
 
@@ -47,6 +55,11 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+def _refuse_mesh(mesh, what: str) -> None:
+    if mesh is not None:
+        raise not_ported(f"{what} on a mesh", "meshes (2)")
 
 
 def _lm_head(cfg, params, x: torch.Tensor) -> torch.Tensor:
@@ -79,9 +92,11 @@ class Model:
     cfg: object
     device: torch.device
 
-    def init(self, gen: torch.Generator | None = None) -> dict:
+    def init(self, gen: torch.Generator | None = None, mesh=None) -> dict:
         """Random parameters drawn from ``gen`` (seed 0 on the model's
-        device when omitted)."""
+        device when omitted).  On a ``mesh`` every expert stack holds this
+        rank's rows alone, equal to the same rows of the whole draw (every
+        matrix is drawn; the rank keeps its own)."""
         cfg = self.cfg
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
@@ -91,7 +106,7 @@ class Model:
         pdt = cfg.param_torch_dtype
         params = {
             "embed": layers.embed_init(gen, cfg.vocab_padded, cfg.d_model, pdt),
-            "blocks": transformer.init_blocks(cfg, gen),
+            "blocks": transformer.init_blocks(cfg, gen, mesh),
             "final_norm": layers.norm_init(cfg.norm, cfg.d_model, pdt,
                                            self.device),
         }
@@ -117,7 +132,8 @@ class Model:
         x = layers.norm_apply(self.cfg.norm, params["final_norm"], x)
         return _lm_head(self.cfg, params, x)
 
-    def prefill_routed(self, params: dict, batch: dict, cache: dict):
+    def prefill_routed(self, params: dict, batch: dict, cache: dict, *,
+                       mesh=None):
         """The reference engine's prefill: a whole (B, S) prompt block from
         position 0 fills the contiguous ``cache`` IN PLACE.  batch:
         {"tokens": (B, S), optional "token_mask" (B, S) bool (False tokens
@@ -125,6 +141,7 @@ class Model:
         whose cache is written; all by default)}.  The window is decided at
         S, as in the reference.  Returns (logits (B, 1, V_padded) fp32 at
         the last position, routing (L, B*S, K) or None)."""
+        _refuse_mesh(mesh, "the reference engine's prefill")
         cfg = self.cfg
         x, positions = _embed_inputs(cfg, params, batch)
         window = transformer.effective_window(cfg, x.shape[1])
@@ -133,16 +150,17 @@ class Model:
             token_mask=batch.get("token_mask"), rows=batch.get("rows"))
         return self._head_last(params, x[:, -1:]), routing
 
-    def prefill(self, params: dict, batch: dict, cache: dict):
-        return self.prefill_routed(params, batch, cache)[0]
+    def prefill(self, params: dict, batch: dict, cache: dict, *, mesh=None):
+        return self.prefill_routed(params, batch, cache, mesh=mesh)[0]
 
     def decode_step_routed(self, params: dict, cache: dict, batch: dict,
-                           context_len: int | None = None):
+                           context_len: int | None = None, *, mesh=None):
         """One token per row against the contiguous ``cache`` (updated IN
         PLACE).  batch: {"tokens": (B, 1), "lengths": (B,) tokens already
         cached, optional "token_mask" (B, 1)}.  The window is decided at
         ``context_len`` or the cache length.  Returns (logits (B, 1,
         V_padded) fp32, routing (L, B, K) or None)."""
+        _refuse_mesh(mesh, "the one-token decode")
         cfg = self.cfg
         tok = batch["tokens"].long().clamp(0, cfg.vocab_size - 1)
         x = params["embed"][tok].to(cfg.torch_dtype)
@@ -154,11 +172,12 @@ class Model:
         return self._head_last(params, x), routing
 
     def decode_step(self, params: dict, cache: dict, batch: dict,
-                    context_len: int | None = None):
-        return self.decode_step_routed(params, cache, batch, context_len)[0]
+                    context_len: int | None = None, *, mesh=None):
+        return self.decode_step_routed(params, cache, batch, context_len,
+                                       mesh=mesh)[0]
 
     def forward_routed(self, params: dict, batch: dict, cache: dict,
-                       context_len: int | None = None):
+                       context_len: int | None = None, *, mesh=None):
         """Length-agnostic unified step: one (B, T) token block at per-row
         cache offsets over the paged pool or the contiguous cache.
 
@@ -173,6 +192,7 @@ class Model:
         Returns (logits (B, V_padded) fp32 at each row's LAST VALID
         position, routing (L, B*T, K) int32, or None for the dense
         family)."""
+        _refuse_mesh(mesh, "the unified serving step")
         cfg = self.cfg
         block_tables = batch.get("block_tables")
         tokens = batch["tokens"]
@@ -198,22 +218,42 @@ class Model:
         x_sel = layers.norm_apply(cfg.norm, params["final_norm"], x_sel)
         return _lm_head(cfg, params, x_sel)[:, 0], routing
 
-    def _trunk(self, params: dict, batch: dict, kernels: bool = True):
+    def _trunk(self, params: dict, batch: dict, kernels: bool = True,
+               mesh=None):
         """Embedding, all layers and the final norm over a full sequence:
-        (x (B, S, D), aux)."""
+        (x (B, S, D), aux, routing (L, B*S, K) or None).  On a ``mesh``
+        the rows are this rank's batch block (``batch_shard``)."""
         cfg = self.cfg
+        batch_axes = None
+        if mesh is not None:
+            batch_axes, rows = expert_parallel.batch_shard(
+                mesh, batch["tokens"].shape[0])
+            batch = {"tokens": batch["tokens"][rows]}
         x, positions = _embed_inputs(cfg, params, batch)
         window = transformer.effective_window(cfg, x.shape[1])
-        x, aux = transformer.forward_stack(cfg, params["blocks"], x,
-                                           positions, window, kernels)
-        return layers.norm_apply(cfg.norm, params["final_norm"], x), aux
+        x, aux, routing = transformer.forward_stack(
+            cfg, params["blocks"], x, positions, window, kernels, mesh,
+            batch_axes)
+        return layers.norm_apply(cfg.norm, params["final_norm"], x), aux, \
+            routing
 
-    def forward(self, params: dict, batch: dict):
+    def forward_seq_routed(self, params: dict, batch: dict, mesh=None):
         """Full-sequence forward with no cache.  batch: {"tokens": (B, S)
-        int}.  Returns (logits (B, S, V_padded) fp32, aux load-balance
-        loss summed over layers)."""
-        x, aux = self._trunk(params, batch)
-        return _lm_head(self.cfg, params, x), aux
+        int}.  Returns (logits (B, S, V_padded) fp32, aux load-balance loss
+        summed over layers, routing (L, B*S, K) int32 in token order, or
+        None for the dense family).
+
+        On a ``mesh`` ``batch`` is the global batch (the same on every
+        rank); the logits and routing are this rank's rows of it,
+        ``expert_parallel.batch_shard(mesh, B)``, and aux is the global
+        one.  Every MoE layer runs ``cfg.expert_parallel`` across the
+        ranks, with this rank's expert rows in ``params``."""
+        x, aux, routing = self._trunk(params, batch, mesh=mesh)
+        return _lm_head(self.cfg, params, x), aux, routing
+
+    def forward(self, params: dict, batch: dict, mesh=None):
+        """``forward_seq_routed`` without the routing: (logits, aux)."""
+        return self.forward_seq_routed(params, batch, mesh)[:2]
 
     def _chunked_ce(self, params: dict, x: torch.Tensor, labels: torch.Tensor,
                     chunk: int = 512) -> torch.Tensor:
@@ -233,7 +273,8 @@ class Model:
                                      use_reentrant=False)
                           for i in range(0, s, chunk)], dim=1)
 
-    def loss(self, params: dict, batch: dict, kernels: bool = True):
+    def loss(self, params: dict, batch: dict, kernels: bool = True, *,
+             mesh=None):
         """Mean next-token cross-entropy plus 0.01 x the aux loss.
         batch: {"tokens": (B, S), "labels": (B, S) int in [0, vocab)}.
         Returns (total, {"ce", "aux"}), fp32 scalars.
@@ -245,7 +286,8 @@ class Model:
         reference's ``use_kernel=False`` / ``use_flash_kernel=False``:
         ``attend`` / ``attend_chunked`` and the expert FFN in torch ops,
         which autograd differentiates; it reaches nothing in ``kernels/``."""
-        x, aux = self._trunk(params, batch, kernels)
+        _refuse_mesh(mesh, "the loss")
+        x, aux, _ = self._trunk(params, batch, kernels)
         ce = self._chunked_ce(params, x, batch["labels"]).mean()
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 

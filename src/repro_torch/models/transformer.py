@@ -24,17 +24,22 @@ from repro_torch.core import expert_parallel
 from repro_torch.models import attention, layers
 
 
-def _moe_layer_init(cfg, gen: torch.Generator, dtype) -> dict:
+def _moe_layer_init(cfg, gen: torch.Generator, dtype, mesh=None) -> dict:
     L, e, d, f = (cfg.num_layers, cfg.num_experts_padded, cfg.d_model,
                   cfg.d_ff)
     norm = lambda: layers.norm_init(cfg.norm, d, dtype, gen.device, (L,))
-    experts = {
-        "w_gate": layers.dense_init(gen, d, f, dtype, (L, e)),
-        "w_up": layers.dense_init(gen, d, f, dtype, (L, e)),
-        "w_down": layers.dense_init(gen, f, d, dtype, (L, e)),
-    }
     r = max(cfg.expert_replication, 1)
-    if r > 1:
+    keep = None
+    if mesh is not None:
+        # this rank's rows of the r-copy stack lie inside one copy
+        rows = expert_parallel.expert_rows(cfg, mesh)
+        keep = slice(rows.start % e, rows.start % e + rows.stop - rows.start)
+    experts = {
+        "w_gate": layers.dense_init(gen, d, f, dtype, (L, e), keep),
+        "w_up": layers.dense_init(gen, d, f, dtype, (L, e), keep),
+        "w_down": layers.dense_init(gen, f, d, dtype, (L, e), keep),
+    }
+    if r > 1 and mesh is None:
         # the paper's overlapping placement (§5.3) stores r copies of the
         # expert stack, as the reference does; one device reads the first
         experts = {k: torch.cat([w] * r, dim=1) for k, w in experts.items()}
@@ -63,16 +68,19 @@ def _check_family(cfg) -> None:
         raise not_ported(f"the {cfg.family!r} family", "other families")
 
 
-def init_blocks(cfg, gen: torch.Generator) -> dict:
-    """Layer-stacked block parameters, drawn from ``gen`` on its device."""
+def init_blocks(cfg, gen: torch.Generator, mesh=None) -> dict:
+    """Layer-stacked block parameters, drawn from ``gen`` on its device;
+    on a ``mesh`` the expert stacks hold this rank's rows alone."""
     _check_family(cfg)
-    init = _moe_layer_init if cfg.family == "moe" else _dense_layer_init
-    return init(cfg, gen, cfg.param_torch_dtype)
+    if cfg.family == "moe":
+        return _moe_layer_init(cfg, gen, cfg.param_torch_dtype, mesh)
+    return _dense_layer_init(cfg, gen, cfg.param_torch_dtype)
 
 
 def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
                     decode=False, token_mask=None, block_lens=None,
-                    block_tables=None, rows=None, kernels=True):
+                    block_tables=None, rows=None, kernels=True, mesh=None,
+                    batch_axes=None):
     """Attention (+ cache) and the MLP or MoE layer.  The attention step:
     with ``block_lens`` (lengths, seg_lens) the unified block step, over
     the paged pool when ``block_tables`` is given and the contiguous
@@ -80,8 +88,10 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
     (``positions`` are then the lengths); with ``cache_l`` alone the
     prefill that fills it (``rows``: the rows it writes); with no cache
     the full-sequence forward (``kernels=False``: through no kernel, the
-    trainer's path).  Returns (x, aux, routed (B*T, K) or None for the
-    dense family)."""
+    trainer's path).  On a ``mesh`` (the full-sequence forward) ``x`` is
+    this rank's batch block over ``batch_axes`` and the MoE layer runs its
+    expert-parallel schedule.  Returns (x, aux, routed (B*T, K) or None for
+    the dense family)."""
     h = layers.norm_apply(cfg.norm, layer_p["ln1"], x)
     ap = layer_p["attn"]
     if cache_l is None:
@@ -104,8 +114,9 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
     h = layers.norm_apply(cfg.norm, layer_p["ln2"], x)
     if cfg.family == "moe":
         moe_p = {"router": layer_p["router"], "experts": layer_p["experts"]}
-        h, aux, routed = expert_parallel.moe_layer(cfg, moe_p, h, token_mask,
-                                                   kernels=kernels)
+        h, aux, routed = expert_parallel.moe_layer(
+            cfg, moe_p, h, token_mask, mesh=mesh, kernels=kernels,
+            batch_axes=batch_axes)
     else:
         h = layers.mlp_apply(layer_p["mlp"], h, cfg.act)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -167,23 +178,41 @@ def _layer(tree: dict, l: int) -> dict:
             for k, v in tree.items()}
 
 
-def forward_stack(cfg, blocks, x, positions, window, kernels=True):
+def forward_stack(cfg, blocks, x, positions, window, kernels=True,
+                  mesh=None, batch_axes=None):
     """Run all layers over a full sequence with no cache.
-    x: (B, S, D); positions: (B, S).  Returns (x, total aux loss).
+    x: (B, S, D); positions: (B, S).  Returns (x, total aux loss, routing
+    (L, B*S, K) int32, or None for the dense family).
     ``kernels=False`` runs through no kernel (the trainer's path).  With
     ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (as the
     reference's ``jax.checkpoint``): a backward keeps only the layer
-    inputs and recomputes the rest."""
+    inputs and recomputes the rest.
+
+    On a ``mesh``, ``x`` is this rank's batch block over ``batch_axes``
+    and every MoE layer runs ``cfg.expert_parallel`` across the ranks.
+    The reference's ``seq_constrain`` (a Megatron-style sequence-sharding
+    hint that changes no value) has no counterpart: the port keeps the
+    residual stream replicated over the expert axis, and the schedules
+    that shard the sequence gather it back (``expert_parallel``'s layout
+    step)."""
+    b, s, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    routing = (torch.empty((cfg.num_layers, b * s, cfg.experts_per_token),
+                           dtype=torch.int32, device=x.device)
+               if cfg.family == "moe" else None)
+    block = lambda xx, lp: _attn_mlp_block(
+        cfg, lp, xx, positions, window, kernels=kernels, mesh=mesh,
+        batch_axes=batch_axes)
     for l in range(cfg.num_layers):
-        block = lambda xx, lp: _attn_mlp_block(cfg, lp, xx, positions, window,
-                                               kernels=kernels)[:2]
         if cfg.remat:
-            x, a = checkpoint(block, x, _layer(blocks, l), use_reentrant=False)
+            x, a, routed = checkpoint(block, x, _layer(blocks, l),
+                                      use_reentrant=False)
         else:
-            x, a = block(x, _layer(blocks, l))
+            x, a, routed = block(x, _layer(blocks, l))
         aux = aux + a
-    return x, aux
+        if routing is not None:
+            routing[l] = routed
+    return x, aux, routing
 
 
 def _cached_stack(cfg, blocks, x, cache, **block_kw):

@@ -167,7 +167,7 @@ class ServingEngine:
                  device="cuda", mesh=None, fault_plan=None):
         ecfg = engine_cfg or EngineConfig()
         if mesh is not None:
-            raise not_ported("mesh-sharded serving", "meshes")
+            raise not_ported("mesh-sharded serving", "meshes (2)")
         # the reference's three configuration errors, in its order
         if fault_plan is not None and not ecfg.unified_step:
             raise ValueError("fault injection requires the unified engine "

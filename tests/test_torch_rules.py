@@ -114,3 +114,26 @@ def test_default_device_raises_without_cuda():
         ServingEngine(cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_model(cfg)
+
+
+# the mesh slice: rank processes meet through a file store, never a fixed
+# TCP port (concurrent test workers and card runs would collide on one)
+RENDEZVOUS_FILES = PORT_FILES + sorted(
+    (ROOT / "tests").glob("test_torch_*.py")) + sorted(
+    (ROOT / "tests").glob("torch_*.py"))
+FIXED_RENDEZVOUS = ("MASTER" + "_PORT", "tcp" + "://", "init" + "_method")
+
+
+@pytest.mark.parametrize("path", RENDEZVOUS_FILES, ids=[
+    str(p.relative_to(ROOT)) for p in RENDEZVOUS_FILES])
+def test_no_fixed_rendezvous_port(path):
+    text = path.read_text()
+    assert not [w for w in FIXED_RENDEZVOUS if w in text], path
+
+
+def test_mesh_modules_are_audited():
+    pkg = ROOT / "src" / "repro_torch"
+    for rel in ("launch/mesh.py", "core/collectives.py",
+                "core/expert_parallel.py"):
+        assert pkg / rel in PORT_FILES, rel
+    assert "FileStore" in (pkg / "launch" / "mesh.py").read_text()

@@ -17,7 +17,8 @@ the full-width serve, forward and quantized serve, each with its profile
 window) or ``serve5`` (phase 5's serve alone, ``--repeat`` times on the
 same weights, without the profile window: its decode rate is the reading)
 or ``train`` (phase 8: the reduced archs trained on the card against the
-CPU, then granite-moe-3b-a800m and qwen3-0.6b at full width).  Prints the card's name and power limit, the build's ptxas lines
+CPU, then granite-moe-3b-a800m and qwen3-0.6b at full width) or ``ep``
+(phase 9: the expert-parallel schedules over 2 and 4 rank processes).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -39,7 +40,7 @@ def main() -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--only", nargs="*", default=["paged", "quant"],
                     choices=["paged", "quant", "flash", "chaos", "serve",
-                             "serve5", "train"])
+                             "serve5", "train", "ep"])
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     import torch
@@ -80,6 +81,8 @@ def main() -> int:
         cs.check_serve_quant(torch)
     if "train" in args.only:
         cs.check_train(torch, {})
+    if "ep" in args.only:
+        cs.check_expert_parallel(torch, {})
     if "serve5" in args.only:
         from repro_torch.configs.base import get_config
         cs.profile_window = lambda *a, **kw: {"device_busy_share": None}
