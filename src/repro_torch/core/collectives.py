@@ -20,13 +20,16 @@ because the prediction leaves them out: the scalar aux-loss ``pmean``s
 expert axis (``LAYOUT``, see ``core/expert_parallel``).  An axis of size
 1 is an identity and counts nothing.
 
-Transport: over gloo a CUDA operand goes through a pinned host buffer (a
-device-to-host copy, the collective on the host, a copy back); gloo takes
-no CUDA tensor (``launch/mesh.py``).  The choice is fixed by the backend
-and the tensor's device.  A CUDA operand is copied only after its stream
-is synchronised, so ``mesh.seconds`` holds the collective and its copies,
-not the compute that produced the operand.  Bools travel as uint8; a
-16-bit operand of a sum is summed exactly (``_widen``).
+Transport: the ranks meet over gloo (``launch/mesh.py``), so a CUDA
+operand goes through a pinned host buffer: a device-to-host copy, the
+collective on the host, a copy back.  The choice is fixed by the tensor's
+device.  A CUDA operand is copied only after its stream is synchronised,
+so ``mesh.seconds`` holds the collective and its copies, not the compute
+that produced the operand.  Sums run in the operand's dtype, as
+``jax.lax.psum`` does, so the wire carries the bytes that are counted;
+the order in which the transport adds the ranks' terms is its own (a sum
+of two is order-free; of more, a 16-bit result may differ from a
+one-device sum in its last bits).  Bools travel as uint8.
 """
 from __future__ import annotations
 
@@ -44,15 +47,11 @@ def _count(mesh, kind: str, x: torch.Tensor, seconds: float) -> None:
     mesh.seconds[kind] = mesh.seconds.get(kind, 0.0) + seconds
 
 
-def _staged(mesh, x: torch.Tensor) -> bool:
-    return x.is_cuda and mesh.backend == "gloo"
-
-
-def _to_host(mesh, x: torch.Tensor) -> torch.Tensor:
-    """The operand where the backend reads it: a pinned host copy of a
-    CUDA tensor over gloo (the stream synchronised first), else a
-    contiguous copy (the collectives write their buffers in place)."""
-    if _staged(mesh, x):
+def _to_host(x: torch.Tensor) -> torch.Tensor:
+    """The operand where gloo reads it: a pinned host copy of a CUDA
+    tensor (the stream synchronised first), else a contiguous copy (the
+    collectives write their buffers in place)."""
+    if x.is_cuda:
         torch.cuda.current_stream(x.device).synchronize()
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
         host.copy_(x)
@@ -60,8 +59,8 @@ def _to_host(mesh, x: torch.Tensor) -> torch.Tensor:
     return x.contiguous().clone()
 
 
-def _empty_like_host(mesh, x: torch.Tensor, shape) -> torch.Tensor:
-    if _staged(mesh, x):
+def _empty_like_host(x: torch.Tensor, shape) -> torch.Tensor:
+    if x.is_cuda:
         return torch.empty(shape, dtype=x.dtype, pin_memory=True)
     return torch.empty(shape, dtype=x.dtype, device=x.device)
 
@@ -71,26 +70,14 @@ def _raw(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.uint8) if x.dtype == torch.bool else x
 
 
-def _widen(buf: torch.Tensor) -> torch.Tensor:
-    """A 16-bit operand of a sum is summed exactly and rounded once: fp64
-    holds the sum of a few 16-bit values without rounding (unless their
-    magnitudes lie more than 2**40 apart), so the result does not depend
-    on the order the transport adds in, and it equals a one-device sum of
-    the same partials.  (A sum in the
-    operand's own dtype would round once per rank, in the transport's
-    order.)  The counters keep the operand's own bytes."""
-    return buf.double() if buf.dtype in (torch.bfloat16, torch.float16) \
-        else buf
-
-
 def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     """Sum of ``x`` over ``axis``; every rank of the axis gets it."""
     if mesh.groups[axis] is None:
         return x
     t0 = time.perf_counter()
-    buf = _widen(_to_host(mesh, x))
+    buf = _to_host(x)
     dist.all_reduce(buf, group=mesh.groups[axis])
-    out = buf.to(x.dtype).to(x.device)
+    out = buf.to(x.device)
     _count(mesh, "all-reduce", x, time.perf_counter() - t0)
     return out
 
@@ -102,7 +89,7 @@ def pmean(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
     if not live:
         return x
     t0 = time.perf_counter()
-    buf = _to_host(mesh, x)
+    buf = _to_host(x)
     n = 1
     for a in live:
         dist.all_reduce(buf, group=mesh.groups[a])
@@ -120,8 +107,8 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
         return x
     n = mesh.shape[axis]
     t0 = time.perf_counter()
-    src = _to_host(mesh, _raw(x))
-    out = _empty_like_host(mesh, src, (n * src.numel(),))
+    src = _to_host(_raw(x))
+    out = _empty_like_host(src, (n * src.numel(),))
     dist.all_gather_into_tensor(out, src.reshape(-1),
                                 group=mesh.groups[axis])
     out = out.view((n,) + tuple(x.shape)).to(x.device)
@@ -139,10 +126,10 @@ def psum_scatter(x: torch.Tensor, mesh, axis: str,
     n = mesh.shape[axis]
     t0 = time.perf_counter()
     blocks = x.movedim(dim, 0)
-    src = _widen(_to_host(mesh, blocks))
-    out = _empty_like_host(mesh, src, (src.shape[0] // n,) + src.shape[1:])
+    src = _to_host(blocks)
+    out = _empty_like_host(src, (src.shape[0] // n,) + src.shape[1:])
     dist.reduce_scatter_tensor(out, src, group=mesh.groups[axis])
-    out = out.to(x.dtype).to(x.device).movedim(0, dim)
+    out = out.to(x.device).movedim(0, dim)
     _count(mesh, "reduce-scatter", x, time.perf_counter() - t0)
     return out
 
@@ -174,8 +161,8 @@ def all_to_all(x: torch.Tensor, mesh, axis: str,
     if mesh.groups[axis] is None:
         return Pending(mesh, x, x, None, 0.0) if async_op else x
     t0 = time.perf_counter()
-    src = _to_host(mesh, x)
-    out = _empty_like_host(mesh, src, src.shape)
+    src = _to_host(x)
+    out = _empty_like_host(src, src.shape)
     work = dist.all_to_all_single(out, src, group=mesh.groups[axis],
                                   async_op=async_op)
     pending = Pending(mesh, x, out, work, time.perf_counter() - t0)
@@ -189,7 +176,7 @@ def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
         return x
     me = mesh.coords[axis]
     t0 = time.perf_counter()
-    src = _to_host(mesh, x)
+    src = _to_host(x)
     out = torch.zeros_like(src)
     ops = [dist.P2POp(dist.isend, src, mesh.rank_at(axis, d),
                       mesh.groups[axis]) for s, d in perm if s == me]

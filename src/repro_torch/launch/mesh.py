@@ -18,14 +18,16 @@ expert stack (the paper's P-*-D layout).
 Why a class of its own over ``dist.new_group`` and not ``DeviceMesh``:
 ``init_device_mesh("cuda", ...)`` binds NCCL with one device per rank, and
 a machine with one GPU runs several ranks on that one device, which NCCL
-refuses ("Duplicate GPU detected", ``tools/gloo_cuda_probe.py``).  So the
-ranks meet over gloo.  Gloo takes CPU tensors only: in the card's torch a
-CUDA tensor handed to a gloo collective aborts the process (gloo's TCP
-transport writes from the device pointer), so ``core/collectives.py``
-stages every CUDA operand through a pinned host buffer.  That choice is
-made by backend and device, never by catching an error, and it moves only
-the collective's operand: the kernels and the rest of the compute stay on
-the card.
+refuses ("Duplicate GPU detected", seen on an H100 with torch 2.11).  So
+the ranks meet over gloo, the only backend here.  Gloo's collectives are
+documented for CPU tensors, and on that card a CUDA tensor handed to one
+behaved inconsistently: one probe aborted every rank, another ran and
+summed right.  So ``core/collectives.py`` stages every CUDA operand
+through a pinned host buffer.  That choice is made by the tensor's device,
+never by catching an error, and it moves only the collective's operand:
+the kernels and the rest of the compute stay on the card.  A backend
+choice (NCCL over one card per rank) belongs with the meshes that have
+several cards to run it on.
 
 Rank processes meet through a ``FileStore`` (``init_ranks``), never a
 fixed TCP port, so concurrent test workers cannot collide.
@@ -55,7 +57,6 @@ class Mesh:
     shape: dict
     coords: dict
     groups: dict
-    backend: str
     bytes: dict = dataclasses.field(default_factory=dict)
     seconds: dict = dataclasses.field(default_factory=dict)
 
@@ -78,11 +79,11 @@ class Mesh:
 
 
 def init_ranks(rank: int, world: int, store_path: str,
-               backend: str = "gloo",
                timeout: datetime.timedelta = DEFAULT_TIMEOUT) -> None:
     """Join ``world`` rank processes through a file store at
-    ``store_path`` (a path in a directory every rank can reach)."""
-    dist.init_process_group(backend, store=dist.FileStore(store_path, world),
+    ``store_path`` (a path in a directory every rank can reach), over
+    gloo."""
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world),
                             rank=rank, world_size=world, timeout=timeout)
 
 
@@ -117,7 +118,7 @@ def make_mesh(shape: tuple, axes: tuple) -> Mesh:
             g = dist.new_group(line)
             if rank in line:
                 groups[a] = g
-    return Mesh(tuple(axes), sizes, coords, groups, dist.get_backend())
+    return Mesh(tuple(axes), sizes, coords, groups)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

@@ -19,7 +19,7 @@ reference's own properties in the port (pipelined chunks, the fallbacks
 bit for bit, padded experts, replication, int8 / int4 expert shards); and
 every rank's collective bytes, kind by kind, equal to
 ``perf_model.predicted_collective_bytes``, with the aux pmeans and the
-layout step counted apart."""
+layout step counted apart; and 16-bit sums kept in their dtype."""
 import multiprocessing as mp
 import os
 import subprocess
@@ -305,6 +305,41 @@ def test_quantized_shards_match_single_device(runs, mesh_name, level, ep):
         np.testing.assert_allclose(
             _global(runs[mesh_name], f"quant/{level}/{ep}/{b}x{s}"),
             _single_device(base, lp, x, qexp), rtol=0, atol=TOL_Y)
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+def test_16bit_sums_stay_in_their_dtype(runs, mesh_name):
+    """``psum`` and ``psum_scatter`` of bfloat16 operands sum in bfloat16,
+    as ``jax.lax.psum`` does: the results keep the dtype, every rank of an
+    expert group gets the same sum, the counters book the operand's bytes
+    (what the wire carries), and each sum lies within the bf16 bound
+    2 (n-1) u (1+u)^(n-1) sum_r |x_r| of the rank-order sum, bit for bit
+    over two ranks (a sum of two is order-free)."""
+    u = 2.0 ** -8
+    n_model = cases.MESHES[mesh_name][1]
+    recs = [rec["sum16"] for rec in runs[mesh_name]]
+    for rank, rec in enumerate(recs):
+        group = [rank - rank % n_model + j for j in range(n_model)]
+        xs = [torch.from_numpy(cases.collective_input(r)).to(torch.bfloat16)
+              for r in group]
+        want = xs[0]
+        for x in xs[1:]:
+            want = want + x
+        want = want.float()
+        bound = (2 * (n_model - 1) * u * (1 + u) ** (n_model - 1)
+                 * sum(x.float().abs() for x in xs))
+        assert rec["dtypes"] == ("torch.bfloat16", "torch.bfloat16")
+        assert rec["bytes"] == {"all-reduce": xs[0].numel() * 2,
+                                "reduce-scatter": xs[0].numel() * 2}
+        got = torch.from_numpy(rec["psum"])
+        assert np.array_equal(rec["psum"], recs[group[0]]["psum"])
+        rows = xs[0].shape[0] // n_model
+        blk = slice(rank % n_model * rows, (rank % n_model + 1) * rows)
+        got_blk = torch.from_numpy(rec["psum_scatter"])
+        if n_model == 2:
+            assert torch.equal(got, want) and torch.equal(got_blk, want[blk])
+        assert bool(((got - want).abs() <= bound).all())
+        assert bool(((got_blk - want[blk]).abs() <= bound[blk]).all())
 
 
 def test_expected_experts_per_shard_matches_jax():

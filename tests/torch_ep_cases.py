@@ -79,6 +79,13 @@ def moe_input(b: int, s: int, d: int) -> np.ndarray:
         (b, s, d)).astype(np.float32)
 
 
+def collective_input(rank: int) -> np.ndarray:
+    """Rank ``rank``'s operand of the 16-bit sum cases: fp32 values that
+    the ranks cast to bfloat16."""
+    return np.random.default_rng(100 + rank).standard_normal(
+        (8, 64)).astype(np.float32)
+
+
 def forward_tokens(vocab: int) -> np.ndarray:
     b, s = FORWARD_BLOCK
     return np.random.default_rng(7).integers(0, vocab, (b, s)).astype(
@@ -185,6 +192,15 @@ def _rank_cases(rank, world, store, shape, params_path) -> dict:
                         timeout=datetime.timedelta(seconds=90))
     mesh = mesh_lib.make_test_mesh(*shape)
     out = {}
+    from repro_torch.core import collectives
+    x = torch.from_numpy(collective_input(rank)).to(torch.bfloat16)
+    mesh.reset_counters()
+    total = collectives.psum(x, mesh, "model")
+    block = collectives.psum_scatter(x, mesh, "model", dim=0)
+    out["sum16"] = {"dtypes": (str(total.dtype), str(block.dtype)),
+                    "psum": total.float().numpy(),
+                    "psum_scatter": block.float().numpy(),
+                    "bytes": dict(mesh.bytes)}
     base = port_config()
     lp = layer_params(base.d_model, base.d_ff, base.num_experts_padded)
     for name, fields in moe_cases().items():
