@@ -54,13 +54,14 @@ line):
                 card and on the CPU from the same weights, fp32 and int8
                 weights + int8 KV: gates 1-4 on each device, the card's
                 streams and counters equal the CPU's scenario by scenario.
-  5. serve    — the full-width qwen3-moe-30b-a3b (48 layers, bf16, random
+  5. serve    — the full-width qwen3-moe-30b-a3b (depth cut to 24 of 48
+                layers, QWEN_LAYERS, for the time limit; bf16, random
                 weights from a seeded generator on the card) serves six
                 requests sharing a system prompt through the paged engine;
                 its weight bytes must equal the performance model's, and
                 the keep-warm touch (standby) is timed against its bound.
   6. forward  — on phase 5's weights, before they are freed: the full-
-                sequence forward and loss at B=2, S=2048 (48 flash and 48
+                sequence forward and loss at B=2, S=2048 (24 flash and 24
                 grouped-FFN launches each), with a profile window.
   5c. serve_resilience — on the same weights: overcommit on a 24-page
                 pool with priorities, two sampled requests, a cancel, an
@@ -87,10 +88,11 @@ line):
                 about 55 GB): phase 5's serve, the forward and loss at
                 B=1, S=2048, then the same weights quantized to int8 on
                 load with an int8 KV pool and served again.
-  7. stablelm — stablelm-12b at full width and depth (40 layers, bf16,
-                about 24.3 GB; hd 160, layernorm, an untied head): phase
-                5's paged serve, the reference engine as in 5d, the
-                forward and loss at B=2, S=2048 (40 launches of the flash
+  7. stablelm — stablelm-12b at full width, depth cut to 20 of 40 layers
+                (STABLELM_LAYERS; bf16, hd 160, layernorm, an untied
+                head): phase 5's paged serve, the reference engine as in
+                5d, the forward and loss at B=2, S=2048 (20 launches of the
+                flash
                 kernel's hd-160 instantiation), then int8 weights + int8
                 KV served.  Then qwen3-0.6b at full width (28 layers, a
                 tied head at V 151936) serves once and runs its forward.
@@ -101,8 +103,8 @@ line):
                 (fp32, remat on; losses and params within TRAIN_*_TOL, no
                 launch, router-dead experts stay zero), each kernel
                 wrapper refuses an input that requires grad; then
-                granite-moe-3b-a800m (32 layers, bf16, B=4, S=2048: the
-                chunked attention and CE, 12 steps) and qwen3-0.6b (28
+                granite-moe-3b-a800m (16 of 32 layers, bf16, B=4, S=2048:
+                the chunked attention and CE, 12 steps) and qwen3-0.6b (28
                 layers, 6 steps) train at full width: finite losses that
                 fall, the step-0 loss equal to the kernel path's, peak
                 under 75 GB, granite's dead experts moved by decay alone,
@@ -118,8 +120,8 @@ line):
                 and strategy at a prefill and a decode block, int8 and
                 int4 expert shards, r = 2 at 4 ranks, each against the
                 one-device moe_layer on the card (fp32, 1e-5, top_idx
-                identical); granite at full width and depth and DBRX at
-                full width cut to 4 of 40 layers through Model.forward on
+                identical); granite at full width cut to 16 of 32 layers
+                and DBRX to 4 of 40 through Model.forward on
                 the mesh (B=1, S=2048, bf16, capacity factor E_pad / K),
                 held to one-device forwards of the same seeded weights
                 (layer-0 routing identical, greedy argmax on at least 99 %
@@ -129,6 +131,22 @@ line):
                 of DBRX's MoE layer (expert FFN ms, collective ms, bytes,
                 peak memory, E[#experts per shard]).  Its times are ranks
                 time-sharing one card over gloo, no interconnect's.
+  10. serve_mesh — serving on a mesh of 2, then 4, spawned rank processes
+                on the one card, budget 150 s: the serve-mode layout
+                (``launch/sharding.py``: the embedding, attention heads,
+                dense MLP and LM head tensor-parallel over "model", the
+                experts under the schedules) through the paged engine.
+                The reduced qwen3-moe (fp32, decentralized and a2a) streams
+                as the one-device engine on the card; granite at full width
+                and depth (2 and 4 ranks, decentralized and a2a) and DBRX at
+                full width cut to 4 of 40 layers (4 ranks, decentralized),
+                bf16, phase 5's traffic at capacity factor 8: every rank's
+                streams identical, each held to the one-device forward of
+                its own tokens (FORCED_SHARE_MAX), the paged and grouped-FFN
+                kernels launched on every rank at its local shapes, each
+                rank's weight bytes its serve blocks' and its bytes by kind
+                the performance model's; per rank tok/s, peak memory,
+                collective ms by kind and E[#experts per shard].
   Then the kernels line: one JSON object per ported kernel entry, and the
   last line: {"ok": true, "device": {...}}.
 
@@ -392,7 +410,10 @@ PAGED_CASES = [(1, None, None, None, 128), (1, 64, None, None, 128),
 # heads, which no 16-row tile holds whole, stablelm-12b's (G=4 at hd 160,
 # padded to its variant's width) and qwen3-0.6b's (G=2), each at T 1 and
 # 32
-GQA_HEADS = [(24, 8, 64), (48, 8, 128), (32, 8, 160), (16, 8, 128)]
+GQA_HEADS = [(24, 8, 64), (48, 8, 128), (32, 8, 160), (16, 8, 128),
+             # phase 10's ranks: granite's heads on 2 and 4 ranks, DBRX's
+             # on 4
+             (12, 4, 64), (6, 2, 64), (12, 2, 128)]
 
 
 def paged_run(torch, paged_attn, int8: bool, dtype, t: int, window,
@@ -510,7 +531,12 @@ FFN_CASES = [(128, 16, 2048, 768, 0), (128, 40, 2048, 768, 0),
 # router-dead) at C = 2048 (every schedule but a2a_pipelined, whose two
 # chunks give C = 1024), bf16 only
 MESH_FFN_CASES = [(8, 2048, 6144, 10752, 0), (4, 2048, 6144, 10752, 0),
-                  (24, 2048, 1536, 512, 8), (12, 2048, 1536, 512, 8)]
+                  (24, 2048, 1536, 512, 8), (12, 2048, 1536, 512, 8),
+                  # phase 10's decentralized prefill steps (B=4 x 32
+                  # tokens at capacity factor 8): granite's 24 / 12 local
+                  # experts at C=176, DBRX's 4 at C=256
+                  (24, 176, 1536, 512, 8), (12, 176, 1536, 512, 8),
+                  (4, 256, 6144, 10752, 0)]
 DBRX_WIDTHS = (6144, 10752)
 
 
@@ -771,6 +797,20 @@ DEAD_AND_PADDED = dict(num_experts=6, num_experts_padded=8, vocab_size=500)
 # DBRX at full width, depth cut to fit one card: 8 layers in bf16 are
 # about 55 GB (its 40 would be about 264 GB)
 DBRX_LAYERS = 8
+# the script's 1200 s limit: qwen3-moe's full-width phases (5, 6, 5c, 5d,
+# 5b) run 24 of its 48 layers (30.5 GB in bf16), stablelm-12b's (phase 7)
+# 20 of 40, granite's full-width training (phase 8) and its mesh forward
+# (phase 9) 16 of 32; the widths stay whole
+QWEN_LAYERS = 24
+STABLELM_LAYERS = 20
+GRANITE_TRAIN_LAYERS = 16
+
+
+def full_config(arch: str = ARCH, layers: int | None = QWEN_LAYERS):
+    """The full-width config of ``arch``, its depth cut to ``layers``."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch)
+    return cfg.replace(num_layers=layers) if layers else cfg
 
 
 def reduced_config(arch: str):
@@ -913,10 +953,9 @@ def check_forward(torch, params, cfg=None, b: int = 2, phase="forward"):
     """Phase 6 (and the other archs' forwards): the full-width forward and
     loss on the serve's bf16 weights, B x S=2048 seeded tokens, under
     no_grad, with a profile window.  Returns the forward's launch counts."""
-    from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
-    cfg = cfg or get_config(ARCH)
+    cfg = cfg or full_config()
     t_phase = time.perf_counter()
     model = build_model(cfg, "cuda")
     s = 2048
@@ -1039,9 +1078,8 @@ def check_serve(torch, cfg=None, phase: str = "serve"):
     random weights from a seeded generator on the card.  Returns the launch
     counts, the weights (the forward runs on them next) and the greedy
     streams."""
-    from repro_torch.configs.base import get_config
     from repro_torch.serving.engine import EngineConfig, ServingEngine
-    cfg = cfg or get_config(ARCH)
+    cfg = cfg or full_config()
     free_device(torch)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1067,10 +1105,9 @@ def check_serve_quant(torch, cfg=None, phase: str = "serve_quant"):
     first and replaced leaf by leaf), and an int8 KV pool; the bf16
     model is freed first.  Same traffic, prefix hit and copy-on-write as
     phase 5.  Returns the launch counts."""
-    from repro_torch.configs.base import get_config
     from repro_torch.serving.engine import EngineConfig, ServingEngine
-    cfg = cfg or get_config(ARCH).replace(weight_quant="int8",
-                                          kv_cache_dtype="int8")
+    cfg = cfg or full_config().replace(weight_quant="int8",
+                                       kv_cache_dtype="int8")
     free_device(torch)
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1266,11 +1303,11 @@ def check_serve_reference(torch, cfg, params, phase: str):
 
 
 def check_dense(torch, runs: dict) -> None:
-    """Phase 7: stablelm-12b at full width and depth (bf16 serve, the
+    """Phase 7: stablelm-12b at full width, 20 of 40 layers (bf16 serve, the
     reference engine, forward and loss, then int8 weights + int8 KV), then
     qwen3-0.6b at full width (serve and forward).  Fills ``runs``."""
     from repro_torch.configs.base import get_config
-    cfg = get_config("stablelm_12b")
+    cfg = full_config("stablelm_12b", STABLELM_LAYERS)
     runs["stablelm_serve"], params, _ = check_serve(torch, cfg,
                                                     "stablelm_serve")
     runs["stablelm_serve_reference"] = check_serve_reference(
@@ -1309,6 +1346,7 @@ TRAIN_LOSS_TOL, TRAIN_PARAM_TOL, TRAIN_PARAM_SHARE = 1e-4, 1e-6, 0.999
 # optimizer (bf16 params 7.8 GB, gradients 7.8 GB, fp32 moments 31.2 GB)
 TRAIN_FULL = (("granite_moe_3b_a800m", 4, 2048, 12, 1e-3),
               ("qwen3_0_6b", 4, 2048, 6, 1e-3))
+TRAIN_LAYERS = {"granite_moe_3b_a800m": GRANITE_TRAIN_LAYERS}
 TRAIN_SEED = 0
 # the trainer's step-0 loss (attend_chunked, the expert FFN in torch ops)
 # against the kernel path's (flash, the grouped-FFN kernel) on the same
@@ -1399,7 +1437,7 @@ def check_train_reduced(torch) -> None:
 
 def check_train_full(torch, arch: str, b: int, s: int, steps: int,
                      lr: float) -> dict:
-    """``train()`` at full width and depth (bf16, remat on; at S=2048 the
+    """``train()`` at full width (bf16, remat on; at S=2048 the
     path is ``attend_chunked`` and the chunked CE): every loss and norm
     finite, the loss falls, no kernel launched, the peak under
     TRAIN_PEAK_BYTES, the step-0 loss equal to the kernel path's on the
@@ -1417,7 +1455,7 @@ def check_train_full(torch, arch: str, b: int, s: int, steps: int,
     from repro_torch.launch.train import make_train_step, train
     from repro_torch.models.model import build_model
     t_phase = time.perf_counter()
-    cfg = get_config(arch)
+    cfg = full_config(arch, TRAIN_LAYERS.get(arch))
     check(cfg.remat, f"{arch}: the full config trains with remat")
     model = build_model(cfg, "cuda")
     pipe_cfg = PipelineConfig(seq_len=s, global_batch=b,
@@ -1643,9 +1681,8 @@ def check_serve_resilience(torch, params, uncontended):
     and plan, whose greedy streams are printed against phase 5's and the
     overcommit run's; then a profile window.  Returns the first run's
     launch counts."""
-    from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
-    cfg = get_config(ARCH)
+    cfg = full_config()
     t_phase = time.perf_counter()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1780,7 +1817,7 @@ EP_REDUCED_ARCHS = ("qwen3_moe_30b_a3b", "granite_moe_3b_a800m")
 EP_TOL = 1e-5
 # full width: granite at full depth, DBRX cut to 4 of 40 layers (25.4 GB of
 # experts split over the ranks, about 3.2 GB replicated on each)
-EP_FULL = (("granite_moe_3b_a800m", None), ("dbrx", 4))
+EP_FULL = (("granite_moe_3b_a800m", GRANITE_TRAIN_LAYERS), ("dbrx", 4))
 EP_SEED = 0
 EP_S = 2048
 # the full-width gates against the plain one-device forward (PERF.md §6):
@@ -1819,8 +1856,9 @@ def partial_sums(n: int, magnitudes: list | None = None):
     """The one-device MoE layer with the rounding points of the schedules
     that sum partial outputs (decentralized, centralized) over n shards:
     each shard's local MoE in the compute dtype, the n partials summed in
-    that dtype in shard order.  The transport sums in an order of its own,
-    which is this one for n = 2 (a sum of two is order-free).  With
+    that dtype in shard order.  ``collectives.psum`` sums in this order
+    too; the reduce-scatter sums in an order of its own, which is this one
+    for n = 2 (a sum of two is order-free).  With
     ``magnitudes`` each call appends sum_r |partial_r| (fp32), which
     bounds how far two orders of the sum can differ.  Only the card's
     reference forwards run under it."""
@@ -2276,43 +2314,76 @@ def ep_table3(torch, mesh, cfg, params, tmp: str) -> list:
     return rows
 
 
-def ep_spawn(world: int, tmp: str) -> list:
-    """Phase 9's ranks on the one card: ``world`` spawned processes meeting
-    through a file store in ``tmp``.  Returns each rank's results; any
-    rank's failure fails the phase, and every process is stopped."""
-    import multiprocessing as mp
-    import queue
-    ctx = mp.get_context("spawn")
-    q = ctx.Queue()
-    store = f"{tmp}/store_{world}"
-    procs = [ctx.Process(target=_ep_rank, args=(r, world, store, tmp, q))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    res = {}
-    deadline = time.monotonic() + EP_TIMEOUT_S
-    try:
-        while len(res) < world and time.monotonic() < deadline:
+class RankGroup:
+    """``world`` spawned rank processes on the one card, each running
+    ``target(rank, world, *args, q)``; they meet through a file store named
+    in ``args``.  Started on construction."""
+
+    def __init__(self, target, world: int, args: tuple):
+        import multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.world, self.q = world, ctx.Queue()
+        self.procs = [ctx.Process(target=target,
+                                  args=(r, world) + args + (self.q,))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def collect(self, timeout: float, what: str) -> dict:
+        """Rank -> results, as the ranks put them, until every rank has or
+        ``timeout`` s pass or a rank dies; a rank's failure fails
+        ``what``."""
+        import queue
+        res = {}
+        deadline = time.monotonic() + timeout
+        while len(res) < self.world and time.monotonic() < deadline:
             try:
-                rank, val = q.get(timeout=5)
+                rank, val = self.q.get(timeout=5)
             except queue.Empty:
-                if not all(p.is_alive() for p in procs):
+                if not all(p.is_alive() for p in self.procs):
                     break
                 continue
             check(not isinstance(val, str),
-                  f"phase 9 rank {rank} of {world} failed:\n{val}")
+                  f"{what} rank {rank} of {self.world} failed:\n{val}")
             res[rank] = val
-    finally:
-        for p in procs:
-            p.join(timeout=30)
+        return res
+
+    def stop(self, grace: float = 30.0) -> None:
+        """Join every process, killing one still alive after ``grace`` s."""
+        for p in self.procs:
+            p.join(timeout=grace)
             if p.is_alive():
                 p.kill()
                 p.join()
-    check(len(res) == world, f"phase 9: ranks {sorted(res)} of {world} "
-          f"reported; exit codes {[p.exitcode for p in procs]}")
-    check(all(p.exitcode == 0 for p in procs),
-          f"phase 9: exit codes {[p.exitcode for p in procs]}")
-    return [res[r] for r in range(world)]
+
+    def finished(self, res: dict, what: str) -> list:
+        """After ``stop``: each rank's results, failing ``what`` unless
+        every rank reported and exited 0."""
+        codes = [p.exitcode for p in self.procs]
+        check(len(res) == self.world, f"{what}: ranks {sorted(res)} of "
+              f"{self.world} reported; exit codes {codes}")
+        check(all(c == 0 for c in codes), f"{what}: exit codes {codes}")
+        return [res[r] for r in range(self.world)]
+
+
+def spawn_ranks(target, world: int, args: tuple, timeout: float,
+                what: str) -> list:
+    """``world`` rank processes (``RankGroup``) run to their end: each
+    rank's results; any rank's failure fails ``what``, and every process
+    is stopped."""
+    group = RankGroup(target, world, args)
+    try:
+        res = group.collect(timeout, what)
+    finally:
+        group.stop()
+    return group.finished(res, what)
+
+
+def ep_spawn(world: int, tmp: str) -> list:
+    """Phase 9's ranks on the one card: ``world`` spawned processes meeting
+    through a file store in ``tmp``."""
+    return spawn_ranks(_ep_rank, world, (f"{tmp}/store_{world}", tmp),
+                       EP_TIMEOUT_S, "phase 9")
 
 
 def check_expert_parallel(torch, runs: dict) -> None:
@@ -2370,6 +2441,353 @@ def check_expert_parallel(torch, runs: dict) -> None:
     emit("expert_parallel", seconds=phase_s, budget_s=EP_BUDGET_S, card=dev)
     check(phase_s <= EP_BUDGET_S, f"phase 9 took {phase_s:.1f} s of its "
           f"{EP_BUDGET_S} s budget")
+
+
+# ---------------------------------------------------------------------------
+# phase 10: serving on a mesh
+# ---------------------------------------------------------------------------
+
+SM_RANKS = (2, 4)
+SM_SEED = 0
+SM_BUDGET_S = 150.0
+SM_TIMEOUT_S = 600
+SM_CF = 8.0                      # capacity never binds: 5c's setting
+SM_REDUCED_SCHEDULES = ("decentralized", "a2a")
+SM_REDUCED_ENGINE = dict(max_batch=2, max_cache=48, chunk_len=8,
+                         page_size=4)
+# arch -> (layers, rank counts, schedules) at full width, bf16, paged,
+# phase 5's traffic
+SM_FULL = {"granite_moe_3b_a800m": (None, (2, 4), ("decentralized", "a2a")),
+           "dbrx": (4, (4,), ("decentralized",))}
+
+
+def sm_config(arch: str, layers, sched: str):
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch).replace(capacity_factor=SM_CF,
+                                   expert_parallel=sched, ep_microchunks=2)
+    return cfg.replace(num_layers=layers) if layers else cfg
+
+
+def sm_reduced_config(sched: str):
+    from repro_torch.configs.base import get_config
+    return get_config(ARCH).reduced().replace(capacity_factor=SM_CF,
+                                              expert_parallel=sched)
+
+
+def sm_reduced_prompts(vocab: int):
+    return traffic(vocab, 3, 6, 10, 16, seed=5)
+
+
+class StepRecorder:
+    """The engine's model with each unified step's block (B, T) and, for
+    the decode steps, routing recorded (what the byte prediction and the
+    per-shard expert count read)."""
+
+    def __init__(self, model):
+        self.model, self.blocks, self.decode_routing = model, [], []
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def forward_routed(self, params, batch, cache, context_len=None, *,
+                       mesh=None):
+        logits, routing = self.model.forward_routed(
+            params, batch, cache, context_len, mesh=mesh)
+        b, t = batch["tokens"].shape
+        self.blocks.append((b, t))
+        if t == 1 and routing is not None:
+            self.decode_routing.append(routing.clone())
+        return logits, routing
+
+
+def sm_full(torch, mesh, arch: str, layers, params: dict, sched: str,
+            warm: bool) -> dict:
+    """One full-width serve on this rank: phase 5's traffic through the
+    mesh engine on this rank's serve blocks (after a warm-up serve on the
+    rank's first).  Its bytes by kind are held to the prediction summed
+    over the steps' blocks, its weight bytes to its serve blocks'
+    (``sharding.block_bytes``)."""
+    from repro_torch.core import collectives, perf_model, router
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.models.model import HEAD
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = sm_config(arch, layers, sched)
+    n = mesh.shape["model"]
+    eng = ServingEngine(cfg, EngineConfig(**SERVE_ENGINE), params=params,
+                        device="cuda", mesh=mesh)
+    if warm:
+        serve(eng, traffic(cfg.vocab_size, 2, 8, 24, 40, seed=7), 2)
+    rec = StepRecorder(eng.model)
+    eng.model = rec
+    mesh.reset_counters()
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = traffic(cfg.vocab_size, 6, 40, 48, 160, seed=0)
+    t0 = time.perf_counter()
+    streams = serve(eng, prompts, 16)
+    wall = time.perf_counter() - t0
+    want = {}
+    for b, t in rec.blocks:
+        for k, v in perf_model.predicted_collective_bytes(
+                cfg, batch=b, seq=t, n_exp_shards=n, n_batch_shards=1,
+                include_tp=True).items():
+            want[k] = want.get(k, 0.0) + v
+    got = {k: v for k, v in mesh.bytes.items()
+           if k not in (collectives.AUX, collectives.LAYOUT, HEAD)}
+    weight = eng.memory_stats()["weight_bytes"]
+    # the placement's shards hold E_pad / n rows (router-dead ones too)
+    shard = [float(router.expected_experts_per_shard(
+        r[layer], cfg.num_experts_padded, n)) for r in rec.decode_routing
+        for layer in range(cfg.num_layers)]
+    tp = eng.throughput()
+    return {"streams": [[int(t) for t in g] for g in streams],
+            "prompts": [p.tolist() for p in prompts],
+            "launches": ops.launch_counts(), "wall_s": wall,
+            "steps": len(rec.blocks),
+            "bytes": dict(mesh.bytes), "bytes_predicted": want,
+            "bytes_as_predicted": got == {k: int(v) for k, v in
+                                          want.items()},
+            "collective_ms": {k: v * 1e3 for k, v in mesh.seconds.items()},
+            "weight_bytes": weight,
+            "weight_bytes_as_blocks": weight == sharding.block_bytes(cfg,
+                                                                     mesh),
+            "total_tok_per_s": tp["total_tok_per_s"],
+            "decode_tok_per_s": tp["decode_tok_per_s"],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "experts_per_shard_tracker": eng.expected_experts_per_node(n),
+            "experts_per_shard_routing": float(np.mean(shard))}
+
+
+def sm_rank_work(rank: int, world: int, store: str, go) -> dict:
+    """One rank's share of phase 10.  With ``go`` (an event) the rank
+    starts up (imports, its CUDA context, the parent's kernel build) and
+    then waits for it, so a later group's start-up overlaps the group
+    before it."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        raise RuntimeError("a phase-10 rank process without CUDA")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # the ranks share the host's cores: an equal share each, so no rank's
+    # host threads crowd out the others' collectives
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    build.library()                 # the parent's build, loaded
+    torch.zeros((), device="cuda")  # the rank's context
+    if go is not None and not go.wait(SM_TIMEOUT_S):
+        raise RuntimeError("phase 10: this rank group was never started")
+    mesh_lib.init_ranks(rank, world, store,
+                        timeout=datetime.timedelta(seconds=SM_TIMEOUT_S))
+    mesh = mesh_lib.make_mesh((1, world), ("data", "model"))
+    out = {"reduced": {}, "full": {}}
+    t0 = time.perf_counter()
+    for sched in SM_REDUCED_SCHEDULES:
+        cfg = sm_reduced_config(sched)
+        eng = ServingEngine(cfg, EngineConfig(**SM_REDUCED_ENGINE),
+                            generator=torch.Generator(
+                                device="cuda").manual_seed(SM_SEED),
+                            device="cuda", mesh=mesh)
+        ops.reset_launch_counts()
+        out["reduced"][sched] = {
+            "streams": [[int(t) for t in g] for g in serve(
+                eng, sm_reduced_prompts(cfg.vocab_size), 4)],
+            "launches": ops.launch_counts()}
+    out["reduced_s"] = time.perf_counter() - t0
+    for arch, (layers, ranks, scheds) in SM_FULL.items():
+        if world not in ranks:
+            continue
+        t0 = time.perf_counter()
+        cfg = sm_config(arch, layers, scheds[0])
+        params = build_model(cfg, "cuda").init_serving(
+            torch.Generator(device="cuda").manual_seed(SM_SEED), mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        for sched in scheds:
+            row = sm_full(torch, mesh, arch, layers, params, sched,
+                          warm=not out["full"])
+            out["full"][f"{arch}/{sched}"] = dict(row, init_s=init_s)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _sm_rank(rank: int, world: int, store: str, go, q) -> None:
+    """A rank process of phase 10: puts (rank, results), or (rank, the
+    traceback) and exits non-zero."""
+    import traceback
+    try:
+        q.put((rank, sm_rank_work(rank, world, store, go)))
+    except BaseException:
+        q.put((rank, traceback.format_exc()))
+        raise
+
+
+def sm_forced_shares(torch, arch: str, layers, rows: dict) -> dict:
+    """Each mesh serve's greedy streams held to the one-device forward of
+    their own tokens (``forced_shares``), on the whole draw of the seed
+    the ranks cut their blocks from.  Returns case -> largest share."""
+    import types
+
+    from repro_torch.models.model import build_model
+    cfg = sm_config(arch, layers, "decentralized")
+    params = build_model(cfg, "cuda").init(
+        torch.Generator(device="cuda").manual_seed(SM_SEED))
+    out = {}
+    for case, row in rows.items():
+        reqs = [types.SimpleNamespace(prompt=np.asarray(p, np.int32),
+                                      generated=g)
+                for p, g in zip(row["prompts"], row["streams"])]
+        out[case] = max(forced_shares(torch, cfg, params, reqs))
+    del params
+    free_device(torch)
+    return out
+
+
+def check_serve_mesh(torch, runs: dict) -> None:
+    """Phase 10: serving on a mesh of 2, then 4, rank processes on the one
+    card (the serve-mode layout: tensor parallelism over "model", the
+    experts under the schedules).  The reduced qwen3-moe's streams equal
+    the one-device engine's on the card; granite at full width and depth
+    (2 and 4 ranks, decentralized and a2a) and DBRX at full width cut to 4
+    of 40 layers (4 ranks, decentralized): every rank's streams identical,
+    each held to the one-device forward of its own tokens, the paged and
+    grouped-FFN kernels launched on every rank, bytes and weight bytes as
+    predicted.  Both groups start together; the 4-rank group waits, started
+    up, until the 2-rank group is done.  Fills ``runs`` with each group's
+    launches."""
+    import multiprocessing as mp
+    import tempfile
+
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    t_phase = time.perf_counter()
+    free_device(torch)
+    dev = card()
+    go = mp.get_context("spawn").Event()
+    full = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        later = RankGroup(_sm_rank, SM_RANKS[1],
+                          (f"{tmp}/store_sm_{SM_RANKS[1]}", go))
+        try:
+            first = RankGroup(_sm_rank, SM_RANKS[0],
+                              (f"{tmp}/store_sm_{SM_RANKS[0]}", None))
+            t_group = time.perf_counter()
+            try:
+                want = {}           # while the ranks start up
+                for sched in SM_REDUCED_SCHEDULES:
+                    cfg = sm_reduced_config(sched)
+                    eng = ServingEngine(cfg, EngineConfig(**SM_REDUCED_ENGINE),
+                                        generator=torch.Generator(
+                                            device="cuda").manual_seed(SM_SEED),
+                                        device="cuda")
+                    want[sched] = [[int(t) for t in g] for g in serve(
+                        eng, sm_reduced_prompts(cfg.vocab_size), 4)]
+                    del eng
+                free_device(torch)
+                res = first.collect(SM_TIMEOUT_S, "phase 10")
+            finally:
+                go.set()
+                first.stop()
+            sm_record(first.finished(res, "phase 10"), want, runs, full,
+                      time.perf_counter() - t_group, dev)
+            t_group = time.perf_counter()
+            res = later.collect(SM_TIMEOUT_S, "phase 10")
+        except BaseException:
+            go.set()
+            later.stop(grace=0)
+            raise
+        later.stop()
+        sm_record(later.finished(res, "phase 10"), want, runs, full,
+                  time.perf_counter() - t_group, dev)
+    for arch, rows in full.items():
+        shares = sm_forced_shares(torch, arch, SM_FULL[arch][0], rows)
+        emit("serve_mesh_forced", arch=arch, forced_share_max=shares,
+             gate=FORCED_SHARE_MAX, card=dev)
+        for case, share in shares.items():
+            check(share <= FORCED_SHARE_MAX,
+                  f"phase 10 {case}: a stream's forced share {share:.3f} > "
+                  f"{FORCED_SHARE_MAX}")
+    phase_s = time.perf_counter() - t_phase
+    emit("serve_mesh", seconds=phase_s, budget_s=SM_BUDGET_S, card=dev)
+    check(phase_s <= SM_BUDGET_S, f"phase 10 took {phase_s:.1f} s of its "
+          f"{SM_BUDGET_S} s budget")
+
+
+def sm_record(ranks: list, want: dict, runs: dict, full: dict,
+              seconds: float, dev) -> None:
+    """Phase 10's gates on one group's results, and its rows: the reduced
+    streams against the one-device engine's ``want``; each full case's
+    streams identical on every rank, bytes and weight bytes as predicted,
+    the kernels launched on every rank.  Adds the group's launches to
+    ``runs`` and rank 0's rows to ``full`` (arch -> case/ranks -> row).
+    ``seconds``: the group's run, from its start to its last result."""
+    n = len(ranks)
+    for sched in SM_REDUCED_SCHEDULES:
+        for r, res in enumerate(ranks):
+            got = res["reduced"][sched]
+            check(got["streams"] == want[sched],
+                  f"phase 10: reduced {sched} rank {r} of {n}: "
+                  f"{got['streams']} != the one-device engine's "
+                  f"{want[sched]}")
+            check_path_kernels(got["launches"],
+                               ("moe_ffn", "paged_attention"),
+                               f"serve_mesh reduced rank {r}")
+    runs[f"sm_reduced_{n}"] = _summed(
+        [res["reduced"][s]["launches"] for res in ranks
+         for s in SM_REDUCED_SCHEDULES])
+    for case in ranks[0]["full"]:
+        rows = [res["full"][case] for res in ranks]
+        for r, row in enumerate(rows):
+            check(row["streams"] == rows[0]["streams"],
+                  f"phase 10 {case}: rank {r} of {n} streamed "
+                  f"otherwise than rank 0")
+            check(row["bytes_as_predicted"],
+                  f"phase 10 {case} rank {r}: bytes {row['bytes']} "
+                  f"!= predicted {row['bytes_predicted']}")
+            check(row["weight_bytes_as_blocks"],
+                  f"phase 10 {case} rank {r}: weight bytes "
+                  f"{row['weight_bytes']} != its serve blocks'")
+            check(row["launches"]["paged_attention"] > 0
+                  and row["launches"]["moe_ffn"] > 0,
+                  f"phase 10 {case} rank {r}: launches "
+                  f"{_live(row['launches'])}")
+        arch = case.split("/")[0]
+        full.setdefault(arch, {})[f"{case}/{n}"] = rows[0]
+        runs[f"sm_{arch}_{n}"] = _summed(
+            [runs.get(f"sm_{arch}_{n}", {})]
+            + [row["launches"] for row in rows])
+        emit("serve_mesh", case=case, ranks=n,
+             layers=SM_FULL[arch][0] or "all", dtype="bfloat16",
+             requests=len(rows[0]["streams"]),
+             steps=rows[0]["steps"],
+             init_s=max(row["init_s"] for row in rows),
+             wall_s_per_rank=[row["wall_s"] for row in rows],
+             total_tok_per_s_per_rank=[row["total_tok_per_s"]
+                                       for row in rows],
+             decode_tok_per_s_per_rank=[row["decode_tok_per_s"]
+                                        for row in rows],
+             peak_bytes_per_rank=[row["peak_bytes"] for row in rows],
+             weight_bytes_per_rank=[row["weight_bytes"] for row in rows],
+             bytes_rank0=rows[0]["bytes"],
+             collective_ms_per_rank=[row["collective_ms"] for row in rows],
+             launches_per_rank=[_live(row["launches"]) for row in rows],
+             experts_per_shard_tracker=rows[0]["experts_per_shard_tracker"],
+             experts_per_shard_routing=rows[0]["experts_per_shard_routing"],
+             timing="ranks time-sharing one card, collectives over "
+                    "gloo on the host", card=dev)
+    emit("serve_mesh_spawn", ranks=n, seconds=seconds,
+         reduced_s=max(res["reduced_s"] for res in ranks))
 
 
 def _live(launches: dict) -> dict:
@@ -2493,6 +2911,18 @@ LINE = [
      "ep_granite_moe_3b_a800m_4"),
     ("moe_ffn_quant", dict(dtype="float32", E=1, C=256, bits=8),
      "ep_reduced_4"),
+    # phase 10: each rank's paged attention and grouped FFN serving on 2
+    # and 4 ranks (launches summed over the ranks and the schedules)
+    ("paged_attention", dict(PAGED_T32, hd=64, Hq=12, Hkv=4),
+     "sm_granite_moe_3b_a800m_2"),
+    ("paged_attention", dict(PAGED_T32, hd=64, Hq=6, Hkv=2),
+     "sm_granite_moe_3b_a800m_4"),
+    ("paged_attention", dict(PAGED_T32, hd=128, Hq=12, Hkv=2), "sm_dbrx_4"),
+    ("moe_ffn", dict(dtype="bfloat16", E=24, C=176),
+     "sm_granite_moe_3b_a800m_2"),
+    ("moe_ffn", dict(dtype="bfloat16", E=12, C=176),
+     "sm_granite_moe_3b_a800m_4"),
+    ("moe_ffn", dict(dtype="bfloat16", E=4, C=256), "sm_dbrx_4"),
 ]
 
 
@@ -2570,7 +3000,7 @@ def main() -> int:
     runs["serve_resilience"] = check_serve_resilience(torch, params, streams)
     from repro_torch.configs.base import get_config
     runs["serve_reference"] = check_serve_reference(
-        torch, get_config(ARCH), params, "serve_reference")
+        torch, full_config(), params, "serve_reference")
     del params
     runs["serve_quant"] = check_serve_quant(torch)
     granite = get_config("granite_moe_3b_a800m")
@@ -2590,6 +3020,7 @@ def main() -> int:
     check_dense(torch, runs)
     check_train(torch, runs)
     check_expert_parallel(torch, runs)
+    check_serve_mesh(torch, runs)
     print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,9 @@ tree comes over too: a JAX ``QuantTensor`` leaf arrives as an
 object with ``data``/``scale`` (numpy) and ``bits``/``block``/
 ``orig_dim``/``out_dtype`` attributes; the bridge reads those attributes
 (without importing the class) and builds the port's ``QuantTensor``.
-On a mesh, ``from_jax_params(..., mesh=)`` gives one rank its parameters.
+On a mesh, ``from_jax_params(..., mesh=)`` gives one rank its parameters:
+its expert rows for the full-sequence forward, or with ``mode="serve"``
+its serve-mode block of every weight (``launch/sharding.py``).
 """
 from __future__ import annotations
 
@@ -23,7 +25,9 @@ import numpy as np
 import torch
 
 from repro_torch.core import expert_parallel
+from repro_torch.core import quant
 from repro_torch.core.quant import QuantTensor
+from repro_torch.launch import sharding
 from repro_torch.models.model import resolve_device
 
 _QUANT_META = ("bits", "block", "orig_dim", "out_dtype")
@@ -85,20 +89,37 @@ def _logical_shape(leaf) -> tuple:
     return tuple(np.shape(leaf))
 
 
-def from_jax_params(tree: dict, cfg, device, mesh=None) -> dict:
+def from_jax_params(tree: dict, cfg, device, mesh=None,
+                    mode: str = "forward") -> dict:
     """The JAX param tree (as numpy) -> the port's parameters on ``device``.
     Raises if the tree's structure or (logical) shapes differ from what the
     port's ``Model.init`` builds for ``cfg``.  With a ``mesh``
     (``launch/mesh.py``) it is this rank's parameters: every leaf whole but
     the expert stacks, which keep this rank's rows
     (``expert_parallel.expert_rows``; QuantTensor payload and scales
-    alike), as ``Model.init(gen, mesh)`` builds them."""
+    alike), as ``Model.init(gen, mesh)`` builds them.  With
+    ``mode="serve"`` it is this rank's serve-mode block of every leaf
+    (``sharding.shard_tree``), as ``Model.init_serving`` builds them: the
+    whole tree is quantized first as ``cfg.weight_quant`` asks (already
+    quantized leaves pass through), on the host, then cut, as the
+    reference quantizes on load before placing the weights."""
     got = _tree_map(_logical_shape, tree)
     want = param_shapes(cfg)
     if got != want:
         raise ValueError(f"JAX params do not match the port's layout for "
                          f"{cfg.name}: {got} != {want}")
     resolve_device(device)
+    if mode not in ("forward", "serve"):
+        raise ValueError(f"unknown mode {mode!r}; expected forward or serve")
+    if mesh is not None and mode == "serve":
+        whole = quant.quantize_params(from_jax_params(tree, cfg, "cpu"), cfg,
+                                      inplace=True)
+        cut = sharding.shard_tree(whole, sharding.serve_specs(cfg, mesh),
+                                  mesh)
+        return _tree_map(lambda t: QuantTensor(
+            t.data.to(device), t.scale.to(device), t.bits, t.block,
+            t.orig_dim, t.out_dtype) if isinstance(t, QuantTensor)
+            else t.to(device), cut)
     if mesh is not None and "experts" in tree.get("blocks", {}):
         rows = (slice(None), expert_parallel.expert_rows(cfg, mesh))
         cut = lambda leaf: (types.SimpleNamespace(

@@ -4,12 +4,14 @@
 One function per collective the schedules use, each over one axis of a
 ``launch.mesh.Mesh``:
 
-  psum          -> all_reduce                  "all-reduce"
+  psum          -> all_gather, rank-order sum  "all-reduce"
   all_gather    -> all_gather_into_tensor      "all-gather"
   psum_scatter  -> reduce_scatter_tensor       "reduce-scatter"
   all_to_all    -> all_to_all_single           "all-to-all" (async form too)
   ppermute      -> batch_isend_irecv ring      "collective-permute"
-  pmean         -> all_reduce, then / n        AUX ("aux-pmean")
+  pmean         -> psum's sum, then / n        AUX ("aux-pmean")
+  pmax          -> all_reduce(MAX)             "all-reduce"
+  broadcast     -> broadcast from the axis's first rank  "broadcast"
 
 Each call adds its OPERAND bytes to the mesh's per-rank counter
 (``mesh.bytes``) under the HLO kind names that
@@ -21,15 +23,20 @@ expert axis (``LAYOUT``, see ``core/expert_parallel``).  An axis of size
 1 is an identity and counts nothing.
 
 Transport: the ranks meet over gloo (``launch/mesh.py``), so a CUDA
-operand goes through a pinned host buffer: a device-to-host copy, the
-collective on the host, a copy back.  The choice is fixed by the tensor's
-device.  A CUDA operand is copied only after its stream is synchronised,
-so ``mesh.seconds`` holds the collective and its copies, not the compute
-that produced the operand.  Sums run in the operand's dtype, as
-``jax.lax.psum`` does, so the wire carries the bytes that are counted;
-the order in which the transport adds the ranks' terms is its own (a sum
-of two is order-free; of more, a 16-bit result may differ from a
-one-device sum in its last bits).  Bools travel as uint8.
+operand goes through a pinned host buffer: a device-to-host copy queued
+behind the compute that produced the operand and one wait for both, the
+collective on the host, a copy back that the host does not wait for.
+The choice is fixed by the tensor's device.  ``mesh.seconds`` holds that
+wait, the collective and the copies.
+
+Sums run in the operand's dtype, as ``jax.lax.psum`` does, and in rank
+order: every rank gathers the axis's terms and adds them first to last,
+so every rank holds the same bits, and a 16-bit sum equals the
+one-device sum of the same partials in shard order.  A gather is also
+the faster sum here: gloo's ring all-reduce takes 2 (n - 1) exchanges,
+each a thread wake-up on every rank, where the gather takes n - 1, and on
+a few hundred KB a wake-up costs more than the wire.  Bools travel as
+uint8.
 """
 from __future__ import annotations
 
@@ -49,14 +56,23 @@ def _count(mesh, kind: str, x: torch.Tensor, seconds: float) -> None:
 
 def _to_host(x: torch.Tensor) -> torch.Tensor:
     """The operand where gloo reads it: a pinned host copy of a CUDA
-    tensor (the stream synchronised first), else a contiguous copy (the
-    collectives write their buffers in place)."""
+    tensor (the copy queued on the stream, then one wait for it and all
+    before it), else a contiguous copy (the collectives write their
+    buffers in place)."""
     if x.is_cuda:
-        torch.cuda.current_stream(x.device).synchronize()
         host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-        host.copy_(x)
+        host.copy_(x, non_blocking=True)
+        torch.cuda.current_stream(x.device).synchronize()
         return host
     return x.contiguous().clone()
+
+
+def _back(host: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A collective's result on the operand's device.  The copy up from
+    pinned memory is stream-ordered and does not wait: the next kernel on
+    the stream reads it, and the host allocator keeps the buffer until the
+    copy is done."""
+    return host.to(x.device, non_blocking=True) if x.is_cuda else host
 
 
 def _empty_like_host(x: torch.Tensor, shape) -> torch.Tensor:
@@ -70,16 +86,54 @@ def _raw(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.uint8) if x.dtype == torch.bool else x
 
 
+def _sum(buf: torch.Tensor, x: torch.Tensor, mesh,
+         axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of every rank's host ``buf`` (operand ``x``
+    staged), in rank order and in its dtype."""
+    terms = _empty_like_host(x, (mesh.shape[axis],) + tuple(buf.shape))
+    dist.all_gather_into_tensor(terms.view(-1), buf.reshape(-1),
+                                group=mesh.groups[axis])
+    out = terms[0]
+    for term in terms[1:]:
+        out += term
+    return out
+
+
 def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Sum of ``x`` over ``axis``; every rank of the axis gets it."""
+    """Sum of ``x`` over ``axis`` in rank order; every rank of the axis
+    gets the same bits."""
+    if mesh.groups[axis] is None:
+        return x
+    t0 = time.perf_counter()
+    out = _back(_sum(_to_host(x), x, mesh, axis), x)
+    _count(mesh, "all-reduce", x, time.perf_counter() - t0)
+    return out
+
+
+def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Elementwise maximum of ``x`` over ``axis`` (``jax.lax.pmax``, an
+    all-reduce in HLO); every rank of the axis gets it."""
     if mesh.groups[axis] is None:
         return x
     t0 = time.perf_counter()
     buf = _to_host(x)
-    dist.all_reduce(buf, group=mesh.groups[axis])
-    out = buf.to(x.device)
+    dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=mesh.groups[axis])
+    out = _back(buf, x)
     _count(mesh, "all-reduce", x, time.perf_counter() - t0)
     return out
+
+
+def broadcast(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The value of ``x`` on the axis's first rank (index 0), handed to
+    every rank of the axis."""
+    if mesh.groups[axis] is None:
+        return x
+    t0 = time.perf_counter()
+    buf = _to_host(_raw(x))
+    dist.broadcast(buf, src=mesh.rank_at(axis, 0), group=mesh.groups[axis])
+    out = _back(buf, x)
+    _count(mesh, "broadcast", x, time.perf_counter() - t0)
+    return out.view(torch.bool) if x.dtype == torch.bool else out
 
 
 def pmean(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
@@ -92,9 +146,9 @@ def pmean(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
     buf = _to_host(x)
     n = 1
     for a in live:
-        dist.all_reduce(buf, group=mesh.groups[a])
+        buf = _sum(buf, x, mesh, a)
         n *= mesh.shape[a]
-    out = buf.to(x.device) / n
+    out = _back(buf, x) / n
     _count(mesh, AUX, x, time.perf_counter() - t0)
     return out
 
@@ -111,7 +165,7 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
     out = _empty_like_host(src, (n * src.numel(),))
     dist.all_gather_into_tensor(out, src.reshape(-1),
                                 group=mesh.groups[axis])
-    out = out.view((n,) + tuple(x.shape)).to(x.device)
+    out = _back(out.view((n,) + tuple(x.shape)), x)
     out = torch.cat(out.unbind(0), dim=dim)
     _count(mesh, kind, x, time.perf_counter() - t0)
     return out.view(torch.bool) if x.dtype == torch.bool else out
@@ -129,7 +183,7 @@ def psum_scatter(x: torch.Tensor, mesh, axis: str,
     src = _to_host(blocks)
     out = _empty_like_host(src, (src.shape[0] // n,) + src.shape[1:])
     dist.reduce_scatter_tensor(out, src, group=mesh.groups[axis])
-    out = out.to(x.device).movedim(0, dim)
+    out = _back(out, x).movedim(0, dim)
     _count(mesh, "reduce-scatter", x, time.perf_counter() - t0)
     return out
 
@@ -146,7 +200,7 @@ class Pending:
         t0 = time.perf_counter()
         if self.work is not None:
             self.work.wait()
-        out = self.out.to(self.x.device)
+        out = _back(self.out, self.x)
         _count(self.mesh, "all-to-all", self.x,
                self.t_issue + time.perf_counter() - t0)
         return out
@@ -184,6 +238,6 @@ def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
                        mesh.groups[axis]) for s, d in perm if d == me]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    out = out.to(x.device)
+    out = _back(out, x)
     _count(mesh, "collective-permute", x, time.perf_counter() - t0)
     return out

@@ -593,7 +593,8 @@ def paper_table5() -> dict[str, float]:
 # move for one (batch, seq) block, mirroring the reference's expert-parallel
 # schedule bodies exactly (including their decode fallbacks).  The JAX
 # package's analysis (rule R2) compares these numbers against the compiled
-# program's per-kind collective bytes; the port's meshes are a later slice.
+# program's per-kind collective bytes; the port counts each rank's operand
+# bytes in ``core/collectives`` and its mesh tests hold them to these.
 
 
 def predicted_collective_bytes(cfg, *, batch: int, seq: int,

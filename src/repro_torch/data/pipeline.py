@@ -111,4 +111,4 @@ def shard_batch(batch: dict, mesh, batch_axes=("pod", "data")) -> dict:
     """Place a host batch on a mesh, the batch axis sharded over the data
     axes: a later slice (``Model.forward`` on a mesh takes the global batch
     and cuts its own rows, ``expert_parallel.batch_shard``)."""
-    raise not_ported("sharding a batch over a mesh", "meshes (2)")
+    raise not_ported("sharding a batch over a mesh", "meshes (3)")

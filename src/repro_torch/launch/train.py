@@ -61,7 +61,7 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int, mesh=None,
     history): one dict of floats per logged step (loss, ce, aux, lr,
     grad_norm, step, wall_s)."""
     if mesh is not None:
-        raise not_ported("training on a mesh", "meshes (2)")
+        raise not_ported("training on a mesh", "meshes (3)")
     model = build_model(cfg, device)
     params = model.init(torch.Generator(device=model.device).manual_seed(seed))
     ocfg = optim.OptimizerConfig(lr=lr, total_steps=steps,

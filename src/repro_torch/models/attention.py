@@ -33,14 +33,19 @@ ported (ROADMAP queue A: other families).
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import not_ported
-from repro_torch.core import quant
+from repro_torch.core import collectives, quant
 from repro_torch.kernels import ops
+from repro_torch.launch import sharding
 from repro_torch.models import layers
+
+TP_AXIS = "model"
 
 NEG_INF = -1e9   # the reference's mask constant for its jnp attention paths
 # attn_prefill switches to chunked attention at or above this S
@@ -49,15 +54,21 @@ Q_CHUNK = 2048
 K_CHUNK = 1024
 
 
-def attn_init(gen: torch.Generator, cfg, dtype, lead: tuple = ()) -> dict:
-    """Attention weights, optionally stacked along ``lead`` (layers)."""
+def attn_init(gen: torch.Generator, cfg, dtype, lead: tuple = (),
+              keep: dict | None = None) -> dict:
+    """Attention weights, optionally stacked along ``lead`` (layers);
+    ``keep``: each projection's block to store (``layers.dense_init``;
+    biases and norms are replicated in every mode)."""
     d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = gen.device
+    keep = keep or {}
     p = {
-        "wq": layers.dense_init(gen, d, hq * hd, dtype, lead),
-        "wk": layers.dense_init(gen, d, hkv * hd, dtype, lead),
-        "wv": layers.dense_init(gen, d, hkv * hd, dtype, lead),
-        "wo": layers.dense_init(gen, hq * hd, d, dtype, lead),
+        "wq": layers.dense_init(gen, d, hq * hd, dtype, lead, keep.get("wq")),
+        "wk": layers.dense_init(gen, d, hkv * hd, dtype, lead,
+                                keep.get("wk")),
+        "wv": layers.dense_init(gen, d, hkv * hd, dtype, lead,
+                                keep.get("wv")),
+        "wo": layers.dense_init(gen, hq * hd, d, dtype, lead, keep.get("wo")),
     }
     if cfg.qkv_bias:
         p["bq"] = torch.zeros(lead + (hq * hd,), dtype=dtype, device=dev)
@@ -69,18 +80,85 @@ def attn_init(gen: torch.Generator, cfg, dtype, lead: tuple = ()) -> dict:
     return p
 
 
-def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+@dataclasses.dataclass(frozen=True)
+class HeadTP:
+    """This rank's share of every attention layer on a serving mesh, read
+    from the serve-mode specs of ``wq``, ``wk``/``wv`` and ``wo``
+    (``launch/sharding.params_pspec(mode="serve")``), tensor-parallel over
+    "model":
+
+    * ``q_split``: ``wq`` by heads, this rank's q heads ``[q0, q0 + hq)``
+      (else all of them);
+    * ``kv``: ``wk``/``wv`` by ``"heads"``, by the ``"flat"`` Hkv*hd
+      dimension (the new k/v are gathered whole before qk-norm and RoPE,
+      which act on whole heads: the reference's ``head_constrain``), or
+      ``"none"``;
+    * ``kv0``/``hkv``: the kv heads this rank's q heads read, which its
+      page pool and contiguous cache hold;
+    * ``wo_split``: ``wo`` by rows, a partial product per rank summed by a
+      psum; else whole, after the heads are gathered."""
+    mesh: object
+    q_split: bool
+    q0: int
+    hq: int
+    kv: str
+    kv0: int
+    hkv: int
+    wo_split: bool
+
+
+def head_tp(cfg, mesh, spec: dict) -> HeadTP:
+    """The ``HeadTP`` of this rank from the attention specs ``spec``."""
+    n, c = mesh.shape[TP_AXIS], mesh.coords[TP_AXIS]
+    hq_all, hkv_all = cfg.num_heads, cfg.num_kv_heads
+    q_split = sharding.split(spec["wq"], -1)
+    hq = hq_all // n if q_split else hq_all
+    q0 = c * hq if q_split else 0
+    kv = ("none" if not sharding.split(spec["wk"], -1)
+          else "heads" if hkv_all % n == 0 else "flat")
+    g = hq_all // hkv_all
+    kv0 = q0 // g
+    hkv = (q0 + hq - 1) // g + 1 - kv0
+    ok = hq % hkv == 0 and all((q0 + j) // g - kv0 == j // (hq // hkv)
+                               for j in range(hq))
+    if kv == "heads":
+        ok = ok and (kv0, hkv) == (c * hkv_all // n, hkv_all // n)
+    if not ok:
+        raise ValueError(f"q heads [{q0}, {q0 + hq}) of {cfg.name} do not "
+                         f"map onto whole kv heads on {n} ranks")
+    return HeadTP(mesh, q_split, q0, hq, kv, kv0, hkv,
+                  sharding.split(spec["wo"], -2))
+
+
+def _cols(t: torch.Tensor, tp: HeadTP | None, cut: bool) -> torch.Tensor:
+    """This rank's block of a replicated bias whose weight's columns are
+    split over "model"."""
+    if tp is None or not cut:
+        return t
+    return t.chunk(tp.mesh.shape[TP_AXIS], -1)[tp.mesh.coords[TP_AXIS]]
+
+
+def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
+                 tp: HeadTP | None = None):
+    """q (B, S, Hq, hd), k/v (B, S, Hkv, hd), qk-normed and rotated.  On a
+    serving mesh: this rank's q heads and its kv heads (``"heads"``), or
+    every kv head (``"flat"``, gathered; ``"none"``)."""
     if cfg.mrope or not cfg.use_rope:
         raise not_ported("attention without RoPE or with M-RoPE",
                          "other families")
     b, s, _ = x.shape
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     q, k, v = (quant.qdot(x, p[w]) for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(b, s, hq, hd)
-    k = k.reshape(b, s, hkv, hd)
-    v = v.reshape(b, s, hkv, hd)
+        q = q + _cols(p["bq"], tp, tp is not None and tp.q_split)
+        cut_kv = tp is not None and tp.kv != "none"
+        k, v = k + _cols(p["bk"], tp, cut_kv), v + _cols(p["bv"], tp, cut_kv)
+    if tp is not None and tp.kv == "flat":
+        k = collectives.all_gather(k, tp.mesh, TP_AXIS, dim=-1)
+        v = collectives.all_gather(v, tp.mesh, TP_AXIS, dim=-1)
+    q = q.reshape(b, s, -1, hd)
+    k = k.reshape(b, s, -1, hd)
+    v = v.reshape(b, s, -1, hd)
     if cfg.qk_norm:
         q = layers.rms_norm(p["q_norm"], q)
         k = layers.rms_norm(p["k_norm"], k)
@@ -89,16 +167,44 @@ def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     return q, k, v
 
 
+def _used(t: torch.Tensor, tp: HeadTP | None) -> torch.Tensor:
+    """The kv heads this rank's q heads read, of k or v from
+    ``_project_qkv``."""
+    if tp is None or tp.kv == "heads":
+        return t
+    return t[:, :, tp.kv0:tp.kv0 + tp.hkv]
+
+
+def _all_heads(t: torch.Tensor, tp: HeadTP, cut: bool) -> torch.Tensor:
+    """Every head of (B, S, H_loc, hd), gathered over "model" when the
+    heads are split (the context-parallel paths' replicated operands)."""
+    return collectives.all_gather(t, tp.mesh, TP_AXIS, dim=2) if cut else t
+
+
+def _out_proj(p: dict, out: torch.Tensor, tp: HeadTP | None) -> torch.Tensor:
+    """``wo`` over the attention output (B, T, H, hd) of this rank's q
+    heads: a partial product and a psum where ``wo``'s rows are split, the
+    whole product over every head otherwise."""
+    b, t = out.shape[:2]
+    if tp is not None and not tp.wo_split:
+        out = _all_heads(out, tp, tp.q_split)
+    y = quant.qdot(out.reshape(b, t, -1), p["wo"])
+    if tp is not None and tp.wo_split:
+        y = collectives.psum(y, tp.mesh, TP_AXIS)
+    return y
+
+
 def kv_quantized(cfg) -> bool:
     if cfg.kv_cache_dtype not in ("native", "int8"):
         raise ValueError(f"unknown kv_cache_dtype {cfg.kv_cache_dtype!r}")
     return cfg.kv_cache_dtype == "int8"
 
 
-def paged_layer_cache_spec(cfg, num_pages: int, page_size: int, dtype):
-    """Per-layer paged pool: {"k", "v"} (+ {"k_scale", "v_scale"} for an
-    int8 cache) -> (shape, dtype)."""
-    shape = (num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+def paged_layer_cache_spec(cfg, num_pages: int, page_size: int, dtype,
+                           heads: int | None = None):
+    """Per-layer paged pool of ``heads`` kv heads (all by default): {"k",
+    "v"} (+ {"k_scale", "v_scale"} for an int8 cache) -> (shape, dtype)."""
+    shape = (num_pages, page_size, heads or cfg.num_kv_heads, cfg.head_dim)
     if kv_quantized(cfg):
         sshape = shape[:-1] + (1,)
         return {"k": (shape, torch.int8), "v": (shape, torch.int8),
@@ -142,7 +248,8 @@ def _paged_scatter(pool: torch.Tensor, new: torch.Tensor, page: torch.Tensor,
 def attn_block_step_paged(p: dict, cfg, cache: dict, x: torch.Tensor,
                           positions: torch.Tensor, lengths: torch.Tensor,
                           seg_lens: torch.Tensor, block_tables: torch.Tensor,
-                          window: int | None) -> torch.Tensor:
+                          window: int | None,
+                          tp: HeadTP | None = None) -> torch.Tensor:
     """Cached attention of a (B, T) token block over one layer's page pool.
 
     Row b's token j sits at absolute position ``positions[b, j] ==
@@ -151,11 +258,13 @@ def attn_block_step_paged(p: dict, cfg, cache: dict, x: torch.Tensor,
     ``pos % ps`` of ``cache["k"]`` / ``cache["v"]`` (an int8 cache writes
     payload and scales); invalid tokens and positions past the table write
     nothing.  Attention then walks the block table.
-    x: (B, T, D) -> (B, T, D)."""
+    x: (B, T, D) -> (B, T, D).  On a serving mesh (``tp``) the pool holds
+    this rank's kv heads and the kernel runs its q heads."""
     b, t, _ = x.shape
     page_size = cache["k"].shape[1]
     nb = block_tables.shape[1]
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions, tp)
+    k_new, v_new = _used(k_new, tp), _used(v_new, tp)
     valid = torch.arange(t, device=x.device)[None, :] < seg_lens[:, None]
     blk = positions // page_size
     page = torch.gather(block_tables, 1, blk.clamp(0, nb - 1))
@@ -171,8 +280,7 @@ def attn_block_step_paged(p: dict, cfg, cache: dict, x: torch.Tensor,
     out = ops.paged_attention(q, cache["k"], cache["v"], block_tables,
                               lengths, seg_lens, k_scale=cache.get("k_scale"),
                               v_scale=cache.get("v_scale"), window=window)
-    return quant.qdot(out.reshape(b, t, cfg.num_heads * cfg.head_dim),
-                      p["wo"])
+    return _out_proj(p, out, tp)
 
 
 def attn_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
@@ -188,8 +296,7 @@ def attn_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
         out = ops.flash_attention(q, k, v, causal=True, window=window)
     else:
         out = _attend_full(cfg, q, k, v, positions, window)
-    return quant.qdot(out.reshape(b, s, cfg.num_heads * cfg.head_dim),
-                      p["wo"])
+    return _out_proj(p, out, None)
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +380,7 @@ def _attend_full(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal (optionally windowed) attention of a full sequence over
     repeated K/V, the reference's jnp paths: ``attend`` below
     CHUNK_THRESHOLD, ``attend_chunked`` at or above it."""
-    kr, vr = gqa_repeat(k, cfg.num_heads), gqa_repeat(v, cfg.num_heads)
+    kr, vr = gqa_repeat(k, q.shape[2]), gqa_repeat(v, q.shape[2])
     scale = cfg.head_dim ** -0.5
     if q.shape[1] >= CHUNK_THRESHOLD:
         return attend_chunked(q, kr, vr, positions, positions, window, scale)
@@ -289,10 +396,12 @@ def _attend_full(cfg, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # the contiguous cache: (B, S, Hkv, hd) per layer, one row per slot
 # ---------------------------------------------------------------------------
 
-def layer_cache_spec(cfg, batch: int, cache_len: int, dtype):
-    """Per-layer contiguous cache: {"k", "v"} (+ {"k_scale", "v_scale"}
-    for an int8 cache) -> (shape, dtype)."""
-    shape = (batch, cache_len, cfg.num_kv_heads, cfg.head_dim)
+def layer_cache_spec(cfg, batch: int, cache_len: int, dtype,
+                     heads: int | None = None):
+    """Per-layer contiguous cache of ``heads`` kv heads (all by default):
+    {"k", "v"} (+ {"k_scale", "v_scale"} for an int8 cache) -> (shape,
+    dtype)."""
+    shape = (batch, cache_len, heads or cfg.num_kv_heads, cfg.head_dim)
     if kv_quantized(cfg):
         sshape = shape[:-1] + (1,)
         return {"k": (shape, torch.int8), "v": (shape, torch.int8),
@@ -366,9 +475,9 @@ def _attend_grouped_block(cfg, q: torch.Tensor, k_cache: torch.Tensor,
     without repeating K/V: q (B, Tq, Hq, hd), k/v (B, S, Hkv, hd), mask
     (B, Tq, S) bool -> (B, Tq, Hq, hd).  fp32 logits and P.V (the
     reference's preferred_element_type), masked at -1e9."""
-    b, tq, _, hd = q.shape
+    b, tq, hq, hd = q.shape
     hkv = k_cache.shape[2]
-    g = cfg.num_heads // hkv
+    g = hq // hkv
     qg = q.reshape(b, tq, hkv, g, hd)
     logits = torch.einsum("bqhgd,bshd->bhgqs", qg.float(),
                           k_cache.float()) * cfg.head_dim ** -0.5
@@ -398,8 +507,8 @@ def _new_kv(cfg, k: torch.Tensor, v: torch.Tensor) -> dict:
 
 
 def attn_decode_step(p: dict, cfg, cache: dict, x: torch.Tensor,
-                     lengths: torch.Tensor,
-                     window: int | None) -> torch.Tensor:
+                     lengths: torch.Tensor, window: int | None,
+                     tp: HeadTP | None = None) -> torch.Tensor:
     """One new token per row against the contiguous cache.  x (B, 1, D);
     lengths (B,) tokens already cached.  Row b writes its K/V at slot
     ``lengths[b]`` (clamped to the last slot) IN PLACE and attends slots
@@ -407,8 +516,8 @@ def attn_decode_step(p: dict, cfg, cache: dict, x: torch.Tensor,
     b = x.shape[0]
     cache_len = cache["k"].shape[1]
     _refuse_ring(window is not None and cache_len == window)
-    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None])
-    for kk, vals in _new_kv(cfg, k_new, v_new).items():
+    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None], tp)
+    for kk, vals in _new_kv(cfg, _used(k_new, tp), _used(v_new, tp)).items():
         _update_cache(cache[kk], vals, lengths)
     k_cache, v_cache = _cache_kv(cfg, cache, x.dtype)
     idx = torch.arange(cache_len, device=x.device)[None, :]
@@ -417,14 +526,13 @@ def attn_decode_step(p: dict, cfg, cache: dict, x: torch.Tensor,
     if window is not None:
         mask = mask & (idx > ln - window)
     out = _attend_grouped_block(cfg, q, k_cache, v_cache, mask[:, None, :])
-    return quant.qdot(out.reshape(b, 1, cfg.num_heads * cfg.head_dim),
-                      p["wo"])
+    return _out_proj(p, out, tp)
 
 
 def attn_block_step(p: dict, cfg, cache: dict, x: torch.Tensor,
                     positions: torch.Tensor, lengths: torch.Tensor,
-                    seg_lens: torch.Tensor,
-                    window: int | None) -> torch.Tensor:
+                    seg_lens: torch.Tensor, window: int | None,
+                    tp: HeadTP | None = None) -> torch.Tensor:
     """The unified step's contiguous form: row b's first ``seg_lens[b]``
     tokens (absolute positions ``positions[b]``) continue its sequence at
     cache offset ``lengths[b]``; they are written IN PLACE
@@ -434,8 +542,8 @@ def attn_block_step(p: dict, cfg, cache: dict, x: torch.Tensor,
     b, t, _ = x.shape
     cache_len = cache["k"].shape[1]
     _refuse_ring(window is not None and cache_len == window)
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions)
-    for kk, vals in _new_kv(cfg, k_new, v_new).items():
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions, tp)
+    for kk, vals in _new_kv(cfg, _used(k_new, tp), _used(v_new, tp)).items():
         _update_cache_block(cache[kk], vals, lengths, seg_lens)
     k_cache, v_cache = _cache_kv(cfg, cache, x.dtype)
     slot_pos = block_slot_positions(lengths, cache_len)
@@ -446,13 +554,13 @@ def attn_block_step(p: dict, cfg, cache: dict, x: torch.Tensor,
     if window is not None:
         mask = mask & (slot_pos[:, None, :] > qp[:, :, None] - window)
     out = _attend_grouped_block(cfg, q, k_cache, v_cache, mask)
-    return quant.qdot(out.reshape(b, t, cfg.num_heads * cfg.head_dim),
-                      p["wo"])
+    return _out_proj(p, out, tp)
 
 
 def attn_prefill(p: dict, cfg, cache: dict, x: torch.Tensor,
                  positions: torch.Tensor, window: int | None,
-                 rows: torch.Tensor | None = None) -> torch.Tensor:
+                 rows: torch.Tensor | None = None, tp: HeadTP | None = None,
+                 seq_block: bool = False) -> torch.Tensor:
     """Full-sequence forward that also fills the contiguous cache IN PLACE
     (the reference engine's padded prefill).  x (B, S, D); positions
     (B, S).  Attention is ``attend`` over repeated K/V, or
@@ -461,18 +569,29 @@ def attn_prefill(p: dict, cfg, cache: dict, x: torch.Tensor,
     tokens, rolled so that position p sits at slot p % cache_len (the
     reference rolls whenever ``S >= cache_len``, window or not).  ``rows``
     (B,) bool limits the write to those rows (the batched prefill's admit
-    mask: in-flight rows keep their cache).  Returns (B, S, D)."""
+    mask: in-flight rows keep their cache).  Returns (B, S, D).
+
+    On a serving mesh (``tp``) the attention runs this rank's heads; with
+    ``seq_block`` the cache is the context-parallel layout (this rank's
+    sequence block of every kv head, ``attn_decode_step_cp``) and takes
+    the slots of its block."""
     b, s, _ = x.shape
-    cache_len = cache["k"].shape[1]
-    q, k, v = _project_qkv(p, cfg, x, positions)
-    out = _attend_full(cfg, q, k, v, positions, window)
-    out = quant.qdot(out.reshape(b, s, cfg.num_heads * cfg.head_dim),
-                     p["wo"])
+    q, k, v = _project_qkv(p, cfg, x, positions, tp)
+    out = _attend_full(cfg, q, _used(k, tp), _used(v, tp), positions, window)
+    out = _out_proj(p, out, tp)
+    if not seq_block:
+        k, v = _used(k, tp), _used(v, tp)
+        lo, cache_len = 0, cache["k"].shape[1]
+    else:
+        cut = tp.kv == "heads"
+        k, v = _all_heads(k, tp, cut), _all_heads(v, tp, cut)
+        lo = tp.mesh.coords[TP_AXIS] * cache["k"].shape[1]
+        cache_len = cache["k"].shape[1] * tp.mesh.shape[TP_AXIS]
     if s >= cache_len:
         k = torch.roll(k[:, s - cache_len:], shifts=s, dims=1)
         v = torch.roll(v[:, s - cache_len:], shifts=s, dims=1)
-    n = k.shape[1]
-    for kk, vals in _new_kv(cfg, k, v).items():
+    n = max(0, min(cache["k"].shape[1], k.shape[1] - lo))
+    for kk, vals in _new_kv(cfg, k[:, lo:lo + n], v[:, lo:lo + n]).items():
         dst = cache[kk][:, :n]
         vals = vals.to(dst.dtype)
         if rows is not None:
@@ -480,3 +599,77 @@ def attn_prefill(p: dict, cfg, cache: dict, x: torch.Tensor,
                                vals, dst)
         dst.copy_(vals)
     return out
+
+
+# ---------------------------------------------------------------------------
+# context-parallel decode: the cache sequence-sharded over "model"
+# ---------------------------------------------------------------------------
+
+def use_cp_decode(cfg, mesh, cache_len: int) -> bool:
+    """Sequence-sharded decode applies when a mesh with a "model" axis is
+    present, the cache length divides it and the config opts in (the
+    reference's rule)."""
+    return (mesh is not None
+            and TP_AXIS in getattr(mesh, "axis_names", ())
+            and getattr(cfg, "kv_cache_shard", "seq") == "seq"
+            and cache_len % mesh.shape[TP_AXIS] == 0)
+
+
+def attn_decode_step_cp(p: dict, cfg, cache: dict, x: torch.Tensor,
+                        lengths: torch.Tensor, window: int | None,
+                        tp: HeadTP) -> torch.Tensor:
+    """Decode-time context parallelism (the reference's
+    ``attn_decode_step_cp``): the contiguous cache is sequence-sharded
+    over "model", (B, S / n, Hkv, hd) per rank, its block of every kv
+    head.  q and the new k/v are gathered to every head (the reference's
+    replicated operands); the new token is written by the rank whose
+    block holds slot ``lengths[b]`` (none past the cache); each rank
+    attends its block, and the online-softmax statistics are merged with
+    a pmax and two psums.  The output keeps this rank's q heads for a
+    split ``wo`` (partial product, psum), or every head for a whole one.
+    x (B, 1, D) -> (B, 1, D)."""
+    b = x.shape[0]
+    n, c = tp.mesh.shape[TP_AXIS], tp.mesh.coords[TP_AXIS]
+    s_loc = cache["k"].shape[1]
+    _refuse_ring(window is not None and s_loc * n == window)
+    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None], tp)
+    q = _all_heads(q, tp, tp.q_split)
+    cut = tp.kv == "heads"
+    k_new, v_new = _all_heads(k_new, tp, cut), _all_heads(v_new, tp, cut)
+    local = lengths.long() - c * s_loc
+    ok = (local >= 0) & (local < s_loc)
+    rows = torch.arange(b, device=x.device)
+    slot = local.clamp(0, s_loc - 1)
+    for kk, vals in _new_kv(cfg, k_new, v_new).items():
+        cur = cache[kk][rows, slot]
+        cache[kk][rows, slot] = torch.where(
+            ok.reshape((b,) + (1,) * (cur.dim() - 1)),
+            vals[:, 0].to(cur.dtype), cur)
+    kc, vc = _cache_kv(cfg, cache, q.dtype)
+    hkv, hd = kc.shape[2], cfg.head_dim
+    g = q.shape[2] // hkv
+    qg = q.reshape(b, 1, hkv, g, hd)
+    logits = torch.einsum("bqhgd,bshd->bhgqs", qg.float(),
+                          kc.float()) * hd ** -0.5
+    gidx = c * s_loc + torch.arange(s_loc, device=x.device)[None, :]
+    ln = lengths.long()[:, None]
+    mask = gidx <= ln
+    if window is not None:
+        mask = mask & (gidx > ln - window)
+    mask5 = mask[:, None, None, None, :]
+    logits = torch.where(mask5, logits, NEG_INF)
+    m_loc = logits.amax(dim=-1)                             # (B, Hkv, G, 1)
+    pr = torch.where(mask5, torch.exp(logits - m_loc[..., None]), 0.0)
+    l_loc = pr.sum(dim=-1)
+    acc = torch.einsum("bhgqs,bshd->bhgqd", pr.to(vc.dtype).float(),
+                       vc.float())
+    m_g = collectives.pmax(m_loc, tp.mesh, TP_AXIS)
+    corr = torch.exp(m_loc - m_g)
+    l_g = collectives.psum(l_loc * corr, tp.mesh, TP_AXIS)
+    acc = collectives.psum(acc * corr[..., None], tp.mesh, TP_AXIS)
+    out = acc / torch.clamp(l_g[..., None], min=1e-30)      # (B,Hkv,G,1,hd)
+    out = out.to(q.dtype).permute(0, 3, 1, 2, 4).reshape(b, 1, hkv * g, hd)
+    if tp.wo_split:
+        out = out[:, :, tp.q0:tp.q0 + tp.hq]
+    y = quant.qdot(out.reshape(b, 1, -1), p["wo"])
+    return collectives.psum(y, tp.mesh, TP_AXIS) if tp.wo_split else y

@@ -7,12 +7,13 @@ generator's device.
 """
 from __future__ import annotations
 
+import itertools
 import math
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import quant
+from repro_torch.core import collectives, quant
 
 
 # ---------------------------------------------------------------------------
@@ -20,31 +21,42 @@ from repro_torch.core import quant
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
-               lead: tuple = (), keep: slice | None = None) -> torch.Tensor:
+               lead: tuple = (), keep=None) -> torch.Tensor:
     """(*lead, d_in, d_out) weights ~ N(0, 1/d_in), drawn in fp32 one
     (d_in, d_out) matrix at a time, so the fp32 transient stays one matrix
-    even for a full-width expert stack.  ``keep``: store only these indices
-    of the last lead axis (a rank's expert rows); every matrix is still
-    drawn, so the kept ones equal the whole stack's."""
-    kept = range(lead[-1])[keep] if keep is not None else None
-    shape = lead if kept is None else lead[:-1] + (len(kept),)
-    out = torch.empty(shape + (d_in, d_out), dtype=dtype, device=gen.device)
-    mats = out.view(-1, d_in, d_out)
+    even for a full-width expert stack.  ``keep``: store only a block of
+    the whole, one slice per dimension of (*lead, d_in, d_out) (a slice
+    alone: of the last lead axis, a rank's expert rows); every matrix is
+    still drawn, so the kept block equals the same block of the whole."""
+    full = lead + (d_in, d_out)
+    if isinstance(keep, slice):
+        keep = (slice(None),) * (len(lead) - 1) + (keep, slice(None),
+                                                   slice(None))
+    keep = keep if keep is not None else (slice(None),) * len(full)
+    kept = [range(n)[k] for n, k in zip(full, keep)]
+    out = torch.empty(tuple(len(r) for r in kept), dtype=dtype,
+                      device=gen.device)
+    mats = out.view(-1, len(kept[-2]), len(kept[-1]))
     scale = 1.0 / math.sqrt(d_in)
-    for i in range(math.prod(lead)):
+    for idx in itertools.product(*map(range, lead)):
         mat = torch.randn((d_in, d_out), generator=gen, device=gen.device,
-                          dtype=torch.float32).mul_(scale)
-        if kept is None:
-            mats[i].copy_(mat)
-        elif i % lead[-1] in kept:
-            mats[i // lead[-1] * len(kept)
-                 + kept.index(i % lead[-1])].copy_(mat)
+                          dtype=torch.float32)
+        if not all(j in r for j, r in zip(idx, kept)):
+            continue
+        pos = 0
+        for j, r in zip(idx, kept):
+            pos = pos * len(r) + r.index(j)
+        mats[pos].copy_(mat[keep[-2], keep[-1]].mul_(scale))
     return out
 
 
-def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> torch.Tensor:
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
+               keep: tuple | None = None) -> torch.Tensor:
+    """(vocab, d) ~ N(0, 0.02^2); ``keep``: store only that block."""
     w = torch.randn((vocab, d), generator=gen, device=gen.device,
                     dtype=torch.float32)
+    if keep is not None:
+        w = w[keep].clone()
     return w.mul_(0.02).to(dtype)
 
 
@@ -115,23 +127,38 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mlp_init(gen: torch.Generator, d: int, f: int, dtype,
-             lead: tuple = ()) -> dict:
-    """The dense block's MLP weights, optionally stacked along ``lead``."""
-    return {"w_gate": dense_init(gen, d, f, dtype, lead),
-            "w_up": dense_init(gen, d, f, dtype, lead),
-            "w_down": dense_init(gen, f, d, dtype, lead)}
+             lead: tuple = (), keep: dict | None = None) -> dict:
+    """The dense block's MLP weights, optionally stacked along ``lead``;
+    ``keep``: each weight's block to store (``dense_init``)."""
+    keep = keep or {}
+    return {"w_gate": dense_init(gen, d, f, dtype, lead, keep.get("w_gate")),
+            "w_up": dense_init(gen, d, f, dtype, lead, keep.get("w_up")),
+            "w_down": dense_init(gen, f, d, dtype, lead, keep.get("w_down"))}
 
 
-def mlp_apply(params: dict, x: torch.Tensor,
-              act: str = "silu") -> torch.Tensor:
+def mlp_apply(params: dict, x: torch.Tensor, act: str = "silu",
+              tp=None) -> torch.Tensor:
     """act(x W_gate) * (x W_up) W_down through ``quant.qdot``, in x's dtype
     (the reference's ``qdot`` here asks for no fp32 output, so a bf16 run
     rounds g, u and the result to bf16 as it does).  ``gelu`` is the tanh
-    form, as ``jax.nn.gelu`` defaults to."""
+    form, as ``jax.nn.gelu`` defaults to.
+
+    On a serving mesh ``tp`` is (mesh, F split in W_gate / W_up, F split
+    in W_down), read from the serve-mode specs: with W_down's rows split
+    each rank multiplies its columns of F and a psum over "model" adds the
+    partial outputs; with them whole the columns are gathered first and
+    the product runs whole."""
     g = quant.qdot(x, params["w_gate"])
     u = quant.qdot(x, params["w_up"])
     g = (F.gelu(g, approximate="tanh") if act == "gelu" else F.silu(g))
-    return quant.qdot(g * u, params["w_down"])
+    h = g * u
+    if tp is None:
+        return quant.qdot(h, params["w_down"])
+    mesh, cols, rows = tp
+    if cols and not rows:
+        h = collectives.all_gather(h, mesh, "model", dim=-1)
+    y = quant.qdot(h, params["w_down"])
+    return collectives.psum(y, mesh, "model") if rows else y
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,15 @@
 """Public model API of the port: ``build_model(cfg, device)`` -> ``Model``.
 
   init(generator)                      -> params
-  init_paged_cache(num_pages, page_size) -> {"k", "v"} page pools
-  init_cache(batch, cache_len)         -> {"k", "v"} contiguous cache
-  forward_routed(params, batch, cache, context_len) -> (logits, routing)
-  prefill_routed(params, batch, cache) -> (logits, routing)  reference
-  decode_step_routed(params, cache, batch, context_len) -> (logits, routing)
+  init_serving(generator, mesh)        -> this rank's serve-mode blocks
+  init_paged_cache(num_pages, page_size, mesh=None) -> {"k", "v"} page pools
+  init_cache(batch, cache_len, mesh=None) -> {"k", "v"} contiguous cache
+  forward_routed(params, batch, cache, context_len, mesh=None)
+                                       -> (logits, routing)
+  prefill_routed(params, batch, cache, context_len, mesh=None)
+                                       -> (logits, routing)  reference
+  decode_step_routed(params, cache, batch, context_len, mesh=None)
+                                       -> (logits, routing)
   forward(params, batch, mesh=None)    -> (logits, aux)   full sequence
   forward_seq_routed(params, batch, mesh=None) -> (logits, aux, routing)
   loss(params, batch, kernels=True)    -> (total, {"ce", "aux"})
@@ -19,8 +23,18 @@ On a mesh (``launch/mesh.py``, one rank process per mesh position) the
 full-sequence forward runs the paper's expert-parallel schedules
 (``core/expert_parallel.py``): ``init(gen, mesh)`` keeps this rank's
 expert rows, and ``forward(params, batch, mesh)`` takes the global batch
-and returns this rank's rows of it (``expert_parallel.batch_shard``).  The
-other entry points on a mesh are a later slice and raise.
+and returns this rank's rows of it (``expert_parallel.batch_shard``).
+
+The cached entry points (``forward_routed``, ``prefill_routed``,
+``decode_step_routed``) serve on a mesh with the serve-mode layout of
+``launch/sharding.py``: ``init_serving(gen, mesh)`` (or
+``bridge.from_jax_params(..., mesh=, mode="serve")``) holds this rank's
+block of every weight, the layers run tensor-parallel over "model"
+(``transformer.ServeTP``), the MoE layer runs ``cfg.expert_parallel`` over
+the whole batch on every rank, and the logits come back whole on every
+rank (the head's vocabulary columns gathered).  The caches are built per
+rank (``init_paged_cache`` / ``init_cache`` with ``mesh=``).  The loss on a
+mesh is a later slice and raises.
 
 Parameters are a plain dict in the JAX package's layout: weights
 (D_in, D_out), experts (L, E, D, F) / (L, E, F, D), the dense MLP
@@ -39,8 +53,13 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import not_ported
-from repro_torch.core import expert_parallel, quant
-from repro_torch.models import layers, transformer
+from repro_torch.core import collectives, expert_parallel, quant
+from repro_torch.launch import sharding
+from repro_torch.models import attention, layers, transformer
+
+# the collectives counter's key for the LM head's vocabulary gather on a
+# serving mesh (``perf_model.predicted_collective_bytes`` leaves it out)
+HEAD = "head"
 
 
 def resolve_device(device) -> torch.device:
@@ -59,10 +78,10 @@ def resolve_device(device) -> torch.device:
 
 def _refuse_mesh(mesh, what: str) -> None:
     if mesh is not None:
-        raise not_ported(f"{what} on a mesh", "meshes (2)")
+        raise not_ported(f"{what} on a mesh", "meshes (3)")
 
 
-def _lm_head(cfg, params, x: torch.Tensor) -> torch.Tensor:
+def _lm_head(cfg, params, x: torch.Tensor, tp=None) -> torch.Tensor:
     """Logits in fp32: the weight is rounded (or a quantized head
     dequantized) to x's dtype, as the reference does, then the product runs
     on fp32 copies, so bf16 logits are never rounded back to bf16 (close
@@ -71,19 +90,44 @@ def _lm_head(cfg, params, x: torch.Tensor) -> torch.Tensor:
     of it) in ``forward`` and ``loss``; besides the (B, rows, V) fp32
     logits, the fp32 copy of the weight is the call's one transient."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return x.float() @ quant.materialize(w, x.dtype).to(x.dtype).float()
+    logits = x.float() @ quant.materialize(w, x.dtype).to(x.dtype).float()
+    if tp is not None and tp.head:
+        # this rank's vocabulary columns; every rank gets them all (booked
+        # apart from the collectives the performance model predicts)
+        logits = collectives.all_gather(logits, tp.mesh, "model", dim=-1,
+                                        kind=HEAD)
+    return logits
 
 
-def _embed_inputs(cfg, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+def _embed(cfg, params, tok: torch.Tensor, tp=None) -> torch.Tensor:
+    """Embedding rows of the (clamped) tokens in the compute dtype.  On a
+    serving mesh with the table split by vocabulary rows each rank looks
+    up the tokens in its rows, writes zeros for the others, and a psum
+    over "model" adds them up: one nonzero term per token, so the sum is
+    exact."""
+    w = params["embed"]
+    if tp is None or not tp.embed:
+        return w[tok].to(cfg.torch_dtype)
+    vl = cfg.vocab_padded // tp.mesh.shape["model"]
+    loc = tok - tp.mesh.coords["model"] * vl
+    ok = (loc >= 0) & (loc < vl)
+    x = torch.where(ok[..., None], w[loc.clamp(0, vl - 1)], 0.0)
+    return collectives.psum(x.to(cfg.torch_dtype), tp.mesh, "model")
+
+
+def _embed_inputs(cfg, params, batch,
+                  tp=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Text tokens -> (x (B, S, D) in the compute dtype, positions (B, S));
     every position counts in the loss.  (Frame and patch inputs belong to
     families ``build_model`` refuses.)"""
     tokens = batch["tokens"]
     b, s = tokens.shape
-    # F.embedding: its backward sums each token's rows in parallel
-    x = F.embedding(tokens.long().clamp(0, cfg.vocab_size - 1),
-                    params["embed"])
+    tok = tokens.long().clamp(0, cfg.vocab_size - 1)
     positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    if tp is not None:
+        return _embed(cfg, params, tok, tp), positions
+    # F.embedding: its backward sums each token's rows in parallel
+    x = F.embedding(tok, params["embed"])
     return x.to(cfg.torch_dtype), positions
 
 
@@ -92,11 +136,13 @@ class Model:
     cfg: object
     device: torch.device
 
-    def init(self, gen: torch.Generator | None = None, mesh=None) -> dict:
+    def init(self, gen: torch.Generator | None = None, mesh=None,
+             keep: dict | None = None) -> dict:
         """Random parameters drawn from ``gen`` (seed 0 on the model's
         device when omitted).  On a ``mesh`` every expert stack holds this
         rank's rows alone, equal to the same rows of the whole draw (every
-        matrix is drawn; the rank keeps its own)."""
+        matrix is drawn; the rank keeps its own).  ``keep``: a tree of
+        slices, the block of every leaf to store (``init_serving``)."""
         cfg = self.cfg
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
@@ -104,54 +150,108 @@ class Model:
             raise ValueError(f"generator on {gen.device}, model on "
                              f"{self.device}")
         pdt = cfg.param_torch_dtype
+        keep = keep or {}
         params = {
-            "embed": layers.embed_init(gen, cfg.vocab_padded, cfg.d_model, pdt),
-            "blocks": transformer.init_blocks(cfg, gen, mesh),
+            "embed": layers.embed_init(gen, cfg.vocab_padded, cfg.d_model, pdt,
+                                       keep.get("embed")),
+            "blocks": transformer.init_blocks(cfg, gen, mesh,
+                                              keep.get("blocks")),
             "final_norm": layers.norm_init(cfg.norm, cfg.d_model, pdt,
                                            self.device),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = layers.dense_init(gen, cfg.d_model,
-                                                  cfg.vocab_padded, pdt)
+            params["lm_head"] = layers.dense_init(
+                gen, cfg.d_model, cfg.vocab_padded, pdt, (),
+                keep.get("lm_head"))
         return params
 
-    def init_paged_cache(self, num_pages: int, page_size: int) -> dict:
+    def init_serving(self, gen: torch.Generator | None = None,
+                     mesh=None) -> dict:
+        """This rank's serve-mode blocks (``launch/sharding.py``) of the
+        parameters ``init(gen)`` draws: every matrix is drawn one at a time
+        and the rank keeps its block, which equals the same block of the
+        whole draw, so the one-device model of the same seed is its
+        reference.  With ``weight_quant`` the whole tree is drawn and
+        quantized first, then cut, as the reference quantizes on load
+        before placing the weights."""
+        cfg = self.cfg
+        if cfg.weight_quant != "none":
+            params = quant.quantize_params(self.init(gen), cfg, inplace=True)
+            return sharding.shard_tree(params, sharding.serve_specs(cfg, mesh),
+                                       mesh)
+        return self.init(gen, keep=sharding.serve_slices(cfg, mesh))
+
+    def _cache_heads(self, mesh) -> int | None:
+        return (transformer.serve_tp(self.cfg, mesh).attn.hkv
+                if mesh is not None else None)
+
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         mesh=None) -> dict:
+        """The page pool; on a serving mesh, of this rank's kv heads."""
         return transformer.init_paged_stack_cache(
-            self.cfg, num_pages, page_size, self.cfg.torch_dtype, self.device)
+            self.cfg, num_pages, page_size, self.cfg.torch_dtype, self.device,
+            self._cache_heads(mesh))
 
     def cache_specs(self, batch: int, cache_len: int) -> dict:
         return transformer.stack_cache_spec(self.cfg, batch, cache_len,
                                             self.cfg.torch_dtype)
 
-    def init_cache(self, batch: int, cache_len: int) -> dict:
+    def init_cache(self, batch: int, cache_len: int, mesh=None,
+                   seq_sharded: bool = False) -> dict:
+        """The contiguous cache; on a serving mesh, of this rank's kv
+        heads, or with ``seq_sharded`` (context-parallel decode, where
+        ``attention.use_cp_decode`` holds) its sequence block of every kv
+        head."""
+        if seq_sharded:
+            return transformer.init_stack_cache(
+                self.cfg, batch, cache_len, self.cfg.torch_dtype, self.device,
+                None, mesh.shape["model"])
         return transformer.init_stack_cache(
-            self.cfg, batch, cache_len, self.cfg.torch_dtype, self.device)
+            self.cfg, batch, cache_len, self.cfg.torch_dtype, self.device,
+            self._cache_heads(mesh))
 
-    def _head_last(self, params: dict, x: torch.Tensor) -> torch.Tensor:
+    def _serve_tp(self, mesh, context_len):
+        """(the layout on a serving mesh or None, whether the contiguous
+        cache is sequence-sharded)."""
+        if mesh is None:
+            return None, False
+        if context_len is None:
+            raise ValueError("on a mesh pass context_len, the logical cache "
+                             "length (a sequence-sharded cache holds a "
+                             "block of it)")
+        return (transformer.serve_tp(self.cfg, mesh),
+                attention.use_cp_decode(self.cfg, mesh, context_len))
+
+    def _head_last(self, params: dict, x: torch.Tensor,
+                   tp=None) -> torch.Tensor:
         """Final norm and LM head of x (B, 1, D): (B, 1, V_padded) fp32."""
         x = layers.norm_apply(self.cfg.norm, params["final_norm"], x)
-        return _lm_head(self.cfg, params, x)
+        return _lm_head(self.cfg, params, x, tp)
 
-    def prefill_routed(self, params: dict, batch: dict, cache: dict, *,
-                       mesh=None):
+    def prefill_routed(self, params: dict, batch: dict, cache: dict,
+                       context_len: int | None = None, *, mesh=None):
         """The reference engine's prefill: a whole (B, S) prompt block from
         position 0 fills the contiguous ``cache`` IN PLACE.  batch:
         {"tokens": (B, S), optional "token_mask" (B, S) bool (False tokens
         are dead-routed past the MoE), optional "rows" (B,) bool (the rows
         whose cache is written; all by default)}.  The window is decided at
         S, as in the reference.  Returns (logits (B, 1, V_padded) fp32 at
-        the last position, routing (L, B*S, K) or None)."""
-        _refuse_mesh(mesh, "the reference engine's prefill")
+        the last position, routing (L, B*S, K) or None).  On a ``mesh``
+        ``context_len`` is the logical cache length (``_serve_tp``)."""
         cfg = self.cfg
-        x, positions = _embed_inputs(cfg, params, batch)
+        tp, cp = self._serve_tp(mesh, context_len)
+        x, positions = _embed_inputs(cfg, params, batch, tp)
         window = transformer.effective_window(cfg, x.shape[1])
         x, routing = transformer.prefill_stack(
             cfg, params["blocks"], x, positions, cache, window,
-            token_mask=batch.get("token_mask"), rows=batch.get("rows"))
-        return self._head_last(params, x[:, -1:]), routing
+            token_mask=batch.get("token_mask"), rows=batch.get("rows"),
+            tp=tp, cp=cp)
+        return self._head_last(params, x[:, -1:], tp), routing
 
-    def prefill(self, params: dict, batch: dict, cache: dict, *, mesh=None):
-        return self.prefill_routed(params, batch, cache, mesh=mesh)[0]
+    def prefill(self, params: dict, batch: dict, cache: dict,
+                context_len: int | None = None, *, mesh=None):
+        return self.prefill_routed(params, batch, cache, context_len,
+                                   mesh=mesh)[0]
 
     def decode_step_routed(self, params: dict, cache: dict, batch: dict,
                            context_len: int | None = None, *, mesh=None):
@@ -159,17 +259,19 @@ class Model:
         PLACE).  batch: {"tokens": (B, 1), "lengths": (B,) tokens already
         cached, optional "token_mask" (B, 1)}.  The window is decided at
         ``context_len`` or the cache length.  Returns (logits (B, 1,
-        V_padded) fp32, routing (L, B, K) or None)."""
-        _refuse_mesh(mesh, "the one-token decode")
+        V_padded) fp32, routing (L, B, K) or None).  On a ``mesh`` pass
+        ``context_len``: with a sequence-sharded cache the decode is
+        context-parallel (``attention.attn_decode_step_cp``)."""
         cfg = self.cfg
+        tp, cp = self._serve_tp(mesh, context_len)
         tok = batch["tokens"].long().clamp(0, cfg.vocab_size - 1)
-        x = params["embed"][tok].to(cfg.torch_dtype)
+        x = _embed(cfg, params, tok, tp)
         window = transformer.effective_window(
             cfg, context_len or cache["k"].shape[2])
         x, routing = transformer.decode_stack(
             cfg, params["blocks"], x, batch["lengths"], cache, window,
-            token_mask=batch.get("token_mask"))
-        return self._head_last(params, x), routing
+            token_mask=batch.get("token_mask"), tp=tp, cp=cp)
+        return self._head_last(params, x, tp), routing
 
     def decode_step(self, params: dict, cache: dict, batch: dict,
                     context_len: int | None = None, *, mesh=None):
@@ -191,16 +293,18 @@ class Model:
 
         Returns (logits (B, V_padded) fp32 at each row's LAST VALID
         position, routing (L, B*T, K) int32, or None for the dense
-        family)."""
-        _refuse_mesh(mesh, "the unified serving step")
+        family).  On a ``mesh`` the step runs tensor-parallel over this
+        rank's serve blocks and cache, and every rank gets the whole
+        logits."""
         cfg = self.cfg
+        tp = transformer.serve_tp(cfg, mesh) if mesh is not None else None
         block_tables = batch.get("block_tables")
         tokens = batch["tokens"]
         lengths = batch["lengths"]
         seg_lens = batch["seg_lens"]
         b, t = tokens.shape
         tok = tokens.long().clamp(0, cfg.vocab_size - 1)
-        x = params["embed"][tok].to(cfg.torch_dtype)
+        x = _embed(cfg, params, tok, tp)
         positions = lengths[:, None].long() + torch.arange(
             t, device=tokens.device)[None]
         token_mask = batch.get("token_mask")
@@ -212,11 +316,11 @@ class Model:
         window = transformer.effective_window(cfg, context_len or cache_len)
         x, routing = transformer.unified_stack(
             cfg, params["blocks"], x, positions, lengths, seg_lens, cache,
-            window, token_mask, block_tables)
+            window, token_mask, block_tables, tp)
         sel = (seg_lens.long() - 1).clamp(0, t - 1)
         x_sel = torch.gather(x, 1, sel[:, None, None].expand(b, 1, x.shape[2]))
         x_sel = layers.norm_apply(cfg.norm, params["final_norm"], x_sel)
-        return _lm_head(cfg, params, x_sel)[:, 0], routing
+        return _lm_head(cfg, params, x_sel, tp)[:, 0], routing
 
     def _trunk(self, params: dict, batch: dict, kernels: bool = True,
                mesh=None):

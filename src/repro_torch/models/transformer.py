@@ -16,50 +16,68 @@ cache in place: PyTorch needs no donation for that.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import not_ported
 from repro_torch.core import expert_parallel
+from repro_torch.launch import sharding
 from repro_torch.models import attention, layers
 
 
-def _moe_layer_init(cfg, gen: torch.Generator, dtype, mesh=None) -> dict:
+def _in_copy(rows: slice, e: int) -> slice:
+    """Rows of the r-copy expert stack (E_pad * r rows) as rows of one
+    copy: a rank's rows lie inside one."""
+    if rows.start is None:
+        return rows
+    return slice(rows.start % e, rows.start % e + rows.stop - rows.start)
+
+
+def _moe_layer_init(cfg, gen: torch.Generator, dtype, mesh=None,
+                    keep=None) -> dict:
     L, e, d, f = (cfg.num_layers, cfg.num_experts_padded, cfg.d_model,
                   cfg.d_ff)
     norm = lambda: layers.norm_init(cfg.norm, d, dtype, gen.device, (L,))
     r = max(cfg.expert_replication, 1)
-    keep = None
+    keep = keep or {}
+    ex = {k: None for k in ("w_gate", "w_up", "w_down")}
     if mesh is not None:
-        # this rank's rows of the r-copy stack lie inside one copy
-        rows = expert_parallel.expert_rows(cfg, mesh)
-        keep = slice(rows.start % e, rows.start % e + rows.stop - rows.start)
+        ex = dict.fromkeys(ex, _in_copy(expert_parallel.expert_rows(cfg, mesh),
+                                        e))
+    elif "experts" in keep:
+        ex = {k: (sl[0], _in_copy(sl[1], e)) + sl[2:]
+              for k, sl in keep["experts"].items()}
     experts = {
-        "w_gate": layers.dense_init(gen, d, f, dtype, (L, e), keep),
-        "w_up": layers.dense_init(gen, d, f, dtype, (L, e), keep),
-        "w_down": layers.dense_init(gen, f, d, dtype, (L, e), keep),
+        "w_gate": layers.dense_init(gen, d, f, dtype, (L, e), ex["w_gate"]),
+        "w_up": layers.dense_init(gen, d, f, dtype, (L, e), ex["w_up"]),
+        "w_down": layers.dense_init(gen, f, d, dtype, (L, e), ex["w_down"]),
     }
-    if r > 1 and mesh is None:
+    if r > 1 and mesh is None and not keep:
         # the paper's overlapping placement (§5.3) stores r copies of the
         # expert stack, as the reference does; one device reads the first
         experts = {k: torch.cat([w] * r, dim=1) for k, w in experts.items()}
     return {
         "ln1": norm(),
-        "attn": attention.attn_init(gen, cfg, dtype, (L,)),
+        "attn": attention.attn_init(gen, cfg, dtype, (L,), keep.get("attn")),
         "ln2": norm(),
-        "router": layers.dense_init(gen, d, e, dtype, (L,)),
+        "router": layers.dense_init(gen, d, e, dtype, (L,),
+                                    keep.get("router")),
         "experts": experts,
     }
 
 
-def _dense_layer_init(cfg, gen: torch.Generator, dtype) -> dict:
+def _dense_layer_init(cfg, gen: torch.Generator, dtype, keep=None) -> dict:
     L, d = cfg.num_layers, cfg.d_model
     norm = lambda: layers.norm_init(cfg.norm, d, dtype, gen.device, (L,))
+    keep = keep or {}
     return {
         "ln1": norm(),
-        "attn": attention.attn_init(gen, cfg, dtype, (L,)),
+        "attn": attention.attn_init(gen, cfg, dtype, (L,), keep.get("attn")),
         "ln2": norm(),
-        "mlp": layers.mlp_init(gen, d, cfg.d_ff, dtype, (L,)),
+        "mlp": layers.mlp_init(gen, d, cfg.d_ff, dtype, (L,),
+                               keep.get("mlp")),
     }
 
 
@@ -68,19 +86,51 @@ def _check_family(cfg) -> None:
         raise not_ported(f"the {cfg.family!r} family", "other families")
 
 
-def init_blocks(cfg, gen: torch.Generator, mesh=None) -> dict:
+def init_blocks(cfg, gen: torch.Generator, mesh=None, keep=None) -> dict:
     """Layer-stacked block parameters, drawn from ``gen`` on its device;
-    on a ``mesh`` the expert stacks hold this rank's rows alone."""
+    on a ``mesh`` the expert stacks hold this rank's rows alone.
+    ``keep``: the block of each leaf to store, a tree of slices
+    (``launch/sharding.serve_slices``), every matrix still drawn."""
     _check_family(cfg)
     if cfg.family == "moe":
-        return _moe_layer_init(cfg, gen, cfg.param_torch_dtype, mesh)
-    return _dense_layer_init(cfg, gen, cfg.param_torch_dtype)
+        return _moe_layer_init(cfg, gen, cfg.param_torch_dtype, mesh, keep)
+    return _dense_layer_init(cfg, gen, cfg.param_torch_dtype, keep)
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeTP:
+    """A serving mesh's layout of the model on this rank, read from the
+    serve-mode specs (``launch/sharding.serve_specs``): the embedding by
+    vocabulary rows (``embed``), the LM head by vocabulary columns
+    (``head``), each attention layer's heads (``attention.HeadTP``), the
+    dense MLP's F split in W_gate / W_up and in W_down (``mlp``); the
+    experts are the rank's rows and the MoE layer runs
+    ``cfg.expert_parallel`` with no batch axes (every rank holds the
+    whole batch: the data axes are replicas)."""
+    mesh: object
+    embed: bool
+    head: bool
+    attn: attention.HeadTP
+    mlp: tuple | None
+
+
+def serve_tp(cfg, mesh) -> ServeTP:
+    specs = sharding.serve_specs(cfg, mesh)
+    blocks = specs["blocks"]
+    head = (sharding.split(specs["embed"], 0) if cfg.tie_embeddings
+            else sharding.split(specs["lm_head"], -1))
+    mlp = None
+    if cfg.family == "dense":
+        mlp = (mesh, sharding.split(blocks["mlp"]["w_gate"], -1),
+               sharding.split(blocks["mlp"]["w_down"], -2))
+    return ServeTP(mesh, sharding.split(specs["embed"], 0), head,
+                   attention.head_tp(cfg, mesh, blocks["attn"]), mlp)
 
 
 def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
                     decode=False, token_mask=None, block_lens=None,
                     block_tables=None, rows=None, kernels=True, mesh=None,
-                    batch_axes=None):
+                    batch_axes=None, tp=None, cp=False):
     """Attention (+ cache) and the MLP or MoE layer.  The attention step:
     with ``block_lens`` (lengths, seg_lens) the unified block step, over
     the paged pool when ``block_tables`` is given and the contiguous
@@ -90,26 +140,36 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
     the full-sequence forward (``kernels=False``: through no kernel, the
     trainer's path).  On a ``mesh`` (the full-sequence forward) ``x`` is
     this rank's batch block over ``batch_axes`` and the MoE layer runs its
-    expert-parallel schedule.  Returns (x, aux, routed (B*T, K) or None for
-    the dense family)."""
+    expert-parallel schedule.  On a serving mesh (``tp``, a ``ServeTP``)
+    the cached steps run tensor-parallel over "model" and the MoE layer
+    the schedule over the whole batch; ``cp``: the contiguous cache is
+    sequence-sharded (the decode is ``attn_decode_step_cp``).  Returns
+    (x, aux, routed (B*T, K) or None for the dense family)."""
     h = layers.norm_apply(cfg.norm, layer_p["ln1"], x)
     ap = layer_p["attn"]
+    at = tp.attn if tp is not None else None
+    if tp is not None:
+        mesh, batch_axes = tp.mesh, ()
     if cache_l is None:
         h = attention.attn_forward(ap, cfg, h, positions, window, kernels)
     elif block_lens is not None and block_tables is not None:
         lengths, seg_lens = block_lens
         h = attention.attn_block_step_paged(
             ap, cfg, cache_l, h, positions, lengths, seg_lens, block_tables,
-            window)
+            window, at)
     elif block_lens is not None:
         lengths, seg_lens = block_lens
         h = attention.attn_block_step(ap, cfg, cache_l, h, positions,
-                                      lengths, seg_lens, window)
+                                      lengths, seg_lens, window, at)
+    elif decode and cp:
+        h = attention.attn_decode_step_cp(ap, cfg, cache_l, h, positions,
+                                          window, at)
     elif decode:
-        h = attention.attn_decode_step(ap, cfg, cache_l, h, positions, window)
+        h = attention.attn_decode_step(ap, cfg, cache_l, h, positions, window,
+                                       at)
     else:
         h = attention.attn_prefill(ap, cfg, cache_l, h, positions, window,
-                                   rows)
+                                   rows, at, cp)
     x = x + h
     h = layers.norm_apply(cfg.norm, layer_p["ln2"], x)
     if cfg.family == "moe":
@@ -118,46 +178,55 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
             cfg, moe_p, h, token_mask, mesh=mesh, kernels=kernels,
             batch_axes=batch_axes)
     else:
-        h = layers.mlp_apply(layer_p["mlp"], h, cfg.act)
+        h = layers.mlp_apply(layer_p["mlp"], h, cfg.act,
+                             tp.mlp if tp is not None else None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         routed = None
     return x + h, aux, routed
 
 
-def paged_stack_cache_spec(cfg, num_pages: int, page_size: int, dtype):
+def paged_stack_cache_spec(cfg, num_pages: int, page_size: int, dtype,
+                           heads: int | None = None):
     """Stacked paged pool: {"k", "v"} -> ((L, P, ps, Hkv, hd), dtype), and
-    for an int8 cache {"k_scale", "v_scale"} -> ((L, P, ps, Hkv, 1), fp32)."""
+    for an int8 cache {"k_scale", "v_scale"} -> ((L, P, ps, Hkv, 1), fp32);
+    ``heads`` kv heads (all by default)."""
     _check_family(cfg)
-    per = attention.paged_layer_cache_spec(cfg, num_pages, page_size, dtype)
+    per = attention.paged_layer_cache_spec(cfg, num_pages, page_size, dtype,
+                                           heads)
     return {kk: ((cfg.num_layers,) + shape, dt)
             for kk, (shape, dt) in per.items()}
 
 
 def init_paged_stack_cache(cfg, num_pages: int, page_size: int, dtype,
-                           device) -> dict:
+                           device, heads: int | None = None) -> dict:
     return {kk: torch.zeros(shape, dtype=dt, device=device)
             for kk, (shape, dt) in paged_stack_cache_spec(
-                cfg, num_pages, page_size, dtype).items()}
+                cfg, num_pages, page_size, dtype, heads).items()}
 
 
-def stack_cache_spec(cfg, batch: int, cache_len: int, dtype):
+def stack_cache_spec(cfg, batch: int, cache_len: int, dtype,
+                     heads: int | None = None, seq_shards: int = 1):
     """Stacked contiguous cache: {"k", "v"} -> ((L, B, S, Hkv, hd), dtype)
-    (+ int8 scales (L, B, S, Hkv, 1) fp32).  As in the reference the cache
-    is clipped to the effective window, which makes it a ring buffer: not
-    ported (ROADMAP queue A: other families)."""
+    (+ int8 scales (L, B, S, Hkv, 1) fp32); ``heads`` kv heads (all by
+    default) and S = cache_len / ``seq_shards`` (a sequence block).  As in
+    the reference the cache is clipped to the effective window, which
+    makes it a ring buffer: not ported (ROADMAP queue A: other
+    families)."""
     _check_family(cfg)
     win = effective_window(cfg, cache_len)
     if win is not None and win <= cache_len:
         raise not_ported("a ring (sliding-window) cache", "other families")
-    per = attention.layer_cache_spec(cfg, batch, cache_len, dtype)
+    per = attention.layer_cache_spec(cfg, batch, cache_len // seq_shards,
+                                     dtype, heads)
     return {kk: ((cfg.num_layers,) + shape, dt)
             for kk, (shape, dt) in per.items()}
 
 
-def init_stack_cache(cfg, batch: int, cache_len: int, dtype, device) -> dict:
+def init_stack_cache(cfg, batch: int, cache_len: int, dtype, device,
+                     heads: int | None = None, seq_shards: int = 1) -> dict:
     return {kk: torch.zeros(shape, dtype=dt, device=device)
             for kk, (shape, dt) in stack_cache_spec(
-                cfg, batch, cache_len, dtype).items()}
+                cfg, batch, cache_len, dtype, heads, seq_shards).items()}
 
 
 def effective_window(cfg, seq_len: int) -> int | None:
@@ -233,7 +302,7 @@ def _cached_stack(cfg, blocks, x, cache, **block_kw):
 
 
 def unified_stack(cfg, blocks, x, positions, lengths, seg_lens, cache, window,
-                  token_mask, block_tables=None):
+                  token_mask, block_tables=None, tp=None):
     """Token-block forward through all layers, over the paged pool
     (``block_tables`` (B, NB)) or the contiguous cache (None).
 
@@ -244,21 +313,24 @@ def unified_stack(cfg, blocks, x, positions, lengths, seg_lens, cache, window,
     return _cached_stack(cfg, blocks, x, cache, positions=positions,
                          window=window, token_mask=token_mask,
                          block_lens=(lengths, seg_lens),
-                         block_tables=block_tables)
+                         block_tables=block_tables, tp=tp)
 
 
 def prefill_stack(cfg, blocks, x, positions, cache, window, token_mask=None,
-                  rows=None):
+                  rows=None, tp=None, cp=False):
     """Full-sequence forward that fills the contiguous cache IN PLACE (the
     reference engine's prefill); ``rows`` (B,) bool: the rows it writes.
     Returns (x, routing (L, B*S, K) or None)."""
     return _cached_stack(cfg, blocks, x, cache, positions=positions,
-                         window=window, token_mask=token_mask, rows=rows)
+                         window=window, token_mask=token_mask, rows=rows,
+                         tp=tp, cp=cp)
 
 
-def decode_stack(cfg, blocks, x, lengths, cache, window, token_mask=None):
+def decode_stack(cfg, blocks, x, lengths, cache, window, token_mask=None,
+                 tp=None, cp=False):
     """One-token decode through all layers: x (B, 1, D) at positions
     ``lengths``, written IN PLACE into the contiguous cache.  Returns
     (x, routing (L, B, K) or None)."""
     return _cached_stack(cfg, blocks, x, cache, positions=lengths,
-                         window=window, decode=True, token_mask=token_mask)
+                         window=window, decode=True, token_mask=token_mask,
+                         tp=tp, cp=cp)

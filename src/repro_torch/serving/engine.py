@@ -46,8 +46,22 @@ greedy at ``temperature == 0`` and temperature-scaled top-k Gumbel
 otherwise, from a generator on the engine's device seeded by
 ``(sample_seed, step index)``.
 
-Not ported yet (each raises ``NotImplementedError``): ring (sliding-
-window) caches and meshes (ROADMAP queue A).
+On a mesh (``launch/mesh.py``) every rank process runs the same engine
+on the same requests (SPMD): ``params`` are this rank's serve-mode blocks
+(drawn by ``Model.init_serving`` when omitted, or from
+``bridge.from_jax_params(..., mesh=, mode="serve")``), the caches hold
+this rank's kv heads (the two-program engine's contiguous cache, where
+``attention.use_cp_decode`` holds, its sequence block: context-parallel
+decode), and every step runs the model tensor-parallel over "model" with
+the MoE layer under ``cfg.expert_parallel``.  The ranks must take every
+host decision alike, or they issue different collectives and hang: the
+logits come back whole and bit-identical on every rank (a gloo all-reduce
+and all-gather hand each rank the same bits), fault plans key on the step
+index, and the one clock that could differ, the deadlines', is rank 0's,
+broadcast once per step while a deadline exists (``_now``).
+
+Not ported yet (``NotImplementedError``): ring (sliding-window) caches
+(ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -59,8 +73,9 @@ import numpy as np
 import torch
 
 from repro_torch import not_ported
-from repro_torch.core import quant
+from repro_torch.core import collectives, quant
 from repro_torch.core.dynamic_load import LRUExpertTracker
+from repro_torch.models.attention import use_cp_decode
 from repro_torch.models.model import build_model, resolve_device
 from repro_torch.models.transformer import effective_window
 from repro_torch.serving import scheduler as sched
@@ -166,8 +181,6 @@ class ServingEngine:
                  generator: torch.Generator | None = None,
                  device="cuda", mesh=None, fault_plan=None):
         ecfg = engine_cfg or EngineConfig()
-        if mesh is not None:
-            raise not_ported("mesh-sharded serving", "meshes (2)")
         # the reference's three configuration errors, in its order
         if fault_plan is not None and not ecfg.unified_step:
             raise ValueError("fault injection requires the unified engine "
@@ -192,10 +205,14 @@ class ServingEngine:
             raise ValueError(f"page_size must be >= 1, got {ecfg.page_size}")
         self.cfg = cfg_model
         self.ecfg = ecfg
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.model = build_model(cfg_model, self.device)
-        self.params = (params if params is not None
-                       else self.model.init(generator))
+        drawn = params is None
+        if drawn:
+            params = (self.model.init_serving(generator, mesh)
+                      if mesh is not None else self.model.init(generator))
+        self.params = params
         if self.params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {self.params['embed'].device}, "
                              f"the engine on {self.device}")
@@ -204,7 +221,7 @@ class ServingEngine:
         # QuantTensor exists (the fp tree and a quantized copy of it would
         # not fit one card together at full width)
         self.params = quant.quantize_params(self.params, cfg_model,
-                                            inplace=params is None)
+                                            inplace=drawn)
         self.tracker = (LRUExpertTracker(cfg_model.num_layers,
                                          cfg_model.num_experts)
                         if cfg_model.is_moe and ecfg.track_experts else None)
@@ -247,13 +264,17 @@ class ServingEngine:
             self.max_blocks = -(-c // self.page_size)
             self.num_pages = ecfg.num_pages or b * self.max_blocks
             self.cache = self.model.init_paged_cache(self.num_pages,
-                                                     self.page_size)
+                                                     self.page_size, mesh)
             self.block_tables = np.zeros((b, self.max_blocks), np.int32)
             self.allocator = PageAllocator(self.num_pages)
             self.prefix = PrefixCache(self.page_size, self.allocator)
             self.slot_pages: list[list[int]] = [[] for _ in range(b)]
         else:
-            self.cache = self.model.init_cache(b, c)
+            # the two-program engine decodes context-parallel on a mesh
+            # where the reference would (``use_cp_decode``)
+            self.cache = self.model.init_cache(
+                b, c, mesh, seq_sharded=(not self.unified and use_cp_decode(
+                    cfg_model, mesh, c)))
         self.stats = {"prefill_tokens": 0, "prefill_pad_tokens": 0,
                       "decode_steps": 0, "decode_tokens": 0,
                       # per-phase token counts of MIXED iterations only —
@@ -362,7 +383,8 @@ class ServingEngine:
         if block_tables is not None:
             batch["block_tables"] = block_tables
         logits, routing = self.model.forward_routed(
-            self.params, batch, self.cache, context_len=self.ecfg.max_cache)
+            self.params, batch, self.cache, context_len=self.ecfg.max_cache,
+            mesh=self.mesh)
         if poison is not None:
             logits = torch.where(torch.isfinite(poison)[:, None], logits,
                                  poison[:, None])
@@ -389,7 +411,8 @@ class ServingEngine:
         tmask = admit[:, None].expand(tokens.shape)
         logits, routing = self.model.prefill_routed(
             self.params, {"tokens": tokens, "token_mask": tmask,
-                          "rows": admit}, self.cache)
+                          "rows": admit}, self.cache, self.ecfg.max_cache,
+            mesh=self.mesh)
         nxt = self._sample_next(logits[:, -1], temps, topks, step_idx)
         return torch.where(admit, nxt, self.last_tok), routing
 
@@ -399,7 +422,8 @@ class ServingEngine:
         cache (a view, written in place).  Returns (last_tok', routing)."""
         one = {kk: v[:, slot:slot + 1] for kk, v in self.cache.items()}
         logits, routing = self.model.prefill_routed(
-            self.params, {"tokens": tokens}, one)
+            self.params, {"tokens": tokens}, one, self.ecfg.max_cache,
+            mesh=self.mesh)
         nxt = self._sample_next(logits[:, -1], temps[slot:slot + 1],
                                 topks[slot:slot + 1], step_idx)
         last_tok = self.last_tok.clone()
@@ -413,7 +437,8 @@ class ServingEngine:
         logits, routing = self.model.decode_step_routed(
             self.params, self.cache,
             {"tokens": self.last_tok[:, None], "lengths": lengths,
-             "token_mask": active[:, None]})
+             "token_mask": active[:, None]}, self.ecfg.max_cache,
+            mesh=self.mesh)
         nxt = self._sample_next(logits[:, -1], temps, topks, step_idx)
         return torch.where(active, nxt, self.last_tok), routing
 
@@ -466,10 +491,13 @@ class ServingEngine:
         if temperature > 0:
             self._sampling = True     # the sort and the draws from now on
         now = time.perf_counter()
+        # on a mesh a deadline runs on rank 0's clock (``_now``)
+        start = (self._now() if self.mesh is not None
+                 and deadline_ms is not None else now)
         req = Request(self._uid, prompt, max_new_tokens,
                       temperature=float(temperature), top_k=int(top_k),
                       priority=int(priority), submit_s=now, seq=self._seq,
-                      deadline_s=(now + deadline_ms / 1e3
+                      deadline_s=(start + deadline_ms / 1e3
                                   if deadline_ms is not None else None))
         self.queue.append(req)
         self._all[req.uid] = req
@@ -1046,7 +1074,13 @@ class ServingEngine:
         """Expire every request whose deadline passed (at the top of each
         step; ``_now`` is patchable in tests).  Queued requests just leave
         the queue; in-flight rows harvest (a device sync) and release their
-        pages through the same exactly-once path as cancel."""
+        pages through the same exactly-once path as cancel.  On a mesh the
+        clock is read (a broadcast) only while some request has a
+        deadline, which every rank's host state agrees on."""
+        if self.mesh is not None and not any(
+                r is not None and r.deadline_s is not None
+                for r in list(self.queue) + self.slots):
+            return
         now = self._now()
         for r in list(self.queue):
             if r.deadline_s is not None and now >= r.deadline_s:
@@ -1059,8 +1093,19 @@ class ServingEngine:
                 if not req.done:
                     self._terminate_slot(i, "expired")
 
-    def _now(self) -> float:
+    def _clock(self) -> float:
         return time.perf_counter()
+
+    def _now(self) -> float:
+        """The deadlines' clock: this process's, or on a mesh rank 0's,
+        broadcast along every axis so that each rank expires the same
+        requests at the same step."""
+        if self.mesh is None:
+            return self._clock()
+        t = torch.tensor([self._clock()], dtype=torch.float64)
+        for axis in self.mesh.axis_names:
+            t = collectives.broadcast(t, self.mesh, axis)
+        return float(t[0])
 
     def _quarantine(self, i: int) -> bool:
         """Row ``i``'s logits came back non-finite: withhold every

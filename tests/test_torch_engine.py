@@ -224,24 +224,37 @@ def test_paging_copy_matches_reference():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mesh=object()), "mesh-sharded serving"),
+    (dict(sliding_window=64), r"ring \(sliding-window\) cache .*other "
+                              r"families"),
     (dict(family="ssm"), "the 'ssm' family .*other families"),
 ])
 def test_out_of_slice_options_raise(kw, match):
-    """What a later slice ports still raises: a mesh, and a family other
-    than dense or moe (the contiguous cache and the reference engine are
-    ported: tests/test_torch_reference_engine.py)."""
+    """What a later slice ports still raises: a ring (sliding-window)
+    cache, and a family other than dense or moe (the contiguous cache and
+    the reference engine are ported: tests/test_torch_reference_engine.py;
+    serving on a mesh: tests/test_torch_serve_mesh.py)."""
     cfg = get_config(ARCH).reduced()
-    mesh = kw.pop("mesh", None)
     with pytest.raises(NotImplementedError, match=match):
-        ServingEngine(cfg.replace(**kw), EngineConfig(), device="cpu",
-                      mesh=mesh)
+        ServingEngine(cfg.replace(**kw), EngineConfig(), device="cpu")
 
 
 def test_out_of_slice_requests_raise():
+    """On a mesh, context-parallel decode over a ring cache (a window as
+    long as the cache) waits for the ring cache, before any collective."""
+    import types
+
+    from repro_torch.models import attention
     cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServingEngine(cfg, device="cpu", mesh=object())
+    mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                 shape={"data": 1, "model": 2},
+                                 coords={"data": 0, "model": 0})
+    tp = attention.HeadTP(mesh, True, 0, 2, "heads", 0, 1, True)
+    cache = {kk: torch.zeros((1, 4, cfg.num_kv_heads, cfg.head_dim))
+             for kk in ("k", "v")}
+    with pytest.raises(NotImplementedError, match="ring .*other families"):
+        attention.attn_decode_step_cp(
+            {}, cfg, cache, torch.zeros((1, 1, cfg.d_model)),
+            torch.zeros((1,), dtype=torch.int32), 8, tp)
 
 
 def test_expert_replication_matches_reference():

@@ -397,28 +397,22 @@ def test_batch_shard_follows_the_reference():
 
 
 def test_entry_points_on_a_mesh_wait_for_meshes_2():
-    """The loss, the cached entry points, the engine, the trainer and
-    ``shard_batch`` on a mesh are queue A's "meshes (2)"."""
+    """The loss, the trainer and ``shard_batch`` on a mesh are queue A's
+    "meshes (3)" (training on a mesh); the cached entry points and the
+    engine serve on a mesh (``tests/test_torch_serve_mesh.py``)."""
     from repro_torch.data import pipeline
     from repro_torch.launch import train
-    from repro_torch.serving.engine import ServingEngine
     cfg = cases.port_config()
     model = build_model(cfg, "cpu")
     mesh = _FakeMesh((1, 2))
     tok = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
            "labels": torch.zeros((1, 4), dtype=torch.int32)}
     calls = [lambda: model.loss({}, tok, mesh=mesh),
-             lambda: model.prefill_routed({}, tok, {}, mesh=mesh),
-             lambda: model.prefill({}, tok, {}, mesh=mesh),
-             lambda: model.decode_step_routed({}, {}, tok, mesh=mesh),
-             lambda: model.decode_step({}, {}, tok, mesh=mesh),
-             lambda: model.forward_routed({}, tok, {}, mesh=mesh),
-             lambda: ServingEngine(cfg, device="cpu", mesh=mesh),
              lambda: train.train(cfg, steps=1, global_batch=1, seq_len=4,
                                  mesh=mesh, device="cpu"),
              lambda: pipeline.shard_batch({}, mesh)]
     for call in calls:
-        with pytest.raises(NotImplementedError, match=r"meshes \(2\)"):
+        with pytest.raises(NotImplementedError, match=r"meshes \(3\)"):
             call()
 
 

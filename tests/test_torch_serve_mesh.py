@@ -1,0 +1,248 @@
+"""Port vs JAX: serving on a mesh (the serve-mode layout of
+``launch/sharding.py``: tensor parallelism over "model", the experts
+under the schedules, context-parallel decode in the two-program engine)
+on meshes of (2, 2) and (1, 4) ranks, fp32 on the reduced configs, CPU.
+
+The JAX side (``torch_serve_oracle.py``) runs in a subprocess with four
+host devices: the reference's one-device engine on the shared weights
+(its mesh engine's own check demands exactly these streams of it), and
+its ``attn_decode_step_cp`` on an ``Auto`` (2, 2) mesh.  The port side
+runs as four spawned gloo rank processes per mesh (``torch_serve_cases``),
+meeting through a ``FileStore`` in the test's tmp dir; each rank bridges
+its serve-mode blocks (``bridge.from_jax_params(..., mode="serve")``) and
+runs the mesh engine.
+
+Checked: greedy streams of the reduced qwen3-moe (capacity factor 8,
+decentralized and a2a_pipelined) through the unified step over the page
+pool and the contiguous cache and through the two-program engine with
+context-parallel decode, of its int8-weight form (block 64), of the
+dense qwen3-0.6b, and of two variants whose specs keep a weight whole
+(six q heads and a QKV bias: wq and wo whole on four ranks; d_ff 12 in
+int4: W_down
+whole on four ranks, its scales re-blocked on two), equal to the JAX
+one-device engine's on every rank;
+each rank's weight bytes equal its serve blocks' and its caches the kv
+heads (or sequence block) its attention uses; one unified step's
+collective bytes by kind equal to ``predicted_collective_bytes(...,
+include_tp=True)`` with the head gather apart; ``attn_decode_step_cp``
+within 1e-5 of JAX's (the int8 payload exact) and of the port's one-device
+``attn_decode_step``; a deadline on rank 0's clock expiring the same
+request on every rank; ``psum`` the rank-order bfloat16 sum on every
+rank."""
+import multiprocessing as mp
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import torch_ep_cases
+import torch_serve_cases as cases
+from repro_torch import bridge
+from repro_torch.core import collectives, perf_model
+from repro_torch.launch import sharding
+from repro_torch.models import attention, transformer
+from repro_torch.models.model import HEAD, build_model
+from test_torch_expert_parallel import SPAWN_TIMEOUT_S, _collect, _FakeMesh
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL_CP = 1e-5
+TOL_LOGITS = 1e-5
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """{"oracle": the JAX npz, mesh name: [each rank's results], "params":
+    the weights}: the oracle subprocess and both meshes' ranks at once."""
+    tmp = tmp_path_factory.mktemp("serve")
+    flat = {}
+    for a in cases.ARCHS:
+        params = torch_ep_cases.model_params(bridge.param_shapes(
+            cases.port_config(a)))
+        flat.update({f"{a}/{k}": v for k, v in
+                     torch_ep_cases.flatten(params).items()})
+    params_path = str(tmp / "params.npz")
+    np.savez(params_path, **flat)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
+    oracle = subprocess.Popen(
+        [sys.executable, str(ROOT / "tests" / "torch_serve_oracle.py"),
+         params_path, str(tmp / "oracle.npz")], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    ctx = mp.get_context("spawn")
+    try:
+        spawned = {}
+        for m, shape in cases.MESHES.items():
+            q = ctx.Queue()
+            world = shape[0] * shape[1]
+            procs = [ctx.Process(target=cases.rank_main, args=(
+                r, world, str(tmp / f"store_{m}"), shape, params_path, q))
+                for r in range(world)]
+            for p in procs:
+                p.start()
+            spawned[m] = (procs, q)
+        out = {m: _collect(*sp) for m, sp in spawned.items()}
+        log, _ = oracle.communicate(timeout=SPAWN_TIMEOUT_S)
+        assert oracle.returncode == 0, log[-4000:]
+    finally:
+        if oracle.poll() is None:
+            oracle.kill()
+            oracle.wait()
+    out["oracle"] = dict(np.load(tmp / "oracle.npz"))
+    out["params"] = {a: torch_ep_cases.unflatten(
+        {k[len(a) + 1:]: v for k, v in flat.items()
+         if k.startswith(a + "/")}) for a in cases.ARCHS}
+    return out
+
+
+def _mesh(name: str, rank: int) -> _FakeMesh:
+    n_data, n_model = cases.MESHES[name]
+    return _FakeMesh((n_data, n_model), data=rank // n_model,
+                     model=rank % n_model)
+
+
+SERVES = [(m, c) for m in cases.MESHES for c in cases.engine_cases()]
+
+
+@pytest.mark.parametrize("mesh_name,case", SERVES,
+                         ids=[f"{m}-{c}" for m, c in SERVES])
+def test_streams_equal_the_jax_one_device_engine(runs, mesh_name, case):
+    """Every rank's greedy streams equal the JAX one-device engine's,
+    exactly, so every rank's equal each other's."""
+    arch, quant, mode, _ = cases.engine_cases()[case]
+    key = cases.oracle_key(arch, quant, mode)
+    want = [runs["oracle"][f"serve/{key}/{i}"].tolist()
+            for i in range(len(cases.traffic()))]
+    for rank, rec in enumerate(runs[mesh_name]):
+        assert rec[f"serve/{case}"]["streams"] == want, (rank, want)
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+def test_ranks_hold_their_serve_blocks_and_caches(runs, mesh_name):
+    """Each rank's weight bytes are its serve blocks' bytes from the specs
+    (``sharding.block_bytes``); its page pool and contiguous cache hold
+    the kv heads its q heads read, and the two-program engine's cache its
+    sequence block of every kv head."""
+    n_model = cases.MESHES[mesh_name][1]
+    for rank, rec in enumerate(runs[mesh_name]):
+        mesh = _mesh(mesh_name, rank)
+        for case, (arch, quant, mode, ep) in cases.engine_cases().items():
+            cfg = cases.port_config(arch, quant, ep)
+            got = rec[f"serve/{case}"]
+            assert got["weight_bytes"] == sharding.block_bytes(cfg, mesh)
+            tp = transformer.serve_tp(cfg, mesh).attn
+            hd, L = cfg.head_dim, cfg.num_layers
+            b, c = cases.ENGINE["max_batch"], cases.ENGINE["max_cache"]
+            if mode == "paged":
+                want = (L, b * c // cases.ENGINE["page_size"],
+                        cases.ENGINE["page_size"], tp.hkv, hd)
+            elif mode == "contiguous":
+                want = (L, b, c, tp.hkv, hd)
+            else:
+                want = (L, b, c // n_model, cfg.num_kv_heads, hd)
+            assert got["cache_shape"] == want, (case, got["cache_shape"])
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+@pytest.mark.parametrize("ep", cases.SCHEDULES)
+def test_unified_step_bytes_equal_the_prediction(runs, mesh_name, ep):
+    """One unified step's collective bytes on each rank, kind by kind,
+    equal ``predicted_collective_bytes(..., n_batch_shards=1,
+    include_tp=True)`` (the embedding psum, the ``wo`` psums, the flat
+    k/v gathers and the schedule); the head's vocabulary gather, the aux
+    pmeans and the layout step are booked apart.  The logits equal the
+    one-device step's."""
+    n_model = cases.MESHES[mesh_name][1]
+    b, t = cases.BYTES_BLOCK
+    cfg = cases.port_config("moe", ep=ep)
+    want = perf_model.predicted_collective_bytes(
+        cfg, batch=b, seq=t, n_exp_shards=n_model, n_batch_shards=1,
+        include_tp=True)
+    model = build_model(cfg, "cpu")
+    params = bridge.from_jax_params(runs["params"]["moe"], cfg, "cpu")
+    cache = model.init_paged_cache(8, 4)
+    rec0 = runs[mesh_name][0][f"bytes/{ep}"]
+    tok = torch.from_numpy(np.random.default_rng(5).integers(
+        0, 500, (b, t)).astype(np.int32))
+    batch = {"tokens": tok, "lengths": torch.tensor([0, 3],
+                                                    dtype=torch.int32),
+             "seg_lens": torch.tensor([t, 2], dtype=torch.int32),
+             "block_tables": torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]],
+                                          dtype=torch.int32)}
+    with torch.no_grad():
+        one, _ = model.forward_routed(params, batch, cache, context_len=16)
+    for rec in (r[f"bytes/{ep}"] for r in runs[mesh_name]):
+        got = {k: v for k, v in rec["bytes"].items()
+               if k not in (collectives.AUX, collectives.LAYOUT, HEAD)}
+        assert got == {k: int(v) for k, v in want.items()}, (got, want)
+        assert rec["bytes"][HEAD] == b * cfg.vocab_padded // n_model * 4
+        np.testing.assert_array_equal(rec["logits"], rec0["logits"])
+        np.testing.assert_allclose(rec["logits"], one.numpy(), rtol=0,
+                                   atol=TOL_LOGITS)
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+@pytest.mark.parametrize("quant", list(cases.CP_CACHE))
+def test_cp_decode_matches_jax(runs, mesh_name, quant):
+    """``attn_decode_step_cp`` over each rank's sequence block: the output
+    within 1e-5 of JAX's on its (2, 2) mesh and of the port's one-device
+    ``attn_decode_step``; each rank's cache block equal to the same slots
+    of JAX's whole cache (an int8 payload exactly)."""
+    n_model = cases.MESHES[mesh_name][1]
+    ref = runs["oracle"]
+    cfg = cases.port_config("dense", kv_cache_dtype=cases.CP_CACHE[quant])
+    p = transformer._layer(bridge.from_jax_params(
+        runs["params"]["dense"], cfg, "cpu")["blocks"], 0)["attn"]
+    cache = attention.init_layer_cache(cfg, cases.CP_B, cases.CP_LEN,
+                                       torch.float32, "cpu")
+    one = []
+    with torch.no_grad():
+        for x, lengths in cases.cp_inputs(cfg.d_model):
+            one.append(attention.attn_decode_step(
+                p, cfg, cache, torch.from_numpy(x),
+                torch.from_numpy(lengths), None).numpy())
+    s_loc = cases.CP_LEN // n_model
+    for rank, rec in enumerate(runs[mesh_name]):
+        got = rec[f"cp/{quant}"]
+        np.testing.assert_allclose(got["out"], ref[f"cp/{quant}/out"],
+                                   rtol=0, atol=TOL_CP)
+        np.testing.assert_allclose(got["out"], np.stack(one), rtol=0,
+                                   atol=TOL_CP)
+        blk = slice(rank % n_model * s_loc, (rank % n_model + 1) * s_loc)
+        for k, v in got["cache"].items():
+            whole = ref[f"cp/{quant}/cache/{k}"][:, blk]
+            if v.dtype == np.int8:
+                np.testing.assert_array_equal(v, whole)
+            else:
+                np.testing.assert_allclose(v, whole, rtol=0, atol=TOL_CP)
+        assert got["bytes"]["all-reduce"] > 0
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+def test_psum_is_the_rank_order_sum(runs, mesh_name):
+    """``psum`` adds its group's bfloat16 terms first to last in
+    bfloat16, so every rank holds the rank-order sum bit for bit, at any
+    group size (what the serving mesh's TP sums rest on: every rank's
+    logits, hence its sampled tokens, the same)."""
+    n_model = cases.MESHES[mesh_name][1]
+    for rank, run in enumerate(runs[mesh_name]):
+        want = None
+        for r in range(rank - rank % n_model, rank - rank % n_model + n_model):
+            x = torch.from_numpy(cases.sum_input(r)).to(torch.bfloat16)
+            want = x if want is None else want + x
+        assert torch.equal(torch.from_numpy(run["psum"]), want.float())
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+def test_deadline_expires_on_every_rank(runs, mesh_name):
+    """Rank 0's clock jumps past one request's deadline; its clock is the
+    mesh's (broadcast each step while a deadline exists), so every rank
+    expires that request at the same step and serves the others alike."""
+    recs = [r["deadline"] for r in runs[mesh_name]]
+    for rec in recs:
+        assert rec["status"] == ["done", "expired", "done"]
+        assert rec["streams"] == recs[0]["streams"]
+        assert rec["broadcast_bytes"] > 0

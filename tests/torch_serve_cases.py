@@ -1,0 +1,223 @@
+"""The cases of ``tests/test_torch_serve_mesh.py``, shared by its JAX oracle
+(``torch_serve_oracle.py``, a subprocess with four host devices) and its
+port side (gloo rank processes spawned by the test).  numpy only at
+import: rank processes import this module and must not load JAX.
+
+The weights are seeded numpy parameters (``torch_ep_cases.model_params``)
+that the test writes to an npz first; both sides read them."""
+import numpy as np
+
+from torch_ep_cases import flatten, unflatten  # noqa: F401  (re-exported)
+
+MESHES = {"2x2": (2, 2), "1x4": (1, 4)}    # (n_data, n_model)
+# name -> (arch, reduced-config fields): the reduced qwen3-moe and
+# qwen3-0.6b, and two variants whose specs keep a weight whole on four
+# ranks: six q heads with a QKV bias (wq and wo whole, the flat k/v split
+# and its bias cut; on two ranks every bias cut by heads), and d_ff 12 in
+# int4 (W_down's six packed rows whole: the MLP's columns are gathered;
+# on two ranks its one row of scales re-blocked)
+ARCHS = {"moe": ("qwen3_moe_30b_a3b", {}), "dense": ("qwen3_0_6b", {}),
+         "moe_h6": ("qwen3_moe_30b_a3b", {"num_heads": 6,
+                                          "qkv_bias": True}),
+         "dense_f12": ("qwen3_0_6b", {"d_ff": 12})}
+SCHEDULES = ("decentralized", "a2a_pipelined")
+# capacity never binds; int8 weights at block 64
+CFG = dict(capacity_factor=8.0, ep_microchunks=2)
+QUANT = {"fp32": {}, "int8": dict(weight_quant="int8", weight_quant_block=64),
+         "int4": dict(weight_quant="int4", weight_quant_block=64)}
+ENGINE = dict(max_batch=2, prefill_len=8, max_cache=24, chunk_len=4,
+              page_size=4, track_experts=False)
+# engine layout -> knobs of both sides
+MODES = {"paged": dict(paged=True), "contiguous": dict(paged=False),
+         "reference": dict(paged=False, unified_step=False)}
+# (arch, quant, mode): the JAX one-device engine's runs; the port's mesh
+# runs are these under each schedule of ``engine_cases``
+ORACLE_RUNS = [("moe", "fp32", m) for m in MODES] + [
+    ("moe", "int8", "paged"), ("dense", "fp32", "paged"),
+    ("dense", "fp32", "reference"), ("moe_h6", "fp32", "paged"),
+    ("dense_f12", "int4", "paged")]
+# the context-parallel decode cases: a layer of the reduced qwen3-0.6b,
+# B=4, a 32-slot cache, five decode steps
+CP_CACHE = {"fp32": "native", "int8": "int8"}
+CP_B, CP_LEN, CP_STEPS = 4, 32, 5
+# the unified step whose collective bytes are held to the prediction
+BYTES_BLOCK = (2, 4)
+
+
+def engine_cases() -> dict:
+    """name -> (arch, quant, mode, schedule) of the port's mesh serves."""
+    out = {}
+    for arch, quant, mode in ORACLE_RUNS:
+        scheds = SCHEDULES if (arch, quant) == ("moe", "fp32") else (
+            "decentralized",)
+        for ep in scheds:
+            out[f"{arch}/{quant}/{mode}/{ep}"] = (arch, quant, mode, ep)
+    return out
+
+
+def oracle_key(arch: str, quant: str, mode: str) -> str:
+    return f"{arch}/{quant}/{mode}"
+
+
+def traffic() -> list:
+    """Three requests over two slots sharing a six-token prefix (the pool
+    shares its first page and copies the partial second on write), the
+    third a resubmission of the first: (prompt, max_new_tokens)."""
+    rng = np.random.default_rng(11)
+    sys_p = rng.integers(0, 500, 6)
+    p1 = np.concatenate([sys_p, rng.integers(0, 500, 2)])
+    p2 = np.concatenate([sys_p, rng.integers(0, 500, 1)])
+    return [(p1, 4), (p2, 5), (p1, 3)]
+
+
+def cp_inputs(d: int) -> list:
+    """The decode steps' inputs x (B, 1, D) and lengths (B,)."""
+    rng = np.random.default_rng(21)
+    out = []
+    for t in range(CP_STEPS):
+        x = rng.standard_normal((CP_B, 1, d)).astype(np.float32)
+        out.append((x, np.full((CP_B,), t + 3 * np.arange(CP_B) % 7,
+                               np.int32)))
+    return out
+
+
+def layer0(tree: dict) -> dict:
+    """Layer 0 of a layer-stacked tree."""
+    return {k: layer0(v) if isinstance(v, dict) else v[0]
+            for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# the port's side: one rank process of a mesh
+# ---------------------------------------------------------------------------
+
+def sum_input(rank: int) -> np.ndarray:
+    """Rank ``rank``'s operand of the psum case: values over five decades,
+    so that bfloat16 sums in different orders round differently."""
+    rng = np.random.default_rng(100 + rank)
+    return (rng.standard_normal((16, 8))
+            * 10.0 ** rng.integers(-2, 3, (16, 8))).astype(np.float32)
+
+
+def port_config(arch: str, quant: str = "fp32", ep: str = "decentralized",
+                **kw):
+    from repro_torch.configs.base import get_config
+    name, fields = ARCHS[arch]
+    return get_config(name).reduced().replace(
+        **fields, **CFG, **QUANT[quant], expert_parallel=ep, **kw)
+
+
+def _serve(eng) -> list:
+    uids = [eng.submit(p, max_new_tokens=n) for p, n in traffic()]
+    eng.run_until_done()
+    return [[int(t) for t in eng._all[u].generated] for u in uids]
+
+
+def rank_main(rank: int, world: int, store: str, shape: tuple,
+              params_path: str, q) -> None:
+    """Every port case of one mesh on this rank; puts (rank, results) or
+    (rank, traceback text) on ``q``."""
+    import traceback
+    try:
+        q.put((rank, _rank_cases(rank, world, store, shape, params_path)))
+    except BaseException:
+        q.put((rank, traceback.format_exc()))
+        raise
+
+
+def _rank_cases(rank, world, store, shape, params_path) -> dict:
+    import datetime
+
+    import torch
+    from repro_torch import bridge
+    from repro_torch.core import collectives
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import attention, transformer
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    torch.set_num_threads(1)
+    mesh_lib.init_ranks(rank, world, store,
+                        timeout=datetime.timedelta(seconds=90))
+    mesh = mesh_lib.make_test_mesh(*shape)
+    flat = np.load(params_path)
+    trees = {a: unflatten({k[len(a) + 1:]: flat[k] for k in flat
+                           if k.startswith(a + "/")}) for a in ARCHS}
+    out = {"psum": collectives.psum(torch.from_numpy(sum_input(rank)).to(
+        torch.bfloat16), mesh, "model").float().numpy()}
+    for name, (arch, quant, mode, ep) in engine_cases().items():
+        cfg = port_config(arch, quant, ep)
+        params = bridge.from_jax_params(trees[arch], cfg, "cpu", mesh=mesh,
+                                        mode="serve")
+        eng = ServingEngine(cfg, EngineConfig(**ENGINE, **MODES[mode]),
+                            params=params, device="cpu", mesh=mesh)
+        out[f"serve/{name}"] = {"streams": _serve(eng),
+                                "weight_bytes": eng.memory_stats()[
+                                    "weight_bytes"],
+                                "cache_shape": tuple(eng.cache["k"].shape)}
+    # one unified step's collective bytes, paged, both schedules
+    b, t = BYTES_BLOCK
+    for ep in SCHEDULES:
+        cfg = port_config("moe", ep=ep)
+        params = bridge.from_jax_params(trees["moe"], cfg, "cpu", mesh=mesh,
+                                        mode="serve")
+        model = build_model(cfg, "cpu")
+        cache = model.init_paged_cache(8, 4, mesh)
+        tok = torch.from_numpy(np.random.default_rng(5).integers(
+            0, 500, (b, t)).astype(np.int32))
+        batch = {"tokens": tok, "lengths": torch.tensor([0, 3],
+                                                        dtype=torch.int32),
+                 "seg_lens": torch.tensor([t, 2], dtype=torch.int32),
+                 "block_tables": torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]],
+                                              dtype=torch.int32)}
+        mesh.reset_counters()
+        with torch.no_grad():
+            logits, _ = model.forward_routed(params, batch, cache,
+                                             context_len=16, mesh=mesh)
+        out[f"bytes/{ep}"] = {"bytes": dict(mesh.bytes),
+                              "logits": logits.numpy()}
+    # context-parallel decode of one layer against the one-device step
+    for quant, kv in CP_CACHE.items():
+        cfg = port_config("dense", kv_cache_dtype=kv)
+        params = bridge.from_jax_params(trees["dense"], cfg, "cpu",
+                                        mesh=mesh, mode="serve")
+        p = transformer._layer(params["blocks"], 0)["attn"]
+        tp = transformer.serve_tp(cfg, mesh).attn
+        cache = {kk: v[0] for kk, v in build_model(cfg, "cpu").init_cache(
+            CP_B, CP_LEN, mesh, seq_sharded=True).items()}
+        outs = []
+        mesh.reset_counters()
+        for x, lengths in cp_inputs(cfg.d_model):
+            with torch.no_grad():
+                y = attention.attn_decode_step_cp(
+                    p, cfg, cache, torch.from_numpy(x),
+                    torch.from_numpy(lengths), None, tp)
+            outs.append(y.numpy())
+        out[f"cp/{quant}"] = {"out": np.stack(outs),
+                              "cache": {k: v.numpy()
+                                        for k, v in cache.items()},
+                              "bytes": dict(mesh.bytes)}
+    # a deadline on rank 0's clock expires the same request on every rank
+    cfg = port_config("moe")
+    params = bridge.from_jax_params(trees["moe"], cfg, "cpu", mesh=mesh,
+                                    mode="serve")
+    eng = ServingEngine(cfg, EngineConfig(**ENGINE), params=params,
+                        device="cpu", mesh=mesh)
+    reads = []
+    real = eng._clock
+
+    def clock():
+        reads.append(1)
+        # rank 0's clock jumps past the deadline at its fourth read; the
+        # other ranks' never do
+        return real() + (1e6 if rank == 0 and len(reads) >= 4 else 0.0)
+    eng._clock = clock
+    uids = [eng.submit(p, max_new_tokens=n,
+                       deadline_ms=1e5 if i == 1 else None)
+            for i, (p, n) in enumerate(traffic())]
+    eng.run_until_done()
+    out["deadline"] = {"status": [eng._all[u].status for u in uids],
+                       "streams": [[int(t) for t in eng._all[u].generated]
+                                   for u in uids],
+                       "broadcast_bytes": mesh.bytes.get("broadcast", 0)}
+    torch.distributed.destroy_process_group()
+    return out

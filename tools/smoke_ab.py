@@ -18,7 +18,9 @@ window) or ``serve5`` (phase 5's serve alone, ``--repeat`` times on the
 same weights, without the profile window: its decode rate is the reading)
 or ``train`` (phase 8: the reduced archs trained on the card against the
 CPU, then granite-moe-3b-a800m and qwen3-0.6b at full width) or ``ep``
-(phase 9: the expert-parallel schedules over 2 and 4 rank processes).  Prints the card's name and power limit, the build's ptxas lines
+(phase 9: the expert-parallel schedules over 2 and 4 rank processes)
+or ``serve_mesh`` (phase 10: serving on a mesh of 2 and 4 rank processes;
+phase 3's paged and FFN cases at its per-rank shapes run first).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -40,7 +42,7 @@ def main() -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--only", nargs="*", default=["paged", "quant"],
                     choices=["paged", "quant", "flash", "chaos", "serve",
-                             "serve5", "train", "ep"])
+                             "serve5", "train", "ep", "serve_mesh"])
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     import torch
@@ -83,6 +85,14 @@ def main() -> int:
         cs.check_train(torch, {})
     if "ep" in args.only:
         cs.check_expert_parallel(torch, {})
+    if "serve_mesh" in args.only:
+        cs.GQA_HEADS = cs.GQA_HEADS[-3:]
+        cs.PAGED_CASES = []
+        cs.check_paged_attention(torch, results)
+        cs.FFN_CASES = []
+        cs.MESH_FFN_CASES = cs.MESH_FFN_CASES[-3:]
+        cs.check_moe_ffn(torch, results)
+        cs.check_serve_mesh(torch, {})
     if "serve5" in args.only:
         from repro_torch.configs.base import get_config
         cs.profile_window = lambda *a, **kw: {"device_busy_share": None}
