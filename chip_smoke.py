@@ -54,14 +54,14 @@ line):
                 card and on the CPU from the same weights, fp32 and int8
                 weights + int8 KV: gates 1-4 on each device, the card's
                 streams and counters equal the CPU's scenario by scenario.
-  5. serve    — the full-width qwen3-moe-30b-a3b (depth cut to 24 of 48
+  5. serve    — the full-width qwen3-moe-30b-a3b (depth cut to 12 of 48
                 layers, QWEN_LAYERS, for the time limit; bf16, random
                 weights from a seeded generator on the card) serves six
                 requests sharing a system prompt through the paged engine;
                 its weight bytes must equal the performance model's, and
                 the keep-warm touch (standby) is timed against its bound.
   6. forward  — on phase 5's weights, before they are freed: the full-
-                sequence forward and loss at B=2, S=2048 (24 flash and 24
+                sequence forward and loss at B=2, S=2048 (12 flash and 12
                 grouped-FFN launches each), with a profile window.
   5c. serve_resilience — on the same weights: overcommit on a 24-page
                 pool with priorities, two sampled requests, a cancel, an
@@ -80,18 +80,18 @@ line):
   5b. serve_quant — the same model and traffic with int8 weights
                 (quantized on load, on the card) and an int8 KV pool,
                 after the bf16 model is freed.
-  granite     — granite-moe-3b-a800m at full width and depth (32 layers,
-                bf16; 8 of 48 experts router-dead, a tied head over a
-                vocab padded 49155 -> 49408): phase 5's serve, then the
-                forward and loss at B=2, S=2048.
+  granite     — granite-moe-3b-a800m at full width, depth cut to 16 of 32
+                layers (GRANITE_LAYERS; bf16; 8 of 48 experts router-dead,
+                a tied head over a vocab padded 49155 -> 49408): phase 5's
+                serve, then the forward and loss at B=2, S=2048.
   dbrx        — DBRX at full width, depth cut to 8 of 40 layers (bf16,
                 about 55 GB): phase 5's serve, the forward and loss at
                 B=1, S=2048, then the same weights quantized to int8 on
                 load with an int8 KV pool and served again.
-  7. stablelm — stablelm-12b at full width, depth cut to 20 of 40 layers
+  7. stablelm — stablelm-12b at full width, depth cut to 10 of 40 layers
                 (STABLELM_LAYERS; bf16, hd 160, layernorm, an untied
                 head): phase 5's paged serve, the reference engine as in
-                5d, the forward and loss at B=2, S=2048 (20 launches of the
+                5d, the forward and loss at B=2, S=2048 (10 launches of the
                 flash
                 kernel's hd-160 instantiation), then int8 weights + int8
                 KV served.  Then qwen3-0.6b at full width (28 layers, a
@@ -103,7 +103,7 @@ line):
                 (fp32, remat on; losses and params within TRAIN_*_TOL, no
                 launch, router-dead experts stay zero), each kernel
                 wrapper refuses an input that requires grad; then
-                granite-moe-3b-a800m (16 of 32 layers, bf16, B=4, S=2048:
+                granite-moe-3b-a800m (8 of 32 layers, bf16, B=4, S=2048:
                 the chunked attention and CE, 12 steps) and qwen3-0.6b (28
                 layers, 6 steps) train at full width: finite losses that
                 fall, the step-0 loss equal to the kernel path's, peak
@@ -120,7 +120,7 @@ line):
                 and strategy at a prefill and a decode block, int8 and
                 int4 expert shards, r = 2 at 4 ranks, each against the
                 one-device moe_layer on the card (fp32, 1e-5, top_idx
-                identical); granite at full width cut to 16 of 32 layers
+                identical); granite at full width cut to 8 of 32 layers
                 and DBRX to 4 of 40 through Model.forward on
                 the mesh (B=1, S=2048, bf16, capacity factor E_pad / K),
                 held to one-device forwards of the same seeded weights
@@ -138,7 +138,8 @@ line):
                 experts under the schedules) through the paged engine.
                 The reduced qwen3-moe (fp32, decentralized and a2a) streams
                 as the one-device engine on the card; granite at full width
-                and depth (2 and 4 ranks, decentralized and a2a) and DBRX at
+                cut to 16 of 32 layers (2 and 4 ranks, decentralized and
+                a2a) and DBRX at
                 full width cut to 4 of 40 layers (4 ranks, decentralized),
                 bf16, phase 5's traffic at capacity factor 8: every rank's
                 streams identical, each held to the one-device forward of
@@ -147,6 +148,24 @@ line):
                 rank's weight bytes its serve blocks' and its bytes by kind
                 the performance model's; per rank tok/s, peak memory,
                 collective ms by kind and E[#experts per shard].
+  11. train_mesh — training on a (2, 2) mesh of 4 spawned rank processes
+                on the one card, budget 150 s: the train layout
+                (``launch/sharding.train_specs``: FSDP over "data", the
+                experts' rows over "model"; each layer's weights gathered
+                for that layer, inside its remat, the gradients
+                reduce-scattered into the blocks).  Granite at full width
+                cut to 4 of 32 layers (fp32, B=4, S=2048, capacity factor
+                E_pad / K) takes 3 decentralized steps and 1 a2a step from
+                the seeded weights on ``Pipeline`` batches: each loss
+                within 2e-3 (rtol and atol, the reference's own check) of
+                the one-device trainer's on the same weights and batches,
+                every loss and norm finite, no kernel launched by the
+                steps, each rank's resident params and moments exactly its
+                train blocks' bytes; the mesh scoring loss
+                (``Model.loss(..., kernels=True, mesh=)``) launches flash
+                and the grouped FFN on every rank, within 1e-4 of the
+                step-0 loss.  Per rank: step s, tok/s, peak and the
+                collective host seconds by kind.
   Then the kernels line: one JSON object per ported kernel entry, and the
   last line: {"ok": true, "device": {...}}.
 
@@ -525,7 +544,12 @@ FFN_CASES = [(128, 16, 2048, 768, 0), (128, 40, 2048, 768, 0),
              (4, 16, 256, 512, 0), (48, 16, 1536, 512, 8),
              (48, 32, 1536, 512, 8), (48, 856, 1536, 512, 8),
              (16, 16, 6144, 10752, 0), (16, 40, 6144, 10752, 0),
-             (16, 640, 6144, 10752, 0), (128, 256, 2048, 768, 0)]
+             (16, 640, 6144, 10752, 0), (128, 256, 2048, 768, 0),
+             # phase 11's scoring loss on each rank of the (2, 2) mesh
+             # (fp32, B=2 rows of 2048 at capacity factor E_pad / K):
+             # granite's 24 local experts at C=4096, the second rank's
+             # last 8 dead
+             (24, 4096, 1536, 512, 8)]
 # phase 9's per-rank shapes at B=1, S=2048 and capacity factor E_pad / K:
 # DBRX's 8 and 4 local experts and granite's 24 and 12 (the last rank's 8
 # router-dead) at C = 2048 (every schedule but a2a_pipelined, whose two
@@ -745,13 +769,16 @@ def check_flash_attention(torch, results):
                        Hq=hq, Hkv=hkv, hd=hd, causal=causal, window=window,
                        max_abs_err=err, max_rel_err=rel, kernel_ms=ms,
                        plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-            if dname == "bfloat16":
-                run_l = sdpa_call(torch, q, k, v, causal, window)
-                lib = run_l().transpose(1, 2)
-                lib_err, _ = compare(lib, want, TOL[dname])
-                row.update(library_ms=time_ms(run_l, 10),
-                           library_max_abs_err=lib_err)
-                del lib
+            # the library's time beside every case (its error gated in
+            # bf16; in fp32 printed: its kernel may round otherwise)
+            run_l = sdpa_call(torch, q, k, v, causal, window)
+            lib = run_l().transpose(1, 2)
+            lib_err = (compare(lib, want, TOL[dname])[0]
+                       if dname == "bfloat16"
+                       else float((lib.float() - want.float()).abs().max()))
+            row.update(library_ms=time_ms(run_l, 10),
+                       library_max_abs_err=lib_err)
+            del lib
             emit("kernels", **row)
             results.append(row)
             del q, kv, k, v, got, want
@@ -798,12 +825,14 @@ DEAD_AND_PADDED = dict(num_experts=6, num_experts_padded=8, vocab_size=500)
 # about 55 GB (its 40 would be about 264 GB)
 DBRX_LAYERS = 8
 # the script's 1200 s limit: qwen3-moe's full-width phases (5, 6, 5c, 5d,
-# 5b) run 24 of its 48 layers (30.5 GB in bf16), stablelm-12b's (phase 7)
-# 20 of 40, granite's full-width training (phase 8) and its mesh forward
-# (phase 9) 16 of 32; the widths stay whole
-QWEN_LAYERS = 24
-STABLELM_LAYERS = 20
-GRANITE_TRAIN_LAYERS = 16
+# 5b) run 12 of its 48 layers, stablelm-12b's (phase 7) 10 of 40,
+# granite's one-device serve and forward 16 of 32, its full-width
+# training (phase 8) and mesh forward (phase 9) 8 of 32 (each halved when
+# phase 11 came); the widths stay whole
+QWEN_LAYERS = 12
+STABLELM_LAYERS = 10
+GRANITE_LAYERS = 16
+GRANITE_TRAIN_LAYERS = 8
 
 
 def full_config(arch: str = ARCH, layers: int | None = QWEN_LAYERS):
@@ -1303,7 +1332,7 @@ def check_serve_reference(torch, cfg, params, phase: str):
 
 
 def check_dense(torch, runs: dict) -> None:
-    """Phase 7: stablelm-12b at full width, 20 of 40 layers (bf16 serve, the
+    """Phase 7: stablelm-12b at full width, 10 of 40 layers (bf16 serve, the
     reference engine, forward and loss, then int8 weights + int8 KV), then
     qwen3-0.6b at full width (serve and forward).  Fills ``runs``."""
     from repro_torch.configs.base import get_config
@@ -1865,14 +1894,15 @@ def partial_sums(n: int, magnitudes: list | None = None):
     from repro_torch.core import expert_parallel
     local = expert_parallel._local_moe
 
-    def summed(cfg, experts, x2d, rout, e_start, capacity, kernels=True):
+    def summed(cfg, experts, x2d, rout, e_start, capacity, kernels=True,
+               groups=1):
         e_local = experts["w_gate"].shape[0] // n
         acc, mag = None, 0.0
         for r in range(n):
             shard = {k: w[r * e_local:(r + 1) * e_local]
                      for k, w in experts.items()}
             part = local(cfg, shard, x2d, rout, e_start + r * e_local,
-                         capacity, kernels)
+                         capacity, kernels, groups)
             acc = part if acc is None else acc + part
             mag = mag + part.float().abs()
         if magnitudes is not None:
@@ -1899,9 +1929,10 @@ def a2a_arithmetic(n: int, m: int):
     layer = expert_parallel.moe_layer
 
     def blockwise(cfg, layer_p, x, token_mask=None, mesh=None, kernels=True,
-                  batch_axes=None):
+                  batch_axes=None, row_blocks=1):
         b, s, d = x.shape
-        check(b == 1 and token_mask is None and mesh is None,
+        check(b == 1 and token_mask is None and mesh is None
+              and row_blocks == 1,
               "a2a_arithmetic models one row, no mask, one device")
         sl, e_pad = s // n, cfg.num_experts_padded
         x2d = x.reshape(s, d)
@@ -2456,8 +2487,9 @@ SM_REDUCED_SCHEDULES = ("decentralized", "a2a")
 SM_REDUCED_ENGINE = dict(max_batch=2, max_cache=48, chunk_len=8,
                          page_size=4)
 # arch -> (layers, rank counts, schedules) at full width, bf16, paged,
-# phase 5's traffic
-SM_FULL = {"granite_moe_3b_a800m": (None, (2, 4), ("decentralized", "a2a")),
+# phase 5's traffic; granite at 16 of 32 layers since phase 11 came
+SM_FULL = {"granite_moe_3b_a800m": (GRANITE_LAYERS, (2, 4),
+                                    ("decentralized", "a2a")),
            "dbrx": (4, (4,), ("decentralized",))}
 
 
@@ -2659,9 +2691,10 @@ def check_serve_mesh(torch, runs: dict) -> None:
     """Phase 10: serving on a mesh of 2, then 4, rank processes on the one
     card (the serve-mode layout: tensor parallelism over "model", the
     experts under the schedules).  The reduced qwen3-moe's streams equal
-    the one-device engine's on the card; granite at full width and depth
-    (2 and 4 ranks, decentralized and a2a) and DBRX at full width cut to 4
-    of 40 layers (4 ranks, decentralized): every rank's streams identical,
+    the one-device engine's on the card; granite at full width cut to 16
+    of 32 layers (2 and 4 ranks, decentralized and a2a) and DBRX at full
+    width cut to 4 of 40 layers (4 ranks, decentralized): every rank's
+    streams identical,
     each held to the one-device forward of its own tokens, the paged and
     grouped-FFN kernels launched on every rank, bytes and weight bytes as
     predicted.  Both groups start together; the 4-rank group waits, started
@@ -2788,6 +2821,261 @@ def sm_record(ranks: list, want: dict, runs: dict, full: dict,
                     "gloo on the host", card=dev)
     emit("serve_mesh_spawn", ranks=n, seconds=seconds,
          reduced_s=max(res["reduced_s"] for res in ranks))
+
+
+# ---------------------------------------------------------------------------
+# phase 11: training on a mesh
+# ---------------------------------------------------------------------------
+
+TM_MESH = (2, 2)                 # (data, model): FSDP over data, EP over model
+TM_ARCH = "granite_moe_3b_a800m"
+TM_LAYERS = 4                    # of 32: the phase's budget
+TM_B, TM_S = 4, 2048
+# the mesh steps' schedules, in order (the params and moments keep their
+# train blocks across the switch: the layout does not depend on it)
+TM_SCHEDULES = ("decentralized",) * 3 + ("a2a",)
+TM_LR = 1e-3
+TM_SEED = 0
+# each mesh loss against the one-device trainer's at the same step:
+# check_sharded_train_step_matches_single's tolerance (the mesh aux is a
+# mean of per-shard aux, not the one-device aux)
+TM_RTOL = TM_ATOL = 2e-3
+# the scoring loss (flash and the grouped FFN, fp32) against the step-0
+# trainer loss on the same blocks and batch, relative
+TM_KERNEL_LOSS_TOL = 1e-4
+TM_BUDGET_S = 150.0
+TM_TIMEOUT_S = 600
+
+
+def tm_config(sched: str = TM_SCHEDULES[0]):
+    """Granite at full width cut to TM_LAYERS, fp32, remat on, at capacity
+    factor E_pad / K (no token is ever dropped, as at the reference
+    check's factor 8: where capacity binds, a data shard's plan drops
+    other tokens than the whole batch's, and the mesh's losses part from
+    the one-device trainer's by more than that check's tolerance)."""
+    cfg = full_config(TM_ARCH, TM_LAYERS)
+    return cfg.replace(
+        dtype="float32", param_dtype="float32", remat=True,
+        expert_parallel=sched,
+        capacity_factor=cfg.num_experts_padded / cfg.experts_per_token)
+
+
+def tm_optimizer():
+    from repro_torch import optim
+    n = len(TM_SCHEDULES)
+    return optim.OptimizerConfig(lr=TM_LR, total_steps=n,
+                                 warmup_steps=max(n // 20, 5))
+
+
+def tm_batches(torch, vocab: int) -> list:
+    """The ``Pipeline`` batches of TM_SEED, one per step, on the card."""
+    from repro_torch.data.pipeline import Pipeline, PipelineConfig
+    pipe = Pipeline(PipelineConfig(seq_len=TM_S, global_batch=TM_B,
+                                   vocab_size=vocab, seed=TM_SEED))
+    return [{k: torch.as_tensor(v, device="cuda")
+             for k, v in pipe.next_batch().items()} for _ in TM_SCHEDULES]
+
+
+def tm_reference(torch) -> dict:
+    """The one-device trainer on the whole weights of TM_SEED and the same
+    batches: each step's loss and time."""
+    from repro_torch import optim
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import build_model
+    cfg = tm_config()
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(TM_SEED))
+    state = optim.init(params)
+    step = make_train_step(model, tm_optimizer())
+    losses, step_s = [], []
+    for batch in tm_batches(torch, cfg.vocab_size):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        step_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    del params, state
+    free_device(torch)
+    return {"losses": losses, "step_s": step_s, "max_memory_allocated": peak}
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch import optim
+    return sum(t.numel() * t.element_size()
+               for t in optim.adamw.tree_leaves(tree))
+
+
+def tm_rank_work(rank: int, world: int, store: str) -> dict:
+    """One rank of phase 11: its train blocks of the TM_SEED weights, the
+    scoring loss on the mesh (the kernels), then the trainer's steps under
+    TM_SCHEDULES (no kernel)."""
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        raise RuntimeError("a phase-11 rank process without CUDA")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    from repro_torch import optim
+    from repro_torch.kernels import build, ops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import build_model
+    build.library()                 # the parent's build, loaded
+    torch.zeros((), device="cuda")  # the rank's context
+    mesh_lib.init_ranks(rank, world, store,
+                        timeout=datetime.timedelta(seconds=TM_TIMEOUT_S))
+    mesh = mesh_lib.make_mesh(TM_MESH, ("data", "model"))
+    cfg = tm_config()
+    t0 = time.perf_counter()
+    params = build_model(cfg, "cuda").init_training(
+        torch.Generator(device="cuda").manual_seed(TM_SEED), mesh)
+    state = optim.init(params)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0,
+           "param_bytes": _tree_bytes(params),
+           "moment_bytes": _tree_bytes(state.mu) + _tree_bytes(state.nu),
+           "block_bytes": sharding.block_bytes(cfg, mesh, "train")}
+    batches = tm_batches(torch, cfg.vocab_size)
+    # the scoring loss on the step-0 blocks and batch: every rank runs the
+    # flash and grouped-FFN kernels
+    ops.reset_launch_counts()
+    mesh.reset_counters()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out["kernel_loss"] = float(build_model(cfg, "cuda").loss(
+            params, batches[0], kernels=True, mesh=mesh)[0])
+    out["kernel_loss_s"] = time.perf_counter() - t0
+    out["kernel_launches"] = ops.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    ops.reset_launch_counts()
+    for sched, batch in zip(TM_SCHEDULES, batches):
+        step = make_train_step(build_model(tm_config(sched), "cuda"),
+                               tm_optimizer(), mesh)
+        mesh.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        m = {k: float(v) for k, v in m.items()}
+        steps.append(dict(m, schedule=sched,
+                          step_s=time.perf_counter() - t0,
+                          collective_s=dict(mesh.seconds),
+                          collective_bytes=dict(mesh.bytes)))
+    out["steps"] = steps
+    out["train_launches"] = ops.launch_counts()
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["resident_after"] = _tree_bytes(params) + _tree_bytes(state.mu) \
+        + _tree_bytes(state.nu)
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def _tm_rank(rank: int, world: int, store: str, q) -> None:
+    """A rank process of phase 11: puts (rank, results), or (rank, the
+    traceback) and exits non-zero."""
+    import traceback
+    try:
+        q.put((rank, tm_rank_work(rank, world, store)))
+    except BaseException:
+        q.put((rank, traceback.format_exc()))
+        raise
+
+
+def check_train_mesh(torch, runs: dict) -> None:
+    """Phase 11: training on a (2, 2) mesh of rank processes on the one
+    card, in the train layout (FSDP over "data", the experts' rows over
+    "model"): granite at full width (TM_LAYERS of 32, fp32, B=4, S=2048,
+    remat) takes TM_SCHEDULES' steps from the TM_SEED weights on the
+    ``Pipeline`` batches, each loss within TM_RTOL / TM_ATOL of the
+    one-device trainer's (run here while the ranks start up), no kernel
+    launched by the steps, each rank's resident params and moments exactly
+    its train blocks' bytes, and the mesh scoring loss (flash and the
+    grouped FFN on every rank) within TM_KERNEL_LOSS_TOL of the step-0
+    loss.  Fills ``runs["train_mesh"]`` with the scoring loss's launches
+    summed over the ranks."""
+    import tempfile
+    t_phase = time.perf_counter()
+    free_device(torch)
+    dev = card()
+    world = TM_MESH[0] * TM_MESH[1]
+    cfg = tm_config()
+    with tempfile.TemporaryDirectory() as tmp:
+        group = RankGroup(_tm_rank, world, (f"{tmp}/store_tm",))
+        try:
+            ref = tm_reference(torch)     # while the ranks start up
+            res = group.collect(TM_TIMEOUT_S, "phase 11")
+        finally:
+            group.stop()
+        ranks = group.finished(res, "phase 11")
+    emit("train_mesh_reference", arch=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, B=TM_B, S=TM_S, losses=ref["losses"],
+         step_s=ref["step_s"],
+         max_memory_allocated=ref["max_memory_allocated"], card=dev)
+    want_k = {"flash_attention": cfg.num_layers, "moe_ffn": cfg.num_layers}
+    for r, rec in enumerate(ranks):
+        check(rec["param_bytes"] == rec["block_bytes"]
+              and rec["moment_bytes"] == 2 * rec["block_bytes"]
+              and rec["resident_after"] == 3 * rec["block_bytes"],
+              f"phase 11 rank {r}: params {rec['param_bytes']} and moments "
+              f"{rec['moment_bytes']} bytes, blocks {rec['block_bytes']}")
+        check(_live(rec["kernel_launches"]) == want_k,
+              f"phase 11 rank {r}: the scoring loss launched "
+              f"{rec['kernel_launches']}, expected {want_k}")
+        check(not any(rec["train_launches"].values()),
+              f"phase 11 rank {r}: the steps launched "
+              f"{rec['train_launches']}")
+        losses = [s["loss"] for s in rec["steps"]]
+        norms = [s["grad_norm"] for s in rec["steps"]]
+        check(all(np.isfinite(losses + norms)),
+              f"phase 11 rank {r}: non-finite loss or norm {losses} {norms}")
+        for i, (got, want) in enumerate(zip(losses, ref["losses"])):
+            check(abs(got - want) <= TM_ATOL + TM_RTOL * abs(want),
+                  f"phase 11 rank {r} step {i} "
+                  f"({rec['steps'][i]['schedule']}): loss {got} against "
+                  f"the one-device {want}")
+        check(abs(rec["kernel_loss"] - losses[0])
+              <= TM_KERNEL_LOSS_TOL * abs(losses[0]),
+              f"phase 11 rank {r}: the scoring loss {rec['kernel_loss']} "
+              f"against the step-0 loss {losses[0]}")
+    runs["train_mesh"] = _summed([r["kernel_launches"] for r in ranks])
+    for i, sched in enumerate(TM_SCHEDULES):
+        rows = [r["steps"][i] for r in ranks]
+        emit("train_mesh", step=i, schedule=sched, ranks=world,
+             mesh=dict(zip(("data", "model"), TM_MESH)), arch=cfg.name,
+             layers=cfg.num_layers, dtype=cfg.dtype, B=TM_B, S=TM_S,
+             loss=rows[0]["loss"], one_device_loss=ref["losses"][i],
+             loss_per_rank=[row["loss"] for row in rows],
+             grad_norm=rows[0]["grad_norm"], aux=rows[0]["aux"],
+             step_s_per_rank=[row["step_s"] for row in rows],
+             tok_per_s_per_rank=[TM_B * TM_S / row["step_s"]
+                                 for row in rows],
+             one_device_step_s=ref["step_s"][i],
+             collective_s_per_rank=[row["collective_s"] for row in rows],
+             collective_bytes_rank0=rows[0]["collective_bytes"],
+             timing="ranks time-sharing one card, collectives over gloo "
+                    "on the host", card=dev)
+    emit("train_mesh_ranks", ranks=world,
+         param_bytes_per_rank=[r["param_bytes"] for r in ranks],
+         moment_bytes_per_rank=[r["moment_bytes"] for r in ranks],
+         block_bytes_per_rank=[r["block_bytes"] for r in ranks],
+         peak_bytes_per_rank=[r["max_memory_allocated"] for r in ranks],
+         init_s_per_rank=[r["init_s"] for r in ranks],
+         kernel_loss=ranks[0]["kernel_loss"],
+         kernel_loss_per_rank=[r["kernel_loss"] for r in ranks],
+         kernel_loss_s_per_rank=[r["kernel_loss_s"] for r in ranks],
+         kernel_launches_per_rank=[r["kernel_launches"] for r in ranks],
+         card=dev)
+    phase_s = time.perf_counter() - t_phase
+    emit("train_mesh_phase", seconds=phase_s, budget_s=TM_BUDGET_S, card=dev)
+    check(phase_s <= TM_BUDGET_S, f"phase 11 took {phase_s:.1f} s of its "
+          f"{TM_BUDGET_S} s budget")
 
 
 def _live(launches: dict) -> dict:
@@ -2923,6 +3211,11 @@ LINE = [
     ("moe_ffn", dict(dtype="bfloat16", E=12, C=176),
      "sm_granite_moe_3b_a800m_4"),
     ("moe_ffn", dict(dtype="bfloat16", E=4, C=256), "sm_dbrx_4"),
+    # phase 11: each rank's grouped FFN and flash in the mesh scoring loss
+    # (fp32; launches summed over the four ranks)
+    ("moe_ffn", dict(dtype="float32", E=24, C=4096), "train_mesh"),
+    ("flash_attention", dict(CAUSAL_2048, dtype="float32", hd=64, Hq=24,
+                             B=2), "train_mesh"),
 ]
 
 
@@ -3003,7 +3296,7 @@ def main() -> int:
         torch, full_config(), params, "serve_reference")
     del params
     runs["serve_quant"] = check_serve_quant(torch)
-    granite = get_config("granite_moe_3b_a800m")
+    granite = full_config("granite_moe_3b_a800m", GRANITE_LAYERS)
     runs["granite_serve"], params, _ = check_serve(torch, granite,
                                                    "granite_serve")
     runs["granite_forward"] = check_forward(torch, params, granite, 2,
@@ -3021,6 +3314,7 @@ def main() -> int:
     check_train(torch, runs)
     check_expert_parallel(torch, runs)
     check_serve_mesh(torch, runs)
+    check_train_mesh(torch, runs)
     print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

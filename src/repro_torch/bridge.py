@@ -15,7 +15,8 @@ object with ``data``/``scale`` (numpy) and ``bits``/``block``/
 (without importing the class) and builds the port's ``QuantTensor``.
 On a mesh, ``from_jax_params(..., mesh=)`` gives one rank its parameters:
 its expert rows for the full-sequence forward, or with ``mode="serve"``
-its serve-mode block of every weight (``launch/sharding.py``).
+(``mode="train"``) its serve-mode (train-mode) block of every weight
+(``launch/sharding.py``).
 """
 from __future__ import annotations
 
@@ -102,19 +103,24 @@ def from_jax_params(tree: dict, cfg, device, mesh=None,
     (``sharding.shard_tree``), as ``Model.init_serving`` builds them: the
     whole tree is quantized first as ``cfg.weight_quant`` asks (already
     quantized leaves pass through), on the host, then cut, as the
-    reference quantizes on load before placing the weights."""
+    reference quantizes on load before placing the weights.  With
+    ``mode="train"`` it is this rank's train-mode block of every leaf
+    (``sharding.train_specs``), as ``Model.init_training`` builds them;
+    a JAX gradient tree comes over the same way."""
     got = _tree_map(_logical_shape, tree)
     want = param_shapes(cfg)
     if got != want:
         raise ValueError(f"JAX params do not match the port's layout for "
                          f"{cfg.name}: {got} != {want}")
     resolve_device(device)
-    if mode not in ("forward", "serve"):
-        raise ValueError(f"unknown mode {mode!r}; expected forward or serve")
-    if mesh is not None and mode == "serve":
-        whole = quant.quantize_params(from_jax_params(tree, cfg, "cpu"), cfg,
-                                      inplace=True)
-        cut = sharding.shard_tree(whole, sharding.serve_specs(cfg, mesh),
+    if mode not in ("forward", "serve", "train"):
+        raise ValueError(f"unknown mode {mode!r}; expected forward, serve "
+                         f"or train")
+    if mesh is not None and mode != "forward":
+        whole = from_jax_params(tree, cfg, "cpu")
+        if mode == "serve":
+            whole = quant.quantize_params(whole, cfg, inplace=True)
+        cut = sharding.shard_tree(whole, sharding.mode_specs(cfg, mesh, mode),
                                   mesh)
         return _tree_map(lambda t: QuantTensor(
             t.data.to(device), t.scale.to(device), t.bits, t.block,

@@ -14,6 +14,11 @@ entry back as ``torch.bfloat16``; neither step needs ``ml_dtypes``.  (The
 reference's own ``restore`` hands the ``|V2`` array to ``jnp.asarray``,
 which refuses it: ROADMAP queue C.)
 
+On a mesh (training, ``launch/sharding.train_specs``) ``save`` gathers
+every rank's blocks and rank 0 writes the whole tree, the file the
+one-device trainer writes; ``restore`` reads the whole file and keeps this
+rank's blocks.
+
 The converter is the paper's one-time stacking script (§4.1): an
 unstacked checkpoint (one entry per layer / per expert) becomes the
 prestacked layout, with granite-style expert padding and, with
@@ -26,8 +31,10 @@ import re
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import prestack, quant
+from repro_torch.launch import sharding
 from repro_torch.models.model import resolve_device
 
 SEP = "//"
@@ -102,25 +109,45 @@ def from_npz_array(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def save(path: str, params: dict, step: int = 0) -> None:
+def save(path: str, params: dict, step: int = 0, mesh=None,
+         spec: dict | None = None) -> None:
     """Write ``params`` (on any device) as a flat-key npz; each leaf is
-    copied to the host one at a time."""
-    flat = {k: to_npz_array(v) for k, v in flatten_tree(params).items()}
-    flat["__step__"] = np.asarray(step, np.int64)
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez(path, **flat)
+    copied to the host one at a time.  On a ``mesh`` (every rank calls
+    it) ``params`` are this rank's blocks under ``spec``: they are
+    gathered whole, rank 0 writes, and every rank returns once the file
+    is written."""
+    write = True
+    if mesh is not None:
+        params = sharding.unshard_tree(params, spec, mesh)
+        write = not any(mesh.coords.values())
+    if write:
+        flat = {k: to_npz_array(v) for k, v in flatten_tree(params).items()}
+        flat["__step__"] = np.asarray(step, np.int64)
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        np.savez(path, **flat)
+    if mesh is not None and dist.is_initialized():
+        dist.barrier()
 
 
-def restore(path: str, device="cuda") -> tuple[dict, int]:
+def restore(path: str, device="cuda", mesh=None,
+            spec: dict | None = None) -> tuple[dict, int]:
     """(params on ``device``, step) from a file ``save`` (or the
-    reference's ``save``) wrote."""
+    reference's ``save``) wrote; on a ``mesh``, this rank's blocks of
+    them under ``spec``."""
     dev = resolve_device(device)
     with np.load(path if path.endswith(".npz") else path + ".npz") as z:
         step = int(z["__step__"]) if "__step__" in z.files else 0
         flat = {k: (z[k] if k.endswith(_QT_META)
-                    else from_npz_array(z[k], dev))
+                    else from_npz_array(z[k], "cpu" if mesh is not None
+                                        else dev))
                 for k in z.files if k != "__step__"}
-    return unflatten_tree(flat), step
+    params = unflatten_tree(flat)
+    if mesh is not None:
+        params = {k: v.to(dev) if isinstance(v, torch.Tensor) else v
+                  for k, v in flatten_tree(
+                      sharding.shard_tree(params, spec, mesh)).items()}
+        params = unflatten_tree(params)
+    return params, step
 
 
 # ---------------------------------------------------------------------------

@@ -12,6 +12,7 @@ One function per collective the schedules use, each over one axis of a
   pmean         -> psum's sum, then / n        AUX ("aux-pmean")
   pmax          -> all_reduce(MAX)             "all-reduce"
   broadcast     -> broadcast from the axis's first rank  "broadcast"
+  enter         -> nothing forward (autograd's entry operator, below)
 
 Each call adds its OPERAND bytes to the mesh's per-rank counter
 (``mesh.bytes``) under the HLO kind names that
@@ -37,9 +38,33 @@ the faster sum here: gloo's ring all-reduce takes 2 (n - 1) exchanges,
 each a thread wake-up on every rank, where the gather takes n - 1, and on
 a few hundred KB a wake-up costs more than the wire.  Bools travel as
 uint8.
+
+Autograd (training on a mesh).  A floating operand that requires grad
+goes through a ``torch.autograd.Function`` whose backward is the
+collective's transpose, as under ``shard_map(check_vma=True)``: the
+forward is the same call (same values, same bytes), and the backward's
+collective is counted under its own kind.  The convention is JAX's: a
+value that is the same on every rank of an axis (invariant) carries its
+whole cotangent on every rank; a value that differs (varying) carries
+its own.  So
+
+  psum          backward identity (varying partials -> invariant sum)
+  enter         forward identity, backward psum: where an invariant value
+                enters per-rank work (JAX's implicit ``pvary``)
+  all_gather    backward psum_scatter; with ``invariant=True`` (the result
+                is used as the same value on every rank) this rank's block
+  psum_scatter  backward all_gather
+  all_to_all    backward all_to_all (the exchange is its own inverse)
+  ppermute      backward the inverse permutation
+  pmean         backward g / n, no communication
+
+``all_gather_packed``, ``psum_scatter_packed`` and ``psum_packed`` move
+several tensors of one dtype in one exchange (a layer's parameter blocks
+and their gradients, ``launch/sharding.compute_view``).
 """
 from __future__ import annotations
 
+import math
 import time
 
 import torch
@@ -47,6 +72,10 @@ import torch.distributed as dist
 
 AUX = "aux-pmean"
 LAYOUT = "layout"
+# training on a mesh: the parameter blocks gathered for a layer's compute,
+# and their gradients reduced back into the blocks (``launch/sharding``)
+PARAM_GATHER = "param-gather"
+GRAD_REDUCE = "grad-reduce"
 
 
 def _count(mesh, kind: str, x: torch.Tensor, seconds: float) -> None:
@@ -99,15 +128,58 @@ def _sum(buf: torch.Tensor, x: torch.Tensor, mesh,
     return out
 
 
-def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Sum of ``x`` over ``axis`` in rank order; every rank of the axis
-    gets the same bits."""
-    if mesh.groups[axis] is None:
-        return x
+def _tracked(x: torch.Tensor) -> bool:
+    """Whether autograd records a collective of ``x`` (its transpose then
+    runs in the backward)."""
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def _psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     t0 = time.perf_counter()
     out = _back(_sum(_to_host(x), x, mesh, axis), x)
     _count(mesh, "all-reduce", x, time.perf_counter() - t0)
     return out
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return _psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _psum(g.contiguous(), ctx.mesh, ctx.axis), None, None
+
+
+def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Sum of ``x`` over ``axis`` in rank order; every rank of the axis
+    gets the same bits.  Backward: identity."""
+    if mesh.groups[axis] is None:
+        return x
+    if _tracked(x):
+        return _Psum.apply(x, mesh, axis)
+    return _psum(x, mesh, axis)
+
+
+def enter(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """``x``, the same on every rank of ``axis``, as the input of work
+    that differs per rank (a rank's experts, its sequence block): the
+    identity, whose backward sums the ranks' partial cotangents over the
+    axis (the transpose of JAX's implicit ``pvary``)."""
+    if mesh.groups[axis] is None or not _tracked(x):
+        return x
+    return _Enter.apply(x, mesh, axis)
 
 
 def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
@@ -136,29 +208,48 @@ def broadcast(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return out.view(torch.bool) if x.dtype == torch.bool else out
 
 
-def pmean(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
-    """Mean over every axis of ``axes`` (the aux losses): one sum per axis,
-    divided by the product of their sizes, counted once under ``AUX``."""
-    live = [a for a in axes if mesh.groups[a] is not None]
-    if not live:
-        return x
+def _pmean(x: torch.Tensor, mesh, live: list) -> torch.Tensor:
     t0 = time.perf_counter()
     buf = _to_host(x)
-    n = 1
     for a in live:
         buf = _sum(buf, x, mesh, a)
-        n *= mesh.shape[a]
-    out = _back(buf, x) / n
+    out = _back(buf, x) / _live_size(mesh, live)
     _count(mesh, AUX, x, time.perf_counter() - t0)
     return out
 
 
-def all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
-               kind: str = "all-gather") -> torch.Tensor:
-    """The blocks of every rank of ``axis`` concatenated along ``dim`` in
-    axis order (``jax.lax.all_gather(..., tiled=True)``)."""
-    if mesh.groups[axis] is None:
+def _live_size(mesh, live) -> int:
+    n = 1
+    for a in live:
+        n *= mesh.shape[a]
+    return n
+
+
+class _Pmean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, live):
+        ctx.n = _live_size(mesh, live)
+        return _pmean(x, mesh, live)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None, None
+
+
+def pmean(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
+    """Mean over every axis of ``axes`` (the aux losses): one sum per axis,
+    divided by the product of their sizes, counted once under ``AUX``.
+    Backward: g / n on every rank, no communication."""
+    live = [a for a in axes if mesh.groups[a] is not None]
+    if not live:
         return x
+    if _tracked(x):
+        return _Pmean.apply(x, mesh, live)
+    return _pmean(x, mesh, live)
+
+
+def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
+                kind: str) -> torch.Tensor:
     n = mesh.shape[axis]
     t0 = time.perf_counter()
     src = _to_host(_raw(x))
@@ -171,12 +262,45 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
     return out.view(torch.bool) if x.dtype == torch.bool else out
 
 
-def psum_scatter(x: torch.Tensor, mesh, axis: str,
-                 dim: int) -> torch.Tensor:
-    """Sum over ``axis``, then this rank's block of ``dim`` (split into
-    axis-size blocks): ``jax.lax.psum_scatter(..., tiled=True)``."""
+def local_block(t: torch.Tensor, mesh, axis: str, dim: int) -> torch.Tensor:
+    """This rank's block of ``dim`` split into axis-size blocks."""
+    blk = t.shape[dim] // mesh.shape[axis]
+    return t.narrow(dim, mesh.coords[axis] * blk, blk)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, kind, invariant):
+        ctx.args = (mesh, axis, dim, invariant)
+        return _all_gather(x, mesh, axis, dim, kind)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim, invariant = ctx.args
+        if invariant:
+            gx = local_block(g, mesh, axis, dim).contiguous()
+        else:
+            gx = _psum_scatter(g, mesh, axis, dim)
+        return gx, None, None, None, None, None
+
+
+def all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
+               kind: str = "all-gather",
+               invariant: bool = False) -> torch.Tensor:
+    """The blocks of every rank of ``axis`` concatenated along ``dim`` in
+    axis order (``jax.lax.all_gather(..., tiled=True)``).  Backward:
+    psum_scatter of the cotangents; with ``invariant`` (the result is used
+    as one value that every rank holds, so its cotangent is whole on every
+    rank) this rank's block of it."""
     if mesh.groups[axis] is None:
         return x
+    if _tracked(x):
+        return _AllGather.apply(x, mesh, axis, dim, kind, invariant)
+    return _all_gather(x, mesh, axis, dim, kind)
+
+
+def _psum_scatter(x: torch.Tensor, mesh, axis: str,
+                  dim: int) -> torch.Tensor:
     n = mesh.shape[axis]
     t0 = time.perf_counter()
     blocks = x.movedim(dim, 0)
@@ -186,6 +310,31 @@ def psum_scatter(x: torch.Tensor, mesh, axis: str,
     out = _back(out, x).movedim(0, dim)
     _count(mesh, "reduce-scatter", x, time.perf_counter() - t0)
     return out
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.args = (mesh, axis, dim)
+        return _psum_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis, dim = ctx.args
+        return (_all_gather(g.contiguous(), mesh, axis, dim, "all-gather"),
+                None, None, None)
+
+
+def psum_scatter(x: torch.Tensor, mesh, axis: str,
+                 dim: int) -> torch.Tensor:
+    """Sum over ``axis``, then this rank's block of ``dim`` (split into
+    axis-size blocks): ``jax.lax.psum_scatter(..., tiled=True)``.
+    Backward: all_gather."""
+    if mesh.groups[axis] is None:
+        return x
+    if _tracked(x):
+        return _PsumScatter.apply(x, mesh, axis, dim)
+    return _psum_scatter(x, mesh, axis, dim)
 
 
 class Pending:
@@ -206,14 +355,17 @@ class Pending:
         return out
 
 
-def all_to_all(x: torch.Tensor, mesh, axis: str,
-               async_op: bool = False):
-    """``x`` (n, ...) with n the axis size: block j goes to rank j, and
-    block j of the output came from rank j (``jax.lax.all_to_all`` with
-    split and concat axis 0, untiled).  With ``async_op`` it returns a
-    ``Pending`` whose ``wait()`` gives the output."""
-    if mesh.groups[axis] is None:
-        return Pending(mesh, x, x, None, 0.0) if async_op else x
+class _Done:
+    """A finished exchange behind ``Pending``'s interface."""
+
+    def __init__(self, out):
+        self.out = out
+
+    def wait(self) -> torch.Tensor:
+        return self.out
+
+
+def _all_to_all(x: torch.Tensor, mesh, axis: str, async_op: bool = False):
     t0 = time.perf_counter()
     src = _to_host(x)
     out = _empty_like_host(src, src.shape)
@@ -223,11 +375,34 @@ def all_to_all(x: torch.Tensor, mesh, axis: str,
     return pending if async_op else pending.wait()
 
 
-def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
-    """Send this rank's ``x`` along ``perm`` ((source, destination) axis
-    indices); a rank that no pair sends to gets zeros, as in JAX."""
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.args = (mesh, axis)
+        return _all_to_all(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g.contiguous(), *ctx.args), None, None
+
+
+def all_to_all(x: torch.Tensor, mesh, axis: str,
+               async_op: bool = False):
+    """``x`` (n, ...) with n the axis size: block j goes to rank j, and
+    block j of the output came from rank j (``jax.lax.all_to_all`` with
+    split and concat axis 0, untiled).  With ``async_op`` it returns a
+    ``Pending`` whose ``wait()`` gives the output; under autograd the
+    exchange completes in the call (the same values; backward: the same
+    exchange of the cotangents)."""
     if mesh.groups[axis] is None:
-        return x
+        return Pending(mesh, x, x, None, 0.0) if async_op else x
+    if _tracked(x):
+        out = _AllToAll.apply(x, mesh, axis)
+        return _Done(out) if async_op else out
+    return _all_to_all(x, mesh, axis, async_op)
+
+
+def _ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
     me = mesh.coords[axis]
     t0 = time.perf_counter()
     src = _to_host(x)
@@ -241,3 +416,99 @@ def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
     out = _back(out, x)
     _count(mesh, "collective-permute", x, time.perf_counter() - t0)
     return out
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.args = (mesh, axis, [(d, s) for s, d in perm])
+        return _ppermute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ppermute(g.contiguous(), *ctx.args), None, None, None
+
+
+def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """Send this rank's ``x`` along ``perm`` ((source, destination) axis
+    indices); a rank that no pair sends to gets zeros, as in JAX.
+    Backward: the cotangents sent along the inverse permutation."""
+    if mesh.groups[axis] is None:
+        return x
+    if _tracked(x):
+        return _Ppermute.apply(x, mesh, axis, perm)
+    return _ppermute(x, mesh, axis, perm)
+
+
+# ---------------------------------------------------------------------------
+# packed forms: several tensors of one dtype in one exchange
+# ---------------------------------------------------------------------------
+
+def _flat(xs) -> torch.Tensor:
+    dtypes = {x.dtype for x in xs}
+    if len(dtypes) != 1:
+        raise ValueError(f"a packed collective takes one dtype, got {dtypes}")
+    return torch.cat([x.reshape(-1) for x in xs])
+
+
+def _unflat(flat: torch.Tensor, shapes) -> list:
+    out, off = [], 0
+    for shape in shapes:
+        n = math.prod(shape)
+        out.append(flat[..., off:off + n].reshape(flat.shape[:-1] + shape))
+        off += n
+    return out
+
+
+def all_gather_packed(xs, mesh, axis: str, dims, kind: str) -> list:
+    """``all_gather(x, mesh, axis, dim)`` of each ``x`` with its ``dim``,
+    in one exchange (no autograd)."""
+    if mesh.groups[axis] is None or not xs:
+        return list(xs)
+    flat = _flat(xs)
+    n = mesh.shape[axis]
+    t0 = time.perf_counter()
+    src = _to_host(flat)
+    out = _empty_like_host(src, (n, src.numel()))
+    dist.all_gather_into_tensor(out.view(-1), src, group=mesh.groups[axis])
+    out = _back(out, flat)
+    _count(mesh, kind, flat, time.perf_counter() - t0)
+    parts = _unflat(out, [tuple(x.shape) for x in xs])
+    return [torch.cat(p.unbind(0), dim=d) for p, d in zip(parts, dims)]
+
+
+def psum_scatter_packed(xs, mesh, axis: str, dims, kind: str) -> list:
+    """``psum_scatter(x, mesh, axis, dim)`` of each ``x`` with its
+    ``dim``, in one exchange (no autograd)."""
+    if mesh.groups[axis] is None or not xs:
+        return list(xs)
+    n = mesh.shape[axis]
+    rows = [x.unflatten(d, (n, x.shape[d] // n)).movedim(d, 0).reshape(n, -1)
+            for x, d in zip(xs, dims)]
+    src_dev = torch.cat(rows, dim=1)
+    t0 = time.perf_counter()
+    src = _to_host(src_dev)
+    out = _empty_like_host(src, (src.shape[1],))
+    dist.reduce_scatter_tensor(out, src.view(-1), group=mesh.groups[axis])
+    out = _back(out, src_dev)
+    _count(mesh, kind, src_dev, time.perf_counter() - t0)
+    shapes = []
+    for x, d in zip(xs, dims):
+        shape = list(x.shape)
+        shape[d] //= n
+        shapes.append(tuple(shape))
+    return _unflat(out, shapes)
+
+
+def psum_packed(xs, mesh, axis: str, kind: str, mean: bool = False) -> list:
+    """``psum`` (or with ``mean`` the mean) of each ``x`` over ``axis`` in
+    one exchange, in rank order (no autograd)."""
+    if mesh.groups[axis] is None or not xs:
+        return list(xs)
+    flat = _flat(xs)
+    t0 = time.perf_counter()
+    out = _back(_sum(_to_host(flat), flat, mesh, axis), flat)
+    if mean:
+        out = out / mesh.shape[axis]
+    _count(mesh, kind, flat, time.perf_counter() - t0)
+    return _unflat(out, [tuple(x.shape) for x in xs])

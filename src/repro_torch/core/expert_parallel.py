@@ -40,6 +40,18 @@ the whole sequence: it stands in for the resharding GSPMD inserts in the
 reference, is not part of the schedule, and its bytes are counted under
 ``collectives.LAYOUT``, apart from the schedule's.
 
+Under autograd (training on a mesh, ``kernels=False``) every schedule is
+differentiable and its forward values are the same: the collectives take
+their transposes in the backward (``core/collectives``), and wherever a
+value that every expert rank holds alike (x, the router weight, the
+router's combine weights) enters per-rank work it passes
+``collectives.enter``, whose backward sums the ranks' partial cotangents
+over the expert axis, so the router and everything upstream get their
+whole gradient.  The layout step's gather is ``invariant``: its result is
+one value on every rank, and its backward keeps this rank's block.  Under
+autograd a2a_pipelined's dispatch completes in the call (the same values;
+the overlap is the forward-only path's).
+
 Quantized expert shards ride every schedule unchanged; activations stay
 fp and only fp activations move.  The collectives are
 ``core/collectives``'s, over the mesh's gloo groups: on the card each
@@ -112,11 +124,14 @@ def expert_shard(cfg, experts: dict, mesh) -> dict:
 
 def _local_moe(cfg, experts: dict, x2d: torch.Tensor,
                rout: router_lib.RouterOut, e_start: int, capacity: int,
-               kernels: bool = True) -> torch.Tensor:
+               kernels: bool = True, groups: int = 1) -> torch.Tensor:
+    """This rank's experts over x2d; ``groups`` blocks of rows, each with
+    ``capacity`` slots per expert (the forms are chosen per block)."""
     if cfg.moe_strategy == "dense":
         return moe_lib.dense_moe(experts, x2d, rout.top_idx, rout.top_w,
                                  e_start, kernels)
     t, k = rout.top_idx.shape
+    t //= groups
     e_local = experts["w_gate"].shape[0]
     if 0 < t * k <= cfg.gather_decode_max_tk:
         # capacity-free decode fast path, form chosen by modelled cost:
@@ -130,7 +145,7 @@ def _local_moe(cfg, experts: dict, x2d: torch.Tensor,
                                      e_start, kernels)
     return moe_lib.dispatch_moe(experts, x2d, rout.top_idx, rout.top_w,
                                 cfg.num_experts_padded, e_start, capacity,
-                                kernels)
+                                kernels, groups)
 
 
 def _mask_rout(rout: router_lib.RouterOut, valid: torch.Tensor,
@@ -142,8 +157,14 @@ def _mask_rout(rout: router_lib.RouterOut, valid: torch.Tensor,
     return rout._replace(top_idx=top_idx, top_w=top_w)
 
 
-def _route(cfg, layer_p, x2d, valid) -> router_lib.RouterOut:
-    rout = router_lib.route(layer_p["router"], x2d, cfg.experts_per_token,
+def _route(cfg, layer_p, x2d, valid, mesh=None) -> router_lib.RouterOut:
+    """The router over x2d, dead-routing invalid tokens; with ``mesh`` the
+    tokens are this rank's own (a sequence block, a gathered block), so
+    the router weight enters per-rank work (``collectives.enter``)."""
+    w = layer_p["router"]
+    if mesh is not None:
+        w = collectives.enter(w, mesh, EXPERT_AXIS)
+    rout = router_lib.route(w, x2d, cfg.experts_per_token,
                             norm_topk=cfg.router_norm_topk,
                             n_valid_experts=cfg.num_experts)
     return _mask_rout(rout, valid, cfg.num_experts_padded)
@@ -151,7 +172,8 @@ def _route(cfg, layer_p, x2d, valid) -> router_lib.RouterOut:
 
 def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
               token_mask: torch.Tensor | None = None, mesh=None,
-              kernels: bool = True, batch_axes: tuple | None = None):
+              kernels: bool = True, batch_axes: tuple | None = None,
+              row_blocks: int = 1):
     """x: (B, S, D) -> (y (B, S, D), aux_loss (), top_idx (B*S, K)).
 
     ``layer_p``: {"router": (D, E_pad), "experts": {"w_gate": (E_pad, D, F),
@@ -165,7 +187,14 @@ def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
     axis), and ``layer_p["experts"]`` holds this rank's rows
     (``expert_shard``); the result is this rank's block, the whole
     sequence, and ``aux`` the global aux loss.  ``top_idx`` is the
-    pre-stripe routing decision with r > 1."""
+    pre-stripe routing decision with r > 1.
+
+    ``row_blocks`` G (a serving mesh, where every rank runs the whole
+    batch over ``batch_axes=()``): the B rows are G equal blocks, one per
+    data position, and each is planned with its own capacity (and its own
+    replica stripes and pipeline chunks), as the reference's ``shard_map``
+    plans each data block; the aux stays the whole batch's (the serving
+    paths drop it)."""
     b, s, d = x.shape
     k = cfg.experts_per_token
     r = max(cfg.expert_replication, 1)
@@ -206,10 +235,13 @@ def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
         batch_axes = mesh_batch_axes(mesh)
     if token_mask is None:
         token_mask = torch.ones((b, s), dtype=torch.bool, device=x.device)
+    if b % row_blocks:
+        raise ValueError(f"{row_blocks} row blocks do not divide B={b}")
     fn = {"decentralized": _decentralized, "centralized": _centralized,
           "a2a": _a2a, "a2a_pipelined": _a2a_pipelined}[cfg.expert_parallel]
     y, aux, top_idx = fn(cfg, mesh, layer_p, x, token_mask,
-                         tuple(batch_axes), n_exp_shards, e_local, kernels)
+                         tuple(batch_axes), n_exp_shards, e_local, kernels,
+                         row_blocks)
     if y.shape[1] != s:
         y, top_idx = _unshard_seq(mesh, y, top_idx)
     return y, aux, top_idx.reshape(b * s, k)
@@ -223,7 +255,7 @@ def _unshard_seq(mesh, y: torch.Tensor, top_idx: torch.Tensor):
     a layout hint there); here it is one all-gather of each, counted under
     ``collectives.LAYOUT``."""
     y = collectives.all_gather(y, mesh, EXPERT_AXIS, dim=1,
-                               kind=collectives.LAYOUT)
+                               kind=collectives.LAYOUT, invariant=True)
     top_idx = collectives.all_gather(top_idx.to(torch.int32), mesh,
                                      EXPERT_AXIS, dim=1,
                                      kind=collectives.LAYOUT)
@@ -241,13 +273,22 @@ def _seq_block(mesh, t: torch.Tensor, n: int) -> torch.Tensor:
 # decentralized (paper Fig. 7): replicated tokens, sharded experts, one psum
 # ---------------------------------------------------------------------------
 
+def _enter_local(mesh, x2d, rout):
+    """x2d and the combine weights, the same on every expert rank, as the
+    inputs of this rank's experts."""
+    return (collectives.enter(x2d, mesh, EXPERT_AXIS),
+            rout._replace(top_w=collectives.enter(rout.top_w, mesh,
+                                                  EXPERT_AXIS)))
+
+
 def _decentralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
-                   e_local, kernels):
+                   e_local, kernels, groups=1):
     """Paper Fig. 7, plus the §5.3 overlapping placement: with r > 1 each
-    replica handles the 1/r token stripe ``t % r == replica``."""
+    replica handles the 1/r token stripe ``t % r == replica`` (t counted
+    in its row block)."""
     bl, sl, d = x.shape
     r = max(cfg.expert_replication, 1)
-    t_loc = max(bl * sl, 1)
+    t_loc = max(bl // groups * sl, 1)
     cap = moe_lib.round_capacity(-(-t_loc // r), cfg.experts_per_token,
                                  cfg.num_experts_padded, cfg.capacity_factor)
     e_pad = cfg.num_experts_padded
@@ -255,18 +296,21 @@ def _decentralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
     x2d = x.reshape(bl * sl, d)
     rout = _route(cfg, layer_p, x2d, token_mask.reshape(bl * sl))
     routed = rout.top_idx            # pre-stripe: actual decisions
+    x2d, rout = _enter_local(mesh, x2d, rout)
     idx = mesh.coords[EXPERT_AXIS]
     if r > 1:
         replica = idx // n_grp
         e_start = (idx % n_grp) * e_local
-        stripe = (torch.arange(bl * sl, device=x.device) % r) == replica
+        stripe = (torch.arange(bl * sl, device=x.device) % t_loc
+                  % r) == replica
         # tokens outside this replica's stripe route to a dead sentinel
         rout = rout._replace(
             top_idx=torch.where(stripe[:, None], rout.top_idx, e_pad),
             top_w=torch.where(stripe[:, None], rout.top_w, 0.0))
     else:
         e_start = idx * e_local
-    y = _local_moe(cfg, layer_p["experts"], x2d, rout, e_start, cap, kernels)
+    y = _local_moe(cfg, layer_p["experts"], x2d, rout, e_start, cap, kernels,
+                   groups)
     y = collectives.psum(y, mesh, EXPERT_AXIS)
     aux = (collectives.pmean(rout.aux_loss, mesh, batch_axes) if batch_axes
            else rout.aux_loss)
@@ -279,23 +323,24 @@ def _decentralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
 # ---------------------------------------------------------------------------
 
 def _centralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
-                 e_local, kernels):
+                 e_local, kernels, groups=1):
     bl, s, d = x.shape
     k = cfg.experts_per_token
-    cap = moe_lib.round_capacity(max(bl * s, 1), k, cfg.num_experts_padded,
-                                 cfg.capacity_factor)
+    cap = moe_lib.round_capacity(max(bl // groups * s, 1), k,
+                                 cfg.num_experts_padded, cfg.capacity_factor)
     idx = mesh.coords[EXPERT_AXIS]
     e_start = idx * e_local
     if s % n_shards == 0:
         # comm 1: gather the token block AND its mask to every expert shard
-        x_full = collectives.all_gather(_seq_block(mesh, x, n_shards), mesh,
-                                        EXPERT_AXIS, dim=1)
+        x_full = collectives.all_gather(
+            _seq_block(mesh, collectives.enter(x, mesh, EXPERT_AXIS),
+                       n_shards), mesh, EXPERT_AXIS, dim=1)
         tm_full = collectives.all_gather(
             _seq_block(mesh, token_mask, n_shards), mesh, EXPERT_AXIS, dim=1)
         x2d = x_full.reshape(bl * s, d)
-        rout = _route(cfg, layer_p, x2d, tm_full.reshape(bl * s))
+        rout = _route(cfg, layer_p, x2d, tm_full.reshape(bl * s), mesh)
         y = _local_moe(cfg, layer_p["experts"], x2d, rout, e_start, cap,
-                       kernels)
+                       kernels, groups)
         # comm 2: reduce the partial sums, scatter back to sequence shards
         y = collectives.psum_scatter(y.reshape(bl, s, d), mesh, EXPERT_AXIS,
                                      dim=1)
@@ -308,13 +353,16 @@ def _centralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
     # decode fallback: psum (comm 1) + value-preserving ring permute (comm 2)
     x2d = x.reshape(bl * s, d)
     rout = _route(cfg, layer_p, x2d, token_mask.reshape(bl * s))
-    y = _local_moe(cfg, layer_p["experts"], x2d, rout, e_start, cap, kernels)
+    top_idx = rout.top_idx
+    x2d, rout = _enter_local(mesh, x2d, rout)
+    y = _local_moe(cfg, layer_p["experts"], x2d, rout, e_start, cap, kernels,
+                   groups)
     y = collectives.psum(y, mesh, EXPERT_AXIS)
     perm = [(i, (i + 1) % n_shards) for i in range(n_shards)]
     y = collectives.ppermute(y, mesh, EXPERT_AXIS, perm)  # identical values
     aux = (collectives.pmean(rout.aux_loss, mesh, batch_axes) if batch_axes
            else rout.aux_loss)
-    return y.reshape(bl, s, d), aux, rout.top_idx.reshape(bl, s, k)
+    return y.reshape(bl, s, d), aux, top_idx.reshape(bl, s, k)
 
 
 # ---------------------------------------------------------------------------
@@ -322,17 +370,17 @@ def _centralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
 # ---------------------------------------------------------------------------
 
 def _a2a_dispatch(cfg, mesh, xi, ti, n_shards, e_local, cap,
-                  async_op=False):
+                  async_op=False, groups=1):
     """Token-block dispatch: capacity plan + gather + all_to_all (comm 1).
     The plan builds buffers for ALL experts grouped by owner shard, so
     shard i's block j travels to shard j.  Returns the post-exchange
-    (n_src, e_local*cap, d) buffer of local-expert inputs (a ``Pending``
-    with ``async_op``) and ``slot_of`` for the combine."""
+    (n_src, e_local*groups*cap, d) buffer of local-expert inputs (a
+    ``Pending`` with ``async_op``) and ``slot_of`` for the combine."""
     dd = xi.shape[-1]
     dispatch_tok, slot_valid, slot_of = moe_lib.make_dispatch_plan(
-        ti, cfg.num_experts_padded, 0, cfg.num_experts_padded, cap)
+        ti, cfg.num_experts_padded, 0, cfg.num_experts_padded, cap, groups)
     xe = xi.index_select(0, dispatch_tok) * slot_valid[:, None].to(xi.dtype)
-    xe = xe.reshape(n_shards, e_local * cap, dd)
+    xe = xe.reshape(n_shards, e_local * groups * cap, dd)
     return (collectives.all_to_all(xe, mesh, EXPERT_AXIS, async_op),
             slot_of)
 
@@ -356,24 +404,26 @@ def _a2a_ffn_combine(cfg, mesh, experts, xe, slot_of, wi, n_shards, e_local,
 
 
 def _a2a(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards, e_local,
-         kernels):
+         kernels, groups=1):
     bl, s, d = x.shape
     if s % n_shards != 0:
         # single-token decode: fall back to the decentralized schedule
         return _decentralized(cfg, mesh, layer_p, x, token_mask, batch_axes,
-                              n_shards, e_local, kernels)
+                              n_shards, e_local, kernels, groups)
     t_loc = bl * (s // n_shards)
-    # per-(source shard, expert) capacity
-    cap = moe_lib.round_capacity(max(t_loc, 1), cfg.experts_per_token,
+    # per-(source shard, row block, expert) capacity
+    cap = moe_lib.round_capacity(max(t_loc // groups, 1),
+                                 cfg.experts_per_token,
                                  cfg.num_experts_padded, cfg.capacity_factor)
-    x_loc = _seq_block(mesh, x, n_shards)
+    x_loc = _seq_block(mesh, collectives.enter(x, mesh, EXPERT_AXIS),
+                       n_shards)
     x2d = x_loc.reshape(t_loc, d)
     rout = _route(cfg, layer_p, x2d,
-                  _seq_block(mesh, token_mask, n_shards).reshape(t_loc))
+                  _seq_block(mesh, token_mask, n_shards).reshape(t_loc), mesh)
     xe, slot_of = _a2a_dispatch(cfg, mesh, x2d, rout.top_idx, n_shards,
-                                e_local, cap)
+                                e_local, cap, groups=groups)
     y = _a2a_ffn_combine(cfg, mesh, layer_p["experts"], xe, slot_of,
-                         rout.top_w, n_shards, e_local, cap, kernels)
+                         rout.top_w, n_shards, e_local, groups * cap, kernels)
     aux = collectives.pmean(rout.aux_loss, mesh, (EXPERT_AXIS,) + batch_axes)
     return (y.reshape(bl, s // n_shards, d), aux,
             rout.top_idx.reshape(bl, s // n_shards, cfg.experts_per_token))
@@ -384,7 +434,7 @@ def _a2a(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards, e_local,
 # ---------------------------------------------------------------------------
 
 def _a2a_pipelined(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
-                   e_local, kernels):
+                   e_local, kernels, groups=1):
     """Software-pipelined a2a: the local token block is split into
     ``cfg.ep_microchunks`` chunks; chunk i+1's dispatch all-to-all is issued
     (``async_op``) before chunk i's expert FFN and combine, the order of the
@@ -393,29 +443,34 @@ def _a2a_pipelined(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
     routing and per-slot contractions equal ``a2a``'s whenever capacity is
     not binding.  Falls back to ``_a2a`` when the chunk split does not
     divide, which itself falls back to ``_decentralized`` for single-token
-    decode."""
+    decode.  With row blocks, chunk i holds every block's chunk i."""
     bl, s, d = x.shape
     if s % n_shards != 0:
         return _decentralized(cfg, mesh, layer_p, x, token_mask, batch_axes,
-                              n_shards, e_local, kernels)
+                              n_shards, e_local, kernels, groups)
     m = max(cfg.ep_microchunks, 1)
     t_loc = bl * (s // n_shards)
-    if m <= 1 or t_loc % m != 0 or t_loc // m < 1:
+    t_blk = t_loc // groups
+    if m <= 1 or t_blk % m != 0 or t_blk // m < 1:
         return _a2a(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
-                    e_local, kernels)
+                    e_local, kernels, groups)
     k = cfg.experts_per_token
-    # per-(source shard, chunk, expert) capacity
-    cap = moe_lib.round_capacity(t_loc // m, k, cfg.num_experts_padded,
+    # per-(source shard, chunk, row block, expert) capacity
+    cap = moe_lib.round_capacity(t_blk // m, k, cfg.num_experts_padded,
                                  cfg.capacity_factor)
-    x2d = _seq_block(mesh, x, n_shards).reshape(t_loc, d)
+    x2d = _seq_block(mesh, collectives.enter(x, mesh, EXPERT_AXIS),
+                     n_shards).reshape(t_loc, d)
     rout = _route(cfg, layer_p, x2d,
-                  _seq_block(mesh, token_mask, n_shards).reshape(t_loc))
-    tc = t_loc // m
-    xc = x2d.reshape(m, tc, d)
-    ic = rout.top_idx.reshape(m, tc, k)
-    wc = rout.top_w.reshape(m, tc, k)
+                  _seq_block(mesh, token_mask, n_shards).reshape(t_loc), mesh)
+    tc = t_blk // m
+
+    def chunks(t):
+        return t.reshape(groups, m, tc, t.shape[-1]).transpose(0, 1).reshape(
+            m, groups * tc, t.shape[-1])
+    xc, ic, wc = chunks(x2d), chunks(rout.top_idx), chunks(rout.top_w)
     dispatch = lambda i: _a2a_dispatch(cfg, mesh, xc[i], ic[i], n_shards,
-                                       e_local, cap, async_op=True)
+                                       e_local, cap, async_op=True,
+                                       groups=groups)
     pending, slot_of = dispatch(0)
     ys = []
     for i in range(m):
@@ -423,9 +478,9 @@ def _a2a_pipelined(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
         if i + 1 < m:
             pending, slot_of = dispatch(i + 1)     # comm for chunk i+1
         ys.append(_a2a_ffn_combine(cfg, mesh, layer_p["experts"], xe_i,
-                                   so_i, wc[i], n_shards, e_local, cap,
-                                   kernels))       # compute for chunk i
-    y = torch.cat(ys, dim=0)
+                                   so_i, wc[i], n_shards, e_local,
+                                   groups * cap, kernels))  # compute, chunk i
+    y = torch.stack(ys).reshape(m, groups, tc, d).transpose(0, 1)
     aux = collectives.pmean(rout.aux_loss, mesh, (EXPERT_AXIS,) + batch_axes)
     return (y.reshape(bl, s // n_shards, d), aux,
             rout.top_idx.reshape(bl, s // n_shards, k))

@@ -69,31 +69,43 @@ def dense_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
 
 
 def make_dispatch_plan(top_idx: torch.Tensor, num_experts: int, e_start: int,
-                       e_local: int, capacity: int):
+                       e_local: int, capacity: int, groups: int = 1):
     """Gather/scatter indices for capacity dispatch.
 
     Returns (dispatch_tok, slot_valid, slot_of):
-      dispatch_tok: (E_local * C,) int64 — source token per expert slot
+      dispatch_tok: (E_local * G * C,) int64 — source token per expert slot
                     (padding slots point at token 0 and are masked)
-      slot_valid:   (E_local * C,) bool — slot actually holds a token
+      slot_valid:   (E_local * G * C,) bool — slot actually holds a token
       slot_of:      (T, K) int64 — destination slot per routing decision,
-                    == E_local*C (one past the end) when dropped / non-local
-    Ties keep token order (stable sort), so drops hit the latest tokens."""
+                    == E_local*G*C (one past the end) when dropped /
+                    non-local
+    Ties keep token order (stable sort), so drops hit the latest tokens.
+    ``groups`` G: the T tokens are G equal blocks of rows, each planned
+    apart with ``capacity`` slots per expert (what G separate plans of
+    the blocks give); expert e's slots hold block 0's, then block 1's."""
     t, k = top_idx.shape
     dev = top_idx.device
     flat_e = top_idx.reshape(-1).long()
+    if groups > 1:
+        block = torch.arange(t * k, device=dev) // k // (t // groups)
+        flat_e = flat_e * groups + block
     order = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[order]
-    first = torch.searchsorted(sorted_e, torch.arange(num_experts, device=dev),
+    sorted_key = flat_e[order]
+    n_keys = num_experts * groups
+    first = torch.searchsorted(sorted_key, torch.arange(n_keys, device=dev),
                                side="left")
     # dead-routed decisions carry the E_pad sentinel: clamp the lookup
     # (their rank is irrelevant, they are never local)
     rank = (torch.arange(t * k, device=dev)
-            - first[sorted_e.clamp(max=num_experts - 1)])
+            - first[sorted_key.clamp(max=n_keys - 1)])
+    sorted_e = sorted_key // groups if groups > 1 else sorted_key
     is_local = (sorted_e >= e_start) & (sorted_e < e_start + e_local)
     ok = is_local & (rank < capacity)
-    nbuf = e_local * capacity
-    dest = torch.where(ok, (sorted_e - e_start) * capacity + rank, nbuf)
+    nbuf = e_local * groups * capacity
+    slot = (sorted_e - e_start) * groups * capacity + rank
+    if groups > 1:
+        slot = slot + (sorted_key % groups) * capacity
+    dest = torch.where(ok, slot, nbuf)
     # one spare row (index nbuf) takes every dropped decision
     dispatch_tok = torch.zeros((nbuf + 1,), dtype=torch.long, device=dev)
     dispatch_tok[dest] = order // k
@@ -106,9 +118,11 @@ def make_dispatch_plan(top_idx: torch.Tensor, num_experts: int, e_start: int,
 
 def dispatch_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
                  top_w: torch.Tensor, num_experts: int, e_start: int,
-                 capacity: int, kernels: bool = True) -> torch.Tensor:
+                 capacity: int, kernels: bool = True,
+                 groups: int = 1) -> torch.Tensor:
     """Capacity-based dispatch on the local shard. x: (T, D).  Returns the
-    local partial sum (T, D).
+    local partial sum (T, D).  ``groups``: blocks of rows with a capacity
+    each (``make_dispatch_plan``).
 
     The gathers are ``index_select``s: their backward adds with atomics,
     where advanced indexing's backward sorts the indices and sums each run
@@ -117,10 +131,10 @@ def dispatch_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
     e_local = experts["w_gate"].shape[0]
     t, d = x.shape
     dispatch_tok, slot_valid, slot_of = make_dispatch_plan(
-        top_idx, num_experts, e_start, e_local, capacity)
+        top_idx, num_experts, e_start, e_local, capacity, groups)
     xe = x.index_select(0, dispatch_tok) * slot_valid[:, None].to(x.dtype)
-    xe = xe.reshape(e_local, capacity, d)
-    ye = expert_ffn(experts, xe, kernels).reshape(e_local * capacity, d)
+    xe = xe.reshape(e_local, groups * capacity, d)
+    ye = expert_ffn(experts, xe, kernels).reshape(-1, d)
     ye_pad = torch.cat([ye, ye.new_zeros((1, d))], dim=0)
     y_tk = ye_pad.index_select(0, slot_of.reshape(-1)).reshape(t, -1, d)
     return torch.einsum("tk,tkd->td", top_w.to(y_tk.dtype), y_tk)

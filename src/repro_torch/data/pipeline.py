@@ -9,8 +9,8 @@ Sources
 
 ``Pipeline`` packs documents into (global_batch, seq_len) rows of tokens
 and next-token labels, EOS-separated.  The same seed gives the reference's
-batches bit for bit.  ``shard_batch`` (placing a batch on a mesh) waits
-for the meshes (ROADMAP queue A).
+batches bit for bit.  ``shard_batch`` gives a rank of a mesh its rows of
+a global batch.
 """
 from __future__ import annotations
 
@@ -19,7 +19,6 @@ from typing import Iterator
 
 import numpy as np
 
-from repro_torch import not_ported
 
 
 class SyntheticSource:
@@ -108,7 +107,23 @@ class Pipeline:
 
 
 def shard_batch(batch: dict, mesh, batch_axes=("pod", "data")) -> dict:
-    """Place a host batch on a mesh, the batch axis sharded over the data
-    axes: a later slice (``Model.forward`` on a mesh takes the global batch
-    and cuts its own rows, ``expert_parallel.batch_shard``)."""
-    raise not_ported("sharding a batch over a mesh", "meshes (3)")
+    """This rank's block of a global batch (numpy or tensors) under
+    ``launch/sharding.batch_pspec``: the leading dimension split over the
+    mesh's axes among ``batch_axes`` when they divide it, the whole batch
+    otherwise (the reference's ``shard_batch`` places the same blocks).
+    ``Model.loss`` and ``Model.forward`` on a mesh take the global batch
+    and cut the same rows themselves (``expert_parallel.batch_shard``)."""
+    axes = tuple(a for a in mesh.axis_names if a in batch_axes)
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+
+    def rows(v):
+        b = v.shape[0]
+        if b % n:
+            return v
+        idx = 0
+        for a in axes:
+            idx = idx * mesh.shape[a] + mesh.coords[a]
+        return v[idx * (b // n):(idx + 1) * (b // n)]
+    return {k: rows(v) for k, v in batch.items()}

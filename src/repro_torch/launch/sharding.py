@@ -23,6 +23,20 @@ The rules read only ``mesh.axis_names`` and ``mesh.shape`` (and leaf
 shapes), so any object with those two fields will do; ``block_slices``
 and ``shard_tree`` also read ``mesh.coords``, this rank's position.
 
+Training on a mesh stores each rank's ``train`` blocks (``train_specs``)
+of the params and of both AdamW moments, and computes with each layer's
+``compute_view``: every leaf gathered over the axes its spec cuts it on,
+except an expert leaf's expert axis over "model" (the rank keeps its
+expert rows, as ``expert_parallel.expert_shard`` cuts them).  Its
+backward is the gathers' transpose: over the axes the batch rows are
+split on, the gradients are partials, summed into this rank's block
+(reduce-scatter) or, for a leaf those axes do not cut, summed whole; over
+the others (the ranks computed the same rows, so each holds the whole
+gradient) this rank's block is kept, and a leaf that the axis does not
+cut takes the mean of its identical copies, so replicas stay equal to
+the bit.  ``unshard_tree`` puts whole leaves back together (a
+checkpoint).
+
 ``cache_pspec``'s ``hd`` placement (the reference's default for
 ``kv_cache_shard``) splits the head dimension of a dry-run's cache.  The
 port's serving layers do not take it: on a mesh each rank's page pool and
@@ -37,6 +51,7 @@ import math
 
 import torch
 
+from repro_torch.core import collectives
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.quant import QuantTensor
 from repro_torch.launch import mesh as mesh_lib
@@ -348,12 +363,34 @@ def serve_specs(cfg, mesh) -> dict:
                         tuple(mesh.shape[a] for a in mesh.axis_names))
 
 
-def serve_slices(cfg, mesh) -> dict:
+@functools.lru_cache(maxsize=64)
+def _train_specs(cfg, axis_names: tuple, shape: tuple) -> dict:
+    mesh = _Axes(axis_names, dict(zip(axis_names, shape)))
+    return params_pspec(cfg, mesh, meta_params(cfg), mode="train")
+
+
+def train_specs(cfg, mesh) -> dict:
+    """``params_pspec(cfg, mesh, <the whole tree>, mode="train")``: the
+    blocks a training rank stores of the params and of both AdamW
+    moments (``opt_pspec``), cached per config and mesh shape."""
+    return _train_specs(cfg.replace(weight_quant="none"),
+                        tuple(mesh.axis_names),
+                        tuple(mesh.shape[a] for a in mesh.axis_names))
+
+
+def mode_specs(cfg, mesh, mode: str) -> dict:
+    if mode not in ("serve", "train"):
+        raise ValueError(f"unknown mode {mode!r}; expected serve or train")
+    return serve_specs(cfg, mesh) if mode == "serve" else train_specs(
+        cfg, mesh)
+
+
+def mode_slices(cfg, mesh, mode: str) -> dict:
     """This rank's ``block_slices`` of every leaf of ``cfg``'s unquantized
-    parameter tree under the serve-mode specs (what
-    ``Model.init_serving`` keeps of each draw)."""
+    parameter tree under the ``mode`` specs (what ``Model.init_serving``
+    and ``Model.init_training`` keep of each draw)."""
     fp = cfg.replace(weight_quant="none")
-    specs = serve_specs(fp, mesh)
+    specs = mode_specs(fp, mesh, mode)
 
     def walk(tree, spec):
         return {k: walk(v, spec[k]) if isinstance(v, dict)
@@ -362,9 +399,127 @@ def serve_slices(cfg, mesh) -> dict:
     return walk(meta_params(fp), specs)
 
 
-def block_bytes(cfg, mesh) -> int:
-    """This rank's bytes of the serve-mode blocks of ``cfg``'s weights:
+def block_bytes(cfg, mesh, mode: str = "serve") -> int:
+    """This rank's bytes of the ``mode`` blocks of ``cfg``'s weights:
     each leaf's block size times its element size (QuantTensor payload
     and scales alike)."""
-    tree = shard_tree(meta_params(cfg), serve_specs(cfg, mesh), mesh)
+    tree = shard_tree(meta_params(cfg), mode_specs(cfg, mesh, mode), mesh)
     return quant_lib.tree_bytes(tree)
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh: the compute view of the train blocks
+# ---------------------------------------------------------------------------
+
+def layer_spec(spec):
+    """The spec tree of one layer of a layer-stacked spec tree (the
+    leading layer axis, never cut, dropped)."""
+    if isinstance(spec, dict):
+        return {k: layer_spec(v) for k, v in spec.items()}
+    if spec[0] is not None:
+        raise ValueError(f"a layer-stacked leaf cut on its layer axis: {spec}")
+    return spec[1:]
+
+
+def _flat_leaves(tree, spec, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_leaves(tree[k], spec[k], path + (k,))
+    else:
+        yield path, tree, spec
+
+
+def _rebuild(tree, values):
+    if isinstance(tree, dict):
+        return {k: _rebuild(tree[k], values) for k in sorted(tree)}
+    return next(values)
+
+
+class _ComputeView(torch.autograd.Function):
+    """Blocks -> compute views, one packed all-gather per axis; the
+    backward is their transpose (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, mesh, plan, order, varying, *blocks):
+        ctx.plan, ctx.mesh, ctx.order, ctx.varying = plan, mesh, order, varying
+        views = list(blocks)
+        for axis in order:
+            idx = [i for i, (cuts, _) in enumerate(plan) if axis in cuts]
+            got = collectives.all_gather_packed(
+                [views[i] for i in idx], mesh, axis,
+                [plan[i][0][axis] for i in idx], collectives.PARAM_GATHER)
+            for i, v in zip(idx, got):
+                views[i] = v
+        return tuple(v.view_as(v) for v in views)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        mesh, plan = ctx.mesh, ctx.plan
+        grads = list(grads)
+        for axis in reversed(ctx.order):
+            if mesh.groups[axis] is None:
+                continue
+            cut = [i for i, (cuts, _) in enumerate(plan) if axis in cuts]
+            whole = [i for i, (cuts, kept) in enumerate(plan)
+                     if axis not in cuts and axis not in kept]
+            if axis in ctx.varying:
+                got = collectives.psum_scatter_packed(
+                    [grads[i] for i in cut], mesh, axis,
+                    [plan[i][0][axis] for i in cut], collectives.GRAD_REDUCE)
+            else:
+                got = [collectives.local_block(grads[i], mesh, axis,
+                                               plan[i][0][axis]).contiguous()
+                       for i in cut]
+            got += collectives.psum_packed(
+                [grads[i] for i in whole], mesh, axis,
+                collectives.GRAD_REDUCE, mean=axis not in ctx.varying)
+            for i, g in zip(cut + whole, got):
+                grads[i] = g
+        return (None, None, None, None) + tuple(grads)
+
+
+def compute_view(tree: dict, spec: dict, mesh, varying: tuple = ()) -> dict:
+    """The leaves of ``tree`` (this rank's train blocks; ``spec`` their
+    specs) as the forward computes with them: gathered over every axis
+    their spec cuts, the axes in ``varying`` (the batch axes the rows are
+    split over) first, except an expert leaf's "model" axis.  Packed:
+    one exchange per axis, and in the backward one or two (reduce-scatter
+    and sum over a varying axis; the mean of the uncut leaves over
+    another)."""
+    leaves = list(_flat_leaves(tree, spec))
+    plan = []
+    for path, leaf, sp in leaves:
+        cuts = {}
+        for dim, entry in enumerate(sp):
+            axes = _axes(entry)
+            if len(axes) > 1:
+                raise ValueError(f"{'/'.join(path)}: a dimension cut over "
+                                 f"several axes {axes}")
+            if axes and mesh.shape[axes[0]] > 1:
+                cuts[axes[0]] = dim
+        kept = ("model",) if "experts" in path else ()
+        if kept:
+            cuts.pop("model", None)
+        plan.append((cuts, kept))
+    order = tuple(a for a in mesh.axis_names if a in varying) + tuple(
+        a for a in mesh.axis_names if a not in varying)
+    views = _ComputeView.apply(mesh, tuple(plan), order, tuple(varying),
+                               *[leaf for _, leaf, _ in leaves])
+    return _rebuild(tree, iter(views))
+
+
+@torch.no_grad()
+def unshard_tree(tree: dict, spec: dict, mesh) -> dict:
+    """Whole leaves from every rank's blocks (each dimension gathered over
+    its axes, the fastest first); every rank gets them."""
+    def whole(leaf, sp):
+        for dim, entry in enumerate(sp):
+            for axis in reversed(_axes(entry)):
+                leaf = collectives.all_gather(leaf, mesh, axis, dim)
+        return leaf
+
+    def walk(t, sp):
+        if isinstance(t, dict):
+            return {k: walk(v, sp[k]) for k, v in t.items()}
+        return whole(t, sp)
+    return walk(tree, spec)

@@ -13,7 +13,15 @@ have no backward), so the step reaches no kernel: ``attend`` /
 when ``cfg.remat`` is set, the LM head and cross-entropy one checkpointed
 chunk at a time.  Where the reference's step is one jitted program with
 donated params and optimizer state, the port updates both IN PLACE.
-Meshes and the audio frontend are later slices (ROADMAP queue A).
+
+On a mesh (``launch/mesh.py``: one rank process per position, every rank
+calling ``train`` with its ``Mesh``) the params and both moments are this
+rank's blocks of the "train" layout (``launch/sharding.train_specs``:
+FSDP over "data", the experts' rows over "model"), drawn from the same
+seed as the one-device weights; every rank reads the same ``Pipeline``
+batches and computes its rows; the loss, its gradient norm and the logged
+metrics are the global ones, the same on every rank.  The audio frontend
+is a later slice (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -22,23 +30,29 @@ import time
 
 import torch
 
-from repro_torch import not_ported, optim
+from repro_torch import optim
 from repro_torch.ckpt import io as ckpt_io
 from repro_torch.configs.base import get_config
 from repro_torch.data.pipeline import Pipeline, PipelineConfig
+from repro_torch.launch import sharding
 from repro_torch.models.model import build_model
 
 
-def make_train_step(model, ocfg: optim.OptimizerConfig):
+def make_train_step(model, ocfg: optim.OptimizerConfig, mesh=None):
     """(params, opt_state, batch) -> (params, opt_state, metrics): the
     loss and its gradients through the path that reaches no kernel, then
     one AdamW update IN PLACE.  The metrics (loss, ce, aux, lr,
-    grad_norm) stay 0-d tensors on the device."""
+    grad_norm) stay 0-d tensors on the device.  On a ``mesh`` params and
+    moments are this rank's train blocks and ``batch`` the global batch;
+    the metrics are the global ones."""
+    spec = sharding.train_specs(model.cfg, mesh) if mesh is not None \
+        else None
+
     def train_step(params, opt_state, batch):
         leaves = list(optim.adamw.tree_leaves(params))
         for p in leaves:
             p.requires_grad_(True)
-        loss, metrics = model.loss(params, batch, kernels=False)
+        loss, metrics = model.loss(params, batch, kernels=False, mesh=mesh)
         loss.backward()
         grads = optim.adamw.tree_map(lambda p: p.grad, params)
         for p in leaves:
@@ -46,7 +60,7 @@ def make_train_step(model, ocfg: optim.OptimizerConfig):
             p.grad = None
         with torch.profiler.record_function("optimizer"):
             params, opt_state, om = optim.update(ocfg, grads, opt_state,
-                                                 params)
+                                                 params, mesh, spec)
         return params, opt_state, {**{k: v.detach() for k, v in
                                       metrics.items()},
                                    **om, "loss": loss.detach()}
@@ -59,15 +73,18 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int, mesh=None,
     """Train ``cfg`` from random weights (drawn from ``seed`` on the
     device) on ``Pipeline`` batches of the same seed.  Returns (params,
     history): one dict of floats per logged step (loss, ce, aux, lr,
-    grad_norm, step, wall_s)."""
-    if mesh is not None:
-        raise not_ported("training on a mesh", "meshes (3)")
+    grad_norm, step, wall_s).  On a ``mesh`` the params are this rank's
+    train blocks; rank 0 prints and writes the checkpoint (the whole
+    tree, the file the one-device trainer writes)."""
     model = build_model(cfg, device)
-    params = model.init(torch.Generator(device=model.device).manual_seed(seed))
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    params = (model.init(gen) if mesh is None
+              else model.init_training(gen, mesh))
     ocfg = optim.OptimizerConfig(lr=lr, total_steps=steps,
                                  warmup_steps=max(steps // 20, 5))
     opt_state = optim.init(params)
-    step_fn = make_train_step(model, ocfg)
+    step_fn = make_train_step(model, ocfg, mesh)
+    rank0 = mesh is None or not any(mesh.coords.values())
     pipe = Pipeline(PipelineConfig(seq_len=seq_len, global_batch=global_batch,
                                    vocab_size=cfg.vocab_size, seed=seed))
     history = []
@@ -80,13 +97,17 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int, mesh=None,
             m = {k: float(v) for k, v in metrics.items()}
             m["step"], m["wall_s"] = step, time.perf_counter() - t0
             history.append(m)
-            print(f"step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
-                  f"aux {m['aux']:.4f} lr {m['lr']:.2e} "
-                  f"gnorm {m['grad_norm']:.3f} [{m['wall_s']:.2f}s]",
-                  flush=True)
+            if rank0:
+                print(f"step {step:5d} loss {m['loss']:.4f} "
+                      f"ce {m['ce']:.4f} aux {m['aux']:.4f} "
+                      f"lr {m['lr']:.2e} gnorm {m['grad_norm']:.3f} "
+                      f"[{m['wall_s']:.2f}s]", flush=True)
     if ckpt_path:
-        ckpt_io.save(ckpt_path, params, step=steps)
-        print(f"saved checkpoint to {ckpt_path}")
+        ckpt_io.save(ckpt_path, params, step=steps, mesh=mesh,
+                     spec=sharding.train_specs(cfg, mesh)
+                     if mesh is not None else None)
+        if rank0:
+            print(f"saved checkpoint to {ckpt_path}")
     return params, history
 
 

@@ -2,6 +2,7 @@
 
   init(generator)                      -> params
   init_serving(generator, mesh)        -> this rank's serve-mode blocks
+  init_training(generator, mesh)       -> this rank's train-mode blocks
   init_paged_cache(num_pages, page_size, mesh=None) -> {"k", "v"} page pools
   init_cache(batch, cache_len, mesh=None) -> {"k", "v"} contiguous cache
   forward_routed(params, batch, cache, context_len, mesh=None)
@@ -12,7 +13,7 @@
                                        -> (logits, routing)
   forward(params, batch, mesh=None)    -> (logits, aux)   full sequence
   forward_seq_routed(params, batch, mesh=None) -> (logits, aux, routing)
-  loss(params, batch, kernels=True)    -> (total, {"ce", "aux"})
+  loss(params, batch, kernels=True, mesh=None) -> (total, {"ce", "aux"})
 
 Every cached entry point updates its cache IN PLACE (the reference returns
 a new one, which a donating caller aliases); ``prefill`` and
@@ -31,10 +32,20 @@ The cached entry points (``forward_routed``, ``prefill_routed``,
 ``bridge.from_jax_params(..., mesh=, mode="serve")``) holds this rank's
 block of every weight, the layers run tensor-parallel over "model"
 (``transformer.ServeTP``), the MoE layer runs ``cfg.expert_parallel`` over
-the whole batch on every rank, and the logits come back whole on every
-rank (the head's vocabulary columns gathered).  The caches are built per
-rank (``init_paged_cache`` / ``init_cache`` with ``mesh=``).  The loss on a
-mesh is a later slice and raises.
+the whole batch on every rank, with each data block of rows planned with
+its own capacity as the reference's ``shard_map`` plans it, and the
+logits come back whole on every rank (the head's vocabulary columns
+gathered).  The caches are built per rank (``init_paged_cache`` /
+``init_cache`` with ``mesh=``).
+
+The loss trains on a mesh with the train-mode layout: ``init_training(gen,
+mesh)`` (or ``bridge.from_jax_params(..., mesh=, mode="train")``) holds
+this rank's block of every weight (FSDP over "data", the experts' rows
+over "model"), and ``loss(params, batch, kernels, mesh=mesh)`` takes the
+global batch, computes on this rank's rows with each layer's weights
+gathered for that layer (``launch/sharding.compute_view``) and the MoE
+layers under ``cfg.expert_parallel``, and returns the global loss on
+every rank; its gradients land in the blocks (``launch/train.py``).
 
 Parameters are a plain dict in the JAX package's layout: weights
 (D_in, D_out), experts (L, E, D, F) / (L, E, F, D), the dense MLP
@@ -74,11 +85,6 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
-
-
-def _refuse_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise not_ported(f"{what} on a mesh", "meshes (3)")
 
 
 def _lm_head(cfg, params, x: torch.Tensor, tp=None) -> torch.Tensor:
@@ -179,7 +185,17 @@ class Model:
             params = quant.quantize_params(self.init(gen), cfg, inplace=True)
             return sharding.shard_tree(params, sharding.serve_specs(cfg, mesh),
                                        mesh)
-        return self.init(gen, keep=sharding.serve_slices(cfg, mesh))
+        return self.init(gen, keep=sharding.mode_slices(cfg, mesh, "serve"))
+
+    def init_training(self, gen: torch.Generator | None = None,
+                      mesh=None) -> dict:
+        """This rank's train-mode blocks (``launch/sharding.train_specs``)
+        of the parameters ``init(gen)`` draws: every matrix is drawn and
+        the rank keeps its block, which equals the same block of the
+        whole draw, so every mesh shape starts from the one-device
+        weights of the same seed."""
+        return self.init(gen, keep=sharding.mode_slices(self.cfg, mesh,
+                                                        "train"))
 
     def _cache_heads(self, mesh) -> int | None:
         return (transformer.serve_tp(self.cfg, mesh).attn.hkv
@@ -323,10 +339,12 @@ class Model:
         return _lm_head(cfg, params, x_sel, tp)[:, 0], routing
 
     def _trunk(self, params: dict, batch: dict, kernels: bool = True,
-               mesh=None):
+               mesh=None, block_specs=None):
         """Embedding, all layers and the final norm over a full sequence:
         (x (B, S, D), aux, routing (L, B*S, K) or None).  On a ``mesh``
-        the rows are this rank's batch block (``batch_shard``)."""
+        the rows are this rank's batch block (``batch_shard``); with
+        ``block_specs`` (a training mesh) ``params["blocks"]`` are this
+        rank's train blocks under them."""
         cfg = self.cfg
         batch_axes = None
         if mesh is not None:
@@ -337,7 +355,7 @@ class Model:
         window = transformer.effective_window(cfg, x.shape[1])
         x, aux, routing = transformer.forward_stack(
             cfg, params["blocks"], x, positions, window, kernels, mesh,
-            batch_axes)
+            batch_axes, block_specs)
         return layers.norm_apply(cfg.norm, params["final_norm"], x), aux, \
             routing
 
@@ -389,10 +407,36 @@ class Model:
         ``kernels=False`` is the trainer's path (``launch/train.py``), the
         reference's ``use_kernel=False`` / ``use_flash_kernel=False``:
         ``attend`` / ``attend_chunked`` and the expert FFN in torch ops,
-        which autograd differentiates; it reaches nothing in ``kernels/``."""
-        _refuse_mesh(mesh, "the loss")
-        x, aux, _ = self._trunk(params, batch, kernels)
-        ce = self._chunked_ce(params, x, batch["labels"]).mean()
+        which autograd differentiates; it reaches nothing in ``kernels/``.
+
+        On a ``mesh`` (one rank process per position) ``params`` are this
+        rank's train blocks (``init_training``) and ``batch`` the global
+        batch; the rank computes its rows (``batch_shard``), and the loss
+        is the global one on every rank: the mean CE over the global batch
+        (this rank's CE sum and the row count summed over the data axes)
+        plus 0.01 x the mesh aux (each MoE layer's mean of per-shard aux,
+        as the reference's ``shard_map`` takes it).  Differentiated, every
+        gradient lands in this rank's blocks (``sharding.compute_view``).
+        ``kernels=True`` on a mesh is the scoring loss: the flash and
+        grouped-FFN kernels run on every rank."""
+        if mesh is None:
+            x, aux, _ = self._trunk(params, batch, kernels)
+            ce = self._chunked_ce(params, x, batch["labels"]).mean()
+            return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+        specs = sharding.train_specs(self.cfg, mesh)
+        axes, rows = expert_parallel.batch_shard(mesh,
+                                                 batch["labels"].shape[0])
+        # the leaves outside the layers, gathered once for the whole step
+        top = {k: v for k, v in params.items() if k != "blocks"}
+        params = dict(sharding.compute_view(
+            top, {k: specs[k] for k in top}, mesh, axes),
+            blocks=params["blocks"])
+        x, aux, _ = self._trunk(params, batch, kernels, mesh,
+                                specs["blocks"])
+        ce = self._chunked_ce(params, x, batch["labels"][rows]).sum()
+        for a in axes:
+            ce = collectives.psum(ce, mesh, a)
+        ce = ce / batch["labels"].numel()
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 

@@ -23,6 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import not_ported
 from repro_torch.core import expert_parallel
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding
 from repro_torch.models import attention, layers
 
@@ -90,7 +91,7 @@ def init_blocks(cfg, gen: torch.Generator, mesh=None, keep=None) -> dict:
     """Layer-stacked block parameters, drawn from ``gen`` on its device;
     on a ``mesh`` the expert stacks hold this rank's rows alone.
     ``keep``: the block of each leaf to store, a tree of slices
-    (``launch/sharding.serve_slices``), every matrix still drawn."""
+    (``launch/sharding.mode_slices``), every matrix still drawn."""
     _check_family(cfg)
     if cfg.family == "moe":
         return _moe_layer_init(cfg, gen, cfg.param_torch_dtype, mesh, keep)
@@ -106,7 +107,9 @@ class ServeTP:
     dense MLP's F split in W_gate / W_up and in W_down (``mlp``); the
     experts are the rank's rows and the MoE layer runs
     ``cfg.expert_parallel`` with no batch axes (every rank holds the
-    whole batch: the data axes are replicas)."""
+    whole batch: the page pool shares prefix pages across rows), planning
+    the capacity of each data block of rows apart, as the reference's
+    ``shard_map`` does (``expert_parallel.moe_layer``'s ``row_blocks``)."""
     mesh: object
     embed: bool
     head: bool
@@ -148,8 +151,11 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
     h = layers.norm_apply(cfg.norm, layer_p["ln1"], x)
     ap = layer_p["attn"]
     at = tp.attn if tp is not None else None
+    row_blocks = 1
     if tp is not None:
         mesh, batch_axes = tp.mesh, ()
+        n_data = mesh_lib.axes_size(mesh, mesh_lib.batch_axes(mesh))
+        row_blocks = n_data if x.shape[0] % n_data == 0 else 1
     if cache_l is None:
         h = attention.attn_forward(ap, cfg, h, positions, window, kernels)
     elif block_lens is not None and block_tables is not None:
@@ -176,7 +182,7 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
         moe_p = {"router": layer_p["router"], "experts": layer_p["experts"]}
         h, aux, routed = expert_parallel.moe_layer(
             cfg, moe_p, h, token_mask, mesh=mesh, kernels=kernels,
-            batch_axes=batch_axes)
+            batch_axes=batch_axes, row_blocks=row_blocks)
     else:
         h = layers.mlp_apply(layer_p["mlp"], h, cfg.act,
                              tp.mlp if tp is not None else None)
@@ -248,7 +254,7 @@ def _layer(tree: dict, l: int) -> dict:
 
 
 def forward_stack(cfg, blocks, x, positions, window, kernels=True,
-                  mesh=None, batch_axes=None):
+                  mesh=None, batch_axes=None, specs=None):
     """Run all layers over a full sequence with no cache.
     x: (B, S, D); positions: (B, S).  Returns (x, total aux loss, routing
     (L, B*S, K) int32, or None for the dense family).
@@ -263,15 +269,27 @@ def forward_stack(cfg, blocks, x, positions, window, kernels=True,
     hint that changes no value) has no counterpart: the port keeps the
     residual stream replicated over the expert axis, and the schedules
     that shard the sequence gather it back (``expert_parallel``'s layout
-    step)."""
+    step).
+
+    On a training mesh ``blocks`` are this rank's train blocks and
+    ``specs`` their specs (``launch/sharding.train_specs``): each layer's
+    weights are gathered for that layer alone (``sharding.compute_view``),
+    inside the layer's checkpoint when ``cfg.remat`` is set, so a backward
+    gathers them again instead of keeping them (ZeRO-3), and the
+    gradients are reduced into the blocks."""
     b, s, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     routing = (torch.empty((cfg.num_layers, b * s, cfg.experts_per_token),
                            dtype=torch.int32, device=x.device)
                if cfg.family == "moe" else None)
-    block = lambda xx, lp: _attn_mlp_block(
-        cfg, lp, xx, positions, window, kernels=kernels, mesh=mesh,
-        batch_axes=batch_axes)
+    layer_specs = sharding.layer_spec(specs) if specs is not None else None
+
+    def block(xx, lp):
+        if layer_specs is not None:
+            lp = sharding.compute_view(lp, layer_specs, mesh, batch_axes)
+        return _attn_mlp_block(cfg, lp, xx, positions, window,
+                               kernels=kernels, mesh=mesh,
+                               batch_axes=batch_axes)
     for l in range(cfg.num_layers):
         if cfg.remat:
             x, a, routed = checkpoint(block, x, _layer(blocks, l),

@@ -11,6 +11,12 @@ IN PLACE: the gradients are clipped, the moments and the parameters
 written, and a layer-stacked matrix (3-D and up) is taken one layer slice
 at a time, so the fp32 temporaries stay a few slices' size.  Nothing here
 waits for the device: the step, the rate and the norm stay tensors.
+
+On a training mesh (``mesh`` and the params' ``spec`` tree, from
+``launch/sharding.train_specs``) each rank holds its blocks of the
+params, the gradients and both moments; only the global norm needs the
+others (``global_norm``), and everything else is elementwise on the
+blocks.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,20 +87,44 @@ def init(params: dict) -> OptState:
     return OptState(step, tree_map(zeros, params), tree_map(zeros, params))
 
 
-def global_norm(tree: dict) -> torch.Tensor:
+def _spec_axes(spec) -> tuple:
+    return tuple(a for entry in spec if entry is not None
+                 for a in (entry if isinstance(entry, tuple) else (entry,)))
+
+
+def global_norm(tree: dict, mesh=None, spec: dict | None = None
+                ) -> torch.Tensor:
     """sqrt of the sum of squares in fp32, each leaf's sum taken slice by
-    slice (no fp32 copy of a whole stacked leaf)."""
+    slice (no fp32 copy of a whole stacked leaf).  On a ``mesh``, with
+    ``spec`` the leaves' specs, the norm of the whole tree: the local
+    square sums of the leaves that share a set of cut axes are added, each
+    set's sum is summed over its axes, and a leaf held alike by several
+    ranks (an axis that does not cut it) is counted once."""
     sums = [sum(torch.square(s.float()).sum() for s in _slices(x))
             for x in tree_leaves(tree)]
-    return torch.sqrt(torch.stack(sums).sum())
+    if mesh is None:
+        return torch.sqrt(torch.stack(sums).sum())
+    groups: dict = {}
+    for sq, sp in zip(sums, tree_leaves(spec)):
+        axes = tuple(a for a in mesh.axis_names if a in _spec_axes(sp)
+                     and mesh.shape[a] > 1)
+        groups.setdefault(axes, []).append(sq)
+    total = []
+    for axes, part in sorted(groups.items()):
+        part = torch.stack(part).sum()
+        for a in axes:
+            part = collectives.psum(part, mesh, a)
+        total.append(part)
+    return torch.sqrt(torch.stack(total).sum())
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads: dict, max_norm: float):
+def clip_by_global_norm(grads: dict, max_norm: float, mesh=None,
+                        spec: dict | None = None):
     """Scale ``grads`` IN PLACE to a global norm of at most ``max_norm``;
     the scale is rounded to each gradient's dtype first.  Returns (grads,
     the norm before clipping)."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, mesh, spec)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in tree_leaves(grads):
         g.mul_(scale.to(g.dtype))
@@ -110,11 +142,13 @@ def _adamw_(cfg: OptimizerConfig, p, g, m, v, lr, bc1, bc2) -> None:
 
 
 @torch.no_grad()
-def update(cfg: OptimizerConfig, grads: dict, state: OptState, params: dict):
+def update(cfg: OptimizerConfig, grads: dict, state: OptState, params: dict,
+           mesh=None, spec: dict | None = None):
     """One AdamW step IN PLACE: ``grads`` are clipped, ``state``'s moments
-    and ``params`` written.  Returns (params, the new state, {"lr",
+    and ``params`` written.  On a ``mesh`` every tree holds this rank's
+    blocks under ``spec``.  Returns (params, the new state, {"lr",
     "grad_norm"})."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, mesh, spec)
     step = state.step + 1
     lr = lr_at(cfg, step)
     bc1 = 1.0 - cfg.b1 ** step.float()

@@ -77,8 +77,26 @@ def test_memmap_batches_equal_reference(tmp_path, doc_sep):
 
 
 def test_shard_batch_waits_for_meshes():
-    with pytest.raises(NotImplementedError, match="meshes"):
-        pipeline.shard_batch({}, mesh=None)
+    """A rank's rows of a global batch under ``batch_pspec``: split over the
+    data axes when they divide the batch, whole otherwise (the same rows
+    ``expert_parallel.batch_shard`` cuts)."""
+    import types
+    from repro_torch.core import expert_parallel
+    b = {"tokens": np.arange(8 * 3).reshape(8, 3),
+         "labels": np.arange(8 * 3).reshape(8, 3) + 1}
+    for shape, coords, rows in (((2, 2), (1, 0), slice(4, 8)),
+                                ((2, 2), (0, 1), slice(0, 4)),
+                                ((1, 4), (0, 3), slice(0, 8))):
+        mesh = types.SimpleNamespace(
+            axis_names=("data", "model"),
+            shape=dict(zip(("data", "model"), shape)),
+            coords=dict(zip(("data", "model"), coords)))
+        got = pipeline.shard_batch(b, mesh)
+        for k in b:
+            np.testing.assert_array_equal(got[k], b[k][rows])
+        assert expert_parallel.batch_shard(mesh, 8)[1] == rows
+        odd = pipeline.shard_batch({"tokens": b["tokens"][:3]}, mesh)
+        assert odd["tokens"].shape[0] == 3
 
 
 # ---------------------------------------------------------------------------

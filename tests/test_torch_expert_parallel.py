@@ -397,23 +397,36 @@ def test_batch_shard_follows_the_reference():
 
 
 def test_entry_points_on_a_mesh_wait_for_meshes_2():
-    """The loss, the trainer and ``shard_batch`` on a mesh are queue A's
-    "meshes (3)" (training on a mesh); the cached entry points and the
-    engine serve on a mesh (``tests/test_torch_serve_mesh.py``)."""
+    """The loss, the trainer and ``shard_batch`` run on a mesh (queue A's
+    "meshes (3)", ``tests/test_torch_train_mesh.py`` holds them to JAX on
+    four ranks); the cached entry points and the engine serve on a mesh
+    (``tests/test_torch_serve_mesh.py``).  On a (1, 1) mesh, whose
+    collectives are identities, they are the one-device paths."""
     from repro_torch.data import pipeline
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import train
     cfg = cases.port_config()
     model = build_model(cfg, "cpu")
-    mesh = _FakeMesh((1, 2))
-    tok = {"tokens": torch.zeros((1, 4), dtype=torch.int32),
-           "labels": torch.zeros((1, 4), dtype=torch.int32)}
-    calls = [lambda: model.loss({}, tok, mesh=mesh),
-             lambda: train.train(cfg, steps=1, global_batch=1, seq_len=4,
-                                 mesh=mesh, device="cpu"),
-             lambda: pipeline.shard_batch({}, mesh)]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match=r"meshes \(3\)"):
-            call()
+    mesh = mesh_lib.Mesh(("data", "model"), {"data": 1, "model": 1},
+                         {"data": 0, "model": 0},
+                         {"data": None, "model": None})
+    rng = np.random.default_rng(0)
+    tok = {k: torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8),
+                                            dtype=np.int32))
+           for k in ("tokens", "labels")}
+    params = model.init(torch.Generator().manual_seed(0))
+    blocks = model.init_training(torch.Generator().manual_seed(0), mesh)
+    one, m1 = model.loss(params, tok, kernels=False)
+    on_mesh, m2 = model.loss(blocks, tok, kernels=False, mesh=mesh)
+    assert abs(float(one) - float(on_mesh)) <= 1e-6
+    assert float(m1["aux"]) == float(m2["aux"])
+    assert torch.equal(pipeline.shard_batch(tok, mesh)["tokens"], tok["tokens"])
+    kw = dict(steps=2, global_batch=2, seq_len=8, log_every=1, device="cpu")
+    _, h1 = train.train(cfg, **kw)
+    _, h2 = train.train(cfg, mesh=mesh, **kw)
+    for a, b in zip(h1, h2):
+        for k in ("loss", "grad_norm", "lr"):
+            assert abs(a[k] - b[k]) <= 1e-5 * (1 + abs(a[k])), k
 
 
 @pytest.mark.parametrize("ep,want", [

@@ -5,8 +5,9 @@ on meshes of (2, 2) and (1, 4) ranks, fp32 on the reduced configs, CPU.
 
 The JAX side (``torch_serve_oracle.py``) runs in a subprocess with four
 host devices: the reference's one-device engine on the shared weights
-(its mesh engine's own check demands exactly these streams of it), and
-its ``attn_decode_step_cp`` on an ``Auto`` (2, 2) mesh.  The port side
+(its mesh engine's own check demands exactly these streams of it), its
+mesh engine on an ``Auto`` (2, 2) mesh where capacity binds, and its
+``attn_decode_step_cp`` on that mesh.  The port side
 runs as four spawned gloo rank processes per mesh (``torch_serve_cases``),
 meeting through a ``FileStore`` in the test's tmp dir; each rank bridges
 its serve-mode blocks (``bridge.from_jax_params(..., mode="serve")``) and
@@ -22,9 +23,11 @@ int4: W_down
 whole on four ranks, its scales re-blocked on two), equal to the JAX
 one-device engine's on every rank;
 each rank's weight bytes equal its serve blocks' and its caches the kv
-heads (or sequence block) its attention uses; one unified step's
-collective bytes by kind equal to ``predicted_collective_bytes(...,
-include_tp=True)`` with the head gather apart; ``attn_decode_step_cp``
+heads (or sequence block) its attention uses; at the default capacity
+factor, on traffic where capacity binds, the streams of the JAX engine on
+the same mesh shape (each data block of rows planned apart); one unified
+step's collective bytes by kind equal to ``predicted_collective_bytes(...,
+include_tp=True)`` per data block with the head gather apart; ``attn_decode_step_cp``
 within 1e-5 of JAX's (the int8 payload exact) and of the port's one-device
 ``attn_decode_step``; a deadline on rank 0's clock expiring the same
 request on every rank; ``psum`` the rank-order bfloat16 sum on every
@@ -51,12 +54,14 @@ from test_torch_expert_parallel import SPAWN_TIMEOUT_S, _collect, _FakeMesh
 ROOT = Path(__file__).resolve().parents[1]
 TOL_CP = 1e-5
 TOL_LOGITS = 1e-5
+ORACLE_PARTS = ("engines", "binding")
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """{"oracle": the JAX npz, mesh name: [each rank's results], "params":
-    the weights}: the oracle subprocess and both meshes' ranks at once."""
+    """{"oracle": the JAX results, mesh name: [each rank's results],
+    "params": the weights}: the oracle's two parts (subprocesses) and both
+    meshes' ranks at once."""
     tmp = tmp_path_factory.mktemp("serve")
     flat = {}
     for a in cases.ARCHS:
@@ -68,10 +73,11 @@ def runs(tmp_path_factory):
     np.savez(params_path, **flat)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src"), os.environ.get("PYTHONPATH", "")]))
-    oracle = subprocess.Popen(
+    oracles = [subprocess.Popen(
         [sys.executable, str(ROOT / "tests" / "torch_serve_oracle.py"),
-         params_path, str(tmp / "oracle.npz")], env=env,
+         params_path, str(tmp / f"oracle_{part}.npz"), part], env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for part in ORACLE_PARTS]
     ctx = mp.get_context("spawn")
     try:
         spawned = {}
@@ -85,13 +91,17 @@ def runs(tmp_path_factory):
                 p.start()
             spawned[m] = (procs, q)
         out = {m: _collect(*sp) for m, sp in spawned.items()}
-        log, _ = oracle.communicate(timeout=SPAWN_TIMEOUT_S)
-        assert oracle.returncode == 0, log[-4000:]
+        for oracle in oracles:
+            log, _ = oracle.communicate(timeout=SPAWN_TIMEOUT_S)
+            assert oracle.returncode == 0, log[-4000:]
     finally:
-        if oracle.poll() is None:
-            oracle.kill()
-            oracle.wait()
-    out["oracle"] = dict(np.load(tmp / "oracle.npz"))
+        for oracle in oracles:
+            if oracle.poll() is None:
+                oracle.kill()
+                oracle.wait()
+    out["oracle"] = {}
+    for part in ORACLE_PARTS:
+        out["oracle"].update(np.load(tmp / f"oracle_{part}.npz"))
     out["params"] = {a: torch_ep_cases.unflatten(
         {k[len(a) + 1:]: v for k, v in flat.items()
          if k.startswith(a + "/")}) for a in cases.ARCHS}
@@ -146,21 +156,50 @@ def test_ranks_hold_their_serve_blocks_and_caches(runs, mesh_name):
             assert got["cache_shape"] == want, (case, got["cache_shape"])
 
 
+BINDING_IDS = [(m, ep) for m, eps in cases.BINDING_CASES.items()
+               for ep in eps]
+
+
+@pytest.mark.parametrize("mesh_name,ep", BINDING_IDS,
+                         ids=[f"{ep}-{m}" for m, ep in BINDING_IDS])
+def test_capacity_per_data_block_matches_jax_mesh_engine(runs, mesh_name,
+                                                         ep):
+    """At the default capacity factor, where capacity binds, every rank
+    streams as the JAX engine on the same mesh shape: on (2, 2) each data
+    block of rows gets its own capacity, as the reference's ``shard_map``
+    plans it, which gives other streams than the one-device engine (the
+    traffic is chosen so); on (1, 4) the decentralized schedule's one
+    block is the whole batch, the one-device engine's plan."""
+    ref = runs["oracle"]
+    n = len(cases.binding_traffic())
+    jax_streams = {w: [ref[f"binding/{ep}/{w}/{i}"].tolist()
+                       for i in range(n)] for w in ("single", "mesh")}
+    assert jax_streams["single"] != jax_streams["mesh"]
+    want = jax_streams["mesh" if cases.MESHES[mesh_name][0] > 1
+                       else "single"]
+    for r, rank in enumerate(runs[mesh_name]):
+        assert rank[f"binding/{ep}"] == want, (r, rank[f"binding/{ep}"],
+                                               want)
+
+
 @pytest.mark.parametrize("mesh_name", list(cases.MESHES))
 @pytest.mark.parametrize("ep", cases.SCHEDULES)
 def test_unified_step_bytes_equal_the_prediction(runs, mesh_name, ep):
     """One unified step's collective bytes on each rank, kind by kind,
-    equal ``predicted_collective_bytes(..., n_batch_shards=1,
+    equal G x ``predicted_collective_bytes(..., n_batch_shards=G,
     include_tp=True)`` (the embedding psum, the ``wo`` psums, the flat
-    k/v gathers and the schedule); the head's vocabulary gather, the aux
-    pmeans and the layout step are booked apart.  The logits equal the
-    one-device step's."""
-    n_model = cases.MESHES[mesh_name][1]
+    k/v gathers and the schedule), G the data blocks of rows: every rank
+    runs the whole batch, and the schedule plans each block apart, as the
+    reference's per-shard program does; the head's vocabulary gather, the
+    aux pmeans and the layout step are booked apart.  The logits equal
+    the one-device step's."""
+    n_data, n_model = cases.MESHES[mesh_name]
     b, t = cases.BYTES_BLOCK
+    g = n_data if b % n_data == 0 else 1
     cfg = cases.port_config("moe", ep=ep)
-    want = perf_model.predicted_collective_bytes(
-        cfg, batch=b, seq=t, n_exp_shards=n_model, n_batch_shards=1,
-        include_tp=True)
+    want = {k: g * v for k, v in perf_model.predicted_collective_bytes(
+        cfg, batch=b, seq=t, n_exp_shards=n_model, n_batch_shards=g,
+        include_tp=True).items()}
     model = build_model(cfg, "cpu")
     params = bridge.from_jax_params(runs["params"]["moe"], cfg, "cpu")
     cache = model.init_paged_cache(8, 4)

@@ -261,9 +261,15 @@ def test_train_history_and_refusals():
     assert [h["step"] for h in history] == [0, 2, 3]
     assert all(np.isfinite(h["loss"]) and h["lr"] > 0 for h in history)
     assert not params["embed"].requires_grad
-    with pytest.raises(NotImplementedError, match="meshes"):
-        train_mod.train(cfg, steps=1, global_batch=1, seq_len=8, mesh=object(),
-                        device="cpu")
+    # a (1, 1) mesh (every collective an identity) trains as one device
+    from repro_torch.launch import mesh as mesh_lib
+    mesh = mesh_lib.Mesh(("data", "model"), {"data": 1, "model": 1},
+                         {"data": 0, "model": 0},
+                         {"data": None, "model": None})
+    _, on_mesh = train_mod.train(cfg, steps=4, global_batch=2, seq_len=16,
+                                 log_every=2, device="cpu", mesh=mesh)
+    for a, b in zip(history, on_mesh):
+        assert abs(a["loss"] - b["loss"]) <= 1e-5 * (1 + abs(a["loss"]))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_mod.train(cfg, steps=1, global_batch=1, seq_len=8)

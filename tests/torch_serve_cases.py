@@ -42,6 +42,17 @@ CP_CACHE = {"fp32": "native", "int8": "int8"}
 CP_B, CP_LEN, CP_STEPS = 4, 32, 5
 # the unified step whose collective bytes are held to the prediction
 BYTES_BLOCK = (2, 4)
+# capacity that binds: the reduced qwen3-moe at the default capacity
+# factor 1.25 with 32-token prefill chunks of two rows.  The reference's
+# mesh engine on (2, 2) plans each data block (one row) apart, its
+# one-device engine both rows at once, and on this traffic their greedy
+# streams differ.  On (1, 4) the one data block is the whole batch, so the
+# decentralized schedule plans as one device does (the a2a schedules plan
+# per sequence block on any mesh, so (1, 4) has no JAX streams to match)
+BINDING_ENGINE = dict(max_batch=2, max_cache=64, chunk_len=32, page_size=4,
+                      track_experts=False)
+BINDING_SCHEDULES = ("decentralized", "a2a_pipelined")
+BINDING_CASES = {"2x2": BINDING_SCHEDULES, "1x4": ("decentralized",)}
 
 
 def engine_cases() -> dict:
@@ -68,6 +79,18 @@ def traffic() -> list:
     p1 = np.concatenate([sys_p, rng.integers(0, 500, 2)])
     p2 = np.concatenate([sys_p, rng.integers(0, 500, 1)])
     return [(p1, 4), (p2, 5), (p1, 3)]
+
+
+def binding_traffic() -> list:
+    """Three prompts of 20-39 tokens, four new tokens each."""
+    rng = np.random.default_rng(1)
+    return [(rng.integers(0, 500, int(rng.integers(20, 40))), 4)
+            for _ in range(3)]
+
+
+def binding_fields(ep: str) -> dict:
+    """The binding case's config fields over the reduced qwen3-moe."""
+    return dict(capacity_factor=1.25, ep_microchunks=2, expert_parallel=ep)
 
 
 def cp_inputs(d: int) -> list:
@@ -107,8 +130,9 @@ def port_config(arch: str, quant: str = "fp32", ep: str = "decentralized",
         **fields, **CFG, **QUANT[quant], expert_parallel=ep, **kw)
 
 
-def _serve(eng) -> list:
-    uids = [eng.submit(p, max_new_tokens=n) for p, n in traffic()]
+def _serve(eng, requests=None) -> list:
+    uids = [eng.submit(p, max_new_tokens=n)
+            for p, n in (requests or traffic())]
     eng.run_until_done()
     return [[int(t) for t in eng._all[u].generated] for u in uids]
 
@@ -154,6 +178,17 @@ def _rank_cases(rank, world, store, shape, params_path) -> dict:
                                 "weight_bytes": eng.memory_stats()[
                                     "weight_bytes"],
                                 "cache_shape": tuple(eng.cache["k"].shape)}
+    # capacity per data block: the binding traffic
+    from repro_torch.configs.base import get_config
+    for ep in BINDING_CASES[next(m for m, sh in MESHES.items()
+                                 if sh == tuple(shape))]:
+        cfg = get_config(ARCHS["moe"][0]).reduced().replace(
+            **binding_fields(ep))
+        params = bridge.from_jax_params(trees["moe"], cfg, "cpu", mesh=mesh,
+                                        mode="serve")
+        eng = ServingEngine(cfg, EngineConfig(**BINDING_ENGINE),
+                            params=params, device="cpu", mesh=mesh)
+        out[f"binding/{ep}"] = _serve(eng, binding_traffic())
     # one unified step's collective bytes, paged, both schedules
     b, t = BYTES_BLOCK
     for ep in SCHEDULES:

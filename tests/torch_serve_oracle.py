@@ -1,9 +1,13 @@
 """JAX oracle of ``tests/test_torch_serve_mesh.py``: the reference's
-one-device ``ServingEngine`` streams on the shared weights, and its
-``attention.attn_decode_step_cp`` on a (2, 2) host mesh, written to an
-npz.
+one-device ``ServingEngine`` streams on the shared weights, its mesh
+engine's and one-device engine's streams on traffic where the MoE
+capacity binds, and its ``attention.attn_decode_step_cp`` on a (2, 2)
+host mesh, written to an npz.
 
-    python tests/torch_serve_oracle.py PARAMS_NPZ OUT_NPZ
+    python tests/torch_serve_oracle.py PARAMS_NPZ OUT_NPZ [PART]
+
+PART "binding" runs the capacity-binding engines alone, any other value
+(the default) the rest; the test runs both parts at once.
 
 Run in a fresh process: the host device count is set before JAX loads.
 The mesh is built with ``Auto`` axes and the decode runs under
@@ -35,12 +39,37 @@ def config(arch: str, quant: str = "fp32", **kw):
         **fields, **cases.CFG, **cases.QUANT[quant], **kw)
 
 
-def main(params_path: str, out_path: str) -> None:
+def binding(trees, mesh, out) -> None:
+    """The one-device and the (2, 2) mesh engine's streams on the traffic
+    where capacity binds."""
+    for ep in cases.BINDING_SCHEDULES:
+        cfg = get_config(cases.ARCHS["moe"][0]).reduced().replace(
+            **cases.binding_fields(ep))
+        for where, m in (("single", None), ("mesh", mesh)):
+            eng = ServingEngine(cfg, EngineConfig(
+                async_steps=False, paged_kernel=False,
+                **cases.BINDING_ENGINE), params=trees["moe"], mesh=m)
+            with jax.set_mesh(mesh):
+                uids = [eng.submit(p, max_new_tokens=n)
+                        for p, n in cases.binding_traffic()]
+                eng.run_until_done()
+            for i, u in enumerate(uids):
+                out[f"binding/{ep}/{where}/{i}"] = np.asarray(
+                    eng._all[u].generated, np.int64)
+
+
+def main(params_path: str, out_path: str, part: str = "engines") -> None:
     flat = np.load(params_path)
     trees = {a: jax.tree.map(jnp.asarray, cases.unflatten(
         {k[len(a) + 1:]: flat[k] for k in flat if k.startswith(a + "/")}))
         for a in cases.ARCHS}
     out = {}
+    mesh = jax.make_mesh((2, 2), ("data", "model"),
+                         axis_types=(AxisType.Auto,) * 2)
+    if part == "binding":
+        binding(trees, mesh, out)
+        np.savez(out_path, **out)
+        return
     for arch, quant, mode in cases.ORACLE_RUNS:
         eng = ServingEngine(config(arch, quant), EngineConfig(
             async_steps=False, paged_kernel=False, **cases.ENGINE,
@@ -50,8 +79,6 @@ def main(params_path: str, out_path: str) -> None:
         for i, u in enumerate(uids):
             out[f"serve/{cases.oracle_key(arch, quant, mode)}/{i}"] = \
                 np.asarray(eng._all[u].generated, np.int64)
-    mesh = jax.make_mesh((2, 2), ("data", "model"),
-                         axis_types=(AxisType.Auto,) * 2)
     for quant, kv in cases.CP_CACHE.items():
         cfg = config("dense", kv_cache_dtype=kv)
         p = cases.layer0(trees["dense"]["blocks"])["attn"]
@@ -71,4 +98,4 @@ def main(params_path: str, out_path: str) -> None:
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:3])
+    main(*sys.argv[1:4])

@@ -20,7 +20,9 @@ or ``train`` (phase 8: the reduced archs trained on the card against the
 CPU, then granite-moe-3b-a800m and qwen3-0.6b at full width) or ``ep``
 (phase 9: the expert-parallel schedules over 2 and 4 rank processes)
 or ``serve_mesh`` (phase 10: serving on a mesh of 2 and 4 rank processes;
-phase 3's paged and FFN cases at its per-rank shapes run first).  Prints the card's name and power limit, the build's ptxas lines
+phase 3's paged and FFN cases at its per-rank shapes run first) or
+``train_mesh`` (phase 11: training on a (2, 2) mesh of rank processes;
+phase 3's fp32 FFN and flash cases at its per-rank shapes run first).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -42,7 +44,8 @@ def main() -> int:
     ap.add_argument("--label", default="change")
     ap.add_argument("--only", nargs="*", default=["paged", "quant"],
                     choices=["paged", "quant", "flash", "chaos", "serve",
-                             "serve5", "train", "ep", "serve_mesh"])
+                             "serve5", "train", "ep", "serve_mesh",
+                             "train_mesh"])
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     import torch
@@ -93,6 +96,14 @@ def main() -> int:
         cs.MESH_FFN_CASES = cs.MESH_FFN_CASES[-3:]
         cs.check_moe_ffn(torch, results)
         cs.check_serve_mesh(torch, {})
+    if "train_mesh" in args.only:
+        cs.FFN_CASES = cs.FFN_CASES[-1:]
+        cs.MESH_FFN_CASES = []
+        cs.check_moe_ffn(torch, results)
+        cs.FLASH_CASES = [c for c in cs.FLASH_CASES
+                          if c == (2, 2048, 24, 8, 64, True, None)]
+        cs.check_flash_attention(torch, results)
+        cs.check_train_mesh(torch, {})
     if "serve5" in args.only:
         from repro_torch.configs.base import get_config
         cs.profile_window = lambda *a, **kw: {"device_busy_share": None}
