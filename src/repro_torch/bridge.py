@@ -25,6 +25,7 @@ import types
 import numpy as np
 import torch
 
+from repro_torch import not_ported
 from repro_torch.core import expert_parallel
 from repro_torch.core import quant
 from repro_torch.core.quant import QuantTensor
@@ -34,22 +35,57 @@ from repro_torch.models.model import resolve_device
 _QUANT_META = ("bits", "block", "orig_dim", "out_dtype")
 
 
-def param_shapes(cfg) -> dict:
-    """The port's parameter tree for ``cfg`` (``Model.init``), as shapes."""
-    L, d, e, f = (cfg.num_layers, cfg.d_model, cfg.num_experts_padded,
-                  cfg.d_ff)
-    er = e * max(cfg.expert_replication, 1)     # r stored expert copies
-    hq, hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+def _attn_shapes(cfg, L: int) -> dict:
+    d, hq, hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
     attn = {"wq": (L, d, hq * hd), "wk": (L, d, hkv * hd),
             "wv": (L, d, hkv * hd), "wo": (L, hq * hd, d)}
     if cfg.qkv_bias:
         attn.update(bq=(L, hq * hd), bk=(L, hkv * hd), bv=(L, hkv * hd))
     if cfg.qk_norm:
         attn.update(q_norm=(L, hd), k_norm=(L, hd))
+    return attn
+
+
+def _family_blocks(cfg, norm) -> dict:
+    """The stacked blocks of the ssm and hybrid families, as shapes."""
+    d = cfg.d_model
+    if cfg.family == "ssm":
+        L, n, k = cfg.num_layers, cfg.ssm_state, cfg.ssm_dconv
+        di = cfg.ssm_expand * d
+        h, dc = di // cfg.ssm_headdim, di + 2 * n
+        return {"ln": norm(L, d), "mamba": {
+            "in_proj": (L, d, 2 * di + 2 * n + h), "conv_w": (L, k, dc),
+            "conv_b": (L, dc), "A_log": (L, h), "D": (L, h),
+            "dt_bias": (L, h), "norm": (L, di), "out_proj": (L, di, d)}}
+    n_attn = sum(1 for i in range(cfg.num_layers) if i % 3 == 2)
+    n_rec, w = cfg.num_layers - n_attn, cfg.lru_width
+    layer = lambda n, mix: {
+        "ln1": norm(n, d), "ln2": norm(n, d),
+        "mlp": {"w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
+                "w_down": (n, cfg.d_ff, d)}, "mix": mix}
+    rec = {"in_x": (n_rec, d, w), "in_y": (n_rec, d, w),
+           "conv_w": (n_rec, cfg.conv1d_width, w), "conv_b": (n_rec, w),
+           "gate_a": (n_rec, w, w), "bias_a": (n_rec, w),
+           "gate_x": (n_rec, w, w), "bias_x": (n_rec, w),
+           "Lambda": (n_rec, w), "out": (n_rec, w, d)}
+    n_attn = max(n_attn, 1)
+    return {"rec": layer(n_rec, rec),
+            "attn": layer(n_attn, _attn_shapes(cfg, n_attn))}
+
+
+def param_shapes(cfg) -> dict:
+    """The port's parameter tree for ``cfg`` (``Model.init``), as shapes."""
+    L, d, e, f = (cfg.num_layers, cfg.d_model, cfg.num_experts_padded,
+                  cfg.d_ff)
+    er = e * max(cfg.expert_replication, 1)     # r stored expert copies
     norm = lambda *shape: ({"scale": shape, "bias": shape}
                            if cfg.norm == "layernorm" else shape)
-    blocks = {"ln1": norm(L, d), "attn": attn, "ln2": norm(L, d)}
-    if cfg.family == "moe":
+    blocks = {"ln1": norm(L, d), "attn": _attn_shapes(cfg, L),
+              "ln2": norm(L, d)}
+    if cfg.family in ("ssm", "hybrid"):
+        blocks = _family_blocks(cfg, norm)
+    elif cfg.family == "moe":
         blocks["router"] = (L, d, e)
         blocks["experts"] = {"w_gate": (L, er, d, f), "w_up": (L, er, d, f),
                              "w_down": (L, er, f, d)}
@@ -116,6 +152,9 @@ def from_jax_params(tree: dict, cfg, device, mesh=None,
     if mode not in ("forward", "serve", "train"):
         raise ValueError(f"unknown mode {mode!r}; expected forward, serve "
                          f"or train")
+    if mesh is not None and cfg.family in ("ssm", "hybrid"):
+        raise not_ported(f"the {cfg.family!r} family on a mesh",
+                         "other families on a mesh")
     if mesh is not None and mode != "forward":
         whole = from_jax_params(tree, cfg, "cpu")
         if mode == "serve":

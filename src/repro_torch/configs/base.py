@@ -183,7 +183,8 @@ class ModelConfig:
 # ---------------------------------------------------------------------------
 
 ARCH_IDS = ["qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "dbrx",
-            "qwen3_0_6b", "stablelm_12b"]
+            "qwen3_0_6b", "stablelm_12b", "qwen2_72b", "deepseek_67b",
+            "recurrentgemma_2b", "mamba2_130m"]
 
 # the reference's aliases: hyphenated ids and DBRX's model name (dotted
 # names such as "qwen3-0.6b" resolve as the reference resolves them)

@@ -1,0 +1,13 @@
+"""Qwen2-72B dense [arXiv:2407.10671].
+
+80L d_model=8192 64H (GQA kv=8) d_ff=29568 vocab=152064, QKV bias.
+"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2-72b", family="dense",
+    num_layers=80, d_model=8192, num_heads=64, num_kv_heads=8, head_dim=128,
+    d_ff=29568, vocab_size=152064,
+    qkv_bias=True, rope_theta=1e6,
+    source="arXiv:2407.10671",
+)

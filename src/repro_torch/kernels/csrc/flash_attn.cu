@@ -38,7 +38,10 @@
 // is applied only on tiles that need it: the diagonal, the window's edge
 // and the ragged end.
 //
-// Head dims 64, 128 and 160 (stablelm-12b).  hd 160 is not a whole number
+// Head dims 64, 128, 160 (stablelm-12b) and 256 (recurrentgemma-2b's local
+// attention: 10 query heads on one kv head, so 64 grouped rows hold 6.4
+// positions and a position's group can straddle two blocks).  hd 160 is not
+// a whole number
 // of the 64-dim rows of the swizzled tiles, so bf16 stages K and V as
 // three 64-dim boxes (192 dims) whose last 32 dims TMA fills with zeros
 // (past the tensor map's hd); S = Q K^T reads only the first 160 (10
@@ -46,6 +49,12 @@
 // (m64n192k16: an MN-major operand of 128-byte swizzle covers N in whole
 // 64-wide atoms), whose last 32 columns are exact zeros and never written.
 // Its 96 O registers and 120 KB ring hold it to one block an SM.
+// hd 256's O accumulator (m64n256) is 128 fp32 registers a thread; with Q
+// in registers too (64 more) the S and P fragments would not fit the 255 a
+// thread may have, so hd 256 stages the block's Q once in a 32 KB swizzled
+// shared tile (four 64-dim boxes, K-major, by cp.async) and S = Q K^T reads
+// both operands from shared memory (wgmma m64n64k16 SS).  With the 160 KB
+// K/V ring that is 193 KB of shared memory, one block an SM.
 //
 // fp32 stays on the CUDA cores (flash_attention_f32): the port holds fp32
 // to 2e-5, which TF32 cannot meet.  q (once) and each K tile are staged
@@ -53,7 +62,9 @@
 // threads form a 16 x 16 grid, each owning a 4 x 4 tile of logits and a
 // 4 x hd/16 tile of the accumulator (dims c*64 + 4 tx..+3 for each whole
 // 64 dims, then 2 tx..+1 of a 32-dim tail); row max and row sum are
-// reduced with warp shuffles.
+// reduced with warp shuffles.  At hd 256 the staged tiles take
+// 256*68*2 + 64*256 + 64*68 = 55,552 floats (222,208 bytes) of the 232,448
+// a block may have: one block an SM.
 //
 // Rounding follows the reference (_kernel): logits are an fp32 dot times
 // hd^-0.5, masked logits are -1e30, p = exp(logit - m_new) with masked p
@@ -321,16 +332,24 @@ __host__ __device__ constexpr uint32_t tile_bytes() {
   return 64 * padded_hd<HD>() * 2;   // 64 rows of the padded hd in bf16
 }
 
-// hd 160's O accumulators (96 a thread) and 120 KB ring: one block an SM
+// hd 160's O accumulators (96 a thread) and 120 KB ring, and hd 256's
+// (128 a thread) and 193 KB: one block an SM
 template <int HD>
 __host__ __device__ constexpr int min_blocks() {
   return HD > 128 ? 1 : 2;
 }
 
+// hd 256 keeps Q in shared memory (the A operand of S = Q K^T), the
+// narrower head dims in registers
+template <int HD>
+__host__ __device__ constexpr bool q_in_smem() {
+  return HD > 192;
+}
+
 template <int HD>
 constexpr size_t smem_bytes() {
   return 1024 + tile_bytes<HD>() * (kKStages + kVStages) +
-         8 * (kKStages + kVStages);
+         (q_in_smem<HD>() ? tile_bytes<HD>() : 0) + 8 * (kKStages + kVStages);
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -349,9 +368,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
   constexpr int kHP = padded_hd<HD>();        // P V's N: whole 64-dim boxes
   constexpr int kO = kHP / 2;                 // O accumulators a thread
   extern __shared__ uint8_t smem[];
+  constexpr bool kQSmem = q_in_smem<HD>();
   const uint32_t k_ring = (smem_u32(smem) + 1023) & ~1023u;
   const uint32_t v_ring = k_ring + kKStages * kTile;
-  const uint32_t k_bars = v_ring + kVStages * kTile;
+  const uint32_t q_tile = v_ring + kVStages * kTile;   // hd 256 only
+  const uint32_t k_bars = q_tile + (kQSmem ? kTile : 0);
   const uint32_t v_bars = k_bars + 8 * kKStages;
 
   const int G = geo.Hq / geo.Hkv;
@@ -374,6 +395,22 @@ __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
     for (int s = 0; s < kKStages; ++s) mbar_init(k_bars + 8 * s, 1);
     for (int s = 0; s < kVStages; ++s) mbar_init(v_bars + 8 * s, 1);
     mbar_fence_init();
+  }
+  if constexpr (kQSmem) {
+    // the block's 64 grouped rows of Q into the swizzled tile, 16 bytes a
+    // copy: row r's dims 8c..8c+7 go to box c / 8, chunk c % 8 (rows past
+    // the end read as zero)
+    for (int i = t; i < 64 * HD / 8; i += kThreads) {
+      const int r = i / (HD / 8), c = i - r * (HD / 8), row = r0 + r;
+      const bool ok = row < rows_total;
+      const bf16* src =
+          ok ? qb + (row % G) * st.q_h + (row / G) * st.q_s + 8 * c : qb;
+      cp_async16(q_tile + (c >> 3) * (64 * 128) + swizzle128(r, c & 7), src,
+                 ok);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
   }
   __syncthreads();
 
@@ -406,11 +443,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
   const int ra = r0 + 16 * (t >> 5) + (lane >> 2), rb = ra + 8;
   const int pos_a = min(ra, rows_total - 1) / G;
   const int pos_b = min(rb, rows_total - 1) / G;
-  // Q stays in registers as the A operand of S = Q K^T: per 16-wide step
-  // kk of hd, {row a, hd 16 kk + 2 (lane % 4) + 0..1}, {row b, ...},
-  // {row a, ... + 8}, {row b, ... + 8}
-  uint32_t qa[HD / 16][4];
-  {
+  // Q stays in registers as the A operand of S = Q K^T (below hd 256):
+  // per 16-wide step kk of hd, {row a, hd 16 kk + 2 (lane % 4) + 0..1},
+  // {row b, ...}, {row a, ... + 8}, {row b, ... + 8}
+  uint32_t qa[kQSmem ? 1 : HD / 16][4];
+  if constexpr (!kQSmem) {
     const int d0 = 2 * (lane & 3);
     const bf16* q_a = qb + (ra % G) * st.q_h + (ra / G) * st.q_s + d0;
     const bf16* q_b = qb + (rb % G) * st.q_h + (rb / G) * st.q_s + d0;
@@ -439,7 +476,12 @@ __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
       const uint32_t off = (kk >> 2) * (64 * 128) + (kk & 3) * 32;
-      WgmmaRS<64, 0>::run(s, qa[kk], desc_sw128(ks + off, 16, 1024), kk > 0);
+      if constexpr (kQSmem)
+        WgmmaSS<64, 0, 0>::run(s, desc_sw128(q_tile + off, 16, 1024),
+                               desc_sw128(ks + off, 16, 1024), kk > 0);
+      else
+        WgmmaRS<64, 0>::run(s, qa[kk], desc_sw128(ks + off, 16, 1024),
+                            kk > 0);
     }
     wgmma_commit();
   };
@@ -631,6 +673,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
   if (hd == 64) return launch<float, 64>(q, k, v, out, st, B, geo, stream);
   if (hd == 128) return launch<float, 128>(q, k, v, out, st, B, geo, stream);
   if (hd == 160) return launch<float, 160>(q, k, v, out, st, B, geo, stream);
+  if (hd == 256) return launch<float, 256>(q, k, v, out, st, B, geo, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -651,5 +694,6 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   if (hd == 64) return tc::launch<64>(qp, kp, vp, op, st, B, geo, s);
   if (hd == 128) return tc::launch<128>(qp, kp, vp, op, st, B, geo, s);
   if (hd == 160) return tc::launch<160>(qp, kp, vp, op, st, B, geo, s);
+  if (hd == 256) return tc::launch<256>(qp, kp, vp, op, st, B, geo, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -16,8 +16,9 @@ The kernel (``csrc/flash_attn.cu``) is bound by operations on an H100
 Both types run one block per 64 grouped query rows of one kv head and skip
 key tiles wholly above the diagonal or wholly below the window.  bf16 runs
 both products on the tensor cores (wgmma, fp32 accumulation, Q and P kept
-in registers) with K/V tiles streamed into shared-memory rings by TMA (hd
-160 as three 64-dim boxes whose last 32 dims TMA fills with zeros), so
+in registers; at hd 256 Q is staged in shared memory instead) with K/V
+tiles streamed into shared-memory rings by TMA (hd 160 as three 64-dim
+boxes whose last 32 dims TMA fills with zeros), so
 q, k and v must have 16-byte-aligned base addresses and strides
 (``check_copy_alignment``).  fp32 stays on the CUDA cores in fp32 FMA: the
 port holds it to 2e-5, which TF32 cannot meet (see the source note).
@@ -34,7 +35,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128, 160)     # the reduced widths, qwen3's, stablelm's
+# the reduced widths, qwen3's, stablelm's, recurrentgemma's
+HEAD_DIMS = (64, 128, 160, 256)
 _ENTRY = {torch.float32: "flash_attention_f32",
           torch.bfloat16: "flash_attention_bf16"}
 
@@ -75,7 +77,7 @@ def flash_entry(dtype: torch.dtype) -> str:
 
 def check_geometry(hq: int, hkv: int, hd: int) -> None:
     """Raise unless the kernel has an instantiation for these heads: whole
-    query groups and hd 64, 128 or 160 (any other hd raises; nothing
+    query groups and hd 64, 128, 160 or 256 (any other hd raises; nothing
     falls back to the plain version)."""
     if hkv == 0 or hq % hkv or hd not in HEAD_DIMS:
         raise ValueError(f"flash_attention: unsupported geometry Hq={hq} "

@@ -4,11 +4,13 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3_moe_30b_a3b
 
 runs the full-width model (bf16, random weights from a seeded generator);
-``--arch`` takes ``qwen3_moe_30b_a3b``, ``granite_moe_3b_a800m``,
-``dbrx``, ``qwen3_0_6b`` or ``stablelm_12b`` (or the reference's aliases,
-e.g. ``dbrx-132b``, ``stablelm-12b``).  ``--reduced`` runs the smoke-test
-variant and ``--device cpu`` the plain versions of the kernels on the CPU.
-The engine is the unified step over the paged pool by default;
+``--arch`` takes any arch of ``configs/base.ARCH_IDS`` (or the reference's
+aliases, e.g. ``dbrx-132b``, ``stablelm-12b``, ``recurrentgemma-2b``).
+``--reduced`` runs the smoke-test variant and ``--device cpu`` the plain
+versions of the kernels on the CPU.  The engine is the unified step over
+the paged pool by default; the hybrid and ssm families and archs whose
+window makes the cache a ring always take the two-program reference
+engine over the contiguous cache, as the reference's engine does;
 ``--contiguous`` keeps the contiguous (max_batch, max_cache) cache,
 ``--reference`` runs the two-program reference engine (prompts padded to
 ``--prompt-len``, batched prefill, then one-token decode) and ``--legacy``
@@ -24,7 +26,8 @@ resilience counters, each kernel's launch count, and from the paper's
 performance model (``core/perf_model``): the modelled paged-attention
 reads, the E[#exec experts/node/layer] statistic beside Eq. 1's bound on
 two to four M2-Ultra nodes, and which weight-quant level lets two such
-nodes host the full-size arch.
+nodes host the full-size arch (the attention families: the model has no
+layer formula for the others).
 """
 from __future__ import annotations
 
@@ -37,7 +40,8 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import perf_model
 from repro_torch.kernels import ops
 from repro_torch.models.model import resolve_device
-from repro_torch.serving.engine import EngineConfig, ServingEngine
+from repro_torch.serving.engine import (EngineConfig, ServingEngine,
+                                        reference_only)
 
 
 def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
@@ -49,12 +53,13 @@ def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
                deadline_ms: float | None = None, temperature: float = 0.0,
                top_k: int = 0):
     fit_cfg = fit_cfg or cfg
-    unified = unified and not legacy
+    max_cache = prompt_len + new_tokens + 8
+    unified = unified and not legacy and not reference_only(cfg, max_cache)
     paged = paged and unified          # the reference engine is contiguous
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     eng = ServingEngine(cfg, EngineConfig(
         max_batch=max_batch, prefill_len=prompt_len,
-        max_cache=prompt_len + new_tokens + 8, batched_prefill=not legacy,
+        max_cache=max_cache, batched_prefill=not legacy,
         async_steps=not legacy, unified_step=unified, chunk_len=chunk_len,
         paged=paged, page_size=page_size, num_pages=num_pages,
         overcommit=overcommit), generator=gen, device=device)
@@ -137,11 +142,12 @@ def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
     # which quant level lets two of the paper's nodes host the arch, from
     # ``fit_cfg`` (main() passes the full-size config, so a --reduced run
     # still prints the real answer)
-    fit = perf_model.max_model_at_budget(fit_cfg, n_nodes=2)
-    print(f"memory fit @ 2 M2-Ultra nodes ({fit_cfg.name}): "
-          f"{fit['level'] or 'does not fit (even int4)'}  "
-          + " ".join(f"{k}={v / 1e9:.1f}GB"
-                     for k, v in fit["per_node_bytes"].items()))
+    if fit_cfg.family in ("dense", "moe"):
+        fit = perf_model.max_model_at_budget(fit_cfg, n_nodes=2)
+        print(f"memory fit @ 2 M2-Ultra nodes ({fit_cfg.name}): "
+              f"{fit['level'] or 'does not fit (even int4)'}  "
+              + " ".join(f"{k}={v / 1e9:.1f}GB"
+                         for k, v in fit["per_node_bytes"].items()))
     return eng, done
 
 

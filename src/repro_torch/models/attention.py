@@ -26,10 +26,17 @@ reference engine's).  The reference computes them in jnp with no Pallas
 kernel, and so does the port in torch ops: ``attend`` /
 ``attend_chunked`` over repeated K/V for the prefill and
 ``_attend_grouped_block`` for the cached steps.  Where JAX clamps an
-update's start (``dynamic_update_slice``), the port clamps explicitly,
-with integer indices only (no boolean-mask indexing, which syncs the
-host).  Ring caches (a sliding window as long as the cache) are not
-ported (ROADMAP queue A: other families).
+update's start (``dynamic_update_slice``) or drops an out-of-bounds
+scatter, the port clamps or keeps the old value explicitly, with integer
+indices only (no boolean-mask indexing, which syncs the host).
+
+A cache whose length equals the window is a ring buffer: position p lives
+at slot p % cache_len.  The decode step writes at ``lengths % cache_len``
+and attends every slot written so far; the unified block step takes only
+width-1 blocks on a ring (the reference's refusal: a wider block written
+into a wrapped ring before attention would overwrite keys that earlier
+tokens of the block still see); the prefill keeps the last cache_len
+tokens, rolled into place.
 """
 from __future__ import annotations
 
@@ -417,32 +424,31 @@ def init_layer_cache(cfg, batch: int, cache_len: int, dtype,
                                                     dtype).items()}
 
 
-def _refuse_ring(ring: bool) -> None:
-    if ring:
-        raise not_ported("a ring (sliding-window) cache", "other families")
-
-
 def _update_cache(cache_kv: torch.Tensor, new_kv: torch.Tensor,
-                  lengths: torch.Tensor) -> None:
+                  lengths: torch.Tensor, ring: bool = False) -> None:
     """Write new_kv (B, 1, ...) at slot ``lengths[b]`` of each row of
-    cache_kv (B, S, ...) IN PLACE; a slot past the end lands on the last
-    one, as ``dynamic_update_slice`` clamps it."""
+    cache_kv (B, S, ...) IN PLACE; on a ``ring`` at slot lengths[b] % S,
+    else a slot past the end lands on the last one, as
+    ``dynamic_update_slice`` clamps it."""
     b, s = cache_kv.shape[:2]
     rows = torch.arange(b, device=cache_kv.device)
-    cache_kv[rows, lengths.long().clamp(0, s - 1)] = new_kv[:, 0].to(
-        cache_kv.dtype)
+    slot = lengths.long() % s if ring else lengths.long().clamp(0, s - 1)
+    cache_kv[rows, slot] = new_kv[:, 0].to(cache_kv.dtype)
 
 
 def _update_cache_block(cache_kv: torch.Tensor, new_kv: torch.Tensor,
-                        lengths: torch.Tensor,
-                        seg_lens: torch.Tensor) -> None:
+                        lengths: torch.Tensor, seg_lens: torch.Tensor,
+                        ring: bool = False) -> None:
     """Write each row's first ``seg_lens[b]`` tokens of new_kv (B, T, ...)
     at cache offset ``lengths[b]`` of cache_kv (B, S, ...) IN PLACE.
 
     As in the reference, each row rewrites one T-slot window whose start
     is clamped to [0, S - T], keeping the old value wherever the window
     holds no valid new token, so a row near the cache end never smears
-    earlier slots (and tokens past the end are dropped)."""
+    earlier slots (and tokens past the end are dropped).  On a ``ring``
+    token j goes to slot (lengths[b] + j) % S and invalid tokens write
+    nothing (the reference drops them through an out-of-bounds index; the
+    T <= S slots of a row are distinct, so they put back the old value)."""
     b, t = new_kv.shape[:2]
     s = cache_kv.shape[1]
     if t > s:
@@ -450,22 +456,31 @@ def _update_cache_block(cache_kv: torch.Tensor, new_kv: torch.Tensor,
     dev = cache_kv.device
     off = lengths.long()[:, None]
     ar = torch.arange(t, device=dev)[None, :]
-    slots = off.clamp(0, s - t) + ar                           # (B, T)
-    ci = slots - off                                # index into the block
-    ok = (ci >= 0) & (ci < seg_lens.long()[:, None])
     rows = torch.arange(b, device=dev)[:, None]
-    new = new_kv.to(cache_kv.dtype)[rows, ci.clamp(0, t - 1)]
+    if ring:
+        slots = (off + ar) % s
+        ok = ar < seg_lens.long()[:, None]
+        new = new_kv.to(cache_kv.dtype)
+    else:
+        slots = off.clamp(0, s - t) + ar                       # (B, T)
+        ci = slots - off                            # index into the block
+        ok = (ci >= 0) & (ci < seg_lens.long()[:, None])
+        new = new_kv.to(cache_kv.dtype)[rows, ci.clamp(0, t - 1)]
     okx = ok.reshape(ok.shape + (1,) * (new.dim() - 2))
     cache_kv[rows, slots] = torch.where(okx, new, cache_kv[rows, slots])
 
 
-def block_slot_positions(lengths: torch.Tensor,
-                         cache_len: int) -> torch.Tensor:
-    """The absolute position each slot holds after a block write, (B, S):
-    slot s holds position s in a contiguous (non-ring) cache (the
-    reference's ring form, which needs ``seg_lens``, is not ported)."""
+def block_slot_positions(lengths: torch.Tensor, seg_lens: torch.Tensor,
+                         cache_len: int, ring: bool) -> torch.Tensor:
+    """The absolute position each slot holds after a block write, (B, S)
+    int32: slot s holds position s in a contiguous cache.  A ring holds at
+    slot s the largest position <= hi = lengths + seg_lens - 1 congruent
+    to s; a negative one marks a slot never written."""
     sidx = torch.arange(cache_len, dtype=torch.int32, device=lengths.device)
-    return sidx[None, :].expand(lengths.shape[0], cache_len)
+    if not ring:
+        return sidx[None, :].expand(lengths.shape[0], cache_len)
+    hi = (lengths + seg_lens - 1).to(torch.int32)[:, None]
+    return hi - torch.remainder(hi - sidx[None, :], cache_len)
 
 
 def _attend_grouped_block(cfg, q: torch.Tensor, k_cache: torch.Tensor,
@@ -512,19 +527,26 @@ def attn_decode_step(p: dict, cfg, cache: dict, x: torch.Tensor,
     """One new token per row against the contiguous cache.  x (B, 1, D);
     lengths (B,) tokens already cached.  Row b writes its K/V at slot
     ``lengths[b]`` (clamped to the last slot) IN PLACE and attends slots
-    <= lengths[b] (and > lengths[b] - window).  Returns (B, 1, D)."""
+    <= lengths[b] (and > lengths[b] - window); on a ring (a window as long
+    as the cache) at slot lengths[b] % cache_len, attending every slot
+    written.  Returns (B, 1, D)."""
     b = x.shape[0]
     cache_len = cache["k"].shape[1]
-    _refuse_ring(window is not None and cache_len == window)
+    ring = window is not None and cache_len == window
     q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None], tp)
     for kk, vals in _new_kv(cfg, _used(k_new, tp), _used(v_new, tp)).items():
-        _update_cache(cache[kk], vals, lengths)
+        _update_cache(cache[kk], vals, lengths, ring)
     k_cache, v_cache = _cache_kv(cfg, cache, x.dtype)
     idx = torch.arange(cache_len, device=x.device)[None, :]
     ln = lengths.long()[:, None]
-    mask = idx <= ln
-    if window is not None:
-        mask = mask & (idx > ln - window)
+    if ring:
+        # every slot below min(lengths + 1, cache_len) holds a position of
+        # the window
+        mask = idx < torch.clamp(ln + 1, max=cache_len)
+    else:
+        mask = idx <= ln
+        if window is not None:
+            mask = mask & (idx > ln - window)
     out = _attend_grouped_block(cfg, q, k_cache, v_cache, mask[:, None, :])
     return _out_proj(p, out, tp)
 
@@ -538,15 +560,20 @@ def attn_block_step(p: dict, cfg, cache: dict, x: torch.Tensor,
     cache offset ``lengths[b]``; they are written IN PLACE
     (``_update_cache_block``) and then attend every slot holding a position
     <= their own (and > pos - window).  Invalid tokens get a fully masked
-    row.  x (B, T, D) -> (B, T, D)."""
+    row.  A ring cache takes width-1 blocks only (the reference's
+    ``ValueError``).  x (B, T, D) -> (B, T, D)."""
     b, t, _ = x.shape
     cache_len = cache["k"].shape[1]
-    _refuse_ring(window is not None and cache_len == window)
+    ring = window is not None and cache_len == window
+    if ring and t > 1:
+        raise ValueError(
+            f"ring KV cache (window == cache_len == {cache_len}) supports "
+            f"only width-1 blocks, got T={t}")
     q, k_new, v_new = _project_qkv(p, cfg, x, positions, tp)
     for kk, vals in _new_kv(cfg, _used(k_new, tp), _used(v_new, tp)).items():
-        _update_cache_block(cache[kk], vals, lengths, seg_lens)
+        _update_cache_block(cache[kk], vals, lengths, seg_lens, ring)
     k_cache, v_cache = _cache_kv(cfg, cache, x.dtype)
-    slot_pos = block_slot_positions(lengths, cache_len)
+    slot_pos = block_slot_positions(lengths, seg_lens, cache_len, ring)
     valid = torch.arange(t, device=x.device)[None, :] < seg_lens[:, None]
     qp = torch.where(valid, positions, -1)
     mask = (slot_pos[:, None, :] >= 0) & (slot_pos[:, None, :]
@@ -623,20 +650,24 @@ def attn_decode_step_cp(p: dict, cfg, cache: dict, x: torch.Tensor,
     over "model", (B, S / n, Hkv, hd) per rank, its block of every kv
     head.  q and the new k/v are gathered to every head (the reference's
     replicated operands); the new token is written by the rank whose
-    block holds slot ``lengths[b]`` (none past the cache); each rank
-    attends its block, and the online-softmax statistics are merged with
-    a pmax and two psums.  The output keeps this rank's q heads for a
+    block holds slot ``lengths[b]`` (none past the cache; on a ring, a
+    window as long as the logical cache, slot lengths[b] % cache_len);
+    each rank attends its block, and the online-softmax statistics are
+    merged with a pmax and two psums.  The output keeps this rank's q heads for a
     split ``wo`` (partial product, psum), or every head for a whole one.
     x (B, 1, D) -> (B, 1, D)."""
     b = x.shape[0]
     n, c = tp.mesh.shape[TP_AXIS], tp.mesh.coords[TP_AXIS]
     s_loc = cache["k"].shape[1]
-    _refuse_ring(window is not None and s_loc * n == window)
+    cache_len = s_loc * n
+    ring = window is not None and cache_len == window
     q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None], tp)
     q = _all_heads(q, tp, tp.q_split)
     cut = tp.kv == "heads"
     k_new, v_new = _all_heads(k_new, tp, cut), _all_heads(v_new, tp, cut)
-    local = lengths.long() - c * s_loc
+    ln = lengths.long()[:, None]
+    local = (lengths.long() % cache_len if ring else lengths.long()) \
+        - c * s_loc
     ok = (local >= 0) & (local < s_loc)
     rows = torch.arange(b, device=x.device)
     slot = local.clamp(0, s_loc - 1)
@@ -652,10 +683,12 @@ def attn_decode_step_cp(p: dict, cfg, cache: dict, x: torch.Tensor,
     logits = torch.einsum("bqhgd,bshd->bhgqs", qg.float(),
                           kc.float()) * hd ** -0.5
     gidx = c * s_loc + torch.arange(s_loc, device=x.device)[None, :]
-    ln = lengths.long()[:, None]
-    mask = gidx <= ln
-    if window is not None:
-        mask = mask & (gidx > ln - window)
+    if ring:
+        mask = gidx < torch.clamp(ln + 1, max=cache_len)
+    else:
+        mask = gidx <= ln
+        if window is not None:
+            mask = mask & (gidx > ln - window)
     mask5 = mask[:, None, None, None, :]
     logits = torch.where(mask5, logits, NEG_INF)
     m_loc = logits.amax(dim=-1)                             # (B, Hkv, G, 1)

@@ -17,8 +17,15 @@
 
 Every cached entry point updates its cache IN PLACE (the reference returns
 a new one, which a donating caller aliases); ``prefill`` and
-``decode_step`` drop the routing.  ``routing`` is None for the dense
-family.
+``decode_step`` drop the routing.  ``routing`` is None for every family
+but moe.
+
+The stateful families (``hybrid``: RecurrentGemma's RG-LRU and local
+attention; ``ssm``: Mamba-2) run ``forward``, ``loss``, ``prefill`` and
+``decode_step`` on one device, their cache a tree of per-row states
+(``transformer.stack_cache_spec``); as in the reference,
+``forward_routed`` refuses them (the engine serves them through the
+two-program reference path).
 
 On a mesh (``launch/mesh.py``, one rank process per mesh position) the
 full-sequence forward runs the paper's expert-parallel schedules
@@ -150,6 +157,7 @@ class Model:
         matrix is drawn; the rank keeps its own).  ``keep``: a tree of
         slices, the block of every leaf to store (``init_serving``)."""
         cfg = self.cfg
+        transformer.check_no_mesh(cfg, mesh)
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
         if gen.device.type != self.device.type:
@@ -181,6 +189,7 @@ class Model:
         quantized first, then cut, as the reference quantizes on load
         before placing the weights."""
         cfg = self.cfg
+        transformer.check_no_mesh(cfg, mesh)
         if cfg.weight_quant != "none":
             params = quant.quantize_params(self.init(gen), cfg, inplace=True)
             return sharding.shard_tree(params, sharding.serve_specs(cfg, mesh),
@@ -194,10 +203,12 @@ class Model:
         the rank keeps its block, which equals the same block of the
         whole draw, so every mesh shape starts from the one-device
         weights of the same seed."""
+        transformer.check_no_mesh(self.cfg, mesh)
         return self.init(gen, keep=sharding.mode_slices(self.cfg, mesh,
                                                         "train"))
 
     def _cache_heads(self, mesh) -> int | None:
+        transformer.check_no_mesh(self.cfg, mesh)
         return (transformer.serve_tp(self.cfg, mesh).attn.hkv
                 if mesh is not None else None)
 
@@ -231,12 +242,15 @@ class Model:
         cache is sequence-sharded)."""
         if mesh is None:
             return None, False
+        transformer.check_no_mesh(self.cfg, mesh)
         if context_len is None:
             raise ValueError("on a mesh pass context_len, the logical cache "
                              "length (a sequence-sharded cache holds a "
                              "block of it)")
         return (transformer.serve_tp(self.cfg, mesh),
-                attention.use_cp_decode(self.cfg, mesh, context_len))
+                attention.use_cp_decode(self.cfg, mesh,
+                                        transformer.attn_cache_len(
+                                            self.cfg, context_len)))
 
     def _head_last(self, params: dict, x: torch.Tensor,
                    tp=None) -> torch.Tensor:
@@ -282,8 +296,9 @@ class Model:
         tp, cp = self._serve_tp(mesh, context_len)
         tok = batch["tokens"].long().clamp(0, cfg.vocab_size - 1)
         x = _embed(cfg, params, tok, tp)
-        window = transformer.effective_window(
-            cfg, context_len or cache["k"].shape[2])
+        cache_len = _attn_cache_len(cfg, cache)
+        window = (transformer.effective_window(cfg, context_len or cache_len)
+                  if cache_len is not None else cfg.sliding_window)
         x, routing = transformer.decode_stack(
             cfg, params["blocks"], x, batch["lengths"], cache, window,
             token_mask=batch.get("token_mask"), tp=tp, cp=cp)
@@ -313,6 +328,10 @@ class Model:
         rank's serve blocks and cache, and every rank gets the whole
         logits."""
         cfg = self.cfg
+        if cfg.family not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"forward_routed supports token-input attention families, "
+                f"not {cfg.family!r}")
         tp = transformer.serve_tp(cfg, mesh) if mesh is not None else None
         block_tables = batch.get("block_tables")
         tokens = batch["tokens"]
@@ -347,6 +366,7 @@ class Model:
         rank's train blocks under them."""
         cfg = self.cfg
         batch_axes = None
+        transformer.check_no_mesh(cfg, mesh)
         if mesh is not None:
             batch_axes, rows = expert_parallel.batch_shard(
                 mesh, batch["tokens"].shape[0])
@@ -423,6 +443,7 @@ class Model:
             x, aux, _ = self._trunk(params, batch, kernels)
             ce = self._chunked_ce(params, x, batch["labels"]).mean()
             return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+        transformer.check_no_mesh(self.cfg, mesh)
         specs = sharding.train_specs(self.cfg, mesh)
         axes, rows = expert_parallel.batch_shard(mesh,
                                                  batch["labels"].shape[0])
@@ -440,12 +461,24 @@ class Model:
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
+def _attn_cache_len(cfg, cache: dict) -> int | None:
+    """The attention cache's length (None for the ssm family)."""
+    if cfg.family == "ssm":
+        return None
+    if cfg.family == "hybrid":
+        return cache["attn"]["k"].shape[2]
+    return cache["k"].shape[2]
+
+
 def build_model(cfg, device="cuda") -> Model:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in transformer.FAMILIES:
         raise not_ported(f"the {cfg.family!r} family", "other families")
     if cfg.weight_quant not in quant.LEVELS:
         raise ValueError(f"unknown weight_quant {cfg.weight_quant!r}; "
                          f"expected one of {quant.LEVELS}")
-    if cfg.positional != "rope":
+    # an attention-free stack has no positions; sinusoidal positions (the
+    # audio family's) are not ported
+    if cfg.positional != "rope" and not (cfg.positional == "none"
+                                         and cfg.family == "ssm"):
         raise not_ported(f"positional {cfg.positional!r}", "other families")
     return Model(cfg, resolve_device(device))

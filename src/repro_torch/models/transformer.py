@@ -1,12 +1,15 @@
-"""The decoder stacks of the attention families (the JAX package's
-``models/transformer.py``): ``dense`` (attention + SwiGLU MLP) and ``moe``
-(attention + the MoE layer).
+"""The decoder stacks (the JAX package's ``models/transformer.py``):
+``dense`` (attention + SwiGLU MLP), ``moe`` (attention + the MoE layer),
+``ssm`` (Mamba-2 SSD blocks, no MLP) and ``hybrid`` (RG-LRU, RG-LRU,
+local attention, each followed by the MLP).
 
-Four ways through the stack share one block body (``_attn_mlp_block``):
-the unified step over the paged pool or the contiguous cache
-(``unified_stack``), the cache-free full-sequence forward
+Four ways through the attention families' stack share one block body
+(``_attn_mlp_block``): the unified step over the paged pool or the
+contiguous cache (``unified_stack``), the cache-free full-sequence forward
 (``forward_stack``), and the two-program reference engine's padded
-prefill and one-token decode (``prefill_stack``, ``decode_stack``).
+prefill and one-token decode (``prefill_stack``, ``decode_stack``).  The
+stateful families take the last three only (``_ssm_block``,
+``_hybrid_block``), on one device.
 
 Parameters are stacked along a leading layer axis, as in the reference.
 Where the reference runs the stack under ``jax.lax.scan`` with the whole
@@ -17,6 +20,7 @@ cache in place: PyTorch needs no donation for that.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -25,7 +29,7 @@ from repro_torch import not_ported
 from repro_torch.core import expert_parallel
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, mamba2, rglru
 
 
 def _in_copy(rows: slice, e: int) -> slice:
@@ -82,20 +86,67 @@ def _dense_layer_init(cfg, gen: torch.Generator, dtype, keep=None) -> dict:
     }
 
 
+def _ssm_layer_init(cfg, gen: torch.Generator, dtype) -> dict:
+    L = cfg.num_layers
+    return {"ln": layers.norm_init(cfg.norm, cfg.d_model, dtype, gen.device,
+                                   (L,)),
+            "mamba": mamba2.mamba_init(gen, cfg, dtype, (L,))}
+
+
+def _hybrid_layer_init(cfg, gen: torch.Generator, dtype, kind: str,
+                       n: int) -> dict:
+    """``n`` layers of one kind, stacked."""
+    d = cfg.d_model
+    norm = lambda: layers.norm_init(cfg.norm, d, dtype, gen.device, (n,))
+    mix = (rglru.rglru_init(gen, cfg, dtype, (n,)) if kind == "rec"
+           else attention.attn_init(gen, cfg, dtype, (n,)))
+    return {"ln1": norm(), "ln2": norm(),
+            "mlp": layers.mlp_init(gen, d, cfg.d_ff, dtype, (n,)),
+            "mix": mix}
+
+
+def hybrid_pattern(cfg) -> list[str]:
+    """rec, rec, attn repeating (RecurrentGemma's one attention layer per
+    two recurrent ones)."""
+    return ["attn" if i % 3 == 2 else "rec" for i in range(cfg.num_layers)]
+
+
+FAMILIES = ("dense", "moe", "hybrid", "ssm")
+
+
 def _check_family(cfg) -> None:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in FAMILIES:
         raise not_ported(f"the {cfg.family!r} family", "other families")
+
+
+def check_no_mesh(cfg, mesh) -> None:
+    """The stateful families run on one device in this slice."""
+    if mesh is not None and cfg.family in ("hybrid", "ssm"):
+        raise not_ported(f"the {cfg.family!r} family on a mesh",
+                         "other families on a mesh")
 
 
 def init_blocks(cfg, gen: torch.Generator, mesh=None, keep=None) -> dict:
     """Layer-stacked block parameters, drawn from ``gen`` on its device;
     on a ``mesh`` the expert stacks hold this rank's rows alone.
     ``keep``: the block of each leaf to store, a tree of slices
-    (``launch/sharding.mode_slices``), every matrix still drawn."""
+    (``launch/sharding.mode_slices``), every matrix still drawn.  A hybrid
+    stack is {"rec": its recurrent layers, "attn": its attention layers
+    (at least one)}, each stacked."""
     _check_family(cfg)
+    check_no_mesh(cfg, mesh)
+    dtype = cfg.param_torch_dtype
     if cfg.family == "moe":
-        return _moe_layer_init(cfg, gen, cfg.param_torch_dtype, mesh, keep)
-    return _dense_layer_init(cfg, gen, cfg.param_torch_dtype, keep)
+        return _moe_layer_init(cfg, gen, dtype, mesh, keep)
+    if cfg.family == "ssm":
+        return _ssm_layer_init(cfg, gen, dtype)
+    if cfg.family == "hybrid":
+        pat = hybrid_pattern(cfg)
+        return {"rec": _hybrid_layer_init(cfg, gen, dtype, "rec",
+                                          pat.count("rec")),
+                "attn": _hybrid_layer_init(cfg, gen, dtype, "attn",
+                                           max(pat.count("attn"), 1))}
+    return _dense_layer_init(cfg, gen, dtype, keep)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,8 +246,13 @@ def paged_stack_cache_spec(cfg, num_pages: int, page_size: int, dtype,
                            heads: int | None = None):
     """Stacked paged pool: {"k", "v"} -> ((L, P, ps, Hkv, hd), dtype), and
     for an int8 cache {"k_scale", "v_scale"} -> ((L, P, ps, Hkv, 1), fp32);
-    ``heads`` kv heads (all by default)."""
+    ``heads`` kv heads (all by default).  The stateful families keep their
+    per-row state on the contiguous layout, as in the reference."""
     _check_family(cfg)
+    if cfg.family not in ("dense", "moe"):
+        raise NotImplementedError(
+            f"paged KV cache supports attention-cache families, not "
+            f"{cfg.family!r}")
     per = attention.paged_layer_cache_spec(cfg, num_pages, page_size, dtype,
                                            heads)
     return {kk: ((cfg.num_layers,) + shape, dt)
@@ -210,29 +266,53 @@ def init_paged_stack_cache(cfg, num_pages: int, page_size: int, dtype,
                 cfg, num_pages, page_size, dtype, heads).items()}
 
 
+def _stacked(n: int, per: dict) -> dict:
+    return {kk: ((n,) + shape, dt) for kk, (shape, dt) in per.items()}
+
+
 def stack_cache_spec(cfg, batch: int, cache_len: int, dtype,
                      heads: int | None = None, seq_shards: int = 1):
     """Stacked contiguous cache: {"k", "v"} -> ((L, B, S, Hkv, hd), dtype)
     (+ int8 scales (L, B, S, Hkv, 1) fp32); ``heads`` kv heads (all by
     default) and S = cache_len / ``seq_shards`` (a sequence block).  As in
     the reference the cache is clipped to the effective window, which
-    makes it a ring buffer: not ported (ROADMAP queue A: other
-    families)."""
+    makes it a ring buffer.  ssm: {"conv", "ssm"} per layer; hybrid:
+    {"rec": {"conv", "h"}, "attn": the attention cache of
+    min(cache_len, window) slots}, each stacked over its layers.  The
+    batch axis is 1 in every leaf."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        return _stacked(cfg.num_layers,
+                        mamba2.mamba_cache_spec(cfg, batch, dtype))
+    if cfg.family == "hybrid":
+        pat = hybrid_pattern(cfg)
+        attn_len = min(cache_len, cfg.sliding_window or cache_len)
+        return {"rec": _stacked(pat.count("rec"),
+                                rglru.rglru_cache_spec(cfg, batch, dtype)),
+                "attn": _stacked(pat.count("attn"), attention.layer_cache_spec(
+                    cfg, batch, attn_len, dtype))}
+    return _stacked(cfg.num_layers, attention.layer_cache_spec(
+        cfg, batch, attn_cache_len(cfg, cache_len) // seq_shards, dtype,
+        heads))
+
+
+def attn_cache_len(cfg, cache_len: int) -> int:
+    """The attention cache's length for a context of ``cache_len``:
+    clipped to the effective window (a ring) where the window fits."""
     win = effective_window(cfg, cache_len)
-    if win is not None and win <= cache_len:
-        raise not_ported("a ring (sliding-window) cache", "other families")
-    per = attention.layer_cache_spec(cfg, batch, cache_len // seq_shards,
-                                     dtype, heads)
-    return {kk: ((cfg.num_layers,) + shape, dt)
-            for kk, (shape, dt) in per.items()}
+    return min(cache_len, win) if win else cache_len
+
+
+def _zeros(spec: dict, device) -> dict:
+    return {kk: (_zeros(v, device) if isinstance(v, dict)
+                 else torch.zeros(v[0], dtype=v[1], device=device))
+            for kk, v in spec.items()}
 
 
 def init_stack_cache(cfg, batch: int, cache_len: int, dtype, device,
                      heads: int | None = None, seq_shards: int = 1) -> dict:
-    return {kk: torch.zeros(shape, dtype=dt, device=device)
-            for kk, (shape, dt) in stack_cache_spec(
-                cfg, batch, cache_len, dtype, heads, seq_shards).items()}
+    return _zeros(stack_cache_spec(cfg, batch, cache_len, dtype, heads,
+                                   seq_shards), device)
 
 
 def effective_window(cfg, seq_len: int) -> int | None:
@@ -279,6 +359,9 @@ def forward_stack(cfg, blocks, x, positions, window, kernels=True,
     gradients are reduced into the blocks."""
     b, s, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ("hybrid", "ssm"):
+        return _forward_families(cfg, blocks, x, positions, kernels), aux, \
+            None
     routing = (torch.empty((cfg.num_layers, b * s, cfg.experts_per_token),
                            dtype=torch.int32, device=x.device)
                if cfg.family == "moe" else None)
@@ -300,6 +383,98 @@ def forward_stack(cfg, blocks, x, positions, window, kernels=True,
         if routing is not None:
             routing[l] = routed
     return x, aux, routing
+
+
+# ---------------------------------------------------------------------------
+# the stateful families (ssm, hybrid): one device, the reference engine
+# ---------------------------------------------------------------------------
+
+def _write_state(cache_l: dict, new: dict, rows) -> None:
+    """Copy the state ``new`` into the layer's cache leaves IN PLACE;
+    ``rows`` (B,) bool limits the write to those rows (batch axis 0)."""
+    for kk, v in new.items():
+        dst = cache_l[kk]
+        v = v.to(dst.dtype)
+        if rows is not None:
+            v = torch.where(rows.reshape((-1,) + (1,) * (v.dim() - 1)), v,
+                            dst)
+        dst.copy_(v)
+
+
+def _ssm_block(cfg, layer_p, x, cache_l=None, decode=False, rows=None):
+    """Norm and the SSD block, residual added.  With ``cache_l``: the
+    decode step or the prefill, its final state written IN PLACE."""
+    h = layers.norm_apply(cfg.norm, layer_p["ln"], x)
+    if cache_l is None:
+        return x + mamba2.mamba_forward(layer_p["mamba"], cfg, h)
+    if decode:
+        h, new = mamba2.mamba_decode_step(layer_p["mamba"], cfg, cache_l, h)
+    else:
+        h, new = mamba2.mamba_forward(layer_p["mamba"], cfg, h,
+                                      state=cache_l)
+    _write_state(cache_l, new, rows)
+    return x + h
+
+
+def _hybrid_block(cfg, layer_p, kind, x, positions, cache_l=None,
+                  decode=False, rows=None, kernels=True):
+    """Norm, the RG-LRU block or local attention (always the config's
+    sliding window), residual, then norm, MLP, residual.  With ``cache_l``:
+    the decode step (``positions`` are then the lengths) or the prefill;
+    the recurrent state is written IN PLACE (the prefill starts from the
+    cached one, as the reference's does), the attention cache by the
+    attention steps.  ``kernels=False``: through no kernel."""
+    h = layers.norm_apply(cfg.norm, layer_p["ln1"], x)
+    mp, w = layer_p["mix"], cfg.sliding_window
+    if kind == "rec":
+        if cache_l is None:
+            h = rglru.rglru_forward(mp, cfg, h)
+        else:
+            step = (rglru.rglru_decode_step(mp, cfg, cache_l, h) if decode
+                    else rglru.rglru_forward(mp, cfg, h, state=cache_l))
+            h = step[0]
+            _write_state(cache_l, step[1], rows)
+    elif cache_l is None:
+        h = attention.attn_forward(mp, cfg, h, positions, w, kernels)
+    elif decode:
+        h = attention.attn_decode_step(mp, cfg, cache_l, h, positions, w)
+    else:
+        h = attention.attn_prefill(mp, cfg, cache_l, h, positions, w, rows)
+    x = x + h
+    h = layers.norm_apply(cfg.norm, layer_p["ln2"], x)
+    return x + layers.mlp_apply(layer_p["mlp"], h, cfg.act)
+
+
+def _family_layers(cfg, blocks, positions, kernels=True, cache=None):
+    """(the layer's block as a function of x, its cache slice or None) for
+    every layer of a stateful stack, in order."""
+    if cfg.family == "ssm":
+        for l in range(cfg.num_layers):
+            yield (functools.partial(_ssm_block, cfg, _layer(blocks, l)),
+                   None if cache is None else _layer(cache, l))
+        return
+    idx = {"rec": 0, "attn": 0}
+    for kind in hybrid_pattern(cfg):
+        i = idx[kind]
+        idx[kind] += 1
+        yield (functools.partial(_hybrid_block, cfg, _layer(blocks[kind], i),
+                                 kind, positions=positions, kernels=kernels),
+               None if cache is None else _layer(cache[kind], i))
+
+
+def _forward_families(cfg, blocks, x, positions, kernels):
+    """The cache-free forward of a stateful stack, each layer under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` is set."""
+    for fn, _ in _family_layers(cfg, blocks, positions, kernels):
+        x = checkpoint(fn, x, use_reentrant=False) if cfg.remat else fn(x)
+    return x
+
+
+def _cached_families(cfg, blocks, x, cache, positions, decode, rows):
+    """Every layer of a stateful stack over ``cache`` (written IN PLACE)."""
+    for fn, cl in _family_layers(cfg, blocks, positions, cache=cache):
+        x = fn(x, cache_l=cl, decode=decode, rows=rows)
+    return x, None
 
 
 def _cached_stack(cfg, blocks, x, cache, **block_kw):
@@ -339,6 +514,9 @@ def prefill_stack(cfg, blocks, x, positions, cache, window, token_mask=None,
     """Full-sequence forward that fills the contiguous cache IN PLACE (the
     reference engine's prefill); ``rows`` (B,) bool: the rows it writes.
     Returns (x, routing (L, B*S, K) or None)."""
+    if cfg.family in ("hybrid", "ssm"):
+        return _cached_families(cfg, blocks, x, cache, positions, False,
+                                rows)
     return _cached_stack(cfg, blocks, x, cache, positions=positions,
                          window=window, token_mask=token_mask, rows=rows,
                          tp=tp, cp=cp)
@@ -349,6 +527,8 @@ def decode_stack(cfg, blocks, x, lengths, cache, window, token_mask=None,
     """One-token decode through all layers: x (B, 1, D) at positions
     ``lengths``, written IN PLACE into the contiguous cache.  Returns
     (x, routing (L, B, K) or None)."""
+    if cfg.family in ("hybrid", "ssm"):
+        return _cached_families(cfg, blocks, x, cache, lengths, True, None)
     return _cached_stack(cfg, blocks, x, cache, positions=lengths,
                          window=window, decode=True, token_mask=token_mask,
                          tp=tp, cp=cp)

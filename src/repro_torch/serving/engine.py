@@ -60,8 +60,16 @@ and all-gather hand each rank the same bits), fault plans key on the step
 index, and the one clock that could differ, the deadlines', is rank 0's,
 broadcast once per step while a deadline exists (``_now``).
 
-Not ported yet (``NotImplementedError``): ring (sliding-window) caches
-(ROADMAP queue A).
+Ring caches and the stateful families take the reference path, as in
+the reference: where the effective window at ``max_cache`` fits inside it
+the contiguous cache is a ring, which takes width-1 blocks only, and the
+``ssm`` and ``hybrid`` families have no unified forward, so the engine
+runs the two-program path for both (``self.unified`` is False) and
+refuses the paged pool.  Their cache is a tree of per-row states
+(``{"conv", "ssm"}``, or ``{"rec": {"conv", "h"}, "attn": {"k",
+"v"}}``), the batch axis 1 in every leaf.  The stateful families do not
+serve on a mesh in this slice (ROADMAP queue A: other families on a
+mesh).
 """
 from __future__ import annotations
 
@@ -72,12 +80,12 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import collectives, quant
 from repro_torch.core.dynamic_load import LRUExpertTracker
 from repro_torch.models.attention import use_cp_decode
 from repro_torch.models.model import build_model, resolve_device
-from repro_torch.models.transformer import effective_window
+from repro_torch.models.transformer import (attn_cache_len, check_no_mesh,
+                                            effective_window)
 from repro_torch.serving import scheduler as sched
 from repro_torch.serving.faults import InjectedFault
 from repro_torch.serving.paging import PageAllocator, PrefixCache
@@ -123,9 +131,10 @@ class EngineConfig:
     """Engine knobs, named as in the JAX package's ``EngineConfig``.  The
     port's main path is the unified paged step, so ``paged`` defaults to
     True (the reference's to False).  The reference engine
-    (``unified_step=False``) needs the contiguous cache, so
-    ``unified_step=False`` alone raises the reference's "paged KV cache
-    requires the unified engine path" error: pass ``paged=False`` too."""
+    (``unified_step=False``, and always for ring-cache archs and the ssm
+    and hybrid families) needs the contiguous cache, so without
+    ``paged=False`` it raises the reference's "paged KV cache requires the
+    unified engine path" error."""
     max_batch: int = 8            # decode slots
     prefill_len: int = 128        # reference mode: prompts padded to this
     max_cache: int = 256          # per-request cache positions
@@ -166,6 +175,22 @@ class _Pending:
     stalled: bool = False
 
 
+def reference_only(cfg, max_cache: int) -> bool:
+    """Whether ``cfg`` serves through the two-program reference path only:
+    the unified block step needs a token-input attention family and a
+    linear cache, and the cache is clipped to the window, so any window
+    <= ``max_cache`` makes it a ring, which takes width-1 blocks only."""
+    if cfg.family not in ("dense", "moe"):
+        return True
+    win = effective_window(cfg, max_cache)
+    return win is not None and win <= max_cache
+
+
+def _tree_map(fn, tree: dict) -> dict:
+    return {k: (_tree_map(fn, v) if isinstance(v, dict) else fn(v))
+            for k, v in tree.items()}
+
+
 def _fold_seed(seed: int, step: int) -> int:
     """The sampler's generator seed for engine step ``step``: a function
     of (sample_seed, step) alone, so a replay draws the same stream."""
@@ -193,14 +218,15 @@ class ServingEngine:
                 f"chunk_len must be >= 1 and token_budget >= 0, got "
                 f"chunk_len={ecfg.chunk_len} "
                 f"token_budget={ecfg.token_budget}")
-        win = effective_window(cfg_model, ecfg.max_cache)
-        if win is not None and win <= ecfg.max_cache:
-            raise not_ported("a ring (sliding-window) cache", "other families")
-        if ecfg.paged and not ecfg.unified_step:
+        check_no_mesh(cfg_model, mesh)
+        unified = ecfg.unified_step and not reference_only(cfg_model,
+                                                           ecfg.max_cache)
+        if ecfg.paged and not unified:
             raise ValueError(
                 "paged KV cache requires the unified engine path "
                 "(token-input attention family, non-ring cache, "
-                "unified_step=True)")
+                "unified_step=True); pass paged=False for the reference "
+                "path")
         if ecfg.paged and ecfg.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {ecfg.page_size}")
         self.cfg = cfg_model
@@ -255,7 +281,7 @@ class ServingEngine:
         self._step_idx = 0
         self._sampling = False
         self._pending: list[_Pending] = []
-        self.unified = ecfg.unified_step
+        self.unified = unified
         self.paged = ecfg.paged
         self._admit_stalled = False
         self.chunk_len = min(ecfg.chunk_len, c)
@@ -271,10 +297,11 @@ class ServingEngine:
             self.slot_pages: list[list[int]] = [[] for _ in range(b)]
         else:
             # the two-program engine decodes context-parallel on a mesh
-            # where the reference would (``use_cp_decode``)
+            # where the reference would (``use_cp_decode``, at the length
+            # of the cache: a ring's is the window)
             self.cache = self.model.init_cache(
                 b, c, mesh, seq_sharded=(not self.unified and use_cp_decode(
-                    cfg_model, mesh, c)))
+                    cfg_model, mesh, attn_cache_len(cfg_model, c))))
         self.stats = {"prefill_tokens": 0, "prefill_pad_tokens": 0,
                       "decode_steps": 0, "decode_tokens": 0,
                       # per-phase token counts of MIXED iterations only —
@@ -420,7 +447,7 @@ class ServingEngine:
         """Reference mode with ``batched_prefill=False``: a batch-1 prefill
         of (1, prefill_len) tokens through slot ``slot``'s row of the
         cache (a view, written in place).  Returns (last_tok', routing)."""
-        one = {kk: v[:, slot:slot + 1] for kk, v in self.cache.items()}
+        one = _tree_map(lambda v: v[:, slot:slot + 1], self.cache)
         logits, routing = self.model.prefill_routed(
             self.params, {"tokens": tokens}, one, self.ecfg.max_cache,
             mesh=self.mesh)

@@ -135,7 +135,7 @@ def test_block_slot_positions_matches_reference():
     sl = np.array([3, 1, 0], np.int32)
     want = jax_attn.block_slot_positions(jnp.asarray(ln), jnp.asarray(sl),
                                          12, False)
-    got = attention.block_slot_positions(_t(ln), 12)
+    got = attention.block_slot_positions(_t(ln), _t(sl), 12, False)
     assert np.array_equal(got.numpy(), np.asarray(want))
 
 
@@ -299,21 +299,23 @@ def test_attend_chunked_matches_reference(window):
 
 
 def test_ring_caches_are_not_ported():
-    """A window as long as the cache makes it a ring buffer: every cached
-    step and the stacked cache's spec raise (ROADMAP queue A: other
-    families)."""
+    """A window as long as the cache makes it a ring buffer.  The ring
+    forms are ported (``tests/test_torch_ring.py`` holds them to the
+    reference); what a ring still refuses is the reference's own refusal:
+    a unified block wider than one token, as a ``ValueError``, while the
+    decode step runs and the stacked cache is clipped to the window."""
     _, cfg, p, rng = _attn_setup("native")
     cache = _torch_tree(_cache(cfg, rng, 1, 8))
     one = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ring"):
-        attention.attn_decode_step(_torch_tree(p), cfg, cache,
-                                   torch.zeros(1, 1, cfg.d_model), one, 8)
-    with pytest.raises(NotImplementedError, match="ring"):
+    with pytest.raises(ValueError, match="width-1"):
         attention.attn_block_step(_torch_tree(p), cfg, cache,
                                   torch.zeros(1, 2, cfg.d_model),
                                   torch.arange(2)[None], one, one + 2, 8)
-    with pytest.raises(NotImplementedError, match="ring"):
-        build_model(cfg.replace(sliding_window=8), "cpu").init_cache(1, 8)
+    out = attention.attn_decode_step(_torch_tree(p), cfg, cache,
+                                     torch.zeros(1, 1, cfg.d_model), one, 8)
+    assert out.shape == (1, 1, cfg.d_model)
+    ring = build_model(cfg.replace(sliding_window=8), "cpu").init_cache(1, 20)
+    assert ring["k"].shape[2] == 8
 
 
 @pytest.mark.parametrize("kv", ["native", "int8"])
@@ -356,9 +358,9 @@ def test_flash_plain_at_hd_160_matches_pallas(window):
 
 
 @pytest.mark.parametrize("hd,ok", [(64, True), (128, True), (160, True),
-                                   (96, False), (256, False)])
+                                   (256, True), (96, False), (320, False)])
 def test_flash_geometry_check(hd, ok):
-    """The kernel takes hd 64, 128 and 160 and refuses any other (no
+    """The kernel takes hd 64, 128, 160 and 256 and refuses any other (no
     fallback to the plain version on the card)."""
     if ok:
         flash_attn.check_geometry(32, 8, hd)

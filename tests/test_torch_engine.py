@@ -224,37 +224,47 @@ def test_paging_copy_matches_reference():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(sliding_window=64), r"ring \(sliding-window\) cache .*other "
-                              r"families"),
-    (dict(family="ssm"), "the 'ssm' family .*other families"),
+    (dict(family="audio", positional="sinusoidal"),
+     "the 'audio' family .*other families"),
+    (dict(positional="sinusoidal"), "positional 'sinusoidal' .*other "
+                                    "families"),
 ])
 def test_out_of_slice_options_raise(kw, match):
-    """What a later slice ports still raises: a ring (sliding-window)
-    cache, and a family other than dense or moe (the contiguous cache and
-    the reference engine are ported: tests/test_torch_reference_engine.py;
-    serving on a mesh: tests/test_torch_serve_mesh.py)."""
+    """What a later slice ports still raises: the audio and vlm families
+    and sinusoidal positions (ring caches and the hybrid and ssm families
+    serve through the reference engine: tests/test_torch_families.py)."""
     cfg = get_config(ARCH).reduced()
     with pytest.raises(NotImplementedError, match=match):
-        ServingEngine(cfg.replace(**kw), EngineConfig(), device="cpu")
+        ServingEngine(cfg.replace(**kw), EngineConfig(paged=False),
+                      device="cpu")
 
 
 def test_out_of_slice_requests_raise():
-    """On a mesh, context-parallel decode over a ring cache (a window as
-    long as the cache) waits for the ring cache, before any collective."""
+    """The stateful families do not run on a mesh in this slice: the
+    engine, the mesh inits, the mesh forward and the cache on a mesh
+    raise before any collective."""
     import types
 
-    from repro_torch.models import attention
-    cfg = get_config(ARCH).reduced()
+    from repro_torch.models.model import build_model
     mesh = types.SimpleNamespace(axis_names=("data", "model"),
                                  shape={"data": 1, "model": 2},
                                  coords={"data": 0, "model": 0})
-    tp = attention.HeadTP(mesh, True, 0, 2, "heads", 0, 1, True)
-    cache = {kk: torch.zeros((1, 4, cfg.num_kv_heads, cfg.head_dim))
-             for kk in ("k", "v")}
-    with pytest.raises(NotImplementedError, match="ring .*other families"):
-        attention.attn_decode_step_cp(
-            {}, cfg, cache, torch.zeros((1, 1, cfg.d_model)),
-            torch.zeros((1,), dtype=torch.int32), 8, tp)
+    for arch in ("recurrentgemma_2b", "mamba2_130m"):
+        cfg = get_config(arch).reduced()
+        model = build_model(cfg, "cpu")
+        calls = (
+            lambda: ServingEngine(cfg, EngineConfig(paged=False),
+                                  device="cpu", mesh=mesh),
+            lambda: model.init_serving(None, mesh),
+            lambda: model.init_training(None, mesh),
+            lambda: model.forward({}, {"tokens": torch.zeros((2, 4),
+                                                             dtype=torch.int32)},
+                                  mesh),
+            lambda: model.init_cache(2, 8, mesh))
+        for call in calls:
+            with pytest.raises(NotImplementedError,
+                               match="other families on a mesh"):
+                call()
 
 
 def test_expert_replication_matches_reference():

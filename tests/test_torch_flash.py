@@ -95,6 +95,24 @@ def test_non_causal_ragged_matches_oracle_not_kernel(dtype):
     assert not np.allclose(kernel, oracle, rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [None, 32])
+def test_hd256_ten_query_heads_match_pallas_kernel(window, dtype):
+    """recurrentgemma-2b's local attention: hd 256, ten query heads on one
+    kv head, at S=80 (ragged against the 32-wide blocks), causal with and
+    without a window."""
+    rng = np.random.default_rng(256 + (window or 0))
+    q = rng.standard_normal((1, 80, 10, 256)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 80, 1, 256)).astype(np.float32)
+            for _ in range(2))
+    if dtype == "bfloat16":
+        q, k, v = (a.astype(ml_dtypes.bfloat16).astype(np.float32)
+                   for a in (q, k, v))
+    got = _port(q, k, v, dtype, causal=True, window=window)
+    want = _pallas(q, k, v, dtype, causal=True, window=window)
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
 def test_gqa_reads_kv_head_of_its_group():
     """Query head h reads kv head h // (Hq / Hkv): swapping the two kv
     heads changes exactly the outputs of the query heads that read them."""
@@ -154,7 +172,7 @@ def _replay_tiled(q, k, v, *, causal, window, tile=64):
 
 
 @pytest.mark.parametrize("window", [None, 40])
-@pytest.mark.parametrize("hd", [64, 128, 160])
+@pytest.mark.parametrize("hd", [64, 128, 160, 256])
 def test_kernel_tiling_fits_bf16_tolerance(hd, window):
     """The bf16 kernel rounds p against each 64-key tile's running max, not
     the final one; replayed in torch at S=300 (ragged against the tiles),

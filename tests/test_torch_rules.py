@@ -10,7 +10,7 @@ import torch
 
 from repro.configs import base as jax_base
 from repro_torch.configs import base
-from torch_archs import ARCHS, DENSE_ARCHS
+from torch_archs import ARCHS, DENSE_ARCHS, FAMILY_ARCHS, LATE_DENSE_ARCHS
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -60,7 +60,8 @@ def test_training_modules_need_no_ml_dtypes(path):
 
 
 # (arch, reduced); the first arch's cases keep their original ids
-CONFIG_CASES = [(a, r) for a in ARCHS + DENSE_ARCHS for r in (False, True)]
+CONFIG_CASES = [(a, r) for a in ARCHS + DENSE_ARCHS + LATE_DENSE_ARCHS
+                + FAMILY_ARCHS for r in (False, True)]
 
 
 @pytest.mark.parametrize("arch,reduced", CONFIG_CASES, ids=[
@@ -83,8 +84,9 @@ def test_config_matches_reference_field_by_field(arch, reduced):
 
 
 def test_ported_archs_are_registered():
-    assert base.ARCH_IDS == list(ARCHS + DENSE_ARCHS)
-    for arch in ARCHS + DENSE_ARCHS:
+    ported = ARCHS + DENSE_ARCHS + LATE_DENSE_ARCHS + FAMILY_ARCHS
+    assert base.ARCH_IDS == list(ported)
+    for arch in ported:
         mod = importlib.import_module(f"repro_torch.configs.{arch}")
         assert base.get_config(arch) is mod.CONFIG
 
@@ -93,7 +95,10 @@ def test_ported_archs_are_registered():
     ("dbrx-132b", "dbrx"), ("dbrx", "dbrx"),
     ("granite-moe-3b-a800m", "granite_moe_3b_a800m"),
     ("qwen3-moe-30b-a3b", "qwen3_moe_30b_a3b"),
-    ("qwen3-0.6b", "qwen3_0_6b"), ("stablelm-12b", "stablelm_12b")])
+    ("qwen3-0.6b", "qwen3_0_6b"), ("stablelm-12b", "stablelm_12b"),
+    ("qwen2-72b", "qwen2_72b"), ("deepseek-67b", "deepseek_67b"),
+    ("recurrentgemma-2b", "recurrentgemma_2b"),
+    ("mamba2-130m", "mamba2_130m")])
 def test_get_config_accepts_reference_aliases(alias, arch):
     assert base.get_config(alias) == base.get_config(arch)
     assert base.get_config(alias).name == jax_base.get_config(alias).name
@@ -101,7 +106,7 @@ def test_get_config_accepts_reference_aliases(alias, arch):
 
 def test_unknown_arch_raises():
     with pytest.raises(ValueError, match="not yet ported"):
-        base.get_config("mamba2_130m")
+        base.get_config("musicgen_large")
 
 
 def test_default_device_raises_without_cuda():

@@ -230,6 +230,21 @@ def test_cp_decode_matches_jax(runs, mesh_name, quant):
     within 1e-5 of JAX's on its (2, 2) mesh and of the port's one-device
     ``attn_decode_step``; each rank's cache block equal to the same slots
     of JAX's whole cache (an int8 payload exactly)."""
+    _check_cp(runs, mesh_name, quant, "cp")
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+@pytest.mark.parametrize("quant", list(cases.CP_CACHE))
+def test_cp_decode_ring_matches_jax(runs, mesh_name, quant):
+    """The same over a ring (a window as long as the 32-slot cache), the
+    rows' lengths running past the cache so their writes wrap: each rank
+    writes slot lengths % 32 when its block holds it, and every written
+    slot is attended."""
+    _check_cp(runs, mesh_name, quant, "cp_ring")
+
+
+def _check_cp(runs, mesh_name: str, quant: str, name: str) -> None:
+    window = cases.CP_WINDOWS[name]
     n_model = cases.MESHES[mesh_name][1]
     ref = runs["oracle"]
     cfg = cases.port_config("dense", kv_cache_dtype=cases.CP_CACHE[quant])
@@ -239,20 +254,20 @@ def test_cp_decode_matches_jax(runs, mesh_name, quant):
                                        torch.float32, "cpu")
     one = []
     with torch.no_grad():
-        for x, lengths in cases.cp_inputs(cfg.d_model):
+        for x, lengths in cases.cp_inputs(cfg.d_model, window is not None):
             one.append(attention.attn_decode_step(
                 p, cfg, cache, torch.from_numpy(x),
-                torch.from_numpy(lengths), None).numpy())
+                torch.from_numpy(lengths), window).numpy())
     s_loc = cases.CP_LEN // n_model
     for rank, rec in enumerate(runs[mesh_name]):
-        got = rec[f"cp/{quant}"]
-        np.testing.assert_allclose(got["out"], ref[f"cp/{quant}/out"],
+        got = rec[f"{name}/{quant}"]
+        np.testing.assert_allclose(got["out"], ref[f"{name}/{quant}/out"],
                                    rtol=0, atol=TOL_CP)
         np.testing.assert_allclose(got["out"], np.stack(one), rtol=0,
                                    atol=TOL_CP)
         blk = slice(rank % n_model * s_loc, (rank % n_model + 1) * s_loc)
         for k, v in got["cache"].items():
-            whole = ref[f"cp/{quant}/cache/{k}"][:, blk]
+            whole = ref[f"{name}/{quant}/cache/{k}"][:, blk]
             if v.dtype == np.int8:
                 np.testing.assert_array_equal(v, whole)
             else:

@@ -1,5 +1,5 @@
 """Port vs JAX: the partition-spec rules of ``launch/sharding.py`` and the
-per-rank slicing beside them.
+per-rank slicing beside them, for every port arch that runs on a mesh.
 
 The rules read only ``mesh.axis_names`` and ``mesh.shape``, so both sides
 get a stand-in mesh with those two fields and no devices: the JAX rules
@@ -27,7 +27,8 @@ from repro.core import quant as jax_quant
 from repro.launch import sharding as jax_sharding
 from repro.models.model import build_model as jax_build_model
 from repro_torch import bridge
-from repro_torch.configs.base import ARCH_IDS, get_config
+from repro_torch.configs.base import ARCH_IDS as ALL_ARCH_IDS
+from repro_torch.configs.base import get_config
 from repro_torch.core import quant
 from repro_torch.launch import sharding
 from repro_torch.models.model import build_model
@@ -36,6 +37,9 @@ from repro_torch.optim import adamw
 SHAPES = [(2, 4), (1, 4), (2, 2), (16, 16)]
 LEVELS = ("none", "int8", "int4")
 KV_SHARDS = ("seq", "hd", "kv", "none")
+# the archs that run on a mesh (the stateful families do not yet)
+ARCH_IDS = [a for a in ALL_ARCH_IDS
+            if get_config(a).family in ("dense", "moe")]
 
 
 class Axes:

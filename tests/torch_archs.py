@@ -13,6 +13,10 @@ ARCHS = ("qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "dbrx")
 NEW_ARCHS = ARCHS[1:]
 # the dense family (slice 6): reduced() as it is, on both sides
 DENSE_ARCHS = ("qwen3_0_6b", "stablelm_12b")
+# slice 11: the last two dense configs (QKV bias; neither bias nor
+# qk-norm), and the stateful families (hybrid, ssm)
+LATE_DENSE_ARCHS = ("qwen2_72b", "deepseek_67b")
+FAMILY_ARCHS = ("recurrentgemma_2b", "mamba2_130m")
 DEAD_AND_PADDED = dict(num_experts=6, num_experts_padded=8, vocab_size=500)
 
 

@@ -5,6 +5,8 @@ import: rank processes import this module and must not load JAX.
 
 The weights are seeded numpy parameters (``torch_ep_cases.model_params``)
 that the test writes to an npz first; both sides read them."""
+import itertools
+
 import numpy as np
 
 from torch_ep_cases import flatten, unflatten  # noqa: F401  (re-exported)
@@ -93,15 +95,23 @@ def binding_fields(ep: str) -> dict:
     return dict(capacity_factor=1.25, ep_microchunks=2, expert_parallel=ep)
 
 
-def cp_inputs(d: int) -> list:
-    """The decode steps' inputs x (B, 1, D) and lengths (B,)."""
-    rng = np.random.default_rng(21)
+def cp_inputs(d: int, ring: bool = False) -> list:
+    """The decode steps' inputs x (B, 1, D) and lengths (B,); with
+    ``ring`` (a window as long as the cache) the rows' lengths run from
+    below the cache length to past it, so their writes wrap."""
+    rng = np.random.default_rng(22 if ring else 21)
     out = []
     for t in range(CP_STEPS):
         x = rng.standard_normal((CP_B, 1, d)).astype(np.float32)
-        out.append((x, np.full((CP_B,), t + 3 * np.arange(CP_B) % 7,
-                               np.int32)))
+        lengths = (CP_LEN - 3 + t + 7 * np.arange(CP_B) if ring
+                   else t + 3 * np.arange(CP_B) % 7)
+        out.append((x, np.asarray(lengths, np.int32)))
     return out
+
+
+# the context-parallel decode cases: name -> window (the ring's window is
+# the cache length)
+CP_WINDOWS = {"cp": None, "cp_ring": CP_LEN}
 
 
 def layer0(tree: dict) -> dict:
@@ -210,8 +220,10 @@ def _rank_cases(rank, world, store, shape, params_path) -> dict:
                                              context_len=16, mesh=mesh)
         out[f"bytes/{ep}"] = {"bytes": dict(mesh.bytes),
                               "logits": logits.numpy()}
-    # context-parallel decode of one layer against the one-device step
-    for quant, kv in CP_CACHE.items():
+    # context-parallel decode of one layer against the one-device step,
+    # over a linear cache and over a ring
+    for (name, window), (quant, kv) in itertools.product(
+            CP_WINDOWS.items(), CP_CACHE.items()):
         cfg = port_config("dense", kv_cache_dtype=kv)
         params = bridge.from_jax_params(trees["dense"], cfg, "cpu",
                                         mesh=mesh, mode="serve")
@@ -221,13 +233,13 @@ def _rank_cases(rank, world, store, shape, params_path) -> dict:
             CP_B, CP_LEN, mesh, seq_sharded=True).items()}
         outs = []
         mesh.reset_counters()
-        for x, lengths in cp_inputs(cfg.d_model):
+        for x, lengths in cp_inputs(cfg.d_model, window is not None):
             with torch.no_grad():
                 y = attention.attn_decode_step_cp(
                     p, cfg, cache, torch.from_numpy(x),
-                    torch.from_numpy(lengths), None, tp)
+                    torch.from_numpy(lengths), window, tp)
             outs.append(y.numpy())
-        out[f"cp/{quant}"] = {"out": np.stack(outs),
+        out[f"{name}/{quant}"] = {"out": np.stack(outs),
                               "cache": {k: v.numpy()
                                         for k, v in cache.items()},
                               "bytes": dict(mesh.bytes)}

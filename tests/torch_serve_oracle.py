@@ -15,6 +15,7 @@ The mesh is built with ``Auto`` axes and the decode runs under
 ``use_kernel`` and ``paged_kernel`` off (the reference's jnp paths, which
 the port's plain versions follow on the CPU).
 """
+import itertools
 import os
 import sys
 
@@ -79,21 +80,23 @@ def main(params_path: str, out_path: str, part: str = "engines") -> None:
         for i, u in enumerate(uids):
             out[f"serve/{cases.oracle_key(arch, quant, mode)}/{i}"] = \
                 np.asarray(eng._all[u].generated, np.int64)
-    for quant, kv in cases.CP_CACHE.items():
+    for (name, window), (quant, kv) in itertools.product(
+            cases.CP_WINDOWS.items(), cases.CP_CACHE.items()):
         cfg = config("dense", kv_cache_dtype=kv)
         p = cases.layer0(trees["dense"]["blocks"])["attn"]
         cache = attention.init_layer_cache(cfg, cases.CP_B, cases.CP_LEN,
                                            jnp.float32)
         step = jax.jit(lambda p_, c, x, ln: attention.attn_decode_step_cp(
-            p_, cfg, c, x, ln, None, mesh))
+            p_, cfg, c, x, ln, window, mesh))
         ys = []
         with jax.set_mesh(mesh):
-            for x, lengths in cases.cp_inputs(cfg.d_model):
+            for x, lengths in cases.cp_inputs(cfg.d_model,
+                                              window is not None):
                 y, cache = step(p, cache, jnp.asarray(x), jnp.asarray(lengths))
                 ys.append(np.asarray(y))
-        out[f"cp/{quant}/out"] = np.stack(ys)
+        out[f"{name}/{quant}/out"] = np.stack(ys)
         for k, v in cache.items():
-            out[f"cp/{quant}/cache/{k}"] = np.asarray(v)
+            out[f"{name}/{quant}/cache/{k}"] = np.asarray(v)
     np.savez(out_path, **out)
 
 

@@ -22,7 +22,10 @@ CPU, then granite-moe-3b-a800m and qwen3-0.6b at full width) or ``ep``
 or ``serve_mesh`` (phase 10: serving on a mesh of 2 and 4 rank processes;
 phase 3's paged and FFN cases at its per-rank shapes run first) or
 ``train_mesh`` (phase 11: training on a (2, 2) mesh of rank processes;
-phase 3's fp32 FFN and flash cases at its per-rank shapes run first).  Prints the card's name and power limit, the build's ptxas lines
+phase 3's fp32 FFN and flash cases at its per-rank shapes run first) or
+``families`` (slice 11's archs: phase 3's hd-256 and G=8 flash cases,
+phase 4d's new runs, phase 12, then phase 8's mamba2-130m against the
+CPU and recurrentgemma-2b at full width).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -45,7 +48,7 @@ def main() -> int:
     ap.add_argument("--only", nargs="*", default=["paged", "quant"],
                     choices=["paged", "quant", "flash", "chaos", "serve",
                              "serve5", "train", "ep", "serve_mesh",
-                             "train_mesh"])
+                             "train_mesh", "families"])
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     import torch
@@ -104,6 +107,19 @@ def main() -> int:
                           if c == (2, 2048, 24, 8, 64, True, None)]
         cs.check_flash_attention(torch, results)
         cs.check_train_mesh(torch, {})
+    if "families" in args.only:
+        # slice 11's archs alone: phase 3's hd-256 and G=8 flash cases,
+        # phase 4d's new runs, phase 8's two new reduced archs, phase 12
+        cs.FLASH_CASES = [c for c in cs.FLASH_CASES if c[2] in (10, 64)]
+        cs.check_flash_attention(torch, results)
+        new = cs.LATE_DENSE_ARCHS + cs.FAMILY_ARCHS
+        cases = cs.modes_cases
+        cs.modes_cases = lambda: [c for c in cases() if c[0] in new]
+        cs.check_reduced_modes(torch)
+        cs.check_families(torch, {})
+        cs.TRAIN_ARCHS = cs.FAMILY_ARCHS[1:]
+        cs.check_train_reduced(torch)
+        cs.check_train_full(torch, *cs.TRAIN_FULL[-1])
     if "serve5" in args.only:
         from repro_torch.configs.base import get_config
         cs.profile_window = lambda *a, **kw: {"device_busy_share": None}
