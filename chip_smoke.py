@@ -16,7 +16,8 @@ line):
                 bf16 kernels must hold them, the fp32 ones none.
   3. kernels  — each kernel against its plain PyTorch version at every
                 path's shapes (qwen3-moe's, granite's and DBRX's), fp32
-                (tol 2e-5) and bf16 (tol 3e-2), with kernel / plain times
+                (tol 2e-5) and bf16 (tol 3e-2; flash also within 1e-2 in
+                RMS, FLASH_RMS_TOL), with kernel / plain times
                 and the card's bound: paged attention over fp and int8
                 pools (decode and prefill at the serve's lengths, windowed,
                 a long-context decode to 4000 tokens, query groups of 3 and
@@ -105,10 +106,12 @@ line):
                 tied head at V 151936) serves once and runs its forward.
   8. train    — the trainer (``launch/train.py``), which reaches no
                 kernel, as the reference's trains through no Pallas
-                kernel: six reduced archs (the five of phases 4-7 and
-                mamba2-130m) take three steps on the
+                kernel: seven reduced archs (the five of phases 4-7,
+                recurrentgemma-2b and mamba2-130m) take three steps on the
                 card and on the CPU from the same weights and batches
-                (fp32, remat on; losses and params within TRAIN_*_TOL, no
+                (fp32, remat on; losses within TRAIN_LOSS_TOL, params
+                within lr and at most one element in TRAIN_PARAM_OFF_PER
+                of a leaf, one at least, beyond TRAIN_PARAM_TOL, no
                 launch, router-dead experts stay zero), each kernel
                 wrapper refuses an input that requires grad; then
                 granite-moe-3b-a800m (8 of 32 layers, bf16, B=4, S=2048:
@@ -188,7 +191,10 @@ line):
                 forward and loss at B=1, S=4096 (8 launches of the flash
                 kernel's hd-256 instantiation, window 2048); mamba2-130m
                 at full width and depth the same way, its forward and loss
-                at B=2, S=2048 launching no kernel.  The reference's
+                at B=2, S=2048 launching no kernel; its shares also
+                printed against the forward padded to whole SSD chunks,
+                and the same prompts served in fp32 held to the fp32
+                forward (FP32_FORCED_SHARE_MAX).  The reference's
                 performance model has no layer formula for the stateful
                 families, so their weight bytes are held to the bytes of
                 the parameter tree's leaves.
@@ -214,6 +220,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, no tensor-core fp32
 TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# bf16 flash attention, beside TOL's elementwise rule: the RMS of the
+# error at most this share of the RMS of the plain output.  A row that
+# averages ~2000 random keys has outputs near 0.04, about TOL's bf16 bound
+# itself; the two sides' bf16 roundings of P and O give ~3e-3 here, while
+# a wrong P.V, mask or query group is of the order of the output
+FLASH_RMS_TOL = 1e-2
 ARCH = "qwen3_moe_30b_a3b"
 
 
@@ -292,6 +304,12 @@ def compare(got, want, tol: float, valid=None) -> float:
           f"kernel disagrees with its plain version: max abs err "
           f"{float(err.max()):.3g} > tol {tol}")
     return float(err.max()), float(err.max() / w.abs().max())
+
+
+def rms_rel(got, want) -> float:
+    """RMS of ``got - want`` over the RMS of ``want``."""
+    g, w = got.float(), want.float()
+    return float((g - w).pow(2).mean().sqrt() / w.pow(2).mean().sqrt())
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
@@ -806,8 +824,9 @@ def sdpa_call(torch, q, k, v, causal: bool, window):
 
 
 def check_flash_attention(torch, results):
-    """The flash kernel against its dense plain version.  k and v are views
-    of one (B, S, 2 Hkv, hd) tensor, so the kernel reads them by strides."""
+    """The flash kernel against its dense plain version (bf16 also within
+    FLASH_RMS_TOL in RMS).  k and v are views of one (B, S, 2 Hkv, hd)
+    tensor, so the kernel reads them by strides."""
     from repro_torch.kernels import flash_attn
     for b, s, hq, hkv, hd, causal, window in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -824,6 +843,10 @@ def check_flash_attention(torch, results):
             got, want = run_k(), run_p()
             torch.cuda.synchronize()
             err, rel = compare(got, want, TOL[dname])
+            rms = rms_rel(got, want)
+            check(dname == "float32" or rms <= FLASH_RMS_TOL,
+                  f"flash {dname} B={b} S={s} Hq={hq} hd={hd}: RMS error "
+                  f"{rms:.3g} of the plain output's RMS > {FLASH_RMS_TOL}")
             ms, plain_ms = time_ms(run_k, 10), time_ms(run_p, 3)
             elt = q.element_size()
             bms, by = bound(2 * b * s * (hq + hkv) * hd * elt,
@@ -832,8 +855,9 @@ def check_flash_attention(torch, results):
                             dname)
             row = dict(kernel="flash_attention", dtype=dname, B=b, S=s,
                        Hq=hq, Hkv=hkv, hd=hd, causal=causal, window=window,
-                       max_abs_err=err, max_rel_err=rel, kernel_ms=ms,
-                       plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+                       max_abs_err=err, max_rel_err=rel, rms_rel_err=rms,
+                       kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                       bound_by=by)
             # the library's time beside every case (its error gated in
             # bf16; in fp32 printed: its kernel may round otherwise)
             run_l = sdpa_call(torch, q, k, v, causal, window)
@@ -1471,21 +1495,21 @@ def check_dense(torch, runs: dict) -> None:
 # ---------------------------------------------------------------------------
 
 # the reduced archs trained on the card and on the CPU (fp32, remat on)
-# (the reduced recurrentgemma-2b is not among them: on the card the share
-# half of the parameter gate below misses at two of its small leaves, the
-# recurrence gate's bias and an attention norm, one element each, by
-# rounding; it trains at full width below instead, with TRAIN_FULL's
-# gates)
 TRAIN_ARCHS = ("qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "dbrx",
-               "qwen3_0_6b", "stablelm_12b", "mamba2_130m")
+               "qwen3_0_6b", "stablelm_12b", "recurrentgemma_2b",
+               "mamba2_130m")
 TRAIN_REDUCED = dict(lr=1e-3, total_steps=3, warmup_steps=1)
 # card vs CPU after three steps: losses (and norms, rates) to 1e-4
-# relative; each param leaf with at least 99.9% of its elements within
-# 1e-6 and all within lr: Adam moves a weight by lr x m/sqrt(v), and its
-# first step by lr x sign(g), so where a gradient sits within rounding of
-# zero the two sides may differ by a step (the same bound as the port's
-# CPU tests against the JAX step)
-TRAIN_LOSS_TOL, TRAIN_PARAM_TOL, TRAIN_PARAM_SHARE = 1e-4, 1e-6, 0.999
+# relative; each param leaf with all elements within lr and at most one
+# in TRAIN_PARAM_OFF_PER beyond 1e-6, at least one element on a leaf of
+# fewer: Adam moves a weight by lr x m/sqrt(v), and its first step by
+# lr x sign(g), so where a gradient sits within rounding of zero the two
+# sides may differ by a step.  Two right fp32 trainers that round in
+# another order differ so: three steps of the reduced recurrentgemma-2b in
+# the port and in the JAX package, both on the CPU, leave one element of a
+# 256-element norm 1.5e-5 apart
+# (tests/test_torch_families.py::test_three_train_steps_match_reference)
+TRAIN_LOSS_TOL, TRAIN_PARAM_TOL, TRAIN_PARAM_OFF_PER = 1e-4, 1e-6, 1000
 # full width: (arch, B, S, steps, lr); granite fits one card with its
 # optimizer (bf16 params 7.8 GB, gradients 7.8 GB, fp32 moments 31.2 GB)
 TRAIN_FULL = (("granite_moe_3b_a800m", 4, 2048, 12, 1e-3),
@@ -1544,20 +1568,21 @@ def check_train_reduced(torch) -> None:
         launches = ops.launch_counts()
         check(not any(launches.values()),
               f"train {cfg.name}: the training step launched {launches}")
-        worst_err, worst_share, off = 0.0, 1.0, {}
+        worst_err, worst_share, off, bad = 0.0, 1.0, {}, False
         for name, a, b in zip(leaf_names(trees["cpu"]), leaves(trees["cuda"]),
                               leaves(trees["cpu"])):
             err = (a.cpu() - b).abs()
-            share = float((err <= TRAIN_PARAM_TOL).float().mean())
+            n_off = int((err > TRAIN_PARAM_TOL).sum())
             worst_err = max(worst_err, float(err.max()))
-            worst_share = min(worst_share, share)
-            if share < TRAIN_PARAM_SHARE or float(err.max()) > ocfg.lr:
-                off[name] = (float(err.max()), share,
-                             int((err > TRAIN_PARAM_TOL).sum()), err.numel())
-        check(worst_err <= ocfg.lr and worst_share >= TRAIN_PARAM_SHARE,
+            worst_share = min(worst_share, 1 - n_off / err.numel())
+            if n_off:
+                off[name] = (float(err.max()), n_off, err.numel())
+            bad |= (float(err.max()) > ocfg.lr or
+                    n_off > max(1, err.numel() // TRAIN_PARAM_OFF_PER))
+        check(not bad,
               f"train {cfg.name}: params after 3 steps differ by "
-              f"{worst_err} ({worst_share} within {TRAIN_PARAM_TOL}); "
-              f"leaves (max err, share, elements off, size): {off}")
+              f"{worst_err} (lr {ocfg.lr}); leaves with elements beyond "
+              f"{TRAIN_PARAM_TOL} (max err, elements off, size): {off}")
         dead_zero = None
         if cfg.num_experts_padded > cfg.num_experts:
             dead_zero = all(
@@ -1567,7 +1592,7 @@ def check_train_reduced(torch) -> None:
         emit("train_reduced", arch=cfg.name, steps=3, B=2, S=64,
              dtype=cfg.dtype, remat=cfg.remat, losses_card_cpu=losses,
              params_max_abs_err=worst_err, params_share_within=worst_share,
-             dead_experts_zero=dead_zero, launches=launches)
+             params_leaves_off=off, dead_experts_zero=dead_zero, launches=launches)
     refused = {}
     q = torch.zeros(1, 64, 2, 64, device="cuda", requires_grad=True)
     x = torch.zeros(1, 16, 256, device="cuda", requires_grad=True)
@@ -1787,15 +1812,17 @@ def resilience_serve(torch, cfg, params, *, overcommit: bool = True,
     return {"eng": eng, "plan": plan, "reqs": reqs}
 
 
-def forced_shares(torch, cfg, params, reqs) -> list:
+def forced_shares(torch, cfg, params, reqs, pad_to: int = 1) -> list:
     """Each greedy stream held to the full-sequence forward of its own
     tokens: at every generated position, how far the emitted token's
     logit sits below the forward's largest, as a share of that largest
     logit's distance from the mean (0: the forward's argmax; a token
     picked at random sits near 1).  A near-tie that the serve's rounding
     broke the other way costs a few hundredths; a restore that attended
-    to the wrong pages emits tokens the forward ranks far lower.  Returns
-    each request's largest share."""
+    to the wrong pages emits tokens the forward ranks far lower.  With
+    ``pad_to`` the forward's sequence is padded with token 0 to a multiple
+    of it (the model is causal: the padding changes no earlier logit).
+    Returns each request's largest share."""
     from repro_torch.models.model import build_model
     model = build_model(cfg, params["embed"].device)
     out = []
@@ -1803,9 +1830,11 @@ def forced_shares(torch, cfg, params, reqs) -> list:
         for r in reqs:
             seq = np.concatenate([r.prompt,
                                   np.asarray(r.generated[:-1], np.int32)])
+            toks = np.zeros(-(-len(seq) // pad_to) * pad_to, np.int32)
+            toks[:len(seq)] = seq
             logits, _ = model.forward(params, {"tokens": torch.as_tensor(
-                seq[None].astype(np.int32), device=model.device)})
-            lg = logits[0, len(r.prompt) - 1:, :cfg.vocab_size]
+                toks[None], device=model.device)})
+            lg = logits[0, len(r.prompt) - 1:len(seq), :cfg.vocab_size]
             gen = torch.as_tensor(r.generated, device=lg.device).long()
             top = lg.max(-1).values
             share = ((top - lg.gather(1, gen[:, None])[:, 0])
@@ -3219,6 +3248,12 @@ FAMILY_SERVE = dict(max_batch=4, prefill_len=2048,
 # at S=4096, past its 2048-token window
 FAMILY_FORWARD = (("recurrentgemma_2b", 1, 4096), ("mamba2_130m", 2, 2048))
 FAMILY_BUDGET_S = 150.0
+# mamba_forward's SSD chunk length (its default)
+SSD_CHUNK = 256
+# the largest share an fp32 serve of mamba2-130m may reach against the
+# fp32 forward: with bf16's roundings gone only fp32's remain, about 1e-6
+# of a logit, far below a near-tie's hundredths
+FP32_FORCED_SHARE_MAX = 0.01
 
 
 def check_family_serve(torch, cfg, phase: str):
@@ -3276,6 +3311,13 @@ def check_family_serve(torch, cfg, phase: str):
     check(max(shares) < FORCED_SHARE_MAX,
           f"{phase}: a greedy stream strays from the forward of its own "
           f"tokens (largest shares {shares})")
+    by_forward = None
+    if cfg.family == "ssm":
+        by_forward = ssm_forced_shares(torch, cfg, ecfg, params, prompts,
+                                       reqs)
+        check(max(by_forward["fp32"]) < FP32_FORCED_SHARE_MAX,
+              f"{phase}: an fp32 stream strays from the fp32 forward of its "
+              f"own tokens (largest shares {by_forward['fp32']})")
     tp, tt = eng.throughput(), eng.ttft()
     emit(phase, arch=cfg.name, family=cfg.family, layers=cfg.num_layers,
          dtype=cfg.dtype, params=sum(t.numel() for t in tree),
@@ -3287,10 +3329,39 @@ def check_family_serve(torch, cfg, phase: str):
          ttft_p95_s=tt["p95"], decode_steps=eng.stats["decode_steps"],
          launches=launches, attention_ring_slots=ring,
          forced_shares=shares, forced_share_max=FORCED_SHARE_MAX,
+         forced_shares_by_forward=by_forward,
          weight_bytes=nbytes, weight_bytes_equal_leaves=True,
          kv_cache_bytes=ms["kv_pool_bytes"], max_memory_allocated=peak,
          phase_s=time.perf_counter() - t_phase, card=card())
     return launches, params
+
+
+def ssm_forced_shares(torch, cfg, ecfg, params, prompts, reqs) -> dict:
+    """Where a stream's forced share comes from.  ``bf16_chunk``: the bf16
+    streams against the forward padded to whole SSD_CHUNK chunks (the
+    serve's prefill runs its 2048 tokens in such chunks, the 2063-token
+    forward as one).  ``fp32``: the same prompts served again with the
+    weights widened to fp32 and fp32 activations, held to the fp32
+    forward: with bf16's roundings gone, a near-tie no longer explains a
+    share, a wrong decode or conv state still would."""
+    from repro_torch.serving.engine import ServingEngine
+
+    def widen(tree):
+        return {k: widen(v) if isinstance(v, dict) else v.float()
+                for k, v in tree.items()}
+    cfg32 = cfg.replace(dtype="float32", param_dtype="float32")
+    params32 = widen(params)
+    eng = ServingEngine(cfg32, ecfg, params=params32, device="cuda")
+    uids = [eng.submit(p, max_new_tokens=FAMILY_NEW_TOKENS) for p in prompts]
+    eng.run_until_done()
+    reqs32 = [eng._all[u] for u in uids]
+    out = {"bf16_chunk": forced_shares(torch, cfg, params, reqs, SSD_CHUNK),
+           "fp32": forced_shares(torch, cfg32, params32, reqs32),
+           "fp32_tokens_equal_bf16": sum(
+               list(a.generated) == list(b.generated)
+               for a, b in zip(reqs, reqs32))}
+    del eng, params32
+    return out
 
 
 def check_families(torch, runs: dict) -> None:

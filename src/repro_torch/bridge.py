@@ -25,11 +25,11 @@ import types
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import expert_parallel
 from repro_torch.core import quant
 from repro_torch.core.quant import QuantTensor
 from repro_torch.launch import sharding
+from repro_torch.models import mamba2, transformer
 from repro_torch.models.model import resolve_device
 
 _QUANT_META = ("bits", "block", "orig_dim", "out_dtype")
@@ -52,14 +52,15 @@ def _family_blocks(cfg, norm) -> dict:
     d = cfg.d_model
     if cfg.family == "ssm":
         L, n, k = cfg.num_layers, cfg.ssm_state, cfg.ssm_dconv
-        di = cfg.ssm_expand * d
-        h, dc = di // cfg.ssm_headdim, di + 2 * n
+        di, h, dc = mamba2.d_inner(cfg), mamba2.n_heads(cfg), \
+            mamba2.conv_dim(cfg)
         return {"ln": norm(L, d), "mamba": {
             "in_proj": (L, d, 2 * di + 2 * n + h), "conv_w": (L, k, dc),
             "conv_b": (L, dc), "A_log": (L, h), "D": (L, h),
             "dt_bias": (L, h), "norm": (L, di), "out_proj": (L, di, d)}}
-    n_attn = sum(1 for i in range(cfg.num_layers) if i % 3 == 2)
-    n_rec, w = cfg.num_layers - n_attn, cfg.lru_width
+    pattern = transformer.hybrid_pattern(cfg)
+    n_rec, n_attn = pattern.count("rec"), max(pattern.count("attn"), 1)
+    w = cfg.lru_width
     layer = lambda n, mix: {
         "ln1": norm(n, d), "ln2": norm(n, d),
         "mlp": {"w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
@@ -69,7 +70,6 @@ def _family_blocks(cfg, norm) -> dict:
            "gate_a": (n_rec, w, w), "bias_a": (n_rec, w),
            "gate_x": (n_rec, w, w), "bias_x": (n_rec, w),
            "Lambda": (n_rec, w), "out": (n_rec, w, d)}
-    n_attn = max(n_attn, 1)
     return {"rec": layer(n_rec, rec),
             "attn": layer(n_attn, _attn_shapes(cfg, n_attn))}
 
@@ -152,9 +152,7 @@ def from_jax_params(tree: dict, cfg, device, mesh=None,
     if mode not in ("forward", "serve", "train"):
         raise ValueError(f"unknown mode {mode!r}; expected forward, serve "
                          f"or train")
-    if mesh is not None and cfg.family in ("ssm", "hybrid"):
-        raise not_ported(f"the {cfg.family!r} family on a mesh",
-                         "other families on a mesh")
+    sharding.check_no_mesh(cfg, mesh)
     if mesh is not None and mode != "forward":
         whole = from_jax_params(tree, cfg, "cpu")
         if mode == "serve":

@@ -51,6 +51,7 @@ import math
 
 import torch
 
+from repro_torch import not_ported
 from repro_torch.core import collectives
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.quant import QuantTensor
@@ -355,12 +356,28 @@ class _Axes:
         self.axis_names, self.shape = axis_names, shape
 
 
+def check_no_mesh(cfg, mesh) -> None:
+    """The stateful families have no layout on a mesh in this slice.
+    ``serve_specs`` and ``train_specs`` hold it for every entry point that
+    lays the model out on a mesh; the rest (the mesh forward,
+    ``init_blocks``, the engine, the bridge's forward mode) call it
+    themselves."""
+    if mesh is not None and cfg.family in ("hybrid", "ssm"):
+        raise not_ported(f"the {cfg.family!r} family on a mesh",
+                         "other families on a mesh")
+
+
+def _mesh_key(cfg, mesh) -> tuple:
+    check_no_mesh(cfg, mesh)
+    return (tuple(mesh.axis_names),
+            tuple(mesh.shape[a] for a in mesh.axis_names))
+
+
 def serve_specs(cfg, mesh) -> dict:
     """``params_pspec(cfg, mesh, <the whole tree>, mode="serve")``: the
     specs every serving entry point and layer reads on a mesh (cached per
     config and mesh shape)."""
-    return _serve_specs(cfg, tuple(mesh.axis_names),
-                        tuple(mesh.shape[a] for a in mesh.axis_names))
+    return _serve_specs(cfg, *_mesh_key(cfg, mesh))
 
 
 @functools.lru_cache(maxsize=64)
@@ -374,8 +391,7 @@ def train_specs(cfg, mesh) -> dict:
     blocks a training rank stores of the params and of both AdamW
     moments (``opt_pspec``), cached per config and mesh shape."""
     return _train_specs(cfg.replace(weight_quant="none"),
-                        tuple(mesh.axis_names),
-                        tuple(mesh.shape[a] for a in mesh.axis_names))
+                        *_mesh_key(cfg, mesh))
 
 
 def mode_specs(cfg, mesh, mode: str) -> dict:

@@ -157,7 +157,6 @@ class Model:
         matrix is drawn; the rank keeps its own).  ``keep``: a tree of
         slices, the block of every leaf to store (``init_serving``)."""
         cfg = self.cfg
-        transformer.check_no_mesh(cfg, mesh)
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
         if gen.device.type != self.device.type:
@@ -189,11 +188,10 @@ class Model:
         quantized first, then cut, as the reference quantizes on load
         before placing the weights."""
         cfg = self.cfg
-        transformer.check_no_mesh(cfg, mesh)
         if cfg.weight_quant != "none":
+            specs = sharding.serve_specs(cfg, mesh)
             params = quant.quantize_params(self.init(gen), cfg, inplace=True)
-            return sharding.shard_tree(params, sharding.serve_specs(cfg, mesh),
-                                       mesh)
+            return sharding.shard_tree(params, specs, mesh)
         return self.init(gen, keep=sharding.mode_slices(cfg, mesh, "serve"))
 
     def init_training(self, gen: torch.Generator | None = None,
@@ -203,12 +201,10 @@ class Model:
         the rank keeps its block, which equals the same block of the
         whole draw, so every mesh shape starts from the one-device
         weights of the same seed."""
-        transformer.check_no_mesh(self.cfg, mesh)
         return self.init(gen, keep=sharding.mode_slices(self.cfg, mesh,
                                                         "train"))
 
     def _cache_heads(self, mesh) -> int | None:
-        transformer.check_no_mesh(self.cfg, mesh)
         return (transformer.serve_tp(self.cfg, mesh).attn.hkv
                 if mesh is not None else None)
 
@@ -242,13 +238,12 @@ class Model:
         cache is sequence-sharded)."""
         if mesh is None:
             return None, False
-        transformer.check_no_mesh(self.cfg, mesh)
+        tp = transformer.serve_tp(self.cfg, mesh)
         if context_len is None:
             raise ValueError("on a mesh pass context_len, the logical cache "
                              "length (a sequence-sharded cache holds a "
                              "block of it)")
-        return (transformer.serve_tp(self.cfg, mesh),
-                attention.use_cp_decode(self.cfg, mesh,
+        return (tp, attention.use_cp_decode(self.cfg, mesh,
                                         transformer.attn_cache_len(
                                             self.cfg, context_len)))
 
@@ -366,7 +361,7 @@ class Model:
         rank's train blocks under them."""
         cfg = self.cfg
         batch_axes = None
-        transformer.check_no_mesh(cfg, mesh)
+        sharding.check_no_mesh(cfg, mesh)
         if mesh is not None:
             batch_axes, rows = expert_parallel.batch_shard(
                 mesh, batch["tokens"].shape[0])
@@ -443,7 +438,6 @@ class Model:
             x, aux, _ = self._trunk(params, batch, kernels)
             ce = self._chunked_ce(params, x, batch["labels"]).mean()
             return ce + 0.01 * aux, {"ce": ce, "aux": aux}
-        transformer.check_no_mesh(self.cfg, mesh)
         specs = sharding.train_specs(self.cfg, mesh)
         axes, rows = expert_parallel.batch_shard(mesh,
                                                  batch["labels"].shape[0])

@@ -119,13 +119,6 @@ def _check_family(cfg) -> None:
         raise not_ported(f"the {cfg.family!r} family", "other families")
 
 
-def check_no_mesh(cfg, mesh) -> None:
-    """The stateful families run on one device in this slice."""
-    if mesh is not None and cfg.family in ("hybrid", "ssm"):
-        raise not_ported(f"the {cfg.family!r} family on a mesh",
-                         "other families on a mesh")
-
-
 def init_blocks(cfg, gen: torch.Generator, mesh=None, keep=None) -> dict:
     """Layer-stacked block parameters, drawn from ``gen`` on its device;
     on a ``mesh`` the expert stacks hold this rank's rows alone.
@@ -134,7 +127,7 @@ def init_blocks(cfg, gen: torch.Generator, mesh=None, keep=None) -> dict:
     stack is {"rec": its recurrent layers, "attn": its attention layers
     (at least one)}, each stacked."""
     _check_family(cfg)
-    check_no_mesh(cfg, mesh)
+    sharding.check_no_mesh(cfg, mesh)
     dtype = cfg.param_torch_dtype
     if cfg.family == "moe":
         return _moe_layer_init(cfg, gen, dtype, mesh, keep)

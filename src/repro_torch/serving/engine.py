@@ -82,10 +82,10 @@ import torch
 
 from repro_torch.core import collectives, quant
 from repro_torch.core.dynamic_load import LRUExpertTracker
+from repro_torch.launch.sharding import check_no_mesh
 from repro_torch.models.attention import use_cp_decode
 from repro_torch.models.model import build_model, resolve_device
-from repro_torch.models.transformer import (attn_cache_len, check_no_mesh,
-                                            effective_window)
+from repro_torch.models.transformer import attn_cache_len, effective_window
 from repro_torch.serving import scheduler as sched
 from repro_torch.serving.faults import InjectedFault
 from repro_torch.serving.paging import PageAllocator, PrefixCache

@@ -23,7 +23,8 @@ port's side.
 Models: the reduced recurrentgemma-2b (3 layers, window 64), mamba2-130m,
 qwen2-72b (QKV bias) and deepseek-67b, forward (logits 1e-4) and loss
 (2e-5); for the two families every gradient leaf within 2e-4 of its
-largest and one ``make_train_step`` step against the jitted JAX step.
+largest, one ``make_train_step`` step against the jitted JAX step, and
+three steps with a leaf's elements beyond 1e-6 counted in whole elements.
 The engine: greedy streams and counters identical to the JAX engine's in
 the reference engine for recurrentgemma (72-token prompts roll into its
 64-slot attention ring; fp32 and int8 weights + int8 KV) and mamba2, for
@@ -418,6 +419,47 @@ def test_train_step_matches_reference(arch):
         err = np.abs(got[k].numpy() - w.numpy())
         assert err.max() <= kw["lr"], (k, err.max())
         assert np.mean(err <= 1e-6) >= 0.999, k
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_three_train_steps_match_reference(arch):
+    """Three steps (remat on, ``Pipeline`` batches of 2 x 64, seed 1: the
+    reduced training of ``chip_smoke.py``'s phase 8) against the jitted
+    JAX step: metrics to 1e-4, every param element within lr, and at most
+    one element in a thousand of a leaf beyond 1e-6, at least one on a
+    leaf of fewer.  Both sides are right fp32 trainers that round in
+    another order, and that alone leaves single elements of small leaves
+    apart after three steps (recurrentgemma's 256-element ``attn/ln2``:
+    one element, 1.5e-5), where a rule of 99.9 % of every leaf would ask
+    a small leaf for no element at all."""
+    jmodel, jparams, model, params = _setup(arch, remat=True)
+    kw = dict(lr=1e-3, total_steps=3, warmup_steps=1)
+    jstep = jax.jit(jax_make_train_step(jmodel, joptim.OptimizerConfig(**kw),
+                                        None))
+    step = train_mod.make_train_step(model, optim.OptimizerConfig(**kw))
+    pipe = Pipeline(PipelineConfig(seq_len=64, global_batch=2,
+                                   vocab_size=model.cfg.vocab_size, seed=1))
+    jstate, state = joptim.init(jparams), optim.init(params)
+    for _ in range(3):
+        b = pipe.next_batch()
+        jparams, jstate, jm = jstep(jparams, jstate,
+                                    {k: jnp.asarray(v) for k, v in b.items()})
+        params, state, m = step(params, state,
+                                {k: _t(v) for k, v in b.items()})
+        for key in ("loss", "ce", "grad_norm", "lr"):
+            want = float(jm[key])
+            assert abs(float(m[key]) - want) <= 1e-4 * (1 + abs(want)), key
+    got = ckpt.flatten_tree(params)
+    want = ckpt.flatten_tree(bridge.from_jax_params(
+        jax.tree.map(np.asarray, jparams), model.cfg, "cpu"))
+    off = {}
+    for k, w in want.items():
+        err = np.abs(got[k].numpy() - w.numpy())
+        assert err.max() <= kw["lr"], (k, err.max())
+        n_off = int((err > 1e-6).sum())
+        if n_off > max(1, err.size // 1000):
+            off[k] = (n_off, err.size, float(err.max()))
+    assert not off, off
 
 
 def test_forward_routed_refuses_the_stateful_families():

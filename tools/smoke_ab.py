@@ -24,8 +24,8 @@ phase 3's paged and FFN cases at its per-rank shapes run first) or
 ``train_mesh`` (phase 11: training on a (2, 2) mesh of rank processes;
 phase 3's fp32 FFN and flash cases at its per-rank shapes run first) or
 ``families`` (slice 11's archs: phase 3's hd-256 and G=8 flash cases,
-phase 4d's new runs, phase 12, then phase 8's mamba2-130m against the
-CPU and recurrentgemma-2b at full width).  Prints the card's name and power limit, the build's ptxas lines
+phase 4d's new runs, phase 12, then phase 8's recurrentgemma-2b and
+mamba2-130m against the CPU and recurrentgemma-2b at full width).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -117,7 +117,7 @@ def main() -> int:
         cs.modes_cases = lambda: [c for c in cases() if c[0] in new]
         cs.check_reduced_modes(torch)
         cs.check_families(torch, {})
-        cs.TRAIN_ARCHS = cs.FAMILY_ARCHS[1:]
+        cs.TRAIN_ARCHS = cs.FAMILY_ARCHS
         cs.check_train_reduced(torch)
         cs.check_train_full(torch, *cs.TRAIN_FULL[-1])
     if "serve5" in args.only:
