@@ -32,8 +32,10 @@ line):
                 (causal, windowed, non-causal over a ragged S, one partial
                 tile at S=37; hd 128 and 64; granite's and DBRX's heads;
                 hd 160; qwen2-72b's G=8; recurrentgemma-2b's hd 256 with
-                ten query heads on one kv head at window 2048; beside each
-                case the time of PyTorch's scaled_dot_product_attention).
+                ten query heads on one kv head at window 2048;
+                qwen2-vl-7b's G=7 at hd 128 and musicgen-large's MHA at hd
+                64; beside each case the time of PyTorch's
+                scaled_dot_product_attention).
   4. reduced  — the reduced qwen3-moe config served by the port on the card
                 and on the CPU from the same weights: identical greedy
                 tokens, fp and quantized (int8 weights + int8 KV, int4
@@ -198,6 +200,23 @@ line):
                 performance model has no layer formula for the stateful
                 families, so their weight bytes are held to the bytes of
                 the parameter tree's leaves.
+  13. modalities — the vlm and audio families, one card, budget 120 s:
+                the reduced qwen2-vl-7b (M-RoPE, 8 patch embeddings) and
+                musicgen-large (frame embeddings, sinusoidal positions) on
+                the card against the CPU from the same fp32 weights
+                (forward and loss within TOL, identical greedy tokens
+                through prefill and decode_step); then both at full width
+                and depth in bf16 (28 and 48 layers), weights drawn on the
+                card: the leaves' bytes exactly the performance model's,
+                the forward and loss at B=2, S=2048 (28 / 48 flash
+                launches each; qwen2-vl's 1024 patch embeddings on a 32 x
+                32 M-RoPE grid before 1024 text tokens, its loss leaving
+                the patches out; musicgen's frames the embedding rows of
+                seeded codec tokens), with a profile window; and 4 prompts
+                served greedily for 16 tokens through prefill and
+                decode_step (the engine refuses these families, as the
+                reference's fails on them), each stream held to the
+                forward of its own inputs (FORCED_SHARE_MAX).
   Then the kernels line: one JSON object per ported kernel entry, and the
   last line: {"ok": true, "device": {...}}.
 
@@ -793,7 +812,15 @@ FLASH_CASES = [(2, 2048, 32, 4, 128, True, None),
                (1, 4096, 10, 1, 256, True, 2048),
                (2, 2048, 10, 1, 256, True, 2048),
                (1, 37, 10, 1, 256, True, None),
-               (1, 1000, 10, 1, 256, False, None)]
+               (1, 1000, 10, 1, 256, False, None),
+               # qwen2-vl-7b's heads (G=7 at hd 128: a 64-row tile holds
+               # 9.14 positions, so a position's group straddles two
+               # tiles) and musicgen-large's MHA (G=1 at hd 64), each at
+               # its forward's B=2 S=2048 and one partial tile
+               (2, 2048, 28, 4, 128, True, None),
+               (2, 37, 28, 4, 128, True, None),
+               (2, 2048, 32, 32, 64, True, None),
+               (2, 37, 32, 32, 64, True, None)]
 
 
 def attended_pairs(s: int, causal: bool, window) -> int:
@@ -1081,16 +1108,18 @@ def forward_kernels(cfg) -> dict:
 
 
 def check_forward(torch, params, cfg=None, b: int = 2, phase="forward",
-                  s: int = 2048):
+                  s: int = 2048, batch=None):
     """Phase 6 (and the other archs' forwards): the full-width forward and
-    loss on the serve's bf16 weights, B x S seeded tokens, under no_grad,
-    with a profile window.  Returns the forward's launch counts."""
+    loss on the serve's bf16 weights, B x S seeded tokens (or ``batch``,
+    with labels: the vlm and audio families' inputs), under no_grad, with
+    a profile window.  Returns the forward's launch counts."""
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
     cfg = cfg or full_config()
     t_phase = time.perf_counter()
     model = build_model(cfg, "cuda")
-    batch = seq_batch(torch, cfg.vocab_size, b, s, 0, "cuda")
+    if batch is None:
+        batch = seq_batch(torch, cfg.vocab_size, b, s, 0, "cuda")
     want = forward_kernels(cfg)
     with torch.no_grad():
         model.forward(params, batch)          # warm-up
@@ -3391,6 +3420,249 @@ def check_families(torch, runs: dict) -> None:
           f"{FAMILY_BUDGET_S} s budget")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the vlm and audio families
+# ---------------------------------------------------------------------------
+
+# qwen2-vl-7b and musicgen-large at full width and depth (15.23 and 6.46
+# GB in bf16); the serve: 4 prompts (qwen2-vl: its 1024 patches, then 1000
+# text tokens; musicgen: 1000 frames), 16 greedy tokens through prefill and
+# decode_step (the engine refuses these families, as the reference's fails
+# on them)
+MODALITY_ARCHS = ("qwen2_vl_7b", "musicgen_large")
+MODALITY_B, MODALITY_S = 2, 2048
+MODALITY_SERVE = dict(requests=4, prompt=1000, new_tokens=16)
+MODALITY_BUDGET_S = 120.0
+
+
+def patch_grid(p: int) -> tuple[int, int]:
+    """(rows, columns) of the most nearly square grid of ``p`` patches."""
+    w = int(np.sqrt(p))
+    while p % w:
+        w -= 1
+    return p // w, w
+
+
+def modality_inputs(torch, cfg, params, b: int, text: int, seed: int):
+    """A seeded batch of the family's inputs on the params' device, without
+    labels.  vlm: ``num_patch_tokens`` patch embeddings (N(0, 0.02^2), as
+    the embedding rows) on a patch grid at M-RoPE (0, row, column), then
+    ``text`` tokens at max + 1 + j on all three components; audio: the
+    embedding rows of ``text`` seeded codec tokens as frames.  Returns
+    (batch, the text tokens)."""
+    from repro_torch.launch.train import audio_frames
+    dev = params["embed"].device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (b, text), generator=g,
+                           device=dev, dtype=torch.int32)
+    if cfg.family == "audio":
+        return {"frame_embeds": audio_frames(cfg, params, tokens)}, tokens
+    p = cfg.num_patch_tokens
+    patches = (torch.randn((b, p, cfg.d_model), generator=g, device=dev)
+               * 0.02).to(cfg.torch_dtype)
+    return {"tokens": tokens, "patch_embeds": patches,
+            "mrope_positions": mrope_positions(torch, cfg, b, text, dev)}, \
+        tokens
+
+
+def mrope_positions(torch, cfg, b: int, text: int, dev):
+    """(B, P + text, 3) int32: the patch grid at t = 0, then the text."""
+    rows, cols = patch_grid(cfg.num_patch_tokens)
+    i = torch.arange(cfg.num_patch_tokens, device=dev)
+    grid = torch.stack([0 * i, i // cols, i % cols], -1)
+    t = max(rows, cols) + torch.arange(text, device=dev)
+    pos = torch.cat([grid, t[:, None].expand(text, 3)])
+    return pos[None].expand(b, -1, -1).to(torch.int32).contiguous()
+
+
+def modality_greedy(torch, model, params, batch, prompt_len: int,
+                    new_tokens: int):
+    """Greedy tokens (B, new_tokens) through ``prefill`` then
+    ``decode_step`` over a contiguous cache of prompt_len + new_tokens;
+    qwen2-vl's decode positions continue the text's at (p, p, p)."""
+    cfg = model.cfg
+    b = next(iter(batch.values())).shape[0]
+    dev = model.device
+    cache = model.init_cache(b, prompt_len + new_tokens)
+    out = []
+    with torch.no_grad():
+        logits = model.prefill(params, batch, cache)
+        nxt = None
+        if cfg.family == "vlm":
+            nxt = int(batch["mrope_positions"][0, -1, 0]) + 1
+        for i in range(new_tokens):
+            tok = logits[:, -1, :cfg.vocab_size].argmax(-1)
+            out.append(tok)
+            if i == new_tokens - 1:
+                break
+            step = {"tokens": tok[:, None].to(torch.int32),
+                    "lengths": torch.full((b,), prompt_len + i,
+                                          dtype=torch.int32, device=dev)}
+            if nxt is not None:
+                step["mrope_positions"] = torch.full(
+                    (b, 1, 3), nxt + i, dtype=torch.int32, device=dev)
+            logits = model.decode_step(params, cache, step)
+    return torch.stack(out, 1)
+
+
+def modality_shares(torch, model, params, batch, tokens, gen) -> list:
+    """Each greedy stream held to the full-sequence forward of its own
+    inputs (``forced_shares``' measure): qwen2-vl's patches and [text ;
+    generated], audio's [frames ; the embedding rows of the generated
+    tokens].  Returns each stream's largest share."""
+    from repro_torch.launch.train import audio_frames
+    cfg = model.cfg
+    prev = gen[:, :-1].to(torch.int32)
+    if cfg.family == "audio":
+        frames = torch.cat([batch["frame_embeds"],
+                            audio_frames(cfg, params, prev)], 1)
+        fwd = {"frame_embeds": frames}
+        start = batch["frame_embeds"].shape[1]
+    else:
+        text = torch.cat([tokens, prev], 1)
+        fwd = {"tokens": text, "patch_embeds": batch["patch_embeds"],
+               "mrope_positions": mrope_positions(
+                   torch, cfg, text.shape[0], text.shape[1], model.device)}
+        start = cfg.num_patch_tokens + tokens.shape[1]
+    with torch.no_grad():
+        logits, _ = model.forward(params, fwd)
+    lg = logits[:, start - 1:, :cfg.vocab_size]
+    top = lg.max(-1).values
+    share = (top - lg.gather(2, gen.long()[..., None])[..., 0]) / (
+        top - lg.mean(-1))
+    return [float(x) for x in share.max(1).values]
+
+
+def check_modalities_reduced(torch, arch: str) -> dict:
+    """The reduced config on the card against the CPU from the same fp32
+    weights and inputs: forward and loss within TOL (the card's forward
+    launching flash once a layer), identical greedy tokens through
+    prefill and decode_step (which launch no kernel)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    cfg = get_config(arch).reduced()
+    text, p = 40, cfg.num_patch_tokens
+    params = build_model(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    batch, _ = modality_inputs(torch, cfg, params, 2, text, 1)
+    labels = torch.randint(0, cfg.vocab_size, (2, p + text),
+                           generator=torch.Generator().manual_seed(2),
+                           dtype=torch.int32)
+    sides = []
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, dev)
+        prm = params if dev == "cpu" else to_cuda(params)
+        bt = {k: v.to(dev) for k, v in batch.items()}
+        ops.reset_launch_counts()
+        with torch.no_grad():
+            logits, _ = model.forward(prm, bt)
+            launches = ops.launch_counts()
+            total, _ = model.loss(prm, dict(bt, labels=labels.to(dev)))
+        ops.reset_launch_counts()
+        gen = modality_greedy(torch, model, prm, bt, p + text, 8)
+        sides.append(dict(logits=logits.cpu(), loss=float(total),
+                          gen=gen.cpu().tolist(), launches=launches,
+                          serve_launches=ops.launch_counts()))
+    cpu, card_ = sides
+    err, _ = compare(card_["logits"], cpu["logits"], TOL["float32"])
+    check(abs(card_["loss"] - cpu["loss"]) <= TOL["float32"] * (
+        1 + abs(cpu["loss"])), f"reduced {cfg.name}: card loss "
+          f"{card_['loss']} != CPU {cpu['loss']}")
+    check(card_["gen"] == cpu["gen"], f"reduced {cfg.name}: card tokens "
+          f"{card_['gen']} != CPU {cpu['gen']}")
+    want = {"flash_attention": cfg.num_layers}
+    check(_live(card_["launches"]) == want, f"reduced {cfg.name} forward "
+          f"launched {card_['launches']}, expected {want}")
+    check(not _live(card_["serve_launches"]), f"reduced {cfg.name} serve "
+          f"launched {card_['serve_launches']}")
+    row = dict(arch=cfg.name, family=cfg.family, dtype=cfg.dtype,
+               logits_max_abs_err=err, loss=card_["loss"],
+               cpu_loss=cpu["loss"], tolerance=TOL["float32"],
+               tokens_identical=True, tokens=card_["gen"],
+               launches=card_["launches"])
+    emit("modalities_reduced", **row)
+    return row
+
+
+def check_modality(torch, arch: str, runs: dict) -> None:
+    """One family at full width and depth in bf16, weights drawn on the
+    card from a seeded generator: the leaves' bytes exactly the
+    performance model's; the forward and loss at B=2, S=2048 (one flash
+    launch a layer, counted; qwen2-vl's loss leaving its 1024 patches
+    out), with a profile window; then MODALITY_SERVE's greedy streams
+    through prefill and decode_step, each held to the forward of its own
+    inputs (FORCED_SHARE_MAX)."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    free_device(torch)
+    t_phase = time.perf_counter()
+    cfg = full_config(arch, None)
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    nbytes = sum(t.numel() * t.element_size() for t in leaves(params))
+    want_bytes = perf_model.model_weight_bytes(cfg)
+    check(nbytes == want_bytes, f"{arch}: the leaves' bytes {nbytes} != "
+          f"perf_model.model_weight_bytes {want_bytes}")
+    p = cfg.num_patch_tokens
+    b, s = MODALITY_B, MODALITY_S
+    batch, _ = modality_inputs(torch, cfg, params, b, s - p, 3)
+    batch["labels"] = torch.randint(
+        0, cfg.vocab_size, (b, s), device="cuda", dtype=torch.int32,
+        generator=torch.Generator(device="cuda").manual_seed(4))
+    runs[f"{arch}_forward"] = check_forward(torch, params, cfg, b,
+                                            f"{arch}_forward", s, batch)
+    del batch
+    n, plen, new = (MODALITY_SERVE[k] for k in ("requests", "prompt",
+                                                "new_tokens"))
+    batch, tokens = modality_inputs(torch, cfg, params, n, plen, 5)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    gen = modality_greedy(torch, model, params, batch, p + plen, new)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    serve_peak = torch.cuda.max_memory_allocated()
+    check(not _live(launches), f"{arch} serve launched {launches}: "
+          f"prefill and decode attend in torch ops, as the reference's")
+    check(0 <= int(gen.min()) and int(gen.max()) < cfg.vocab_size,
+          f"{arch}: generated tokens out of the vocabulary")
+    shares = modality_shares(torch, model, params, batch, tokens, gen)
+    check(max(shares) <= FORCED_SHARE_MAX,
+          f"{arch}: a greedy stream strays from the forward of its own "
+          f"inputs (largest shares {shares})")
+    emit(f"{arch}_serve", arch=cfg.name, family=cfg.family,
+         layers=cfg.num_layers, dtype=cfg.dtype, init_s=init_s,
+         weight_bytes=nbytes, weight_bytes_equal_model=True,
+         requests=n, prompt_positions=p + plen, new_tokens=new,
+         serve_s=serve_s, decode_tok_per_s=n * (new - 1) / serve_s,
+         forced_shares=shares, forced_share_max=FORCED_SHARE_MAX,
+         launches=launches, max_memory_allocated=serve_peak,
+         phase_s=time.perf_counter() - t_phase, card=card())
+    del params, batch
+
+
+def check_modalities(torch, runs: dict) -> None:
+    """Phase 13: the reduced qwen2-vl-7b and musicgen-large on the card
+    against the CPU (fp32), then both at full width and depth (bf16).
+    Fills ``runs``."""
+    t0 = time.perf_counter()
+    for arch in MODALITY_ARCHS:
+        check_modalities_reduced(torch, arch)
+    for arch in MODALITY_ARCHS:
+        check_modality(torch, arch, runs)
+    free_device(torch)
+    phase_s = time.perf_counter() - t0
+    emit("modalities", seconds=phase_s, budget_s=MODALITY_BUDGET_S,
+         card=card())
+    check(phase_s <= MODALITY_BUDGET_S, f"phase 13 took {phase_s:.1f} s of "
+          f"its {MODALITY_BUDGET_S} s budget")
+
+
 def _live(launches: dict) -> dict:
     """The kernels a run launched (the counts that are not zero)."""
     return {k: v for k, v in launches.items() if v}
@@ -3541,14 +3813,21 @@ LINE = [
     ("flash_attention", dict(dtype="bfloat16", B=1, S=4096, causal=True,
                              window=2048, hd=256, Hq=10),
      "recurrentgemma_2b_forward"),
+    # phase 13: qwen2-vl-7b's heads (G=7) and musicgen-large's (MHA) in
+    # their forwards
+    ("flash_attention", dict(CAUSAL_2048, hd=128, Hq=28, Hkv=4),
+     "qwen2_vl_7b_forward"),
+    ("flash_attention", dict(CAUSAL_2048, hd=64, Hq=32, Hkv=32),
+     "musicgen_large_forward"),
 ]
 
 
-def kernels_line(results, runs) -> dict:
+def kernels_line(results, runs, line=None) -> dict:
     """One entry per ported kernel (and quantization width) at each path's
-    bf16 shape, with the launches of the run that drives it."""
+    bf16 shape, with the launches of the run that drives it; ``line``:
+    those of LINE's entries (all by default)."""
     entries = []
-    for name, want, run in LINE:
+    for name, want, run in LINE if line is None else line:
         row = next(r for r in results if r["kernel"] == name
                    and all(r.get(k) == v for k, v in want.items()))
         src, replaces = SOURCES[name]
@@ -3647,6 +3926,7 @@ def main() -> int:
     check_serve_mesh(torch, runs)
     check_train_mesh(torch, runs)
     check_families(torch, runs)
+    check_modalities(torch, runs)
     print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -184,7 +184,8 @@ class ModelConfig:
 
 ARCH_IDS = ["qwen3_moe_30b_a3b", "granite_moe_3b_a800m", "dbrx",
             "qwen3_0_6b", "stablelm_12b", "qwen2_72b", "deepseek_67b",
-            "recurrentgemma_2b", "mamba2_130m"]
+            "recurrentgemma_2b", "mamba2_130m", "qwen2_vl_7b",
+            "musicgen_large"]
 
 # the reference's aliases: hyphenated ids and DBRX's model name (dotted
 # names such as "qwen3-0.6b" resolve as the reference resolves them)
@@ -195,7 +196,6 @@ _ALIAS.update({"dbrx": "dbrx", "dbrx-132b": "dbrx"})
 def get_config(arch: str) -> ModelConfig:
     arch_mod = _ALIAS.get(arch, arch).replace("-", "_").replace(".", "_")
     if arch_mod not in ARCH_IDS:
-        raise ValueError(f"unknown or not yet ported arch {arch!r}; the port "
-                         f"has {ARCH_IDS}")
+        raise ValueError(f"unknown arch {arch!r}; the port has {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_mod}")
     return mod.CONFIG

@@ -15,7 +15,11 @@ engine over the contiguous cache, as the reference's engine does;
 ``--reference`` runs the two-program reference engine (prompts padded to
 ``--prompt-len``, batched prefill, then one-token decode) and ``--legacy``
 the same with one prefill per request and a host sync every step; both
-take the contiguous cache, which the reference engine needs.  ``--weight-quant int8|int4`` quantizes the weights on
+take the contiguous cache, which the reference engine needs.  The vlm and
+audio archs (``qwen2_vl_7b``, ``musicgen_large``) raise the engine's
+``ValueError``, which names the batch key their prefill needs
+(``patch_embeds``, ``frame_embeds``): the reference's launcher dies on
+that key at its first step.  ``--weight-quant int8|int4`` quantizes the weights on
 load and ``--kv-cache-dtype int8`` keeps an int8 page pool.
 ``--overcommit`` admits on the context's pages and preempts under pool
 pressure, ``--priority`` (cycled over the requests) orders admission,

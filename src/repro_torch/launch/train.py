@@ -20,8 +20,16 @@ rank's blocks of the "train" layout (``launch/sharding.train_specs``:
 FSDP over "data", the experts' rows over "model"), drawn from the same
 seed as the one-device weights; every rank reads the same ``Pipeline``
 batches and computes its rows; the loss, its gradient norm and the logged
-metrics are the global ones, the same on every rank.  The audio frontend
-is a later slice (ROADMAP queue A).
+metrics are the global ones, the same on every rank.
+
+The audio family trains on frame embeddings, as the reference's launcher
+feeds it: each step's ``frame_embeds`` are the rows ``embed[tokens %
+vocab_size]`` of the current table (already updated by the steps before),
+taken before the step, detached, in the compute dtype.  The vlm family
+needs ``patch_embeds``, which ``Pipeline`` batches do not carry: ``train``
+refuses it (the reference's launcher fails on that key at its first
+step); ``make_train_step`` takes a vlm batch with patches and M-RoPE
+positions.
 """
 from __future__ import annotations
 
@@ -54,7 +62,11 @@ def make_train_step(model, ocfg: optim.OptimizerConfig, mesh=None):
             p.requires_grad_(True)
         loss, metrics = model.loss(params, batch, kernels=False, mesh=mesh)
         loss.backward()
-        grads = optim.adamw.tree_map(lambda p: p.grad, params)
+        # a leaf the loss does not read (the audio family's embedding
+        # table) has no grad: its gradient is zero, as the reference's is
+        grads = optim.adamw.tree_map(
+            lambda p: p.grad if p.grad is not None else torch.zeros_like(p),
+            params)
         for p in leaves:
             p.requires_grad_(False)
             p.grad = None
@@ -67,6 +79,14 @@ def make_train_step(model, ocfg: optim.OptimizerConfig, mesh=None):
     return train_step
 
 
+def audio_frames(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The audio frontend stub's frame embeddings: the current embedding
+    table's rows of ``tokens % vocab_size``, detached, in the compute
+    dtype."""
+    rows = params["embed"].detach()[tokens.long() % cfg.vocab_size]
+    return rows.to(cfg.torch_dtype)
+
+
 def train(cfg, *, steps: int, global_batch: int, seq_len: int, mesh=None,
           lr: float = 3e-4, log_every: int = 10,
           ckpt_path: str | None = None, seed: int = 0, device="cuda"):
@@ -76,6 +96,12 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int, mesh=None,
     grad_norm, step, wall_s).  On a ``mesh`` the params are this rank's
     train blocks; rank 0 prints and writes the checkpoint (the whole
     tree, the file the one-device trainer writes)."""
+    if cfg.family == "vlm":
+        raise ValueError(
+            "train() feeds Pipeline token batches, which carry no "
+            "'patch_embeds' for the vlm family (the reference's launcher "
+            "fails on that key); call make_train_step with batches that "
+            "hold them")
     model = build_model(cfg, device)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     params = (model.init(gen) if mesh is None
@@ -92,6 +118,10 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int, mesh=None,
     for step in range(steps):
         batch = {k: torch.as_tensor(v, device=model.device)
                  for k, v in pipe.next_batch().items()}
+        if cfg.family == "audio":
+            batch = {"frame_embeds": audio_frames(cfg, params,
+                                                  batch["tokens"]),
+                     "labels": batch["labels"]}
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if step % log_every == 0 or step == steps - 1:
             m = {k: float(v) for k, v in metrics.items()}

@@ -46,7 +46,6 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import not_ported
 from repro_torch.core import collectives, quant
 from repro_torch.kernels import ops
 from repro_torch.launch import sharding
@@ -146,13 +145,14 @@ def _cols(t: torch.Tensor, tp: HeadTP | None, cut: bool) -> torch.Tensor:
 
 
 def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-                 tp: HeadTP | None = None):
-    """q (B, S, Hq, hd), k/v (B, S, Hkv, hd), qk-normed and rotated.  On a
-    serving mesh: this rank's q heads and its kv heads (``"heads"``), or
-    every kv head (``"flat"``, gathered; ``"none"``)."""
-    if cfg.mrope or not cfg.use_rope:
-        raise not_ported("attention without RoPE or with M-RoPE",
-                         "other families")
+                 tp: HeadTP | None = None, mrope_positions=None):
+    """q (B, S, Hq, hd), k/v (B, S, Hkv, hd), qk-normed and rotated, in
+    the reference's order: M-RoPE at ``mrope_positions`` (B, S, 3) when
+    the config has it and they are given, else RoPE at ``positions`` when
+    the config uses it, else no rotation (sinusoidal positions, added to
+    the embeddings).  On a serving mesh: this rank's q heads and its kv
+    heads (``"heads"``), or every kv head (``"flat"``, gathered;
+    ``"none"``)."""
     b, s, _ = x.shape
     hd = cfg.head_dim
     q, k, v = (quant.qdot(x, p[w]) for w in ("wq", "wk", "wv"))
@@ -169,8 +169,14 @@ def _project_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
     if cfg.qk_norm:
         q = layers.rms_norm(p["q_norm"], q)
         k = layers.rms_norm(p["k_norm"], k)
-    q = layers.apply_rope(q, positions, cfg.rope_theta)
-    k = layers.apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope and mrope_positions is not None:
+        q = layers.apply_mrope(q, mrope_positions, cfg.rope_theta,
+                               cfg.mrope_sections)
+        k = layers.apply_mrope(k, mrope_positions, cfg.rope_theta,
+                               cfg.mrope_sections)
+    elif cfg.use_rope:
+        q = layers.apply_rope(q, positions, cfg.rope_theta)
+        k = layers.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -291,14 +297,16 @@ def attn_block_step_paged(p: dict, cfg, cache: dict, x: torch.Tensor,
 
 
 def attn_forward(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor,
-                 window: int | None, kernels: bool = True) -> torch.Tensor:
+                 window: int | None, kernels: bool = True,
+                 mrope_positions=None) -> torch.Tensor:
     """Causal self-attention over a full sequence with no cache.
-    x: (B, S, D); positions: (B, S) for RoPE.  Returns (B, S, D).
+    x: (B, S, D); positions: (B, S) for RoPE (and the masks);
+    ``mrope_positions`` (B, S, 3) for M-RoPE.  Returns (B, S, D).
     ``kernels=False`` takes the reference's non-flash branches (``attend``,
     or ``attend_chunked`` at S >= CHUNK_THRESHOLD, over repeated K/V),
     which reach nothing in ``kernels/``: the trainer's path."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, None, mrope_positions)
     if kernels:
         out = ops.flash_attention(q, k, v, causal=True, window=window)
     else:
@@ -523,17 +531,20 @@ def _new_kv(cfg, k: torch.Tensor, v: torch.Tensor) -> dict:
 
 def attn_decode_step(p: dict, cfg, cache: dict, x: torch.Tensor,
                      lengths: torch.Tensor, window: int | None,
-                     tp: HeadTP | None = None) -> torch.Tensor:
+                     tp: HeadTP | None = None,
+                     mrope_positions=None) -> torch.Tensor:
     """One new token per row against the contiguous cache.  x (B, 1, D);
     lengths (B,) tokens already cached.  Row b writes its K/V at slot
     ``lengths[b]`` (clamped to the last slot) IN PLACE and attends slots
     <= lengths[b] (and > lengths[b] - window); on a ring (a window as long
     as the cache) at slot lengths[b] % cache_len, attending every slot
-    written.  Returns (B, 1, D)."""
+    written.  ``mrope_positions`` (B, 1, 3): the new tokens' M-RoPE
+    positions.  Returns (B, 1, D)."""
     b = x.shape[0]
     cache_len = cache["k"].shape[1]
     ring = window is not None and cache_len == window
-    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None], tp)
+    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None], tp,
+                                   mrope_positions)
     for kk, vals in _new_kv(cfg, _used(k_new, tp), _used(v_new, tp)).items():
         _update_cache(cache[kk], vals, lengths, ring)
     k_cache, v_cache = _cache_kv(cfg, cache, x.dtype)
@@ -554,14 +565,16 @@ def attn_decode_step(p: dict, cfg, cache: dict, x: torch.Tensor,
 def attn_block_step(p: dict, cfg, cache: dict, x: torch.Tensor,
                     positions: torch.Tensor, lengths: torch.Tensor,
                     seg_lens: torch.Tensor, window: int | None,
-                    tp: HeadTP | None = None) -> torch.Tensor:
+                    tp: HeadTP | None = None,
+                    mrope_positions=None) -> torch.Tensor:
     """The unified step's contiguous form: row b's first ``seg_lens[b]``
     tokens (absolute positions ``positions[b]``) continue its sequence at
     cache offset ``lengths[b]``; they are written IN PLACE
     (``_update_cache_block``) and then attend every slot holding a position
     <= their own (and > pos - window).  Invalid tokens get a fully masked
     row.  A ring cache takes width-1 blocks only (the reference's
-    ``ValueError``).  x (B, T, D) -> (B, T, D)."""
+    ``ValueError``).  ``mrope_positions`` (B, T, 3): the block's M-RoPE
+    positions.  x (B, T, D) -> (B, T, D)."""
     b, t, _ = x.shape
     cache_len = cache["k"].shape[1]
     ring = window is not None and cache_len == window
@@ -569,7 +582,8 @@ def attn_block_step(p: dict, cfg, cache: dict, x: torch.Tensor,
         raise ValueError(
             f"ring KV cache (window == cache_len == {cache_len}) supports "
             f"only width-1 blocks, got T={t}")
-    q, k_new, v_new = _project_qkv(p, cfg, x, positions, tp)
+    q, k_new, v_new = _project_qkv(p, cfg, x, positions, tp,
+                                   mrope_positions)
     for kk, vals in _new_kv(cfg, _used(k_new, tp), _used(v_new, tp)).items():
         _update_cache_block(cache[kk], vals, lengths, seg_lens, ring)
     k_cache, v_cache = _cache_kv(cfg, cache, x.dtype)
@@ -587,7 +601,8 @@ def attn_block_step(p: dict, cfg, cache: dict, x: torch.Tensor,
 def attn_prefill(p: dict, cfg, cache: dict, x: torch.Tensor,
                  positions: torch.Tensor, window: int | None,
                  rows: torch.Tensor | None = None, tp: HeadTP | None = None,
-                 seq_block: bool = False) -> torch.Tensor:
+                 seq_block: bool = False,
+                 mrope_positions=None) -> torch.Tensor:
     """Full-sequence forward that also fills the contiguous cache IN PLACE
     (the reference engine's padded prefill).  x (B, S, D); positions
     (B, S).  Attention is ``attend`` over repeated K/V, or
@@ -596,14 +611,15 @@ def attn_prefill(p: dict, cfg, cache: dict, x: torch.Tensor,
     tokens, rolled so that position p sits at slot p % cache_len (the
     reference rolls whenever ``S >= cache_len``, window or not).  ``rows``
     (B,) bool limits the write to those rows (the batched prefill's admit
-    mask: in-flight rows keep their cache).  Returns (B, S, D).
+    mask: in-flight rows keep their cache).  ``mrope_positions`` (B, S,
+    3): the prompt's M-RoPE positions.  Returns (B, S, D).
 
     On a serving mesh (``tp``) the attention runs this rank's heads; with
     ``seq_block`` the cache is the context-parallel layout (this rank's
     sequence block of every kv head, ``attn_decode_step_cp``) and takes
     the slots of its block."""
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, cfg, x, positions, tp)
+    q, k, v = _project_qkv(p, cfg, x, positions, tp, mrope_positions)
     out = _attend_full(cfg, q, _used(k, tp), _used(v, tp), positions, window)
     out = _out_proj(p, out, tp)
     if not seq_block:

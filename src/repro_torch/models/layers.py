@@ -1,9 +1,9 @@
 """Core NN layers of the ported slice (the JAX package's ``models/layers.py``).
 
 Plain functions over tensors.  Compute follows the reference's
-bf16-weights / fp32-accumulate policy; norms and rotary angles always run
-in fp32.  Initializers draw from an explicit ``torch.Generator`` on the
-generator's device.
+bf16-weights / fp32-accumulate policy; norms and rotary angles (RoPE and
+Qwen2-VL's M-RoPE) always run in fp32.  Initializers draw from an
+explicit ``torch.Generator`` on the generator's device.
 """
 from __future__ import annotations
 
@@ -116,6 +116,30 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     inv = rope_freqs(hd, theta, x.device)                 # (hd/2,)
     ang = positions[..., None].float() * inv              # (..., S, hd/2)
     cos = torch.cos(ang)[..., None, :]                    # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
+                sections: tuple[int, int, int]) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  x: (B, S, H, hd); positions3: (B, S,
+    3) int (temporal, height, width).  ``sections`` counts the frequency
+    pairs of each component and must sum to hd // 2 ((16, 24, 24) at hd
+    128): the first pairs rotate by the temporal position, the next by
+    the height, the last by the width.  The angle of every component is
+    taken in fp32, and the rotation is ``apply_rope``'s half split."""
+    hd = x.shape[-1]
+    assert sum(sections) == hd // 2, (sections, hd)
+    inv = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    sel = torch.repeat_interleave(
+        torch.arange(3, device=x.device),
+        torch.as_tensor(sections, device=x.device))        # (hd/2,)
+    ang_all = positions3[..., None, :].float() * inv[:, None]  # (B,S,hd/2,3)
+    ang = torch.gather(ang_all, -1, sel[:, None].expand(
+        ang_all.shape[:-1] + (1,)))[..., 0]               # (B, S, hd/2)
+    cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)

@@ -20,12 +20,24 @@ a new one, which a donating caller aliases); ``prefill`` and
 ``decode_step`` drop the routing.  ``routing`` is None for every family
 but moe.
 
-The stateful families (``hybrid``: RecurrentGemma's RG-LRU and local
-attention; ``ssm``: Mamba-2) run ``forward``, ``loss``, ``prefill`` and
+The families: ``dense`` and ``moe`` take text tokens everywhere.
+``vlm`` (Qwen2-VL's backbone) takes ``patch_embeds`` (B, P, D) prepended
+to the text tokens in ``forward``, ``loss`` and ``prefill``, with
+optional ``mrope_positions`` (B, S, 3) for M-RoPE (without them its
+attention takes plain RoPE, as the reference's does); the loss leaves the
+P patch positions out.  ``audio`` (MusicGen's decoder) takes
+``frame_embeds`` (B, S, D) in ``forward``, ``loss`` and ``prefill`` and
+codec token ids in ``decode_step``, with sinusoidal positions added to
+the embeddings (``sinusoidal_embedding``; so does any config with
+``positional="sinusoidal"``, in every entry point).  The stateful
+families (``hybrid``: RecurrentGemma's RG-LRU and local attention;
+``ssm``: Mamba-2) run ``forward``, ``loss``, ``prefill`` and
 ``decode_step`` on one device, their cache a tree of per-row states
-(``transformer.stack_cache_spec``); as in the reference,
-``forward_routed`` refuses them (the engine serves them through the
-two-program reference path).
+(``transformer.stack_cache_spec``).  As in the reference,
+``forward_routed`` refuses all four (the token-input attention families
+alone have the unified step), and so the engine serves only the stateful
+ones, through the two-program reference path; every family but dense and
+moe refuses a mesh.
 
 On a mesh (``launch/mesh.py``, one rank process per mesh position) the
 full-sequence forward runs the paper's expert-parallel schedules
@@ -65,12 +77,12 @@ run on the CPU.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import not_ported
 from repro_torch.core import collectives, expert_parallel, quant
 from repro_torch.launch import sharding
 from repro_torch.models import attention, layers, transformer
@@ -112,15 +124,17 @@ def _lm_head(cfg, params, x: torch.Tensor, tp=None) -> torch.Tensor:
     return logits
 
 
-def _embed(cfg, params, tok: torch.Tensor, tp=None) -> torch.Tensor:
-    """Embedding rows of the (clamped) tokens in the compute dtype.  On a
-    serving mesh with the table split by vocabulary rows each rank looks
-    up the tokens in its rows, writes zeros for the others, and a psum
-    over "model" adds them up: one nonzero term per token, so the sum is
-    exact."""
+def _embed(cfg, params, tokens: torch.Tensor, tp=None) -> torch.Tensor:
+    """Embedding rows of the tokens, clamped to the vocabulary, in the
+    compute dtype.  On a serving mesh with the table split by vocabulary
+    rows each rank looks up the tokens in its rows, writes zeros for the
+    others, and a psum over "model" adds them up: one nonzero term per
+    token, so the sum is exact."""
     w = params["embed"]
+    tok = tokens.long().clamp(0, cfg.vocab_size - 1)
     if tp is None or not tp.embed:
-        return w[tok].to(cfg.torch_dtype)
+        # F.embedding: its backward sums each token's rows in parallel
+        return F.embedding(tok, w).to(cfg.torch_dtype)
     vl = cfg.vocab_padded // tp.mesh.shape["model"]
     loc = tok - tp.mesh.coords["model"] * vl
     ok = (loc >= 0) & (loc < vl)
@@ -128,20 +142,47 @@ def _embed(cfg, params, tok: torch.Tensor, tp=None) -> torch.Tensor:
     return collectives.psum(x.to(cfg.torch_dtype), tp.mesh, "model")
 
 
-def _embed_inputs(cfg, params, batch,
-                  tp=None) -> tuple[torch.Tensor, torch.Tensor]:
-    """Text tokens -> (x (B, S, D) in the compute dtype, positions (B, S));
-    every position counts in the loss.  (Frame and patch inputs belong to
-    families ``build_model`` refuses.)"""
-    tokens = batch["tokens"]
-    b, s = tokens.shape
-    tok = tokens.long().clamp(0, cfg.vocab_size - 1)
-    positions = torch.arange(s, device=tokens.device)[None].expand(b, s)
-    if tp is not None:
-        return _embed(cfg, params, tok, tp), positions
-    # F.embedding: its backward sums each token's rows in parallel
-    x = F.embedding(tok, params["embed"])
-    return x.to(cfg.torch_dtype), positions
+def sinusoidal_embedding(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """positions (...) int -> (..., d) fp32: sin of each position times
+    the d // 2 frequencies exp(-ln(10000) i / (d // 2)), then their cos."""
+    half = d // 2
+    freq = torch.exp(-math.log(10000.0) * torch.arange(
+        half, dtype=torch.float32, device=positions.device) / half)
+    ang = positions[..., None].float() * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _add_positions(cfg, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    """x plus the sinusoidal table at ``positions``, cast to x's dtype
+    first as the reference does, where the config asks for it."""
+    if cfg.positional != "sinusoidal":
+        return x
+    return x + sinusoidal_embedding(positions, cfg.d_model).to(x.dtype)
+
+
+def _embed_inputs(cfg, params, batch, tp=None):
+    """The batch's inputs -> (x (B, S, D) in the compute dtype, positions
+    (B, S), M-RoPE positions (B, S, 3) or None, loss mask (B, S) fp32 or
+    None: every position counts).  audio: ``frame_embeds``; vlm:
+    ``patch_embeds`` (B, P, D) then the text ``tokens``, the loss mask
+    leaving the P patch positions out, and ``mrope_positions`` handed on
+    (vlm adds no sinusoidal table, as in the reference); the other
+    families: ``tokens``."""
+    dt = cfg.torch_dtype
+    if cfg.family == "audio":
+        x = batch["frame_embeds"].to(dt)
+    elif cfg.family == "vlm":
+        tok = _embed(cfg, params, batch["tokens"], tp)
+        x = torch.cat([batch["patch_embeds"].to(dt), tok], dim=1)
+    else:
+        x = _embed(cfg, params, batch["tokens"], tp)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device)[None].expand(b, s)
+    if cfg.family == "vlm":
+        mask = (positions >= cfg.num_patch_tokens).float()
+        return x, positions, batch.get("mrope_positions"), mask
+    return _add_positions(cfg, x, positions), positions, None, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -257,20 +298,22 @@ class Model:
                        context_len: int | None = None, *, mesh=None):
         """The reference engine's prefill: a whole (B, S) prompt block from
         position 0 fills the contiguous ``cache`` IN PLACE.  batch:
-        {"tokens": (B, S), optional "token_mask" (B, S) bool (False tokens
-        are dead-routed past the MoE), optional "rows" (B,) bool (the rows
-        whose cache is written; all by default)}.  The window is decided at
-        S, as in the reference.  Returns (logits (B, 1, V_padded) fp32 at
+        {"tokens": (B, S) (vlm: (B, S - P) after "patch_embeds" (B, P, D),
+        with optional "mrope_positions" (B, S, 3); audio: "frame_embeds"
+        (B, S, D) instead), optional "token_mask" (B, S) bool (False
+        tokens are dead-routed past the MoE), optional "rows" (B,) bool
+        (the rows whose cache is written; all by default)}.  The window is
+        decided at S, as in the reference.  Returns (logits (B, 1, V_padded) fp32 at
         the last position, routing (L, B*S, K) or None).  On a ``mesh``
         ``context_len`` is the logical cache length (``_serve_tp``)."""
         cfg = self.cfg
         tp, cp = self._serve_tp(mesh, context_len)
-        x, positions = _embed_inputs(cfg, params, batch, tp)
+        x, positions, mrope, _ = _embed_inputs(cfg, params, batch, tp)
         window = transformer.effective_window(cfg, x.shape[1])
         x, routing = transformer.prefill_stack(
             cfg, params["blocks"], x, positions, cache, window,
             token_mask=batch.get("token_mask"), rows=batch.get("rows"),
-            tp=tp, cp=cp)
+            tp=tp, cp=cp, mrope_pos=mrope)
         return self._head_last(params, x[:, -1:], tp), routing
 
     def prefill(self, params: dict, batch: dict, cache: dict,
@@ -281,22 +324,26 @@ class Model:
     def decode_step_routed(self, params: dict, cache: dict, batch: dict,
                            context_len: int | None = None, *, mesh=None):
         """One token per row against the contiguous ``cache`` (updated IN
-        PLACE).  batch: {"tokens": (B, 1), "lengths": (B,) tokens already
-        cached, optional "token_mask" (B, 1)}.  The window is decided at
+        PLACE).  batch: {"tokens": (B, 1) (audio: codec token ids),
+        "lengths": (B,) tokens already cached, optional "token_mask" (B,
+        1), optional "mrope_positions" (B, 1, 3) (vlm)}; a sinusoidal
+        table is added at ``lengths``.  The window is decided at
         ``context_len`` or the cache length.  Returns (logits (B, 1,
         V_padded) fp32, routing (L, B, K) or None).  On a ``mesh`` pass
         ``context_len``: with a sequence-sharded cache the decode is
         context-parallel (``attention.attn_decode_step_cp``)."""
         cfg = self.cfg
         tp, cp = self._serve_tp(mesh, context_len)
-        tok = batch["tokens"].long().clamp(0, cfg.vocab_size - 1)
-        x = _embed(cfg, params, tok, tp)
+        lengths = batch["lengths"]
+        x = _add_positions(cfg, _embed(cfg, params, batch["tokens"], tp),
+                           lengths[:, None].long())
         cache_len = _attn_cache_len(cfg, cache)
         window = (transformer.effective_window(cfg, context_len or cache_len)
                   if cache_len is not None else cfg.sliding_window)
         x, routing = transformer.decode_stack(
-            cfg, params["blocks"], x, batch["lengths"], cache, window,
-            token_mask=batch.get("token_mask"), tp=tp, cp=cp)
+            cfg, params["blocks"], x, lengths, cache, window,
+            token_mask=batch.get("token_mask"), tp=tp, cp=cp,
+            mrope_pos=batch.get("mrope_positions"))
         return self._head_last(params, x, tp), routing
 
     def decode_step(self, params: dict, cache: dict, batch: dict,
@@ -333,10 +380,10 @@ class Model:
         lengths = batch["lengths"]
         seg_lens = batch["seg_lens"]
         b, t = tokens.shape
-        tok = tokens.long().clamp(0, cfg.vocab_size - 1)
-        x = _embed(cfg, params, tok, tp)
         positions = lengths[:, None].long() + torch.arange(
             t, device=tokens.device)[None]
+        x = _add_positions(cfg, _embed(cfg, params, tokens, tp),
+                           positions)
         token_mask = batch.get("token_mask")
         if token_mask is None:
             token_mask = (torch.arange(t, device=tokens.device)[None]
@@ -355,7 +402,8 @@ class Model:
     def _trunk(self, params: dict, batch: dict, kernels: bool = True,
                mesh=None, block_specs=None):
         """Embedding, all layers and the final norm over a full sequence:
-        (x (B, S, D), aux, routing (L, B*S, K) or None).  On a ``mesh``
+        (x (B, S, D), aux, routing (L, B*S, K) or None, the loss mask (B,
+        S) or None: every position counts).  On a ``mesh``
         the rows are this rank's batch block (``batch_shard``); with
         ``block_specs`` (a training mesh) ``params["blocks"]`` are this
         rank's train blocks under them."""
@@ -366,26 +414,27 @@ class Model:
             batch_axes, rows = expert_parallel.batch_shard(
                 mesh, batch["tokens"].shape[0])
             batch = {"tokens": batch["tokens"][rows]}
-        x, positions = _embed_inputs(cfg, params, batch)
+        x, positions, mrope, mask = _embed_inputs(cfg, params, batch)
         window = transformer.effective_window(cfg, x.shape[1])
         x, aux, routing = transformer.forward_stack(
             cfg, params["blocks"], x, positions, window, kernels, mesh,
-            batch_axes, block_specs)
+            batch_axes, block_specs, mrope)
         return layers.norm_apply(cfg.norm, params["final_norm"], x), aux, \
-            routing
+            routing, mask
 
     def forward_seq_routed(self, params: dict, batch: dict, mesh=None):
         """Full-sequence forward with no cache.  batch: {"tokens": (B, S)
-        int}.  Returns (logits (B, S, V_padded) fp32, aux load-balance loss
-        summed over layers, routing (L, B*S, K) int32 in token order, or
-        None for the dense family).
+        int}, or the vlm and audio inputs of ``prefill_routed``.  Returns
+        (logits (B, S, V_padded) fp32, aux load-balance loss summed over
+        layers, routing (L, B*S, K) int32 in token order, or None but for
+        the moe family).
 
         On a ``mesh`` ``batch`` is the global batch (the same on every
         rank); the logits and routing are this rank's rows of it,
         ``expert_parallel.batch_shard(mesh, B)``, and aux is the global
         one.  Every MoE layer runs ``cfg.expert_parallel`` across the
         ranks, with this rank's expert rows in ``params``."""
-        x, aux, routing = self._trunk(params, batch, mesh=mesh)
+        x, aux, routing, _ = self._trunk(params, batch, mesh=mesh)
         return _lm_head(self.cfg, params, x), aux, routing
 
     def forward(self, params: dict, batch: dict, mesh=None):
@@ -413,7 +462,10 @@ class Model:
     def loss(self, params: dict, batch: dict, kernels: bool = True, *,
              mesh=None):
         """Mean next-token cross-entropy plus 0.01 x the aux loss.
-        batch: {"tokens": (B, S), "labels": (B, S) int in [0, vocab)}.
+        batch: {"tokens": (B, S), "labels": (B, S) int in [0, vocab)}, or
+        the vlm and audio inputs of ``prefill_routed`` with "labels" (B, S)
+        over the whole sequence; vlm's mean leaves the patch positions
+        out, ``sum(ce * mask) / max(sum(mask), 1)`` as in the reference.
         Returns (total, {"ce", "aux"}), fp32 scalars.
 
         By default the forward runs the flash and grouped-FFN kernels (the
@@ -435,8 +487,10 @@ class Model:
         ``kernels=True`` on a mesh is the scoring loss: the flash and
         grouped-FFN kernels run on every rank."""
         if mesh is None:
-            x, aux, _ = self._trunk(params, batch, kernels)
-            ce = self._chunked_ce(params, x, batch["labels"]).mean()
+            x, aux, _, mask = self._trunk(params, batch, kernels)
+            ce = self._chunked_ce(params, x, batch["labels"])
+            ce = (ce.mean() if mask is None
+                  else (ce * mask).sum() / mask.sum().clamp(min=1.0))
             return ce + 0.01 * aux, {"ce": ce, "aux": aux}
         specs = sharding.train_specs(self.cfg, mesh)
         axes, rows = expert_parallel.batch_shard(mesh,
@@ -446,8 +500,8 @@ class Model:
         params = dict(sharding.compute_view(
             top, {k: specs[k] for k in top}, mesh, axes),
             blocks=params["blocks"])
-        x, aux, _ = self._trunk(params, batch, kernels, mesh,
-                                specs["blocks"])
+        x, aux, _, _ = self._trunk(params, batch, kernels, mesh,
+                                   specs["blocks"])
         ce = self._chunked_ce(params, x, batch["labels"][rows]).sum()
         for a in axes:
             ce = collectives.psum(ce, mesh, a)
@@ -464,15 +518,15 @@ def _attn_cache_len(cfg, cache: dict) -> int | None:
     return cache["k"].shape[2]
 
 
+POSITIONAL = ("rope", "sinusoidal", "none")
+
+
 def build_model(cfg, device="cuda") -> Model:
-    if cfg.family not in transformer.FAMILIES:
-        raise not_ported(f"the {cfg.family!r} family", "other families")
+    transformer.check_family(cfg)
     if cfg.weight_quant not in quant.LEVELS:
         raise ValueError(f"unknown weight_quant {cfg.weight_quant!r}; "
                          f"expected one of {quant.LEVELS}")
-    # an attention-free stack has no positions; sinusoidal positions (the
-    # audio family's) are not ported
-    if cfg.positional != "rope" and not (cfg.positional == "none"
-                                         and cfg.family == "ssm"):
-        raise not_ported(f"positional {cfg.positional!r}", "other families")
+    if cfg.positional not in POSITIONAL:
+        raise ValueError(f"unknown positional {cfg.positional!r}; expected "
+                         f"one of {POSITIONAL}")
     return Model(cfg, resolve_device(device))

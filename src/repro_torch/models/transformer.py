@@ -1,7 +1,9 @@
 """The decoder stacks (the JAX package's ``models/transformer.py``):
-``dense`` (attention + SwiGLU MLP), ``moe`` (attention + the MoE layer),
-``ssm`` (Mamba-2 SSD blocks, no MLP) and ``hybrid`` (RG-LRU, RG-LRU,
-local attention, each followed by the MLP).
+``dense``, ``vlm`` and ``audio`` (attention + the SwiGLU or GeGLU MLP;
+vlm's attention rotates by M-RoPE where the batch gives its positions),
+``moe`` (attention + the MoE layer), ``ssm`` (Mamba-2 SSD blocks, no MLP)
+and ``hybrid`` (RG-LRU, RG-LRU, local attention, each followed by the
+MLP).
 
 Four ways through the attention families' stack share one block body
 (``_attn_mlp_block``): the unified step over the paged pool or the
@@ -25,7 +27,6 @@ import functools
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import not_ported
 from repro_torch.core import expert_parallel
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding
@@ -111,12 +112,13 @@ def hybrid_pattern(cfg) -> list[str]:
     return ["attn" if i % 3 == 2 else "rec" for i in range(cfg.num_layers)]
 
 
-FAMILIES = ("dense", "moe", "hybrid", "ssm")
+FAMILIES = ("dense", "moe", "hybrid", "ssm", "vlm", "audio")
 
 
-def _check_family(cfg) -> None:
+def check_family(cfg) -> None:
     if cfg.family not in FAMILIES:
-        raise not_ported(f"the {cfg.family!r} family", "other families")
+        raise ValueError(f"unknown family {cfg.family!r}; expected one of "
+                         f"{FAMILIES}")
 
 
 def init_blocks(cfg, gen: torch.Generator, mesh=None, keep=None) -> dict:
@@ -126,7 +128,7 @@ def init_blocks(cfg, gen: torch.Generator, mesh=None, keep=None) -> dict:
     (``launch/sharding.mode_slices``), every matrix still drawn.  A hybrid
     stack is {"rec": its recurrent layers, "attn": its attention layers
     (at least one)}, each stacked."""
-    _check_family(cfg)
+    check_family(cfg)
     sharding.check_no_mesh(cfg, mesh)
     dtype = cfg.param_torch_dtype
     if cfg.family == "moe":
@@ -177,7 +179,7 @@ def serve_tp(cfg, mesh) -> ServeTP:
 def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
                     decode=False, token_mask=None, block_lens=None,
                     block_tables=None, rows=None, kernels=True, mesh=None,
-                    batch_axes=None, tp=None, cp=False):
+                    batch_axes=None, tp=None, cp=False, mrope_pos=None):
     """Attention (+ cache) and the MLP or MoE layer.  The attention step:
     with ``block_lens`` (lengths, seg_lens) the unified block step, over
     the paged pool when ``block_tables`` is given and the contiguous
@@ -190,8 +192,9 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
     expert-parallel schedule.  On a serving mesh (``tp``, a ``ServeTP``)
     the cached steps run tensor-parallel over "model" and the MoE layer
     the schedule over the whole batch; ``cp``: the contiguous cache is
-    sequence-sharded (the decode is ``attn_decode_step_cp``).  Returns
-    (x, aux, routed (B*T, K) or None for the dense family)."""
+    sequence-sharded (the decode is ``attn_decode_step_cp``).
+    ``mrope_pos`` (B, T, 3): the tokens' M-RoPE positions (vlm), or None.
+    Returns (x, aux, routed (B*T, K) or None but for the moe family)."""
     h = layers.norm_apply(cfg.norm, layer_p["ln1"], x)
     ap = layer_p["attn"]
     at = tp.attn if tp is not None else None
@@ -201,7 +204,8 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
         n_data = mesh_lib.axes_size(mesh, mesh_lib.batch_axes(mesh))
         row_blocks = n_data if x.shape[0] % n_data == 0 else 1
     if cache_l is None:
-        h = attention.attn_forward(ap, cfg, h, positions, window, kernels)
+        h = attention.attn_forward(ap, cfg, h, positions, window, kernels,
+                                   mrope_pos)
     elif block_lens is not None and block_tables is not None:
         lengths, seg_lens = block_lens
         h = attention.attn_block_step_paged(
@@ -210,16 +214,17 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
     elif block_lens is not None:
         lengths, seg_lens = block_lens
         h = attention.attn_block_step(ap, cfg, cache_l, h, positions,
-                                      lengths, seg_lens, window, at)
+                                      lengths, seg_lens, window, at,
+                                      mrope_pos)
     elif decode and cp:
         h = attention.attn_decode_step_cp(ap, cfg, cache_l, h, positions,
                                           window, at)
     elif decode:
         h = attention.attn_decode_step(ap, cfg, cache_l, h, positions, window,
-                                       at)
+                                       at, mrope_pos)
     else:
         h = attention.attn_prefill(ap, cfg, cache_l, h, positions, window,
-                                   rows, at, cp)
+                                   rows, at, cp, mrope_pos)
     x = x + h
     h = layers.norm_apply(cfg.norm, layer_p["ln2"], x)
     if cfg.family == "moe":
@@ -241,7 +246,7 @@ def paged_stack_cache_spec(cfg, num_pages: int, page_size: int, dtype,
     for an int8 cache {"k_scale", "v_scale"} -> ((L, P, ps, Hkv, 1), fp32);
     ``heads`` kv heads (all by default).  The stateful families keep their
     per-row state on the contiguous layout, as in the reference."""
-    _check_family(cfg)
+    check_family(cfg)
     if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"paged KV cache supports attention-cache families, not "
@@ -273,7 +278,7 @@ def stack_cache_spec(cfg, batch: int, cache_len: int, dtype,
     {"rec": {"conv", "h"}, "attn": the attention cache of
     min(cache_len, window) slots}, each stacked over its layers.  The
     batch axis is 1 in every leaf."""
-    _check_family(cfg)
+    check_family(cfg)
     if cfg.family == "ssm":
         return _stacked(cfg.num_layers,
                         mamba2.mamba_cache_spec(cfg, batch, dtype))
@@ -327,10 +332,11 @@ def _layer(tree: dict, l: int) -> dict:
 
 
 def forward_stack(cfg, blocks, x, positions, window, kernels=True,
-                  mesh=None, batch_axes=None, specs=None):
+                  mesh=None, batch_axes=None, specs=None, mrope_pos=None):
     """Run all layers over a full sequence with no cache.
-    x: (B, S, D); positions: (B, S).  Returns (x, total aux loss, routing
-    (L, B*S, K) int32, or None for the dense family).
+    x: (B, S, D); positions: (B, S); ``mrope_pos`` (B, S, 3) or None.
+    Returns (x, total aux loss, routing (L, B*S, K) int32, or None but for
+    the moe family).
     ``kernels=False`` runs through no kernel (the trainer's path).  With
     ``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (as the
     reference's ``jax.checkpoint``): a backward keeps only the layer
@@ -365,7 +371,7 @@ def forward_stack(cfg, blocks, x, positions, window, kernels=True,
             lp = sharding.compute_view(lp, layer_specs, mesh, batch_axes)
         return _attn_mlp_block(cfg, lp, xx, positions, window,
                                kernels=kernels, mesh=mesh,
-                               batch_axes=batch_axes)
+                               batch_axes=batch_axes, mrope_pos=mrope_pos)
     for l in range(cfg.num_layers):
         if cfg.remat:
             x, a, routed = checkpoint(block, x, _layer(blocks, l),
@@ -503,25 +509,26 @@ def unified_stack(cfg, blocks, x, positions, lengths, seg_lens, cache, window,
 
 
 def prefill_stack(cfg, blocks, x, positions, cache, window, token_mask=None,
-                  rows=None, tp=None, cp=False):
+                  rows=None, tp=None, cp=False, mrope_pos=None):
     """Full-sequence forward that fills the contiguous cache IN PLACE (the
-    reference engine's prefill); ``rows`` (B,) bool: the rows it writes.
-    Returns (x, routing (L, B*S, K) or None)."""
+    reference engine's prefill); ``rows`` (B,) bool: the rows it writes;
+    ``mrope_pos`` (B, S, 3) or None.  Returns (x, routing (L, B*S, K) or
+    None)."""
     if cfg.family in ("hybrid", "ssm"):
         return _cached_families(cfg, blocks, x, cache, positions, False,
                                 rows)
     return _cached_stack(cfg, blocks, x, cache, positions=positions,
                          window=window, token_mask=token_mask, rows=rows,
-                         tp=tp, cp=cp)
+                         tp=tp, cp=cp, mrope_pos=mrope_pos)
 
 
 def decode_stack(cfg, blocks, x, lengths, cache, window, token_mask=None,
-                 tp=None, cp=False):
+                 tp=None, cp=False, mrope_pos=None):
     """One-token decode through all layers: x (B, 1, D) at positions
-    ``lengths``, written IN PLACE into the contiguous cache.  Returns
-    (x, routing (L, B, K) or None)."""
+    ``lengths`` (M-RoPE: ``mrope_pos`` (B, 1, 3)), written IN PLACE into
+    the contiguous cache.  Returns (x, routing (L, B, K) or None)."""
     if cfg.family in ("hybrid", "ssm"):
         return _cached_families(cfg, blocks, x, cache, lengths, True, None)
     return _cached_stack(cfg, blocks, x, cache, positions=lengths,
                          window=window, decode=True, token_mask=token_mask,
-                         tp=tp, cp=cp)
+                         tp=tp, cp=cp, mrope_pos=mrope_pos)

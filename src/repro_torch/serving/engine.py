@@ -70,6 +70,12 @@ refuses the paged pool.  Their cache is a tree of per-row states
 "v"}}``), the batch axis 1 in every leaf.  The stateful families do not
 serve on a mesh in this slice (ROADMAP queue A: other families on a
 mesh).
+
+The vlm and audio families are refused: their prefill needs the batch's
+``patch_embeds`` or ``frame_embeds``, which no engine path supplies (the
+reference's gives them the two-program path, whose prefill passes only
+the tokens, and its first step fails on that key).  They serve through
+``Model.prefill`` and ``Model.decode_step`` directly.
 """
 from __future__ import annotations
 
@@ -175,6 +181,10 @@ class _Pending:
     stalled: bool = False
 
 
+# the batch key each frontend-stub family's prefill needs
+FRONTEND_INPUTS = {"vlm": "patch_embeds", "audio": "frame_embeds"}
+
+
 def reference_only(cfg, max_cache: int) -> bool:
     """Whether ``cfg`` serves through the two-program reference path only:
     the unified block step needs a token-input attention family and a
@@ -227,6 +237,13 @@ class ServingEngine:
                 "(token-input attention family, non-ring cache, "
                 "unified_step=True); pass paged=False for the reference "
                 "path")
+        if cfg_model.family in FRONTEND_INPUTS:
+            raise ValueError(
+                f"the {cfg_model.family!r} family's prefill needs the "
+                f"batch's {FRONTEND_INPUTS[cfg_model.family]!r}, which the "
+                f"engine has no input for (the reference's engine fails on "
+                f"that key at its first step); serve it through "
+                f"Model.prefill and Model.decode_step")
         if ecfg.paged and ecfg.page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {ecfg.page_size}")
         self.cfg = cfg_model

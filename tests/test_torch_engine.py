@@ -24,7 +24,7 @@ from repro_torch.configs.base import get_config
 from repro_torch.core import moe
 from repro_torch.core.quant import QuantTensor
 from repro_torch.serving.engine import EngineConfig, ServingEngine
-from torch_archs import ARCHS, reduced_pair
+from torch_archs import ARCHS, one_torch_thread, reduced_pair  # noqa: F401
 
 ARCH = ARCHS[0]
 ENGINE = dict(max_batch=2, max_cache=32, chunk_len=3, page_size=5)
@@ -223,20 +223,42 @@ def test_paging_copy_matches_reference():
     assert sides[1][1] > 0
 
 
-@pytest.mark.parametrize("kw,match", [
-    (dict(family="audio", positional="sinusoidal"),
-     "the 'audio' family .*other families"),
-    (dict(positional="sinusoidal"), "positional 'sinusoidal' .*other "
-                                    "families"),
-])
-def test_out_of_slice_options_raise(kw, match):
-    """What a later slice ports still raises: the audio and vlm families
-    and sinusoidal positions (ring caches and the hybrid and ssm families
-    serve through the reference engine: tests/test_torch_families.py)."""
-    cfg = get_config(ARCH).reduced()
-    with pytest.raises(NotImplementedError, match=match):
-        ServingEngine(cfg.replace(**kw), EngineConfig(paged=False),
-                      device="cpu")
+# the ids these cases had while both were refusals of a later slice
+@pytest.mark.parametrize("case", ["audio", "sinusoidal"], ids=[
+    "kw0-the 'audio' family .*other families",
+    "kw1-positional 'sinusoidal' .*other families"])
+def test_out_of_slice_options_raise(case):
+    """What were a later slice's refusals.  The audio family: the JAX
+    engine takes it (the two-program path) and fails at its first step on
+    ``frame_embeds``, which its prefill never receives; the port's engine
+    refuses it at construction with a ``ValueError`` naming that key.
+    Sinusoidal positions on the reduced qwen3-moe: greedy streams equal
+    to the JAX engine's (the table added at every step's positions)."""
+    jcfg, cfg = reduced_pair(ARCH, {"use_kernel": True}, capacity_factor=8.0,
+                             positional="sinusoidal")
+    if case == "audio":
+        kw = dict(family="audio", norm="layernorm", act="gelu",
+                  use_rope=False, num_experts=0, num_experts_padded=0,
+                  experts_per_token=0)
+        jcfg, cfg = jcfg.replace(**kw), cfg.replace(**kw)
+        raw = jax.jit(jax_build_model(jcfg).init)(jax.random.PRNGKey(0))
+        jeng = JaxServingEngine(jcfg, JaxEngineConfig(
+            max_batch=1, prefill_len=8, max_cache=16, async_steps=False),
+            params=raw)
+        jeng.submit(np.arange(8, dtype=np.int32), max_new_tokens=2)
+        with pytest.raises(KeyError, match="frame_embeds"):
+            jeng.run_until_done()
+        with pytest.raises(ValueError, match="frame_embeds"):
+            ServingEngine(cfg, EngineConfig(paged=False), device="cpu")
+        return
+    traffic = _traffic()
+    raw = jax.jit(jax_build_model(jcfg).init)(jax.random.PRNGKey(0))
+    jeng = JaxServingEngine(jcfg, JaxEngineConfig(
+        async_steps=False, paged=True, paged_kernel=True, **ENGINE),
+        params=raw)
+    peng = ServingEngine(cfg, EngineConfig(**ENGINE), params=from_jax_params(
+        jax.tree.map(np.asarray, raw), cfg, "cpu"), device="cpu")
+    assert _serve(peng, traffic) == _serve(jeng, traffic)
 
 
 def test_out_of_slice_requests_raise():

@@ -55,7 +55,8 @@ from repro_torch.launch import train as train_mod
 from repro_torch.models import mamba2, rglru
 from repro_torch.models.model import build_model
 from repro_torch.serving.engine import EngineConfig, ServingEngine
-from torch_archs import FAMILY_ARCHS, LATE_DENSE_ARCHS, reduced_pair
+from torch_archs import (FAMILY_ARCHS, LATE_DENSE_ARCHS,  # noqa: F401
+                         one_torch_thread, reduced_pair)
 
 TOL = 2e-5
 SCAN_TOL = 1e-6
@@ -549,7 +550,8 @@ def test_paged_pool_is_refused_where_the_reference_refuses_it(arch, kw):
     which names ``paged=False``."""
     jcfg, cfg = reduced_pair(arch, **kw)
     with pytest.raises(ValueError, match="paged KV cache requires"):
-        JaxServingEngine(jcfg, JaxEngineConfig(paged=True, max_cache=96))
+        JaxServingEngine(jcfg, JaxEngineConfig(paged=True, max_cache=96),
+                         params=_jax_init(arch))
     with pytest.raises(ValueError, match="paged=False"):
         ServingEngine(cfg, EngineConfig(max_cache=96), device="cpu")
 

@@ -113,6 +113,26 @@ def test_hd256_ten_query_heads_match_pallas_kernel(window, dtype):
     np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hq,hkv,hd", [(7, 1, 128), (4, 4, 64)],
+                         ids=["G7-hd128", "G1-hd64"])
+def test_modality_head_groups_match_pallas_kernel(hq, hkv, hd, dtype):
+    """qwen2-vl-7b's query groups (G = 7 at hd 128: a 32-row block of
+    grouped rows ends inside a position's group) and musicgen-large's MHA
+    (G = 1 at hd 64), causal at S=80 (ragged against the 32-wide
+    blocks)."""
+    rng = np.random.default_rng(hq * hd)
+    q = rng.standard_normal((1, 80, hq, hd)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 80, hkv, hd)).astype(np.float32)
+            for _ in range(2))
+    if dtype == "bfloat16":
+        q, k, v = (a.astype(ml_dtypes.bfloat16).astype(np.float32)
+                   for a in (q, k, v))
+    got = _port(q, k, v, dtype, causal=True)
+    want = _pallas(q, k, v, dtype, causal=True)
+    np.testing.assert_allclose(got, want, rtol=TOL[dtype], atol=TOL[dtype])
+
+
 def test_gqa_reads_kv_head_of_its_group():
     """Query head h reads kv head h // (Hq / Hkv): swapping the two kv
     heads changes exactly the outputs of the query heads that read them."""

@@ -10,7 +10,8 @@ import torch
 
 from repro.configs import base as jax_base
 from repro_torch.configs import base
-from torch_archs import ARCHS, DENSE_ARCHS, FAMILY_ARCHS, LATE_DENSE_ARCHS
+from torch_archs import (ARCHS, DENSE_ARCHS, FAMILY_ARCHS, LATE_DENSE_ARCHS,
+                         MODALITY_ARCHS)
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
@@ -61,7 +62,7 @@ def test_training_modules_need_no_ml_dtypes(path):
 
 # (arch, reduced); the first arch's cases keep their original ids
 CONFIG_CASES = [(a, r) for a in ARCHS + DENSE_ARCHS + LATE_DENSE_ARCHS
-                + FAMILY_ARCHS for r in (False, True)]
+                + FAMILY_ARCHS + MODALITY_ARCHS for r in (False, True)]
 
 
 @pytest.mark.parametrize("arch,reduced", CONFIG_CASES, ids=[
@@ -84,8 +85,11 @@ def test_config_matches_reference_field_by_field(arch, reduced):
 
 
 def test_ported_archs_are_registered():
-    ported = ARCHS + DENSE_ARCHS + LATE_DENSE_ARCHS + FAMILY_ARCHS
+    """Every arch of the reference is ported."""
+    ported = (ARCHS + DENSE_ARCHS + LATE_DENSE_ARCHS + FAMILY_ARCHS
+              + MODALITY_ARCHS)
     assert base.ARCH_IDS == list(ported)
+    assert sorted(base.ARCH_IDS) == sorted(set(jax_base.ARCH_IDS) | {"dbrx"})
     for arch in ported:
         mod = importlib.import_module(f"repro_torch.configs.{arch}")
         assert base.get_config(arch) is mod.CONFIG
@@ -98,15 +102,16 @@ def test_ported_archs_are_registered():
     ("qwen3-0.6b", "qwen3_0_6b"), ("stablelm-12b", "stablelm_12b"),
     ("qwen2-72b", "qwen2_72b"), ("deepseek-67b", "deepseek_67b"),
     ("recurrentgemma-2b", "recurrentgemma_2b"),
-    ("mamba2-130m", "mamba2_130m")])
+    ("mamba2-130m", "mamba2_130m"), ("qwen2-vl-7b", "qwen2_vl_7b"),
+    ("musicgen-large", "musicgen_large")])
 def test_get_config_accepts_reference_aliases(alias, arch):
     assert base.get_config(alias) == base.get_config(arch)
     assert base.get_config(alias).name == jax_base.get_config(alias).name
 
 
 def test_unknown_arch_raises():
-    with pytest.raises(ValueError, match="not yet ported"):
-        base.get_config("musicgen_large")
+    with pytest.raises(ValueError, match="unknown arch 'gpt_2'"):
+        base.get_config("gpt_2")
 
 
 def test_default_device_raises_without_cuda():

@@ -6,6 +6,9 @@ hold against the JAX reference.
 router-dead experts and padded vocab, DBRX's layernorm and widths) the
 tests take a variant with both: 6 live experts of 8 and a 500-token vocab
 padded to 512, identically on both sides."""
+import pytest
+import torch
+
 from repro.configs.base import get_config as jax_get_config
 from repro_torch.configs.base import get_config
 
@@ -17,6 +20,8 @@ DENSE_ARCHS = ("qwen3_0_6b", "stablelm_12b")
 # qk-norm), and the stateful families (hybrid, ssm)
 LATE_DENSE_ARCHS = ("qwen2_72b", "deepseek_67b")
 FAMILY_ARCHS = ("recurrentgemma_2b", "mamba2_130m")
+# slice 12: the vlm and audio families
+MODALITY_ARCHS = ("qwen2_vl_7b", "musicgen_large")
 DEAD_AND_PADDED = dict(num_experts=6, num_experts_padded=8, vocab_size=500)
 
 
@@ -28,3 +33,17 @@ def reduced_pair(arch: str, jax_kw: dict | None = None, **kw):
     jcfg = jax_get_config(arch).reduced().replace(**extra, **kw,
                                                   **(jax_kw or {}))
     return jcfg, get_config(arch).reduced().replace(**extra, **kw)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a module's tests on one intra-op thread, restored after.  The
+    port's CPU tests are many small ops, and under pytest-xdist every
+    worker's default pool (one thread a core) spins against the others':
+    with six workers on eight cores a test file ran about 2.5 times
+    slower than on one thread.  A test module opts in by importing this
+    fixture."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

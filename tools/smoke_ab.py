@@ -25,7 +25,9 @@ phase 3's paged and FFN cases at its per-rank shapes run first) or
 phase 3's fp32 FFN and flash cases at its per-rank shapes run first) or
 ``families`` (slice 11's archs: phase 3's hd-256 and G=8 flash cases,
 phase 4d's new runs, phase 12, then phase 8's recurrentgemma-2b and
-mamba2-130m against the CPU and recurrentgemma-2b at full width).  Prints the card's name and power limit, the build's ptxas lines
+mamba2-130m against the CPU and recurrentgemma-2b at full width) or
+``modalities`` (slice 12's archs: phase 3's flash cases at qwen2-vl-7b's
+and musicgen-large's heads, then phase 13).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -48,7 +50,7 @@ def main() -> int:
     ap.add_argument("--only", nargs="*", default=["paged", "quant"],
                     choices=["paged", "quant", "flash", "chaos", "serve",
                              "serve5", "train", "ep", "serve_mesh",
-                             "train_mesh", "families"])
+                             "train_mesh", "families", "modalities"])
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     import torch
@@ -120,6 +122,16 @@ def main() -> int:
         cs.TRAIN_ARCHS = cs.FAMILY_ARCHS
         cs.check_train_reduced(torch)
         cs.check_train_full(torch, *cs.TRAIN_FULL[-1])
+    if "modalities" in args.only:
+        # slice 12's archs alone: phase 3's flash cases at their heads,
+        # then phase 13
+        cs.FLASH_CASES = [c for c in cs.FLASH_CASES
+                          if c[2:4] in ((28, 4), (32, 32))]
+        cs.check_flash_attention(torch, results)
+        runs = {}
+        cs.check_modalities(torch, runs)
+        print(json.dumps(cs.kernels_line(results, runs, [
+            e for e in cs.LINE if e[2] in runs])), flush=True)
     if "serve5" in args.only:
         from repro_torch.configs.base import get_config
         cs.profile_window = lambda *a, **kw: {"device_busy_share": None}
