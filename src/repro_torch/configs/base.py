@@ -179,6 +179,74 @@ class ModelConfig:
 
 
 # ---------------------------------------------------------------------------
+# input shapes
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str            # train | prefill | decode | mixed
+    seq_len: int         # mixed: the cache/context length
+    global_batch: int
+    # mixed (the unified step, ``Model.forward_routed``): the width of the
+    # (B, chunk_len) token block each iteration packs at per-row offsets
+    chunk_len: int = 0
+
+
+def mixed_shape(name: str, cache_len: int, batch: int,
+                chunk_len: int) -> ShapeSpec:
+    """The unified mixed prefill/decode step's shape: a (batch,
+    chunk_len) token block against a ``cache_len`` cache."""
+    return ShapeSpec(name, "mixed", cache_len, batch, chunk_len=chunk_len)
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeSpec("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeSpec("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeSpec("long_500k", "decode", 524_288, 1),
+}
+
+
+def _spec(shape: tuple, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> dict:
+    """Meta tensors (shape and dtype, no storage) standing in for every
+    model input of this workload, the reference's ``ShapeDtypeStruct``s.
+    A ``decode`` shape covers the step's inputs only (the cache is
+    ``Model.cache_specs``'); the frontend stubs appear as precomputed
+    embeddings (audio frames, vision patches)."""
+    b, s = shape.global_batch, shape.seq_len
+    dt, i32 = cfg.torch_dtype, torch.int32
+    if shape.kind in ("train", "prefill"):
+        if cfg.family == "audio":
+            specs = {"frame_embeds": _spec((b, s, cfg.d_model), dt),
+                     "labels": _spec((b, s), i32)}
+        elif cfg.family == "vlm":
+            p = cfg.num_patch_tokens
+            specs = {"tokens": _spec((b, s - p), i32),
+                     "patch_embeds": _spec((b, p, cfg.d_model), dt),
+                     "mrope_positions": _spec((b, s, 3), i32),
+                     "labels": _spec((b, s), i32)}
+        else:
+            specs = {"tokens": _spec((b, s), i32),
+                     "labels": _spec((b, s), i32)}
+        if shape.kind == "prefill":
+            specs.pop("labels")
+        return specs
+    if shape.kind == "mixed":
+        c = max(shape.chunk_len, 1)
+        return {"tokens": _spec((b, c), i32), "lengths": _spec((b,), i32),
+                "seg_lens": _spec((b,), i32)}
+    specs = {"tokens": _spec((b, 1), i32), "lengths": _spec((b,), i32)}
+    if cfg.family == "vlm":
+        specs["mrope_positions"] = _spec((b, 1, 3), i32)
+    return specs
+
+
+# ---------------------------------------------------------------------------
 # registry
 # ---------------------------------------------------------------------------
 
@@ -199,3 +267,7 @@ def get_config(arch: str) -> ModelConfig:
         raise ValueError(f"unknown arch {arch!r}; the port has {ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_mod}")
     return mod.CONFIG
+
+
+def all_configs() -> dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

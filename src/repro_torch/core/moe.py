@@ -4,7 +4,9 @@
 * ``dense_moe``    — every local expert computes every token (L_B);
 * ``dispatch_moe`` — fixed-capacity dispatch (L_R): drops above capacity,
                      pads below;
-* ``gather_moe``   — capacity-free per-token gather for small decode blocks.
+* ``gather_moe``   — capacity-free per-token gather for small decode blocks;
+* ``reference_moe`` — the exact per-token top-k MoE (no capacity drops),
+                     the tests' oracle.
 
 ``expert_ffn`` goes through ``kernels/ops.moe_ffn`` (the grouped expert
 FFN kernel on a CUDA tensor, its plain version on a CPU tensor, for raw or
@@ -166,3 +168,18 @@ def gather_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
     h = (F.silu(g) * u).to(x.dtype)
     y = torch.einsum("tkf,tkfd->tkd", h.float(), sel("w_down"))
     return torch.einsum("tk,tkd->td", w.float(), y).to(x.dtype)
+
+
+def reference_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
+                  top_w: torch.Tensor) -> torch.Tensor:
+    """Exact per-token top-k MoE with no capacity drop, in gather form (the
+    reference's single-device oracle): x (T, D), top_idx / top_w (T, K) ->
+    (T, D) in x's dtype.  g, u and y in fp32 on fp32 copies of the
+    operands, h rounded to x's dtype, the weighted sum in fp32."""
+    xf = x.float()
+    sel = lambda name: quant.materialize(experts[name][top_idx]).float()
+    g = torch.einsum("td,tkdf->tkf", xf, sel("w_gate"))
+    u = torch.einsum("td,tkdf->tkf", xf, sel("w_up"))
+    h = (F.silu(g) * u).to(x.dtype)
+    y = torch.einsum("tkf,tkfd->tkd", h.float(), sel("w_down"))
+    return torch.einsum("tk,tkd->td", top_w.float(), y).to(x.dtype)

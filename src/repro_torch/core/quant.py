@@ -258,6 +258,17 @@ def quantize_params(params: dict, cfg, *, inplace: bool = False) -> dict:
                          inplace=inplace)
 
 
+def dequantize_tree(tree: dict, dtype=None) -> dict:
+    """Every QuantTensor leaf of ``tree`` dense again (to ``dtype``,
+    default its own fp dtype); other leaves pass through.  Served as raw
+    fp params it is the fake-quant reference: it holds exactly the values
+    the quantized store dequantizes on the fly, so a quantized engine's
+    greedy tokens must be its argmaxes."""
+    return {k: dequantize_tree(v, dtype) if isinstance(v, dict)
+            else materialize(v, dtype) if isinstance(v, QuantTensor) else v
+            for k, v in tree.items()}
+
+
 def tree_bytes(tree: dict) -> int:
     """Bytes of a tree's tensors; a QuantTensor counts payload plus scales."""
     total = 0
