@@ -205,7 +205,9 @@ line):
                 musicgen-large (frame embeddings, sinusoidal positions) on
                 the card against the CPU from the same fp32 weights
                 (forward and loss within TOL, identical greedy tokens
-                through prefill and decode_step); then both at full width
+                through prefill and decode_step, the prefill's and every
+                decode step's logits within TOL of the CPU's step by
+                step); then both at full width
                 and depth in bf16 (28 and 48 layers), weights drawn on the
                 card: the leaves' bytes exactly the performance model's,
                 the forward and loss at B=2, S=2048 (28 / 48 flash
@@ -217,6 +219,27 @@ line):
                 decode_step (the engine refuses these families, as the
                 reference's fails on them), each stream held to the
                 forward of its own inputs (FORCED_SHARE_MAX).
+  14. families_mesh — the four other families on a (2, 2) mesh of four
+                rank processes on the one card (one spawn), budget 150 s,
+                at full width: recurrentgemma-2b (6 of 26 layers, B=1
+                S=4096), qwen2-vl-7b (4 of 28, B=2 S=2048), musicgen-large
+                (8 of 48) and mamba2-130m (all 24, fp32): each mesh
+                forward held to the one-device forward of the same
+                weights (computed while the ranks start up) by argmax
+                agreement and |logit delta| (FM_LOGIT_DELTA_MAX), flash
+                launched once per attention layer on every rank; then two
+                prompts served for 8 tokens on each rank's serve blocks
+                (vlm and audio through prefill and decode_step, hybrid and
+                ssm through the engine; every decode context-parallel),
+                the streams identical on every rank and each held to the
+                one-device forward of its own inputs (FORCED_SHARE_MAX;
+                mamba2 FP32_FORCED_SHARE_MAX).
+  Every paged serve through phase 5's ``serve_phase`` (phases 5, 5b, the
+  granite, DBRX, stablelm-12b, qwen3-0.6b, qwen2-72b and deepseek-67b
+  serves) holds its greedy streams to the forward of their own tokens
+  (``held_serve``: an MoE arch's traffic served again at capacity factor
+  8, where no token is dropped; int8 weights also against the forward of
+  their dequantized tree), under FORCED_SHARE_MAX.
   Then the kernels line: one JSON object per ported kernel entry, and the
   last line: {"ok": true, "device": {...}}.
 
@@ -228,6 +251,7 @@ import contextlib
 import gc
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -820,7 +844,14 @@ FLASH_CASES = [(2, 2048, 32, 4, 128, True, None),
                (2, 2048, 28, 4, 128, True, None),
                (2, 37, 28, 4, 128, True, None),
                (2, 2048, 32, 32, 64, True, None),
-               (2, 37, 32, 32, 64, True, None)]
+               (2, 37, 32, 32, 64, True, None),
+               # phase 14's ranks: qwen2-vl-7b's and musicgen-large's
+               # forwards at a row a rank; recurrentgemma-2b's heads on two
+               # "model" ranks (G=5 on its one kv head) at its B=1 S=4096
+               # window 2048
+               (1, 2048, 28, 4, 128, True, None),
+               (1, 2048, 32, 32, 64, True, None),
+               (1, 4096, 5, 1, 256, True, 2048)]
 
 
 def attended_pairs(s: int, causal: bool, window) -> int:
@@ -916,13 +947,19 @@ def traffic(vocab: int, n: int, sys_len: int, lo: int, hi: int, seed: int):
     return prompts + [prompts[0].copy()]
 
 
-def serve(engine, prompts, new_tokens: int):
+def serve_requests(engine, prompts, new_tokens: int) -> list:
+    """``prompts`` through ``engine`` to the end: the finished requests."""
     uids = [engine.submit(p, max_new_tokens=new_tokens) for p in prompts]
     engine.run_until_done()
     reqs = [engine._all[u] for u in uids]
     n_done = sum(r.done and r.status == "done" for r in reqs)
     check(n_done == len(reqs), f"only {n_done}/{len(reqs)} requests completed")
-    return [list(r.generated) for r in reqs]
+    return reqs
+
+
+def serve(engine, prompts, new_tokens: int):
+    return [list(r.generated) for r in serve_requests(engine, prompts,
+                                                      new_tokens)]
 
 
 # reduced configs: (weight_quant, kv_cache_dtype) -> the kernels its path
@@ -1202,9 +1239,10 @@ def serve_phase(torch, cfg, phase: str, want: tuple, t_phase: float,
     prompts = traffic(cfg.vocab_size, 6, 40, 48, 160, seed=0)
     ops.reset_launch_counts()
     t1 = time.perf_counter()
-    out = serve(eng, prompts, 16)
+    reqs = serve_requests(eng, prompts, 16)
     wall = time.perf_counter() - t1
     launches = ops.launch_counts()
+    out = [list(r.generated) for r in reqs]
     check(all(len(g) == 16 and max(g) < cfg.vocab_size and min(g) >= 0
               for g in out), "generated tokens out of range")
     check_path_kernels(launches, want, phase)
@@ -1213,6 +1251,9 @@ def serve_phase(torch, cfg, phase: str, want: tuple, t_phase: float,
     check(ps["cow_copies"] > 0, "no copy-on-write of a shared tail page")
     peak = torch.cuda.max_memory_allocated()
     check(peak < 80e9, f"peak allocation {peak / 1e9:.2f} GB")
+    t1 = time.perf_counter()
+    held = held_serve(torch, cfg, params, prompts, reqs, phase)
+    held["seconds"] = time.perf_counter() - t1
     tp, tt, ms = eng.throughput(), eng.ttft(), eng.memory_stats()
     row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
                weight_quant=cfg.weight_quant,
@@ -1228,7 +1269,7 @@ def serve_phase(torch, cfg, phase: str, want: tuple, t_phase: float,
                launches=launches, decode_steps=eng.stats["decode_steps"],
                prefix_hits=ps["prefix_hits"],
                prefix_hit_tokens=ps["prefix_hit_tokens"],
-               cow_copies=ps["cow_copies"],
+               cow_copies=ps["cow_copies"], held_to_forward=held,
                experts_per_node_2=eng.expected_experts_per_node(2),
                **standby_stats(torch, eng))
     extra = traffic(cfg.vocab_size, 2, 40, 48, 160, seed=3)
@@ -1873,8 +1914,92 @@ def forced_shares(torch, cfg, params, reqs, pad_to: int = 1) -> list:
 
 
 # the largest share (``forced_shares``) a greedy stream of phase 5c's
-# capacity-8 runs may reach
+# capacity-8 runs, and of every serve through ``serve_phase`` (bf16, and
+# int8 weights with an int8 KV cache), may reach
 FORCED_SHARE_MAX = 0.25
+
+
+class LayerDequant:
+    """A layer-stacked QuantTensor that dequantizes one layer when the
+    stack indexes it (``transformer._layer``): the forward of a tree of
+    these sees the dequantized tree's values layer by layer, with one
+    dense layer resident at a time."""
+
+    def __init__(self, qt):
+        self.qt = qt
+
+    def __getitem__(self, layer):
+        from repro_torch.core import quant
+        return quant.dequantize(self.qt[layer])
+
+
+def dequantized(torch, params: dict) -> tuple:
+    """(the fake-quant reference of ``params``: every QuantTensor dense in
+    its own dtype, how it was built).  ``quant.dequantize_tree`` where the
+    dense tree fits beside the quantized one with 8 GB to spare; else the
+    blocks as ``LayerDequant`` stacks (the values are the same)."""
+    from repro_torch.core import quant
+    dense = sum(math.prod(t.shape) * t.dtype.itemsize
+                for t in leaves(params) if isinstance(t, quant.QuantTensor))
+    free, _ = torch.cuda.mem_get_info()
+    if dense + 8e9 < free:
+        return quant.dequantize_tree(params), "dequantize_tree"
+
+    def wrap(tree):
+        return {k: wrap(v) if isinstance(v, dict)
+                else LayerDequant(v) if isinstance(v, quant.QuantTensor)
+                else v for k, v in tree.items()}
+    top = quant.dequantize_tree({k: v for k, v in params.items()
+                                 if k != "blocks"})
+    return dict(top, blocks=wrap(params["blocks"])), "layer_by_layer"
+
+
+def held_serve(torch, cfg, params, prompts, reqs, phase: str) -> dict:
+    """``serve_phase``'s streams held to the forward of their own tokens
+    (``held_shares``).  Where the MoE capacity can bind, a serve drops
+    other tokens than any forward does, so the streams held are those of
+    the same traffic served again on the same weights at capacity factor
+    8 (a new engine; phase 5c's setting), and the phase's own streams are
+    counted against them."""
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    if not cfg.is_moe:
+        return held_shares(torch, cfg, params, reqs, phase)
+    wide = cfg.replace(capacity_factor=8.0)
+    eng = ServingEngine(wide, EngineConfig(**SERVE_ENGINE), params=params,
+                        device="cuda")
+    wide_reqs = serve_requests(eng, prompts, 16)
+    del eng
+    out = held_shares(torch, wide, params, wide_reqs, phase)
+    out["capacity_factor"] = 8.0
+    out["streams_equal_to_the_phase"] = sum(
+        list(a.generated) == list(b.generated)
+        for a, b in zip(reqs, wide_reqs))
+    return out
+
+
+def held_shares(torch, cfg, params, reqs, phase: str) -> dict:
+    """A paged serve's greedy streams held to the forward of their own
+    tokens (``forced_shares``), the forward at capacity factor 8 (it drops
+    no token), under FORCED_SHARE_MAX: a quantized serve to the forward
+    of the weights it was served with and to the forward of their
+    dequantized tree (the reference's fake-quant gate; the forward has no
+    KV cache, so an int8 cache's rounding shows in the shares).  Returns
+    the shares by reference."""
+    ref = cfg.replace(capacity_factor=8.0)
+    out = {"served": forced_shares(torch, ref, params, reqs)}
+    if cfg.weight_quant != "none":
+        dense, how = dequantized(torch, params)
+        out["dequantized"] = forced_shares(
+            torch, ref.replace(weight_quant="none"), dense, reqs)
+        out["dequantized_by"] = how
+        del dense
+        torch.cuda.empty_cache()
+    out["bound"] = FORCED_SHARE_MAX
+    worst = max(max(v) for k, v in out.items()
+                if k in ("served", "dequantized"))
+    check(worst <= FORCED_SHARE_MAX, f"{phase}: a greedy stream strays from "
+          f"the forward of its own tokens (shares {out})")
+    return out
 
 
 def check_serve_resilience(torch, params, uncontended):
@@ -3476,21 +3601,34 @@ def mrope_positions(torch, cfg, b: int, text: int, dev):
 
 
 def modality_greedy(torch, model, params, batch, prompt_len: int,
-                    new_tokens: int):
+                    new_tokens: int, logits_out: list | None = None,
+                    mesh=None):
     """Greedy tokens (B, new_tokens) through ``prefill`` then
     ``decode_step`` over a contiguous cache of prompt_len + new_tokens;
-    qwen2-vl's decode positions continue the text's at (p, p, p)."""
+    qwen2-vl's decode positions continue the text's at (p, p, p).  Each
+    step's last-position logits (the prefill's, then each decode step's)
+    are appended to ``logits_out`` on the host, when it is given.  On a
+    serving ``mesh`` ``params`` are this rank's serve blocks and the
+    cache its share (context-parallel where ``use_cp_decode`` holds)."""
+    from repro_torch.models.attention import use_cp_decode
+    from repro_torch.models.transformer import attn_cache_len
     cfg = model.cfg
     b = next(iter(batch.values())).shape[0]
     dev = model.device
-    cache = model.init_cache(b, prompt_len + new_tokens)
+    cache_len = prompt_len + new_tokens
+    cache = model.init_cache(b, cache_len, mesh, seq_sharded=(
+        mesh is not None and use_cp_decode(cfg, mesh, attn_cache_len(
+            cfg, cache_len))))
+    ctx = cache_len if mesh is not None else None
     out = []
     with torch.no_grad():
-        logits = model.prefill(params, batch, cache)
+        logits = model.prefill(params, batch, cache, ctx, mesh=mesh)
         nxt = None
         if cfg.family == "vlm":
             nxt = int(batch["mrope_positions"][0, -1, 0]) + 1
         for i in range(new_tokens):
+            if logits_out is not None:
+                logits_out.append(logits[:, -1, :cfg.vocab_size].cpu())
             tok = logits[:, -1, :cfg.vocab_size].argmax(-1)
             out.append(tok)
             if i == new_tokens - 1:
@@ -3501,7 +3639,7 @@ def modality_greedy(torch, model, params, batch, prompt_len: int,
             if nxt is not None:
                 step["mrope_positions"] = torch.full(
                     (b, 1, 3), nxt + i, dtype=torch.int32, device=dev)
-            logits = model.decode_step(params, cache, step)
+            logits = model.decode_step(params, cache, step, ctx, mesh=mesh)
     return torch.stack(out, 1)
 
 
@@ -3536,8 +3674,11 @@ def modality_shares(torch, model, params, batch, tokens, gen) -> list:
 def check_modalities_reduced(torch, arch: str) -> dict:
     """The reduced config on the card against the CPU from the same fp32
     weights and inputs: forward and loss within TOL (the card's forward
-    launching flash once a layer), identical greedy tokens through
-    prefill and decode_step (which launch no kernel)."""
+    launching flash once a layer); through prefill and decode_step (which
+    launch no kernel) the prefill's and every decode step's logits within
+    TOL of the CPU's, step by step, and identical greedy tokens (musicgen's
+    reduced streams repeat one token, so the tokens alone would not see a
+    decode fault)."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels import ops
     from repro_torch.models.model import build_model
@@ -3559,12 +3700,17 @@ def check_modalities_reduced(torch, arch: str) -> dict:
             launches = ops.launch_counts()
             total, _ = model.loss(prm, dict(bt, labels=labels.to(dev)))
         ops.reset_launch_counts()
-        gen = modality_greedy(torch, model, prm, bt, p + text, 8)
+        steps = []
+        gen = modality_greedy(torch, model, prm, bt, p + text, 8, steps)
         sides.append(dict(logits=logits.cpu(), loss=float(total),
                           gen=gen.cpu().tolist(), launches=launches,
-                          serve_launches=ops.launch_counts()))
+                          serve_launches=ops.launch_counts(), steps=steps))
     cpu, card_ = sides
     err, _ = compare(card_["logits"], cpu["logits"], TOL["float32"])
+    check(len(card_["steps"]) == len(cpu["steps"]) == 8,
+          f"reduced {cfg.name}: {len(card_['steps'])} serve steps")
+    step_errs = [compare(g, w, TOL["float32"])[0]
+                 for g, w in zip(card_["steps"], cpu["steps"])]
     check(abs(card_["loss"] - cpu["loss"]) <= TOL["float32"] * (
         1 + abs(cpu["loss"])), f"reduced {cfg.name}: card loss "
           f"{card_['loss']} != CPU {cpu['loss']}")
@@ -3578,6 +3724,7 @@ def check_modalities_reduced(torch, arch: str) -> dict:
     row = dict(arch=cfg.name, family=cfg.family, dtype=cfg.dtype,
                logits_max_abs_err=err, loss=card_["loss"],
                cpu_loss=cpu["loss"], tolerance=TOL["float32"],
+               serve_step_max_abs_err=step_errs,
                tokens_identical=True, tokens=card_["gen"],
                launches=card_["launches"])
     emit("modalities_reduced", **row)
@@ -3661,6 +3808,305 @@ def check_modalities(torch, runs: dict) -> None:
          card=card())
     check(phase_s <= MODALITY_BUDGET_S, f"phase 13 took {phase_s:.1f} s of "
           f"its {MODALITY_BUDGET_S} s budget")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the other families on a mesh
+# ---------------------------------------------------------------------------
+
+FM_MESH = (2, 2)                 # (data, model)
+FM_SEED = 0
+# (arch, layers (None: all), B, S) of each family's mesh forward at full
+# width, its depth cut for the phase's budget: recurrentgemma-2b two
+# rec,rec,attn cycles at B=1 S=4096 (past its 2048-token window; B=1 does
+# not divide "data", so every rank runs the row), qwen2-vl-7b (1024
+# patches, then 1024 tokens), musicgen-large and mamba2-130m (all 24
+# layers, fp32) at B=2 S=2048, a row a rank
+FM_FORWARD = (("recurrentgemma_2b", 6, 1, 4096), ("qwen2_vl_7b", 4, 2, 2048),
+              ("musicgen_large", 8, 2, 2048), ("mamba2_130m", None, 2, 2048))
+# the serves: two prompts, 8 greedy tokens; vlm and audio through
+# prefill + decode_step (qwen2-vl's 1024 patches and 64 text tokens,
+# musicgen's 1024 frames), the stateful families through the two-program
+# engine on prompts of exactly prefill_len (recurrentgemma's 2048 fill
+# its ring, which the decode wraps); every cache length divides the
+# "model" axis, so every decode is context-parallel
+FM_NEW_TOKENS = 8
+FM_SERVE_PROMPT = {"qwen2_vl_7b": 64, "musicgen_large": 1024,
+                   "recurrentgemma_2b": 2048, "mamba2_130m": 256}
+# the mesh forward's logits held to the one-device forward's on a seeded
+# sample of vocabulary columns and at the one-device argmax: phase 9's
+# floors in bf16, fp32's rounding for mamba2
+FM_COLS = 1024
+FM_LOGIT_DELTA_MAX = {"bfloat16": 0.5, "float32": 1e-3}
+FM_BUDGET_S = 150.0
+FM_TIMEOUT_S = 600
+
+
+def fm_config(arch: str, layers=None):
+    cfg = full_config(arch, layers)
+    if cfg.family == "ssm":
+        cfg = cfg.replace(dtype="float32", param_dtype="float32")
+    return cfg
+
+
+def fm_inputs(torch, cfg, b: int, s: int, seed: int) -> tuple:
+    """A seeded batch of ``cfg``'s inputs over s positions on the card (no
+    labels), drawn alike on every process: tokens; qwen2-vl's patches,
+    text and M-RoPE positions (``modality_inputs``); musicgen's frames
+    N(0, 0.02^2), as the embedding's rows.  Returns (batch, the text
+    tokens or None)."""
+    if cfg.family == "vlm":
+        return modality_inputs(torch, cfg, {"embed": torch.empty(
+            0, device="cuda")}, b, s - cfg.num_patch_tokens, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    if cfg.family == "audio":
+        frames = torch.randn((b, s, cfg.d_model), generator=g,
+                             device="cuda") * 0.02
+        return {"frame_embeds": frames.to(cfg.torch_dtype)}, None
+    return {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=g,
+                                    device="cuda", dtype=torch.int32)}, None
+
+
+def fm_prompts(cfg, plen: int) -> list:
+    """The engine serves' two prompts of exactly ``plen`` tokens, sharing
+    a 40-token system prompt."""
+    return traffic(cfg.vocab_size, 3, 40, plen, plen, seed=5)[:2]
+
+
+def fm_reference(torch, arch: str, layers, b: int, s: int, tmp: str) -> dict:
+    """The one-device forward of the FM_SEED weights on the phase's inputs:
+    its argmax and top logit at every position and its logits at FM_COLS
+    seeded columns, saved under ``tmp`` (renamed into place: a rank waits
+    for the file)."""
+    from repro_torch.models.model import build_model
+    cfg = fm_config(arch, layers)
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(FM_SEED))
+    batch, _ = fm_inputs(torch, cfg, b, s, 1)
+    with torch.no_grad():
+        lg = model.forward(params, batch)[0][..., :cfg.vocab_size]
+        cols = torch.randperm(cfg.vocab_size, device="cuda", generator=(
+            torch.Generator(device="cuda").manual_seed(2)))[:FM_COLS]
+        ref = {"argmax": lg.argmax(-1), "top": lg.max(-1).values,
+               "cols": cols, "sampled": lg[..., cols]}
+    torch.save({k: v.cpu() for k, v in ref.items()}, f"{tmp}/{arch}.part")
+    Path(f"{tmp}/{arch}.part").rename(f"{tmp}/{arch}.pt")
+    del params, lg, ref
+    free_device(torch)
+    return {"reference_s": time.perf_counter() - t0}
+
+
+def _fm_rank(rank: int, world: int, store: str, tmp: str, q) -> None:
+    """A rank process of phase 14: puts (rank, results), or (rank, the
+    traceback) and exits non-zero."""
+    import traceback
+    try:
+        q.put((rank, fm_rank_work(rank, world, store, tmp)))
+    except BaseException:
+        q.put((rank, traceback.format_exc()))
+        raise
+
+
+def fm_rank_work(rank: int, world: int, store: str, tmp: str) -> dict:
+    import datetime
+    import os
+
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        raise RuntimeError("a phase-14 rank process without CUDA")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    from repro_torch.kernels import build
+    from repro_torch.launch import mesh as mesh_lib
+    build.library()                 # the parent's build, loaded
+    torch.zeros((), device="cuda")  # the rank's context
+    mesh_lib.init_ranks(rank, world, store,
+                        timeout=datetime.timedelta(seconds=FM_TIMEOUT_S))
+    mesh = mesh_lib.make_mesh(FM_MESH, ("data", "model"))
+    out = {arch: fm_rank_arch(torch, mesh, arch, layers, b, s, tmp)
+           for arch, layers, b, s in FM_FORWARD}
+    dist.barrier()
+    dist.destroy_process_group()
+    return out
+
+
+def fm_rank_arch(torch, mesh, arch: str, layers, b: int, s: int,
+                 tmp: str) -> dict:
+    """One family on this rank: the mesh forward of the FM_SEED weights
+    (whole, as ``init(gen, mesh)`` draws them for a family with no
+    experts) over its rows, held to the one-device reference; then the
+    serve on this rank's serve blocks (``init_serving``)."""
+    from repro_torch.core import expert_parallel
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = fm_config(arch, layers)
+    model = build_model(cfg, "cuda")
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(FM_SEED),
+                        mesh)
+    batch, _ = fm_inputs(torch, cfg, b, s, 1)
+    with torch.no_grad():
+        model.forward(params, batch, mesh)          # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        mesh.reset_counters()
+        t0 = time.perf_counter()
+        lg = model.forward(params, batch, mesh)[0][..., :cfg.vocab_size]
+        torch.cuda.synchronize()
+        out["forward_s"] = time.perf_counter() - t0
+        out["launches"] = ops.launch_counts()
+        out["forward_collective_s"] = dict(mesh.seconds)
+        rows = expert_parallel.batch_shard(mesh, b)[1]
+        out["rows"] = (rows.start, rows.stop)
+        path = Path(f"{tmp}/{arch}.pt")
+        deadline = time.monotonic() + FM_TIMEOUT_S
+        while not path.exists() and time.monotonic() < deadline:
+            time.sleep(0.2)
+        ref = {k: v.cuda()[rows] if k != "cols" else v.cuda()
+               for k, v in torch.load(path).items()}
+        out["argmax_agreement"] = float(
+            (lg.argmax(-1) == ref["argmax"]).float().mean())
+        out["max_abs_logit_delta"] = max(
+            float((lg[..., ref["cols"]] - ref["sampled"]).abs().max()),
+            float((lg.gather(-1, ref["argmax"][..., None])[..., 0]
+                   - ref["top"]).abs().max()))
+        out["forward_peak_allocated"] = torch.cuda.max_memory_allocated()
+        del lg, ref, params
+    free_device(torch)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(FM_SEED)
+    params = model.init_serving(gen, mesh)
+    plen = FM_SERVE_PROMPT[arch]
+    mesh.reset_counters()
+    t0 = time.perf_counter()
+    if cfg.family in ("vlm", "audio"):
+        p = cfg.num_patch_tokens if cfg.family == "vlm" else 0
+        batch, _ = fm_inputs(torch, cfg, 2, p + plen, 5)
+        streams = modality_greedy(torch, model, params, batch, p + plen,
+                                  FM_NEW_TOKENS, mesh=mesh).tolist()
+    else:
+        eng = ServingEngine(cfg, EngineConfig(
+            max_batch=2, prefill_len=plen, max_cache=plen + FM_NEW_TOKENS,
+            unified_step=False, paged=False), params=params, device="cuda",
+            mesh=mesh)
+        streams = serve(eng, fm_prompts(cfg, plen), FM_NEW_TOKENS)
+        out["cache_shapes"] = {k: tuple(v.shape) for k, v in (
+            eng.cache["rec"].items() if cfg.family == "hybrid"
+            else eng.cache.items())}
+        del eng
+    torch.cuda.synchronize()
+    out.update(serve_s=time.perf_counter() - t0, streams=streams,
+               serve_collective_s=dict(mesh.seconds),
+               serve_collective_bytes=dict(mesh.bytes),
+               serve_peak_allocated=torch.cuda.max_memory_allocated())
+    del params
+    free_device(torch)
+    return out
+
+
+def fm_shares(torch, arch: str, layers, streams) -> list:
+    """Each greedy stream of the mesh serve held to the one-device forward
+    of its own inputs on the whole FM_SEED weights (``forced_shares``, or
+    ``modality_shares`` for vlm and audio)."""
+    import types
+
+    from repro_torch.models.model import build_model
+    cfg = fm_config(arch, layers)
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(FM_SEED))
+    plen = FM_SERVE_PROMPT[arch]
+    gen = torch.as_tensor(streams, device="cuda")
+    if cfg.family in ("vlm", "audio"):
+        p = cfg.num_patch_tokens if cfg.family == "vlm" else 0
+        batch, tokens = fm_inputs(torch, cfg, 2, p + plen, 5)
+        shares = modality_shares(torch, model, params, batch, tokens, gen)
+    else:
+        prompts = fm_prompts(cfg, plen)
+        shares = forced_shares(torch, cfg, params, [
+            types.SimpleNamespace(prompt=np.asarray(pr, np.int32),
+                                  generated=g)
+            for pr, g in zip(prompts, streams)])
+    del params
+    free_device(torch)
+    return shares
+
+
+def check_families_mesh(torch, runs: dict) -> None:
+    """Phase 14: the four other families on a (2, 2) mesh of rank
+    processes on the one card (one spawn), at full width: each family's
+    mesh forward (every batch input cut to the rank's rows; recurrentgemma
+    at B=1 runs its row on every rank) held to the one-device forward of
+    the same weights (computed here while the ranks start up) by argmax
+    agreement (EP_PLAIN_ARGMAX_MIN) and the largest |logit delta| on
+    FM_COLS columns and at the argmax (FM_LOGIT_DELTA_MAX), flash launched
+    once per attention layer on every rank; then each family served on
+    the rank's serve blocks (vlm and audio through prefill and
+    decode_step, hybrid and ssm through the engine), every rank's streams
+    identical and each held to the one-device forward of its own inputs
+    (FORCED_SHARE_MAX; mamba2's fp32 FP32_FORCED_SHARE_MAX).  Fills
+    ``runs["fm_<arch>"]`` with the forward's launches summed over the
+    ranks."""
+    import tempfile
+    t_phase = time.perf_counter()
+    free_device(torch)
+    dev = card()
+    world = FM_MESH[0] * FM_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        group = RankGroup(_fm_rank, world, (f"{tmp}/store_fm", tmp))
+        try:
+            refs = {arch: fm_reference(torch, arch, layers, b, s, tmp)
+                    for arch, layers, b, s in FM_FORWARD}
+            res = group.collect(FM_TIMEOUT_S, "phase 14")
+        finally:
+            group.stop()
+        ranks = group.finished(res, "phase 14")
+    for arch, layers, b, s in FM_FORWARD:
+        cfg = fm_config(arch, layers)
+        recs = [r[arch] for r in ranks]
+        want = forward_kernels(cfg)
+        for r, rec in enumerate(recs):
+            check(_live(rec["launches"]) == want,
+                  f"phase 14 {arch} rank {r}: the forward launched "
+                  f"{rec['launches']}, expected {want}")
+            check(rec["argmax_agreement"] >= EP_PLAIN_ARGMAX_MIN,
+                  f"phase 14 {arch} rank {r}: argmax agreement "
+                  f"{rec['argmax_agreement']:.4f} with the one-device "
+                  f"forward < {EP_PLAIN_ARGMAX_MIN}")
+            check(rec["max_abs_logit_delta"] <= FM_LOGIT_DELTA_MAX[cfg.dtype],
+                  f"phase 14 {arch} rank {r}: |logit delta| "
+                  f"{rec['max_abs_logit_delta']:.3g} > "
+                  f"{FM_LOGIT_DELTA_MAX[cfg.dtype]}")
+            check(rec["streams"] == recs[0]["streams"],
+                  f"phase 14 {arch}: rank {r} streamed {rec['streams']}, "
+                  f"rank 0 {recs[0]['streams']}")
+            check(all(0 <= t < cfg.vocab_size for g in rec["streams"]
+                      for t in g) and all(len(g) == FM_NEW_TOKENS
+                                          for g in rec["streams"]),
+                  f"phase 14 {arch} rank {r}: streams {rec['streams']}")
+        shares = fm_shares(torch, arch, layers, recs[0]["streams"])
+        bound_ = (FP32_FORCED_SHARE_MAX if cfg.dtype == "float32"
+                  else FORCED_SHARE_MAX)
+        check(max(shares) <= bound_, f"phase 14 {arch}: a mesh stream strays "
+              f"from the one-device forward of its own inputs (shares "
+              f"{shares}, bound {bound_})")
+        runs[f"fm_{arch}"] = _summed(rec["launches"] for rec in recs)
+        emit(f"fm_{arch}", arch=cfg.name, family=cfg.family,
+             layers=cfg.num_layers, dtype=cfg.dtype, mesh=FM_MESH, B=b, S=s,
+             reference_s=refs[arch]["reference_s"],
+             per_rank=[{k: v for k, v in rec.items() if k != "streams"}
+                       for rec in recs],
+             streams=recs[0]["streams"], forced_shares=shares,
+             forced_share_max=bound_, card=dev)
+    phase_s = time.perf_counter() - t_phase
+    emit("families_mesh", seconds=phase_s, budget_s=FM_BUDGET_S, card=dev)
+    check(phase_s <= FM_BUDGET_S, f"phase 14 took {phase_s:.1f} s of its "
+          f"{FM_BUDGET_S} s budget")
 
 
 def _live(launches: dict) -> dict:
@@ -3819,6 +4265,15 @@ LINE = [
      "qwen2_vl_7b_forward"),
     ("flash_attention", dict(CAUSAL_2048, hd=64, Hq=32, Hkv=32),
      "musicgen_large_forward"),
+    # phase 14: each rank's flash in the four families' mesh forwards
+    # (launches summed over the four ranks): a row a rank, every head
+    ("flash_attention", dict(dtype="bfloat16", B=1, S=4096, causal=True,
+                             window=2048, hd=256, Hq=10),
+     "fm_recurrentgemma_2b"),
+    ("flash_attention", dict(CAUSAL_2048, hd=128, Hq=28, Hkv=4, B=1),
+     "fm_qwen2_vl_7b"),
+    ("flash_attention", dict(CAUSAL_2048, hd=64, Hq=32, Hkv=32, B=1),
+     "fm_musicgen_large"),
 ]
 
 
@@ -3927,6 +4382,7 @@ def main() -> int:
     check_train_mesh(torch, runs)
     check_families(torch, runs)
     check_modalities(torch, runs)
+    check_families_mesh(torch, runs)
     print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -6,9 +6,3 @@ it (nor ``jax``) and keeps its own copies of what it needs.  Entry points
 run on the card (``device="cuda"``) unless the caller asks for the CPU.
 """
 
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    """The error for a path of the reference that a later slice ports;
-    ``item`` names its entry in ROADMAP.md's queue A."""
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue A: "
-                               f"{item})")

@@ -152,7 +152,6 @@ def from_jax_params(tree: dict, cfg, device, mesh=None,
     if mode not in ("forward", "serve", "train"):
         raise ValueError(f"unknown mode {mode!r}; expected forward, serve "
                          f"or train")
-    sharding.check_no_mesh(cfg, mesh)
     if mesh is not None and mode != "forward":
         whole = from_jax_params(tree, cfg, "cpu")
         if mode == "serve":

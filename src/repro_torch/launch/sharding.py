@@ -51,7 +51,6 @@ import math
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import collectives
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.quant import QuantTensor
@@ -182,7 +181,31 @@ def params_pspec(cfg, mesh, params: dict, mode: str = "train") -> dict:
             if fsdp and _dim_ok(shape[2], mesh, "data"):
                 at["2"] = fsdp
             return sub(**at)
-        # norms, biases, scalars (the families the port has)
+        # mamba2 projections: over "data" only, in train mode
+        if name == "in_proj":                     # (L, D, Z) ragged out dim
+            return sub(**({"1": fsdp} if fsdp and _dim_ok(shape[1], mesh,
+                                                          "data") else {}))
+        if name == "out_proj":                    # (L, di, D)
+            return sub(**({"2": fsdp} if fsdp and _dim_ok(shape[2], mesh,
+                                                          "data") else {}))
+        # rg-lru: the channels over "model"
+        if name in ("in_x", "in_y"):              # (L, D, W)
+            at = {}
+            if fsdp and _dim_ok(shape[1], mesh, "data"):
+                at["1"] = fsdp
+            if _dim_ok(shape[2], mesh, tp):
+                at["2"] = tp
+            return sub(**at)
+        if name in ("gate_a", "gate_x"):          # (L, W, W)
+            return sub(**({"2": tp} if _dim_ok(shape[2], mesh, tp) else {}))
+        if name == "out":                         # (L, W, D)
+            at = {}
+            if _dim_ok(shape[1], mesh, tp):
+                at["1"] = tp
+            if fsdp and _dim_ok(shape[2], mesh, "data"):
+                at["2"] = fsdp
+            return sub(**at)
+        # norms, biases, conv kernels, Lambda, A_log, D, dt_bias, scalars
         return sub()
 
     return _walk(rule, params)
@@ -211,7 +234,8 @@ def cache_pspec(cfg, mesh, cache: dict) -> dict:
     """KV caches (L, B, S, Hkv, hd): batch over the data axes, plus one
     "model" dimension chosen by ``cfg.kv_cache_shard`` (``hd``: the head
     dim; ``seq``: the cache length; ``kv``: the kv heads when they divide
-    the axis; ``none``: batch only)."""
+    the axis; ``none``: batch only).  SSM and conv states (every other
+    leaf) are cut over the batch only."""
     ba = mesh_lib.batch_axes(mesh)
     nb = mesh_lib.axes_size(mesh, ba)
     mode = getattr(cfg, "kv_cache_shard", "hd")
@@ -356,19 +380,7 @@ class _Axes:
         self.axis_names, self.shape = axis_names, shape
 
 
-def check_no_mesh(cfg, mesh) -> None:
-    """Only the dense and moe families have a layout on a mesh so far.
-    ``serve_specs`` and ``train_specs`` hold it for every entry point that
-    lays the model out on a mesh; the rest (the mesh forward,
-    ``init_blocks``, the engine, the bridge's forward mode) call it
-    themselves."""
-    if mesh is not None and cfg.family not in ("dense", "moe"):
-        raise not_ported(f"the {cfg.family!r} family on a mesh",
-                         "other families on a mesh")
-
-
 def _mesh_key(cfg, mesh) -> tuple:
-    check_no_mesh(cfg, mesh)
     return (tuple(mesh.axis_names),
             tuple(mesh.shape[a] for a in mesh.axis_names))
 

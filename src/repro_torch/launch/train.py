@@ -25,7 +25,9 @@ metrics are the global ones, the same on every rank.
 The audio family trains on frame embeddings, as the reference's launcher
 feeds it: each step's ``frame_embeds`` are the rows ``embed[tokens %
 vocab_size]`` of the current table (already updated by the steps before),
-taken before the step, detached, in the compute dtype.  The vlm family
+taken before the step, detached, in the compute dtype; on a mesh, of the
+table gathered whole from the ranks' train blocks, as ``Model.loss``
+gathers the leaves outside the layers.  The vlm family
 needs ``patch_embeds``, which ``Pipeline`` batches do not carry: ``train``
 refuses it (the reference's launcher fails on that key at its first
 step); ``make_train_step`` takes a vlm batch with patches and M-RoPE
@@ -79,12 +81,17 @@ def make_train_step(model, ocfg: optim.OptimizerConfig, mesh=None):
     return train_step
 
 
-def audio_frames(cfg, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def audio_frames(cfg, params: dict, tokens: torch.Tensor,
+                 mesh=None) -> torch.Tensor:
     """The audio frontend stub's frame embeddings: the current embedding
     table's rows of ``tokens % vocab_size``, detached, in the compute
-    dtype."""
-    rows = params["embed"].detach()[tokens.long() % cfg.vocab_size]
-    return rows.to(cfg.torch_dtype)
+    dtype.  On a ``mesh`` ``params`` are this rank's train blocks, and
+    the rows come from the table gathered whole."""
+    table = params["embed"].detach()
+    if mesh is not None:
+        spec = {"embed": sharding.train_specs(cfg, mesh)["embed"]}
+        table = sharding.unshard_tree({"embed": table}, spec, mesh)["embed"]
+    return table[tokens.long() % cfg.vocab_size].to(cfg.torch_dtype)
 
 
 def train(cfg, *, steps: int, global_batch: int, seq_len: int, mesh=None,
@@ -120,7 +127,7 @@ def train(cfg, *, steps: int, global_batch: int, seq_len: int, mesh=None,
                  for k, v in pipe.next_batch().items()}
         if cfg.family == "audio":
             batch = {"frame_embeds": audio_frames(cfg, params,
-                                                  batch["tokens"]),
+                                                  batch["tokens"], mesh),
                      "labels": batch["labels"]}
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if step % log_every == 0 or step == steps - 1:

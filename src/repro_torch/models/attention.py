@@ -660,7 +660,7 @@ def use_cp_decode(cfg, mesh, cache_len: int) -> bool:
 
 def attn_decode_step_cp(p: dict, cfg, cache: dict, x: torch.Tensor,
                         lengths: torch.Tensor, window: int | None,
-                        tp: HeadTP) -> torch.Tensor:
+                        tp: HeadTP, mrope_positions=None) -> torch.Tensor:
     """Decode-time context parallelism (the reference's
     ``attn_decode_step_cp``): the contiguous cache is sequence-sharded
     over "model", (B, S / n, Hkv, hd) per rank, its block of every kv
@@ -671,13 +671,15 @@ def attn_decode_step_cp(p: dict, cfg, cache: dict, x: torch.Tensor,
     each rank attends its block, and the online-softmax statistics are
     merged with a pmax and two psums.  The output keeps this rank's q heads for a
     split ``wo`` (partial product, psum), or every head for a whole one.
+    ``mrope_positions`` (B, 1, 3): the new tokens' M-RoPE positions (vlm).
     x (B, 1, D) -> (B, 1, D)."""
     b = x.shape[0]
     n, c = tp.mesh.shape[TP_AXIS], tp.mesh.coords[TP_AXIS]
     s_loc = cache["k"].shape[1]
     cache_len = s_loc * n
     ring = window is not None and cache_len == window
-    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None], tp)
+    q, k_new, v_new = _project_qkv(p, cfg, x, lengths[:, None], tp,
+                                   mrope_positions)
     q = _all_heads(q, tp, tp.q_split)
     cut = tp.kv == "heads"
     k_new, v_new = _all_heads(k_new, tp, cut), _all_heads(v_new, tp, cut)

@@ -38,9 +38,14 @@ def conv_dim(cfg) -> int:
     return d_inner(cfg) + 2 * cfg.ssm_state
 
 
-def mamba_init(gen: torch.Generator, cfg, dtype, lead: tuple = ()) -> dict:
+def mamba_init(gen: torch.Generator, cfg, dtype, lead: tuple = (),
+               keep: dict | None = None) -> dict:
     """One SSD block's weights, stacked along ``lead`` (layers);
-    ``in_proj`` emits [z (di), xBC (dc), dt (h)]."""
+    ``in_proj`` emits [z (di), xBC (dc), dt (h)].  ``keep``: the block of
+    ``in_proj`` / ``out_proj`` to store (``layers.dense_init``; the train
+    layout cuts them over "data", the serve layout keeps the block
+    whole)."""
+    keep = keep or {}
     d = cfg.d_model
     di, h, n = d_inner(cfg), n_heads(cfg), cfg.ssm_state
     dc, k = conv_dim(cfg), cfg.ssm_dconv
@@ -49,7 +54,8 @@ def mamba_init(gen: torch.Generator, cfg, dtype, lead: tuple = ()) -> dict:
     a_log = torch.log(torch.linspace(1.0, 16.0, h, dtype=torch.float32,
                                      device=dev)).expand(lead + (h,))
     return {
-        "in_proj": layers.dense_init(gen, d, 2 * di + 2 * n + h, dtype, lead),
+        "in_proj": layers.dense_init(gen, d, 2 * di + 2 * n + h, dtype, lead,
+                                     keep.get("in_proj")),
         "conv_w": (torch.randn(lead + (k, dc), generator=gen, device=dev,
                                dtype=torch.float32) / math.sqrt(k)).to(dtype),
         "conv_b": torch.zeros(lead + (dc,), dtype=dtype, device=dev),
@@ -57,7 +63,8 @@ def mamba_init(gen: torch.Generator, cfg, dtype, lead: tuple = ()) -> dict:
         "D": full(1.0, torch.float32),
         "dt_bias": full(0.0, torch.float32),
         "norm": torch.ones(lead + (di,), dtype=dtype, device=dev),
-        "out_proj": layers.dense_init(gen, di, d, dtype, lead),
+        "out_proj": layers.dense_init(gen, di, d, dtype, lead,
+                                      keep.get("out_proj")),
     }
 
 

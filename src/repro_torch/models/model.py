@@ -32,12 +32,16 @@ the embeddings (``sinusoidal_embedding``; so does any config with
 ``positional="sinusoidal"``, in every entry point).  The stateful
 families (``hybrid``: RecurrentGemma's RG-LRU and local attention;
 ``ssm``: Mamba-2) run ``forward``, ``loss``, ``prefill`` and
-``decode_step`` on one device, their cache a tree of per-row states
+``decode_step``, their cache a tree of per-row states
 (``transformer.stack_cache_spec``).  As in the reference,
 ``forward_routed`` refuses all four (the token-input attention families
 alone have the unified step), and so the engine serves only the stateful
-ones, through the two-program reference path; every family but dense and
-moe refuses a mesh.
+ones, through the two-program reference path.  Every family runs on a
+mesh, as below: the forward and the loss over this rank's rows of every
+batch input (patches, frames and M-RoPE positions with the tokens), the
+cached steps in the serve layout (the vlm and audio dense blocks as the
+dense family's, the hybrid's RG-LRU by channels and its local attention
+by heads, the SSD block replicated).
 
 On a mesh (``launch/mesh.py``, one rank process per mesh position) the
 full-sequence forward runs the paper's expert-parallel schedules
@@ -245,16 +249,21 @@ class Model:
         return self.init(gen, keep=sharding.mode_slices(self.cfg, mesh,
                                                         "train"))
 
-    def _cache_heads(self, mesh) -> int | None:
-        return (transformer.serve_tp(self.cfg, mesh).attn.hkv
-                if mesh is not None else None)
+    def _cache_layout(self, mesh) -> dict:
+        """The kv heads and RG-LRU channels of this rank's caches on a
+        serving mesh (all of them by default)."""
+        if mesh is None:
+            return {"heads": None, "channels": None}
+        tp = transformer.serve_tp(self.cfg, mesh)
+        return {"heads": tp.attn.hkv if tp.attn is not None else None,
+                "channels": tp.rec.w if tp.rec is not None else None}
 
     def init_paged_cache(self, num_pages: int, page_size: int,
                          mesh=None) -> dict:
         """The page pool; on a serving mesh, of this rank's kv heads."""
         return transformer.init_paged_stack_cache(
             self.cfg, num_pages, page_size, self.cfg.torch_dtype, self.device,
-            self._cache_heads(mesh))
+            self._cache_layout(mesh)["heads"])
 
     def cache_specs(self, batch: int, cache_len: int) -> dict:
         return transformer.stack_cache_spec(self.cfg, batch, cache_len,
@@ -265,14 +274,16 @@ class Model:
         """The contiguous cache; on a serving mesh, of this rank's kv
         heads, or with ``seq_sharded`` (context-parallel decode, where
         ``attention.use_cp_decode`` holds) its sequence block of every kv
-        head."""
+        head; a hybrid's recurrent states of this rank's RG-LRU channels,
+        an ssm stack's states whole (its block is replicated)."""
+        lay = self._cache_layout(mesh)
         if seq_sharded:
             return transformer.init_stack_cache(
                 self.cfg, batch, cache_len, self.cfg.torch_dtype, self.device,
-                None, mesh.shape["model"])
+                None, mesh.shape["model"], lay["channels"])
         return transformer.init_stack_cache(
             self.cfg, batch, cache_len, self.cfg.torch_dtype, self.device,
-            self._cache_heads(mesh))
+            lay["heads"], channels=lay["channels"])
 
     def _serve_tp(self, mesh, context_len):
         """(the layout on a serving mesh or None, whether the contiguous
@@ -404,16 +415,15 @@ class Model:
         """Embedding, all layers and the final norm over a full sequence:
         (x (B, S, D), aux, routing (L, B*S, K) or None, the loss mask (B,
         S) or None: every position counts).  On a ``mesh``
-        the rows are this rank's batch block (``batch_shard``); with
-        ``block_specs`` (a training mesh) ``params["blocks"]`` are this
-        rank's train blocks under them."""
+        the rows of every batch input are this rank's batch block
+        (``batch_shard``); with ``block_specs`` (a training mesh)
+        ``params["blocks"]`` are this rank's train blocks under them."""
         cfg = self.cfg
         batch_axes = None
-        sharding.check_no_mesh(cfg, mesh)
         if mesh is not None:
             batch_axes, rows = expert_parallel.batch_shard(
-                mesh, batch["tokens"].shape[0])
-            batch = {"tokens": batch["tokens"][rows]}
+                mesh, _batch_size(batch))
+            batch = {k: v[rows] for k, v in batch.items()}
         x, positions, mrope, mask = _embed_inputs(cfg, params, batch)
         window = transformer.effective_window(cfg, x.shape[1])
         x, aux, routing = transformer.forward_stack(
@@ -480,8 +490,9 @@ class Model:
         rank's train blocks (``init_training``) and ``batch`` the global
         batch; the rank computes its rows (``batch_shard``), and the loss
         is the global one on every rank: the mean CE over the global batch
-        (this rank's CE sum and the row count summed over the data axes)
-        plus 0.01 x the mesh aux (each MoE layer's mean of per-shard aux,
+        (this rank's CE sum and the row count summed over the data axes;
+        vlm's masked CE sum and mask count, each summed so) plus 0.01 x
+        the mesh aux (each MoE layer's mean of per-shard aux,
         as the reference's ``shard_map`` takes it).  Differentiated, every
         gradient lands in this rank's blocks (``sharding.compute_view``).
         ``kernels=True`` on a mesh is the scoring loss: the flash and
@@ -500,13 +511,29 @@ class Model:
         params = dict(sharding.compute_view(
             top, {k: specs[k] for k in top}, mesh, axes),
             blocks=params["blocks"])
-        x, aux, _, _ = self._trunk(params, batch, kernels, mesh,
-                                   specs["blocks"])
-        ce = self._chunked_ce(params, x, batch["labels"][rows]).sum()
-        for a in axes:
-            ce = collectives.psum(ce, mesh, a)
-        ce = ce / batch["labels"].numel()
+        x, aux, _, mask = self._trunk(params, batch, kernels, mesh,
+                                      specs["blocks"])
+        ce = self._chunked_ce(params, x, batch["labels"][rows])
+        if mask is None:
+            ce = ce.sum()
+            for a in axes:
+                ce = collectives.psum(ce, mesh, a)
+            ce = ce / batch["labels"].numel()
+        else:
+            ce, count = (ce * mask).sum(), mask.sum()
+            for a in axes:
+                ce = collectives.psum(ce, mesh, a)
+                count = collectives.psum(count, mesh, a)
+            ce = ce / count.clamp(min=1.0)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+def _batch_size(batch: dict) -> int:
+    """The rows of a full-sequence batch (its text, frames or labels)."""
+    for k in ("tokens", "frame_embeds", "patch_embeds", "labels"):
+        if k in batch:
+            return batch[k].shape[0]
+    raise ValueError(f"a batch of {sorted(batch)} has no row input")
 
 
 def _attn_cache_len(cfg, cache: dict) -> int | None:

@@ -11,7 +11,11 @@ contiguous cache (``unified_stack``), the cache-free full-sequence forward
 (``forward_stack``), and the two-program reference engine's padded
 prefill and one-token decode (``prefill_stack``, ``decode_stack``).  The
 stateful families take the last three only (``_ssm_block``,
-``_hybrid_block``), on one device.
+``_hybrid_block``), on one device or a mesh: the forward over this rank's
+rows (on a training mesh with each layer's weights gathered), the cached
+steps tensor-parallel over "model" in the serve layout (the hybrid's
+RG-LRU channels and local attention heads split, the SSD block
+replicated).
 
 Parameters are stacked along a leading layer axis, as in the reference.
 Where the reference runs the stack under ``jax.lax.scan`` with the whole
@@ -22,7 +26,6 @@ cache in place: PyTorch needs no donation for that.
 from __future__ import annotations
 
 import dataclasses
-import functools
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -87,22 +90,27 @@ def _dense_layer_init(cfg, gen: torch.Generator, dtype, keep=None) -> dict:
     }
 
 
-def _ssm_layer_init(cfg, gen: torch.Generator, dtype) -> dict:
+def _ssm_layer_init(cfg, gen: torch.Generator, dtype, keep=None) -> dict:
     L = cfg.num_layers
+    keep = keep or {}
     return {"ln": layers.norm_init(cfg.norm, cfg.d_model, dtype, gen.device,
                                    (L,)),
-            "mamba": mamba2.mamba_init(gen, cfg, dtype, (L,))}
+            "mamba": mamba2.mamba_init(gen, cfg, dtype, (L,),
+                                       keep.get("mamba"))}
 
 
 def _hybrid_layer_init(cfg, gen: torch.Generator, dtype, kind: str,
-                       n: int) -> dict:
-    """``n`` layers of one kind, stacked."""
+                       n: int, keep=None) -> dict:
+    """``n`` layers of one kind, stacked; ``keep``: their blocks."""
     d = cfg.d_model
     norm = lambda: layers.norm_init(cfg.norm, d, dtype, gen.device, (n,))
-    mix = (rglru.rglru_init(gen, cfg, dtype, (n,)) if kind == "rec"
-           else attention.attn_init(gen, cfg, dtype, (n,)))
+    keep = keep or {}
+    mix = (rglru.rglru_init(gen, cfg, dtype, (n,), keep.get("mix"))
+           if kind == "rec"
+           else attention.attn_init(gen, cfg, dtype, (n,), keep.get("mix")))
     return {"ln1": norm(), "ln2": norm(),
-            "mlp": layers.mlp_init(gen, d, cfg.d_ff, dtype, (n,)),
+            "mlp": layers.mlp_init(gen, d, cfg.d_ff, dtype, (n,),
+                                   keep.get("mlp")),
             "mix": mix}
 
 
@@ -129,18 +137,19 @@ def init_blocks(cfg, gen: torch.Generator, mesh=None, keep=None) -> dict:
     stack is {"rec": its recurrent layers, "attn": its attention layers
     (at least one)}, each stacked."""
     check_family(cfg)
-    sharding.check_no_mesh(cfg, mesh)
     dtype = cfg.param_torch_dtype
+    keep = keep or {}
     if cfg.family == "moe":
         return _moe_layer_init(cfg, gen, dtype, mesh, keep)
     if cfg.family == "ssm":
-        return _ssm_layer_init(cfg, gen, dtype)
+        return _ssm_layer_init(cfg, gen, dtype, keep)
     if cfg.family == "hybrid":
         pat = hybrid_pattern(cfg)
         return {"rec": _hybrid_layer_init(cfg, gen, dtype, "rec",
-                                          pat.count("rec")),
+                                          pat.count("rec"), keep.get("rec")),
                 "attn": _hybrid_layer_init(cfg, gen, dtype, "attn",
-                                           max(pat.count("attn"), 1))}
+                                           max(pat.count("attn"), 1),
+                                           keep.get("attn"))}
     return _dense_layer_init(cfg, gen, dtype, keep)
 
 
@@ -149,18 +158,28 @@ class ServeTP:
     """A serving mesh's layout of the model on this rank, read from the
     serve-mode specs (``launch/sharding.serve_specs``): the embedding by
     vocabulary rows (``embed``), the LM head by vocabulary columns
-    (``head``), each attention layer's heads (``attention.HeadTP``), the
-    dense MLP's F split in W_gate / W_up and in W_down (``mlp``); the
-    experts are the rank's rows and the MoE layer runs
-    ``cfg.expert_parallel`` with no batch axes (every rank holds the
-    whole batch: the page pool shares prefix pages across rows), planning
-    the capacity of each data block of rows apart, as the reference's
-    ``shard_map`` does (``expert_parallel.moe_layer``'s ``row_blocks``)."""
+    (``head``), each attention layer's heads (``attention.HeadTP``; None
+    for the ssm family), the dense MLP's F split in W_gate / W_up and in
+    W_down (``mlp``: the dense, vlm and audio families and both layer
+    kinds of the hybrid), the hybrid's RG-LRU channels
+    (``rglru.ChannelTP``, ``rec``; None where whole); the experts are the
+    rank's rows and the MoE layer runs ``cfg.expert_parallel`` with no
+    batch axes (every rank holds the whole batch: the page pool shares
+    prefix pages across rows), planning the capacity of each data block
+    of rows apart, as the reference's ``shard_map`` does
+    (``expert_parallel.moe_layer``'s ``row_blocks``).  The ssm family's
+    SSD block is replicated, as the reference's serve rules leave it."""
     mesh: object
     embed: bool
     head: bool
-    attn: attention.HeadTP
+    attn: attention.HeadTP | None
     mlp: tuple | None
+    rec: rglru.ChannelTP | None = None
+
+
+def _mlp_tp(mesh, spec: dict) -> tuple:
+    return (mesh, sharding.split(spec["w_gate"], -1),
+            sharding.split(spec["w_down"], -2))
 
 
 def serve_tp(cfg, mesh) -> ServeTP:
@@ -168,11 +187,19 @@ def serve_tp(cfg, mesh) -> ServeTP:
     blocks = specs["blocks"]
     head = (sharding.split(specs["embed"], 0) if cfg.tie_embeddings
             else sharding.split(specs["lm_head"], -1))
-    mlp = None
-    if cfg.family == "dense":
-        mlp = (mesh, sharding.split(blocks["mlp"]["w_gate"], -1),
-               sharding.split(blocks["mlp"]["w_down"], -2))
-    return ServeTP(mesh, sharding.split(specs["embed"], 0), head,
+    embed = sharding.split(specs["embed"], 0)
+    if cfg.family == "ssm":
+        return ServeTP(mesh, embed, head, None, None)
+    if cfg.family == "hybrid":
+        # both layer kinds' MLPs have one shape, so one split
+        return ServeTP(mesh, embed, head, attention.head_tp(
+            cfg, mesh, blocks["attn"]["mix"]),
+            _mlp_tp(mesh, blocks["rec"]["mlp"]),
+            rglru.channel_tp(cfg, mesh, blocks["rec"]["mix"]))
+    mlp = (_mlp_tp(mesh, blocks["mlp"]) if cfg.family in ("dense", "vlm",
+                                                           "audio")
+           else None)
+    return ServeTP(mesh, embed, head,
                    attention.head_tp(cfg, mesh, blocks["attn"]), mlp)
 
 
@@ -218,7 +245,7 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
                                       mrope_pos)
     elif decode and cp:
         h = attention.attn_decode_step_cp(ap, cfg, cache_l, h, positions,
-                                          window, at)
+                                          window, at, mrope_pos)
     elif decode:
         h = attention.attn_decode_step(ap, cfg, cache_l, h, positions, window,
                                        at, mrope_pos)
@@ -269,14 +296,16 @@ def _stacked(n: int, per: dict) -> dict:
 
 
 def stack_cache_spec(cfg, batch: int, cache_len: int, dtype,
-                     heads: int | None = None, seq_shards: int = 1):
+                     heads: int | None = None, seq_shards: int = 1,
+                     channels: int | None = None):
     """Stacked contiguous cache: {"k", "v"} -> ((L, B, S, Hkv, hd), dtype)
     (+ int8 scales (L, B, S, Hkv, 1) fp32); ``heads`` kv heads (all by
     default) and S = cache_len / ``seq_shards`` (a sequence block).  As in
     the reference the cache is clipped to the effective window, which
     makes it a ring buffer.  ssm: {"conv", "ssm"} per layer; hybrid:
-    {"rec": {"conv", "h"}, "attn": the attention cache of
-    min(cache_len, window) slots}, each stacked over its layers.  The
+    {"rec": {"conv", "h"} of ``channels`` channels (all W by default),
+    "attn": the attention cache of min(cache_len, window) slots (``heads``
+    and ``seq_shards`` as above)}, each stacked over its layers.  The
     batch axis is 1 in every leaf."""
     check_family(cfg)
     if cfg.family == "ssm":
@@ -285,10 +314,10 @@ def stack_cache_spec(cfg, batch: int, cache_len: int, dtype,
     if cfg.family == "hybrid":
         pat = hybrid_pattern(cfg)
         attn_len = min(cache_len, cfg.sliding_window or cache_len)
-        return {"rec": _stacked(pat.count("rec"),
-                                rglru.rglru_cache_spec(cfg, batch, dtype)),
+        return {"rec": _stacked(pat.count("rec"), rglru.rglru_cache_spec(
+                    cfg, batch, dtype, channels)),
                 "attn": _stacked(pat.count("attn"), attention.layer_cache_spec(
-                    cfg, batch, attn_len, dtype))}
+                    cfg, batch, attn_len // seq_shards, dtype, heads))}
     return _stacked(cfg.num_layers, attention.layer_cache_spec(
         cfg, batch, attn_cache_len(cfg, cache_len) // seq_shards, dtype,
         heads))
@@ -308,9 +337,10 @@ def _zeros(spec: dict, device) -> dict:
 
 
 def init_stack_cache(cfg, batch: int, cache_len: int, dtype, device,
-                     heads: int | None = None, seq_shards: int = 1) -> dict:
+                     heads: int | None = None, seq_shards: int = 1,
+                     channels: int | None = None) -> dict:
     return _zeros(stack_cache_spec(cfg, batch, cache_len, dtype, heads,
-                                   seq_shards), device)
+                                   seq_shards, channels), device)
 
 
 def effective_window(cfg, seq_len: int) -> int | None:
@@ -359,8 +389,8 @@ def forward_stack(cfg, blocks, x, positions, window, kernels=True,
     b, s, _ = x.shape
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family in ("hybrid", "ssm"):
-        return _forward_families(cfg, blocks, x, positions, kernels), aux, \
-            None
+        return _forward_families(cfg, blocks, x, positions, kernels, mesh,
+                                 batch_axes, specs), aux, None
     routing = (torch.empty((cfg.num_layers, b * s, cfg.experts_per_token),
                            dtype=torch.int32, device=x.device)
                if cfg.family == "moe" else None)
@@ -385,7 +415,7 @@ def forward_stack(cfg, blocks, x, positions, window, kernels=True,
 
 
 # ---------------------------------------------------------------------------
-# the stateful families (ssm, hybrid): one device, the reference engine
+# the stateful families (ssm, hybrid): the forward and the reference engine
 # ---------------------------------------------------------------------------
 
 def _write_state(cache_l: dict, new: dict, rows) -> None:
@@ -402,7 +432,9 @@ def _write_state(cache_l: dict, new: dict, rows) -> None:
 
 def _ssm_block(cfg, layer_p, x, cache_l=None, decode=False, rows=None):
     """Norm and the SSD block, residual added.  With ``cache_l``: the
-    decode step or the prefill, its final state written IN PLACE."""
+    decode step or the prefill, its final state written IN PLACE.  The
+    block is replicated on a serving mesh (the reference's serve rules
+    cut none of its weights), so every rank runs it whole."""
     h = layers.norm_apply(cfg.norm, layer_p["ln"], x)
     if cache_l is None:
         return x + mamba2.mamba_forward(layer_p["mamba"], cfg, h)
@@ -416,63 +448,97 @@ def _ssm_block(cfg, layer_p, x, cache_l=None, decode=False, rows=None):
 
 
 def _hybrid_block(cfg, layer_p, kind, x, positions, cache_l=None,
-                  decode=False, rows=None, kernels=True):
+                  decode=False, rows=None, kernels=True, tp=None, cp=False):
     """Norm, the RG-LRU block or local attention (always the config's
     sliding window), residual, then norm, MLP, residual.  With ``cache_l``:
     the decode step (``positions`` are then the lengths) or the prefill;
     the recurrent state is written IN PLACE (the prefill starts from the
     cached one, as the reference's does), the attention cache by the
-    attention steps.  ``kernels=False``: through no kernel."""
+    attention steps.  ``kernels=False``: through no kernel.  On a serving
+    mesh (``tp``, a ``ServeTP``) the RG-LRU runs this rank's channels,
+    the attention its heads (``cp``: the attention cache is
+    sequence-sharded and the decode is context-parallel), the MLP its
+    columns of F."""
     h = layers.norm_apply(cfg.norm, layer_p["ln1"], x)
     mp, w = layer_p["mix"], cfg.sliding_window
+    rec = tp.rec if tp is not None else None
+    at = tp.attn if tp is not None else None
     if kind == "rec":
         if cache_l is None:
             h = rglru.rglru_forward(mp, cfg, h)
         else:
-            step = (rglru.rglru_decode_step(mp, cfg, cache_l, h) if decode
-                    else rglru.rglru_forward(mp, cfg, h, state=cache_l))
+            step = (rglru.rglru_decode_step(mp, cfg, cache_l, h, rec)
+                    if decode
+                    else rglru.rglru_forward(mp, cfg, h, cache_l, rec))
             h = step[0]
             _write_state(cache_l, step[1], rows)
     elif cache_l is None:
         h = attention.attn_forward(mp, cfg, h, positions, w, kernels)
+    elif decode and cp:
+        h = attention.attn_decode_step_cp(mp, cfg, cache_l, h, positions, w,
+                                          at)
     elif decode:
-        h = attention.attn_decode_step(mp, cfg, cache_l, h, positions, w)
+        h = attention.attn_decode_step(mp, cfg, cache_l, h, positions, w, at)
     else:
-        h = attention.attn_prefill(mp, cfg, cache_l, h, positions, w, rows)
+        h = attention.attn_prefill(mp, cfg, cache_l, h, positions, w, rows,
+                                   at, cp)
     x = x + h
     h = layers.norm_apply(cfg.norm, layer_p["ln2"], x)
-    return x + layers.mlp_apply(layer_p["mlp"], h, cfg.act)
+    return x + layers.mlp_apply(layer_p["mlp"], h, cfg.act,
+                                tp.mlp if tp is not None else None)
 
 
-def _family_layers(cfg, blocks, positions, kernels=True, cache=None):
-    """(the layer's block as a function of x, its cache slice or None) for
-    every layer of a stateful stack, in order."""
+def _family_layers(cfg, blocks, cache=None, specs=None):
+    """(kind, the layer's parameters, its cache slice or None, its layer
+    spec or None) for every layer of a stateful stack, in order (an ssm
+    layer's kind is "ssm")."""
     if cfg.family == "ssm":
+        sp = sharding.layer_spec(specs) if specs is not None else None
         for l in range(cfg.num_layers):
-            yield (functools.partial(_ssm_block, cfg, _layer(blocks, l)),
-                   None if cache is None else _layer(cache, l))
+            yield ("ssm", _layer(blocks, l),
+                   None if cache is None else _layer(cache, l), sp)
         return
     idx = {"rec": 0, "attn": 0}
+    sps = ({k: sharding.layer_spec(specs[k]) for k in idx}
+           if specs is not None else dict.fromkeys(idx))
     for kind in hybrid_pattern(cfg):
         i = idx[kind]
         idx[kind] += 1
-        yield (functools.partial(_hybrid_block, cfg, _layer(blocks[kind], i),
-                                 kind, positions=positions, kernels=kernels),
-               None if cache is None else _layer(cache[kind], i))
+        yield (kind, _layer(blocks[kind], i),
+               None if cache is None else _layer(cache[kind], i), sps[kind])
 
 
-def _forward_families(cfg, blocks, x, positions, kernels):
+def _family_block(cfg, kind, lp, x, positions, cache_l=None, decode=False,
+                  rows=None, kernels=True, tp=None, cp=False):
+    if kind == "ssm":
+        return _ssm_block(cfg, lp, x, cache_l, decode, rows)
+    return _hybrid_block(cfg, lp, kind, x, positions, cache_l, decode, rows,
+                         kernels, tp, cp)
+
+
+def _forward_families(cfg, blocks, x, positions, kernels, mesh=None,
+                      batch_axes=None, specs=None):
     """The cache-free forward of a stateful stack, each layer under
-    ``torch.utils.checkpoint`` when ``cfg.remat`` is set."""
-    for fn, _ in _family_layers(cfg, blocks, positions, kernels):
-        x = checkpoint(fn, x, use_reentrant=False) if cfg.remat else fn(x)
+    ``torch.utils.checkpoint`` when ``cfg.remat`` is set.  On a mesh ``x``
+    is this rank's rows; on a training mesh (``specs``) each layer's
+    weights are gathered for that layer (``sharding.compute_view``)."""
+    for kind, lp, _, sp in _family_layers(cfg, blocks, specs=specs):
+        def block(xx, lp, kind=kind, sp=sp):
+            if sp is not None:
+                lp = sharding.compute_view(lp, sp, mesh, batch_axes)
+            return _family_block(cfg, kind, lp, xx, positions,
+                                 kernels=kernels)
+        x = (checkpoint(block, x, lp, use_reentrant=False) if cfg.remat
+             else block(x, lp))
     return x
 
 
-def _cached_families(cfg, blocks, x, cache, positions, decode, rows):
+def _cached_families(cfg, blocks, x, cache, positions, decode, rows,
+                     tp=None, cp=False):
     """Every layer of a stateful stack over ``cache`` (written IN PLACE)."""
-    for fn, cl in _family_layers(cfg, blocks, positions, cache=cache):
-        x = fn(x, cache_l=cl, decode=decode, rows=rows)
+    for kind, lp, cl, _ in _family_layers(cfg, blocks, cache=cache):
+        x = _family_block(cfg, kind, lp, x, positions, cache_l=cl,
+                          decode=decode, rows=rows, tp=tp, cp=cp)
     return x, None
 
 
@@ -516,7 +582,7 @@ def prefill_stack(cfg, blocks, x, positions, cache, window, token_mask=None,
     None)."""
     if cfg.family in ("hybrid", "ssm"):
         return _cached_families(cfg, blocks, x, cache, positions, False,
-                                rows)
+                                rows, tp, cp)
     return _cached_stack(cfg, blocks, x, cache, positions=positions,
                          window=window, token_mask=token_mask, rows=rows,
                          tp=tp, cp=cp, mrope_pos=mrope_pos)
@@ -528,7 +594,8 @@ def decode_stack(cfg, blocks, x, lengths, cache, window, token_mask=None,
     ``lengths`` (M-RoPE: ``mrope_pos`` (B, 1, 3)), written IN PLACE into
     the contiguous cache.  Returns (x, routing (L, B, K) or None)."""
     if cfg.family in ("hybrid", "ssm"):
-        return _cached_families(cfg, blocks, x, cache, lengths, True, None)
+        return _cached_families(cfg, blocks, x, cache, lengths, True, None,
+                                tp, cp)
     return _cached_stack(cfg, blocks, x, cache, positions=lengths,
                          window=window, decode=True, token_mask=token_mask,
                          tp=tp, cp=cp, mrope_pos=mrope_pos)

@@ -67,15 +67,18 @@ the contiguous cache is a ring, which takes width-1 blocks only, and the
 runs the two-program path for both (``self.unified`` is False) and
 refuses the paged pool.  Their cache is a tree of per-row states
 (``{"conv", "ssm"}``, or ``{"rec": {"conv", "h"}, "attn": {"k",
-"v"}}``), the batch axis 1 in every leaf.  The stateful families do not
-serve on a mesh in this slice (ROADMAP queue A: other families on a
-mesh).
+"v"}}``), the batch axis 1 in every leaf.  On a mesh they serve through
+the same path in the serve layout: the hybrid's recurrent states hold
+this rank's RG-LRU channels and its attention cache its kv heads or, where
+``use_cp_decode`` holds, its sequence block (context-parallel decode);
+the ssm states are whole (its block is replicated).
 
-The vlm and audio families are refused: their prefill needs the batch's
-``patch_embeds`` or ``frame_embeds``, which no engine path supplies (the
-reference's gives them the two-program path, whose prefill passes only
-the tokens, and its first step fails on that key).  They serve through
-``Model.prefill`` and ``Model.decode_step`` directly.
+The vlm and audio families are refused, on one device and on a mesh:
+their prefill needs the batch's ``patch_embeds`` or ``frame_embeds``,
+which no engine path supplies (the reference's gives them the two-program
+path, whose prefill passes only the tokens, and its first step fails on
+that key).  They serve through ``Model.prefill`` and ``Model.decode_step``
+directly, on a mesh too.
 """
 from __future__ import annotations
 
@@ -88,7 +91,6 @@ import torch
 
 from repro_torch.core import collectives, quant
 from repro_torch.core.dynamic_load import LRUExpertTracker
-from repro_torch.launch.sharding import check_no_mesh
 from repro_torch.models.attention import use_cp_decode
 from repro_torch.models.model import build_model, resolve_device
 from repro_torch.models.transformer import attn_cache_len, effective_window
@@ -228,7 +230,6 @@ class ServingEngine:
                 f"chunk_len must be >= 1 and token_budget >= 0, got "
                 f"chunk_len={ecfg.chunk_len} "
                 f"token_budget={ecfg.token_budget}")
-        check_no_mesh(cfg_model, mesh)
         unified = ecfg.unified_step and not reference_only(cfg_model,
                                                            ecfg.max_cache)
         if ecfg.paged and not unified:

@@ -261,32 +261,41 @@ def test_out_of_slice_options_raise(case):
     assert _serve(peng, traffic) == _serve(jeng, traffic)
 
 
-def test_out_of_slice_requests_raise():
-    """The stateful families do not run on a mesh in this slice: the
-    engine, the mesh inits, the mesh forward and the cache on a mesh
-    raise before any collective."""
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "mamba2_130m"])
+def test_stateful_families_lay_out_on_a_mesh(arch):
+    """The stateful families take a mesh (a stand-in with one rank's
+    coordinates; nothing here runs a collective): ``init_serving`` keeps
+    the rank's serve blocks of the whole draw, ``init_training`` its train
+    blocks, and the engine's cache holds the hybrid's RG-LRU channels of
+    the rank and its attention ring's sequence block (context-parallel
+    decode), the ssm states whole."""
     import types
 
+    from repro_torch.ckpt import io as ckpt
+    from repro_torch.launch import sharding
     from repro_torch.models.model import build_model
     mesh = types.SimpleNamespace(axis_names=("data", "model"),
                                  shape={"data": 1, "model": 2},
-                                 coords={"data": 0, "model": 0})
-    for arch in ("recurrentgemma_2b", "mamba2_130m"):
-        cfg = get_config(arch).reduced()
-        model = build_model(cfg, "cpu")
-        calls = (
-            lambda: ServingEngine(cfg, EngineConfig(paged=False),
-                                  device="cpu", mesh=mesh),
-            lambda: model.init_serving(None, mesh),
-            lambda: model.init_training(None, mesh),
-            lambda: model.forward({}, {"tokens": torch.zeros((2, 4),
-                                                             dtype=torch.int32)},
-                                  mesh),
-            lambda: model.init_cache(2, 8, mesh))
-        for call in calls:
-            with pytest.raises(NotImplementedError,
-                               match="other families on a mesh"):
-                call()
+                                 coords={"data": 0, "model": 1})
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg, "cpu")
+    whole = model.init(torch.Generator().manual_seed(2))
+    for mode, init in (("serve", model.init_serving),
+                       ("train", model.init_training)):
+        want = sharding.shard_tree(whole, sharding.mode_specs(cfg, mesh, mode),
+                                   mesh)
+        got = ckpt.flatten_tree(init(torch.Generator().manual_seed(2), mesh))
+        want = ckpt.flatten_tree(want)
+        assert got.keys() == want.keys()
+        for k, w in want.items():
+            assert torch.equal(got[k], w), (mode, k)
+    cache = model.init_cache(2, 96, mesh, seq_sharded=True)
+    if arch == "recurrentgemma_2b":
+        assert cache["rec"]["h"].shape == (2, 2, cfg.lru_width // 2)
+        assert cache["attn"]["k"].shape == (1, 2, cfg.sliding_window // 2,
+                                            cfg.num_kv_heads, cfg.head_dim)
+    else:
+        assert cache["ssm"].shape[:2] == (cfg.num_layers, 2)
 
 
 def test_expert_replication_matches_reference():

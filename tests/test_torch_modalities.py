@@ -378,22 +378,16 @@ def test_forward_routed_is_refused_as_the_reference_refuses_it(arch):
         model.forward_routed(_params(a), tb, model.init_cache(1, 4))
 
 
-def test_a_mesh_is_refused():
-    """Only the dense and moe families have a layout on a mesh so far
-    (ROADMAP queue A: other families on a mesh)."""
+@pytest.mark.parametrize("arch", MODALITY_ARCHS)
+def test_engine_on_a_mesh_refuses_where_the_reference_fails(arch):
+    """On a mesh too the engine refuses these families with the
+    ``ValueError`` naming the prefill's input (C3: the reference's engine
+    fails on that key), before it draws a weight or runs a collective;
+    they serve on a mesh through ``prefill`` and ``decode_step``
+    (``tests/test_torch_families_mesh.py``)."""
     mesh = types.SimpleNamespace(axis_names=("data", "model"),
                                  shape={"data": 1, "model": 2},
                                  coords={"data": 0, "model": 0})
-    for arch in MODALITY_ARCHS:
-        cfg = _arch(arch).cfg
-        model = model_mod.build_model(cfg, "cpu")
-        calls = (lambda: sharding.check_no_mesh(cfg, mesh),
-                 lambda: ServingEngine(cfg, EngineConfig(paged=False),
-                                       device="cpu", mesh=mesh),
-                 lambda: model.init_serving(None, mesh),
-                 lambda: model.init_training(None, mesh),
-                 lambda: model.init_cache(2, 8, mesh))
-        for call in calls:
-            with pytest.raises(NotImplementedError,
-                               match="other families on a mesh"):
-                call()
+    with pytest.raises(ValueError, match=KEY[arch]):
+        ServingEngine(_arch(arch).cfg, EngineConfig(paged=False),
+                      device="cpu", mesh=mesh)

@@ -1,5 +1,6 @@
 """Port vs JAX: the partition-spec rules of ``launch/sharding.py`` and the
-per-rank slicing beside them, for every port arch that runs on a mesh.
+per-rank slicing beside them, for every port arch (all of them run on a
+mesh).
 
 The rules read only ``mesh.axis_names`` and ``mesh.shape``, so both sides
 get a stand-in mesh with those two fields and no devices: the JAX rules
@@ -37,9 +38,8 @@ from repro_torch.optim import adamw
 SHAPES = [(2, 4), (1, 4), (2, 2), (16, 16)]
 LEVELS = ("none", "int8", "int4")
 KV_SHARDS = ("seq", "hd", "kv", "none")
-# the archs that run on a mesh (the stateful families do not yet)
-ARCH_IDS = [a for a in ALL_ARCH_IDS
-            if get_config(a).family in ("dense", "moe")]
+# every arch of the port runs on a mesh
+ARCH_IDS = list(ALL_ARCH_IDS)
 
 
 class Axes:
@@ -97,6 +97,42 @@ def test_params_pspec_equals_jax(arch, level):
                     sharding.params_pspec(cfg, Axes(shape), meta, mode)
 
 
+def _meta(spec: dict) -> dict:
+    """Meta tensors of a cache spec tree ({name: (shape, dtype)})."""
+    return {k: _meta(v) if isinstance(v, dict)
+            else torch.empty(v[0], dtype=v[1], device="meta")
+            for k, v in spec.items()}
+
+
+def test_rglru_channel_sharding():
+    """The reference's own rule check: recurrentgemma-2b's lru_width 2560
+    divides 16, so its recurrent channels are cut over "model" in the
+    serve layout (``in_x``'s output, ``gate_a``'s output, ``out``'s
+    rows)."""
+    sp = sharding.serve_specs(get_config("recurrentgemma_2b"),
+                              Axes((16, 16)))
+    rec = sp["blocks"]["rec"]["mix"]
+    assert rec["in_x"][2] == "model" and rec["in_y"][2] == "model"
+    assert rec["gate_a"][2] == "model" and rec["gate_x"][2] == "model"
+    assert rec["out"][1] == "model"
+    assert all("model" not in sharding._axes(e) for name in (
+        "conv_w", "conv_b", "Lambda", "bias_a", "bias_x") for e in rec[name])
+
+
+def test_mamba_weights_replicated_over_model():
+    """The reference's own rule check: mamba2-130m's SSD block is
+    replicated over "model" in the serve layout (24 heads do not divide
+    16), and only "data" cuts its projections in the train layout."""
+    cfg = get_config("mamba2_130m")
+    serve = sharding.serve_specs(cfg, Axes((16, 16)))["blocks"]["mamba"]
+    for name in ("in_proj", "conv_w", "A_log", "norm", "out_proj"):
+        assert all("model" not in sharding._axes(e) for e in serve[name]), \
+            name
+    train = sharding.train_specs(cfg, Axes((16, 16)))["blocks"]["mamba"]
+    assert train["in_proj"] == (None, "data", None)
+    assert train["out_proj"] == (None, None, "data")
+
+
 @pytest.mark.parametrize("kv", ["native", "int8"])
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_cache_pspec_equals_jax(arch, kv):
@@ -108,9 +144,7 @@ def test_cache_pspec_equals_jax(arch, kv):
         for b, s in ((8, 4096), (3, 256)):
             jcache = jax.eval_shape(lambda: jax_build_model(jcfg).init_cache(
                 b, s))
-            cache = {k: torch.empty(shp, dtype=dt, device="meta")
-                     for k, (shp, dt) in build_model(cfg, "cpu").cache_specs(
-                         b, s).items()}
+            cache = _meta(build_model(cfg, "cpu").cache_specs(b, s))
             for shape in SHAPES:
                 want = _flat_jax(jax_sharding.cache_pspec(jcfg, Axes(shape),
                                                           jcache))

@@ -27,7 +27,9 @@ phase 3's fp32 FFN and flash cases at its per-rank shapes run first) or
 phase 4d's new runs, phase 12, then phase 8's recurrentgemma-2b and
 mamba2-130m against the CPU and recurrentgemma-2b at full width) or
 ``modalities`` (slice 12's archs: phase 3's flash cases at qwen2-vl-7b's
-and musicgen-large's heads, then phase 13).  Prints the card's name and power limit, the build's ptxas lines
+and musicgen-large's heads, then phase 13) or ``families_mesh`` (phase
+3's flash cases at phase 14's per-rank shapes, then phase 14: the four
+other families on a (2, 2) mesh of rank processes).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -50,7 +52,8 @@ def main() -> int:
     ap.add_argument("--only", nargs="*", default=["paged", "quant"],
                     choices=["paged", "quant", "flash", "chaos", "serve",
                              "serve5", "train", "ep", "serve_mesh",
-                             "train_mesh", "families", "modalities"])
+                             "train_mesh", "families", "modalities",
+                             "families_mesh"])
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     import torch
@@ -130,6 +133,17 @@ def main() -> int:
         cs.check_flash_attention(torch, results)
         runs = {}
         cs.check_modalities(torch, runs)
+        print(json.dumps(cs.kernels_line(results, runs, [
+            e for e in cs.LINE if e[2] in runs])), flush=True)
+    if "families_mesh" in args.only:
+        # phase 14 alone: phase 3's flash cases at its per-rank shapes
+        # (and the hd-256 G=5 case), then the phase
+        cs.FLASH_CASES = [c for c in cs.FLASH_CASES
+                          if c[:3] in ((1, 4096, 10), (1, 4096, 5),
+                                       (1, 2048, 28), (1, 2048, 32))]
+        cs.check_flash_attention(torch, results)
+        runs = {}
+        cs.check_families_mesh(torch, runs)
         print(json.dumps(cs.kernels_line(results, runs, [
             e for e in cs.LINE if e[2] in runs])), flush=True)
     if "serve5" in args.only:
