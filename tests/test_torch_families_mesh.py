@@ -24,7 +24,9 @@ mean over the global batch) and every gradient leaf, gathered whole, at
 2e-4 of its largest; one train step's metrics at 1e-4 and its params
 under the train tests' gate (every element within lr, at most one element
 in a thousand of a leaf beyond 1e-6, at least one on a leaf of fewer);
-``shard_batch`` giving every rank ``batch_pspec``'s rows of every input;
+``train(mesh=)``'s losses at 1e-4 of the one-device ``train()``'s (vlm
+refused as on one device); ``shard_batch`` giving every rank
+``batch_pspec``'s rows of every input;
 vlm's and audio's prefill and decode-step logits at 2e-5 on every rank
 (the decode context-parallel, M-RoPE positions through it); the hybrid's
 and ssm's greedy engine streams equal to the JAX one-device engine's on
@@ -183,6 +185,24 @@ def test_train_step_matches_jax(runs, mesh_name, arch):
                 and k not in STEP_CANCELLING.get(arch, ())):
             off[k] = (n_off, err.size, float(err.max()))
     assert not off, off
+
+
+@pytest.mark.parametrize("mesh_name,arch", CASES, ids=IDS)
+def test_train_on_a_mesh_matches_one_device(runs, mesh_name, arch):
+    """``train(mesh=)`` from the seed's weights on ``Pipeline`` batches:
+    each logged loss at 1e-4 of the one-device ``train()``'s on every
+    rank (audio's second step takes its frames from the table the first
+    step updated, gathered whole from the train blocks); vlm is refused
+    on a mesh as on one device (its batches carry no patches)."""
+    want = cases.train_losses(cases.port_config(arch))
+    for r, rec in enumerate(runs[mesh_name]):
+        got = rec[f"{arch}/train"]
+        if isinstance(want, str):
+            assert got == want and "patch_embeds" in got, (r, got)
+            continue
+        assert len(got) == len(want) == cases.TRAIN["steps"], (r, got)
+        for g, w in zip(got, want):
+            assert _rel(g, w, METRIC_TOL), (r, got, want)
 
 
 @pytest.mark.parametrize("mesh_name,arch", CASES, ids=IDS)

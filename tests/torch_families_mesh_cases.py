@@ -224,9 +224,31 @@ def _arch_cases(arch: str, tree: dict, mesh, rank: int) -> dict:
     if rank == 0:
         rec["params"] = flatten(whole)
     out["step"] = rec
+    out["train"] = train_losses(cfg, mesh)
     out["serve"] = (_serve_engine(arch, cfg, tree, mesh) if arch in STATEFUL
                     else _serve_steps(arch, cfg, model, tree, mesh))
     return out
+
+
+# ``train()`` on a mesh: two steps of Pipeline batches (the audio family's
+# second step takes its frames from the table the first step updated)
+TRAIN = dict(steps=2, global_batch=B, seq_len=16, lr=1e-3, log_every=1,
+             seed=3)
+
+
+def train_losses(cfg, mesh=None) -> list:
+    """The logged losses of ``train()`` on the CPU, or the refusal's text
+    (vlm: the reference's launcher fails there too)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.train import train
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            _, hist = train(cfg, mesh=mesh, device="cpu", **TRAIN)
+    except ValueError as e:
+        return str(e)
+    return [h["loss"] for h in hist]
 
 
 def _serve_steps(arch, cfg, model, tree, mesh) -> dict:
