@@ -3811,7 +3811,7 @@ def check_modalities(torch, runs: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 14: the other families on a mesh
+# phase 14: the hybrid, ssm, vlm and audio families on a mesh
 # ---------------------------------------------------------------------------
 
 FM_MESH = (2, 2)                 # (data, model)

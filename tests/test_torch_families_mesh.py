@@ -1,4 +1,4 @@
-"""Port vs JAX: the four other families on a mesh (recurrentgemma-2b's
+"""Port vs JAX: four more families on a mesh (recurrentgemma-2b's
 hybrid, mamba2-130m's ssm, qwen2-vl-7b's vlm, musicgen-large's audio;
 reduced, fp32, CPU) on meshes of (2, 2) and (1, 4) gloo ranks.
 
