@@ -451,12 +451,13 @@ def check_sass(counts) -> dict:
 
 def paged_case(torch, dtype, t: int, window, seed: int = 0, int8=False,
                lengths=(0, 17, 100, 250), seg=None, hd: int = 128,
-               hq: int = 32, hkv: int = 4):
-    """Main-path attention shapes: B=4, Hq=32, Hkv=4, hd=128, ps=16, ragged
-    lengths and seg_lens, block tables over a shuffled pool whose
-    unreferenced pages hold NaN (an int8 pool: NaN scales).  Returns the
-    pools as (k, v) or, int8, (k, v, k_scale, v_scale)."""
-    b, ps = 4, 16
+               hq: int = 32, hkv: int = 4, ps: int = 16):
+    """Main-path attention shapes: B=4 (a row a length), Hq=32, Hkv=4,
+    hd=128, ps=16, ragged lengths and seg_lens, block tables over a
+    shuffled pool whose unreferenced pages hold NaN (an int8 pool: NaN
+    scales).  Returns the pools as (k, v) or, int8, (k, v, k_scale,
+    v_scale)."""
+    b = len(lengths)
     lengths = np.array(lengths, np.int32)
     if seg is None:
         seg = [1, 0, 1, 1] if t == 1 else [t, 0, 13, t]
@@ -487,25 +488,14 @@ def paged_case(torch, dtype, t: int, window, seed: int = 0, int8=False,
 
 
 def paged_bound(q, kp, lengths, seg, window, dtype: str):
-    """Bytes: q and out once, each attended K/V slot once (an int8 slot:
-    hd bytes plus its 4-byte scale), the tables; operations: QK and PV over
-    the attended slots of the valid tokens."""
-    b, t, hq, hd = q.shape
-    hkv = kp.shape[2]
-    elt = q.element_size()
-    slot_bytes = hd + 4 if kp.element_size() == 1 else hd * elt
-    kv_slots, pairs = 0, 0
-    for i in range(b):
-        slots = set()
-        for j in range(int(seg[i])):
-            qp = int(lengths[i]) + j
-            lo = 0 if window is None else max(qp - window + 1, 0)
-            slots.update(range(lo, qp + 1))
-            pairs += qp + 1 - lo
-        kv_slots += len(slots)
-    nbytes = 2 * q.numel() * elt + 2 * kv_slots * hkv * slot_bytes + 16 * b
-    flops = 4.0 * pairs * hq * hd
-    return bound(nbytes, flops, dtype)
+    """``kernels/cost.paged``'s work over this case's lengths: q and out
+    once, each attended K/V slot once (an int8 slot: hd bytes plus its
+    4-byte scale), the tables; QK and PV over the attended slots."""
+    from repro_torch.kernels import cost
+    hd = q.shape[-1]
+    slot_bytes = hd + 4 if kp.element_size() == 1 else hd * q.element_size()
+    return bound(*cost.paged(tuple(q.shape), kp.shape[2], slot_bytes,
+                             q.element_size(), lengths, seg, window), dtype)
 
 
 def dead_slots_nan(pools, bt, lengths, seg, ps: int):
@@ -547,6 +537,12 @@ GQA_HEADS = [(24, 8, 64), (48, 8, 128), (32, 8, 160), (16, 8, 128),
              # phase 10's ranks: granite's heads on 2 and 4 ranks, DBRX's
              # on 4
              (12, 4, 64), (6, 2, 64), (12, 2, 128)]
+# (T, lengths, seg_lens, page size): the reduced qwen3-moe's paged
+# programs in phase 15 (B=2, Hq 4, Hkv 2, hd 64, fp32 only): its prefill
+# chunks (T=4) and decode-only blocks (T=1) within the programs' 32-slot
+# cache, at their page sizes 8 and 5
+REDUCED_PAGED = [(4, (0, 20), (4, 3), 8), (1, (13, 27), (1, 1), 8),
+                 (4, (0, 20), (4, 3), 5), (1, (13, 27), (1, 1), 5)]
 
 
 def paged_run(torch, paged_attn, int8: bool, dtype, t: int, window,
@@ -557,7 +553,8 @@ def paged_run(torch, paged_attn, int8: bool, dtype, t: int, window,
     name = "paged_attention_int8" if int8 else "paged_attention"
     q, pools, bt, ln, sg, win = paged_case(torch, dtype, t, window,
                                            int8=int8, **kw)
-    pools, clean = dead_slots_nan(pools, bt.cpu(), ln.cpu(), sg.cpu(), 16)
+    pools, clean = dead_slots_nan(pools, bt.cpu(), ln.cpu(), sg.cpu(),
+                                  kw.get("ps", 16))
     scales = dict(zip(("k_scale", "v_scale"), clean[2:]))
     run_k = lambda: getattr(paged_attn, name)(q, *pools, bt, ln, sg,
                                               window=win)
@@ -576,33 +573,40 @@ def check_paged_attention(torch, results):
     """Each paged entry against its plain version; every case also holds
     NaN in the dead slots of each row's last live page."""
     from repro_torch.kernels import paged_attn
+
+    def one(int8, dtype, t, window, hd, hq, hkv, **kw):
+        name = "paged_attention_int8" if int8 else "paged_attention"
+        dname = str(dtype).split(".")[-1]
+        err, rel, run_k, run_p, case = paged_run(
+            torch, paged_attn, int8, dtype, t, window, hd=hd, hq=hq,
+            hkv=hkv, **kw)
+        q, kp, bt, ln, sg, win = case
+        ms, plain_ms = time_ms(run_k, 50), time_ms(run_p, 10)
+        bms, by = paged_bound(q, kp, ln.cpu().numpy(), sg.cpu().numpy(), win,
+                              dname)
+        row = dict(kernel=name, dtype=dname, T=t, window=win, hd=hd, Hq=hq,
+                   Hkv=hkv, B=q.shape[0], ps=kp.shape[1],
+                   lengths=[int(v) for v in ln.cpu()],
+                   splits=paged_splits(paged_attn, q, kp, bt),
+                   dead_slots_nan=True, max_abs_err=err, max_rel_err=rel,
+                   kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                   bound_by=by)
+        emit("kernels", **row)
+        results.append(row)
+
     cases = [(t, w, ln, sg, hd, 32, 4) for t, w, ln, sg, hd in PAGED_CASES]
     cases += [(t, None, None, None, hd, hq, hkv) for hq, hkv, hd in GQA_HEADS
               for t in (1, 32)]
     for int8 in (False, True):
-        name = "paged_attention_int8" if int8 else "paged_attention"
         for dtype in (torch.float32, torch.bfloat16):
-            dname = str(dtype).split(".")[-1]
             for t, window, lengths, seg, hd, hq, hkv in cases:
-                if lengths is not None and dname != "bfloat16":
+                if lengths is not None and dtype != torch.bfloat16:
                     continue
                 kw = {} if lengths is None else dict(lengths=lengths, seg=seg)
-                err, rel, run_k, run_p, case = paged_run(
-                    torch, paged_attn, int8, dtype, t, window, hd=hd, hq=hq,
-                    hkv=hkv, **kw)
-                q, kp, bt, ln, sg, win = case
-                ms, plain_ms = time_ms(run_k, 50), time_ms(run_p, 10)
-                bms, by = paged_bound(q, kp, ln.cpu().numpy(),
-                                      sg.cpu().numpy(), win, dname)
-                row = dict(kernel=name, dtype=dname, T=t, window=win, hd=hd,
-                           Hq=hq, Hkv=hkv, lengths=[int(v) for v in ln.cpu()],
-                           splits=paged_splits(paged_attn, q, kp, bt),
-                           dead_slots_nan=True, max_abs_err=err,
-                           max_rel_err=rel, kernel_ms=ms, plain_ms=plain_ms,
-                           bound_ms=bms, bound_by=by)
-                emit("kernels", **row)
-                results.append(row)
-                del case, run_k, run_p
+                one(int8, dtype, t, window, hd, hq, hkv, **kw)
+    for t, lengths, seg, ps in REDUCED_PAGED:
+        one(False, torch.float32, t, None, 64, 4, 2, lengths=lengths,
+            seg=seg, ps=ps)
 
 
 def check_paged_sweep(torch, draws: int = 32):
@@ -679,7 +683,7 @@ DBRX_WIDTHS = (6144, 10752)
 
 
 def check_moe_ffn(torch, results):
-    from repro_torch.kernels import moe_gemm
+    from repro_torch.kernels import cost, moe_gemm
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for e, c, d, f, dead in FFN_CASES + MESH_FFN_CASES:
@@ -706,9 +710,8 @@ def check_moe_ffn(torch, results):
                   f"a nonzero output")
             err, rel = compare(got, want, TOL[dname])
             ms, plain_ms = time_ms(run_k, 10), time_ms(run_p, 5)
-            elt = x.element_size()
-            bms, by = bound((2 * e * c * d + 3 * e * d * f) * elt,
-                            6.0 * e * c * d * f, dname)
+            bms, by = bound(*cost.moe_ffn(e, c, d, f, x.element_size()),
+                            dname)
             row = dict(kernel="moe_ffn", dtype=dname, E=e, C=c, D=d, F=f,
                        dead_experts=dead, max_abs_err=err, max_rel_err=rel,
                        kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
@@ -761,7 +764,7 @@ def check_moe_ffn_quant(torch, results):
     quantized (block 128) as the engine does on load; a zero row of x must
     give an exactly zero row of y."""
     from repro_torch.core import quant
-    from repro_torch.kernels import moe_gemm
+    from repro_torch.kernels import cost, moe_gemm
     for (e, d, f, caps, dtypes), (level, bits) in itertools.product(
             QUANT_CASES, (("int8", 8), ("int4", 4))):
         g = torch.Generator(device="cuda").manual_seed(bits + e)
@@ -784,8 +787,8 @@ def check_moe_ffn_quant(torch, results):
                       f"x gave a nonzero row of y")
                 err, rel = compare(got, want, TOL[dname])
                 ms, plain_ms = time_ms(run_k, 10), time_ms(run_p, 5)
-                bms, by = bound(2 * x.numel() * x.element_size() + wbytes,
-                                6.0 * e * c * d * f, dname)
+                bms, by = bound(*cost.moe_ffn_quant(
+                    e, c, d, f, x.element_size(), wbytes), dname)
                 row = dict(kernel="moe_ffn_quant", bits=bits, dtype=dname,
                            E=e, C=c, D=d, F=f, max_abs_err=err,
                            max_rel_err=rel, kernel_ms=ms, plain_ms=plain_ms,
@@ -821,8 +824,10 @@ FLASH_CASES = [(2, 2048, 32, 4, 128, True, None),
                (2, 1000, 32, 8, 160, True, None),
                (2, 2048, 32, 8, 160, True, 256),
                (2, 37, 32, 8, 160, True, None),
-               # qwen3-0.6b's heads (G=2) at its forward's B=2
+               # qwen3-0.6b's heads (G=2) at its forward's B=2, and at
+               # phase 15's dry-run forward pair, S=4096
                (2, 2048, 16, 8, 128, True, None),
+               (2, 4096, 16, 8, 128, True, None),
                # granite's heads at phase 9's B=1 forward on every rank
                (1, 2048, 24, 8, 64, True, None),
                # qwen2-72b's and deepseek-67b's heads (G=8) at their
@@ -854,14 +859,6 @@ FLASH_CASES = [(2, 2048, 32, 4, 128, True, None),
                (1, 4096, 5, 1, 256, True, 2048)]
 
 
-def attended_pairs(s: int, causal: bool, window) -> int:
-    """(query, key) pairs the mask lets through for one head."""
-    i = np.arange(s)
-    hi = i + 1 if causal else np.full(s, s)
-    lo = np.maximum(i - window + 1, 0) if window else np.zeros(s, int)
-    return int((hi - lo).sum())
-
-
 def sdpa_call(torch, q, k, v, causal: bool, window):
     """PyTorch's one call for the same attention, on (B, H, S, hd) views
     (the yardstick only; the port never calls it): is_causal for the
@@ -885,7 +882,7 @@ def check_flash_attention(torch, results):
     """The flash kernel against its dense plain version (bf16 also within
     FLASH_RMS_TOL in RMS).  k and v are views of one (B, S, 2 Hkv, hd)
     tensor, so the kernel reads them by strides."""
-    from repro_torch.kernels import flash_attn
+    from repro_torch.kernels import cost, flash_attn
     for b, s, hq, hkv, hd, causal, window in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
@@ -906,11 +903,8 @@ def check_flash_attention(torch, results):
                   f"flash {dname} B={b} S={s} Hq={hq} hd={hd}: RMS error "
                   f"{rms:.3g} of the plain output's RMS > {FLASH_RMS_TOL}")
             ms, plain_ms = time_ms(run_k, 10), time_ms(run_p, 3)
-            elt = q.element_size()
-            bms, by = bound(2 * b * s * (hq + hkv) * hd * elt,
-                            4.0 * b * hq * hd * attended_pairs(s, causal,
-                                                               window),
-                            dname)
+            bms, by = bound(*cost.flash(b, s, hq, hkv, hd, q.element_size(),
+                                        causal, window), dname)
             row = dict(kernel="flash_attention", dtype=dname, B=b, S=s,
                        Hq=hq, Hkv=hkv, hd=hd, causal=causal, window=window,
                        max_abs_err=err, max_rel_err=rel, rms_rel_err=rms,
@@ -4109,6 +4103,192 @@ def check_families_mesh(torch, runs: dict) -> None:
           f"{FM_BUDGET_S} s budget")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the analysis rules and the dry-run against real allocations
+# ---------------------------------------------------------------------------
+
+ANALYSIS_BUDGET_S = 90.0
+# the dry-run pairs run for real at (1, 1): qwen3-0.6b's prefill (the
+# chunked attention of Model.prefill, as the reference's prefill) and its
+# scoring forward (the flash kernel, once per layer), granite's decode
+# (the gather MoE decode) at a 32768-slot cache
+DRYRUN_PAIRS = (("qwen3_0_6b", ("prefill_4k", "prefill", 4096, 4)),
+                ("qwen3_0_6b", ("forward_4k", "forward", 4096, 2)),
+                ("granite_moe_3b_a800m", ("decode_32k_8", "decode", 32768,
+                                          8)))
+# the caching allocator's rounding of one tensor's block: a multiple of
+# 512 B, and a block of more than 1 MiB also keeps a segment's remainder
+# of up to 1 MiB that it does not split off
+ALLOC_ROUND_SMALL, ALLOC_ROUND_LARGE = 512, 2**20
+# the real peak of requested bytes (the allocator's count before its
+# rounding) against the dry-run's argument + temp bytes: equal on all
+# three pairs in the measurement (NVIDIA H100 80GB HBM3, 700 W); the gate
+# allows this share of the prediction plus DRYRUN_PEAK_SLACK for what the
+# op stream cannot see (a cuBLAS workspace first allocated in the step)
+DRYRUN_PEAK_RTOL = 0.001
+DRYRUN_PEAK_SLACK = 2**20
+# R4's sync debug check beyond the reduced qwen3-moe's programs: (arch,
+# variant, reduced) for the dense qwen3-0.6b's paged and two-program
+# engines, the hybrid's and the ssm's two-program engines, and
+# qwen3-0.6b's paged engine at full width
+SYNC_ENGINES = (("qwen3_0_6b", "paged", True), ("qwen3_0_6b", "decode", True),
+                ("recurrentgemma_2b", "decode", True),
+                ("mamba2_130m", "decode", True),
+                ("qwen3_0_6b", "paged", False))
+
+
+def _requested(torch) -> tuple[int, int]:
+    """(current, peak) bytes the program asked the allocator for."""
+    st = torch.cuda.memory_stats()
+    return st["requested_bytes.all.current"], st["requested_bytes.all.peak"]
+
+
+def check_dryrun_pair(torch, arch: str, spec) -> dict:
+    """One pair: the dry-run's record at (1, 1) on meta tensors, then the
+    same step on the card from a clean allocator: the argument bytes
+    against ``memory_allocated`` after setup, the peak against
+    ``max_memory_allocated`` over the step."""
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import dryrun
+    shape = ShapeSpec(*spec)
+    rec = dryrun.run_pair(arch, shape.name, (1, 1), ("data", "model"),
+                          shape=shape)
+    check(rec["ok"], f"dry-run {arch} {shape.name}: {rec.get('error')}")
+    want_arg = rec["memory"]["argument_bytes"]
+    want_peak = rec["memory"]["peak_per_device"]
+    free_device(torch)
+    base = torch.cuda.memory_allocated()
+    base_req = _requested(torch)[0]
+    pair = dryrun.setup_pair(get_config(arch), shape, "cuda",
+                             generator=torch.Generator(
+                                 device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    got_arg = torch.cuda.memory_allocated() - base
+    req_arg = _requested(torch)[0] - base_req
+    tensors = dryrun.tree_tensors(pair.arguments)
+    rounding = sum(ALLOC_ROUND_LARGE if t.numel() * t.element_size() > 2**20
+                   else ALLOC_ROUND_SMALL for t in tensors)
+    check(req_arg == want_arg and 0 <= got_arg - want_arg <= rounding,
+          f"dry-run {arch} {shape.name}: argument bytes {want_arg}, "
+          f"requested {req_arg}, allocated {got_arg} over {len(tensors)} "
+          f"tensors (rounding at most {rounding})")
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = pair.step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    got_peak = torch.cuda.max_memory_allocated() - base
+    req_peak = _requested(torch)[1] - base_req
+    launches = _live(ops.launch_counts())
+    del out, pair
+    free_device(torch)
+    check(abs(req_peak - want_peak) <= DRYRUN_PEAK_RTOL * want_peak
+          + DRYRUN_PEAK_SLACK,
+          f"dry-run {arch} {shape.name}: peak {want_peak} predicted, "
+          f"{req_peak} requested ({got_peak} allocated)")
+    check(launches.keys() == set(rec["ops"]["kernels"]),
+          f"dry-run {arch} {shape.name}: booked {rec['ops']['kernels']}, "
+          f"launched {launches}")
+    return dict(arch=arch, shape=list(spec),
+                argument_bytes=want_arg, requested_after_setup=req_arg,
+                allocated_after_setup=got_arg, tensors=len(tensors),
+                peak_predicted=want_peak, peak_requested=req_peak,
+                peak_allocated=got_peak, peak_ratio=req_peak / want_peak,
+                temp_bytes=rec["memory"]["temp_bytes"],
+                flops=rec["ops"]["flops_per_device"],
+                hbm_bytes=rec["ops"]["hbm_bytes_per_device"],
+                roofline_s=max(rec["roofline"]["compute_s"],
+                               rec["roofline"]["memory_s"]),
+                step_s=step_s, launches=launches,
+                dryrun_trace_s=rec["trace_s"])
+
+
+def check_analysis(torch, runs: dict) -> None:
+    """Phase 15: the analysis rules on the card (R1, R2, R3, R4 static and
+    under the sync debug mode, R5, R6) over the five programs of the
+    reduced qwen3-moe, every one clean, R1(c) with the paged kernel
+    launched; R4's sync debug check over SYNC_ENGINES; a planted ``.item()`` caught by the sync debug mode and a
+    cloned cache leaf by R1; then the dry-run's memory against the
+    allocator on DRYRUN_PAIRS.  Fills ``runs["analysis"]`` with the
+    launches of the rules' programs and ``runs["analysis_forward"]`` with
+    the dry-run forward's."""
+    from repro_torch.analysis import RULE_IDS, analyze_engines, programs
+    from repro_torch.analysis.donation import DonationAliasRule
+    from repro_torch.analysis.hostsync import HostSyncRule
+    from repro_torch.analysis.retrace import drive_engine
+    from repro_torch.kernels import ops
+    t_phase = time.perf_counter()
+    free_device(torch)
+    dev = card()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    report = analyze_engines(programs.VARIANTS, RULE_IDS, device="cuda")
+    runs["analysis"] = ops.launch_counts()
+    check(not report.findings, "analysis on the card: "
+          + "; ".join(str(f) for f in report.findings))
+    emit("analysis_rules", programs=list(programs.VARIANTS),
+         rules=list(RULE_IDS), findings=0, launches=_live(runs["analysis"]),
+         seconds=time.perf_counter() - t0, card=dev)
+    t0 = time.perf_counter()
+    for arch, variant, reduced in SYNC_ENGINES:
+        eng = programs.build_engine(variant, arch, device="cuda",
+                                    reduced=reduced)
+        found = HostSyncRule().check_dynamic(eng, drive_engine,
+                                             f"{arch}/{variant}")
+        check(not found, "R4 on the card: " + "; ".join(map(str, found)))
+        del eng
+        free_device(torch)
+    emit("analysis_sync", engines=[list(e) for e in SYNC_ENGINES],
+         findings=0, seconds=time.perf_counter() - t0, card=dev)
+    # R1(c) with the kernel: the paged_kernel step allocates no virtual
+    # cache while the CUDA kernel attends
+    ops.reset_launch_counts()
+    prog = programs.trace_program("paged_kernel", device="cuda")
+    launched = ops.launch_counts()["paged_attention"]
+    check(launched > 0 and DonationAliasRule().check(prog) == [],
+          f"R1(c) on the card: {launched} paged launches, "
+          f"{DonationAliasRule().check(prog)}")
+    # planted: a .item() in the step trips the sync debug mode
+    eng = programs.build_engine("paged", device="cuda")
+    body = eng._unified
+
+    def synced(*a, **kw):
+        out = body(*a, **kw)
+        out[2].any().item()
+        return out
+    eng._unified = synced
+    caught = HostSyncRule().check_dynamic(eng, drive_engine)
+    check(len(caught) == 1, f"planted .item(): the sync debug mode gave "
+          f"{[str(f) for f in caught]}")
+    # planted: a cloned cache leaf trips R1 (a) and (b)
+    eng = programs.build_engine("paged", device="cuda")
+
+    def cloned(*args):
+        eng.cache["k"] = eng.cache["k"].clone()
+        return programs.run_step(eng, args)
+    got = sorted(f.detail["check"] for f in DonationAliasRule().check(
+        programs.trace_engine(eng, "paged", step=cloned)))
+    check(got == ["a", "b"], f"planted cache clone: R1 gave {got}")
+    del eng, prog
+    emit("analysis_planted", r1c_paged_launches=launched,
+         item_caught=caught[0].detail["where"], clone_checks=got, card=dev)
+    pairs = []
+    for arch, spec in DRYRUN_PAIRS:
+        row = check_dryrun_pair(torch, arch, spec)
+        emit("analysis_dryrun", **row, card=dev)
+        pairs.append(row)
+        if spec[1] == "forward":
+            runs["analysis_forward"] = ops.launch_counts()
+    phase_s = time.perf_counter() - t_phase
+    emit("analysis", seconds=phase_s, budget_s=ANALYSIS_BUDGET_S,
+         peak_ratios=[p["peak_ratio"] for p in pairs], card=dev)
+    check(phase_s <= ANALYSIS_BUDGET_S, f"phase 15 took {phase_s:.1f} s of "
+          f"its {ANALYSIS_BUDGET_S} s budget")
+
+
 def _live(launches: dict) -> dict:
     """The kernels a run launched (the counts that are not zero)."""
     return {k: v for k, v in launches.items() if v}
@@ -4274,6 +4454,18 @@ LINE = [
      "fm_qwen2_vl_7b"),
     ("flash_attention", dict(CAUSAL_2048, hd=64, Hq=32, Hkv=32, B=1),
      "fm_musicgen_large"),
+    # phase 15: the reduced qwen3-moe's programs under the analysis rules
+    # (fp32; launches over the traced steps and the driven engines): its
+    # paged attention at each T and page size they give it; and the
+    # dry-run's forward pair on the card (qwen3-0.6b's heads, B=2, S=4096)
+    *(("paged_attention", dict(dtype="float32", T=t, Hq=4, Hkv=2, hd=64,
+                               B=2, ps=ps), "analysis")
+      for t, _, _, ps in REDUCED_PAGED),
+    ("moe_ffn", dict(dtype="float32", E=4, C=16), "analysis"),
+    ("moe_ffn_quant", dict(dtype="float32", E=4, C=16, bits=8), "analysis"),
+    ("flash_attention", dict(dtype="bfloat16", B=2, S=4096, causal=True,
+                             window=None, hd=128, Hq=16, Hkv=8),
+     "analysis_forward"),
 ]
 
 
@@ -4298,7 +4490,7 @@ def kernels_line(results, runs, line=None) -> dict:
             "shape": {k: v for k, v in row.items()
                       if k in ("dtype", "bits", "T", "window", "E", "C", "D",
                                "F", "B", "S", "Hq", "Hkv", "hd", "causal",
-                               "dead_experts")},
+                               "ps", "lengths", "dead_experts")},
         })
     return {"kernels": entries}
 
@@ -4383,6 +4575,7 @@ def main() -> int:
     check_families(torch, runs)
     check_modalities(torch, runs)
     check_families_mesh(torch, runs)
+    check_analysis(torch, runs)
     print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

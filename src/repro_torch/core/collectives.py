@@ -59,8 +59,14 @@ its own.  So
   pmean         backward g / n, no communication
 
 ``all_gather_packed``, ``psum_scatter_packed`` and ``psum_packed`` move
-several tensors of one dtype in one exchange (a layer's parameter blocks
-and their gradients, ``launch/sharding.compute_view``).
+several tensors in one exchange a dtype (a layer's parameter blocks and
+their gradients, ``launch/sharding.compute_view``).
+
+A meta mesh (``launch/mesh.make_meta_mesh``: no process group, the
+dry-run's) takes meta tensors only: each collective returns an empty meta
+tensor of its result's shape and counts its bytes, without communicating.
+Every collective also books itself to an active ``launch/opcount``
+capture (kind, operand and result bytes), which the analysis rules read.
 """
 from __future__ import annotations
 
@@ -70,6 +76,8 @@ import time
 import torch
 import torch.distributed as dist
 
+from repro_torch.launch import opcount
+
 AUX = "aux-pmean"
 LAYOUT = "layout"
 # training on a mesh: the parameter blocks gathered for a layer's compute,
@@ -78,9 +86,23 @@ PARAM_GATHER = "param-gather"
 GRAD_REDUCE = "grad-reduce"
 
 
-def _count(mesh, kind: str, x: torch.Tensor, seconds: float) -> None:
-    mesh.bytes[kind] = mesh.bytes.get(kind, 0) + x.numel() * x.element_size()
+def _count(mesh, kind: str, x: torch.Tensor, seconds: float,
+           out_bytes: int | None = None) -> None:
+    nb = x.numel() * x.element_size()
+    mesh.bytes[kind] = mesh.bytes.get(kind, 0) + nb
     mesh.seconds[kind] = mesh.seconds.get(kind, 0.0) + seconds
+    opcount.book_collective(kind, x, nb if out_bytes is None else out_bytes)
+
+
+def _on_meta(mesh, x: torch.Tensor) -> bool:
+    """Whether this call runs the meta path: the mesh has no process
+    group, and then the operand must be a meta tensor."""
+    if not getattr(mesh, "meta", False):
+        return False
+    if not x.is_meta:
+        raise ValueError(f"a meta mesh takes meta tensors, got one on "
+                         f"{x.device}")
+    return True
 
 
 def _to_host(x: torch.Tensor) -> torch.Tensor:
@@ -135,6 +157,9 @@ def _tracked(x: torch.Tensor) -> bool:
 
 
 def _psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    if _on_meta(mesh, x):
+        _count(mesh, "all-reduce", x, 0.0)
+        return torch.empty_like(x)
     t0 = time.perf_counter()
     out = _back(_sum(_to_host(x), x, mesh, axis), x)
     _count(mesh, "all-reduce", x, time.perf_counter() - t0)
@@ -187,6 +212,9 @@ def pmax(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     all-reduce in HLO); every rank of the axis gets it."""
     if mesh.groups[axis] is None:
         return x
+    if _on_meta(mesh, x):
+        _count(mesh, "all-reduce", x, 0.0)
+        return torch.empty_like(x)
     t0 = time.perf_counter()
     buf = _to_host(x)
     dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=mesh.groups[axis])
@@ -200,6 +228,9 @@ def broadcast(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     every rank of the axis."""
     if mesh.groups[axis] is None:
         return x
+    if _on_meta(mesh, x):
+        _count(mesh, "broadcast", x, 0.0)
+        return torch.empty_like(x)
     t0 = time.perf_counter()
     buf = _to_host(_raw(x))
     dist.broadcast(buf, src=mesh.rank_at(axis, 0), group=mesh.groups[axis])
@@ -209,6 +240,9 @@ def broadcast(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
 
 
 def _pmean(x: torch.Tensor, mesh, live: list) -> torch.Tensor:
+    if _on_meta(mesh, x):
+        _count(mesh, AUX, x, 0.0)
+        return torch.empty_like(x)
     t0 = time.perf_counter()
     buf = _to_host(x)
     for a in live:
@@ -251,6 +285,11 @@ def pmean(x: torch.Tensor, mesh, axes: tuple) -> torch.Tensor:
 def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
                 kind: str) -> torch.Tensor:
     n = mesh.shape[axis]
+    if _on_meta(mesh, x):
+        _count(mesh, kind, x, 0.0, n * x.numel() * x.element_size())
+        shape = list(x.shape)
+        shape[dim] *= n
+        return torch.empty(shape, dtype=x.dtype, device="meta")
     t0 = time.perf_counter()
     src = _to_host(_raw(x))
     out = _empty_like_host(src, (n * src.numel(),))
@@ -258,7 +297,8 @@ def _all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
                                 group=mesh.groups[axis])
     out = _back(out.view((n,) + tuple(x.shape)), x)
     out = torch.cat(out.unbind(0), dim=dim)
-    _count(mesh, kind, x, time.perf_counter() - t0)
+    _count(mesh, kind, x, time.perf_counter() - t0,
+           n * x.numel() * x.element_size())
     return out.view(torch.bool) if x.dtype == torch.bool else out
 
 
@@ -302,6 +342,12 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int,
 def _psum_scatter(x: torch.Tensor, mesh, axis: str,
                   dim: int) -> torch.Tensor:
     n = mesh.shape[axis]
+    if _on_meta(mesh, x):
+        _count(mesh, "reduce-scatter", x, 0.0, x.numel() * x.element_size()
+               // n)
+        shape = list(x.shape)
+        shape[dim] //= n
+        return torch.empty(shape, dtype=x.dtype, device="meta")
     t0 = time.perf_counter()
     blocks = x.movedim(dim, 0)
     src = _to_host(blocks)
@@ -366,6 +412,9 @@ class _Done:
 
 
 def _all_to_all(x: torch.Tensor, mesh, axis: str, async_op: bool = False):
+    if _on_meta(mesh, x):
+        pending = Pending(mesh, x, torch.empty_like(x), None, 0.0)
+        return pending if async_op else pending.wait()
     t0 = time.perf_counter()
     src = _to_host(x)
     out = _empty_like_host(src, src.shape)
@@ -403,6 +452,9 @@ def all_to_all(x: torch.Tensor, mesh, axis: str,
 
 
 def _ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    if _on_meta(mesh, x):
+        _count(mesh, "collective-permute", x, 0.0)
+        return torch.empty_like(x)
     me = mesh.coords[axis]
     t0 = time.perf_counter()
     src = _to_host(x)
@@ -445,10 +497,23 @@ def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _flat(xs) -> torch.Tensor:
-    dtypes = {x.dtype for x in xs}
-    if len(dtypes) != 1:
-        raise ValueError(f"a packed collective takes one dtype, got {dtypes}")
     return torch.cat([x.reshape(-1) for x in xs])
+
+
+def _per_dtype(xs, packed):
+    """``packed(indices)`` over each dtype's tensors of ``xs`` (one
+    exchange a dtype: a layer's bf16 weights beside RG-LRU's or Mamba-2's
+    fp32 leaves), the results back in ``xs``' order; None when ``xs`` has
+    one dtype."""
+    dtypes = list(dict.fromkeys(x.dtype for x in xs))
+    if len(dtypes) == 1:
+        return None
+    out = [None] * len(xs)
+    for dt in dtypes:
+        idx = [i for i, x in enumerate(xs) if x.dtype == dt]
+        for i, r in zip(idx, packed(idx)):
+            out[i] = r
+    return out
 
 
 def _unflat(flat: torch.Tensor, shapes) -> list:
@@ -462,30 +527,50 @@ def _unflat(flat: torch.Tensor, shapes) -> list:
 
 def all_gather_packed(xs, mesh, axis: str, dims, kind: str) -> list:
     """``all_gather(x, mesh, axis, dim)`` of each ``x`` with its ``dim``,
-    in one exchange (no autograd)."""
+    in one exchange a dtype (no autograd)."""
     if mesh.groups[axis] is None or not xs:
         return list(xs)
+    split = _per_dtype(xs, lambda idx: all_gather_packed(
+        [xs[i] for i in idx], mesh, axis, [dims[i] for i in idx], kind))
+    if split is not None:
+        return split
     flat = _flat(xs)
     n = mesh.shape[axis]
+    if _on_meta(mesh, flat):
+        _count(mesh, kind, flat, 0.0, n * flat.numel() * flat.element_size())
+        return [torch.empty([s * n if i == d else s for i, s in
+                             enumerate(x.shape)], dtype=x.dtype,
+                            device="meta") for x, d in zip(xs, dims)]
     t0 = time.perf_counter()
     src = _to_host(flat)
     out = _empty_like_host(src, (n, src.numel()))
     dist.all_gather_into_tensor(out.view(-1), src, group=mesh.groups[axis])
     out = _back(out, flat)
-    _count(mesh, kind, flat, time.perf_counter() - t0)
+    _count(mesh, kind, flat, time.perf_counter() - t0,
+           n * flat.numel() * flat.element_size())
     parts = _unflat(out, [tuple(x.shape) for x in xs])
     return [torch.cat(p.unbind(0), dim=d) for p, d in zip(parts, dims)]
 
 
 def psum_scatter_packed(xs, mesh, axis: str, dims, kind: str) -> list:
     """``psum_scatter(x, mesh, axis, dim)`` of each ``x`` with its
-    ``dim``, in one exchange (no autograd)."""
+    ``dim``, in one exchange a dtype (no autograd)."""
     if mesh.groups[axis] is None or not xs:
         return list(xs)
+    split = _per_dtype(xs, lambda idx: psum_scatter_packed(
+        [xs[i] for i in idx], mesh, axis, [dims[i] for i in idx], kind))
+    if split is not None:
+        return split
     n = mesh.shape[axis]
     rows = [x.unflatten(d, (n, x.shape[d] // n)).movedim(d, 0).reshape(n, -1)
             for x, d in zip(xs, dims)]
     src_dev = torch.cat(rows, dim=1)
+    if _on_meta(mesh, src_dev):
+        _count(mesh, kind, src_dev, 0.0, src_dev.numel()
+               * src_dev.element_size() // n)
+        return [torch.empty([s // n if i == d else s for i, s in
+                             enumerate(x.shape)], dtype=x.dtype,
+                            device="meta") for x, d in zip(xs, dims)]
     t0 = time.perf_counter()
     src = _to_host(src_dev)
     out = _empty_like_host(src, (src.shape[1],))
@@ -502,10 +587,17 @@ def psum_scatter_packed(xs, mesh, axis: str, dims, kind: str) -> list:
 
 def psum_packed(xs, mesh, axis: str, kind: str, mean: bool = False) -> list:
     """``psum`` (or with ``mean`` the mean) of each ``x`` over ``axis`` in
-    one exchange, in rank order (no autograd)."""
+    one exchange a dtype, in rank order (no autograd)."""
     if mesh.groups[axis] is None or not xs:
         return list(xs)
+    split = _per_dtype(xs, lambda idx: psum_packed(
+        [xs[i] for i in idx], mesh, axis, kind, mean))
+    if split is not None:
+        return split
     flat = _flat(xs)
+    if _on_meta(mesh, flat):
+        _count(mesh, kind, flat, 0.0)
+        return [torch.empty_like(x) for x in xs]
     t0 = time.perf_counter()
     out = _back(_sum(_to_host(flat), flat, mesh, axis), flat)
     if mean:

@@ -112,7 +112,9 @@ def make_dispatch_plan(top_idx: torch.Tensor, num_experts: int, e_start: int,
     dispatch_tok = torch.zeros((nbuf + 1,), dtype=torch.long, device=dev)
     dispatch_tok[dest] = order // k
     slot_valid = torch.zeros((nbuf + 1,), dtype=torch.bool, device=dev)
-    slot_valid[dest] = True
+    # index_fill_ takes the value as a kernel argument: an indexed
+    # assignment of True would copy a host scalar up and sync on the card
+    slot_valid.index_fill_(0, dest, True)
     slot_of = torch.empty((t * k,), dtype=torch.long, device=dev)
     slot_of[order] = dest
     return dispatch_tok[:nbuf], slot_valid[:nbuf], slot_of.reshape(t, k)

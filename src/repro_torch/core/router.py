@@ -61,6 +61,6 @@ def expected_experts_per_shard(top_idx: torch.Tensor, num_experts: int,
     flat = torch.where((flat >= 0) & (flat < num_experts), flat, num_experts)
     hit = torch.zeros((num_experts + 1,), dtype=torch.bool,
                       device=top_idx.device)
-    hit[flat] = True
+    hit.index_fill_(0, flat, True)
     per_shard = hit[:num_experts].reshape(n_shards, eps).sum(dim=1)
     return per_shard.float().mean()

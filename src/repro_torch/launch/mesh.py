@@ -31,6 +31,13 @@ several cards to run it on.
 
 Rank processes meet through a ``FileStore`` (``init_ranks``), never a
 fixed TCP port, so concurrent test workers cannot collide.
+
+``make_meta_mesh`` is a mesh with no process group: one rank's view of a
+mesh of any size (the production (16, 16) or (2, 16, 16) included), on
+which every collective takes meta tensors, returns its result's shape
+and counts its bytes without communicating.  It stands in for the JAX
+dry-run's 512 placeholder devices: the program is SPMD, so rank 0's
+program gives the per-device numbers.
 """
 from __future__ import annotations
 
@@ -59,6 +66,7 @@ class Mesh:
     groups: dict
     bytes: dict = dataclasses.field(default_factory=dict)
     seconds: dict = dataclasses.field(default_factory=dict)
+    meta: bool = False             # no process group: meta tensors only
 
     @property
     def size(self) -> int:
@@ -96,11 +104,7 @@ def make_mesh(shape: tuple, axes: tuple) -> Mesh:
         raise ValueError(f"mesh {dict(zip(axes, shape))} needs "
                          f"{math.prod(shape)} ranks, the world has {world}")
     rank = dist.get_rank()
-    coords, rest = {}, rank
-    for a, n in reversed(tuple(zip(axes, shape))):
-        coords[a] = rest % n
-        rest //= n
-    coords = {a: coords[a] for a in axes}
+    coords = _coords(rank, tuple(axes), tuple(shape))
     sizes = dict(zip(axes, shape))
     groups = {}
     for i, a in enumerate(axes):
@@ -121,11 +125,36 @@ def make_mesh(shape: tuple, axes: tuple) -> Mesh:
     return Mesh(tuple(axes), sizes, coords, groups)
 
 
+def _coords(rank: int, axes: tuple, shape: tuple) -> dict:
+    coords, rest = {}, rank
+    for a, n in reversed(tuple(zip(axes, shape))):
+        coords[a] = rest % n
+        rest //= n
+    return {a: coords[a] for a in axes}
+
+
+def make_meta_mesh(shape: tuple, axes: tuple, rank: int = 0) -> Mesh:
+    """Rank ``rank``'s view of a mesh of ``shape`` with no process group:
+    the collectives take meta tensors, count their bytes and move nothing
+    (``core/collectives``)."""
+    if not 0 <= rank < math.prod(shape):
+        raise ValueError(f"rank {rank} is outside a mesh of {shape}")
+    sizes = dict(zip(axes, shape))
+    # a group stands for every axis of more than one rank; none is called
+    groups = {a: (None if n == 1 else "meta") for a, n in sizes.items()}
+    return Mesh(tuple(axes), sizes, _coords(rank, tuple(axes), tuple(shape)),
+                groups, meta=True)
+
+
+def production_shape(multi_pod: bool = False) -> tuple[tuple, tuple]:
+    """(shape, axes) of the production mesh."""
+    return (((2, 16, 16), ("pod", "data", "model")) if multi_pod
+            else ((16, 16), ("data", "model")))
+
+
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     """16x16 = 256 ranks; 2x16x16 = 512 ranks multi-pod."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes)
+    return make_mesh(*production_shape(multi_pod))
 
 
 def make_test_mesh(n_data: int = 2, n_model: int = 4) -> Mesh:

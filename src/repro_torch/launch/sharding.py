@@ -355,15 +355,25 @@ def split(spec, dim: int, axis: str = "model") -> bool:
 # the serve-mode layout of a config, from its whole shapes
 # ---------------------------------------------------------------------------
 
+# the leaves ``Model.init`` keeps in fp32 whatever the parameter dtype:
+# RG-LRU's gate biases and Lambda (``models/rglru.py``), Mamba-2's A_log,
+# D and dt_bias (``models/mamba2.py``)
+FP32_LEAVES = frozenset({"bias_a", "bias_x", "Lambda", "A_log", "D",
+                         "dt_bias"})
+
+
 def meta_params(cfg) -> dict:
     """The whole parameter tree of ``cfg`` as meta tensors (no storage),
-    quantized as ``cfg.weight_quant`` asks: the shapes the rules read."""
+    in the dtypes ``Model.init`` draws and quantized as
+    ``cfg.weight_quant`` asks: the shapes and bytes the rules and the
+    dry-run read."""
     from repro_torch.bridge import param_shapes
     dt = cfg.param_torch_dtype
 
     def walk(tree):
         return {k: walk(v) if isinstance(v, dict)
-                else torch.empty(v, dtype=dt, device="meta")
+                else torch.empty(v, dtype=torch.float32 if k in FP32_LEAVES
+                                 else dt, device="meta")
                 for k, v in tree.items()}
     return quant_lib.quantize_params(walk(param_shapes(cfg)), cfg,
                                      inplace=True)

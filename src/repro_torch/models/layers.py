@@ -133,9 +133,12 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     hd = x.shape[-1]
     assert sum(sections) == hd // 2, (sections, hd)
     inv = rope_freqs(hd, theta, x.device)                 # (hd/2,)
+    # output_size: the counts' sum is known on the host, so the device
+    # never hands it back (a sync on the card, an error on a meta tensor)
     sel = torch.repeat_interleave(
         torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))        # (hd/2,)
+        torch.as_tensor(sections, device=x.device),
+        output_size=hd // 2)                                # (hd/2,)
     ang_all = positions3[..., None, :].float() * inv[:, None]  # (B,S,hd/2,3)
     ang = torch.gather(ang_all, -1, sel[:, None].expand(
         ang_all.shape[:-1] + (1,)))[..., 0]               # (B, S, hd/2)

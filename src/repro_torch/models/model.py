@@ -98,14 +98,15 @@ HEAD = "head"
 
 def resolve_device(device) -> torch.device:
     """The torch device an entry point runs on; raises when CUDA is asked
-    for (the default) but absent."""
+    for (the default) but absent.  ``meta`` (shapes without storage) is
+    the dry-run's (``launch/dryrun.py``)."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available: the port runs on the GPU by default; "
             "pass device='cpu' explicitly to run its plain versions on the "
             "CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {device!r}")
     return dev
 

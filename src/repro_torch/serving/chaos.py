@@ -1,12 +1,13 @@
 """Deterministic chaos matrix of the port: every fault site
 (``serving/faults.py``) plus an overcommit-preemption scenario, driven
-through the paged engine (the JAX package's ``serving/chaos.py``).
+through the unified engine (the JAX package's ``serving/chaos.py``).
 
-The reference runs three layouts; the port has one.  Its contiguous
-("unified") layout waits for the contiguous cache (ROADMAP queue A item
-4), and the reference's "paged" (gather) and "kernel" (Pallas) layouts
-are one paged layout here, whose attention is the CUDA kernel on the card
-and its plain version on the CPU (``device``).  The gates:
+The reference runs three layouts; the port runs two.  The contiguous
+("unified") layout takes the dispatch and NaN sites (alloc faults need
+the page allocator), as the reference's does; the reference's "paged"
+(gather) and "kernel" (Pallas) layouts are one paged layout here, whose
+attention is the CUDA kernel on the card and its plain version on the
+CPU (``device``).  The gates:
 
   1. no crash — every injected fault is absorbed by an engine guard
      (alloc exhaustion stalls admission, a failed dispatch re-runs the
@@ -19,12 +20,12 @@ and its plain version on the CPU (``device``).  The gates:
   3. allocator hygiene — after the workload drains and the prefix tree is
      cleared, every page is back on the free list and refcounts are
      consistent (``PageAllocator.check_consistent``);
-  4. coverage — every fault in the plan fired (``FaultPlan.all_fired``).
-
-The reference's gate 5 (no jit trace beyond the steady-state budget,
-``repro.analysis.retrace``) has no counterpart yet: the port compiles no
-programs to count.  A recompile or CUDA-graph counter is ROADMAP queue A
-item 8.
+  4. coverage — every fault in the plan fired (``FaultPlan.all_fired``);
+  5. signature budget — fault recovery and preemption run the step
+     bodies with no input signature beyond the steady-state set
+     (``analysis.retrace.expected_trace_budget`` over the engine's
+     ``trace_counts``: what a retrace is under the reference's jit, and a
+     re-recording for a CUDA graph).
 
 The weights are drawn on the CPU from ``seed`` and copied to the device,
 so a CPU and a card run hold the same model.  The matrix is seeded and
@@ -42,15 +43,19 @@ import sys
 import numpy as np
 import torch
 
+from repro_torch.analysis.retrace import over_budget
 from repro_torch.configs.base import get_config
 from repro_torch.kernels import ops
 from repro_torch.models.model import build_model, resolve_device
 from repro_torch.serving.engine import EngineConfig, ServingEngine
 from repro_torch.serving.faults import Fault, FaultPlan
 
-# (name, fault site)
-SCENARIOS = (("paged/alloc", "alloc"), ("paged/dispatch", "dispatch"),
-             ("paged/nan", "nan"))
+# (name, layout, fault site): alloc faults need the page allocator
+SCENARIOS = (("unified/dispatch", "unified", "dispatch"),
+             ("unified/nan", "unified", "nan"),
+             ("paged/alloc", "paged", "alloc"),
+             ("paged/dispatch", "paged", "dispatch"),
+             ("paged/nan", "paged", "nan"))
 
 
 def _cfg(arch: str):
@@ -65,12 +70,14 @@ def _to(tree: dict, device) -> dict:
             for k, v in tree.items()}
 
 
-def _engine(cfg, params, device, *, plan: FaultPlan | None = None,
-            num_pages: int = 0, overcommit: bool = False) -> ServingEngine:
+def _engine(cfg, params, device, *, layout: str = "paged",
+            plan: FaultPlan | None = None, num_pages: int = 0,
+            overcommit: bool = False) -> ServingEngine:
     return ServingEngine(cfg, EngineConfig(
         max_batch=2, max_cache=32, chunk_len=3, async_steps=False,
-        page_size=4, num_pages=num_pages, overcommit=overcommit),
-        params=params, device=device, fault_plan=plan)
+        paged=layout == "paged", page_size=4, num_pages=num_pages,
+        overcommit=overcommit), params=params, device=device,
+        fault_plan=plan)
 
 
 def _serve(eng: ServingEngine, prompts, new_tokens: int,
@@ -86,6 +93,8 @@ def _check_drained(eng: ServingEngine, errors: list, name: str) -> None:
     for r in eng._all.values():
         if r.status != "done":
             errors.append(f"{name}: request {r.uid} ended {r.status!r}")
+    if not eng.paged:
+        return
     eng.prefix.clear()
     if not eng.allocator.fully_free:
         errors.append(f"{name}: {eng.allocator.pages_in_use} pages leaked "
@@ -94,6 +103,13 @@ def _check_drained(eng: ServingEngine, errors: list, name: str) -> None:
         eng.allocator.check_consistent()
     except AssertionError as e:
         errors.append(f"{name}: allocator inconsistent — {e}")
+
+
+def _check_traces(eng: ServingEngine, errors: list, name: str) -> None:
+    for key, count, budget in over_budget(eng):
+        errors.append(f"{name}: step body '{key}' ran with {count} "
+                      f"signatures (budget {budget}) — fault recovery "
+                      "must reuse the steady-state signatures")
 
 
 def _plan(site: str) -> FaultPlan:
@@ -115,7 +131,9 @@ def run_matrix(arch: str, *, device="cuda", new_tokens: int = 6,
                record: dict | None = None) -> list:
     """Run every scenario on ``device``; returns the gate violations ([]
     on a clean matrix).  ``record``, when given, receives each scenario's
-    token streams, resilience counters and kernel launches by name."""
+    token streams, resilience counters and kernel launches by name (the
+    paged layout's fault-free run is "baseline", the contiguous one's
+    "baseline/unified")."""
     device = resolve_device(device)
     base = _cfg(arch)
     cfg = base.replace(weight_quant=weight_quant,
@@ -139,27 +157,32 @@ def run_matrix(arch: str, *, device="cuda", new_tokens: int = 6,
                             "stats": eng.resilience_stats()}
         return got
 
-    eng = _engine(cfg, params, device)
-    baseline = run("baseline", eng, new_tokens)
-    if baseline is not None:
-        _check_drained(eng, errors, "baseline")
+    baseline = {}
+    for layout, name in (("paged", "baseline"),
+                         ("unified", "baseline/unified")):
+        eng = _engine(cfg, params, device, layout=layout)
+        baseline[layout] = run(name, eng, new_tokens)
+        if baseline[layout] is not None:
+            _check_drained(eng, errors, name)
+            _check_traces(eng, errors, name)
     if errors:        # a broken baseline invalidates the whole matrix
         return errors
 
-    for name, site in SCENARIOS:
+    for name, layout, site in SCENARIOS:
         plan = _plan(site)
-        eng = _engine(cfg, params, device, plan=plan)
+        eng = _engine(cfg, params, device, layout=layout, plan=plan)
         got = run(name, eng, new_tokens)
         if got is None:
             continue
-        if got != baseline:                        # gate 2: token identity
+        if got != baseline[layout]:                # gate 2: token identity
             errors.append(f"{name}: tokens diverged from fault-free run")
         if not plan.all_fired():                   # gate 4: coverage
             errors.append(f"{name}: unfired faults {plan.unfired()}")
         _check_drained(eng, errors, name)          # gate 3: hygiene
+        _check_traces(eng, errors, name)           # gate 5: budget
         if verbose:
             st = {k: v for k, v in eng.resilience_stats().items() if v}
-            print(f"  {name:18s} ok={got == baseline}  {st}")
+            print(f"  {name:18s} ok={got == baseline[layout]}  {st}")
 
     # overcommit-preemption: a pool too small for both lifetimes forces a
     # mid-decode preempt and a prefix-cache restore; the tokens must still
@@ -177,6 +200,7 @@ def run_matrix(arch: str, *, device="cuda", new_tokens: int = 6,
             errors.append(f"{name}: pool pressure produced no "
                           f"preempt/restore cycle ({st})")
         _check_drained(eng, errors, name)
+        _check_traces(eng, errors, name)
         if verbose:
             print(f"  {name:18s} ok={got == want}  "
                   + str({k: st[k] for k in ("preemptions", "restores",
@@ -209,7 +233,8 @@ def main(argv=None) -> int:
             print(f"  - {e}")
         return 1
     print("chaos matrix clean: no crashes, token-identical recovery, "
-          "allocator fully free, all faults fired")
+          "allocator fully free, all faults fired, no signature beyond "
+          "the budget")
     return 0
 
 

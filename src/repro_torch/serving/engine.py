@@ -82,6 +82,7 @@ directly, on a mesh too.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Any
@@ -198,6 +199,15 @@ def reference_only(cfg, max_cache: int) -> bool:
     return win is not None and win <= max_cache
 
 
+def _signature(*args) -> tuple:
+    """The input signature of a step body's call: each tensor's shape and
+    dtype, anything else (None, a stand-in (shape, dtype)) as itself; host
+    integers (a slot, a step index) are data the body indexes with, not
+    part of it."""
+    return tuple((tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor)
+                 else a for a in args if not isinstance(a, int))
+
+
 def _tree_map(fn, tree: dict) -> dict:
     return {k: (_tree_map(fn, v) if isinstance(v, dict) else fn(v))
             for k, v in tree.items()}
@@ -299,6 +309,14 @@ class ServingEngine:
         self._step_idx = 0
         self._sampling = False
         self._pending: list[_Pending] = []
+        # Signature accounting (analysis rule R3, the reference's
+        # ``trace_counts``): each step body counts the distinct input
+        # signatures it has run with, shapes, dtypes and the static
+        # sampling flag.  A new signature is what a retrace is under the
+        # reference's ``jit`` and what a CUDA-graph capture of the body
+        # would have to record again.  Host bookkeeping only.
+        self.trace_counts: collections.Counter = collections.Counter()
+        self._signatures: set = set()
         self.unified = unified
         self.paged = ecfg.paged
         self._admit_stalled = False
@@ -340,6 +358,14 @@ class ServingEngine:
                       "nan_quarantines": 0, "active_hwm": 0}
 
     # -- device step ------------------------------------------------------
+
+    def _note(self, body: str, *args, sampling: bool = True) -> None:
+        """Count ``body``'s signature for ``args`` if it is new."""
+        sig = (body, self._sampling if sampling else None) + _signature(
+            *args)
+        if sig not in self._signatures:
+            self._signatures.add(sig)
+            self.trace_counts[body] += 1
 
     def _upload(self, *arrays: np.ndarray) -> list[torch.Tensor]:
         """Hand this step's host snapshots to the device in ONE copy.
@@ -420,6 +446,12 @@ class ServingEngine:
         finiteness flag and never lets a non-finite row overwrite
         ``last_tok``, whether or not the host guard reads the flag.
         Returns (last_tok', routing (L, B*T, K), bad (B,) bool)."""
+        # the reference passes its all-finite poison vector every step:
+        # a step with none has the signature of one with a (B,) fp32 one
+        self._note("unified", tokens, lengths, seg_lens, block_tables,
+                   is_decode, sample_mask, temps, topks,
+                   poison if poison is not None
+                   else ((tokens.shape[0],), torch.float32))
         tok0 = torch.where(is_decode, self.last_tok, tokens[:, 0])
         tokens = torch.cat([tok0[:, None], tokens[:, 1:]], dim=1)
         # context_len pins the windowing decision to the logical context:
@@ -442,6 +474,7 @@ class ServingEngine:
         """Device half of copy-on-write: duplicate pool pages ``src`` into
         ``dst`` across every layer and every pool leaf (an int8 cache's
         scale pools too), in place (page-sized traffic)."""
+        self._note("copy_pages", ((len(src),), torch.int32), sampling=False)
         for s, d in zip(src, dst):
             for pool in self.cache.values():
                 pool[:, d].copy_(pool[:, s])
@@ -453,6 +486,7 @@ class ServingEngine:
         MoE, so the dispatch capacity is the whole block's, as in the
         reference), and only admitted rows write their cache.  Returns
         (last_tok', routing)."""
+        self._note("prefill_batch", tokens, admit, temps, topks)
         tmask = admit[:, None].expand(tokens.shape)
         logits, routing = self.model.prefill_routed(
             self.params, {"tokens": tokens, "token_mask": tmask,
@@ -465,6 +499,7 @@ class ServingEngine:
         """Reference mode with ``batched_prefill=False``: a batch-1 prefill
         of (1, prefill_len) tokens through slot ``slot``'s row of the
         cache (a view, written in place).  Returns (last_tok', routing)."""
+        self._note("prefill_one", tokens, slot, temps, topks)
         one = _tree_map(lambda v: v[:, slot:slot + 1], self.cache)
         logits, routing = self.model.prefill_routed(
             self.params, {"tokens": tokens}, one, self.ecfg.max_cache,
@@ -479,6 +514,7 @@ class ServingEngine:
         """Reference mode: one token for every row at position
         ``lengths``; inactive rows are dead-routed and keep ``last_tok``.
         Returns (last_tok', routing (L, B, K))."""
+        self._note("decode", lengths, active, temps, topks)
         logits, routing = self.model.decode_step_routed(
             self.params, self.cache,
             {"tokens": self.last_tok[:, None], "lengths": lengths,

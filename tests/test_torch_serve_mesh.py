@@ -31,7 +31,8 @@ include_tp=True)`` per data block with the head gather apart; ``attn_decode_step
 within 1e-5 of JAX's (the int8 payload exact) and of the port's one-device
 ``attn_decode_step``; a deadline on rank 0's clock expiring the same
 request on every rank; ``psum`` the rank-order bfloat16 sum on every
-rank."""
+rank; the packed collectives of a list mixing bf16 and fp32 equal to each
+tensor's own collective."""
 import multiprocessing as mp
 import os
 import subprocess
@@ -300,3 +301,34 @@ def test_deadline_expires_on_every_rank(runs, mesh_name):
         assert rec["status"] == ["done", "expired", "done"]
         assert rec["streams"] == recs[0]["streams"]
         assert rec["broadcast_bytes"] > 0
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+def test_analysis_rules_on_every_rank(runs, mesh_name):
+    """The analysis rules R2 (collective bytes, ``predicted_collective_bytes
+    (..., include_tp=True)`` per data block, the aux, layout and head kinds
+    booked apart) and R6 (no expert-weight all-gather) hold on every rank
+    for the unified engine's programs; on the paged step a planted
+    all-gather of one layer's expert weights fires R6 on every rank."""
+    n_model = cases.MESHES[mesh_name][1]
+    for r, rank in enumerate(runs[mesh_name]):
+        got = rank["analysis"]
+        for v in cases.ANALYSIS_PROGRAMS:
+            assert got["findings"][v] == [], (r, v, got["findings"][v])
+            assert got["bytes"][v].get("all-reduce", 0) > 0, (r, v)
+        assert len(got["planted"]) == 1, (r, got["planted"])
+        planted = got["planted"][0]
+        assert planted["bytes"] == n_model * planted["threshold"]
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+def test_packed_collectives_mixed_dtypes(runs, mesh_name):
+    """``all_gather_packed``, ``psum_scatter_packed`` and ``psum_packed``
+    (sum and mean) of a list of bf16 and fp32 tensors give, on every rank,
+    the bits and dtype of each tensor's own collective, and book the same
+    bytes."""
+    for r, rank in enumerate(runs[mesh_name]):
+        for name, got in rank["packed_mixed"].items():
+            assert got["equal"], (r, name)
+            assert got["packed_bytes"] == got["single_bytes"] > 0, (r, name,
+                                                                   got)

@@ -266,5 +266,82 @@ def _rank_cases(rank, world, store, shape, params_path) -> dict:
                        "streams": [[int(t) for t in eng._all[u].generated]
                                    for u in uids],
                        "broadcast_bytes": mesh.bytes.get("broadcast", 0)}
+    out["analysis"] = _analysis(mesh)
+    out["packed_mixed"] = _packed_mixed(rank, mesh)
     torch.distributed.destroy_process_group()
+    return out
+
+
+# the unified engine's programs the analysis rules R2 and R6 read on a mesh
+ANALYSIS_PROGRAMS = ("unified", "paged", "int8")
+
+
+def _analysis(mesh) -> dict:
+    """R2 and R6 over one traced step of each of ``ANALYSIS_PROGRAMS`` on
+    this rank (the reduced qwen3-moe at capacity factor 8, as the
+    analysis CLI runs it on a mesh), and R6 over the paged step with a
+    planted all-gather of a layer's expert weights."""
+    import dataclasses
+
+    from repro_torch.analysis import programs
+    from repro_torch.analysis.collectives import CollectiveBudgetRule
+    from repro_torch.analysis.sharding_lint import ShardingLintRule
+    from repro_torch.core import collectives
+    from repro_torch.launch import opcount
+    found, bytes_ = {}, {}
+    for v in ANALYSIS_PROGRAMS:
+        prog = programs.trace_program(v, device="cpu", mesh=mesh,
+                                      cfg_kw=dict(capacity_factor=8.0))
+        found[v] = [str(f) for rule in (CollectiveBudgetRule(),
+                                        ShardingLintRule())
+                    for f in rule.check(prog)]
+        bytes_[v] = dict(prog.coll)
+        if v == "paged":
+            paged = prog
+    w = paged.engine.params["blocks"]["experts"]["w_gate"][0]
+    cap = opcount.capture(lambda: collectives.all_gather(w, mesh, "model", 0))
+    planted = dataclasses.replace(paged, records=paged.records + cap.records)
+    return {"findings": found, "bytes": bytes_,
+            "planted": [f.detail for f in ShardingLintRule().check(planted)]}
+
+
+def _packed_mixed(rank: int, mesh) -> dict:
+    """Each packed collective over "model" of a list mixing bf16 and fp32
+    tensors (a bf16 layer beside RG-LRU's or Mamba-2's fp32 leaves, one
+    exchange a dtype), against the per-tensor collective of each: whether
+    every result has the bits and dtype of the per-tensor one, and the
+    bytes each side booked."""
+    import torch
+    from repro_torch.core import collectives
+    rng = np.random.default_rng(100 + rank)
+    xs = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+          .to(dt) for shape, dt in (((8, 3), torch.bfloat16),
+                                    ((4, 8), torch.float32),
+                                    ((8,), torch.bfloat16),
+                                    ((2, 8, 2), torch.float32))]
+    dims = [0, 1, 0, 1]
+    n = mesh.shape["model"]
+    same = lambda got, want: all(
+        g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(got, want))
+    out = {}
+    for name, packed, single in (
+            ("all_gather", lambda: collectives.all_gather_packed(
+                xs, mesh, "model", dims, "mixed"),
+             lambda x, d: collectives.all_gather(x, mesh, "model", d)),
+            ("psum_scatter", lambda: collectives.psum_scatter_packed(
+                xs, mesh, "model", dims, "mixed"),
+             lambda x, d: collectives.psum_scatter(x, mesh, "model", d)),
+            ("psum", lambda: collectives.psum_packed(
+                xs, mesh, "model", "mixed"),
+             lambda x, d: collectives.psum(x, mesh, "model")),
+            ("pmean", lambda: collectives.psum_packed(
+                xs, mesh, "model", "mixed", mean=True),
+             lambda x, d: collectives.psum(x, mesh, "model") / n)):
+        mesh.reset_counters()
+        got = packed()
+        packed_bytes = mesh.bytes.get("mixed", 0)
+        mesh.reset_counters()
+        want = [single(x, d) for x, d in zip(xs, dims)]
+        out[name] = {"equal": same(got, want), "packed_bytes": packed_bytes,
+                     "single_bytes": sum(mesh.bytes.values())}
     return out

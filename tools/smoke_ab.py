@@ -29,7 +29,11 @@ mamba2-130m against the CPU and recurrentgemma-2b at full width) or
 ``modalities`` (slice 12's archs: phase 3's flash cases at qwen2-vl-7b's
 and musicgen-large's heads, then phase 13) or ``families_mesh`` (phase
 3's flash cases at phase 14's per-rank shapes, then phase 14: the four
-other families on a (2, 2) mesh of rank processes).  Prints the card's name and power limit, the build's ptxas lines
+other families on a (2, 2) mesh of rank processes) or ``analysis``
+(phase 3's fp32 paged cases at the reduced qwen3-moe's programs' shapes,
+its FFN and quantized-FFN cases at the reduced widths and the qwen3-0.6b
+flash case at S=4096, then phase 15: the analysis rules on the
+card and the dry-run against the allocator).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -53,7 +57,7 @@ def main() -> int:
                     choices=["paged", "quant", "flash", "chaos", "serve",
                              "serve5", "train", "ep", "serve_mesh",
                              "train_mesh", "families", "modalities",
-                             "families_mesh"])
+                             "families_mesh", "analysis"])
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     import torch
@@ -99,6 +103,7 @@ def main() -> int:
     if "serve_mesh" in args.only:
         cs.GQA_HEADS = cs.GQA_HEADS[-3:]
         cs.PAGED_CASES = []
+        cs.REDUCED_PAGED = []
         cs.check_paged_attention(torch, results)
         cs.FFN_CASES = []
         cs.MESH_FFN_CASES = cs.MESH_FFN_CASES[-3:]
@@ -144,6 +149,24 @@ def main() -> int:
         cs.check_flash_attention(torch, results)
         runs = {}
         cs.check_families_mesh(torch, runs)
+        print(json.dumps(cs.kernels_line(results, runs, [
+            e for e in cs.LINE if e[2] in runs])), flush=True)
+    if "analysis" in args.only:
+        # phase 15 alone, with the phase 3 rows its kernels-line entries
+        # read
+        cs.PAGED_CASES = []
+        cs.GQA_HEADS = []
+        cs.check_paged_attention(torch, results)
+        cs.FFN_CASES = [c for c in cs.FFN_CASES if c[0] == 4]
+        cs.MESH_FFN_CASES = []
+        cs.check_moe_ffn(torch, results)
+        cs.QUANT_CASES = [c for c in cs.QUANT_CASES if c[0] == 4]
+        cs.check_moe_ffn_quant(torch, results)
+        cs.FLASH_CASES = [c for c in cs.FLASH_CASES
+                          if c[:4] == (2, 4096, 16, 8)]
+        cs.check_flash_attention(torch, results)
+        runs = {}
+        cs.check_analysis(torch, runs)
         print(json.dumps(cs.kernels_line(results, runs, [
             e for e in cs.LINE if e[2] in runs])), flush=True)
     if "serve5" in args.only:
