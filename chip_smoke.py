@@ -88,8 +88,8 @@ line):
                 grouped FFN and no attention kernel; each stream is held
                 to the forward of its own tokens (FORCED_SHARE_MAX).
   5b. serve_quant — the same model and traffic with int8 weights
-                (quantized on load, on the card) and an int8 KV pool,
-                after the bf16 model is freed.
+                (each matrix quantized as it is drawn on the card) and an
+                int8 KV pool, after the bf16 model is freed.
   granite     — granite-moe-3b-a800m at full width, depth cut to 16 of 32
                 layers (GRANITE_LAYERS; bf16; 8 of 48 experts router-dead,
                 a tied head over a vocab padded 49155 -> 49408): phase 5's
@@ -234,6 +234,23 @@ line):
                 the streams identical on every rank and each held to the
                 one-device forward of its own inputs (FORCED_SHARE_MAX;
                 mamba2 FP32_FORCED_SHARE_MAX).
+  16. full_depth — the three configs whose quantized store fits one
+                card, at full depth, budget 180 s: DBRX at int4 (40
+                layers, 70.82 GB), deepseek-67b at int8 (95 layers, 70.35
+                GB) and qwen2-72b at int4 (80 layers, 40.46 GB), each
+                weight matrix rounded to bf16 and quantized as it is drawn
+                (``Model.init_serving``): the load's seconds, its peak
+                of requested bytes within ``sharding.draw_peak_bytes``
+                (the allocated peak printed beside it; the store,
+                one fp32 matrix and a column chunk), the weight bytes
+                exactly the performance model's, ``fits_in_memory`` at
+                the card's total beside it; phase 5's traffic through the
+                paged engine (DBRX at capacity factor 8, two rows at a
+                time: its decode's ``gather_moe`` copies do not fit beside
+                the store at four); each greedy stream held, with the
+                engine freed, to one batched forward of the streams' own
+                tokens through the served store and through its
+                dequantized tree layer by layer (FORCED_SHARE_MAX).
   Every paged serve through phase 5's ``serve_phase`` (phases 5, 5b, the
   granite, DBRX, stablelm-12b, qwen3-0.6b, qwen2-72b and deepseek-67b
   serves) holds its greedy streams to the forward of their own tokens
@@ -451,18 +468,22 @@ def check_sass(counts) -> dict:
 
 def paged_case(torch, dtype, t: int, window, seed: int = 0, int8=False,
                lengths=(0, 17, 100, 250), seg=None, hd: int = 128,
-               hq: int = 32, hkv: int = 4, ps: int = 16):
+               hq: int = 32, hkv: int = 4, ps: int = 16, pages=None):
     """Main-path attention shapes: B=4 (a row a length), Hq=32, Hkv=4,
     hd=128, ps=16, ragged lengths and seg_lens, block tables over a
     shuffled pool whose unreferenced pages hold NaN (an int8 pool: NaN
-    scales).  Returns the pools as (k, v) or, int8, (k, v, k_scale,
-    v_scale)."""
+    scales); ``pages``: the tables' width (a serve's max_cache / ps),
+    else one page past what the lengths need.  Returns the pools as
+    (k, v) or, int8, (k, v, k_scale, v_scale)."""
     b = len(lengths)
     lengths = np.array(lengths, np.int32)
     if seg is None:
         seg = [1, 0, 1, 1] if t == 1 else [t, 0, 13, t]
     seg = np.array(seg, np.int32)
-    nb = -(-(int(lengths.max()) + t) // ps) + 1
+    need = -(-(int(lengths.max()) + t) // ps)
+    check(pages is None or pages >= need,
+          f"paged_case: {pages} pages hold no {need}")
+    nb = need + 1 if pages is None else pages
     num_pages = b * nb + 8
     rng = np.random.default_rng(seed)
     perm = rng.permutation(num_pages)
@@ -543,6 +564,11 @@ GQA_HEADS = [(24, 8, 64), (48, 8, 128), (32, 8, 160), (16, 8, 128),
 # cache, at their page sizes 8 and 5
 REDUCED_PAGED = [(4, (0, 20), (4, 3), 8), (1, (13, 27), (1, 1), 8),
                  (4, (0, 20), (4, 3), 5), (1, (13, 27), (1, 1), 5)]
+# (T, lengths, seg_lens): DBRX's paged attention in phase 16 (bf16, Hq 48,
+# Hkv 8, hd 128, G=6), two rows over its serve's 12-page tables (max_cache
+# 192, pages of 16): at B=2 a T=32 prefill block splits each tile's page
+# walk in two (phase 5's B=4: one, no combine), a decode step in three
+FULL_DBRX_PAGED = [(32, (17, 100), (32, 20)), (1, (17, 100), (1, 1))]
 
 
 def paged_run(torch, paged_attn, int8: bool, dtype, t: int, window,
@@ -607,6 +633,10 @@ def check_paged_attention(torch, results):
     for t, lengths, seg, ps in REDUCED_PAGED:
         one(False, torch.float32, t, None, 64, 4, 2, lengths=lengths,
             seg=seg, ps=ps)
+    for t, lengths, seg in FULL_DBRX_PAGED:
+        one(False, torch.bfloat16, t, None, 128, 48, 8, lengths=lengths,
+            seg=seg, pages=SERVE_ENGINE["max_cache"]
+            // SERVE_ENGINE["page_size"])
 
 
 def check_paged_sweep(torch, draws: int = 32):
@@ -750,10 +780,11 @@ def check_fp32_dbrx_refused(torch):
 
 # (E, D, F, capacities, dtypes): the model's widths at the serve's prefill
 # blocks, the reduced config's widths at a ragged and a whole C-tile, and
-# DBRX's widths (bf16: fp32 refuses them) at C 16 and its serve's 40
+# DBRX's widths (bf16: fp32 refuses them) at C 16, its serve's 40 and
+# phase 16's 128 (two rows' prefill blocks at capacity factor 8)
 QUANT_CASES = [(128, 2048, 768, (16, 40), ("float32", "bfloat16")),
                (4, 256, 512, (5, 16), ("float32", "bfloat16")),
-               (16, 6144, 10752, (16, 40), ("bfloat16",)),
+               (16, 6144, 10752, (16, 40, 128), ("bfloat16",)),
                # phase 9's quantized shards at 4 ranks: one local expert,
                # 256 slots of a (4, 16) block
                (1, 256, 512, (256,), ("float32",))]
@@ -1301,9 +1332,8 @@ def check_serve(torch, cfg=None, phase: str = "serve"):
 
 def check_serve_quant(torch, cfg=None, phase: str = "serve_quant"):
     """Phase 5b (and DBRX's quantized serve): the full-width model with
-    int8 weights, quantized on load on the card (the bf16 tree is drawn
-    first and replaced leaf by leaf), and an int8 KV pool; the bf16
-    model is freed first.  Same traffic, prefix hit and copy-on-write as
+    int8 weights, each matrix quantized as the engine draws it on the
+    card, and an int8 KV pool; the bf16 model is freed first.  Same traffic, prefix hit and copy-on-write as
     phase 5.  Returns the launch counts."""
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     cfg = cfg or full_config().replace(weight_quant="int8",
@@ -1876,35 +1906,53 @@ def resilience_serve(torch, cfg, params, *, overcommit: bool = True,
     return {"eng": eng, "plan": plan, "reqs": reqs}
 
 
-def forced_shares(torch, cfg, params, reqs, pad_to: int = 1) -> list:
+def forced_shares(torch, cfg, params, reqs, pad_to: int = 1,
+                  batch: int = 1) -> list:
     """Each greedy stream held to the full-sequence forward of its own
     tokens: at every generated position, how far the emitted token's
     logit sits below the forward's largest, as a share of that largest
     logit's distance from the mean (0: the forward's argmax; a token
     picked at random sits near 1).  A near-tie that the serve's rounding
     broke the other way costs a few hundredths; a restore that attended
-    to the wrong pages emits tokens the forward ranks far lower.  With
-    ``pad_to`` the forward's sequence is padded with token 0 to a multiple
-    of it (the model is causal: the padding changes no earlier logit).
-    Returns each request's largest share."""
+    to the wrong pages emits tokens the forward ranks far lower.  The
+    forward takes ``batch`` requests at a time, each row its own tokens
+    padded with token 0 to the longest and then to a multiple of
+    ``pad_to`` (the model is causal: the padding changes no earlier
+    logit).  One request a forward by default: padding rows of token 0
+    route alike and can crowd an expert past its capacity where the
+    capacity factor is below E / K (qwen3-moe's 8 against 16), which
+    would move a real token's routing.  A batch of every request serves
+    where no token can be dropped, and dequantizes a quantized store once
+    rather than once a request.  Returns each request's largest share."""
     from repro_torch.models.model import build_model
     model = build_model(cfg, params["embed"].device)
     out = []
-    with torch.no_grad():
-        for r in reqs:
-            seq = np.concatenate([r.prompt,
-                                  np.asarray(r.generated[:-1], np.int32)])
-            toks = np.zeros(-(-len(seq) // pad_to) * pad_to, np.int32)
-            toks[:len(seq)] = seq
+    for i in range(0, len(reqs), batch):
+        group = reqs[i:i + batch]
+        seqs = [np.concatenate([r.prompt, np.asarray(r.generated[:-1],
+                                                     np.int32)])
+                for r in group]
+        width = -(-max(map(len, seqs)) // pad_to) * pad_to
+        toks = np.zeros((len(seqs), width), np.int32)
+        for j, seq in enumerate(seqs):
+            toks[j, :len(seq)] = seq
+        with torch.no_grad():
             logits, _ = model.forward(params, {"tokens": torch.as_tensor(
-                toks[None], device=model.device)})
-            lg = logits[0, len(r.prompt) - 1:len(seq), :cfg.vocab_size]
-            gen = torch.as_tensor(r.generated, device=lg.device).long()
-            top = lg.max(-1).values
-            share = ((top - lg.gather(1, gen[:, None])[:, 0])
-                     / (top - lg.mean(-1)))
-            out.append(float(share.max()))
+                toks, device=model.device)})
+            out += [_share(torch, cfg, logits[j], r)
+                    for j, r in enumerate(group)]
     return out
+
+
+def _share(torch, cfg, logits, r) -> float:
+    """The largest share (``forced_shares``) of request ``r``'s generated
+    tokens under ``logits`` (S, V_pad), the forward of its own tokens."""
+    seq_len = len(r.prompt) + len(r.generated) - 1
+    lg = logits[len(r.prompt) - 1:seq_len, :cfg.vocab_size]
+    gen = torch.as_tensor(r.generated, device=lg.device).long()
+    top = lg.max(-1).values
+    share = (top - lg.gather(1, gen[:, None])[:, 0]) / (top - lg.mean(-1))
+    return float(share.max())
 
 
 # the largest share (``forced_shares``) a greedy stream of phase 5c's
@@ -1917,14 +1965,24 @@ class LayerDequant:
     """A layer-stacked QuantTensor that dequantizes one layer when the
     stack indexes it (``transformer._layer``): the forward of a tree of
     these sees the dequantized tree's values layer by layer, with one
-    dense layer resident at a time."""
+    dense layer resident at a time.  A layer's expert stack is
+    dequantized an expert at a time into its dense tensor (the same
+    values), so the fp32 transient is one expert's, not the layer's (8.4
+    GB for a DBRX expert leaf)."""
 
     def __init__(self, qt):
         self.qt = qt
 
     def __getitem__(self, layer):
+        import torch
         from repro_torch.core import quant
-        return quant.dequantize(self.qt[layer])
+        qt = self.qt[layer]
+        if qt.data.dim() == 2:
+            return quant.dequantize(qt)
+        out = torch.empty(qt.shape, dtype=qt.dtype, device=qt.data.device)
+        for i in range(out.shape[0]):
+            out[i] = quant.dequantize(qt[i])
+        return out
 
 
 def dequantized(torch, params: dict) -> tuple:
@@ -4289,6 +4347,142 @@ def check_analysis(torch, runs: dict) -> None:
           f"its {ANALYSIS_BUDGET_S} s budget")
 
 
+# phase 16: the configs whose quantized store fits one card, at full
+# depth, each weight matrix quantized as it is drawn (``init_serving``):
+# (arch, weight_quant, max_batch) for DBRX at int4 (70.82 GB),
+# deepseek-67b at int8 (70.35 GB) and qwen2-72b at int4 (40.46 GB).
+# qwen2-72b at int8 (76.19 GB) is left out: its LM head's dequantize
+# (10 GB of fp32 copies a step) would land past the card.  DBRX serves 2 rows at a
+# time: at 4, a decode step's ``gather_moe`` dequantizes 16 expert
+# matrices to fp32 twice over (about 10 GB beside the store), and the
+# card ran out of memory there with 3.1 GiB free but split between the
+# allocator's blocks.
+FULL_DEPTH = (("dbrx", "int4", 2), ("deepseek_67b", "int8", 4),
+              ("qwen2_72b", "int4", 4))
+FULL_DEPTH_SEED = 0
+FULL_DEPTH_BUDGET_S = 180.0
+
+
+def full_depth_config(arch: str, level: str):
+    """``arch`` at its published depth and widths with ``level`` weights;
+    an MoE arch at capacity factor 8, where no token is dropped (C1's
+    held form), so it is served once and its streams are held to the
+    forward directly."""
+    from repro_torch.configs.base import get_config
+    cfg = get_config(arch).replace(weight_quant=level)
+    return cfg.replace(capacity_factor=8.0) if cfg.is_moe else cfg
+
+
+def check_full_depth(torch, runs: dict) -> None:
+    """Phase 16: each of FULL_DEPTH loads at full depth on the card, its
+    weights drawn and quantized matrix by matrix (``Model.init_serving``,
+    the engine's own draw): the load's seconds, its peak of requested
+    bytes (reset before the draw) within ``sharding.draw_peak_bytes`` (the
+    store plus one fp32 matrix and a column chunk) with the allocated peak
+    beside it, the store's bytes exactly
+    ``perf_model.model_weight_bytes``, and ``perf_model.fits_in_memory``
+    at the card's total beside it.  Then phase 5's traffic through the
+    paged engine (its path's kernels launched, a prefix hit and a
+    copy-on-write), and, with the engine freed, each greedy stream held
+    to the forward of its own tokens through the served store and
+    through its dequantized tree layer by layer (``LayerDequant``), under
+    FORCED_SHARE_MAX.  Fills ``runs["full_<arch>"]`` with each serve's
+    launches."""
+    from repro_torch.core import perf_model
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.models.model import build_model
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    t_phase = time.perf_counter()
+    dev = card()
+    _, total = torch.cuda.mem_get_info()
+    for arch, level, rows in FULL_DEPTH:
+        t_cfg = time.perf_counter()
+        cfg = full_depth_config(arch, level)
+        phase = f"full_{arch}"
+        free_device(torch)
+        base = torch.cuda.memory_allocated()
+        base_req = _requested(torch)[0]
+        gen = torch.Generator(device="cuda").manual_seed(FULL_DEPTH_SEED)
+        t0 = time.perf_counter()
+        params = build_model(cfg, "cuda").init_serving(gen)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        load_peak = torch.cuda.max_memory_allocated() - base
+        load_req = _requested(torch)[1] - base_req
+        # the bound counts bytes requested; the allocated peak, which
+        # the allocator rounds up block by block, is printed beside it
+        load_bound = sharding.draw_peak_bytes(cfg)
+        check(load_req <= load_bound,
+              f"{phase}: the load peaked at {load_req} B requested "
+              f"({load_peak} B allocated), past its bound {load_bound} B")
+        fits = perf_model.fits_in_memory(cfg, quant=level, budget=total)
+        eng = ServingEngine(cfg, EngineConfig(**dict(
+            SERVE_ENGINE, max_batch=rows)), params=params, device="cuda")
+        weight_bytes = check_weight_bytes(eng, cfg)
+        prompts = traffic(cfg.vocab_size, 6, 40, 48, 160, seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        reqs = serve_requests(eng, prompts, 16)
+        wall = time.perf_counter() - t1
+        launches = ops.launch_counts()
+        runs[phase] = launches
+        check(all(len(r.generated) == 16 and 0 <= min(r.generated)
+                  and max(r.generated) < cfg.vocab_size for r in reqs),
+              f"{phase}: generated tokens out of range")
+        check_path_kernels(launches, serve_kernels(cfg), phase)
+        ps = eng.paged_stats()
+        check(ps["prefix_hits"] > 0 and ps["cow_copies"] > 0,
+              f"{phase}: no prefix-cache hit or copy-on-write ({ps})")
+        serve_peak = torch.cuda.max_memory_allocated()
+        tp, tt, ms = eng.throughput(), eng.ttft(), eng.memory_stats()
+        del eng
+        free_device(torch)
+        t1 = time.perf_counter()
+        # capacity factor 8 is at or above DBRX's E / K: one forward of
+        # every request
+        held = {"served": forced_shares(torch, cfg, params, reqs,
+                                        batch=len(reqs))}
+        dense, held["dequantized_by"] = dequantized(torch, params)
+        held["dequantized"] = forced_shares(
+            torch, cfg.replace(weight_quant="none"), dense, reqs,
+            batch=len(reqs))
+        del dense
+        held_peak = torch.cuda.max_memory_allocated()
+        worst = max(held["served"] + held["dequantized"])
+        check(worst <= FORCED_SHARE_MAX, f"{phase}: a greedy stream strays "
+              f"from the forward of its own tokens (shares {held})")
+        held.update(bound=FORCED_SHARE_MAX,
+                    seconds=time.perf_counter() - t1)
+        emit(phase, arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+             weight_quant=level, kv_cache_dtype=cfg.kv_cache_dtype,
+             capacity_factor=cfg.capacity_factor, max_batch=rows,
+             params=cfg.n_params(),
+             load_s=load_s, load_peak_allocated=load_peak,
+             load_peak_requested=load_req, load_peak_bound=load_bound,
+             weight_bytes=weight_bytes,
+             weight_bytes_equal_perf_model=True, card_total_bytes=total,
+             fits_in_memory=fits, loaded=True, wall_s=wall,
+             requests=len(prompts),
+             prompt_tokens=int(sum(len(p) for p in prompts)),
+             prefill_tok_per_s=tp["prefill_tok_per_s"],
+             decode_tok_per_s=tp["decode_tok_per_s"],
+             total_tok_per_s=tp["total_tok_per_s"], ttft_p50_s=tt["p50"],
+             ttft_p95_s=tt["p95"], memory_stats=ms,
+             serve_peak_allocated=serve_peak, held_peak_allocated=held_peak,
+             launches=_live(launches), prefix_hits=ps["prefix_hits"],
+             cow_copies=ps["cow_copies"], held_to_forward=held,
+             seconds=time.perf_counter() - t_cfg, card=dev)
+        del params
+    free_device(torch)
+    phase_s = time.perf_counter() - t_phase
+    emit("full_depth", seconds=phase_s, budget_s=FULL_DEPTH_BUDGET_S,
+         card=dev)
+    check(phase_s <= FULL_DEPTH_BUDGET_S, f"phase 16 took {phase_s:.1f} s "
+          f"of its {FULL_DEPTH_BUDGET_S} s budget")
+
+
 def _live(launches: dict) -> dict:
     """The kernels a run launched (the counts that are not zero)."""
     return {k: v for k, v in launches.items() if v}
@@ -4466,6 +4660,17 @@ LINE = [
     ("flash_attention", dict(dtype="bfloat16", B=2, S=4096, causal=True,
                              window=None, hd=128, Hq=16, Hkv=8),
      "analysis_forward"),
+    # phase 16: the three full-depth serves of a store quantized as drawn
+    # (DBRX's two rows: their prefill blocks over 12-page tables, and at
+    # capacity factor 8, C=128)
+    ("paged_attention", dict(dtype="bfloat16", T=32, window=None, hd=128,
+                             Hq=48, Hkv=8, B=2), "full_dbrx"),
+    ("moe_ffn_quant", dict(dtype="bfloat16", E=16, C=128, bits=4),
+     "full_dbrx"),
+    ("paged_attention", dict(PAGED_T32, hd=128, Hq=64, Hkv=8),
+     "full_deepseek_67b"),
+    ("paged_attention", dict(PAGED_T32, hd=128, Hq=64, Hkv=8),
+     "full_qwen2_72b"),
 ]
 
 
@@ -4576,6 +4781,7 @@ def main() -> int:
     check_modalities(torch, runs)
     check_families_mesh(torch, runs)
     check_analysis(torch, runs)
+    check_full_depth(torch, runs)
     print(json.dumps(kernels_line(results, runs)), flush=True)
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"ok": True, "device": {

@@ -12,17 +12,25 @@
   does).  ``models/attention.quantize_kv`` wraps it with one block over hd.
 * ``qdot`` — the weight-matmul policy point: a raw tensor multiplies as it
   is, a ``QuantTensor`` is dequantized first.
-* ``quantize_tree`` / ``quantize_params`` — quantize-on-load: eligible
+* ``quantize_tree`` / ``quantize_params`` — quantize a tree: eligible
   weight kinds (``attn``, ``mlp``, ``experts``, ``lm_head`` by default;
   router and embedding stay fp) become ``QuantTensor`` leaves.  A stacked
-  leaf is quantized one leading-axis slice at a time (each block runs
-  along axis -2, so slicing is exact), and ``inplace=True`` drops each fp
-  leaf from its dict as soon as its replacement exists: a full-width
-  model then needs its fp tree plus one leaf's payload, not two trees.
+  leaf is quantized one matrix at a time, each matrix a chunk of columns
+  at a time (each block runs along axis -2 within a column, so slicing
+  is exact), and ``inplace=True`` drops each fp leaf from its dict as
+  soon as its replacement exists.
+* ``Sink`` — quantize-on-draw, the load path: ``models/layers.dense_init``
+  hands each matrix it draws to a sink, which rounds it to the param
+  dtype and quantizes it into a preallocated ``QuantTensor`` stack
+  (``empty``, ``quantize_into``).  The store is ``quantize_params`` of
+  the drawn tree bit for bit, and the load never holds a leaf in the
+  param dtype: its peak is the store plus one fp32 matrix and a column
+  chunk's temporaries.
 """
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
@@ -75,6 +83,14 @@ class QuantTensor:
     def nbytes(self) -> int:
         return (self.data.numel() * self.data.element_size()
                 + self.scale.numel() * self.scale.element_size())
+
+    def matrices(self) -> "QuantTensor":
+        """The stack as (n, ., .): its leading axes flattened into one
+        (views of the payload and scales; a matrix is n = 1)."""
+        return QuantTensor(self.data.reshape((-1,) + self.data.shape[-2:]),
+                           self.scale.reshape((-1,) + self.scale.shape[-2:]),
+                           self.bits, self.block, self.orig_dim,
+                           self.out_dtype)
 
 
 def _pad_axis(x: torch.Tensor, axis: int, size: int) -> torch.Tensor:
@@ -152,31 +168,116 @@ def _quantize_payload(w: torch.Tensor, bits: int, block: int):
     return q.contiguous(), scale
 
 
-def quantize(w: torch.Tensor, level: str = "int8", *,
-             block: int = 128) -> QuantTensor:
-    """Quantize a weight (reduction axis -2) into a QuantTensor.  A stacked
-    weight (ndim > 2) is quantized one leading-axis slice at a time, into
-    preallocated payload and scales: the fp32 temporaries stay one slice
-    big, and the result is the same as quantizing it whole."""
+# a matrix is quantized a chunk of about this many elements (whole
+# columns) at a time, so its temporaries stay a few hundred MB
+CHUNK_ELEMS = 1 << 24
+
+
+def _bits(level: str, block: int) -> int:
     if level not in BITS:
         raise ValueError(f"unknown weight_quant level {level!r}; "
                          f"expected one of {LEVELS}")
-    bits = BITS[level]
-    if bits == 4 and block % 2:
+    if BITS[level] == 4 and block % 2:
         raise ValueError(f"int4 packing needs an even block, got {block}")
-    k = w.shape[-2]
-    dtype_name = str(w.dtype).split(".")[-1]
-    if w.ndim <= 2:
-        q, scale = _quantize_payload(w, bits, block)
-        return QuantTensor(q, scale, bits, block, k, dtype_name)
+    return BITS[level]
+
+
+def empty(shape: tuple, level: str, block: int, dtype,
+          device) -> QuantTensor:
+    """An unfilled QuantTensor of logical shape (*lead, K, N) for a weight
+    of ``dtype``: the payload and scales ``quantize`` gives, allocated."""
+    bits = _bits(level, block)
+    *lead, k, n = shape
     rows = -(-k // 2) if bits == 4 else k
-    q = torch.empty(w.shape[:-2] + (rows, w.shape[-1]), dtype=torch.int8,
-                    device=w.device)
-    scale = torch.empty(w.shape[:-2] + (-(-k // block), w.shape[-1]),
-                        dtype=torch.float32, device=w.device)
-    for i in range(w.shape[0]):
-        q[i], scale[i] = _quantize_payload(w[i], bits, block)
-    return QuantTensor(q, scale, bits, block, k, dtype_name)
+    return QuantTensor(
+        torch.empty((*lead, rows, n), dtype=torch.int8, device=device),
+        torch.empty((*lead, -(-k // block), n), dtype=torch.float32,
+                    device=device),
+        bits, block, k, str(dtype).split(".")[-1])
+
+
+def quantize_into(dst: QuantTensor, w: torch.Tensor) -> None:
+    """Quantize the matrix ``w`` (K, N) into ``dst``, one matrix (a view
+    of a stack's payload and scales), a chunk of whole columns at a time.
+    Each chunk is rounded to ``dst``'s dtype first (nothing to do where
+    ``w`` has it), so an fp32 draw is quantized as the param-dtype matrix
+    it rounds to without a rounded copy of the whole.  Blocks run along
+    axis -2 within a column, so the chunks give the bytes the matrix
+    quantized whole gives."""
+    k, n = w.shape
+    step = max(1, CHUNK_ELEMS // k)
+    for c in range(0, n, step):
+        q, scale = _quantize_payload(w[:, c:c + step].to(dst.dtype),
+                                     dst.bits, dst.block)
+        dst.data[:, c:c + step] = q
+        dst.scale[:, c:c + step] = scale
+
+
+def quantize(w: torch.Tensor, level: str = "int8", *,
+             block: int = 128) -> QuantTensor:
+    """Quantize a weight (reduction axis -2) into a QuantTensor, one
+    (K, N) matrix at a time into preallocated payload and scales
+    (``quantize_into``): the fp32 temporaries stay a column chunk big,
+    and the result is the same as quantizing it whole.  A meta weight
+    gets the meta payload and scales (the shapes alone)."""
+    out = empty(w.shape, level, block, w.dtype, w.device)
+    if w.device.type == "meta":
+        return out
+    mats = out.matrices()
+    for i, idx in enumerate(itertools.product(*map(range, w.shape[:-2]))):
+        quantize_into(mats[i], w[idx])
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class Sink:
+    """How ``models/layers.dense_init`` stores a weight that is kept
+    quantized: each drawn (K, N) matrix, in fp32, is rounded to the param
+    dtype and quantized at once (``quantize_into``) into a preallocated
+    stack.  ``keep``: the block of (*lead, K, N) to store, as
+    ``dense_init`` reads it, its last two axes whole; ``cut``: a function
+    from one quantized matrix to the part of it this rank keeps (the
+    serve cut of ``launch/sharding.py``), or None for all of it."""
+    level: str
+    block: int
+    keep: tuple | None = None
+    cut: object = None
+
+    def empty(self, lead: tuple, k: int, n: int, dtype,
+              device) -> QuantTensor:
+        """The unfilled stack of ``lead`` kept matrices."""
+        one = empty((k, n), self.level, self.block, dtype, "meta")
+        if self.cut is not None:
+            one = self.cut(one)
+        return QuantTensor(
+            torch.empty(lead + tuple(one.data.shape), dtype=torch.int8,
+                        device=device),
+            torch.empty(lead + tuple(one.scale.shape), dtype=torch.float32,
+                        device=device),
+            one.bits, one.block, one.orig_dim, one.out_dtype)
+
+    def put(self, dst: QuantTensor, w: torch.Tensor) -> None:
+        """Quantize the drawn matrix ``w`` into ``dst``, one matrix of the
+        stack (through the whole quantized matrix where it is cut)."""
+        if self.cut is None:
+            quantize_into(dst, w)
+            return
+        whole = empty(w.shape, self.level, self.block, dst.dtype, w.device)
+        quantize_into(whole, w)
+        part = self.cut(whole)
+        dst.data.copy_(part.data)
+        dst.scale.copy_(part.scale)
+
+
+def cat(ws: list, dim: int):
+    """``torch.cat`` of tensors, or of QuantTensors of one layout along a
+    leading axis (payload and scales alike)."""
+    w = ws[0]
+    if not isinstance(w, QuantTensor):
+        return torch.cat(ws, dim=dim)
+    return QuantTensor(torch.cat([v.data for v in ws], dim=dim),
+                       torch.cat([v.scale for v in ws], dim=dim), w.bits,
+                       w.block, w.orig_dim, w.out_dtype)
 
 
 def dequantize(qt: QuantTensor, dtype=None) -> torch.Tensor:

@@ -152,9 +152,8 @@ def setup_pair(cfg, shape, device="meta", mesh=None,
             params = sharding.shard_tree(
                 params, sharding.mode_specs(cfg, mesh, mode), mesh)
         params = _contiguous(params)
-    else:
-        params = quant.quantize_params(model.init(generator), cfg,
-                                       inplace=True)
+    else:           # quantized as each matrix is drawn, where it is
+        params = model.init_serving(generator)
     specs = input_specs(cfg, shape if shape.kind != "forward" else
                         dataclasses.replace(shape, kind="prefill"))
     batch = {k: (v if str(device) == "meta" else

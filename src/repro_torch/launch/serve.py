@@ -19,13 +19,16 @@ take the contiguous cache, which the reference engine needs.  The vlm and
 audio archs (``qwen2_vl_7b``, ``musicgen_large``) raise the engine's
 ``ValueError``, which names the batch key their prefill needs
 (``patch_embeds``, ``frame_embeds``): the reference's launcher dies on
-that key at its first step.  ``--weight-quant int8|int4`` quantizes the weights on
-load and ``--kv-cache-dtype int8`` keeps an int8 page pool.
+that key at its first step.  ``--weight-quant int8|int4`` quantizes each weight
+matrix as it is drawn (so DBRX at int4, qwen2-72b at int4 and
+deepseek-67b at int8 load at full depth on one 80 GB card) and
+``--kv-cache-dtype int8`` keeps an int8 page pool.
 ``--overcommit`` admits on the context's pages and preempts under pool
 pressure, ``--priority`` (cycled over the requests) orders admission,
 ``--deadline-ms`` expires unfinished requests, and ``--temperature`` /
 ``--top-k`` sample instead of taking the argmax.  Prints prompt-eval and
-generation tok/s, TTFT, device memory, prefix-cache statistics, the
+generation tok/s, TTFT, device memory, the load's seconds and peak
+beside its bound, prefix-cache statistics, the
 resilience counters, each kernel's launch count, and from the paper's
 performance model (``core/perf_model``): the modelled paged-attention
 reads, the E[#exec experts/node/layer] statistic beside Eq. 1's bound on
@@ -36,6 +39,7 @@ layer formula for the others).
 from __future__ import annotations
 
 import argparse
+import time
 
 import numpy as np
 import torch
@@ -43,6 +47,7 @@ import torch
 from repro_torch.configs.base import get_config
 from repro_torch.core import perf_model
 from repro_torch.kernels import ops
+from repro_torch.launch import sharding
 from repro_torch.models.model import resolve_device
 from repro_torch.serving.engine import (EngineConfig, ServingEngine,
                                         reference_only)
@@ -60,13 +65,24 @@ def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
     max_cache = prompt_len + new_tokens + 8
     unified = unified and not legacy and not reference_only(cfg, max_cache)
     paged = paged and unified          # the reference engine is contiguous
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     eng = ServingEngine(cfg, EngineConfig(
         max_batch=max_batch, prefill_len=prompt_len,
         max_cache=max_cache, batched_prefill=not legacy,
         async_steps=not legacy, unified_step=unified, chunk_len=chunk_len,
         paged=paged, page_size=page_size, num_pages=num_pages,
         overcommit=overcommit), generator=gen, device=device)
+    load_peak = None
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        # the load's peak, read before any request runs
+        load_peak = (torch.cuda.max_memory_allocated(),
+                     torch.cuda.memory_stats()["requested_bytes.all.peak"])
+    load_s = time.perf_counter() - t0
     rng = np.random.default_rng(seed)
     sysp = rng.integers(0, cfg.vocab_size, shared_prefix)
     for k in range(requests):
@@ -96,6 +112,15 @@ def serve_demo(cfg, *, requests: int, new_tokens: int, prompt_len: int,
           f"MB (weight_quant={ms['weight_quant']}), KV pool "
           f"{ms['kv_pool_bytes'] / 1e6:.2f} MB ({cfg.kv_cache_dtype}), total "
           f"{ms['total_bytes'] / 1e6:.2f} MB")
+    # the load: every matrix drawn on the device (quantized as it is
+    # drawn), its peak against the draw's bound plus the KV pool
+    peak = ("peak not measured on the CPU" if load_peak is None else
+            f"peak {load_peak[0] / 1e9:.2f} GB allocated, "
+            f"{load_peak[1] / 1e9:.2f} GB requested")
+    bound = sharding.draw_peak_bytes(cfg) + ms["kv_pool_bytes"]
+    print(f"load                   : {load_s:.1f} s, {peak} (bound "
+          f"{bound / 1e9:.2f} GB: the store, one fp32 matrix and a "
+          f"column chunk, the KV pool)")
     tt = eng.ttft()
     if tt["n"]:
         print(f"TTFT p50/p95           : {tt['p50'] * 1e3:.1f} / "

@@ -437,6 +437,69 @@ def mode_slices(cfg, mesh, mode: str) -> dict:
     return walk(meta_params(fp), specs)
 
 
+def draw_keep(cfg, mesh=None) -> dict:
+    """The ``keep`` tree with which ``Model.init`` stores the weights as
+    ``cfg.weight_quant`` asks, each matrix quantized as it is drawn: a
+    ``quant.Sink`` at every leaf ``quantize_params`` converts.  On a
+    serving ``mesh`` every other leaf takes this rank's serve block
+    (``mode_slices``), and each sink keeps the leaf's leading-axis block
+    and cuts every quantized matrix as ``shard_tree`` cuts the whole
+    (``_cut_quant``, axis by axis), so the rank's blocks equal
+    ``shard_tree(quantize_params(init(gen)), serve_specs, mesh)``."""
+    slices = (mode_slices(cfg, mesh, "serve") if mesh is not None
+              else None)
+    specs = serve_specs(cfg, mesh) if mesh is not None else None
+
+    def sink(leaf: QuantTensor, spec) -> quant_lib.Sink:
+        level, block = cfg.weight_quant, cfg.weight_quant_block
+        if mesh is None:
+            return quant_lib.Sink(level, block)
+        lead = block_slices(leaf.data.shape, spec["data"], mesh)[:-2]
+        one = {k: v[-2:] for k, v in spec.items()}
+        return quant_lib.Sink(level, block, lead + (slice(None),) * 2,
+                              functools.partial(_cut_quant, spec=one,
+                                                mesh=mesh))
+
+    def walk(tree, sl, sp):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = walk(v, sl and sl[k], sp and sp[k])
+            elif isinstance(v, QuantTensor):
+                out[k] = sink(v, sp and sp[k])
+            elif sl is not None:
+                out[k] = sl[k]
+        return out
+    return walk(meta_params(cfg), slices, specs)
+
+
+def draw_peak_bytes(cfg) -> int:
+    """The most memory ``Model.init_serving(gen)`` may hold while it
+    draws ``cfg``'s weights on one device, quantizing each as drawn: the
+    store (``quant.tree_bytes``; ``perf_model.model_weight_bytes``) plus
+    one matrix's transients, which are the largest fp32 matrix drawn (4 B
+    an element of the last two axes of any leaf; the embedding (V, D) is
+    drawn whole, before anything else) and one column chunk's
+    temporaries (16 B an element of the largest chunk, K rounded up to
+    whole blocks: the chunk in the param dtype (2 B), its fp32 copy, the
+    quotient and its rounding (4 B each), the codes (1 B) and the last
+    chunk's codes and scales)."""
+    store = meta_params(cfg)
+    mat = max(math.prod(v.shape[-2:]) for v in _leaves(meta_params(
+        cfg.replace(weight_quant="none"))))
+    chunk = max((-(-v.orig_dim // v.block) * v.block
+                 * min(v.data.shape[-1],
+                       max(1, quant_lib.CHUNK_ELEMS // v.orig_dim))
+                 for v in _leaves(store) if isinstance(v, QuantTensor)),
+                default=0)
+    return quant_lib.tree_bytes(store) + 4 * mat + 16 * chunk
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
 def block_bytes(cfg, mesh, mode: str = "serve") -> int:
     """This rank's bytes of the ``mode`` blocks of ``cfg``'s weights:
     each leaf's block size times its element size (QuantTensor payload

@@ -21,32 +21,47 @@ from repro_torch.core import collectives, quant
 # ---------------------------------------------------------------------------
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
-               lead: tuple = (), keep=None) -> torch.Tensor:
+               lead: tuple = (), keep=None):
     """(*lead, d_in, d_out) weights ~ N(0, 1/d_in), drawn in fp32 one
     (d_in, d_out) matrix at a time, so the fp32 transient stays one matrix
     even for a full-width expert stack.  ``keep``: store only a block of
     the whole, one slice per dimension of (*lead, d_in, d_out) (a slice
     alone: of the last lead axis, a rank's expert rows); every matrix is
-    still drawn, so the kept block equals the same block of the whole."""
+    still drawn, so the kept block equals the same block of the whole.
+    ``keep`` may instead be a ``quant.Sink`` (its own ``keep`` the block):
+    each kept matrix then goes through the sink, rounded to ``dtype`` and
+    quantized as it is drawn, and the result is a QuantTensor equal to
+    ``quant.quantize`` of the stored weight, with no ``dtype`` copy of
+    the leaf ever made."""
+    sink = keep if isinstance(keep, quant.Sink) else None
+    if sink is not None:
+        keep = sink.keep
     full = lead + (d_in, d_out)
     if isinstance(keep, slice):
         keep = (slice(None),) * (len(lead) - 1) + (keep, slice(None),
                                                    slice(None))
     keep = keep if keep is not None else (slice(None),) * len(full)
     kept = [range(n)[k] for n, k in zip(full, keep)]
-    out = torch.empty(tuple(len(r) for r in kept), dtype=dtype,
-                      device=gen.device)
-    mats = out.view(-1, len(kept[-2]), len(kept[-1]))
+    shape = tuple(len(r) for r in kept)
+    if sink is None:
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        mats = out.view((-1,) + shape[-2:])
+    else:
+        out = sink.empty(shape[:-2], d_in, d_out, dtype, gen.device)
+        mats = out.matrices()
     scale = 1.0 / math.sqrt(d_in)
     for idx in itertools.product(*map(range, lead)):
         mat = torch.randn((d_in, d_out), generator=gen, device=gen.device,
                           dtype=torch.float32)
-        if not all(j in r for j, r in zip(idx, kept)):
-            continue
-        pos = 0
-        for j, r in zip(idx, kept):
-            pos = pos * len(r) + r.index(j)
-        mats[pos].copy_(mat[keep[-2], keep[-1]].mul_(scale))
+        if all(j in r for j, r in zip(idx, kept)):
+            pos = 0
+            for j, r in zip(idx, kept):
+                pos = pos * len(r) + r.index(j)
+            if sink is None:
+                mats[pos].copy_(mat[keep[-2], keep[-1]].mul_(scale))
+            else:
+                sink.put(mats[pos], mat.mul_(scale))
+        del mat             # freed before the next draw: one fp32 matrix
     return out
 
 

@@ -1,7 +1,9 @@
 """Public model API of the port: ``build_model(cfg, device)`` -> ``Model``.
 
   init(generator)                      -> params
-  init_serving(generator, mesh)        -> this rank's serve-mode blocks
+  init_serving(generator, mesh=None)   -> the served store (quantized as
+                                          drawn); on a mesh, this rank's
+                                          serve-mode blocks
   init_training(generator, mesh)       -> this rank's train-mode blocks
   init_paged_cache(num_pages, page_size, mesh=None) -> {"k", "v"} page pools
   init_cache(batch, cache_len, mesh=None) -> {"k", "v"} contiguous cache
@@ -201,7 +203,8 @@ class Model:
         device when omitted).  On a ``mesh`` every expert stack holds this
         rank's rows alone, equal to the same rows of the whole draw (every
         matrix is drawn; the rank keeps its own).  ``keep``: a tree of
-        slices, the block of every leaf to store (``init_serving``)."""
+        slices, the block of every leaf to store, or of ``quant.Sink``s,
+        the weights quantized as they are drawn (``init_serving``)."""
         cfg = self.cfg
         if gen is None:
             gen = torch.Generator(device=self.device).manual_seed(0)
@@ -226,18 +229,22 @@ class Model:
 
     def init_serving(self, gen: torch.Generator | None = None,
                      mesh=None) -> dict:
-        """This rank's serve-mode blocks (``launch/sharding.py``) of the
-        parameters ``init(gen)`` draws: every matrix is drawn one at a time
-        and the rank keeps its block, which equals the same block of the
-        whole draw, so the one-device model of the same seed is its
-        reference.  With ``weight_quant`` the whole tree is drawn and
-        quantized first, then cut, as the reference quantizes on load
-        before placing the weights."""
+        """The parameters ``init(gen)`` draws, stored as the engine serves
+        them.  With ``weight_quant`` every matrix is rounded to the param
+        dtype and quantized as it is drawn (``sharding.draw_keep``): the
+        store equals ``quantize_params(init(gen))`` bit for bit, and the
+        load's peak is the store plus one fp32 matrix and a column
+        chunk's temporaries, never the param-dtype tree.  On a ``mesh``
+        this rank keeps its serve-mode blocks (``launch/sharding.py``) of
+        every matrix as it is drawn (a quantized one cut as
+        ``shard_tree`` cuts the quantized whole), equal to the same
+        blocks of the whole, so the one-device model of the same seed is
+        its reference."""
         cfg = self.cfg
         if cfg.weight_quant != "none":
-            specs = sharding.serve_specs(cfg, mesh)
-            params = quant.quantize_params(self.init(gen), cfg, inplace=True)
-            return sharding.shard_tree(params, specs, mesh)
+            return self.init(gen, keep=sharding.draw_keep(cfg, mesh))
+        if mesh is None:
+            return self.init(gen)
         return self.init(gen, keep=sharding.mode_slices(cfg, mesh, "serve"))
 
     def init_training(self, gen: torch.Generator | None = None,

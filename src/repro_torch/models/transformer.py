@@ -30,7 +30,7 @@ import dataclasses
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.core import expert_parallel
+from repro_torch.core import expert_parallel, quant
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding
 from repro_torch.models import attention, layers, mamba2, rglru
@@ -42,6 +42,14 @@ def _in_copy(rows: slice, e: int) -> slice:
     if rows.start is None:
         return rows
     return slice(rows.start % e, rows.start % e + rows.stop - rows.start)
+
+
+def _one_copy(k, e: int):
+    """A leaf's keep over the r-copy expert stack as its keep within one
+    copy (a ``quant.Sink``'s own keep likewise); None keeps it whole."""
+    if isinstance(k, quant.Sink):
+        return dataclasses.replace(k, keep=_one_copy(k.keep, e))
+    return None if k is None else (k[0], _in_copy(k[1], e)) + k[2:]
 
 
 def _moe_layer_init(cfg, gen: torch.Generator, dtype, mesh=None,
@@ -56,17 +64,18 @@ def _moe_layer_init(cfg, gen: torch.Generator, dtype, mesh=None,
         ex = dict.fromkeys(ex, _in_copy(expert_parallel.expert_rows(cfg, mesh),
                                         e))
     elif "experts" in keep:
-        ex = {k: (sl[0], _in_copy(sl[1], e)) + sl[2:]
-              for k, sl in keep["experts"].items()}
+        ex = {k: _one_copy(sl, e) for k, sl in keep["experts"].items()}
     experts = {
         "w_gate": layers.dense_init(gen, d, f, dtype, (L, e), ex["w_gate"]),
         "w_up": layers.dense_init(gen, d, f, dtype, (L, e), ex["w_up"]),
         "w_down": layers.dense_init(gen, f, d, dtype, (L, e), ex["w_down"]),
     }
-    if r > 1 and mesh is None and not keep:
+    whole = all((k.keep if isinstance(k, quant.Sink) else k) is None
+                for k in ex.values())
+    if r > 1 and mesh is None and whole:
         # the paper's overlapping placement (§5.3) stores r copies of the
         # expert stack, as the reference does; one device reads the first
-        experts = {k: torch.cat([w] * r, dim=1) for k, w in experts.items()}
+        experts = {k: quant.cat([w] * r, dim=1) for k, w in experts.items()}
     return {
         "ln1": norm(),
         "attn": attention.attn_init(gen, cfg, dtype, (L,), keep.get("attn")),
@@ -133,9 +142,10 @@ def init_blocks(cfg, gen: torch.Generator, mesh=None, keep=None) -> dict:
     """Layer-stacked block parameters, drawn from ``gen`` on its device;
     on a ``mesh`` the expert stacks hold this rank's rows alone.
     ``keep``: the block of each leaf to store, a tree of slices
-    (``launch/sharding.mode_slices``), every matrix still drawn.  A hybrid
-    stack is {"rec": its recurrent layers, "attn": its attention layers
-    (at least one)}, each stacked."""
+    (``launch/sharding.mode_slices``), with a ``quant.Sink`` at each
+    weight quantized as it is drawn (``sharding.draw_keep``), every
+    matrix still drawn.  A hybrid stack is {"rec": its recurrent layers,
+    "attn": its attention layers (at least one)}, each stacked."""
     check_family(cfg)
     dtype = cfg.param_torch_dtype
     keep = keep or {}

@@ -30,9 +30,10 @@ documented sync points of preemption, cancellation, deadline expiry and
 the NaN guard).
 
 Quantized serving: ``weight_quant`` int8/int4 quantizes the eligible
-weights on load (``core/quant.quantize_params``; already quantized leaves
-pass through), and ``kv_cache_dtype="int8"`` keeps an int8 page pool with
-fp32 scale pools beside it.
+weights on load: as each matrix is drawn where the engine draws its own
+(``Model.init_serving``), else leaf by leaf (``core/quant.quantize_params``;
+already quantized leaves pass through).  ``kv_cache_dtype="int8"`` keeps
+an int8 page pool with fp32 scale pools beside it.
 
 Resilience (docs/DESIGN.md §10): ``overcommit`` admits on the context's
 pages and grows decode rows a page at a time, preempting the least
@@ -262,20 +263,17 @@ class ServingEngine:
         self.mesh = mesh
         self.device = resolve_device(device)
         self.model = build_model(cfg_model, self.device)
-        drawn = params is None
-        if drawn:
-            params = (self.model.init_serving(generator, mesh)
-                      if mesh is not None else self.model.init(generator))
-        self.params = params
-        if self.params["embed"].device.type != self.device.type:
-            raise ValueError(f"params live on {self.params['embed'].device}, "
+        if params is None:
+            # quantize-on-load as each matrix is drawn: the load holds the
+            # quantized store plus one fp32 matrix, never the param-dtype
+            # tree (which would not fit one card beside it at full width)
+            params = self.model.init_serving(generator, mesh)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, "
                              f"the engine on {self.device}")
-        # quantize-on-load, leaf by leaf; parameters the engine drew itself
-        # are quantized in place, so each fp leaf is freed as soon as its
-        # QuantTensor exists (the fp tree and a quantized copy of it would
-        # not fit one card together at full width)
-        self.params = quant.quantize_params(self.params, cfg_model,
-                                            inplace=drawn)
+        # a caller's parameters are quantized into a new tree, leaf by
+        # leaf (QuantTensor leaves, such as a drawn store's, pass through)
+        self.params = quant.quantize_params(params, cfg_model)
         self.tracker = (LRUExpertTracker(cfg_model.num_layers,
                                          cfg_model.num_experts)
                         if cfg_model.is_moe and ecfg.track_experts else None)

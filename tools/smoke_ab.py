@@ -33,7 +33,11 @@ other families on a (2, 2) mesh of rank processes) or ``analysis``
 (phase 3's fp32 paged cases at the reduced qwen3-moe's programs' shapes,
 its FFN and quantized-FFN cases at the reduced widths and the qwen3-0.6b
 flash case at S=4096, then phase 15: the analysis rules on the
-card and the dry-run against the allocator).  Prints the card's name and power limit, the build's ptxas lines
+card and the dry-run against the allocator) or ``full_depth`` (phase
+3's paged cases at phase 16's DBRX shape (two rows over 12 pages) and
+qwen2-72b's heads and its quantized-FFN
+cases at DBRX's widths, then phase 16: DBRX int4, deepseek-67b int8 and
+qwen2-72b int4 loaded at full depth, quantized as drawn, and served).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -57,7 +61,8 @@ def main() -> int:
                     choices=["paged", "quant", "flash", "chaos", "serve",
                              "serve5", "train", "ep", "serve_mesh",
                              "train_mesh", "families", "modalities",
-                             "families_mesh", "analysis"])
+                             "families_mesh", "analysis",
+                             "full_depth"])
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     import torch
@@ -104,6 +109,7 @@ def main() -> int:
         cs.GQA_HEADS = cs.GQA_HEADS[-3:]
         cs.PAGED_CASES = []
         cs.REDUCED_PAGED = []
+        cs.FULL_DBRX_PAGED = []
         cs.check_paged_attention(torch, results)
         cs.FFN_CASES = []
         cs.MESH_FFN_CASES = cs.MESH_FFN_CASES[-3:]
@@ -156,6 +162,7 @@ def main() -> int:
         # read
         cs.PAGED_CASES = []
         cs.GQA_HEADS = []
+        cs.FULL_DBRX_PAGED = []
         cs.check_paged_attention(torch, results)
         cs.FFN_CASES = [c for c in cs.FFN_CASES if c[0] == 4]
         cs.MESH_FFN_CASES = []
@@ -167,6 +174,20 @@ def main() -> int:
         cs.check_flash_attention(torch, results)
         runs = {}
         cs.check_analysis(torch, runs)
+        print(json.dumps(cs.kernels_line(results, runs, [
+            e for e in cs.LINE if e[2] in runs])), flush=True)
+    if "full_depth" in args.only:
+        # phase 16 alone, with the phase 3 rows its kernels-line entries
+        # read: paged attention at DBRX's two rows (FULL_DBRX_PAGED) and
+        # the G=8 heads, the int4 FFN at DBRX's widths
+        cs.PAGED_CASES = []
+        cs.REDUCED_PAGED = []
+        cs.GQA_HEADS = [h for h in cs.GQA_HEADS if h == (64, 8, 128)]
+        cs.check_paged_attention(torch, results)
+        cs.QUANT_CASES = [c for c in cs.QUANT_CASES if c[0] == 16]
+        cs.check_moe_ffn_quant(torch, results)
+        runs = {}
+        cs.check_full_depth(torch, runs)
         print(json.dumps(cs.kernels_line(results, runs, [
             e for e in cs.LINE if e[2] in runs])), flush=True)
     if "serve5" in args.only:
