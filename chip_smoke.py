@@ -24,11 +24,11 @@ line):
                 6 heads; NaN in every row's dead slots), the grouped FFN
                 over bf16/fp32 (capacities 16, 40, 320, the reduced widths
                 at 5 and 16, granite's 48 experts with 8 empty at 16, 32
-                and 856, DBRX's widths in bf16 at 16, 40 and 640; a zero
-                row of x, and a dead expert's empty slice, must give exact
-                zeros; fp32 at DBRX's widths must be refused), int8 and
-                int4 weights (at the model's, the reduced and DBRX's
-                widths, zero rows exact), full-sequence flash attention
+                and 856, DBRX's widths at 16, 40 and 640, in fp32 too; a
+                zero row of x, and a dead expert's empty slice, must give
+                exact zeros), int8 and int4 weights (at the model's, the
+                reduced and DBRX's widths, DBRX's in fp32 too, zero rows
+                exact), full-sequence flash attention
                 (causal, windowed, non-causal over a ragged S, one partial
                 tile at S=37; hd 128 and 64; granite's and DBRX's heads;
                 hd 160; qwen2-72b's G=8; recurrentgemma-2b's hd 256 with
@@ -98,6 +98,12 @@ line):
                 about 55 GB): phase 5's serve, the forward and loss at
                 B=1, S=2048, then the same weights quantized to int8 on
                 load with an int8 KV pool and served again.
+  3b. dbrx_fp32 — DBRX at full width in fp32, 2 of 40 layers, B=1,
+                S=2048: the forward and loss with the CUDA-core FFN (fp32
+                weights) and the forward over int8 and int4 weights,
+                each held to the same call with kernels=False on the card
+                (loss to TM_KERNEL_LOSS_TOL, logits to DBRX_FP32_LOGIT_RMS
+                in RMS).
   7. stablelm — stablelm-12b at full width, depth cut to 10 of 40 layers
                 (STABLELM_LAYERS; bf16, hd 160, layernorm, an untied
                 head): phase 5's paged serve, the reference engine as in
@@ -118,13 +124,18 @@ line):
                 wrapper refuses an input that requires grad; then
                 granite-moe-3b-a800m (8 of 32 layers, bf16, B=4, S=2048:
                 the chunked attention and CE, 12 steps) and qwen3-0.6b (28
-                layers, 6 steps) and recurrentgemma-2b (26 layers, B=2,
-                6 steps) train at full width: finite losses that
+                layers, 6 steps) and recurrentgemma-2b (12 of 26 layers,
+                B=2, 6 steps) train at full width: finite losses that
                 fall, the step-0 loss equal to the kernel path's, peak
                 under 75 GB, granite's dead experts moved by decay alone,
                 the checkpoint restored bit for bit; step time, train
                 tokens/s, peak memory and a profile window over one step
-                with the optimizer's share.
+                with the optimizer's share.  Then C8's gate: granite
+                (bf16, 8 of 32 layers, B=4, S=2048) trained three steps
+                twice from one seed must give bitwise equal losses and
+                parameters, and one step under
+                use_deterministic_algorithms(True, warn_only=True) prints
+                the ops it warns about.
   9. expert_parallel — the paper's expert-parallel schedules
                 (decentralized, centralized, a2a, a2a_pipelined) over 2,
                 then 4, spawned rank processes sharing the one card (gloo
@@ -152,7 +163,7 @@ line):
                 experts under the schedules) through the paged engine.
                 The reduced qwen3-moe (fp32, decentralized and a2a) streams
                 as the one-device engine on the card; granite at full width
-                cut to 16 of 32 layers (2 and 4 ranks, decentralized and
+                cut to 8 of 32 layers (2 and 4 ranks, decentralized and
                 a2a) and DBRX at
                 full width cut to 4 of 40 layers (4 ranks, decentralized),
                 bf16, phase 5's traffic at capacity factor 8: every rank's
@@ -221,9 +232,9 @@ line):
                 forward of its own inputs (FORCED_SHARE_MAX).
   14. families_mesh — the four other families on a (2, 2) mesh of four
                 rank processes on the one card (one spawn), budget 150 s,
-                at full width: recurrentgemma-2b (6 of 26 layers, B=1
-                S=4096), qwen2-vl-7b (4 of 28, B=2 S=2048), musicgen-large
-                (8 of 48) and mamba2-130m (all 24, fp32): each mesh
+                at full width: recurrentgemma-2b (3 of 26 layers, B=1
+                S=4096), qwen2-vl-7b (2 of 28, B=2 S=2048), musicgen-large
+                (4 of 48) and mamba2-130m (12 of 24, fp32): each mesh
                 forward held to the one-device forward of the same
                 weights (computed while the ranks start up) by argmax
                 agreement and |logit delta| (FM_LOGIT_DELTA_MAX), flash
@@ -237,7 +248,7 @@ line):
   16. full_depth — the three configs whose quantized store fits one
                 card, at full depth, budget 180 s: DBRX at int4 (40
                 layers, 70.82 GB), deepseek-67b at int8 (95 layers, 70.35
-                GB) and qwen2-72b at int4 (80 layers, 40.46 GB), each
+                GB) and qwen2-72b at int8 (80 layers, 76.19 GB), each
                 weight matrix rounded to bf16 and quantized as it is drawn
                 (``Model.init_serving``): the load's seconds, its peak
                 of requested bytes within ``sharding.draw_peak_bytes``
@@ -245,9 +256,11 @@ line):
                 one fp32 matrix and a column chunk), the weight bytes
                 exactly the performance model's, ``fits_in_memory`` at
                 the card's total beside it; phase 5's traffic through the
-                paged engine (DBRX at capacity factor 8, two rows at a
-                time: its decode's ``gather_moe`` copies do not fit beside
-                the store at four); each greedy stream held, with the
+                paged engine at four rows (DBRX at capacity factor 8),
+                its peak of requested bytes within
+                ``sharding.serve_peak_bytes`` (serve_peak_bound: the store,
+                the pool, a block's or the decode gather's transient, the
+                step's activations); each greedy stream held, with the
                 engine freed, to one batched forward of the streams' own
                 tokens through the served store and through its
                 dequantized tree layer by layer (FORCED_SHARE_MAX).
@@ -255,8 +268,8 @@ line):
   granite, DBRX, stablelm-12b, qwen3-0.6b, qwen2-72b and deepseek-67b
   serves) holds its greedy streams to the forward of their own tokens
   (``held_serve``: an MoE arch's traffic served again at capacity factor
-  8, where no token is dropped; int8 weights also against the forward of
-  their dequantized tree), under FORCED_SHARE_MAX.
+  8, where no token is dropped, phase 5's by phase 5c; int8 weights also
+  against the forward of their dequantized tree), under FORCED_SHARE_MAX.
   Then the kernels line: one JSON object per ported kernel entry, and the
   last line: {"ok": true, "device": {...}}.
 
@@ -323,6 +336,9 @@ def emit(phase: str, **kw) -> None:
     print(json.dumps({"phase": phase, **kw}, default=float), flush=True)
 
 
+TIME_LOOP_S = 0.5
+
+
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
     """Mean device time of ``fn`` over ``iters`` launches (CUDA events).
     A sleep kernel holds the stream while the host enqueues the launches,
@@ -336,6 +352,8 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     fn()
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0          # one call, host and device
+    # a call of tens of ms needs few repeats: about TIME_LOOP_S of them
+    iters = max(2, min(iters, int(TIME_LOOP_S / host_s)))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     # at most 2 GHz: the sleep outlasts twice the enqueue time (capped)
@@ -419,7 +437,7 @@ SASS_RULES = {"moe_quant_gate_up_kernel": "HGMMA", "moe_quant_down_kernel":
               "moe_down_kernel": "HGMMA", "flash_attn_tc_kernel": "HGMMA",
               "paged_attn_tc_kernel": "HMMA|HGMMA",
               "paged_attn_f32_kernel": "none",
-              "moe_ffn_quant_kernel": "none"}
+              "moe_f32_kernel": "none"}
 
 
 def ptxas_usage(reports: dict, mangled: str) -> dict:
@@ -565,10 +583,10 @@ GQA_HEADS = [(24, 8, 64), (48, 8, 128), (32, 8, 160), (16, 8, 128),
 REDUCED_PAGED = [(4, (0, 20), (4, 3), 8), (1, (13, 27), (1, 1), 8),
                  (4, (0, 20), (4, 3), 5), (1, (13, 27), (1, 1), 5)]
 # (T, lengths, seg_lens): DBRX's paged attention in phase 16 (bf16, Hq 48,
-# Hkv 8, hd 128, G=6), two rows over its serve's 12-page tables (max_cache
-# 192, pages of 16): at B=2 a T=32 prefill block splits each tile's page
-# walk in two (phase 5's B=4: one, no combine), a decode step in three
-FULL_DBRX_PAGED = [(32, (17, 100), (32, 20)), (1, (17, 100), (1, 1))]
+# Hkv 8, hd 128, G=6) at its four rows over the serve's 12-page tables
+# (max_cache 192, pages of 16): a T=32 prefill block and a decode step
+FULL_DBRX_PAGED = [(32, (17, 100, 0, 60), (32, 20, 32, 32)),
+                   (1, (17, 100, 150, 60), (1, 1, 1, 1))]
 
 
 def paged_run(torch, paged_attn, int8: bool, dtype, t: int, window,
@@ -683,10 +701,10 @@ def paged_splits(paged_attn, q, kp, bt) -> int:
 # blocks (16, 40) and the forward's B=2, S=2048 (320 = round_capacity(4096,
 # 8, 128, 1.25)); the reduced config's widths at a ragged and a whole
 # C-tile; granite's (8 of 48 experts router-dead: their slices all padding)
-# at C 16, its serve's 32 and its forward's 856; DBRX's (bf16 only: fp32's
-# shared-memory tile refuses D + F = 16896) at C 16, its serve's 40 and its
-# B=1 forward's 640; and the model's widths at phase 5d's reference
-# prefill (256: four 128-token prompts at capacity factor 8)
+# at C 16, its serve's 32 and its forward's 856; DBRX's (fp32 too, whose
+# tiled kernel takes any width) at C 16, its serve's 40 and its B=1
+# forward's 640 (phase 3b's fp32 forward); and the model's widths at phase
+# 5d's reference prefill (256: four 128-token prompts at capacity factor 8)
 FFN_CASES = [(128, 16, 2048, 768, 0), (128, 40, 2048, 768, 0),
              (128, 320, 2048, 768, 0), (4, 5, 256, 512, 0),
              (4, 16, 256, 512, 0), (48, 16, 1536, 512, 8),
@@ -709,16 +727,15 @@ MESH_FFN_CASES = [(8, 2048, 6144, 10752, 0), (4, 2048, 6144, 10752, 0),
                   # experts at C=176, DBRX's 4 at C=256
                   (24, 176, 1536, 512, 8), (12, 176, 1536, 512, 8),
                   (4, 256, 6144, 10752, 0)]
-DBRX_WIDTHS = (6144, 10752)
 
 
-def check_moe_ffn(torch, results):
+def check_moe_ffn(torch, results, dtypes=("float32", "bfloat16")):
     from repro_torch.kernels import cost, moe_gemm
-    for dtype in (torch.float32, torch.bfloat16):
-        dname = str(dtype).split(".")[-1]
+    for dname in dtypes:
+        dtype = getattr(torch, dname)
         for e, c, d, f, dead in FFN_CASES + MESH_FFN_CASES:
-            if dtype == torch.float32 and ((d, f) == DBRX_WIDTHS or (
-                    e, c, d, f, dead) in MESH_FFN_CASES):
+            if dtype == torch.float32 and (e, c, d, f,
+                                           dead) in MESH_FFN_CASES:
                 continue
             g = torch.Generator(device="cuda").manual_seed(c)
             mk = lambda shape, s: (torch.randn(shape, generator=g,
@@ -749,42 +766,17 @@ def check_moe_ffn(torch, results):
             emit("kernels", **row)
             results.append(row)
             del x, wg, wu, wd, got, want
-    check_fp32_dbrx_refused(torch)
-
-
-def check_fp32_dbrx_refused(torch):
-    """fp32 at DBRX's widths is outside both fp32 kernels' shared-memory
-    tile: the dispatching wrapper raises with that message on the card
-    (no fallback to the plain version)."""
-    from repro_torch.core import quant
-    from repro_torch.kernels import ops
-    d, f = DBRX_WIDTHS
-    x = torch.zeros((1, 16, d), device="cuda")
-    w = [torch.zeros(shape, device="cuda") for shape in
-         ((1, d, f), (1, d, f), (1, f, d))]
-    for what, ws in (("fp", w), ("int8", [quant.quantize(t, "int8", block=128)
-                                          for t in w])):
-        ops.reset_launch_counts()
-        try:
-            ops.moe_ffn(x, *ws)
-        except ValueError as exc:
-            check("shared-memory tile" in str(exc),
-                  f"fp32 {what} FFN at D={d} F={f}: {exc}")
-        else:
-            raise SmokeFailure(f"fp32 {what} FFN at D={d} F={f} ran")
-        check(not any(ops.launch_counts().values()),
-              f"fp32 {what} FFN at DBRX's widths launched a kernel")
-    emit("kernels", kernel="moe_ffn", dtype="float32", D=d, F=f,
-         refused="shared-memory tile", fallback=False)
 
 
 # (E, D, F, capacities, dtypes): the model's widths at the serve's prefill
 # blocks, the reduced config's widths at a ragged and a whole C-tile, and
-# DBRX's widths (bf16: fp32 refuses them) at C 16, its serve's 40 and
-# phase 16's 128 (two rows' prefill blocks at capacity factor 8)
+# DBRX's widths at C 16, its serve's 40 and phase 16's 256 (four rows'
+# prefill blocks at capacity factor 8) in bf16, and at C 16, 40 and
+# phase 3b's fp32 forward's 640 in fp32
 QUANT_CASES = [(128, 2048, 768, (16, 40), ("float32", "bfloat16")),
                (4, 256, 512, (5, 16), ("float32", "bfloat16")),
-               (16, 6144, 10752, (16, 40, 128), ("bfloat16",)),
+               (16, 6144, 10752, (16, 40, 256), ("bfloat16",)),
+               (16, 6144, 10752, (16, 40, 640), ("float32",)),
                # phase 9's quantized shards at 4 ranks: one local expert,
                # 256 slots of a (4, 16) block
                (1, 256, 512, (256,), ("float32",))]
@@ -1005,12 +997,15 @@ DBRX_LAYERS = 8
 # the script's 1200 s limit: qwen3-moe's full-width phases (5, 6, 5c, 5d,
 # 5b) run 12 of its 48 layers, stablelm-12b's (phase 7) 10 of 40,
 # granite's one-device serve and forward 16 of 32, its full-width
-# training (phase 8) and mesh forward (phase 9) 8 of 32 (each halved when
-# phase 11 came); the widths stay whole
+# training (phase 8), mesh forward (phase 9) and mesh serve (phase 10) 8
+# of 32 (each halved when phase 11 came, phase 10's when phase 3b and 8's
+# determinism gate came, with recurrentgemma-2b's training 12 of 26);
+# the widths stay whole
 QWEN_LAYERS = 12
 STABLELM_LAYERS = 10
 GRANITE_LAYERS = 16
 GRANITE_TRAIN_LAYERS = 8
+RGEMMA_TRAIN_LAYERS = 12       # of 26: four rec, rec, attn cycles
 
 
 def full_config(arch: str = ARCH, layers: int | None = QWEN_LAYERS):
@@ -1226,6 +1221,87 @@ def check_forward(torch, params, cfg=None, b: int = 2, phase="forward",
          device_busy_share=prof["device_busy_share"],
          phase_s=time.perf_counter() - t_phase, card=card())
     return launches
+
+
+# phase 3b: DBRX at its full widths in fp32 (the CUDA-core FFN, which
+# takes any width), cut to DBRX_FP32_LAYERS of 40 layers, B=1, S=2048
+# (C=640 at capacity factor 1.25): the forward and the loss with the
+# kernels held to the same calls with kernels=False (attend_chunked and
+# the expert FFN in torch ops) on the card, then the forward of the same
+# weights quantized (int8, int4: the fp32 quantized FFN) held so too.
+# The loss to TM_KERNEL_LOSS_TOL (fp32, relative); the logits by the RMS
+# of their difference over the RMS of the kernels=False logits: two fp32
+# sums in other orders move both by about 1e-6 relative
+DBRX_FP32_LAYERS = 2
+DBRX_FP32_LOGIT_RMS = 1e-4
+
+
+def check_fp32_dbrx(torch, runs: dict) -> None:
+    """Phase 3b (see DBRX_FP32_LAYERS).  Fills ``runs["dbrx_fp32_<level>"]``
+    with each forward's launches."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core import quant
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import _lm_head, build_model
+    t_phase = time.perf_counter()
+    free_device(torch)
+    cfg = get_config("dbrx").replace(num_layers=DBRX_FP32_LAYERS,
+                                     dtype="float32", param_dtype="float32")
+    params = build_model(cfg, "cuda").init(
+        torch.Generator("cuda").manual_seed(0))
+    batch = seq_batch(torch, cfg.vocab_size, 1, 2048, 0, "cuda")
+    with torch.no_grad():
+        for level in ("none", "int8", "int4"):
+            qcfg = cfg.replace(weight_quant=level)
+            p = quant.quantize_params(params, qcfg)
+            model = build_model(qcfg, "cuda")
+            want_k = dict(forward_kernels(qcfg))
+            if level != "none":
+                want_k["moe_ffn_quant"] = want_k.pop("moe_ffn")
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, _ = model.forward(p, batch)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            launches = ops.launch_counts()
+            check(launches == {**dict.fromkeys(launches, 0), **want_k},
+                  f"dbrx fp32 {level} forward launched {launches}, "
+                  f"expected {want_k}")
+            want = _lm_head(qcfg, p, model._trunk(p, batch, False)[0])
+            check(not any(ops.launch_counts()[k] - launches[k]
+                          for k in launches),
+                  "the kernels=False trunk launched a kernel")
+            check(bool(torch.isfinite(logits).all()),
+                  f"dbrx fp32 {level}: logits not finite")
+            rms = rms_rel(logits, want)
+            check(rms <= DBRX_FP32_LOGIT_RMS, f"dbrx fp32 {level}: logits "
+                  f"{rms:.3g} (RMS) from the kernels=False forward")
+            row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
+                       weight_quant=level, B=1, S=2048,
+                       capacity_factor=cfg.capacity_factor,
+                       forward_s=fwd_s, launches=_live(launches),
+                       logits_rms_rel=rms,
+                       logits_rms_bound=DBRX_FP32_LOGIT_RMS,
+                       logits_max_abs=float((logits - want).abs().max()))
+            del logits, want
+            if level == "none":
+                ops.reset_launch_counts()
+                total = float(model.loss(p, batch)[0])
+                loss_launches = ops.launch_counts()
+                check(loss_launches == launches, f"dbrx fp32 loss launched "
+                      f"{loss_launches}, expected {want_k}")
+                plain = float(model.loss(p, batch, kernels=False)[0])
+                rel = abs(total - plain) / abs(plain)
+                check(rel <= TM_KERNEL_LOSS_TOL, f"dbrx fp32 loss {total} vs "
+                      f"{plain} with kernels=False")
+                row.update(loss=total, loss_kernels_false=plain,
+                           loss_rel=rel, loss_rtol=TM_KERNEL_LOSS_TOL)
+            runs[f"dbrx_fp32_{level}"] = launches
+            del p
+            emit("dbrx_fp32", **row, card=card())
+    del params
+    free_device(torch)
+    emit("dbrx_fp32_phase", seconds=time.perf_counter() - t_phase)
 
 
 def to_cuda(tree: dict) -> dict:
@@ -1609,7 +1685,8 @@ TRAIN_LOSS_TOL, TRAIN_PARAM_TOL, TRAIN_PARAM_OFF_PER = 1e-4, 1e-6, 1000
 TRAIN_FULL = (("granite_moe_3b_a800m", 4, 2048, 12, 1e-3),
               ("qwen3_0_6b", 4, 2048, 6, 1e-3),
               ("recurrentgemma_2b", 2, 2048, 6, 1e-3))
-TRAIN_LAYERS = {"granite_moe_3b_a800m": GRANITE_TRAIN_LAYERS}
+TRAIN_LAYERS = {"granite_moe_3b_a800m": GRANITE_TRAIN_LAYERS,
+                "recurrentgemma_2b": RGEMMA_TRAIN_LAYERS}
 TRAIN_SEED = 0
 # the trainer's step-0 loss (attend_chunked, the expert FFN in torch ops)
 # against the kernel path's (flash, the grouped-FFN kernel) on the same
@@ -1832,14 +1909,117 @@ def check_train_full(torch, arch: str, b: int, s: int, steps: int,
     return launches
 
 
+# C8's gate: granite at phase 8's width, depth, batch and length (bf16),
+# TRAIN_DET_STEPS trainer steps twice from one seed must give bitwise
+# equal losses and parameters; the autograd nodes whose backward is the
+# dispatch plan's two gathers (the parent's ``index_select``, adding with
+# atomics; the repair's gathers), whose device time ``train_step_times``
+# reports as the step's share
+TRAIN_DET_STEPS = 3
+DISPATCH_BACKWARD = ("IndexSelectBackward", "_DispatchRowsBackward",
+                     "_CombineRowsBackward")
+
+
+def train_step_times(torch, steps: int, profile: bool = True) -> dict:
+    """Granite (TRAIN_FULL[0]: B, S, lr; GRANITE_TRAIN_LAYERS layers,
+    bf16) drawn from TRAIN_SEED and trained ``steps`` ``make_train_step``
+    steps on ``Pipeline`` batches, each step timed (host clock around a
+    synchronized step), then with ``profile`` one more under
+    torch.profiler: the device time of the dispatch gathers' backward
+    (DISPATCH_BACKWARD) and its share of the step's device time.  Returns
+    the losses and params (as a flat list) of the timed steps, the times
+    and the share."""
+    from repro_torch import optim
+    from repro_torch.data.pipeline import Pipeline, PipelineConfig
+    from repro_torch.launch.train import make_train_step
+    from repro_torch.models.model import build_model
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    arch, b, s, _, lr = TRAIN_FULL[0]
+    cfg = full_config(arch, TRAIN_LAYERS.get(arch))
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(TRAIN_SEED))
+    opt = optim.init(params)
+    step = make_train_step(model, optim.OptimizerConfig(
+        lr=lr, total_steps=steps + 1, warmup_steps=1))
+    pipe = Pipeline(PipelineConfig(seq_len=s, global_batch=b,
+                                   vocab_size=cfg.vocab_size,
+                                   seed=TRAIN_SEED))
+    batch = lambda: {k: torch.as_tensor(v, device="cuda")
+                     for k, v in pipe.next_batch().items()}
+    losses, times = [], []
+    for _ in range(steps):
+        x = batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+    # the parameters after the timed steps (the profiled one moves them)
+    flat = [t.detach().clone() for t in optim.adamw.tree_leaves(params)]
+    busy = gathers = 0.0
+    if profile:
+        x = batch()
+        with torch.profiler.profile(activities=[
+                ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(params, opt, x)
+            torch.cuda.synchronize()
+        avgs = prof.key_averages()
+        busy = sum(e.self_device_time_total for e in avgs
+                   if e.device_type == DeviceType.CUDA) / 1e3
+        gathers = sum(e.device_time_total for e in avgs
+                      if e.device_type == DeviceType.CPU
+                      and "evaluate_function" in e.key
+                      and any(n in e.key for n in DISPATCH_BACKWARD)) / 1e3
+    del params, opt
+    free_device(torch)
+    return dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype, B=b,
+                S=s, losses=losses, step_s=times, params=flat,
+                profiled_step_device_ms=busy, dispatch_backward_ms=gathers,
+                dispatch_backward_share=gathers / busy if busy else None)
+
+
+def check_train_deterministic(torch) -> None:
+    """C8's gate: two ``train_step_times`` runs of TRAIN_DET_STEPS steps
+    give bitwise equal losses and parameters.  Then one step under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: the ops
+    it warns about (no deterministic CUDA implementation) are printed."""
+    import warnings
+    t0 = time.perf_counter()
+    runs = [train_step_times(torch, TRAIN_DET_STEPS, profile=False)
+            for _ in range(2)]
+    same_loss = runs[0]["losses"] == runs[1]["losses"]
+    same_params = all(torch.equal(a, b) for a, b in
+                      zip(runs[0]["params"], runs[1]["params"]))
+    check(same_loss and same_params, f"granite bf16 training is not "
+          f"reproducible: losses {runs[0]['losses']} / {runs[1]['losses']}, "
+          f"params equal {same_params}")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            train_step_times(torch, 1, profile=False)
+        finally:
+            torch.use_deterministic_algorithms(False)
+    warned = sorted({str(w.message).split(" does not have")[0][:160]
+                     for w in caught if "determinis" in str(w.message)})
+    for r in runs:
+        del r["params"]
+    emit("train_deterministic", runs=runs, bitwise_equal_losses=same_loss,
+         bitwise_equal_params=same_params, nondeterministic_ops=warned,
+         seconds=time.perf_counter() - t0, card=card())
+
+
 def check_train(torch, runs: dict) -> None:
     """Phase 8: the reduced archs trained on the card against the CPU,
     then granite-moe-3b-a800m and qwen3-0.6b trained at full width and
-    depth.  Fills ``runs``."""
+    depth, then granite's determinism gate.  Fills ``runs``."""
     t0 = time.perf_counter()
     check_train_reduced(torch)
     for arch, b, s, steps, lr in TRAIN_FULL:
         runs[f"{arch}_train"] = check_train_full(torch, arch, b, s, steps, lr)
+    check_train_deterministic(torch)
     emit("train_phase", seconds=time.perf_counter() - t0)
 
 
@@ -1965,10 +2145,10 @@ class LayerDequant:
     """A layer-stacked QuantTensor that dequantizes one layer when the
     stack indexes it (``transformer._layer``): the forward of a tree of
     these sees the dequantized tree's values layer by layer, with one
-    dense layer resident at a time.  A layer's expert stack is
-    dequantized an expert at a time into its dense tensor (the same
-    values), so the fp32 transient is one expert's, not the layer's (8.4
-    GB for a DBRX expert leaf)."""
+    dense layer resident at a time.  A layer's stack is dequantized a
+    matrix and a column block at a time into its dense tensor
+    (``quant.dequantize_into``: the same values), so the fp32 transient
+    is one block's, not the layer's (8.4 GB for a DBRX expert leaf)."""
 
     def __init__(self, qt):
         self.qt = qt
@@ -1977,11 +2157,8 @@ class LayerDequant:
         import torch
         from repro_torch.core import quant
         qt = self.qt[layer]
-        if qt.data.dim() == 2:
-            return quant.dequantize(qt)
         out = torch.empty(qt.shape, dtype=qt.dtype, device=qt.data.device)
-        for i in range(out.shape[0]):
-            out[i] = quant.dequantize(qt[i])
+        quant.dequantize_into(out, qt)
         return out
 
 
@@ -2001,9 +2178,23 @@ def dequantized(torch, params: dict) -> tuple:
         return {k: wrap(v) if isinstance(v, dict)
                 else LayerDequant(v) if isinstance(v, quant.QuantTensor)
                 else v for k, v in tree.items()}
-    top = quant.dequantize_tree({k: v for k, v in params.items()
-                                 if k != "blocks"})
+
+    def dense(v):
+        """A top-level QuantTensor (the LM head) dense in its own dtype,
+        filled a column block at a time: no fp32 copy of the whole."""
+        if not isinstance(v, quant.QuantTensor):
+            return v
+        out = torch.empty(v.shape, dtype=v.dtype, device=v.data.device)
+        quant.dequantize_into(out, v)
+        return out
+    top = {k: dense(v) for k, v in params.items() if k != "blocks"}
     return dict(top, blocks=wrap(params["blocks"])), "layer_by_layer"
+
+
+# serves whose capacity-8 rerun phase 5c makes: it serves phase 5's
+# prompts on phase 5's weights at capacity factor 8 under both admissions
+# and holds every greedy stream to its forward
+HELD_IN_5C = ("serve",)
 
 
 def held_serve(torch, cfg, params, prompts, reqs, phase: str) -> dict:
@@ -2012,10 +2203,12 @@ def held_serve(torch, cfg, params, prompts, reqs, phase: str) -> dict:
     other tokens than any forward does, so the streams held are those of
     the same traffic served again on the same weights at capacity factor
     8 (a new engine; phase 5c's setting), and the phase's own streams are
-    counted against them."""
+    counted against them; phase 5's are held in 5c (HELD_IN_5C)."""
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     if not cfg.is_moe:
         return held_shares(torch, cfg, params, reqs, phase)
+    if phase in HELD_IN_5C:
+        return {"held_in": "serve_resilience", "capacity_factor": 8.0}
     wide = cfg.replace(capacity_factor=8.0)
     eng = ServingEngine(wide, EngineConfig(**SERVE_ENGINE), params=params,
                         device="cuda")
@@ -2841,8 +3034,8 @@ SM_REDUCED_SCHEDULES = ("decentralized", "a2a")
 SM_REDUCED_ENGINE = dict(max_batch=2, max_cache=48, chunk_len=8,
                          page_size=4)
 # arch -> (layers, rank counts, schedules) at full width, bf16, paged,
-# phase 5's traffic; granite at 16 of 32 layers since phase 11 came
-SM_FULL = {"granite_moe_3b_a800m": (GRANITE_LAYERS, (2, 4),
+# phase 5's traffic; granite at 8 of 32 layers since phase 3b came
+SM_FULL = {"granite_moe_3b_a800m": (GRANITE_TRAIN_LAYERS, (2, 4),
                                     ("decentralized", "a2a")),
            "dbrx": (4, (4,), ("decentralized",))}
 
@@ -3869,13 +4062,13 @@ def check_modalities(torch, runs: dict) -> None:
 FM_MESH = (2, 2)                 # (data, model)
 FM_SEED = 0
 # (arch, layers (None: all), B, S) of each family's mesh forward at full
-# width, its depth cut for the phase's budget: recurrentgemma-2b two
-# rec,rec,attn cycles at B=1 S=4096 (past its 2048-token window; B=1 does
-# not divide "data", so every rank runs the row), qwen2-vl-7b (1024
-# patches, then 1024 tokens), musicgen-large and mamba2-130m (all 24
+# width, its depth cut for the whole script's time limit: recurrentgemma-2b
+# one rec,rec,attn cycle at B=1 S=4096 (past its 2048-token window; B=1
+# does not divide "data", so every rank runs the row), qwen2-vl-7b (1024
+# patches, then 1024 tokens), musicgen-large and mamba2-130m (12 of 24
 # layers, fp32) at B=2 S=2048, a row a rank
-FM_FORWARD = (("recurrentgemma_2b", 6, 1, 4096), ("qwen2_vl_7b", 4, 2, 2048),
-              ("musicgen_large", 8, 2, 2048), ("mamba2_130m", None, 2, 2048))
+FM_FORWARD = (("recurrentgemma_2b", 3, 1, 4096), ("qwen2_vl_7b", 2, 2, 2048),
+              ("musicgen_large", 4, 2, 2048), ("mamba2_130m", 12, 2, 2048))
 # the serves: two prompts, 8 greedy tokens; vlm and audio through
 # prefill + decode_step (qwen2-vl's 1024 patches and 64 text tokens,
 # musicgen's 1024 frames), the stateful families through the two-program
@@ -4350,15 +4543,14 @@ def check_analysis(torch, runs: dict) -> None:
 # phase 16: the configs whose quantized store fits one card, at full
 # depth, each weight matrix quantized as it is drawn (``init_serving``):
 # (arch, weight_quant, max_batch) for DBRX at int4 (70.82 GB),
-# deepseek-67b at int8 (70.35 GB) and qwen2-72b at int4 (40.46 GB).
-# qwen2-72b at int8 (76.19 GB) is left out: its LM head's dequantize
-# (10 GB of fp32 copies a step) would land past the card.  DBRX serves 2 rows at a
-# time: at 4, a decode step's ``gather_moe`` dequantizes 16 expert
-# matrices to fp32 twice over (about 10 GB beside the store), and the
-# card ran out of memory there with 3.1 GiB free but split between the
-# allocator's blocks.
-FULL_DEPTH = (("dbrx", "int4", 2), ("deepseek_67b", "int8", 4),
-              ("qwen2_72b", "int4", 4))
+# deepseek-67b at int8 (70.35 GB) and qwen2-72b at int8 (76.19 GB), each
+# at its natural four rows.  A serve step holds no weight-sized fp32
+# copy: a quantized matrix is dequantized a column block at a time
+# (``quant.qdot`` / ``qdot_f32``) and a decode step's ``gather_moe``
+# gathers the selected experts in the weights' own dtype, so the serve's
+# peak of requested bytes lies within ``sharding.serve_peak_bytes``
+FULL_DEPTH = (("dbrx", "int4", 4), ("deepseek_67b", "int8", 4),
+              ("qwen2_72b", "int8", 4))
 FULL_DEPTH_SEED = 0
 FULL_DEPTH_BUDGET_S = 180.0
 
@@ -4382,8 +4574,11 @@ def check_full_depth(torch, runs: dict) -> None:
     beside it, the store's bytes exactly
     ``perf_model.model_weight_bytes``, and ``perf_model.fits_in_memory``
     at the card's total beside it.  Then phase 5's traffic through the
-    paged engine (its path's kernels launched, a prefix hit and a
-    copy-on-write), and, with the engine freed, each greedy stream held
+    paged engine at four rows (its path's kernels launched, a prefix hit
+    and a copy-on-write), its peak of requested bytes within
+    ``sharding.serve_peak_bytes`` (``serve_peak_bound``: the store, the
+    pool, the largest block or gathered-expert transient and the step's
+    activations), and, with the engine freed, each greedy stream held
     to the forward of its own tokens through the served store and
     through its dequantized tree layer by layer (``LayerDequant``), under
     FORCED_SHARE_MAX.  Fills ``runs["full_<arch>"]`` with each serve's
@@ -4421,13 +4616,24 @@ def check_full_depth(torch, runs: dict) -> None:
             SERVE_ENGINE, max_batch=rows)), params=params, device="cuda")
         weight_bytes = check_weight_bytes(eng, cfg)
         prompts = traffic(cfg.vocab_size, 6, 40, 48, 160, seed=0)
+        ms = eng.memory_stats()
+        serve_bound = sharding.serve_peak_bytes(
+            cfg, rows=rows, chunk_len=SERVE_ENGINE["chunk_len"],
+            pool_bytes=ms["kv_pool_bytes"])
         torch.cuda.reset_peak_memory_stats()
+        serve_base = _requested(torch)[0]
         ops.reset_launch_counts()
         t1 = time.perf_counter()
         reqs = serve_requests(eng, prompts, 16)
         wall = time.perf_counter() - t1
         launches = ops.launch_counts()
         runs[phase] = launches
+        # the store and the pool are live from before the reset on: the
+        # requested peak counts them, and whatever else the serve held
+        serve_req = _requested(torch)[1]
+        check(serve_req <= serve_bound, f"{phase}: the serve peaked at "
+              f"{serve_req} B requested, past serve_peak_bound "
+              f"{serve_bound} B")
         check(all(len(r.generated) == 16 and 0 <= min(r.generated)
                   and max(r.generated) < cfg.vocab_size for r in reqs),
               f"{phase}: generated tokens out of range")
@@ -4436,7 +4642,8 @@ def check_full_depth(torch, runs: dict) -> None:
         check(ps["prefix_hits"] > 0 and ps["cow_copies"] > 0,
               f"{phase}: no prefix-cache hit or copy-on-write ({ps})")
         serve_peak = torch.cuda.max_memory_allocated()
-        tp, tt, ms = eng.throughput(), eng.ttft(), eng.memory_stats()
+        tp, tt = eng.throughput(), eng.ttft()
+        eng_steps = eng.stats["decode_steps"]
         del eng
         free_device(torch)
         t1 = time.perf_counter()
@@ -4470,7 +4677,10 @@ def check_full_depth(torch, runs: dict) -> None:
              decode_tok_per_s=tp["decode_tok_per_s"],
              total_tok_per_s=tp["total_tok_per_s"], ttft_p50_s=tt["p50"],
              ttft_p95_s=tt["p95"], memory_stats=ms,
-             serve_peak_allocated=serve_peak, held_peak_allocated=held_peak,
+             serve_peak_allocated=serve_peak,
+             serve_peak_requested=serve_req,
+             serve_base_requested=serve_base, serve_peak_bound=serve_bound,
+             decode_steps=eng_steps, held_peak_allocated=held_peak,
              launches=_live(launches), prefix_hits=ps["prefix_hits"],
              cow_copies=ps["cow_copies"], held_to_forward=held,
              seconds=time.perf_counter() - t_cfg, card=dev)
@@ -4496,8 +4706,8 @@ def _summed(launch_dicts) -> dict:
     return out
 
 
-PORT_KERNELS = ("paged_attn_", "paged_combine_kernel", "moe_ffn_kernel",
-                "moe_ffn_quant_kernel", "moe_gate_up_kernel",
+PORT_KERNELS = ("paged_attn_", "paged_combine_kernel", "moe_f32_kernel",
+                "moe_gate_up_kernel",
                 "moe_down_kernel", "moe_quant_", "flash_attn_")
 
 
@@ -4648,6 +4858,13 @@ LINE = [
      "fm_qwen2_vl_7b"),
     ("flash_attention", dict(CAUSAL_2048, hd=64, Hq=32, Hkv=32, B=1),
      "fm_musicgen_large"),
+    # phase 3b: DBRX's full widths in fp32 (2 of 40 layers, B=1, S=2048):
+    # the CUDA-core FFN over fp32, int8 and int4 weights at C=640
+    ("moe_ffn", dict(dtype="float32", E=16, C=640), "dbrx_fp32_none"),
+    ("moe_ffn_quant", dict(dtype="float32", E=16, C=640, bits=8),
+     "dbrx_fp32_int8"),
+    ("moe_ffn_quant", dict(dtype="float32", E=16, C=640, bits=4),
+     "dbrx_fp32_int4"),
     # phase 15: the reduced qwen3-moe's programs under the analysis rules
     # (fp32; launches over the traced steps and the driven engines): its
     # paged attention at each T and page size they give it; and the
@@ -4661,11 +4878,12 @@ LINE = [
                              window=None, hd=128, Hq=16, Hkv=8),
      "analysis_forward"),
     # phase 16: the three full-depth serves of a store quantized as drawn
-    # (DBRX's two rows: their prefill blocks over 12-page tables, and at
-    # capacity factor 8, C=128)
+    # (DBRX's four rows: their prefill blocks over 12-page tables, and at
+    # capacity factor 8, C=256)
     ("paged_attention", dict(dtype="bfloat16", T=32, window=None, hd=128,
-                             Hq=48, Hkv=8, B=2), "full_dbrx"),
-    ("moe_ffn_quant", dict(dtype="bfloat16", E=16, C=128, bits=4),
+                             Hq=48, Hkv=8, B=4, lengths=[17, 100, 0, 60]),
+     "full_dbrx"),
+    ("moe_ffn_quant", dict(dtype="bfloat16", E=16, C=256, bits=4),
      "full_dbrx"),
     ("paged_attention", dict(PAGED_T32, hd=128, Hq=64, Hkv=8),
      "full_deepseek_67b"),
@@ -4772,6 +4990,7 @@ def main() -> int:
     runs["dbrx_serve_quant"] = check_serve_quant(
         torch, dbrx.replace(weight_quant="int8", kv_cache_dtype="int8"),
         "dbrx_serve_quant")
+    check_fp32_dbrx(torch, runs)
     check_dense(torch, runs)
     check_train(torch, runs)
     check_expert_parallel(torch, runs)

@@ -379,7 +379,7 @@ def _a2a_dispatch(cfg, mesh, xi, ti, n_shards, e_local, cap,
     dd = xi.shape[-1]
     dispatch_tok, slot_valid, slot_of = moe_lib.make_dispatch_plan(
         ti, cfg.num_experts_padded, 0, cfg.num_experts_padded, cap, groups)
-    xe = xi.index_select(0, dispatch_tok) * slot_valid[:, None].to(xi.dtype)
+    xe = moe_lib.dispatch_rows(xi, dispatch_tok, slot_valid, slot_of)
     xe = xe.reshape(n_shards, e_local * groups * cap, dd)
     return (collectives.all_to_all(xe, mesh, EXPERT_AXIS, async_op),
             slot_of)
@@ -396,10 +396,8 @@ def _a2a_ffn_combine(cfg, mesh, experts, xe, slot_of, wi, n_shards, e_local,
     ye = ye.reshape(e_local, cap, n_shards, dd).permute(2, 0, 1, 3)
     ye = ye.reshape(n_shards, e_local * cap, dd)
     ye = collectives.all_to_all(ye, mesh, EXPERT_AXIS)
-    ye = ye.reshape(n_shards * e_local * cap, dd)
-    ye_pad = torch.cat([ye, ye.new_zeros((1, dd))], dim=0)
-    y_tk = ye_pad.index_select(0, slot_of.reshape(-1)).reshape(
-        slot_of.shape + (dd,))
+    y_tk = moe_lib.combine_rows(ye.reshape(n_shards * e_local * cap, dd),
+                                slot_of)
     return torch.einsum("tk,tkd->td", wi.to(y_tk.dtype), y_tk)
 
 

@@ -120,6 +120,72 @@ def make_dispatch_plan(top_idx: torch.Tensor, num_experts: int, e_start: int,
     return dispatch_tok[:nbuf], slot_valid[:nbuf], slot_of.reshape(t, k)
 
 
+class _DispatchRows(torch.autograd.Function):
+    """xe[s] = x[dispatch_tok[s]] for a valid slot s, 0 for a padding slot
+    (the forward of ``index_select`` times the mask, bit for bit).  The
+    backward is a gather: each valid slot holds exactly one (token, k)
+    decision, so grad_x[t] = sum over k of grad_xe[slot_of[t, k]], a
+    dropped decision reading a spare zero row, summed over k in one fixed
+    order.  ``index_select``'s own backward adds with atomics, in an order
+    that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, x, dispatch_tok, slot_valid, slot_of):
+        ctx.save_for_backward(slot_of)
+        return x.index_select(0, dispatch_tok) * slot_valid[:, None].to(
+            x.dtype)
+
+    @staticmethod
+    def backward(ctx, grad_xe):
+        (slot_of,) = ctx.saved_tensors
+        pad = torch.cat([grad_xe, grad_xe.new_zeros((1,) + grad_xe.shape[1:])])
+        return pad[slot_of].sum(dim=1), None, None, None
+
+
+class _CombineRows(torch.autograd.Function):
+    """y_tk[t, k] = ye[slot_of[t, k]], the spare row (index len(ye)) a zero
+    row for dropped decisions (the forward of ``index_select`` over ye
+    with a zero row appended, bit for bit).  The backward is a gather:
+    grad_ye[s] = grad_y_tk at the one decision slot s holds, 0 for a
+    padding slot; no atomic adds."""
+
+    @staticmethod
+    def forward(ctx, ye, slot_of):
+        ctx.save_for_backward(slot_of)
+        ctx.nbuf = ye.shape[0]
+        ye_pad = torch.cat([ye, ye.new_zeros((1,) + ye.shape[1:])], dim=0)
+        return ye_pad.index_select(0, slot_of.reshape(-1)).reshape(
+            slot_of.shape + ye.shape[1:])
+
+    @staticmethod
+    def backward(ctx, grad_y):
+        (slot_of,) = ctx.saved_tensors
+        nbuf, flat = ctx.nbuf, slot_of.reshape(-1)
+        # the decision of each slot (one writer per valid slot; the spare
+        # row, past nbuf, takes every dropped one and is cut off)
+        dec = torch.zeros((nbuf + 1,), dtype=torch.long, device=flat.device)
+        dec[flat] = torch.arange(flat.numel(), device=flat.device)
+        held = torch.zeros((nbuf + 1,), dtype=torch.bool, device=flat.device)
+        held.index_fill_(0, flat, True)
+        g = grad_y.reshape((flat.numel(),) + grad_y.shape[2:])
+        return torch.where(held[:nbuf, None], g.index_select(0, dec[:nbuf]),
+                           0.0), None
+
+
+def dispatch_rows(x: torch.Tensor, dispatch_tok: torch.Tensor,
+                  slot_valid: torch.Tensor,
+                  slot_of: torch.Tensor) -> torch.Tensor:
+    """The capacity buffer (E_local * G * C, D) of a dispatch plan's
+    slots, padding slots zero; its gradient is a gather (no atomics)."""
+    return _DispatchRows.apply(x, dispatch_tok, slot_valid, slot_of)
+
+
+def combine_rows(ye: torch.Tensor, slot_of: torch.Tensor) -> torch.Tensor:
+    """Each routing decision's row (T, K, D) of the expert outputs ye
+    (nbuf, D), zero for a dropped one; its gradient is a gather."""
+    return _CombineRows.apply(ye, slot_of)
+
+
 def dispatch_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
                  top_w: torch.Tensor, num_experts: int, e_start: int,
                  capacity: int, kernels: bool = True,
@@ -128,19 +194,18 @@ def dispatch_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
     local partial sum (T, D).  ``groups``: blocks of rows with a capacity
     each (``make_dispatch_plan``).
 
-    The gathers are ``index_select``s: their backward adds with atomics,
-    where advanced indexing's backward sorts the indices and sums each run
-    of equal ones serially (every padding slot reads token 0 and every
-    dropped decision the spare row, so those runs are long)."""
+    The two gathers (``dispatch_rows``, ``combine_rows``) are
+    ``index_select``s forward, and gathers backward too, so a trainer's
+    gradients are the same from run to run (``index_select``'s backward
+    adds with atomics)."""
     e_local = experts["w_gate"].shape[0]
     t, d = x.shape
     dispatch_tok, slot_valid, slot_of = make_dispatch_plan(
         top_idx, num_experts, e_start, e_local, capacity, groups)
-    xe = x.index_select(0, dispatch_tok) * slot_valid[:, None].to(x.dtype)
+    xe = dispatch_rows(x, dispatch_tok, slot_valid, slot_of)
     xe = xe.reshape(e_local, groups * capacity, d)
     ye = expert_ffn(experts, xe, kernels).reshape(-1, d)
-    ye_pad = torch.cat([ye, ye.new_zeros((1, d))], dim=0)
-    y_tk = ye_pad.index_select(0, slot_of.reshape(-1)).reshape(t, -1, d)
+    y_tk = combine_rows(ye, slot_of)
     return torch.einsum("tk,tkd->td", top_w.to(y_tk.dtype), y_tk)
 
 
@@ -151,25 +216,41 @@ def gather_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
     read.  Non-local selections (including the E_pad dead-route sentinel)
     contribute zero.  x: (T, D) -> local partial sum (T, D).
 
-    Products run on fp32 copies of the operands, so g, u and y stay fp32
-    as in the reference; only h is rounded to x's dtype, at the
-    reference's point.  QuantTensor experts gather only the selected
-    experts' payload and scales (``w[idx]``) and dequantize that slice to
-    the weights' own dtype, as the reference's ``qdot`` does.  This path
-    has no TPU kernel; it stays in torch ops."""
+    As in the reference, the selected weights are gathered in their own
+    dtype and the products have fp32 outputs (``quant.dot_f32``: the
+    gathered slice copied to fp32 a block at a time), so g, u and y are
+    fp32 and only h is rounded to x's dtype, at the reference's point.  QuantTensor
+    experts gather only the selected experts' payload and scales
+    (``w[idx]``) and dequantize that selection to the weights' own dtype
+    a block at a time (``_selected``), one weight stack after the other:
+    no transient exceeds the gathered slice of one stack in the weights'
+    dtype.  This path has no TPU kernel; it stays in torch ops."""
     e_local = experts["w_gate"].shape[0]
     local = (top_idx >= e_start) & (top_idx < e_start + e_local)
     # a non-local selection reads local expert 0 (weight 0), never the
     # router-dead padding at the end of the stack that a clamp would reach
-    idx = torch.where(local, top_idx - e_start, 0)
+    idx = torch.where(local, top_idx - e_start, 0).reshape(-1)
     w = torch.where(local, top_w, 0.0)
-    xf = x.float()
-    sel = lambda name: quant.materialize(experts[name][idx]).float()
-    g = torch.einsum("td,tkdf->tkf", xf, sel("w_gate"))
-    u = torch.einsum("td,tkdf->tkf", xf, sel("w_up"))
+    t, k = top_idx.shape
+    xs = x[:, None].expand(t, k, x.shape[-1]).reshape(t * k, 1, -1)
+    g = quant.dot_f32(xs, _selected(experts["w_gate"], idx))
+    u = quant.dot_f32(xs, _selected(experts["w_up"], idx))
     h = (F.silu(g) * u).to(x.dtype)
-    y = torch.einsum("tkf,tkfd->tkd", h.float(), sel("w_down"))
+    y = quant.dot_f32(h, _selected(experts["w_down"], idx)).reshape(t, k, -1)
     return torch.einsum("tk,tkd->td", w.float(), y).to(x.dtype)
+
+
+def _selected(w, idx: torch.Tensor) -> torch.Tensor:
+    """The stack's matrices at ``idx`` (n, K, N) in the weights' own
+    dtype: a gather of a raw stack; of a QuantTensor's payload and scales,
+    then each matrix dequantized into its place in a preallocated slice
+    (``quant.dequantize_into``: one block's temporaries at a time)."""
+    sel = w[idx]
+    if not isinstance(sel, quant.QuantTensor):
+        return sel
+    out = torch.empty(sel.shape, dtype=sel.dtype, device=sel.data.device)
+    quant.dequantize_into(out, sel)
+    return out
 
 
 def reference_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,

@@ -11,7 +11,12 @@
   computed in fp32 (``torch.round`` rounds half to even, as ``jnp.round``
   does).  ``models/attention.quantize_kv`` wraps it with one block over hd.
 * ``qdot`` — the weight-matmul policy point: a raw tensor multiplies as it
-  is, a ``QuantTensor`` is dequantized first.
+  is, a ``QuantTensor`` is dequantized a column block at a time
+  (``BLOCK_BYTES``) and each block multiplied into a preallocated
+  output, so no whole matrix is ever dequantized.  ``qdot_f32`` is the
+  same with fp32 output (the LM head), ``dot_f32`` the product of two
+  raw operands with fp32 output, on fp32 copies of the operands, the
+  weight's a column block at a time: no fp32 copy of a whole weight.
 * ``quantize_tree`` / ``quantize_params`` — quantize a tree: eligible
   weight kinds (``attn``, ``mlp``, ``experts``, ``lm_head`` by default;
   router and embedding stay fp) become ``QuantTensor`` leaves.  A stacked
@@ -129,7 +134,8 @@ def absmax_dequantize(q: torch.Tensor, scale: torch.Tensor, *, block: int,
     qp = _pad_axis(q, axis, nb * block)
     qb = qp.reshape(qp.shape[:axis] + (nb, block) + qp.shape[axis + 1:])
     out = (qb.float() * scale.unsqueeze(axis + 1)).to(dtype)
-    return out.reshape(qp.shape).narrow(axis, 0, k)
+    out = out.reshape(qp.shape)
+    return out if qp.shape[axis] == k else out.narrow(axis, 0, k)
 
 
 def pack_int4(q: torch.Tensor, axis: int = -2) -> torch.Tensor:
@@ -146,14 +152,12 @@ def pack_int4(q: torch.Tensor, axis: int = -2) -> torch.Tensor:
 
 
 def unpack_int4(p: torch.Tensor, axis: int = -2) -> torch.Tensor:
-    """Packed int8 -> int8 values, doubling ``axis``.  Goes through uint8:
-    ``>>`` on int8 is an arithmetic shift."""
+    """Packed int8 -> int8 values, doubling ``axis``.  ``>>`` on int8 is
+    an arithmetic shift, so it sign-extends each nibble: the high one
+    straight, the low one after ``<< 4`` has moved it to the top."""
     axis = axis % p.ndim
-    u = p.view(torch.uint8)
-    lo = (u & 0xF).to(torch.int8)
-    hi = (u >> 4).to(torch.int8)
-    lo = torch.where(lo > 7, lo - 16, lo)
-    hi = torch.where(hi > 7, hi - 16, hi)
+    lo = (p << 4) >> 4
+    hi = p >> 4
     pairs = torch.stack([lo, hi], dim=axis + 1)
     return pairs.reshape(p.shape[:axis] + (2 * p.shape[axis],)
                          + p.shape[axis + 1:])
@@ -196,6 +200,24 @@ def empty(shape: tuple, level: str, block: int, dtype,
         bits, block, k, str(dtype).split(".")[-1])
 
 
+def chunk_cols(k: int) -> int:
+    """Columns of a K-deep matrix in one chunk of ``CHUNK_ELEMS``."""
+    return max(1, CHUNK_ELEMS // max(k, 1))
+
+
+# a served product dequantizes a QuantTensor, or copies a weight to fp32,
+# a block of whole columns at a time whose temporaries take about this
+# many bytes (a dequantize about 16 B an element, an fp32 copy 4 B), so a
+# step launches a few blocks a matrix
+BLOCK_BYTES = 1 << 30
+
+
+def block_cols(k: int, elem_bytes: int = 16) -> int:
+    """Columns of a K-deep matrix in one block of ``BLOCK_BYTES`` at
+    ``elem_bytes`` of temporaries an element."""
+    return max(1, BLOCK_BYTES // (elem_bytes * max(k, 1)))
+
+
 def quantize_into(dst: QuantTensor, w: torch.Tensor) -> None:
     """Quantize the matrix ``w`` (K, N) into ``dst``, one matrix (a view
     of a stack's payload and scales), a chunk of whole columns at a time.
@@ -205,7 +227,7 @@ def quantize_into(dst: QuantTensor, w: torch.Tensor) -> None:
     axis -2 within a column, so the chunks give the bytes the matrix
     quantized whole gives."""
     k, n = w.shape
-    step = max(1, CHUNK_ELEMS // k)
+    step = chunk_cols(k)
     for c in range(0, n, step):
         q, scale = _quantize_payload(w[:, c:c + step].to(dst.dtype),
                                      dst.bits, dst.block)
@@ -286,7 +308,8 @@ def dequantize(qt: QuantTensor, dtype=None) -> torch.Tensor:
     v = qt.data
     if qt.bits == 4:
         v = unpack_int4(v, axis=-2)
-    v = v.narrow(-2, 0, qt.orig_dim)
+    if v.shape[-2] != qt.orig_dim:
+        v = v.narrow(-2, 0, qt.orig_dim)
     return absmax_dequantize(v, qt.scale, block=qt.block, axis=-2,
                              dtype=dtype or qt.dtype)
 
@@ -297,10 +320,93 @@ def materialize(w, dtype=None) -> torch.Tensor:
     return dequantize(w, dtype) if isinstance(w, QuantTensor) else w
 
 
+def columns(w, c0: int, c1: int):
+    """Columns [c0, c1) of a raw weight or a QuantTensor (its payload and
+    scales alike: the quant blocks run along axis -2, so a column slice
+    is exact)."""
+    if isinstance(w, QuantTensor):
+        return QuantTensor(w.data[..., c0:c1], w.scale[..., c0:c1], w.bits,
+                           w.block, w.orig_dim, w.out_dtype)
+    return w[..., c0:c1]
+
+
+def dequantize_into(dst: torch.Tensor, qt: QuantTensor) -> None:
+    """``dequantize(qt, dst.dtype)`` written into ``dst`` (the logical
+    shape) a block (``BLOCK_BYTES``) at a time: as many whole matrices as
+    a block holds, or a matrix a column block at a time where one matrix
+    is larger, so its temporaries stay one block big whatever the stack
+    holds."""
+    mats, out = qt.matrices(), dst.reshape((-1,) + tuple(dst.shape[-2:]))
+    n, k, cols = out.shape
+    step = block_cols(k)
+    per = max(1, step // cols)                 # whole matrices a block
+    for i in range(0, n, per):
+        if step >= cols:
+            out[i:i + per] = dequantize(mats[i:i + per], dst.dtype)
+            continue
+        for c in range(0, cols, step):
+            out[i, :, c:c + step] = dequantize(
+                columns(mats[i], c, c + step), dst.dtype)
+
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with fp32 output, the reference's
+    ``preferred_element_type=float32``: ``x`` (..., K) by a matrix ``w``
+    (K, N), or (B, M, K) by a stack (B, K, N).  The products run on fp32
+    copies of the operands (IEEE fp32 FMA), the weight's copied a column
+    block of ``BLOCK_BYTES`` at a time into a preallocated output, so no
+    fp32 copy of a whole weight is made; a weight within one block
+    multiplies whole, today's plain form.  (cuBLAS's bf16 product with an
+    fp32 output, ``mm(..., out_dtype=float32)``, needs no copy at all, but
+    accumulates on the tensor cores with about twenty times the rounding
+    error of IEEE fp32, enough to move the served streams' near-ties.)"""
+    xf = x.float()
+    n = w.shape[-1]
+    step = block_cols(w.numel() // max(n, 1), elem_bytes=4)
+    if step >= n:
+        return xf @ w.float()
+    out = torch.empty(xf.shape[:-1] + (n,), dtype=torch.float32,
+                      device=x.device)
+    for c in range(0, n, step):
+        out[..., c:c + step] = xf @ w[..., c:c + step].float()
+    return out
+
+
+def _blocked(x: torch.Tensor, w: QuantTensor | torch.Tensor, dtype,
+             out_dtype, mul) -> torch.Tensor:
+    """``mul(x, block)`` for each column block of ``w`` taken in ``dtype``
+    (dequantized, or cast), written into a preallocated (..., N) output of
+    ``out_dtype``: the transient is one block, not the whole matrix."""
+    k, n = w.shape[-2:]
+    out = torch.empty(x.shape[:-1] + (n,), dtype=out_dtype, device=x.device)
+    step = block_cols(k)
+    for c in range(0, n, step):
+        out[..., c:c + step] = mul(x, materialize(columns(w, c, c + step),
+                                                  dtype).to(dtype))
+    return out
+
+
 def qdot(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w`` for a raw weight, ``x @ dequantize(w)`` for a QuantTensor
-    (to its own fp dtype, as the reference's ``qdot`` does)."""
-    return x @ materialize(w)
+    """``x @ w`` for a raw weight; for a QuantTensor ``x @ dequantize(w)``
+    (to its own fp dtype, as the reference's ``qdot`` does), a column
+    block at a time into the output (each output column is the same dot
+    product as over the whole dequantized matrix)."""
+    if not isinstance(w, QuantTensor):
+        return x @ w
+    return _blocked(x, w, w.dtype, torch.promote_types(x.dtype, w.dtype),
+                    torch.matmul)
+
+
+def qdot_f32(x: torch.Tensor, w, dtype=None) -> torch.Tensor:
+    """fp32 ``x @ w`` with the weight taken in ``dtype`` (default its own):
+    the reference's ``qdot(..., weight_dtype=, preferred_element_type=
+    float32)``.  A raw weight already in ``dtype`` goes to ``dot_f32``; a
+    QuantTensor, or a weight to cast, is taken in ``dtype`` a column block
+    at a time into a preallocated fp32 output."""
+    dtype = dtype or w.dtype
+    if not isinstance(w, QuantTensor) and w.dtype == dtype:
+        return dot_f32(x, w)
+    return _blocked(x, w, dtype, torch.float32, dot_f32)
 
 
 def classify_weight(names: list[str]) -> str | None:

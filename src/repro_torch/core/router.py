@@ -1,14 +1,17 @@
 """Top-k MoE router with dead-expert masking and the load-balance loss
 (the JAX package's ``core/router.py``), and the paper's Table 1 statistic.
 
-The router computes in fp32; on the card that needs TF32 off
-(``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default).
+The router computes in fp32 (``quant.dot_f32``); on the card that needs
+TF32 off (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's
+default).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.core import quant
 
 
 class RouterOut(NamedTuple):
@@ -24,7 +27,7 @@ def route(router_w: torch.Tensor, x: torch.Tensor, k: int, *,
     """x: (T, D); router_w: (D, E).  Experts >= ``n_valid_experts`` are
     dead padding and get -1e9 logits."""
     e = router_w.shape[-1]
-    logits = x.float() @ router_w.float()
+    logits = quant.dot_f32(x, router_w)
     if n_valid_experts is not None and n_valid_experts < e:
         dead = torch.arange(e, device=x.device) >= n_valid_experts
         logits = logits.masked_fill(dead[None, :], -1e9)

@@ -35,14 +35,14 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 # C entry points: name -> argtypes (every one returns a cudaError_t as int)
 SIGNATURES = {
-    "moe_ffn_f32": [_P] * 5 + [_I] * 4 + [_P],
+    "moe_ffn_f32": [_P] * 6 + [_I] * 4 + [_P],
     "moe_ffn_bf16": [_P] * 6 + [_I] * 4 + [_P],
     "paged_attention_f32": [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
     "paged_attention_bf16": [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
     "paged_attention_int8_f32": [_P] * 11 + [_I] * 10 + [ctypes.c_float, _P],
     "paged_attention_int8_bf16": [_P] * 11 + [_I] * 10
     + [ctypes.c_float, _P],
-    "moe_ffn_quant_f32": [_P] * 8 + [_I] * 6 + [_P],
+    "moe_ffn_quant_f32": [_P] * 9 + [_I] * 6 + [_P],
     "moe_ffn_quant_bf16": [_P] * 9 + [_I] * 6 + [_P],
     "flash_attention_f32": [_P] * 4 + [_L] * 9 + [_I] * 7
     + [ctypes.c_float, _P],

@@ -39,102 +39,16 @@
 //   multiple of 64 and D of 128 (the wrapper checks).
 //
 // fp32, on the CUDA cores (moe_ffn_f32): fp32 must not go through TF32
-// (the port holds it to 2e-5), so it keeps the first design: one block
-// per (expert, 16-row C-tile), x transposed and h in shared memory, fp32
-// FMA with threads along F (phase 1, Wg/Wu) and along D (phase 2, Wd).
+// (the port holds it to 2e-5), so it is csrc/moe_f32.cuh's tiled fp32 FMA
+// product, in the same two launches (gate/up into an fp32 h scratch, then
+// down), with no bound on D or F.
 #include <cstdint>
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "moe_f32.cuh"
 
 namespace {
-
-constexpr int kRows = 16;      // rows of x per block (one C-tile)
-constexpr int kThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    moe_ffn_kernel(const T* __restrict__ x, const T* __restrict__ wg,
-                   const T* __restrict__ wu, const T* __restrict__ wd,
-                   T* __restrict__ y, int C, int D, int F) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* xs = reinterpret_cast<T*>(smem_raw);   // [D][kRows] transposed x tile
-  T* hs = xs + static_cast<size_t>(D) * kRows;  // [F][kRows] rounded h
-
-  const int e = blockIdx.x;
-  const int c0 = blockIdx.y * kRows;
-  const int rows = min(kRows, C - c0);
-  const T* xe = x + (static_cast<size_t>(e) * C + c0) * D;
-
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int c = i / D, d = i - c * D;
-    xs[d * kRows + c] =
-        c < rows ? xe[static_cast<size_t>(c) * D + d] : Num<T>::from_f(0.f);
-  }
-  __syncthreads();
-
-  const T* wge = wg + static_cast<size_t>(e) * D * F;
-  const T* wue = wu + static_cast<size_t>(e) * D * F;
-  for (int f = threadIdx.x; f < F; f += kThreads) {
-    float g[kRows], u[kRows];
-#pragma unroll
-    for (int c = 0; c < kRows; ++c) g[c] = u[c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float a = Num<T>::to_f(wge[static_cast<size_t>(d) * F + f]);
-      const float b = Num<T>::to_f(wue[static_cast<size_t>(d) * F + f]);
-      float xv[kRows];
-      load16<T>(xs + d * kRows, xv);
-#pragma unroll
-      for (int c = 0; c < kRows; ++c) {
-        g[c] = fmaf(xv[c], a, g[c]);
-        u[c] = fmaf(xv[c], b, u[c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kRows; ++c) {
-      const float s = g[c] / (1.f + expf(-g[c]));   // silu
-      hs[f * kRows + c] = Num<T>::from_f(s * u[c]);
-    }
-  }
-  __syncthreads();
-
-  const T* wde = wd + static_cast<size_t>(e) * F * D;
-  T* ye = y + (static_cast<size_t>(e) * C + c0) * D;
-  for (int dd = threadIdx.x; dd < D; dd += kThreads) {
-    float acc[kRows];
-#pragma unroll
-    for (int c = 0; c < kRows; ++c) acc[c] = 0.f;
-#pragma unroll 4
-    for (int f = 0; f < F; ++f) {
-      const float w = Num<T>::to_f(wde[static_cast<size_t>(f) * D + dd]);
-      float hv[kRows];
-      load16<T>(hs + f * kRows, hv);
-#pragma unroll
-      for (int c = 0; c < kRows; ++c) acc[c] = fmaf(hv[c], w, acc[c]);
-    }
-#pragma unroll
-    for (int c = 0; c < kRows; ++c)
-      if (c < rows) ye[static_cast<size_t>(c) * D + dd] = Num<T>::from_f(acc[c]);
-  }
-}
-
-template <typename T>
-int launch(const void* x, const void* wg, const void* wu, const void* wd,
-           void* y, int E, int C, int D, int F, void* stream) {
-  const size_t smem = static_cast<size_t>(D + F) * kRows * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      moe_ffn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(E, (C + kRows - 1) / kRows);
-  moe_ffn_kernel<T><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const T*>(wg),
-      static_cast<const T*>(wu), static_cast<const T*>(wd),
-      static_cast<T*>(y), C, D, F);
-  return static_cast<int>(cudaGetLastError());
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -332,9 +246,15 @@ int launch(const bf16* x, const bf16* wg, const bf16* wu, const bf16* wd,
 }  // namespace
 
 extern "C" int moe_ffn_f32(const void* x, const void* wg, const void* wu,
-                           const void* wd, void* y, int E, int C, int D, int F,
-                           void* stream) {
-  return launch<float>(x, wg, wu, wd, y, E, C, D, F, stream);
+                           const void* wd, void* h, void* y, int E, int C,
+                           int D, int F, void* stream) {
+  using f32ffn::DenseW;
+  return f32ffn::launch(static_cast<const float*>(x),
+                        DenseW{static_cast<const float*>(wg), D, F},
+                        DenseW{static_cast<const float*>(wu), D, F},
+                        DenseW{static_cast<const float*>(wd), F, D},
+                        static_cast<float*>(h), static_cast<float*>(y), E, C,
+                        D, F, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int moe_ffn_bf16(const void* x, const void* wg, const void* wu,

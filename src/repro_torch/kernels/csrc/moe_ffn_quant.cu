@@ -47,145 +47,19 @@
 //   zero rows of y.
 //
 // fp32, on the CUDA cores (moe_ffn_quant_f32): fp32 must not go through
-//   TF32 (the port holds it to 2e-5), so it keeps the first design: one
-//   block per (expert, 16-row C-tile), x transposed and h in shared memory
-//   (D + F bounded by a block's shared memory), threads along F (then D)
-//   reading coalesced payload rows, one fp32 scale per block and column.
+//   TF32 (the port holds it to 2e-5), so it is csrc/moe_f32.cuh's tiled
+//   fp32 FMA product in two launches (gate/up into an fp32 h scratch, then
+//   down), each weight tile dequantized as it is loaded into shared memory
+//   (coalesced payload rows, one fp32 scale per block and column), with no
+//   bound on D or F.
 #include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "moe_f32.cuh"
 
 namespace {
-
-constexpr int kRows = 16;      // rows of x per block (one C-tile)
-constexpr int kThreads = 256;
-
-__device__ __forceinline__ int nibble(unsigned v) {
-  const int n = static_cast<int>(v & 0xFu);
-  return n > 7 ? n - 16 : n;
-}
-
-// Payload value of logical row `r`, column `col` of a (rows, n) matrix.
-template <int kBits>
-__device__ __forceinline__ int payload(const int8_t* __restrict__ w, int r,
-                                       int col, int n) {
-  if constexpr (kBits == 8) {
-    return w[static_cast<size_t>(r) * n + col];
-  } else {
-    const unsigned b =
-        static_cast<uint8_t>(w[static_cast<size_t>(r >> 1) * n + col]);
-    return nibble(b >> ((r & 1) * 4));
-  }
-}
-
-__device__ __forceinline__ float dequant(int q, float s) {
-  return static_cast<float>(q) * s;
-}
-
-template <int kBits>
-__global__ void __launch_bounds__(kThreads)
-    moe_ffn_quant_kernel(const float* __restrict__ x,
-                         const int8_t* __restrict__ wg,
-                         const float* __restrict__ wgs,
-                         const int8_t* __restrict__ wu,
-                         const float* __restrict__ wus,
-                         const int8_t* __restrict__ wd,
-                         const float* __restrict__ wds, float* __restrict__ y,
-                         int C, int D, int F, int qb) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* xs = reinterpret_cast<float*>(smem_raw);  // [D][kRows] x tile
-  float* hs = xs + static_cast<size_t>(D) * kRows;  // [F][kRows] h
-
-  const int e = blockIdx.x;
-  const int c0 = blockIdx.y * kRows;
-  const int rows = min(kRows, C - c0);
-  const float* xe = x + (static_cast<size_t>(e) * C + c0) * D;
-
-  for (int i = threadIdx.x; i < kRows * D; i += kThreads) {
-    const int c = i / D, d = i - c * D;
-    xs[d * kRows + c] = c < rows ? xe[static_cast<size_t>(c) * D + d] : 0.f;
-  }
-  __syncthreads();
-
-  const int rows_d = kBits == 4 ? (D + 1) / 2 : D;   // payload rows of Wg
-  const int rows_f = kBits == 4 ? (F + 1) / 2 : F;   // payload rows of Wd
-  const int nb_d = (D + qb - 1) / qb, nb_f = (F + qb - 1) / qb;
-  const int8_t* wge = wg + static_cast<size_t>(e) * rows_d * F;
-  const int8_t* wue = wu + static_cast<size_t>(e) * rows_d * F;
-  const float* wgse = wgs + static_cast<size_t>(e) * nb_d * F;
-  const float* wuse = wus + static_cast<size_t>(e) * nb_d * F;
-  for (int f = threadIdx.x; f < F; f += kThreads) {
-    float g[kRows], u[kRows];
-#pragma unroll
-    for (int c = 0; c < kRows; ++c) g[c] = u[c] = 0.f;
-    for (int kb = 0; kb < nb_d; ++kb) {
-      const float sg = wgse[static_cast<size_t>(kb) * F + f];
-      const float su = wuse[static_cast<size_t>(kb) * F + f];
-      const int d_end = min(D, (kb + 1) * qb);
-#pragma unroll 4
-      for (int d = kb * qb; d < d_end; ++d) {
-        const float a = dequant(payload<kBits>(wge, d, f, F), sg);
-        const float b = dequant(payload<kBits>(wue, d, f, F), su);
-        float xv[kRows];
-        load16<float>(xs + d * kRows, xv);
-#pragma unroll
-        for (int c = 0; c < kRows; ++c) {
-          g[c] = fmaf(xv[c], a, g[c]);
-          u[c] = fmaf(xv[c], b, u[c]);
-        }
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kRows; ++c)
-      hs[f * kRows + c] = g[c] / (1.f + expf(-g[c])) * u[c];   // silu
-  }
-  __syncthreads();
-
-  const int8_t* wde = wd + static_cast<size_t>(e) * rows_f * D;
-  const float* wdse = wds + static_cast<size_t>(e) * nb_f * D;
-  float* ye = y + (static_cast<size_t>(e) * C + c0) * D;
-  for (int dd = threadIdx.x; dd < D; dd += kThreads) {
-    float acc[kRows];
-#pragma unroll
-    for (int c = 0; c < kRows; ++c) acc[c] = 0.f;
-    for (int kb = 0; kb < nb_f; ++kb) {
-      const float s = wdse[static_cast<size_t>(kb) * D + dd];
-      const int f_end = min(F, (kb + 1) * qb);
-#pragma unroll 4
-      for (int f = kb * qb; f < f_end; ++f) {
-        const float w = dequant(payload<kBits>(wde, f, dd, D), s);
-        float hv[kRows];
-        load16<float>(hs + f * kRows, hv);
-#pragma unroll
-        for (int c = 0; c < kRows; ++c) acc[c] = fmaf(hv[c], w, acc[c]);
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kRows; ++c)
-      if (c < rows) ye[static_cast<size_t>(c) * D + dd] = acc[c];
-  }
-}
-
-template <int kBits>
-int launch_f32(const void* x, const void* wg, const void* wgs, const void* wu,
-               const void* wus, const void* wd, const void* wds, void* y,
-               int E, int C, int D, int F, int qb, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(D + F) * kRows * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      moe_ffn_quant_kernel<kBits>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(E, (C + kRows - 1) / kRows);
-  moe_ffn_quant_kernel<kBits><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(x), static_cast<const int8_t*>(wg),
-      static_cast<const float*>(wgs), static_cast<const int8_t*>(wu),
-      static_cast<const float*>(wus), static_cast<const int8_t*>(wd),
-      static_cast<const float*>(wds), static_cast<float*>(y), C, D, F, qb);
-  return static_cast<int>(cudaGetLastError());
-}
-
 
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
@@ -529,16 +403,29 @@ int launch(const Args& a, cudaStream_t s) {
 extern "C" int moe_ffn_quant_f32(const void* x, const void* wg,
                                  const void* wgs, const void* wu,
                                  const void* wus, const void* wd,
-                                 const void* wds, void* y, int E, int C,
-                                 int D, int F, int bits, int qb,
+                                 const void* wds, void* h, void* y, int E,
+                                 int C, int D, int F, int bits, int qb,
                                  void* stream) {
   // int4 rows pair up within a block only when the block is even
   if (qb < 2 || qb % 2) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bits == 8)
-    return launch_f32<8>(x, wg, wgs, wu, wus, wd, wds, y, E, C, D, F, qb, s);
-  if (bits == 4)
-    return launch_f32<4>(x, wg, wgs, wu, wus, wd, wds, y, E, C, D, F, qb, s);
+  const float* xf = static_cast<const float*>(x);
+  float* hf = static_cast<float*>(h);
+  float* yf = static_cast<float*>(y);
+  const auto q = [](const void* p) { return static_cast<const int8_t*>(p); };
+  const auto sc = [](const void* p) { return static_cast<const float*>(p); };
+  if (bits == 8) {
+    using W = f32ffn::QuantW<8>;
+    return f32ffn::launch(xf, W{q(wg), sc(wgs), D, F, qb},
+                          W{q(wu), sc(wus), D, F, qb},
+                          W{q(wd), sc(wds), F, D, qb}, hf, yf, E, C, D, F, s);
+  }
+  if (bits == 4) {
+    using W = f32ffn::QuantW<4>;
+    return f32ffn::launch(xf, W{q(wg), sc(wgs), D, F, qb},
+                          W{q(wu), sc(wus), D, F, qb},
+                          W{q(wd), sc(wds), F, D, qb}, hf, yf, E, C, D, F, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

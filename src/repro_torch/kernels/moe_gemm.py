@@ -16,13 +16,15 @@ shared-memory stages by asynchronous copies, in two launches per call: one
 writes h = silu(x Wg) * (x Wu), rounded to bf16, into a scratch
 (E, C, F) that the wrapper allocates, one multiplies it by Wd.  F must be
 a multiple of 64 and D of 128.  fp32 stays on the CUDA cores in
-fp32 FMA (the port holds fp32 to 2e-5, which TF32 cannot meet): one block
-per (expert, 16-row C-tile) with x and h in shared memory, so D + F is
-bounded by a block's shared memory.  ``csrc/moe_ffn_quant.cu`` has the same
-two designs over int8 or packed int4 payload with fp32 block scales: bf16
+fp32 FMA (the port holds fp32 to 2e-5, which TF32 cannot meet), in the
+same two launches with h kept fp32 in its scratch: each launch is a tiled
+product (``csrc/moe_f32.cuh``) with D and F tiled through shared memory,
+so no width is refused.  ``csrc/moe_ffn_quant.cu`` has the same two
+designs over int8 or packed int4 payload with fp32 block scales: bf16
 streams the compressed slabs through the same kind of ring and
 dequantizes each value straight into ``wgmma``'s register operand (same
-geometry and h scratch as bf16 ``moe_ffn``); fp32 keeps the CUDA cores.
+geometry and h scratch as bf16 ``moe_ffn``); fp32 dequantizes each weight
+tile as it loads it into the CUDA-core product.
 
 Each wrapper launches its kernel on CUDA tensors and counts the call (one
 per call, whatever the launches inside) in its ``launches``;
@@ -38,8 +40,6 @@ import torch.nn.functional as F
 from repro_torch.core import quant
 from repro_torch.kernels import build
 
-_ROWS = 16            # C-tile rows of the fp32 CUDA-core kernels
-_SMEM_LIMIT = 232448  # dynamic shared memory a Hopper block may use
 TILE = 64             # bf16 tensor-core kernel: F tile; D tiles by 2 * TILE
 _ENTRY = {torch.float32: "moe_ffn_f32", torch.bfloat16: "moe_ffn_bf16"}
 _ENTRY_QUANT = {torch.float32: "moe_ffn_quant_f32",
@@ -68,15 +68,11 @@ def check_ffn_dims(d: int, f: int, dtype: torch.dtype,
                    who: str = "moe_ffn_kernel") -> None:
     """Raise unless the kernel for ``dtype`` takes widths D and F (the
     same rule for the fp and the quantized FFN): bf16 tiles F by 64 and D
-    by 128 (its down-projection blocks own 128 columns of D); fp32 keeps a
-    16-row tile of x and h in one block's shared memory."""
-    if dtype == torch.bfloat16:
-        if d % (2 * TILE) or f % TILE:
-            raise ValueError(f"{who}: bf16 needs D a multiple of "
-                             f"{2 * TILE} and F of {TILE}, got D={d} F={f}")
-    elif (d + f) * _ROWS * dtype.itemsize > _SMEM_LIMIT:
-        raise ValueError(f"{who}: D + F = {d + f} exceeds the "
-                         f"shared-memory tile of one block")
+    by 128 (its down-projection blocks own 128 columns of D); fp32 takes
+    any widths (its tiles mask the ragged edges)."""
+    if dtype == torch.bfloat16 and (d % (2 * TILE) or f % TILE):
+        raise ValueError(f"{who}: bf16 needs D a multiple of {2 * TILE} "
+                         f"and F of {TILE}, got D={d} F={f}")
 
 
 def check_quant_dims(d: int, f: int, bits: int, qb: int,
@@ -93,11 +89,11 @@ def check_quant_dims(d: int, f: int, bits: int, qb: int,
 
 
 def h_scratch_spec(e: int, c: int, f: int, dtype: torch.dtype
-                   ) -> tuple[tuple[int, int, int], torch.dtype] | None:
-    """Shape and dtype of the h scratch the bf16 kernels (fp and quantized
-    weights) pass between their two launches (h rounded to bf16, as the
-    reference rounds it); None for fp32, which keeps h in shared memory."""
-    return ((e, c, f), torch.bfloat16) if dtype == torch.bfloat16 else None
+                   ) -> tuple[tuple[int, int, int], torch.dtype]:
+    """Shape and dtype of the h scratch both kernels (fp and quantized
+    weights) pass between their two launches: h in x's dtype, as the
+    reference rounds it (bf16, or fp32 for fp32)."""
+    return (e, c, f), dtype
 
 
 def moe_ffn_kernel(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -128,12 +124,10 @@ def moe_ffn_kernel(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     lib = build.library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
     entry = ffn_entry(x.dtype)
+    shape, h_dtype = h_scratch_spec(e, c, f, x.dtype)
+    h = torch.empty(shape, dtype=h_dtype, device=x.device)
     ptrs = [x.data_ptr(), w_gate.data_ptr(), w_up.data_ptr(),
-            w_down.data_ptr()]
-    scratch = h_scratch_spec(e, c, f, x.dtype)
-    if scratch is not None:
-        h = torch.empty(scratch[0], dtype=scratch[1], device=x.device)
-        ptrs.append(h.data_ptr())
+            w_down.data_ptr(), h.data_ptr()]
     build.check(getattr(lib, entry)(*ptrs, y.data_ptr(), e, c, d, f, stream),
                 entry)
     moe_ffn_kernel.launches += 1
@@ -207,10 +201,9 @@ def moe_ffn_kernel_quant(x: torch.Tensor, w_gate: quant.QuantTensor,
     ptrs = [x.data_ptr(), w_gate.data.data_ptr(), w_gate.scale.data_ptr(),
             w_up.data.data_ptr(), w_up.scale.data_ptr(),
             w_down.data.data_ptr(), w_down.scale.data_ptr()]
-    scratch = h_scratch_spec(e, c, f, x.dtype)
-    if scratch is not None:
-        h = torch.empty(scratch[0], dtype=scratch[1], device=x.device)
-        ptrs.append(h.data_ptr())
+    shape, h_dtype = h_scratch_spec(e, c, f, x.dtype)
+    h = torch.empty(shape, dtype=h_dtype, device=x.device)
+    ptrs.append(h.data_ptr())
     build.check(getattr(lib, entry)(*ptrs, y.data_ptr(), e, c, d, f, bits,
                                     qb, stream), entry)
     moe_ffn_kernel_quant.launches += 1

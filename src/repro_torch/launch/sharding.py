@@ -489,10 +489,67 @@ def draw_peak_bytes(cfg) -> int:
         cfg.replace(weight_quant="none"))))
     chunk = max((-(-v.orig_dim // v.block) * v.block
                  * min(v.data.shape[-1],
-                       max(1, quant_lib.CHUNK_ELEMS // v.orig_dim))
+                       quant_lib.chunk_cols(v.orig_dim))
                  for v in _leaves(store) if isinstance(v, QuantTensor)),
                 default=0)
     return quant_lib.tree_bytes(store) + 4 * mat + 16 * chunk
+
+
+def serve_peak_bytes(cfg, *, rows: int, chunk_len: int,
+                     pool_bytes: int) -> int:
+    """The most memory a one-device serve of ``cfg`` (weights already
+    stored, quantized as ``cfg`` says) may hold over its store and page
+    pool (``pool_bytes``) while it steps ``rows`` rows of up to
+    ``chunk_len`` tokens each: the store, plus the pool, plus the largest
+    transient of a weight product, plus the step's activations.
+
+    * A quantized matrix (K, N) is dequantized a column block at a time
+      (``quant.qdot`` / ``qdot_f32``): 16 B an element of the largest
+      block (``quant.block_cols``, about ``quant.BLOCK_BYTES`` in all)
+      covers its unpacked and padded codes (1 B each), their fp32 product
+      with the scales and its rounding (4 + 4 B), the block in the
+      weights' dtype (2 B) and its fp32 copy (``quant.dot_f32``).
+    * A decode step of at most ``cfg.gather_decode_max_tk`` selections
+      gathers each selected expert matrix in the weights' dtype
+      (``moe.gather_moe``): R = rows * K matrices of one stack, plus their
+      gathered payload and scales, plus one block's dequantize
+      temporaries or fp32 copy (``quant.dot_f32``), at most
+      ``quant.BLOCK_BYTES``.
+    * Activations: the prefill step's T = rows * chunk_len tokens, 64 B a
+      token and unit of the widest of D, F and the heads' width (the
+      residual, normed and projected rows, q, k, v and attention output,
+      g, u, h in up to fp32), the capacity buffers of a dispatch (x, ye
+      and its padded copy in D, h in F, at ``cfg.capacity_factor``), the
+      decisions' rows (T, K, D) twice, and the fp32 logits of the rows
+      twice."""
+    store = meta_params(cfg)
+    elt = cfg.torch_dtype.itemsize
+    mats = [v for v in _leaves(store) if isinstance(v, QuantTensor)]
+    block = max((16 * -(-v.orig_dim // v.block) * v.block
+                 * min(v.data.shape[-1], quant_lib.block_cols(v.orig_dim))
+                 for v in mats), default=0)
+    transient = block
+    if cfg.is_moe and rows * cfg.experts_per_token <= \
+            cfg.gather_decode_max_tk:
+        sel = rows * cfg.experts_per_token
+        for w in store["blocks"]["experts"].values():
+            mat = math.prod(w.shape[-2:]) * cfg.param_torch_dtype.itemsize
+            packed = (quant_lib.tree_bytes({"w": w[0, 0]})
+                      if isinstance(w, QuantTensor) else 0)
+            transient = max(transient, sel * (mat + packed) + min(
+                16 * sel * math.prod(w.shape[-2:]), quant_lib.BLOCK_BYTES))
+    tokens = rows * chunk_len
+    width = max(cfg.d_model, cfg.d_ff, cfg.num_heads * cfg.head_dim)
+    act = 64 * tokens * width + 8 * rows * cfg.vocab_padded
+    if cfg.is_moe:
+        from repro_torch.core import moe as moe_lib
+        cap = moe_lib.round_capacity(tokens, cfg.experts_per_token,
+                                     cfg.num_experts_padded,
+                                     cfg.capacity_factor)
+        act += elt * cfg.num_experts_padded * cap * (3 * cfg.d_model
+                                                     + cfg.d_ff)
+        act += 2 * elt * tokens * cfg.experts_per_token * cfg.d_model
+    return quant_lib.tree_bytes(store) + pool_bytes + transient + act
 
 
 def _leaves(tree: dict):

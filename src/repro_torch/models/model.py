@@ -114,15 +114,17 @@ def resolve_device(device) -> torch.device:
 
 
 def _lm_head(cfg, params, x: torch.Tensor, tp=None) -> torch.Tensor:
-    """Logits in fp32: the weight is rounded (or a quantized head
-    dequantized) to x's dtype, as the reference does, then the product runs
-    on fp32 copies, so bf16 logits are never rounded back to bf16 (close
-    logits would tie and move the argmax).  ``x`` is (B, rows, D): the B
-    last-valid rows of a serving step, or a whole sequence (or one chunk
-    of it) in ``forward`` and ``loss``; besides the (B, rows, V) fp32
-    logits, the fp32 copy of the weight is the call's one transient."""
+    """Logits in fp32: the weight is taken in x's dtype (a quantized head
+    dequantized to it), as the reference does, and the product has fp32
+    output (``quant.qdot_f32``), so bf16 logits are never rounded back to
+    bf16 (close logits would tie and move the argmax).  ``x`` is (B, rows,
+    D): the B last-valid rows of a serving step, or a whole sequence (or
+    one chunk of it) in ``forward`` and ``loss``.  The head is taken (a
+    quantized one dequantized, then copied to fp32) a column block at a
+    time, so besides the (B, rows, V) fp32 logits the call's transient is
+    one block, never a copy of the whole head."""
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = x.float() @ quant.materialize(w, x.dtype).to(x.dtype).float()
+    logits = quant.qdot_f32(x, w, x.dtype)
     if tp is not None and tp.head:
         # this rank's vocabulary columns; every rank gets them all (booked
         # apart from the collectives the performance model predicts)

@@ -358,13 +358,15 @@ def test_kernel_wrappers_refuse_grad(entry):
     (2048, 700, torch.bfloat16, False),
     (2040, 768, torch.bfloat16, False),
     (192, 768, torch.bfloat16, False),      # D tiles by 128
-    (96, 80, torch.float32, True),          # fp32: any D + F that fits
+    (96, 80, torch.float32, True),          # fp32: any widths
     (2048, 768, torch.float32, True),
-    (2048, 2048, torch.float32, False),
+    (2048, 2048, torch.float32, True),
+    (6144, 10752, torch.float32, True),     # DBRX
 ])
 def test_ffn_dims_check(d, f, dtype, ok):
     """bf16 tiles F by 64 and D by 128 and raises on anything else (no
-    fallback); fp32 keeps its shared-memory bound on D + F."""
+    fallback); fp32 tiles D and F through shared memory and takes any
+    widths."""
     from repro_torch.kernels import moe_gemm
     if ok:
         moe_gemm.check_ffn_dims(d, f, dtype)
@@ -374,19 +376,20 @@ def test_ffn_dims_check(d, f, dtype, ok):
 
 
 def test_ffn_h_scratch_and_entries():
-    """bf16 passes h (E, C, F), rounded to bf16, between its two launches
-    through a scratch the wrapper allocates, and its C entry takes that
-    pointer; fp32 keeps h on chip."""
+    """Both types pass h (E, C, F) between their two launches through a
+    scratch the wrapper allocates, in x's dtype (bf16 rounded, fp32 as it
+    is), and both C entries take that pointer."""
     from repro_torch.kernels import build, moe_gemm
     assert moe_gemm.h_scratch_spec(128, 320, 768, torch.bfloat16) == (
         (128, 320, 768), torch.bfloat16)
-    assert moe_gemm.h_scratch_spec(4, 5, 512, torch.float32) is None
+    assert moe_gemm.h_scratch_spec(4, 5, 512, torch.float32) == (
+        (4, 5, 512), torch.float32)
     assert moe_gemm.ffn_entry(torch.float32) == "moe_ffn_f32"
     assert moe_gemm.ffn_entry(torch.bfloat16) == "moe_ffn_bf16"
     with pytest.raises(ValueError, match="no kernel"):
         moe_gemm.ffn_entry(torch.float16)
     pointers = lambda name: build.SIGNATURES[name].count(build._P)
-    assert pointers("moe_ffn_bf16") == pointers("moe_ffn_f32") + 1
+    assert pointers("moe_ffn_bf16") == pointers("moe_ffn_f32") == 7
 
 
 # ---------------------------------------------------------------------------
@@ -524,14 +527,15 @@ def test_paged_split_combine_matches_plain(t, ps, window, splits):
     (256, 512, 2, 128, torch.bfloat16, False),
     (192, 512, 8, 128, torch.bfloat16, False),     # D tiles by 128
     (256, 500, 8, 128, torch.bfloat16, False),     # F tiles by 64
-    (96, 80, 8, 32, torch.float32, True),          # fp32: any D + F that fits
+    (96, 80, 8, 32, torch.float32, True),          # fp32: any widths
     (2048, 768, 4, 128, torch.float32, True),
-    (6144, 10752, 8, 128, torch.float32, False),   # fp32 keeps its limit
+    (6144, 10752, 8, 128, torch.float32, True),    # DBRX in fp32 too
+    (6144, 10752, 4, 128, torch.float32, True),
 ])
 def test_quant_ffn_dims_check(d, f, bits, qb, dtype, ok):
     """The quantized FFN's bf16 path takes the bf16 FFN's geometry (D % 128,
-    F % 64, any even block), so DBRX's widths fit; fp32 keeps the
-    shared-memory bound on D + F."""
+    F % 64, any even block), so DBRX's widths fit; fp32 takes any widths
+    (and any even block)."""
     from repro_torch.kernels import moe_gemm
     if ok:
         moe_gemm.check_quant_dims(d, f, bits, qb, dtype)
@@ -542,10 +546,13 @@ def test_quant_ffn_dims_check(d, f, bits, qb, dtype, ok):
 
 def test_quant_ffn_h_scratch_and_entries():
     """The quantized bf16 entry passes h (E, C, F) in bf16 between its two
-    launches, as bf16 moe_ffn does; fp32 keeps h on chip."""
+    launches, as bf16 moe_ffn does; the fp32 entry passes an fp32 h the
+    same way."""
     from repro_torch.kernels import build, moe_gemm
     assert moe_gemm.h_scratch_spec(128, 16, 768, torch.bfloat16) == (
         (128, 16, 768), torch.bfloat16)
-    assert moe_gemm.h_scratch_spec(128, 16, 768, torch.float32) is None
+    assert moe_gemm.h_scratch_spec(128, 16, 768, torch.float32) == (
+        (128, 16, 768), torch.float32)
     pointers = lambda name: build.SIGNATURES[name].count(build._P)
-    assert pointers("moe_ffn_quant_bf16") == pointers("moe_ffn_quant_f32") + 1
+    assert pointers("moe_ffn_quant_bf16") == pointers(
+        "moe_ffn_quant_f32") == 10

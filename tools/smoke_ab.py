@@ -34,10 +34,16 @@ other families on a (2, 2) mesh of rank processes) or ``analysis``
 its FFN and quantized-FFN cases at the reduced widths and the qwen3-0.6b
 flash case at S=4096, then phase 15: the analysis rules on the
 card and the dry-run against the allocator) or ``full_depth`` (phase
-3's paged cases at phase 16's DBRX shape (two rows over 12 pages) and
+3's paged cases at phase 16's DBRX shape (four rows over 12 pages) and
 qwen2-72b's heads and its quantized-FFN
 cases at DBRX's widths, then phase 16: DBRX int4, deepseek-67b int8 and
-qwen2-72b int4 loaded at full depth, quantized as drawn, and served).  Prints the card's name and power limit, the build's ptxas lines
+qwen2-72b int8 loaded at full depth, quantized as drawn, and served at
+four rows) or ``fp32_ffn`` (phase 3's fp32 FFN and quantized-FFN cases at
+DBRX's widths, then phase 3b: fp32 DBRX at 2 layers through forward and
+loss with the CUDA-core FFN) or ``train_step`` (granite's bf16 trainer
+step at phase 8's shape, ``--repeat`` steps timed, then one profiled for
+the dispatch gathers' backward share: no gate, so a parent tree runs it
+too).  Prints the card's name and power limit, the build's ptxas lines
 and every row the phases print, each tagged with the label; exits non-zero
 if a phase fails.
 """
@@ -62,7 +68,7 @@ def main() -> int:
                              "serve5", "train", "ep", "serve_mesh",
                              "train_mesh", "families", "modalities",
                              "families_mesh", "analysis",
-                             "full_depth"])
+                             "full_depth", "fp32_ffn", "train_step"])
     ap.add_argument("--repeat", type=int, default=3)
     args = ap.parse_args()
     import torch
@@ -178,18 +184,37 @@ def main() -> int:
             e for e in cs.LINE if e[2] in runs])), flush=True)
     if "full_depth" in args.only:
         # phase 16 alone, with the phase 3 rows its kernels-line entries
-        # read: paged attention at DBRX's two rows (FULL_DBRX_PAGED) and
+        # read: paged attention at DBRX's four rows (FULL_DBRX_PAGED) and
         # the G=8 heads, the int4 FFN at DBRX's widths
         cs.PAGED_CASES = []
         cs.REDUCED_PAGED = []
         cs.GQA_HEADS = [h for h in cs.GQA_HEADS if h == (64, 8, 128)]
         cs.check_paged_attention(torch, results)
-        cs.QUANT_CASES = [c for c in cs.QUANT_CASES if c[0] == 16]
+        cs.QUANT_CASES = [c for c in cs.QUANT_CASES
+                          if c[0] == 16 and c[4] == ("bfloat16",)]
         cs.check_moe_ffn_quant(torch, results)
         runs = {}
         cs.check_full_depth(torch, runs)
         print(json.dumps(cs.kernels_line(results, runs, [
             e for e in cs.LINE if e[2] in runs])), flush=True)
+    if "fp32_ffn" in args.only:
+        # phase 3's fp32 FFN cases (DBRX's widths and phase 11's C=4096)
+        # and quantized-FFN cases at DBRX's widths, then phase 3b
+        cs.FFN_CASES = [c for c in cs.FFN_CASES
+                        if c[2] == 6144 or c[1] == 4096]
+        cs.MESH_FFN_CASES = []
+        cs.check_moe_ffn(torch, results, ("float32",))
+        cs.QUANT_CASES = [c for c in cs.QUANT_CASES
+                          if c[0] == 16 and c[4] == ("float32",)]
+        cs.check_moe_ffn_quant(torch, results)
+        runs = {}
+        cs.check_fp32_dbrx(torch, runs)
+        print(json.dumps(cs.kernels_line(results, runs, [
+            e for e in cs.LINE if e[2] in runs])), flush=True)
+    if "train_step" in args.only:
+        out = cs.train_step_times(torch, args.repeat)
+        del out["params"]
+        cs.emit("train_step", **out)
     if "serve5" in args.only:
         from repro_torch.configs.base import get_config
         cs.profile_window = lambda *a, **kw: {"device_busy_share": None}
