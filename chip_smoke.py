@@ -587,6 +587,11 @@ REDUCED_PAGED = [(4, (0, 20), (4, 3), 8), (1, (13, 27), (1, 1), 8),
 # (max_cache 192, pages of 16): a T=32 prefill block and a decode step
 FULL_DBRX_PAGED = [(32, (17, 100, 0, 60), (32, 20, 32, 32)),
                    (1, (17, 100, 150, 60), (1, 1, 1, 1))]
+# (T, lengths, seg_lens): phase 10's (2, 2) serve, each rank's paged
+# attention at granite's heads on 2 "model" ranks (Hq 12, Hkv 4, hd 64)
+# over its data block's B/2 = 2 rows (bf16, the serve's 12-page tables):
+# a T=32 prefill block and a decode step
+MESH_DATA_PAGED = [(32, (17, 100), (32, 20)), (1, (17, 100), (1, 1))]
 
 
 def paged_run(torch, paged_attn, int8: bool, dtype, t: int, window,
@@ -653,6 +658,10 @@ def check_paged_attention(torch, results):
             seg=seg, ps=ps)
     for t, lengths, seg in FULL_DBRX_PAGED:
         one(False, torch.bfloat16, t, None, 128, 48, 8, lengths=lengths,
+            seg=seg, pages=SERVE_ENGINE["max_cache"]
+            // SERVE_ENGINE["page_size"])
+    for t, lengths, seg in MESH_DATA_PAGED:
+        one(False, torch.bfloat16, t, None, 64, 12, 4, lengths=lengths,
             seg=seg, pages=SERVE_ENGINE["max_cache"]
             // SERVE_ENGINE["page_size"])
 
@@ -726,7 +735,10 @@ MESH_FFN_CASES = [(8, 2048, 6144, 10752, 0), (4, 2048, 6144, 10752, 0),
                   # tokens at capacity factor 8): granite's 24 / 12 local
                   # experts at C=176, DBRX's 4 at C=256
                   (24, 176, 1536, 512, 8), (12, 176, 1536, 512, 8),
-                  (4, 256, 6144, 10752, 0)]
+                  (4, 256, 6144, 10752, 0),
+                  # and on the (2, 2) mesh, a data block's B/2 = 2 rows x
+                  # 32 tokens: granite's 24 local experts at C=88
+                  (24, 88, 1536, 512, 8)]
 
 
 def check_moe_ffn(torch, results, dtypes=("float32", "bfloat16")):
@@ -2290,10 +2302,10 @@ def check_serve_resilience(torch, params, uncontended):
           and st["nan_quarantines"] == n_nan and st["failed"] == 0,
           f"serve_resilience: counters {st} disagree with the plan")
     check(plan.all_fired(), f"serve_resilience: unfired {plan.unfired()}")
-    eng.prefix.clear()
-    check(eng.allocator.fully_free,
-          f"serve_resilience: {eng.allocator.pages_in_use} pages leaked")
-    eng.allocator.check_consistent()
+    eng.prefixes[0].clear()
+    check(eng.allocators[0].fully_free,
+          f"serve_resilience: {eng.allocators[0].pages_in_use} pages leaked")
+    eng.allocators[0].check_consistent()
     tp, tt = eng.throughput(), eng.ttft()
     streams = lambda rn: {role: [list(r.generated) for r in rs]
                           for role, rs in rn["reqs"].items()}
@@ -2441,15 +2453,14 @@ def partial_sums(n: int, magnitudes: list | None = None):
     from repro_torch.core import expert_parallel
     local = expert_parallel._local_moe
 
-    def summed(cfg, experts, x2d, rout, e_start, capacity, kernels=True,
-               groups=1):
+    def summed(cfg, experts, x2d, rout, e_start, capacity, kernels=True):
         e_local = experts["w_gate"].shape[0] // n
         acc, mag = None, 0.0
         for r in range(n):
             shard = {k: w[r * e_local:(r + 1) * e_local]
                      for k, w in experts.items()}
             part = local(cfg, shard, x2d, rout, e_start + r * e_local,
-                         capacity, kernels, groups)
+                         capacity, kernels)
             acc = part if acc is None else acc + part
             mag = mag + part.float().abs()
         if magnitudes is not None:
@@ -2476,10 +2487,9 @@ def a2a_arithmetic(n: int, m: int):
     layer = expert_parallel.moe_layer
 
     def blockwise(cfg, layer_p, x, token_mask=None, mesh=None, kernels=True,
-                  batch_axes=None, row_blocks=1):
+                  batch_axes=None):
         b, s, d = x.shape
-        check(b == 1 and token_mask is None and mesh is None
-              and row_blocks == 1,
+        check(b == 1 and token_mask is None and mesh is None,
               "a2a_arithmetic models one row, no mask, one device")
         sl, e_pad = s // n, cfg.num_experts_padded
         x2d = x.reshape(s, d)
@@ -3038,6 +3048,10 @@ SM_REDUCED_ENGINE = dict(max_batch=2, max_cache=48, chunk_len=8,
 SM_FULL = {"granite_moe_3b_a800m": (GRANITE_TRAIN_LAYERS, (2, 4),
                                     ("decentralized", "a2a")),
            "dbrx": (4, (4,), ("decentralized",))}
+# (arch, schedule, (data, model)): the 4-rank group's serve with its rows
+# cut over "data", each data block of B/2 rows from its own pool of
+# num_pages / 2 pages (granite at SM_FULL's depth)
+SM_DATA = ("granite_moe_3b_a800m", "decentralized", (2, 2))
 
 
 def sm_config(arch: str, layers, sched: str):
@@ -3084,11 +3098,17 @@ def sm_full(torch, mesh, arch: str, layers, params: dict, sched: str,
     """One full-width serve on this rank: phase 5's traffic through the
     mesh engine on this rank's serve blocks (after a warm-up serve on the
     rank's first).  Its bytes by kind are held to the prediction summed
-    over the steps' blocks, its weight bytes to its serve blocks'
-    (``sharding.block_bytes``)."""
-    from repro_torch.core import collectives, perf_model, router
+    over the steps' blocks (each rank runs its data block of the rows),
+    the row gather apart (each step's B / G tokens, flags and routing,
+    int32), its weight bytes to its serve blocks'
+    (``sharding.block_bytes``), its pool to its data block's pages of its
+    kv heads, and the rows each paged launch and the C each grouped-FFN
+    launch sees to its data block's (recorded through ``kernels/ops``'s
+    dispatchers, which leave the kernels' counts alone)."""
+    from repro_torch.core import collectives, moe, perf_model, router
     from repro_torch.kernels import ops
     from repro_torch.launch import sharding
+    from repro_torch.models import transformer
     from repro_torch.models.model import HEAD
     from repro_torch.serving.engine import EngineConfig, ServingEngine
     cfg = sm_config(arch, layers, sched)
@@ -3103,30 +3123,73 @@ def sm_full(torch, mesh, arch: str, layers, params: dict, sched: str,
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     prompts = traffic(cfg.vocab_size, 6, 40, 48, 160, seed=0)
-    t0 = time.perf_counter()
-    streams = serve(eng, prompts, 16)
-    wall = time.perf_counter() - t0
-    want = {}
+    seen = {"paged_rows": set(), "ffn_c": set()}
+    paged, ffn = ops.paged_attention, ops.moe_ffn
+
+    def paged_seen(q, *a, **kw):
+        seen["paged_rows"].add(int(q.shape[0]))
+        return paged(q, *a, **kw)
+
+    def ffn_seen(x, *a, **kw):
+        seen["ffn_c"].add(int(x.shape[1]))
+        return ffn(x, *a, **kw)
+    ops.paged_attention, ops.moe_ffn = paged_seen, ffn_seen
+    try:
+        t0 = time.perf_counter()
+        streams = serve(eng, prompts, 16)
+        wall = time.perf_counter() - t0
+    finally:
+        ops.paged_attention, ops.moe_ffn = paged, ffn
+    g = eng.blocks
+    want, rows_want = {}, 0
     for b, t in rec.blocks:
         for k, v in perf_model.predicted_collective_bytes(
-                cfg, batch=b, seq=t, n_exp_shards=n, n_batch_shards=1,
+                cfg, batch=b, seq=t, n_exp_shards=n, n_batch_shards=g,
                 include_tp=True).items():
             want[k] = want.get(k, 0.0) + v
+        if g > 1:
+            rows_want += b // g * (2 + cfg.num_layers * t
+                                   * cfg.experts_per_token) * 4
     got = {k: v for k, v in mesh.bytes.items()
-           if k not in (collectives.AUX, collectives.LAYOUT, HEAD)}
+           if k not in (collectives.AUX, collectives.LAYOUT, HEAD,
+                        collectives.ROWS)}
+    # the C a grouped-FFN launch may see: a block's rows' capacity (the
+    # dispatch), their tokens (the one-hot dense form) or, a2a, n source
+    # blocks of a sequence block's capacity
+    b_loc = SERVE_ENGINE["max_batch"] // g
+    cap = lambda tokens: moe.round_capacity(
+        tokens, cfg.experts_per_token, cfg.num_experts_padded,
+        cfg.capacity_factor)
+    caps = {c for b, t in rec.blocks
+            for c in (cap(b // g * t), b // g * t,
+                      n * cap(max(b // g * t // n, 1)))}
+    pool = tuple(eng.cache["k"].shape)
+    pool_want = (cfg.num_layers, SERVE_ENGINE["num_pages"] // g,
+                 SERVE_ENGINE["page_size"],
+                 transformer.serve_tp(cfg, mesh).attn.hkv, cfg.head_dim)
     weight = eng.memory_stats()["weight_bytes"]
     # the placement's shards hold E_pad / n rows (router-dead ones too)
     shard = [float(router.expected_experts_per_shard(
         r[layer], cfg.num_experts_padded, n)) for r in rec.decode_routing
         for layer in range(cfg.num_layers)]
     tp = eng.throughput()
-    return {"streams": [[int(t) for t in g] for g in streams],
+    return {"streams": [[int(t) for t in s] for s in streams],
             "prompts": [p.tolist() for p in prompts],
+            "mesh": [mesh.shape[a] for a in mesh.axis_names],
+            "data_blocks": g,
             "launches": ops.launch_counts(), "wall_s": wall,
             "steps": len(rec.blocks),
             "bytes": dict(mesh.bytes), "bytes_predicted": want,
             "bytes_as_predicted": got == {k: int(v) for k, v in
                                           want.items()},
+            "row_bytes": mesh.bytes.get(collectives.ROWS, 0),
+            "row_bytes_predicted": rows_want,
+            "pool_shape": pool, "pool_as_block": pool == pool_want,
+            "paged_rows": sorted(seen["paged_rows"]),
+            "ffn_c": sorted(seen["ffn_c"]),
+            "kernel_rows_as_block": (seen["paged_rows"] == {b_loc}
+                                     and bool(seen["ffn_c"])
+                                     and seen["ffn_c"] <= caps),
             "collective_ms": {k: v * 1e3 for k, v in mesh.seconds.items()},
             "weight_bytes": weight,
             "weight_bytes_as_blocks": weight == sharding.block_bytes(cfg,
@@ -3197,6 +3260,23 @@ def sm_rank_work(rank: int, world: int, store: str, go) -> dict:
         del params
         gc.collect()
         torch.cuda.empty_cache()
+    arch, sched, shape = SM_DATA
+    if world == shape[0] * shape[1]:
+        # the same ranks as a (2, 2) mesh: the rows cut over "data"
+        t0 = time.perf_counter()
+        mesh = mesh_lib.make_mesh(shape, ("data", "model"))
+        layers = SM_FULL[arch][0]
+        params = build_model(sm_config(arch, layers, sched),
+                             "cuda").init_serving(
+            torch.Generator(device="cuda").manual_seed(SM_SEED), mesh)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        row = sm_full(torch, mesh, arch, layers, params, sched, warm=True)
+        out["full"][f"{arch}/{sched}/{shape[0]}x{shape[1]}"] = dict(
+            row, init_s=init_s)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
     dist.barrier()
     dist.destroy_process_group()
     return out
@@ -3238,13 +3318,15 @@ def check_serve_mesh(torch, runs: dict) -> None:
     """Phase 10: serving on a mesh of 2, then 4, rank processes on the one
     card (the serve-mode layout: tensor parallelism over "model", the
     experts under the schedules).  The reduced qwen3-moe's streams equal
-    the one-device engine's on the card; granite at full width cut to 16
-    of 32 layers (2 and 4 ranks, decentralized and a2a) and DBRX at full
-    width cut to 4 of 40 layers (4 ranks, decentralized): every rank's
-    streams identical,
-    each held to the one-device forward of its own tokens, the paged and
-    grouped-FFN kernels launched on every rank, bytes and weight bytes as
-    predicted.  Both groups start together; the 4-rank group waits, started
+    the one-device engine's on the card; granite at full width cut to 8
+    of 32 layers (2 and 4 ranks on (1, n), decentralized and a2a, and
+    decentralized on (2, 2), its rows cut over "data": each rank serves
+    its data block's B/2 rows from a pool of num_pages / 2 pages) and
+    DBRX at full width cut to 4 of 40 layers (4 ranks, decentralized):
+    every rank's streams identical, each held to the one-device forward
+    of its own tokens, the paged and grouped-FFN kernels launched on
+    every rank at its data block's rows, bytes (the row gather apart),
+    weight bytes and pool as predicted.  Both groups start together; the 4-rank group waits, started
     up, until the 2-rank group is done.  Fills ``runs`` with each group's
     launches."""
     import multiprocessing as mp
@@ -3338,16 +3420,34 @@ def sm_record(ranks: list, want: dict, runs: dict, full: dict,
             check(row["weight_bytes_as_blocks"],
                   f"phase 10 {case} rank {r}: weight bytes "
                   f"{row['weight_bytes']} != its serve blocks'")
+            check(row["row_bytes"] == row["row_bytes_predicted"],
+                  f"phase 10 {case} rank {r}: row-gather bytes "
+                  f"{row['row_bytes']} != {row['row_bytes_predicted']}")
+            check(row["pool_as_block"],
+                  f"phase 10 {case} rank {r}: pool {row['pool_shape']} is "
+                  f"not its data block's pages of its kv heads")
+            check(row["kernel_rows_as_block"],
+                  f"phase 10 {case} rank {r}: paged launches at rows "
+                  f"{row['paged_rows']}, FFN launches at C {row['ffn_c']}: "
+                  f"not its data block's")
             check(row["launches"]["paged_attention"] > 0
                   and row["launches"]["moe_ffn"] > 0,
                   f"phase 10 {case} rank {r}: launches "
                   f"{_live(row['launches'])}")
         arch = case.split("/")[0]
         full.setdefault(arch, {})[f"{case}/{n}"] = rows[0]
-        runs[f"sm_{arch}_{n}"] = _summed(
-            [runs.get(f"sm_{arch}_{n}", {})]
-            + [row["launches"] for row in rows])
-        emit("serve_mesh", case=case, ranks=n,
+        # the (1, n) cases' launches summed per rank count; a mesh with a
+        # data axis apart, its kernels running at other shapes
+        n_data, n_model = rows[0]["mesh"]
+        key = (f"sm_{arch}_{n}" if n_data == 1
+               else f"sm_{arch}_{n_data}x{n_model}")
+        runs[key] = _summed([runs.get(key, {})]
+                            + [row["launches"] for row in rows])
+        emit("serve_mesh", case=case, ranks=n, mesh=rows[0]["mesh"],
+             data_blocks=rows[0]["data_blocks"],
+             pool_shape=rows[0]["pool_shape"],
+             paged_rows=rows[0]["paged_rows"], ffn_c=rows[0]["ffn_c"],
+             row_bytes=rows[0]["row_bytes"],
              layers=SM_FULL[arch][0] or "all", dtype="bfloat16",
              requests=len(rows[0]["streams"]),
              steps=rows[0]["steps"],
@@ -3854,7 +3954,11 @@ def modality_greedy(torch, model, params, batch, prompt_len: int,
     step's last-position logits (the prefill's, then each decode step's)
     are appended to ``logits_out`` on the host, when it is given.  On a
     serving ``mesh`` ``params`` are this rank's serve blocks and the
-    cache its share (context-parallel where ``use_cp_decode`` holds)."""
+    cache its share (its rows, context-parallel where ``use_cp_decode``
+    holds): each step's logits are this rank's rows, and their tokens are
+    gathered over the data axes (``batch_unshard``) into the next step's
+    global batch."""
+    from repro_torch.core.expert_parallel import batch_unshard
     from repro_torch.models.attention import use_cp_decode
     from repro_torch.models.transformer import attn_cache_len
     cfg = model.cfg
@@ -3875,6 +3979,8 @@ def modality_greedy(torch, model, params, batch, prompt_len: int,
             if logits_out is not None:
                 logits_out.append(logits[:, -1, :cfg.vocab_size].cpu())
             tok = logits[:, -1, :cfg.vocab_size].argmax(-1)
+            if mesh is not None:
+                tok = batch_unshard(mesh, tok, b)
             out.append(tok)
             if i == new_tokens - 1:
                 break
@@ -4826,6 +4932,12 @@ LINE = [
     ("moe_ffn", dict(dtype="bfloat16", E=12, C=176),
      "sm_granite_moe_3b_a800m_4"),
     ("moe_ffn", dict(dtype="bfloat16", E=4, C=256), "sm_dbrx_4"),
+    # and on the (2, 2) mesh, each rank's data block of B/2 rows
+    ("paged_attention", dict(PAGED_T32, hd=64, Hq=12, Hkv=4,
+                             lengths=[17, 100]),
+     "sm_granite_moe_3b_a800m_2x2"),
+    ("moe_ffn", dict(dtype="bfloat16", E=24, C=88),
+     "sm_granite_moe_3b_a800m_2x2"),
     # phase 11: each rank's grouped FFN and flash in the mesh scoring loss
     # (fp32; launches summed over the four ranks)
     ("moe_ffn", dict(dtype="float32", E=24, C=4096), "train_mesh"),

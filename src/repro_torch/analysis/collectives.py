@@ -8,14 +8,16 @@ mirrors the schedules and the serve layout's tensor-parallel terms
 analytically; this rule holds the step's ``mesh.bytes``, the counters
 ``core/collectives`` keeps by HLO kind name, to it.
 
-Every rank of the port runs the whole batch, and the schedule plans each
-data block of rows apart, as the reference's per-shard program does, so
-the prediction is ``G x predicted(..., n_batch_shards=G)`` with ``G`` the
-data blocks of rows.  The kinds the prediction leaves out are booked
-apart and not compared: the aux-loss pmeans (``collectives.AUX``), the
-layout step of the a2a schedules (``LAYOUT``) and the LM head's
-vocabulary gather (``model.HEAD``).  Any other kind the model does not
-predict (context-parallel decode's) is a warning.
+Each rank runs its data block of rows (``ServingEngine.blocks``: G
+blocks, or one where the data axes do not divide the batch:
+``expert_parallel.batch_split``), as the reference's
+per-shard program does, so a rank's step moves ``predicted(...,
+n_batch_shards=G)`` exactly.  The kinds the prediction leaves out are
+booked apart and not compared: the aux-loss pmeans (``collectives.AUX``),
+the layout step of the a2a schedules (``LAYOUT``), the LM head's
+vocabulary gather (``model.HEAD``) and the engine's gather of the data
+blocks' sampled tokens (``collectives.ROWS``).  Any other kind the model does
+not predict (context-parallel decode's) is a warning.
 
 On one device no collective may be issued at all.
 """
@@ -25,18 +27,18 @@ from repro_torch.analysis.framework import Rule
 from repro_torch.core import collectives, perf_model
 from repro_torch.models.model import HEAD
 
-BOOKED_APART = (collectives.AUX, collectives.LAYOUT, HEAD)
+BOOKED_APART = (collectives.AUX, collectives.LAYOUT, HEAD, collectives.ROWS)
 
 
 def predicted(prog) -> dict:
-    """The step's predicted bytes by kind on its rank."""
+    """The step's predicted bytes by kind on its rank, whose rows are one
+    of ``prog.n_batch_shards`` data blocks."""
     if prog.n_exp_shards * prog.n_batch_shards == 1:
         return {}
-    g = prog.n_batch_shards if prog.batch % prog.n_batch_shards == 0 else 1
-    return {k: g * v for k, v in perf_model.predicted_collective_bytes(
+    return perf_model.predicted_collective_bytes(
         prog.cfg, batch=prog.batch, seq=prog.seq,
-        n_exp_shards=prog.n_exp_shards, n_batch_shards=g,
-        include_tp=True).items()}
+        n_exp_shards=prog.n_exp_shards, n_batch_shards=prog.n_batch_shards,
+        include_tp=True)
 
 
 class CollectiveBudgetRule(Rule):

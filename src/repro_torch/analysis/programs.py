@@ -134,16 +134,13 @@ def seeded_leaves(params, watched: list) -> list:
             for i, q in enumerate(quant_leaf_map(params))]
 
 
-def _mesh_shards(mesh) -> tuple:
+def _mesh_shards(eng: ServingEngine) -> tuple:
+    """(expert shards, the data blocks the engine's rows are cut into)."""
+    mesh = eng.mesh
     if mesh is None:
         return 1, 1
-    names = getattr(mesh, "axis_names", ())
-    n_exp = mesh.shape["model"] if "model" in names else 1
-    n_batch = 1
-    for a in names:
-        if a in ("pod", "data"):
-            n_batch *= mesh.shape[a]
-    return n_exp, n_batch
+    n_exp = mesh.shape["model"] if "model" in mesh.axis_names else 1
+    return n_exp, eng.blocks
 
 
 def build_engine(variant: str, arch: str = DEFAULT_ARCH, *, device="cuda",
@@ -196,8 +193,8 @@ def _to(tree: dict, device) -> dict:
 def step_args(eng: ServingEngine) -> tuple:
     """The step body's arguments, uploaded as the engine uploads them: a
     full prefill chunk in every row at offset 0 (block tables mapping
-    each row onto its own pages, wrapped into the pool), all rows
-    sampled; the decode body's: every row active at position 0."""
+    each row onto its own pages, wrapped into its data block's pool), all
+    rows sampled; the decode body's: every row active at position 0."""
     b = eng.ecfg.max_batch
     z = np.zeros((b,), np.int32)
     if not eng.unified:
@@ -208,7 +205,7 @@ def step_args(eng: ServingEngine) -> tuple:
     tables = ()
     if eng.paged:
         tables = ((np.arange(b * eng.max_blocks, dtype=np.int32)
-                   % eng.num_pages).reshape(b, eng.max_blocks),)
+                   % eng.block_pages).reshape(b, eng.max_blocks),)
     rng = np.random.default_rng(0)
     d_tok, d_len, d_seg, d_dec, d_sample, d_temp, d_topk, *rest = \
         eng._upload(rng.integers(0, 50, (b, t)).astype(np.int32), z,
@@ -240,7 +237,7 @@ def trace_engine(eng: ServingEngine, variant: str,
     fn = step or (lambda *a: run_step(eng, a))
     cap = opcount.capture(fn, *args, watch=watch_tensors(eng.params))
     after = [t.data_ptr() for _, t in _leaves(eng.cache)]
-    n_exp, n_batch = _mesh_shards(eng.mesh)
+    n_exp, n_batch = _mesh_shards(eng)
     # production MoE configs keep the capacity-free gather decode path on;
     # its selected-expert weight copies legitimately exceed a cache leaf,
     # so R1 matches cache-leaf sizes exactly there and uses the stricter

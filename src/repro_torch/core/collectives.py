@@ -17,10 +17,12 @@ One function per collective the schedules use, each over one axis of a
 Each call adds its OPERAND bytes to the mesh's per-rank counter
 (``mesh.bytes``) under the HLO kind names that
 ``core/perf_model.predicted_collective_bytes`` uses, and the host seconds
-it waited to ``mesh.seconds``.  Two uses are kept under keys of their own,
-because the prediction leaves them out: the scalar aux-loss ``pmean``s
-(``AUX``) and the layout step that gathers sequence blocks back over the
-expert axis (``LAYOUT``, see ``core/expert_parallel``).  An axis of size
+it waited to ``mesh.seconds``.  Three uses are kept under keys of their
+own, because the prediction leaves them out: the scalar aux-loss
+``pmean``s (``AUX``), the layout step that gathers sequence blocks back
+over the expert axis (``LAYOUT``, see ``core/expert_parallel``) and the
+gather of a serving step's per-row results over the data axes that cut
+its rows (``ROWS``: ``expert_parallel.batch_unshard``).  An axis of size
 1 is an identity and counts nothing.
 
 Transport: the ranks meet over gloo (``launch/mesh.py``), so a CUDA
@@ -80,6 +82,7 @@ from repro_torch.launch import opcount
 
 AUX = "aux-pmean"
 LAYOUT = "layout"
+ROWS = "row-gather"
 # training on a mesh: the parameter blocks gathered for a layer's compute,
 # and their gradients reduced back into the blocks (``launch/sharding``)
 PARAM_GATHER = "param-gather"

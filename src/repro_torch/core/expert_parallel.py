@@ -82,19 +82,39 @@ def _axes_size(mesh, axes) -> int:
     return out
 
 
-def batch_shard(mesh, b: int) -> tuple[tuple[str, ...], slice]:
-    """(the axes a global batch of ``b`` rows is split over, this rank's
-    rows).  As in the reference, the batch is split over every data axis
-    when they divide it, and over none (every rank holds it whole)
-    otherwise."""
+def batch_split(mesh, b: int) -> tuple[str, ...]:
+    """The axes a global batch of ``b`` rows is split over.  As in the
+    reference, the batch is split over every data axis when they divide
+    it, and over none (every rank holds it whole) otherwise.  Reads only
+    ``mesh.axis_names`` and ``mesh.shape`` (``launch/sharding``'s specs
+    take the same rule)."""
     axes = mesh_batch_axes(mesh)
-    n = _axes_size(mesh, axes)
-    if b % max(n, 1) != 0:
+    return axes if b % max(_axes_size(mesh, axes), 1) == 0 else ()
+
+
+def batch_shard(mesh, b: int) -> tuple[tuple[str, ...], slice]:
+    """(the axes a global batch of ``b`` rows is split over
+    (``batch_split``), this rank's rows)."""
+    axes = batch_split(mesh, b)
+    if not axes:
         return (), slice(0, b)
+    n = _axes_size(mesh, axes)
     idx = 0
     for a in axes:
         idx = idx * mesh.shape[a] + mesh.coords[a]
     return axes, slice(idx * (b // n), (idx + 1) * (b // n))
+
+
+def batch_unshard(mesh, x: torch.Tensor, b: int,
+                  kind: str = collectives.ROWS) -> torch.Tensor:
+    """The inverse of ``batch_shard`` for a global batch of ``b`` rows:
+    ``x``, this rank's rows along dim 0, gathered over the axes that cut
+    them, so every rank holds all ``b`` (the innermost axis first, since
+    the blocks are numbered row-major over them); ``x`` itself where the
+    rows are not cut."""
+    for axis in reversed(batch_split(mesh, b)):
+        x = collectives.all_gather(x, mesh, axis, dim=0, kind=kind)
+    return x
 
 
 def expert_rows(cfg, mesh) -> slice:
@@ -124,14 +144,12 @@ def expert_shard(cfg, experts: dict, mesh) -> dict:
 
 def _local_moe(cfg, experts: dict, x2d: torch.Tensor,
                rout: router_lib.RouterOut, e_start: int, capacity: int,
-               kernels: bool = True, groups: int = 1) -> torch.Tensor:
-    """This rank's experts over x2d; ``groups`` blocks of rows, each with
-    ``capacity`` slots per expert (the forms are chosen per block)."""
+               kernels: bool = True) -> torch.Tensor:
+    """This rank's experts over x2d, ``capacity`` slots per expert."""
     if cfg.moe_strategy == "dense":
         return moe_lib.dense_moe(experts, x2d, rout.top_idx, rout.top_w,
                                  e_start, kernels)
     t, k = rout.top_idx.shape
-    t //= groups
     e_local = experts["w_gate"].shape[0]
     if 0 < t * k <= cfg.gather_decode_max_tk:
         # capacity-free decode fast path, form chosen by modelled cost:
@@ -145,7 +163,7 @@ def _local_moe(cfg, experts: dict, x2d: torch.Tensor,
                                      e_start, kernels)
     return moe_lib.dispatch_moe(experts, x2d, rout.top_idx, rout.top_w,
                                 cfg.num_experts_padded, e_start, capacity,
-                                kernels, groups)
+                                kernels)
 
 
 def _mask_rout(rout: router_lib.RouterOut, valid: torch.Tensor,
@@ -172,8 +190,7 @@ def _route(cfg, layer_p, x2d, valid, mesh=None) -> router_lib.RouterOut:
 
 def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
               token_mask: torch.Tensor | None = None, mesh=None,
-              kernels: bool = True, batch_axes: tuple | None = None,
-              row_blocks: int = 1):
+              kernels: bool = True, batch_axes: tuple | None = None):
     """x: (B, S, D) -> (y (B, S, D), aux_loss (), top_idx (B*S, K)).
 
     ``layer_p``: {"router": (D, E_pad), "experts": {"w_gate": (E_pad, D, F),
@@ -187,14 +204,9 @@ def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
     axis), and ``layer_p["experts"]`` holds this rank's rows
     (``expert_shard``); the result is this rank's block, the whole
     sequence, and ``aux`` the global aux loss.  ``top_idx`` is the
-    pre-stripe routing decision with r > 1.
-
-    ``row_blocks`` G (a serving mesh, where every rank runs the whole
-    batch over ``batch_axes=()``): the B rows are G equal blocks, one per
-    data position, and each is planned with its own capacity (and its own
-    replica stripes and pipeline chunks), as the reference's ``shard_map``
-    plans each data block; the aux stays the whole batch's (the serving
-    paths drop it)."""
+    pre-stripe routing decision with r > 1.  The rank's block is planned
+    with its own capacity (and its own replica stripes and pipeline
+    chunks), as the reference's ``shard_map`` plans each device's block."""
     b, s, d = x.shape
     k = cfg.experts_per_token
     r = max(cfg.expert_replication, 1)
@@ -235,13 +247,10 @@ def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
         batch_axes = mesh_batch_axes(mesh)
     if token_mask is None:
         token_mask = torch.ones((b, s), dtype=torch.bool, device=x.device)
-    if b % row_blocks:
-        raise ValueError(f"{row_blocks} row blocks do not divide B={b}")
     fn = {"decentralized": _decentralized, "centralized": _centralized,
           "a2a": _a2a, "a2a_pipelined": _a2a_pipelined}[cfg.expert_parallel]
     y, aux, top_idx = fn(cfg, mesh, layer_p, x, token_mask,
-                         tuple(batch_axes), n_exp_shards, e_local, kernels,
-                         row_blocks)
+                         tuple(batch_axes), n_exp_shards, e_local, kernels)
     if y.shape[1] != s:
         y, top_idx = _unshard_seq(mesh, y, top_idx)
     return y, aux, top_idx.reshape(b * s, k)
@@ -282,13 +291,12 @@ def _enter_local(mesh, x2d, rout):
 
 
 def _decentralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
-                   e_local, kernels, groups=1):
+                   e_local, kernels):
     """Paper Fig. 7, plus the §5.3 overlapping placement: with r > 1 each
-    replica handles the 1/r token stripe ``t % r == replica`` (t counted
-    in its row block)."""
+    replica handles the 1/r token stripe ``t % r == replica``."""
     bl, sl, d = x.shape
     r = max(cfg.expert_replication, 1)
-    t_loc = max(bl // groups * sl, 1)
+    t_loc = max(bl * sl, 1)
     cap = moe_lib.round_capacity(-(-t_loc // r), cfg.experts_per_token,
                                  cfg.num_experts_padded, cfg.capacity_factor)
     e_pad = cfg.num_experts_padded
@@ -301,16 +309,14 @@ def _decentralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
     if r > 1:
         replica = idx // n_grp
         e_start = (idx % n_grp) * e_local
-        stripe = (torch.arange(bl * sl, device=x.device) % t_loc
-                  % r) == replica
+        stripe = (torch.arange(bl * sl, device=x.device) % r) == replica
         # tokens outside this replica's stripe route to a dead sentinel
         rout = rout._replace(
             top_idx=torch.where(stripe[:, None], rout.top_idx, e_pad),
             top_w=torch.where(stripe[:, None], rout.top_w, 0.0))
     else:
         e_start = idx * e_local
-    y = _local_moe(cfg, layer_p["experts"], x2d, rout, e_start, cap, kernels,
-                   groups)
+    y = _local_moe(cfg, layer_p["experts"], x2d, rout, e_start, cap, kernels)
     y = collectives.psum(y, mesh, EXPERT_AXIS)
     aux = (collectives.pmean(rout.aux_loss, mesh, batch_axes) if batch_axes
            else rout.aux_loss)
@@ -323,10 +329,10 @@ def _decentralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
 # ---------------------------------------------------------------------------
 
 def _centralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
-                 e_local, kernels, groups=1):
+                 e_local, kernels):
     bl, s, d = x.shape
     k = cfg.experts_per_token
-    cap = moe_lib.round_capacity(max(bl // groups * s, 1), k,
+    cap = moe_lib.round_capacity(max(bl * s, 1), k,
                                  cfg.num_experts_padded, cfg.capacity_factor)
     idx = mesh.coords[EXPERT_AXIS]
     e_start = idx * e_local
@@ -340,7 +346,7 @@ def _centralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
         x2d = x_full.reshape(bl * s, d)
         rout = _route(cfg, layer_p, x2d, tm_full.reshape(bl * s), mesh)
         y = _local_moe(cfg, layer_p["experts"], x2d, rout, e_start, cap,
-                       kernels, groups)
+                       kernels)
         # comm 2: reduce the partial sums, scatter back to sequence shards
         y = collectives.psum_scatter(y.reshape(bl, s, d), mesh, EXPERT_AXIS,
                                      dim=1)
@@ -355,8 +361,7 @@ def _centralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
     rout = _route(cfg, layer_p, x2d, token_mask.reshape(bl * s))
     top_idx = rout.top_idx
     x2d, rout = _enter_local(mesh, x2d, rout)
-    y = _local_moe(cfg, layer_p["experts"], x2d, rout, e_start, cap, kernels,
-                   groups)
+    y = _local_moe(cfg, layer_p["experts"], x2d, rout, e_start, cap, kernels)
     y = collectives.psum(y, mesh, EXPERT_AXIS)
     perm = [(i, (i + 1) % n_shards) for i in range(n_shards)]
     y = collectives.ppermute(y, mesh, EXPERT_AXIS, perm)  # identical values
@@ -370,17 +375,17 @@ def _centralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
 # ---------------------------------------------------------------------------
 
 def _a2a_dispatch(cfg, mesh, xi, ti, n_shards, e_local, cap,
-                  async_op=False, groups=1):
+                  async_op=False):
     """Token-block dispatch: capacity plan + gather + all_to_all (comm 1).
     The plan builds buffers for ALL experts grouped by owner shard, so
     shard i's block j travels to shard j.  Returns the post-exchange
-    (n_src, e_local*groups*cap, d) buffer of local-expert inputs (a
-    ``Pending`` with ``async_op``) and ``slot_of`` for the combine."""
+    (n_src, e_local*cap, d) buffer of local-expert inputs (a ``Pending``
+    with ``async_op``) and ``slot_of`` for the combine."""
     dd = xi.shape[-1]
     dispatch_tok, slot_valid, slot_of = moe_lib.make_dispatch_plan(
-        ti, cfg.num_experts_padded, 0, cfg.num_experts_padded, cap, groups)
+        ti, cfg.num_experts_padded, 0, cfg.num_experts_padded, cap)
     xe = moe_lib.dispatch_rows(xi, dispatch_tok, slot_valid, slot_of)
-    xe = xe.reshape(n_shards, e_local * groups * cap, dd)
+    xe = xe.reshape(n_shards, e_local * cap, dd)
     return (collectives.all_to_all(xe, mesh, EXPERT_AXIS, async_op),
             slot_of)
 
@@ -402,15 +407,15 @@ def _a2a_ffn_combine(cfg, mesh, experts, xe, slot_of, wi, n_shards, e_local,
 
 
 def _a2a(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards, e_local,
-         kernels, groups=1):
+         kernels):
     bl, s, d = x.shape
     if s % n_shards != 0:
         # single-token decode: fall back to the decentralized schedule
         return _decentralized(cfg, mesh, layer_p, x, token_mask, batch_axes,
-                              n_shards, e_local, kernels, groups)
+                              n_shards, e_local, kernels)
     t_loc = bl * (s // n_shards)
-    # per-(source shard, row block, expert) capacity
-    cap = moe_lib.round_capacity(max(t_loc // groups, 1),
+    # per-(source shard, expert) capacity
+    cap = moe_lib.round_capacity(max(t_loc, 1),
                                  cfg.experts_per_token,
                                  cfg.num_experts_padded, cfg.capacity_factor)
     x_loc = _seq_block(mesh, collectives.enter(x, mesh, EXPERT_AXIS),
@@ -419,9 +424,9 @@ def _a2a(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards, e_local,
     rout = _route(cfg, layer_p, x2d,
                   _seq_block(mesh, token_mask, n_shards).reshape(t_loc), mesh)
     xe, slot_of = _a2a_dispatch(cfg, mesh, x2d, rout.top_idx, n_shards,
-                                e_local, cap, groups=groups)
+                                e_local, cap)
     y = _a2a_ffn_combine(cfg, mesh, layer_p["experts"], xe, slot_of,
-                         rout.top_w, n_shards, e_local, groups * cap, kernels)
+                         rout.top_w, n_shards, e_local, cap, kernels)
     aux = collectives.pmean(rout.aux_loss, mesh, (EXPERT_AXIS,) + batch_axes)
     return (y.reshape(bl, s // n_shards, d), aux,
             rout.top_idx.reshape(bl, s // n_shards, cfg.experts_per_token))
@@ -432,7 +437,7 @@ def _a2a(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards, e_local,
 # ---------------------------------------------------------------------------
 
 def _a2a_pipelined(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
-                   e_local, kernels, groups=1):
+                   e_local, kernels):
     """Software-pipelined a2a: the local token block is split into
     ``cfg.ep_microchunks`` chunks; chunk i+1's dispatch all-to-all is issued
     (``async_op``) before chunk i's expert FFN and combine, the order of the
@@ -441,34 +446,30 @@ def _a2a_pipelined(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
     routing and per-slot contractions equal ``a2a``'s whenever capacity is
     not binding.  Falls back to ``_a2a`` when the chunk split does not
     divide, which itself falls back to ``_decentralized`` for single-token
-    decode.  With row blocks, chunk i holds every block's chunk i."""
+    decode."""
     bl, s, d = x.shape
     if s % n_shards != 0:
         return _decentralized(cfg, mesh, layer_p, x, token_mask, batch_axes,
-                              n_shards, e_local, kernels, groups)
+                              n_shards, e_local, kernels)
     m = max(cfg.ep_microchunks, 1)
     t_loc = bl * (s // n_shards)
-    t_blk = t_loc // groups
-    if m <= 1 or t_blk % m != 0 or t_blk // m < 1:
+    if m <= 1 or t_loc % m != 0 or t_loc // m < 1:
         return _a2a(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
-                    e_local, kernels, groups)
+                    e_local, kernels)
     k = cfg.experts_per_token
-    # per-(source shard, chunk, row block, expert) capacity
-    cap = moe_lib.round_capacity(t_blk // m, k, cfg.num_experts_padded,
+    # per-(source shard, chunk, expert) capacity
+    cap = moe_lib.round_capacity(t_loc // m, k, cfg.num_experts_padded,
                                  cfg.capacity_factor)
     x2d = _seq_block(mesh, collectives.enter(x, mesh, EXPERT_AXIS),
                      n_shards).reshape(t_loc, d)
     rout = _route(cfg, layer_p, x2d,
                   _seq_block(mesh, token_mask, n_shards).reshape(t_loc), mesh)
-    tc = t_blk // m
-
-    def chunks(t):
-        return t.reshape(groups, m, tc, t.shape[-1]).transpose(0, 1).reshape(
-            m, groups * tc, t.shape[-1])
-    xc, ic, wc = chunks(x2d), chunks(rout.top_idx), chunks(rout.top_w)
+    tc = t_loc // m
+    xc = x2d.reshape(m, tc, d)
+    ic = rout.top_idx.reshape(m, tc, k)
+    wc = rout.top_w.reshape(m, tc, k)
     dispatch = lambda i: _a2a_dispatch(cfg, mesh, xc[i], ic[i], n_shards,
-                                       e_local, cap, async_op=True,
-                                       groups=groups)
+                                       e_local, cap, async_op=True)
     pending, slot_of = dispatch(0)
     ys = []
     for i in range(m):
@@ -476,9 +477,9 @@ def _a2a_pipelined(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
         if i + 1 < m:
             pending, slot_of = dispatch(i + 1)     # comm for chunk i+1
         ys.append(_a2a_ffn_combine(cfg, mesh, layer_p["experts"], xe_i,
-                                   so_i, wc[i], n_shards, e_local,
-                                   groups * cap, kernels))  # compute, chunk i
-    y = torch.stack(ys).reshape(m, groups, tc, d).transpose(0, 1)
+                                   so_i, wc[i], n_shards, e_local, cap,
+                                   kernels))       # compute for chunk i
+    y = torch.cat(ys, dim=0)
     aux = collectives.pmean(rout.aux_loss, mesh, (EXPERT_AXIS,) + batch_axes)
     return (y.reshape(bl, s // n_shards, d), aux,
             rout.top_idx.reshape(bl, s // n_shards, k))

@@ -71,42 +71,33 @@ def dense_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
 
 
 def make_dispatch_plan(top_idx: torch.Tensor, num_experts: int, e_start: int,
-                       e_local: int, capacity: int, groups: int = 1):
+                       e_local: int, capacity: int):
     """Gather/scatter indices for capacity dispatch.
 
     Returns (dispatch_tok, slot_valid, slot_of):
-      dispatch_tok: (E_local * G * C,) int64 — source token per expert slot
+      dispatch_tok: (E_local * C,) int64 — source token per expert slot
                     (padding slots point at token 0 and are masked)
-      slot_valid:   (E_local * G * C,) bool — slot actually holds a token
+      slot_valid:   (E_local * C,) bool — slot actually holds a token
       slot_of:      (T, K) int64 — destination slot per routing decision,
-                    == E_local*G*C (one past the end) when dropped /
+                    == E_local*C (one past the end) when dropped /
                     non-local
-    Ties keep token order (stable sort), so drops hit the latest tokens.
-    ``groups`` G: the T tokens are G equal blocks of rows, each planned
-    apart with ``capacity`` slots per expert (what G separate plans of
-    the blocks give); expert e's slots hold block 0's, then block 1's."""
+    Ties keep token order (stable sort), so drops hit the latest tokens."""
     t, k = top_idx.shape
     dev = top_idx.device
     flat_e = top_idx.reshape(-1).long()
-    if groups > 1:
-        block = torch.arange(t * k, device=dev) // k // (t // groups)
-        flat_e = flat_e * groups + block
     order = torch.argsort(flat_e, stable=True)
-    sorted_key = flat_e[order]
-    n_keys = num_experts * groups
-    first = torch.searchsorted(sorted_key, torch.arange(n_keys, device=dev),
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e,
+                               torch.arange(num_experts, device=dev),
                                side="left")
     # dead-routed decisions carry the E_pad sentinel: clamp the lookup
     # (their rank is irrelevant, they are never local)
     rank = (torch.arange(t * k, device=dev)
-            - first[sorted_key.clamp(max=n_keys - 1)])
-    sorted_e = sorted_key // groups if groups > 1 else sorted_key
+            - first[sorted_e.clamp(max=num_experts - 1)])
     is_local = (sorted_e >= e_start) & (sorted_e < e_start + e_local)
     ok = is_local & (rank < capacity)
-    nbuf = e_local * groups * capacity
-    slot = (sorted_e - e_start) * groups * capacity + rank
-    if groups > 1:
-        slot = slot + (sorted_key % groups) * capacity
+    nbuf = e_local * capacity
+    slot = (sorted_e - e_start) * capacity + rank
     dest = torch.where(ok, slot, nbuf)
     # one spare row (index nbuf) takes every dropped decision
     dispatch_tok = torch.zeros((nbuf + 1,), dtype=torch.long, device=dev)
@@ -188,11 +179,9 @@ def combine_rows(ye: torch.Tensor, slot_of: torch.Tensor) -> torch.Tensor:
 
 def dispatch_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
                  top_w: torch.Tensor, num_experts: int, e_start: int,
-                 capacity: int, kernels: bool = True,
-                 groups: int = 1) -> torch.Tensor:
+                 capacity: int, kernels: bool = True) -> torch.Tensor:
     """Capacity-based dispatch on the local shard. x: (T, D).  Returns the
-    local partial sum (T, D).  ``groups``: blocks of rows with a capacity
-    each (``make_dispatch_plan``).
+    local partial sum (T, D).
 
     The two gathers (``dispatch_rows``, ``combine_rows``) are
     ``index_select``s forward, and gathers backward too, so a trainer's
@@ -201,9 +190,9 @@ def dispatch_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,
     e_local = experts["w_gate"].shape[0]
     t, d = x.shape
     dispatch_tok, slot_valid, slot_of = make_dispatch_plan(
-        top_idx, num_experts, e_start, e_local, capacity, groups)
+        top_idx, num_experts, e_start, e_local, capacity)
     xe = dispatch_rows(x, dispatch_tok, slot_valid, slot_of)
-    xe = xe.reshape(e_local, groups * capacity, d)
+    xe = xe.reshape(e_local, capacity, d)
     ye = expert_ffn(experts, xe, kernels).reshape(-1, d)
     y_tk = combine_rows(ye, slot_of)
     return torch.einsum("tk,tkd->td", top_w.to(y_tk.dtype), y_tk)

@@ -37,12 +37,16 @@ cut takes the mean of its identical copies, so replicas stay equal to
 the bit.  ``unshard_tree`` puts whole leaves back together (a
 checkpoint).
 
-``cache_pspec``'s ``hd`` placement (the reference's default for
-``kv_cache_shard``) splits the head dimension of a dry-run's cache.  The
-port's serving layers do not take it: on a mesh each rank's page pool and
-contiguous cache hold the kv heads its attention uses, or with ``seq``
-(context-parallel decode in the two-program engine) its sequence block of
-every kv head (``models/attention.py``).
+``cache_pspec`` is the rank's cache block: its batch dimension over the
+data axes where they divide it (the rule of ``batch_pspec`` and of
+``expert_parallel.batch_split``, which cuts the rows a serving rank runs
+and ``Model.init_cache``'s rows), and one dimension over
+"model".  Its ``hd`` placement (the reference's default for
+``kv_cache_shard``) splits the head dimension of a dry-run's cache; the
+port's serving layers do not take it: on a mesh each rank's page pool
+and contiguous cache hold the kv heads its attention uses, or with
+``seq`` (context-parallel decode in the two-program engine) its sequence
+block of every kv head (``models/attention.py``).
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ import math
 
 import torch
 
-from repro_torch.core import collectives
+from repro_torch.core import collectives, expert_parallel
 from repro_torch.core import quant as quant_lib
 from repro_torch.core.quant import QuantTensor
 from repro_torch.launch import mesh as mesh_lib
@@ -218,13 +222,9 @@ def opt_pspec(cfg, mesh, opt_state, params_spec):
 
 def batch_pspec(cfg, mesh, batch: dict) -> dict:
     """A global batch: the leading dimension over the data axes when they
-    divide it."""
-    ba = mesh_lib.batch_axes(mesh)
-    nb = mesh_lib.axes_size(mesh, ba)
-
+    divide it (``expert_parallel.batch_split``)."""
     def per(v):
-        b = v.shape[0]
-        ax = ba if (nb and b % nb == 0) else ()
+        ax = expert_parallel.batch_split(mesh, v.shape[0])
         return _spec(len(v.shape), **{"0": ax}) if ax else _spec(len(v.shape))
 
     return {k: per(v) for k, v in batch.items()}
@@ -235,17 +235,16 @@ def cache_pspec(cfg, mesh, cache: dict) -> dict:
     "model" dimension chosen by ``cfg.kv_cache_shard`` (``hd``: the head
     dim; ``seq``: the cache length; ``kv``: the kv heads when they divide
     the axis; ``none``: batch only).  SSM and conv states (every other
-    leaf) are cut over the batch only."""
-    ba = mesh_lib.batch_axes(mesh)
-    nb = mesh_lib.axes_size(mesh, ba)
+    leaf) are cut over the batch only.  The batch is cut by
+    ``expert_parallel.batch_split``'s rule, which cuts a serving rank's
+    rows."""
     mode = getattr(cfg, "kv_cache_shard", "hd")
 
     def rule(names, leaf):
         name = names[-1]
         shape = tuple(leaf.shape)
         nd = len(shape)
-        b = shape[1] if nd >= 2 else 0
-        bax = ba if (nb and b % nb == 0) else ()
+        bax = expert_parallel.batch_split(mesh, shape[1] if nd >= 2 else 0)
         at = {}
         if bax:
             at["1"] = bax

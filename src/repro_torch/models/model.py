@@ -55,13 +55,19 @@ The cached entry points (``forward_routed``, ``prefill_routed``,
 ``decode_step_routed``) serve on a mesh with the serve-mode layout of
 ``launch/sharding.py``: ``init_serving(gen, mesh)`` (or
 ``bridge.from_jax_params(..., mesh=, mode="serve")``) holds this rank's
-block of every weight, the layers run tensor-parallel over "model"
-(``transformer.ServeTP``), the MoE layer runs ``cfg.expert_parallel`` over
-the whole batch on every rank, with each data block of rows planned with
-its own capacity as the reference's ``shard_map`` plans it, and the
-logits come back whole on every rank (the head's vocabulary columns
-gathered).  The caches are built per rank (``init_paged_cache`` /
-``init_cache`` with ``mesh=``).
+block of every weight, and the layers run tensor-parallel over "model"
+(``transformer.ServeTP``).  The rows are cut over the data axes, as
+``forward`` cuts them and as the reference's ``cache_pspec`` places the
+caches: each entry point takes the global batch and runs this rank's
+block of rows (``expert_parallel.batch_shard``: every row where the data
+axes do not divide B), over this rank's caches, with the MoE layer under
+``cfg.expert_parallel`` on those rows; it returns this rank's rows of
+the logits (their vocabulary columns gathered over "model") and of the
+routing.  ``init_cache(batch, ...)`` takes the global batch and builds
+this rank's rows (of its kv heads or sequence block), and
+``init_paged_cache(num_pages, ...)`` a pool of ``num_pages`` pages of its
+kv heads, the pool of the rank's data block (the engine passes its
+block's page count).
 
 The loss trains on a mesh with the train-mode layout: ``init_training(gen,
 mesh)`` (or ``bridge.from_jax_params(..., mesh=, mode="train")``) holds
@@ -281,12 +287,15 @@ class Model:
 
     def init_cache(self, batch: int, cache_len: int, mesh=None,
                    seq_sharded: bool = False) -> dict:
-        """The contiguous cache; on a serving mesh, of this rank's kv
-        heads, or with ``seq_sharded`` (context-parallel decode, where
+        """The contiguous cache for a global batch of ``batch`` rows; on a
+        serving mesh, this rank's rows (``_rows``) of its kv heads, or
+        with ``seq_sharded`` (context-parallel decode, where
         ``attention.use_cp_decode`` holds) its sequence block of every kv
         head; a hybrid's recurrent states of this rank's RG-LRU channels,
         an ssm stack's states whole (its block is replicated)."""
         lay = self._cache_layout(mesh)
+        rows = _rows(mesh, batch)
+        batch = rows.stop - rows.start
         if seq_sharded:
             return transformer.init_stack_cache(
                 self.cfg, batch, cache_len, self.cfg.torch_dtype, self.device,
@@ -295,19 +304,26 @@ class Model:
             self.cfg, batch, cache_len, self.cfg.torch_dtype, self.device,
             lay["heads"], channels=lay["channels"])
 
-    def _serve_tp(self, mesh, context_len):
-        """(the layout on a serving mesh or None, whether the contiguous
-        cache is sequence-sharded)."""
+    def _serve_rows(self, mesh, batch: dict):
+        """(the layout on a serving mesh or None, this rank's rows of
+        ``batch``, cut over the data axes: ``_rows``)."""
         if mesh is None:
-            return None, False
-        tp = transformer.serve_tp(self.cfg, mesh)
+            return None, batch
+        rows = _rows(mesh, _batch_size(batch))
+        return (transformer.serve_tp(self.cfg, mesh),
+                {k: v[rows] for k, v in batch.items()})
+
+    def _cp(self, mesh, context_len) -> bool:
+        """Whether the contiguous cache is sequence-sharded on ``mesh``."""
+        if mesh is None:
+            return False
         if context_len is None:
             raise ValueError("on a mesh pass context_len, the logical cache "
                              "length (a sequence-sharded cache holds a "
                              "block of it)")
-        return (tp, attention.use_cp_decode(self.cfg, mesh,
-                                        transformer.attn_cache_len(
-                                            self.cfg, context_len)))
+        return attention.use_cp_decode(self.cfg, mesh,
+                                       transformer.attn_cache_len(
+                                           self.cfg, context_len))
 
     def _head_last(self, params: dict, x: torch.Tensor,
                    tp=None) -> torch.Tensor:
@@ -324,11 +340,14 @@ class Model:
         (B, S, D) instead), optional "token_mask" (B, S) bool (False
         tokens are dead-routed past the MoE), optional "rows" (B,) bool
         (the rows whose cache is written; all by default)}.  The window is
-        decided at S, as in the reference.  Returns (logits (B, 1, V_padded) fp32 at
-        the last position, routing (L, B*S, K) or None).  On a ``mesh``
-        ``context_len`` is the logical cache length (``_serve_tp``)."""
+        decided at S, as in the reference.  Returns (logits (B, 1,
+        V_padded) fp32 at the last position, routing (L, B*S, K) or
+        None).  On a ``mesh`` ``batch`` is the global batch, ``cache``
+        this rank's (``init_cache``) and ``context_len`` the logical cache
+        length; the logits and routing are this rank's rows."""
         cfg = self.cfg
-        tp, cp = self._serve_tp(mesh, context_len)
+        cp = self._cp(mesh, context_len)
+        tp, batch = self._serve_rows(mesh, batch)
         x, positions, mrope, _ = _embed_inputs(cfg, params, batch, tp)
         window = transformer.effective_window(cfg, x.shape[1])
         x, routing = transformer.prefill_stack(
@@ -352,9 +371,11 @@ class Model:
         ``context_len`` or the cache length.  Returns (logits (B, 1,
         V_padded) fp32, routing (L, B, K) or None).  On a ``mesh`` pass
         ``context_len``: with a sequence-sharded cache the decode is
-        context-parallel (``attention.attn_decode_step_cp``)."""
+        context-parallel (``attention.attn_decode_step_cp``); the batch is
+        global and the result this rank's rows, as in ``prefill_routed``."""
         cfg = self.cfg
-        tp, cp = self._serve_tp(mesh, context_len)
+        cp = self._cp(mesh, context_len)
+        tp, batch = self._serve_rows(mesh, batch)
         lengths = batch["lengths"]
         x = _add_positions(cfg, _embed(cfg, params, batch["tokens"], tp),
                            lengths[:, None].long())
@@ -387,15 +408,17 @@ class Model:
 
         Returns (logits (B, V_padded) fp32 at each row's LAST VALID
         position, routing (L, B*T, K) int32, or None for the dense
-        family).  On a ``mesh`` the step runs tensor-parallel over this
-        rank's serve blocks and cache, and every rank gets the whole
-        logits."""
+        family).  On a ``mesh`` ``batch`` is the global batch: the step
+        runs this rank's rows (``batch_shard``; a paged batch's block
+        tables hold the page ids of this rank's pool) tensor-parallel over
+        its serve blocks and cache, and returns those rows of the logits
+        and routing."""
         cfg = self.cfg
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"forward_routed supports token-input attention families, "
                 f"not {cfg.family!r}")
-        tp = transformer.serve_tp(cfg, mesh) if mesh is not None else None
+        tp, batch = self._serve_rows(mesh, batch)
         block_tables = batch.get("block_tables")
         tokens = batch["tokens"]
         lengths = batch["lengths"]
@@ -536,6 +559,14 @@ class Model:
                 count = collectives.psum(count, mesh, a)
             ce = ce / count.clamp(min=1.0)
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
+
+def _rows(mesh, b: int) -> slice:
+    """This rank's rows of a global batch of ``b`` rows
+    (``expert_parallel.batch_shard``'s); every row with no mesh."""
+    if mesh is None:
+        return slice(0, b)
+    return expert_parallel.batch_shard(mesh, b)[1]
 
 
 def _batch_size(batch: dict) -> int:

@@ -31,7 +31,6 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import expert_parallel, quant
-from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import sharding
 from repro_torch.models import attention, layers, mamba2, rglru
 
@@ -173,12 +172,14 @@ class ServeTP:
     W_down (``mlp``: the dense, vlm and audio families and both layer
     kinds of the hybrid), the hybrid's RG-LRU channels
     (``rglru.ChannelTP``, ``rec``; None where whole); the experts are the
-    rank's rows and the MoE layer runs ``cfg.expert_parallel`` with no
-    batch axes (every rank holds the whole batch: the page pool shares
-    prefix pages across rows), planning the capacity of each data block
-    of rows apart, as the reference's ``shard_map`` does
-    (``expert_parallel.moe_layer``'s ``row_blocks``).  The ssm family's
-    SSD block is replicated, as the reference's serve rules leave it."""
+    rank's rows.  The cached steps run this rank's block of rows
+    (``Model``'s entry points cut them over the data axes, as the
+    reference's ``cache_pspec`` places the caches) from its own caches,
+    and the MoE layer runs ``cfg.expert_parallel`` over them with no
+    batch axes: the schedules use those only for the aux loss's mean,
+    which the serving paths drop (XLA removes the reference's as dead
+    code).  The ssm family's SSD block is replicated, as the reference's
+    serve rules leave it."""
     mesh: object
     embed: bool
     head: bool
@@ -227,19 +228,17 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
     trainer's path).  On a ``mesh`` (the full-sequence forward) ``x`` is
     this rank's batch block over ``batch_axes`` and the MoE layer runs its
     expert-parallel schedule.  On a serving mesh (``tp``, a ``ServeTP``)
-    the cached steps run tensor-parallel over "model" and the MoE layer
-    the schedule over the whole batch; ``cp``: the contiguous cache is
+    ``x`` and the cache are this rank's rows, the cached steps run
+    tensor-parallel over "model" and the MoE layer the schedule over the
+    rank's rows (no aux mean); ``cp``: the contiguous cache is
     sequence-sharded (the decode is ``attn_decode_step_cp``).
     ``mrope_pos`` (B, T, 3): the tokens' M-RoPE positions (vlm), or None.
     Returns (x, aux, routed (B*T, K) or None but for the moe family)."""
     h = layers.norm_apply(cfg.norm, layer_p["ln1"], x)
     ap = layer_p["attn"]
     at = tp.attn if tp is not None else None
-    row_blocks = 1
     if tp is not None:
         mesh, batch_axes = tp.mesh, ()
-        n_data = mesh_lib.axes_size(mesh, mesh_lib.batch_axes(mesh))
-        row_blocks = n_data if x.shape[0] % n_data == 0 else 1
     if cache_l is None:
         h = attention.attn_forward(ap, cfg, h, positions, window, kernels,
                                    mrope_pos)
@@ -268,7 +267,7 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
         moe_p = {"router": layer_p["router"], "experts": layer_p["experts"]}
         h, aux, routed = expert_parallel.moe_layer(
             cfg, moe_p, h, token_mask, mesh=mesh, kernels=kernels,
-            batch_axes=batch_axes, row_blocks=row_blocks)
+            batch_axes=batch_axes)
     else:
         h = layers.mlp_apply(layer_p["mlp"], h, cfg.act,
                              tp.mlp if tp is not None else None)

@@ -95,14 +95,17 @@ def _check_drained(eng: ServingEngine, errors: list, name: str) -> None:
             errors.append(f"{name}: request {r.uid} ended {r.status!r}")
     if not eng.paged:
         return
-    eng.prefix.clear()
-    if not eng.allocator.fully_free:
-        errors.append(f"{name}: {eng.allocator.pages_in_use} pages leaked "
-                      f"after drain")
-    try:
-        eng.allocator.check_consistent()
-    except AssertionError as e:
-        errors.append(f"{name}: allocator inconsistent — {e}")
+    for blk, (alloc, prefix) in enumerate(zip(eng.allocators,
+                                              eng.prefixes)):
+        prefix.clear()
+        if not alloc.fully_free:
+            errors.append(f"{name}: {alloc.pages_in_use} pages of data "
+                          f"block {blk} leaked after drain")
+        try:
+            alloc.check_consistent()
+        except AssertionError as e:
+            errors.append(f"{name}: data block {blk}'s allocator "
+                          f"inconsistent — {e}")
 
 
 def _check_traces(eng: ServingEngine, errors: list, name: str) -> None:

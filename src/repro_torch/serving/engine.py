@@ -50,16 +50,32 @@ otherwise, from a generator on the engine's device seeded by
 On a mesh (``launch/mesh.py``) every rank process runs the same engine
 on the same requests (SPMD): ``params`` are this rank's serve-mode blocks
 (drawn by ``Model.init_serving`` when omitted, or from
-``bridge.from_jax_params(..., mesh=, mode="serve")``), the caches hold
-this rank's kv heads (the two-program engine's contiguous cache, where
-``attention.use_cp_decode`` holds, its sequence block: context-parallel
-decode), and every step runs the model tensor-parallel over "model" with
-the MoE layer under ``cfg.expert_parallel``.  The ranks must take every
-host decision alike, or they issue different collectives and hang: the
-logits come back whole and bit-identical on every rank (a gloo all-reduce
-and all-gather hand each rank the same bits), fault plans key on the step
-index, and the one clock that could differ, the deadlines', is rank 0's,
-broadcast once per step while a deadline exists (``_now``).
+``bridge.from_jax_params(..., mesh=, mode="serve")``), and every step
+runs the model tensor-parallel over "model" with the MoE layer under
+``cfg.expert_parallel``.  The rows are cut over the data axes, as the
+reference's ``cache_pspec`` cuts its caches: with G the product of the
+"pod" and "data" sizes, slot s belongs to data block s // (max_batch /
+G), and each rank runs its block's rows from its own caches (the page
+pool's ``num_pages / G`` pages, or the contiguous cache's rows, of its kv
+heads or, where ``attention.use_cp_decode`` holds in the two-program
+engine, of its sequence block: context-parallel decode).  Where G does
+not divide ``max_batch`` every rank runs the whole batch, as the
+reference does (``expert_parallel.batch_split``, the one rule).  Each data
+block has a pool of ``num_pages // G`` pages (the remainder unused), a
+page allocator and a prefix tree of its own, whose block
+tables hold page ids of that block's pool: a prefix page is shared only
+within its block, and admission, lazy growth, preemption, copy-on-write,
+cancel and expiry act on the slot's block.  Every rank keeps the host
+state of every block and so takes every host decision, and the same one,
+or the ranks would issue different collectives and hang: each rank
+samples its own rows (a stochastic row's draws are its row of the step's
+(max_batch, V) draw) and the sampled tokens, the NaN guard's flags and,
+with a tracker, the routing are all-gathered over the data axes each step
+(booked under ``collectives.ROWS``); the one-row prefill of
+``batched_prefill=False`` runs whole on every rank (1 row is not cut), the slot's block writing its
+row and the others a scratch row; fault plans key on the step index, and
+the one clock that could differ, the deadlines', is rank 0's, broadcast
+once per step while a deadline exists (``_now``).
 
 Ring caches and the stateful families take the reference path, as in
 the reference: where the effective window at ``max_cache`` fits inside it
@@ -91,8 +107,9 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.core import collectives, quant
+from repro_torch.core import collectives, expert_parallel, quant
 from repro_torch.core.dynamic_load import LRUExpertTracker
+from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models.attention import use_cp_decode
 from repro_torch.models.model import build_model, resolve_device
 from repro_torch.models.transformer import attn_cache_len, effective_window
@@ -261,6 +278,19 @@ class ServingEngine:
         self.cfg = cfg_model
         self.ecfg = ecfg
         self.mesh = mesh
+        b, c = ecfg.max_batch, ecfg.max_cache
+        if ecfg.paged:
+            self.page_size = ecfg.page_size
+            self.max_blocks = -(-c // self.page_size)
+            self.num_pages = ecfg.num_pages or b * self.max_blocks
+        # the data blocks G of rows, cut as the model's entry points cut
+        # a batch of max_batch rows (1 where the data axes do not divide it)
+        self.blocks = (mesh_lib.axes_size(
+            mesh, expert_parallel.batch_split(mesh, b))
+            if mesh is not None else 1)
+        self.block_rows = b // self.blocks
+        self.rows = (expert_parallel.batch_shard(mesh, b)[1]
+                     if mesh is not None else slice(0, b))
         self.device = resolve_device(device)
         self.model = build_model(cfg_model, self.device)
         if params is None:
@@ -278,7 +308,6 @@ class ServingEngine:
                                          cfg_model.num_experts)
                         if cfg_model.is_moe and ecfg.track_experts else None)
         self.queue = sched.AdmissionQueue()
-        b, c = ecfg.max_batch, ecfg.max_cache
         self.slots: list[Request | None] = [None] * b
         # per-slot admission context: the tokens the occupant prefills (the
         # prompt, or on restore the longer resume_tokens)
@@ -320,22 +349,27 @@ class ServingEngine:
         self._admit_stalled = False
         self.chunk_len = min(ecfg.chunk_len, c)
         if self.paged:
-            self.page_size = ecfg.page_size
-            self.max_blocks = -(-c // self.page_size)
-            self.num_pages = ecfg.num_pages or b * self.max_blocks
-            self.cache = self.model.init_paged_cache(self.num_pages,
-                                                     self.page_size, mesh)
+            # a pool, an allocator and a prefix tree for each data block;
+            # block tables hold page ids of their block's pool, and this
+            # rank holds its block's pool
+            self.block_pages = self.num_pages // self.blocks
+            self.cache = self.model.init_paged_cache(
+                self.block_pages, self.page_size, mesh)
             self.block_tables = np.zeros((b, self.max_blocks), np.int32)
-            self.allocator = PageAllocator(self.num_pages)
-            self.prefix = PrefixCache(self.page_size, self.allocator)
+            self.allocators = [PageAllocator(self.block_pages)
+                               for _ in range(self.blocks)]
+            self.prefixes = [PrefixCache(self.page_size, a)
+                             for a in self.allocators]
             self.slot_pages: list[list[int]] = [[] for _ in range(b)]
         else:
             # the two-program engine decodes context-parallel on a mesh
             # where the reference would (``use_cp_decode``, at the length
             # of the cache: a ring's is the window)
-            self.cache = self.model.init_cache(
-                b, c, mesh, seq_sharded=(not self.unified and use_cp_decode(
-                    cfg_model, mesh, attn_cache_len(cfg_model, c))))
+            self._seq_sharded = not self.unified and use_cp_decode(
+                cfg_model, self.mesh, attn_cache_len(cfg_model, c))
+            self.cache = self.model.init_cache(b, c, self.mesh,
+                                               self._seq_sharded)
+            self._scratch = None      # ``_prefill_one``'s row elsewhere
         self.stats = {"prefill_tokens": 0, "prefill_pad_tokens": 0,
                       "decode_steps": 0, "decode_tokens": 0,
                       # per-phase token counts of MIXED iterations only —
@@ -391,7 +425,8 @@ class ServingEngine:
         return out
 
     def _sample_next(self, logits: torch.Tensor, temps: torch.Tensor,
-                     topks: torch.Tensor, step_idx: int) -> torch.Tensor:
+                     topks: torch.Tensor, step_idx: int,
+                     rows: slice | None = None) -> torch.Tensor:
         """Per-row sampling on the device: greedy argmax where temperature
         == 0, otherwise temperature-scaled top-k Gumbel over the real
         vocabulary (never a padded column).  The draws come from the
@@ -404,7 +439,9 @@ class ServingEngine:
         run: a greedy-only serve is one argmax.
 
         logits: (B, V_padded) fp32; temps: (B,) fp32; topks: (B,) int32
-        (0 = full vocab).  Returns (B,) int32."""
+        (0 = full vocab).  ``rows``: the rows of the step's (max_batch, V)
+        draw these B rows are (a data block's; the draw's own B rows by
+        default).  Returns (B,) int32."""
         v = self.cfg.vocab_size
         logits = logits[:, :v].float()
         greedy = torch.argmax(logits, dim=-1).to(torch.int32)
@@ -414,7 +451,11 @@ class ServingEngine:
         with torch.profiler.record_function("sample_next"):
             gen = self._sample_gen
             gen.manual_seed(_fold_seed(self.ecfg.sample_seed, step_idx))
-            u = torch.rand(logits.shape, generator=gen, device=logits.device)
+            u = torch.rand(logits.shape if rows is None
+                           else (self.ecfg.max_batch, v), generator=gen,
+                           device=logits.device)
+            if rows is not None:
+                u = u[rows]
             gumbel = -torch.log(-torch.log(u.clamp_min(
                 torch.finfo(torch.float32).tiny)))
             scaled = logits / temps.clamp_min(1e-6)[:, None]
@@ -460,19 +501,50 @@ class ServingEngine:
         logits, routing = self.model.forward_routed(
             self.params, batch, self.cache, context_len=self.ecfg.max_cache,
             mesh=self.mesh)
+        rows = self.rows
         if poison is not None:
+            poison = poison[rows]
             logits = torch.where(torch.isfinite(poison)[:, None], logits,
                                  poison[:, None])
         bad = ~torch.isfinite(logits[:, :self.cfg.vocab_size]).all(dim=-1)
-        nxt = self._sample_next(logits, temps, topks, step_idx)
-        return (torch.where(sample_mask & ~bad, nxt, self.last_tok),
-                routing, bad)
+        nxt = self._sample_next(logits, temps[rows], topks[rows], step_idx,
+                                rows)
+        tok = torch.where(sample_mask[rows] & ~bad, nxt, self.last_tok[rows])
+        tok, bad, routing = self._gather_rows(tok, bad, routing)
+        return tok, routing, bad
 
-    def _copy_pages(self, src: list[int], dst: list[int]) -> None:
+    def _gather_rows(self, tok: torch.Tensor, bad: torch.Tensor, routing):
+        """Every data block's sampled tokens (B/G,), NaN-guard flags (B/G,)
+        and, with a tracker, routing (L, B/G*T, K), whole on every rank:
+        one all-gather a data axis of the three packed by row as int32
+        (``expert_parallel.batch_unshard``, booked under
+        ``collectives.ROWS``).  Off a cut mesh they are whole already."""
+        if self.blocks == 1:
+            return tok, bad, routing
+        n = tok.shape[0]
+        parts = [tok[:, None].to(torch.int32), bad[:, None].to(torch.int32)]
+        track = self.tracker is not None and routing is not None
+        if track:
+            nl, _, k = routing.shape
+            parts.append(routing.reshape(nl, n, -1).transpose(0, 1)
+                         .reshape(n, -1).to(torch.int32))
+        packed = expert_parallel.batch_unshard(
+            self.mesh, torch.cat(parts, dim=1), self.ecfg.max_batch)
+        tok, bad = packed[:, 0], packed[:, 1] != 0
+        if track:
+            routing = packed[:, 2:].reshape(packed.shape[0], nl, -1, k) \
+                .transpose(0, 1).reshape(nl, -1, k)
+        return tok, bad, routing
+
+    def _copy_pages(self, src: list[int], dst: list[int],
+                    block: int = 0) -> None:
         """Device half of copy-on-write: duplicate pool pages ``src`` into
-        ``dst`` across every layer and every pool leaf (an int8 cache's
-        scale pools too), in place (page-sized traffic)."""
+        ``dst`` of data block ``block``'s pool across every layer and every
+        pool leaf (an int8 cache's scale pools too), in place (page-sized
+        traffic), on the ranks that hold that pool."""
         self._note("copy_pages", ((len(src),), torch.int32), sampling=False)
+        if block != self._block(self.rows.start):
+            return                    # another data block's pool
         for s, d in zip(src, dst):
             for pool in self.cache.values():
                 pool[:, d].copy_(pool[:, s])
@@ -490,15 +562,31 @@ class ServingEngine:
             self.params, {"tokens": tokens, "token_mask": tmask,
                           "rows": admit}, self.cache, self.ecfg.max_cache,
             mesh=self.mesh)
-        nxt = self._sample_next(logits[:, -1], temps, topks, step_idx)
-        return torch.where(admit, nxt, self.last_tok), routing
+        rows = self.rows
+        nxt = self._sample_next(logits[:, -1], temps[rows], topks[rows],
+                                step_idx, rows)
+        tok = torch.where(admit[rows], nxt, self.last_tok[rows])
+        tok, _, routing = self._gather_rows(tok, admit[rows], routing)
+        return tok, routing
 
     def _prefill_one(self, tokens, slot: int, temps, topks, step_idx: int):
         """Reference mode with ``batched_prefill=False``: a batch-1 prefill
         of (1, prefill_len) tokens through slot ``slot``'s row of the
-        cache (a view, written in place).  Returns (last_tok', routing)."""
+        cache (a view, written in place).  On a cut mesh the one row runs
+        whole on every rank (the data axes do not divide it, as in the
+        reference): the slot's data block writes its row, every other
+        rank a scratch row it never reads.  Returns (last_tok',
+        routing)."""
         self._note("prefill_one", tokens, slot, temps, topks)
-        one = _tree_map(lambda v: v[:, slot:slot + 1], self.cache)
+        if self._mine(slot):
+            r = slot - self.rows.start
+            one = _tree_map(lambda v: v[:, r:r + 1], self.cache)
+        else:
+            if self._scratch is None:
+                self._scratch = self.model.init_cache(
+                    1, self.ecfg.max_cache, self.mesh,
+                    self._seq_sharded)
+            one = self._scratch
         logits, routing = self.model.prefill_routed(
             self.params, {"tokens": tokens}, one, self.ecfg.max_cache,
             mesh=self.mesh)
@@ -518,8 +606,12 @@ class ServingEngine:
             {"tokens": self.last_tok[:, None], "lengths": lengths,
              "token_mask": active[:, None]}, self.ecfg.max_cache,
             mesh=self.mesh)
-        nxt = self._sample_next(logits[:, -1], temps, topks, step_idx)
-        return torch.where(active, nxt, self.last_tok), routing
+        rows = self.rows
+        nxt = self._sample_next(logits[:, -1], temps[rows], topks[rows],
+                                step_idx, rows)
+        tok = torch.where(active[rows], nxt, self.last_tok[rows])
+        tok, _, routing = self._gather_rows(tok, active[rows], routing)
+        return tok, routing
 
     # -- public API ---------------------------------------------------------
 
@@ -560,10 +652,10 @@ class ServingEngine:
                 f"lower max_new_tokens or raise max_cache")
         if self.paged:
             blocks = -(-(context + max_new_tokens - 1) // self.page_size)
-            if blocks > self.num_pages:
+            if blocks > self.block_pages:
                 raise ValueError(
                     f"request needs {blocks} pages but the pool holds only "
-                    f"{self.num_pages}; raise num_pages or lower "
+                    f"{self.block_pages}; raise num_pages or lower "
                     f"max_new_tokens")
         self._uid += 1
         self._seq += 1
@@ -738,13 +830,19 @@ class ServingEngine:
         from their last durable cache state (the repeated pool writes are
         idempotent, so neighbours never see the fault)."""
         b, t = self.ecfg.max_batch, self.chunk_len
+        full = set()            # data blocks whose pool refused the head
         for i in range(b):
             if self.slots[i] is None and self.queue:
                 if self.paged:
-                    # page-gated admission in priority order; stop at the
-                    # first request the pool cannot hold (never skip ahead)
+                    # page-gated admission in priority order: the head
+                    # waits for the first free slot whose block's pool can
+                    # hold it; stop once no block can (never skip ahead)
+                    if self._block(i) in full:
+                        continue
                     if not self._admit_paged(i):
-                        break
+                        full.add(self._block(i))
+                        if len(full) == self.blocks:
+                            break
                     continue
                 self._admit_slot(i)
         self.stats["active_hwm"] = max(
@@ -908,8 +1006,10 @@ class ServingEngine:
         or nobody lesser remains.
 
         Returns False with the queue untouched when pages stay short after
-        LRU eviction and preemption."""
+        LRU eviction and preemption.  The pool, the prefix tree and the
+        preemption victims are the slot's data block's."""
         req = self.queue[0]
+        alloc, prefix = self._pool(slot)
         if self.faults is not None and self.faults.poll(self._iter, "alloc"):
             # injected pool exhaustion: nothing free, nothing reclaimable
             # this iteration; the request stays queued (no refcount taken)
@@ -921,40 +1021,39 @@ class ServingEngine:
         lifetime = sched.lifetime_pages(len(ctx), remaining, self.page_size)
         upfront = (sched.pages_for(len(ctx), self.page_size)
                    if self.ecfg.overcommit else lifetime)
-        hit = self.prefix.lookup(ctx)
+        hit = prefix.lookup(ctx)
         need = upfront - len(hit.pages)
-        if self.allocator.free_pages < need:
+        if alloc.free_pages < need:
             # evict only when it can close the gap: a request merely
             # waiting for in-flight pages must not drain the tree
-            if (self.allocator.free_pages + self.prefix.reclaimable_pages()
-                    >= need):
-                self.prefix.evict(need)
-        while self.allocator.free_pages < need and self.ecfg.overcommit:
+            if alloc.free_pages + prefix.reclaimable_pages() >= need:
+                prefix.evict(need)
+        while alloc.free_pages < need and self.ecfg.overcommit:
             # priority preemption: a victim's pages land in the prefix tree
             # (reclaimable once its row references drop), so each
             # preemption is followed by another gap-closing eviction
-            victim = sched.select_victim(self._running_rows(),
+            victim = sched.select_victim(self._running_rows(slot),
                                          below=req.priority)
             if victim is None:
                 break
             self._preempt_slot(victim)
-            if (self.allocator.free_pages + self.prefix.reclaimable_pages()
-                    >= need):
-                self.prefix.evict(need)
-        if self.allocator.free_pages < need:
+            if alloc.free_pages + prefix.reclaimable_pages() >= need:
+                prefix.evict(need)
+        if alloc.free_pages < need:
             # hand the lookup references back; the request stays queued
-            self.allocator.free(hit.pages)
+            alloc.free(hit.pages)
             if hit.tail_page >= 0:
-                self.allocator.free([hit.tail_page])
+                alloc.free([hit.tail_page])
             return False
         self.stats["prefix_lookups"] += 1
-        new_pages = self.allocator.alloc(need)
+        new_pages = alloc.alloc(need)
         pages = list(hit.pages) + new_pages
         if hit.tail_len:
             # copy-on-write the shared partial tail page: its owner may
             # still append decode tokens to the original
-            self._copy_pages([hit.tail_page], [new_pages[0]])
-            self.allocator.free([hit.tail_page])   # drop the lookup ref
+            self._copy_pages([hit.tail_page], [new_pages[0]],
+                             self._block(slot))
+            alloc.free([hit.tail_page])   # drop the lookup ref
             self.stats["cow_copies"] += 1
         self.queue.popleft()
         self.slots[slot] = req
@@ -975,20 +1074,40 @@ class ServingEngine:
         if hit.tokens:
             self.stats["prefix_hits"] += 1
             self.stats["prefix_hit_tokens"] += hit.tokens
-        self.stats["pages_hwm"] = max(self.stats["pages_hwm"],
-                                      self.allocator.pages_in_use)
+        self._note_pages()
         return True
+
+    def _block(self, i: int) -> int:
+        """The data block slot ``i`` belongs to."""
+        return i // self.block_rows
+
+    def _mine(self, i: int) -> bool:
+        """Whether slot ``i``'s row is this rank's (its cache here)."""
+        return self.rows.start <= i < self.rows.stop
+
+    def _pool(self, i: int) -> tuple:
+        """(allocator, prefix tree) of slot ``i``'s data block."""
+        blk = self._block(i)
+        return self.allocators[blk], self.prefixes[blk]
+
+    def _note_pages(self) -> None:
+        self.stats["pages_hwm"] = max(
+            self.stats["pages_hwm"],
+            sum(a.pages_in_use for a in self.allocators))
 
     def _covered(self, i: int) -> bool:
         """Row ``i``'s next decode write (cache position ``lengths[i]``)
         has a page under its block table."""
         return int(self.lengths[i]) < len(self.slot_pages[i]) * self.page_size
 
-    def _running_rows(self) -> list:
+    def _running_rows(self, slot: int) -> list:
         """Victim candidates for ``sched.select_victim``: every occupied
-        slot with its scheduling keys."""
+        slot of slot ``slot``'s data block (whose pool a preemption
+        refills) with its scheduling keys."""
+        blk = self._block(slot)
         return [sched.RunningRow(i, r.priority, r.last_preempt_epoch, r.seq)
-                for i, r in enumerate(self.slots) if r is not None]
+                for i, r in enumerate(self.slots)
+                if r is not None and self._block(i) == blk]
 
     def _ensure_decode_page(self, i: int) -> bool:
         """Lazy decode-page growth: make sure row ``i``'s block table
@@ -999,34 +1118,33 @@ class ServingEngine:
         the gap; if the pool is still dry, preempt the least-entitled
         running row — possibly row ``i`` itself, which then yields.
         Returns False when the row cannot advance this iteration
-        (preempted, or page-starved under an injected alloc fault)."""
+        (preempted, or page-starved under an injected alloc fault).  The
+        pool and the victims are row ``i``'s data block's."""
         if self._covered(i):
             return True
+        alloc, prefix = self._pool(i)
         if self.faults is not None and self.faults.poll(self._iter, "alloc"):
             self.stats["alloc_stalls"] += 1
             return False
-        if (self.allocator.free_pages < 1
-                and self.allocator.free_pages
-                + self.prefix.reclaimable_pages() >= 1):
-            self.prefix.evict(1)
-        while self.allocator.free_pages < 1 and self.ecfg.overcommit:
-            victim = sched.select_victim(self._running_rows())
+        if (alloc.free_pages < 1
+                and alloc.free_pages + prefix.reclaimable_pages() >= 1):
+            prefix.evict(1)
+        while alloc.free_pages < 1 and self.ecfg.overcommit:
+            victim = sched.select_victim(self._running_rows(i))
             if victim is None:
                 break
             self._preempt_slot(victim)
             if victim == i:
                 return False
-            if (self.allocator.free_pages
-                    + self.prefix.reclaimable_pages() >= 1):
-                self.prefix.evict(1)
-        got = self.allocator.alloc(1)
+            if alloc.free_pages + prefix.reclaimable_pages() >= 1:
+                prefix.evict(1)
+        got = alloc.alloc(1)
         if got is None:
             self.stats["alloc_stalls"] += 1
             return False
         self.slot_pages[i].append(got[0])
         self.block_tables[i, len(self.slot_pages[i]) - 1] = got[0]
-        self.stats["pages_hwm"] = max(self.stats["pages_hwm"],
-                                      self.allocator.pages_in_use)
+        self._note_pages()
         return True
 
     def _preempt_slot(self, i: int) -> None:
@@ -1042,6 +1160,7 @@ class ServingEngine:
         seq.  Restore (``_admit_paged``) then finds its own pages as a
         prefix hit and re-prefills at most one partial chunk."""
         self._harvest()
+        alloc, prefix = self._pool(i)
         req = self.slots[i]
         full = np.concatenate([req.prompt,
                                np.asarray(req.generated, np.int32)])
@@ -1050,9 +1169,9 @@ class ServingEngine:
         k, tail = n // ps, n % ps
         pages = self.slot_pages[i]
         if n:
-            self.prefix.insert(full[:n], pages[:k],
-                               pages[k] if tail else -1, tail)
-        self.allocator.free(pages)
+            prefix.insert(full[:n], pages[:k], pages[k] if tail else -1,
+                          tail)
+        alloc.free(pages)
         self.slot_pages[i] = []
         self.block_tables[i] = 0
         self.slots[i] = None
@@ -1084,7 +1203,7 @@ class ServingEngine:
         page list is emptied); pages the prefix tree also holds stay
         resident for future hits."""
         if self.paged and self.slot_pages[i]:
-            self.allocator.free(self.slot_pages[i])
+            self._pool(i)[0].free(self.slot_pages[i])
             self.slot_pages[i] = []
             self.block_tables[i] = 0
         self.slots[i] = None
@@ -1109,7 +1228,7 @@ class ServingEngine:
         pages = [int(p) for p in self.block_tables[i, :k]]
         tail_len = len(ctx) - k * ps
         tail_page = int(self.block_tables[i, k]) if tail_len else -1
-        self.prefix.insert(ctx, pages, tail_page, tail_len)
+        self._pool(i)[1].insert(ctx, pages, tail_page, tail_len)
 
     # -- cancellation, deadlines, quarantine --------------------------------
 
@@ -1230,15 +1349,16 @@ class ServingEngine:
             "paged": True,
             "num_pages": self.num_pages,
             "page_size": self.page_size,
-            "pages_in_use": self.allocator.pages_in_use,
+            "data_blocks": self.blocks,
+            "pages_in_use": sum(a.pages_in_use for a in self.allocators),
             "pages_hwm": s["pages_hwm"],
             "pool_utilization": s["pages_hwm"] / self.num_pages,
             "prefix_lookups": s["prefix_lookups"],
             "prefix_hits": s["prefix_hits"],
             "prefix_hit_rate": s["prefix_hits"] / max(s["prefix_lookups"], 1),
             "prefix_hit_tokens": s["prefix_hit_tokens"],
-            "prefix_cached_pages": self.prefix.cached_pages,
-            "prefix_evictions": self.prefix.evictions,
+            "prefix_cached_pages": sum(p.cached_pages for p in self.prefixes),
+            "prefix_evictions": sum(p.evictions for p in self.prefixes),
             "cow_copies": s["cow_copies"],
         }
 

@@ -11,9 +11,10 @@ L-step scan (the port runs a loop), within a stated tolerance on a
 reduced dense forward.  Beside those: per-rank block bytes at (16, 16)
 equal ``sharding.block_bytes``, each kernel wrapper on meta tensors
 returns its kernel's shape and books its cost, ``--all --reduced`` at
-(16, 16) writes 44 records, all ok, and the reduced qwen3-moe's serve
+(16, 16) writes 44 records, all ok, the reduced qwen3-moe's serve
 steps under each expert schedule move R2's predicted collective bytes at
-that mesh."""
+that mesh, and rank 0's serving caches at (16, 16) hold the reference's
+per-device bytes (``cache_pspec``: the rows over "data")."""
 import json
 import math
 import os
@@ -266,6 +267,50 @@ def test_cli_all_writes_every_pair(tmp_path):
     assert r.returncode == 0
 
 
+# rank 0's cache at (16, 16) for the two MoE archs at decode_32k (the
+# reference's per-device bytes; before the rows were cut over "data",
+# 25,769,803,776 and 17,179,869,184)
+CACHE_AT_16X16 = {("qwen3_moe_30b_a3b", "decode_32k"): 1_610_612_736,
+                  ("granite_moe_3b_a800m", "decode_32k"): 1_073_741_824}
+
+
+@pytest.mark.parametrize("shape_name", ["decode_32k", "prefill_32k",
+                                        "long_500k"])
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b",
+                                  "granite_moe_3b_a800m"])
+def test_serving_cache_at_16x16_is_the_reference_per_device_block(
+        arch, shape_name):
+    """Rank 0's prefill and decode caches at (16, 16) hold the bytes the
+    reference's ``cache_pspec`` gives each device on an ``AbstractMesh``:
+    the batch over "data" where 16 divides it (B = 128 and 32; long_500k's
+    B = 1 whole on every rank), the sequence over "model" (the reference's
+    default ``kv_cache_shard="seq"``, which the port's context-parallel
+    cache takes: each leaf is checked to be cut along the same
+    dimensions before its bytes are compared)."""
+    from jax.sharding import AbstractMesh
+
+    from repro.launch import sharding as jax_sharding
+    shape = SHAPES[shape_name]
+    b, s = shape.global_batch, shape.seq_len
+    ref_cache = jax_build_model(jax_get_config(arch)).cache_specs(b, s)
+    spec = jax_sharding.cache_pspec(jax_get_config(arch), AbstractMesh(
+        (16, 16), ("data", "model")), ref_cache)
+    mesh = make_meta_mesh((16, 16), ("data", "model"))
+    cache = dryrun.setup_pair(get_config(arch), shape, "meta",
+                              mesh).arguments["cache"]
+    assert sorted(cache) == sorted(ref_cache)
+    got_bytes = want_bytes = 0
+    for k, leaf in ref_cache.items():
+        per = tuple(n // (16 if ax else 1) for n, ax in zip(
+            leaf.shape, tuple(spec[k]) + (None,) * leaf.ndim))
+        assert tuple(cache[k].shape) == per, (k, cache[k].shape, per)
+        got_bytes += cache[k].numel() * cache[k].element_size()
+        want_bytes += math.prod(per) * np.dtype(leaf.dtype).itemsize
+    assert got_bytes == want_bytes
+    if (arch, shape_name) in CACHE_AT_16X16:
+        assert got_bytes == CACHE_AT_16X16[arch, shape_name]
+
+
 SCHEDULES = ("decentralized", "centralized", "a2a", "a2a_pipelined")
 
 
@@ -276,11 +321,12 @@ def test_reduced_moe_serve_pair_at_16x16_moves_the_predicted_bytes(
     """The reduced qwen3-moe (its experts widened to the 16 "model"
     ranks) runs its serve step on meta at the production mesh under each
     expert schedule, and its collective bytes by kind are R2's prediction
-    (``predicted_collective_bytes(..., include_tp=True)`` per data block),
-    the kinds R2 books apart aside.  Decode adds context-parallel decode's
-    merge (the kv heads do not cover 16 ranks, so the cache is sharded by
-    sequence): per layer and row a pmax and a psum of (Hq,) statistics and
-    a psum of the (Hq, hd) partial output."""
+    (``predicted_collective_bytes(..., n_batch_shards=16,
+    include_tp=True)``: rank 0 runs its one row of the 16), the kinds R2
+    books apart aside.  Decode adds context-parallel decode's merge (the
+    kv heads do not cover 16 ranks, so the cache is sharded by sequence):
+    per layer and rank row a pmax and a psum of (Hq,) statistics and a
+    psum of the (Hq, hd) partial output."""
     from types import SimpleNamespace
 
     from repro_torch.analysis.collectives import BOOKED_APART, predicted
@@ -299,7 +345,7 @@ def test_reduced_moe_serve_pair_at_16x16_moves_the_predicted_bytes(
         cfg=cfg, batch=shape.global_batch, seq=1 if decode else
         shape.seq_len, n_exp_shards=16, n_batch_shards=16))
     if decode:
-        want["all-reduce"] += (shape.global_batch * cfg.num_layers
+        want["all-reduce"] += (shape.global_batch // 16 * cfg.num_layers
                                * cfg.num_heads * (2 + cfg.head_dim) * 4)
     got = rec["ops"]["collective_by_kind"]
     assert {k: v for k, v in got.items() if k not in BOOKED_APART} == want

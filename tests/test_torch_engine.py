@@ -127,7 +127,7 @@ def test_scenario_shape(served):
     assert len(served["traffic"]) > ENGINE["max_batch"]
     assert max(len(p) for p, _ in served["traffic"]) > ENGINE["chunk_len"]
     assert peng.stats["mixed_s"] > 0 and peng.stats["decode_steps"] > 0
-    assert peng.allocator.pages_in_use == peng.prefix.cached_pages
+    assert peng.allocators[0].pages_in_use == peng.prefixes[0].cached_pages
 
 
 def test_expert_tracker_matches(served):

@@ -220,18 +220,22 @@ def test_shard_batch_cuts_every_input(runs, mesh_name, arch):
                               for a in (cases.VLM, cases.AUDIO)])
 def test_prefill_and_decode_match_jax(runs, mesh_name, arch):
     """vlm and audio on the serving mesh: the prefill's and four decode
-    steps' logits at 2e-5 of JAX's on every rank; the decode is
-    context-parallel (each rank's cache its sequence block of every kv
-    head), vlm's M-RoPE positions through it."""
+    steps' logits, each rank's rows (the rows cut over "data": one a
+    rank on (2, 2)), at 2e-5 of the same rows of JAX's; the decode is
+    context-parallel (each rank's cache its rows' sequence block of every
+    kv head), vlm's M-RoPE positions through it."""
     want = runs["oracle"][arch]["serve"]
-    n_model = cases.MESHES[mesh_name][1]
+    n_data, n_model = cases.MESHES[mesh_name]
+    bl = cases.SERVE_B // n_data
     cfg = cases.port_config(arch)
-    for rec in (r[f"{arch}/serve"] for r in runs[mesh_name]):
+    for r, rec in enumerate(rr[f"{arch}/serve"] for rr in runs[mesh_name]):
         assert rec["context_parallel"]
         assert rec["cache_shape"] == (
-            cfg.num_layers, cases.SERVE_B, cases.SERVE_CACHE // n_model,
+            cfg.num_layers, bl, cases.SERVE_CACHE // n_model,
             cfg.num_kv_heads, cfg.head_dim)
-        np.testing.assert_allclose(rec["logits"], want, rtol=TOL, atol=TOL)
+        rows = slice(r // n_model * bl, (r // n_model + 1) * bl)
+        np.testing.assert_allclose(rec["logits"], want[:, rows], rtol=TOL,
+                                   atol=TOL)
 
 
 @pytest.mark.parametrize("mesh_name,arch",
@@ -243,14 +247,15 @@ def test_engine_streams_equal_the_jax_engine(runs, mesh_name, arch):
     """hybrid and ssm through ``ServingEngine(paged=False, mesh=)``: every
     rank's greedy streams equal the JAX one-device engine's, the third
     request in a reused slot (C6); each rank's weight bytes are its serve
-    blocks'; the hybrid's recurrent states hold its W / n RG-LRU channels
+    blocks'; each rank's caches hold its data block's rows (one of the two
+    on (2, 2)): the hybrid's recurrent states its W / n RG-LRU channels
     and its 64-slot attention ring its sequence block (context-parallel
     decode) of the one kv head, the ssm states whole."""
     ref = runs["oracle"][arch]
     want = [ref[f"serve/{i}"].tolist() for i in range(len(cases.NEW_TOKENS))]
     cfg = cases.port_config(arch)
-    n_model = cases.MESHES[mesh_name][1]
-    b = cases.ENGINE["max_batch"]
+    n_data, n_model = cases.MESHES[mesh_name]
+    b = cases.ENGINE["max_batch"] // n_data
     for r, run in enumerate(runs[mesh_name]):
         rec = run[f"{arch}/serve"]
         assert rec["streams"] == want, (r, rec["streams"], want)

@@ -72,43 +72,6 @@ def test_dispatch_plan_exact(case):
         assert int(got[2].eq(e_local * cap).sum()) > 0    # some dropped
 
 
-@pytest.mark.parametrize("case", ["binding", "dead_routed", "local_shard"])
-def test_dispatch_plan_groups_are_separate_jax_plans(case):
-    """``groups`` G: expert e's slots hold G blocks of ``cap``, block b's
-    the JAX plan of the b-th block of rows alone (a serving mesh's data
-    block), its tokens offset by the block's start; a decision's slot is
-    that plan's slot moved into its block, or one past the end."""
-    rng = np.random.default_rng(2)
-    t, k, e, g = 24, 2, 4, 3
-    idx, _ = _routing(rng, t, k, e)
-    e_start, e_local, cap = 0, e, 3
-    if case == "dead_routed":
-        idx[::3] = e
-    if case == "local_shard":
-        e_start, e_local = 2, 2
-    tok, valid, slot_of = moe.make_dispatch_plan(_t(idx), e, e_start,
-                                                 e_local, cap, groups=g)
-    tb, nbuf = t // g, e_local * g * cap
-    for b in range(g):
-        w_tok, w_valid, w_slot = (np.asarray(a) for a in
-                                  jax_moe.make_dispatch_plan(
-                                      jnp.asarray(idx[b * tb:(b + 1) * tb]),
-                                      e, e_start, e_local, cap))
-        for j in range(e_local):
-            got = slice((j * g + b) * cap, (j * g + b + 1) * cap)
-            want = slice(j * cap, (j + 1) * cap)
-            np.testing.assert_array_equal(valid[got].numpy(), w_valid[want])
-            np.testing.assert_array_equal(
-                np.where(w_valid[want], tok[got].numpy() - b * tb, 0),
-                np.where(w_valid[want], w_tok[want], 0))
-        moved = np.where(w_slot == e_local * cap, nbuf,
-                         (w_slot // cap) * g * cap + b * cap + w_slot % cap)
-        np.testing.assert_array_equal(slot_of[b * tb:(b + 1) * tb].numpy(),
-                                      moved)
-    if case == "binding":
-        assert int(slot_of.eq(nbuf).sum()) > 0    # some dropped
-
-
 def _moe_inputs(seed, t=20, d=32, f=48, e=4, k=2):
     rng = np.random.default_rng(seed)
     ex = _experts(rng, e, d, f)

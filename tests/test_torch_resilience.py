@@ -85,10 +85,10 @@ def _prompts(seed=0, lens=(7, 5)):
 def _drain_clean(eng):
     """Post-drain hygiene: clear the prefix tree, then the pool must be
     fully free with consistent refcounts."""
-    eng.prefix.clear()
-    assert eng.allocator.fully_free, \
-        f"{eng.allocator.pages_in_use} pages leaked"
-    eng.allocator.check_consistent()
+    eng.prefixes[0].clear()
+    assert eng.allocators[0].fully_free, \
+        f"{eng.allocators[0].pages_in_use} pages leaked"
+    eng.allocators[0].check_consistent()
 
 
 def _step_until_decoding(eng, req, max_steps=64):
@@ -651,7 +651,7 @@ def test_property_pool_free_after_chaos(seed):
             eng.cancel(victim)
         elif op < 0.3:
             eng.preempt(victim)
-        eng.allocator.check_consistent()        # invariant holds mid-flight
+        eng.allocators[0].check_consistent()    # invariant holds mid-flight
     eng.run_until_done()
     assert all(eng._all[u].status in TERMINAL_STATES for u in uids)
     _drain_clean(eng)

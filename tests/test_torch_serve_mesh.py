@@ -21,13 +21,23 @@ dense qwen3-0.6b, and of two variants whose specs keep a weight whole
 (six q heads and a QKV bias: wq and wo whole on four ranks; d_ff 12 in
 int4: W_down
 whole on four ranks, its scales re-blocked on two), equal to the JAX
-one-device engine's on every rank;
-each rank's weight bytes equal its serve blocks' and its caches the kv
-heads (or sequence block) its attention uses; at the default capacity
-factor, on traffic where capacity binds, the streams of the JAX engine on
-the same mesh shape (each data block of rows planned apart); one unified
-step's collective bytes by kind equal to ``predicted_collective_bytes(...,
-include_tp=True)`` per data block with the head gather apart; ``attn_decode_step_cp``
+one-device engine's on every rank, with the rows cut over "data" on
+(2, 2) (each rank serves its data block's row); three slots, which no
+data axis cuts, under the centralized schedule, every rank holding the
+whole batch and streaming as the port's one-device engine; a 13-page
+pool, each data block's 13 // G pages, streaming as the JAX one-device
+engine;
+each rank's weight bytes equal its serve blocks' and its caches its data
+block's rows or pages of the kv heads (or sequence block) its attention
+uses; at the default capacity factor, on traffic where capacity binds,
+the streams of the JAX engine on the same mesh shape (each data block of
+rows planned apart); one unified step's collective bytes by kind on each
+rank equal to ``predicted_collective_bytes(..., n_batch_shards=G,
+include_tp=True)`` with the head gather apart, and its logits the rank's
+rows of the one-device step's; an overcommitted serve (two slots a data
+block) whose every request ends once, each data block's allocator
+consistent and drained, the streams those of the same traffic served
+with whole lifetimes reserved; ``attn_decode_step_cp``
 within 1e-5 of JAX's (the int8 payload exact) and of the port's one-device
 ``attn_decode_step``; a deadline on rank 0's clock expiring the same
 request on every rank; ``psum`` the rank-order bfloat16 sum on every
@@ -134,10 +144,16 @@ def test_streams_equal_the_jax_one_device_engine(runs, mesh_name, case):
 @pytest.mark.parametrize("mesh_name", list(cases.MESHES))
 def test_ranks_hold_their_serve_blocks_and_caches(runs, mesh_name):
     """Each rank's weight bytes are its serve blocks' bytes from the specs
-    (``sharding.block_bytes``); its page pool and contiguous cache hold
-    the kv heads its q heads read, and the two-program engine's cache its
-    sequence block of every kv head."""
-    n_model = cases.MESHES[mesh_name][1]
+    (``sharding.block_bytes``); its page pool holds its data block's
+    ``num_pages / G`` pages and its contiguous cache its B / G rows (G = 2
+    on (2, 2), 1 on (1, 4)), of the kv heads its q heads read, and the
+    two-program engine's cache its rows' sequence block of every kv
+    head."""
+    shape = cases.MESHES[mesh_name]
+    n_model = shape[1]
+    b, c = cases.ENGINE["max_batch"], cases.ENGINE["max_cache"]
+    g = cases.data_blocks(_mesh(mesh_name, 0), b)
+    assert g == shape[0]
     for rank, rec in enumerate(runs[mesh_name]):
         mesh = _mesh(mesh_name, rank)
         for case, (arch, quant, mode, ep) in cases.engine_cases().items():
@@ -146,15 +162,66 @@ def test_ranks_hold_their_serve_blocks_and_caches(runs, mesh_name):
             assert got["weight_bytes"] == sharding.block_bytes(cfg, mesh)
             tp = transformer.serve_tp(cfg, mesh).attn
             hd, L = cfg.head_dim, cfg.num_layers
-            b, c = cases.ENGINE["max_batch"], cases.ENGINE["max_cache"]
             if mode == "paged":
-                want = (L, b * c // cases.ENGINE["page_size"],
+                want = (L, b * c // cases.ENGINE["page_size"] // g,
                         cases.ENGINE["page_size"], tp.hkv, hd)
             elif mode == "contiguous":
-                want = (L, b, c, tp.hkv, hd)
+                want = (L, b // g, c, tp.hkv, hd)
             else:
-                want = (L, b, c // n_model, cfg.num_kv_heads, hd)
+                want = (L, b // g, c // n_model, cfg.num_kv_heads, hd)
             assert got["cache_shape"] == want, (case, got["cache_shape"])
+
+
+def _one_device_streams(params: dict, mode: str) -> list:
+    """The port's one-device engine's greedy streams of ``cases.traffic``
+    over ``cases.UNCUT_ENGINE`` (three slots) in ``mode``."""
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = cases.port_config("moe", ep="centralized")
+    eng = ServingEngine(cfg, EngineConfig(**cases.UNCUT_ENGINE,
+                                          **cases.MODES[mode]),
+                        params=bridge.from_jax_params(params, cfg, "cpu"),
+                        device="cpu")
+    return cases._serve(eng)
+
+
+UNCUT_IDS = [(m, mode) for m in cases.MESHES for mode in cases.UNCUT_MODES]
+
+
+@pytest.mark.parametrize("mesh_name,mode", UNCUT_IDS,
+                         ids=[f"{m}-{mode}" for m, mode in UNCUT_IDS])
+def test_uncut_rows_serve_as_one_device(runs, mesh_name, mode):
+    """Three slots, which the data axes of neither mesh cut, under the
+    centralized schedule (whose one-token decode passes its result round
+    the "model" ranks by global rank): every rank holds the whole batch's
+    cache (the whole pool) and streams exactly as the port's one-device
+    engine on the same three slots."""
+    n_model = cases.MESHES[mesh_name][1]
+    want = _one_device_streams(runs["params"]["moe"], mode)
+    b, c = cases.UNCUT_ENGINE["max_batch"], cases.UNCUT_ENGINE["max_cache"]
+    ps = cases.UNCUT_ENGINE["page_size"]
+    for rank, rec in enumerate(runs[mesh_name]):
+        got = rec[f"uncut/{mode}"]
+        assert got["blocks"] == 1
+        assert got["cache_shape"][1] == (b * c // ps if mode == "paged"
+                                         else b), got["cache_shape"]
+        if mode == "reference":
+            assert got["cache_shape"][2] == c // n_model
+        assert got["streams"] == want, (rank, got["streams"], want)
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+def test_pool_the_data_blocks_do_not_divide(runs, mesh_name):
+    """A 13-page pool on a mesh whose rows are cut: each data block's pool
+    holds ``13 // G`` pages (the remainder unused), and every rank streams
+    as the JAX one-device engine."""
+    g = cases.data_blocks(_mesh(mesh_name, 0), cases.ENGINE["max_batch"])
+    key = cases.oracle_key("moe", "fp32", "paged")
+    want = [runs["oracle"][f"serve/{key}/{i}"].tolist()
+            for i in range(len(cases.traffic()))]
+    for rank, rec in enumerate(runs[mesh_name]):
+        got = rec["odd_pool"]
+        assert got["block_pages"] == got["pool_pages"] == 13 // g
+        assert got["streams"] == want, (rank, got["streams"], want)
 
 
 BINDING_IDS = [(m, ep) for m, eps in cases.BINDING_CASES.items()
@@ -187,24 +254,23 @@ def test_capacity_per_data_block_matches_jax_mesh_engine(runs, mesh_name,
 @pytest.mark.parametrize("ep", cases.SCHEDULES)
 def test_unified_step_bytes_equal_the_prediction(runs, mesh_name, ep):
     """One unified step's collective bytes on each rank, kind by kind,
-    equal G x ``predicted_collective_bytes(..., n_batch_shards=G,
+    equal ``predicted_collective_bytes(..., n_batch_shards=G,
     include_tp=True)`` (the embedding psum, the ``wo`` psums, the flat
-    k/v gathers and the schedule), G the data blocks of rows: every rank
-    runs the whole batch, and the schedule plans each block apart, as the
-    reference's per-shard program does; the head's vocabulary gather, the
-    aux pmeans and the layout step are booked apart.  The logits equal
-    the one-device step's."""
+    k/v gathers and the schedule), G the data blocks of rows: each rank
+    runs its block, as the reference's per-shard program does; the
+    head's vocabulary gather, the aux pmeans and the layout step are
+    booked apart.  Each rank's pool holds its block's pages, and its
+    logits are its rows of the one-device step's."""
     n_data, n_model = cases.MESHES[mesh_name]
     b, t = cases.BYTES_BLOCK
-    g = n_data if b % n_data == 0 else 1
+    g = cases.data_blocks(_mesh(mesh_name, 0), b)
     cfg = cases.port_config("moe", ep=ep)
-    want = {k: g * v for k, v in perf_model.predicted_collective_bytes(
+    want = perf_model.predicted_collective_bytes(
         cfg, batch=b, seq=t, n_exp_shards=n_model, n_batch_shards=g,
-        include_tp=True).items()}
+        include_tp=True)
     model = build_model(cfg, "cpu")
     params = bridge.from_jax_params(runs["params"]["moe"], cfg, "cpu")
     cache = model.init_paged_cache(8, 4)
-    rec0 = runs[mesh_name][0][f"bytes/{ep}"]
     tok = torch.from_numpy(np.random.default_rng(5).integers(
         0, 500, (b, t)).astype(np.int32))
     batch = {"tokens": tok, "lengths": torch.tensor([0, 3],
@@ -214,23 +280,30 @@ def test_unified_step_bytes_equal_the_prediction(runs, mesh_name, ep):
                                           dtype=torch.int32)}
     with torch.no_grad():
         one, _ = model.forward_routed(params, batch, cache, context_len=16)
-    for rec in (r[f"bytes/{ep}"] for r in runs[mesh_name]):
+    bl = b // g
+    recs = [r[f"bytes/{ep}"] for r in runs[mesh_name]]
+    for rank, rec in enumerate(recs):
         got = {k: v for k, v in rec["bytes"].items()
                if k not in (collectives.AUX, collectives.LAYOUT, HEAD)}
         assert got == {k: int(v) for k, v in want.items()}, (got, want)
-        assert rec["bytes"][HEAD] == b * cfg.vocab_padded // n_model * 4
-        np.testing.assert_array_equal(rec["logits"], rec0["logits"])
-        np.testing.assert_allclose(rec["logits"], one.numpy(), rtol=0,
-                                   atol=TOL_LOGITS)
+        assert rec["bytes"][HEAD] == bl * cfg.vocab_padded // n_model * 4
+        assert rec["pool_pages"] == 8 // g
+        rows = slice(rank // n_model * bl, (rank // n_model + 1) * bl)
+        # the same bits as the first rank of its data block
+        np.testing.assert_array_equal(
+            rec["logits"], recs[rank // n_model * n_model]["logits"])
+        np.testing.assert_allclose(rec["logits"], one.numpy()[rows],
+                                   rtol=0, atol=TOL_LOGITS)
 
 
 @pytest.mark.parametrize("mesh_name", list(cases.MESHES))
 @pytest.mark.parametrize("quant", list(cases.CP_CACHE))
 def test_cp_decode_matches_jax(runs, mesh_name, quant):
-    """``attn_decode_step_cp`` over each rank's sequence block: the output
-    within 1e-5 of JAX's on its (2, 2) mesh and of the port's one-device
-    ``attn_decode_step``; each rank's cache block equal to the same slots
-    of JAX's whole cache (an int8 payload exactly)."""
+    """``attn_decode_step_cp`` over each rank's sequence block of its
+    rows (B / 2 of them on (2, 2)): the output within 1e-5 of JAX's on its
+    (2, 2) mesh and of the port's one-device ``attn_decode_step`` on those
+    rows; each rank's cache block equal to the same rows and slots of
+    JAX's whole cache (an int8 payload exactly)."""
     _check_cp(runs, mesh_name, quant, "cp")
 
 
@@ -260,15 +333,21 @@ def _check_cp(runs, mesh_name: str, quant: str, name: str) -> None:
                 p, cfg, cache, torch.from_numpy(x),
                 torch.from_numpy(lengths), window).numpy())
     s_loc = cases.CP_LEN // n_model
+    b_loc = cases.CP_B // cases.data_blocks(_mesh(mesh_name, 0),
+                                            cases.CP_B)
     for rank, rec in enumerate(runs[mesh_name]):
         got = rec[f"{name}/{quant}"]
-        np.testing.assert_allclose(got["out"], ref[f"{name}/{quant}/out"],
+        rows = slice(*got["rows"])
+        assert rows == slice(rank // n_model * b_loc,
+                             (rank // n_model + 1) * b_loc)
+        np.testing.assert_allclose(got["out"],
+                                   ref[f"{name}/{quant}/out"][:, rows],
                                    rtol=0, atol=TOL_CP)
-        np.testing.assert_allclose(got["out"], np.stack(one), rtol=0,
-                                   atol=TOL_CP)
+        np.testing.assert_allclose(got["out"], np.stack(one)[:, rows],
+                                   rtol=0, atol=TOL_CP)
         blk = slice(rank % n_model * s_loc, (rank % n_model + 1) * s_loc)
         for k, v in got["cache"].items():
-            whole = ref[f"{name}/{quant}/cache/{k}"][:, blk]
+            whole = ref[f"{name}/{quant}/cache/{k}"][rows, blk]
             if v.dtype == np.int8:
                 np.testing.assert_array_equal(v, whole)
             else:
@@ -306,19 +385,56 @@ def test_deadline_expires_on_every_rank(runs, mesh_name):
 @pytest.mark.parametrize("mesh_name", list(cases.MESHES))
 def test_analysis_rules_on_every_rank(runs, mesh_name):
     """The analysis rules R2 (collective bytes, ``predicted_collective_bytes
-    (..., include_tp=True)`` per data block, the aux, layout and head kinds
-    booked apart) and R6 (no expert-weight all-gather) hold on every rank
-    for the unified engine's programs; on the paged step a planted
-    all-gather of one layer's expert weights fires R6 on every rank."""
-    n_model = cases.MESHES[mesh_name][1]
+    (..., n_batch_shards=G, include_tp=True)`` on each rank, the aux,
+    layout, head and row-gather kinds booked apart) and R6 (no
+    expert-weight all-gather) hold on every rank for the unified engine's
+    programs; the row gather moves each rank's rows' token, flag and
+    routing (L x T x K), int32, once a data axis (nothing on (1, 4)); on
+    the paged step a planted all-gather of one layer's expert weights
+    fires R6 on every rank."""
+    shape = cases.MESHES[mesh_name]
+    n_model = shape[1]
+    cfg = cases.port_config("moe")
+    b, t = 2, 4                     # programs.build_engine's block
+    g = cases.data_blocks(_mesh(mesh_name, 0), b)
+    rows = (b // g * (2 + cfg.num_layers * t * cfg.experts_per_token) * 4
+            if g > 1 else 0)
     for r, rank in enumerate(runs[mesh_name]):
         got = rank["analysis"]
         for v in cases.ANALYSIS_PROGRAMS:
             assert got["findings"][v] == [], (r, v, got["findings"][v])
             assert got["bytes"][v].get("all-reduce", 0) > 0, (r, v)
+            assert got["bytes"][v].get(collectives.ROWS, 0) == rows, (r, v)
         assert len(got["planted"]) == 1, (r, got["planted"])
         planted = got["planted"][0]
         assert planted["bytes"] == n_model * planted["threshold"]
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+def test_overcommitted_serve_per_data_block(runs, mesh_name):
+    """An overcommitted serve of five requests (two slots a data block on
+    (2, 2), each block's pool 6 pages; four slots over 12 on (1, 4)):
+    preemptions happen, every request ends once and done, no block's pages
+    in use pass its pool, each block's allocator is consistent and drained
+    once its prefix tree is cleared, and the streams are those of the
+    same traffic served with whole lifetimes reserved, alike on every
+    rank."""
+    recs = [r["overcommit"] for r in runs[mesh_name]]
+    g = cases.data_blocks(_mesh(mesh_name, 0),
+                          cases.OVERCOMMIT_ENGINE["max_batch"])
+    n = len(cases.overcommit_traffic())
+    for rec in recs:
+        for name in ("overcommit", "reserved"):
+            got = rec[name]
+            assert got["status"] == ["done"] * n, (name, got["status"])
+            assert got["ends"] == [1] * n, (name, got["ends"])
+            assert got["drained_consistent"] == [True] * g, name
+            assert got["block_pages"] == cases.OVERCOMMIT_ENGINE[
+                "num_pages"] // g
+            assert max(got["hwm"]) <= got["block_pages"]
+            assert got["streams"] == recs[0][name]["streams"]
+        assert rec["overcommit"]["preemptions"] > 0
+        assert rec["overcommit"]["streams"] == rec["reserved"]["streams"]
 
 
 @pytest.mark.parametrize("mesh_name", list(cases.MESHES))

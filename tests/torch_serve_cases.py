@@ -57,6 +57,38 @@ BINDING_SCHEDULES = ("decentralized", "a2a_pipelined")
 BINDING_CASES = {"2x2": BINDING_SCHEDULES, "1x4": ("decentralized",)}
 
 
+# one overcommitted serve on each mesh: five requests over four slots,
+# two a data block with a pool of 6 pages on (2, 2) (four slots over 12
+# pages on (1, 4)), growing lazily and preempting under pool pressure
+OVERCOMMIT_ENGINE = dict(ENGINE, max_batch=4, overcommit=True, num_pages=12)
+
+
+def overcommit_traffic() -> list:
+    """Five requests whose lifetimes overrun a data block's pool:
+    (prompt, max_new_tokens, priority)."""
+    rng = np.random.default_rng(3)
+    return [(rng.integers(0, 500, int(rng.integers(6, 12))), n, pr)
+            for n, pr in ((12, 0), (10, 0), (12, 5), (8, 0), (10, 5))]
+
+
+# the rows left whole on a mesh: three slots, which two data ranks do not
+# divide, so every rank runs the whole batch (as the reference does), over
+# the centralized schedule, whose one-token decode passes its result
+# round the "model" ranks (``ppermute``, by global rank)
+UNCUT_ENGINE = dict(ENGINE, max_batch=3)
+UNCUT_MODES = ("reference", "paged")
+# a pool that two data blocks do not divide: each block's is 13 // 2
+ODD_POOL_ENGINE = dict(ENGINE, paged=True, num_pages=13)
+
+
+def data_blocks(mesh, rows: int) -> int:
+    """The data blocks ``mesh`` cuts ``rows`` rows into (the port's one
+    rule, ``expert_parallel.batch_split``)."""
+    from repro_torch.core.expert_parallel import batch_split
+    from repro_torch.launch.mesh import axes_size
+    return axes_size(mesh, batch_split(mesh, rows))
+
+
 def engine_cases() -> dict:
     """name -> (arch, quant, mode, schedule) of the port's mesh serves."""
     out = {}
@@ -188,6 +220,22 @@ def _rank_cases(rank, world, store, shape, params_path) -> dict:
                                 "weight_bytes": eng.memory_stats()[
                                     "weight_bytes"],
                                 "cache_shape": tuple(eng.cache["k"].shape)}
+    for mode in UNCUT_MODES:
+        cfg = port_config("moe", ep="centralized")
+        params = bridge.from_jax_params(trees["moe"], cfg, "cpu", mesh=mesh,
+                                        mode="serve")
+        eng = ServingEngine(cfg, EngineConfig(**UNCUT_ENGINE, **MODES[mode]),
+                            params=params, device="cpu", mesh=mesh)
+        out[f"uncut/{mode}"] = {"streams": _serve(eng), "blocks": eng.blocks,
+                                "cache_shape": tuple(eng.cache["k"].shape)}
+    cfg = port_config("moe")
+    params = bridge.from_jax_params(trees["moe"], cfg, "cpu", mesh=mesh,
+                                    mode="serve")
+    eng = ServingEngine(cfg, EngineConfig(**ODD_POOL_ENGINE),
+                        params=params, device="cpu", mesh=mesh)
+    out["odd_pool"] = {"streams": _serve(eng),
+                       "pool_pages": eng.cache["k"].shape[1],
+                       "block_pages": eng.block_pages}
     # capacity per data block: the binding traffic
     from repro_torch.configs.base import get_config
     for ep in BINDING_CASES[next(m for m, sh in MESHES.items()
@@ -199,29 +247,34 @@ def _rank_cases(rank, world, store, shape, params_path) -> dict:
         eng = ServingEngine(cfg, EngineConfig(**BINDING_ENGINE),
                             params=params, device="cpu", mesh=mesh)
         out[f"binding/{ep}"] = _serve(eng, binding_traffic())
-    # one unified step's collective bytes, paged, both schedules
+    # one unified step's collective bytes, paged, both schedules; each
+    # row's block table holds page ids of its data block's pool
     b, t = BYTES_BLOCK
+    g = data_blocks(mesh, b)
     for ep in SCHEDULES:
         cfg = port_config("moe", ep=ep)
         params = bridge.from_jax_params(trees["moe"], cfg, "cpu", mesh=mesh,
                                         mode="serve")
         model = build_model(cfg, "cpu")
-        cache = model.init_paged_cache(8, 4, mesh)
+        cache = model.init_paged_cache(8 // g, 4, mesh)
         tok = torch.from_numpy(np.random.default_rng(5).integers(
             0, 500, (b, t)).astype(np.int32))
         batch = {"tokens": tok, "lengths": torch.tensor([0, 3],
                                                         dtype=torch.int32),
                  "seg_lens": torch.tensor([t, 2], dtype=torch.int32),
                  "block_tables": torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]],
-                                              dtype=torch.int32)}
+                                              dtype=torch.int32) % (8 // g)}
         mesh.reset_counters()
         with torch.no_grad():
             logits, _ = model.forward_routed(params, batch, cache,
                                              context_len=16, mesh=mesh)
         out[f"bytes/{ep}"] = {"bytes": dict(mesh.bytes),
-                              "logits": logits.numpy()}
+                              "logits": logits.numpy(),
+                              "pool_pages": cache["k"].shape[1]}
     # context-parallel decode of one layer against the one-device step,
-    # over a linear cache and over a ring
+    # over a linear cache and over a ring, on this rank's rows
+    from repro_torch.core.expert_parallel import batch_shard
+    rows = batch_shard(mesh, CP_B)[1]
     for (name, window), (quant, kv) in itertools.product(
             CP_WINDOWS.items(), CP_CACHE.items()):
         cfg = port_config("dense", kv_cache_dtype=kv)
@@ -236,13 +289,14 @@ def _rank_cases(rank, world, store, shape, params_path) -> dict:
         for x, lengths in cp_inputs(cfg.d_model, window is not None):
             with torch.no_grad():
                 y = attention.attn_decode_step_cp(
-                    p, cfg, cache, torch.from_numpy(x),
-                    torch.from_numpy(lengths), window, tp)
+                    p, cfg, cache, torch.from_numpy(x[rows]),
+                    torch.from_numpy(lengths[rows]), window, tp)
             outs.append(y.numpy())
         out[f"{name}/{quant}"] = {"out": np.stack(outs),
-                              "cache": {k: v.numpy()
-                                        for k, v in cache.items()},
-                              "bytes": dict(mesh.bytes)}
+                                  "rows": (rows.start, rows.stop),
+                                  "cache": {k: v.numpy()
+                                            for k, v in cache.items()},
+                                  "bytes": dict(mesh.bytes)}
     # a deadline on rank 0's clock expires the same request on every rank
     cfg = port_config("moe")
     params = bridge.from_jax_params(trees["moe"], cfg, "cpu", mesh=mesh,
@@ -266,9 +320,63 @@ def _rank_cases(rank, world, store, shape, params_path) -> dict:
                        "streams": [[int(t) for t in eng._all[u].generated]
                                    for u in uids],
                        "broadcast_bytes": mesh.bytes.get("broadcast", 0)}
+    out["overcommit"] = _overcommit(trees, mesh)
     out["analysis"] = _analysis(mesh)
     out["packed_mixed"] = _packed_mixed(rank, mesh)
     torch.distributed.destroy_process_group()
+    return out
+
+
+def _overcommit(trees, mesh) -> dict:
+    """``overcommit_traffic`` served with lazy growth and preemption, and
+    without overcommit (whole lifetimes reserved), on this rank: each
+    request's status and how many times it ended, the streams, each data
+    block's allocator check once drained, its high-water mark and the
+    preemptions."""
+    from repro_torch import bridge
+    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    cfg = port_config("moe")
+    params = bridge.from_jax_params(trees["moe"], cfg, "cpu", mesh=mesh,
+                                    mode="serve")
+    out = {}
+    for name, over in (("overcommit", True), ("reserved", False)):
+        eng = ServingEngine(cfg, EngineConfig(**dict(OVERCOMMIT_ENGINE,
+                                                     overcommit=over)),
+                            params=params, device="cpu", mesh=mesh)
+        ends = []
+        term, fin = eng._terminate_req, eng._finish_slot
+
+        def terminate(req, status, term=term):
+            ends.append(req.uid)
+            term(req, status)
+
+        def finish(i, fin=fin):
+            ends.append(eng.slots[i].uid)
+            fin(i)
+        eng._terminate_req, eng._finish_slot = terminate, finish
+        uids = [eng.submit(p, max_new_tokens=n, priority=pr)
+                for p, n, pr in overcommit_traffic()]
+        hwm = [0] * eng.blocks
+        while eng.queue or any(s is not None for s in eng.slots):
+            eng.step()
+            hwm = [max(h, a.pages_in_use)
+                   for h, a in zip(hwm, eng.allocators)]
+        eng.flush()
+        checks = []
+        for alloc, prefix in zip(eng.allocators, eng.prefixes):
+            prefix.clear()
+            try:
+                alloc.check_consistent()
+                checks.append(alloc.fully_free)
+            except AssertionError:
+                checks.append(False)
+        out[name] = {"status": [eng._all[u].status for u in uids],
+                     "ends": [ends.count(u) for u in uids],
+                     "streams": [[int(t) for t in eng._all[u].generated]
+                                 for u in uids],
+                     "drained_consistent": checks,
+                     "block_pages": eng.block_pages, "hwm": hwm,
+                     "preemptions": eng.stats["preemptions"]}
     return out
 
 

@@ -118,7 +118,7 @@ def main() -> int:
         cs.FULL_DBRX_PAGED = []
         cs.check_paged_attention(torch, results)
         cs.FFN_CASES = []
-        cs.MESH_FFN_CASES = cs.MESH_FFN_CASES[-3:]
+        cs.MESH_FFN_CASES = cs.MESH_FFN_CASES[-4:]
         cs.check_moe_ffn(torch, results)
         cs.check_serve_mesh(torch, {})
     if "train_mesh" in args.only:
@@ -169,6 +169,7 @@ def main() -> int:
         cs.PAGED_CASES = []
         cs.GQA_HEADS = []
         cs.FULL_DBRX_PAGED = []
+        cs.MESH_DATA_PAGED = []
         cs.check_paged_attention(torch, results)
         cs.FFN_CASES = [c for c in cs.FFN_CASES if c[0] == 4]
         cs.MESH_FFN_CASES = []
@@ -189,6 +190,7 @@ def main() -> int:
         cs.PAGED_CASES = []
         cs.REDUCED_PAGED = []
         cs.GQA_HEADS = [h for h in cs.GQA_HEADS if h == (64, 8, 128)]
+        cs.MESH_DATA_PAGED = []
         cs.check_paged_attention(torch, results)
         cs.QUANT_CASES = [c for c in cs.QUANT_CASES
                           if c[0] == 16 and c[4] == ("bfloat16",)]
