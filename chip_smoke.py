@@ -35,7 +35,15 @@ line):
                 ten query heads on one kv head at window 2048;
                 qwen2-vl-7b's G=7 at hd 128 and musicgen-large's MHA at hd
                 64; beside each case the time of PyTorch's
-                scaled_dot_product_attention).
+                scaled_dot_product_attention).  The widened geometry: each
+                attention kernel at phi-2's hd 80 and phi-3-mini's 96
+                (padded on the 128-wide instantiation; paged fp and int8 at
+                T 1 and 32, flash bf16 and fp32 at S 2048 and 37), paged
+                at hd 100 and 65 and flash at hd 100 (rows no 16-byte copy
+                or TMA map takes: narrower copies, and bf16 flash's
+                zero-padded staging copy, timed), and the three FFNs at
+                gpt-oss's D = F = 2880 (E 8, C 16 and 40) and at D 330,
+                F 201.
   4. reduced  — the reduced qwen3-moe config served by the port on the card
                 and on the CPU from the same weights: identical greedy
                 tokens, fp and quantized (int8 weights + int8 KV, int4
@@ -129,13 +137,19 @@ line):
                 fall, the step-0 loss equal to the kernel path's, peak
                 under 75 GB, granite's dead experts moved by decay alone,
                 the checkpoint restored bit for bit; step time, train
-                tokens/s, peak memory and a profile window over one step
-                with the optimizer's share.  Then C8's gate: granite
+                tokens/s, peak memory (beside the figure before the
+                trainer's expert FFN was blocked, TRAIN_PEAK_BEFORE) and a
+                profile window over one step with the optimizer's share.  Then C8's gate: granite
                 (bf16, 8 of 32 layers, B=4, S=2048) trained three steps
                 twice from one seed must give bitwise equal losses and
                 parameters, and one step under
                 use_deterministic_algorithms(True, warn_only=True) prints
-                the ops it warns about.
+                the ops it warns about.  Then C15's bound: one granite and
+                one DBRX MoE layer forward and backward with the expert
+                FFN a block of experts at a time against whole-stack fp32
+                copies (the blocked layer's peak must be the lower), and
+                where a granite step peaks (forward, backward, optimizer;
+                both forms).
   9. expert_parallel — the paper's expert-parallel schedules
                 (decentralized, centralized, a2a, a2a_pipelined) over 2,
                 then 4, spawned rank processes sharing the one card (gloo
@@ -161,8 +175,9 @@ line):
                 (``launch/sharding.py``: the embedding, attention heads,
                 dense MLP and LM head tensor-parallel over "model", the
                 experts under the schedules) through the paged engine.
-                The reduced qwen3-moe (fp32, decentralized and a2a) streams
-                as the one-device engine on the card; granite at full width
+                The reduced qwen3-moe (fp32, decentralized, a2a and
+                centralized) streams as the one-device engine on the card;
+                granite at full width
                 cut to 8 of 32 layers (2 and 4 ranks, decentralized and
                 a2a) and DBRX at
                 full width cut to 4 of 40 layers (4 ranks, decentralized),
@@ -171,7 +186,8 @@ line):
                 its own tokens (FORCED_SHARE_MAX), the paged and grouped-FFN
                 kernels launched on every rank at its local shapes, each
                 rank's weight bytes its serve blocks' and its bytes by kind
-                the performance model's; per rank tok/s, peak memory,
+                the performance model's, and no aux-loss mean in any serve's
+                bytes or collective ms; per rank tok/s, peak memory,
                 collective ms by kind and E[#experts per shard].
   11. train_mesh — training on a (2, 2) mesh of 4 spawned rank processes
                 on the one card, budget 150 s: the train layout
@@ -179,7 +195,7 @@ line):
                 experts' rows over "model"; each layer's weights gathered
                 for that layer, inside its remat, the gradients
                 reduce-scattered into the blocks).  Granite at full width
-                cut to 4 of 32 layers (fp32, B=4, S=2048, capacity factor
+                cut to 2 of 32 layers (fp32, B=4, S=2048, capacity factor
                 E_pad / K) takes 3 decentralized steps and 1 a2a step from
                 the seeded weights on ``Pipeline`` batches: each loss
                 within 2e-3 (rtol and atol, the reference's own check) of
@@ -267,9 +283,10 @@ line):
   Every paged serve through phase 5's ``serve_phase`` (phases 5, 5b, the
   granite, DBRX, stablelm-12b, qwen3-0.6b, qwen2-72b and deepseek-67b
   serves) holds its greedy streams to the forward of their own tokens
-  (``held_serve``: an MoE arch's traffic served again at capacity factor
-  8, where no token is dropped, phase 5's by phase 5c; int8 weights also
-  against the forward of their dequantized tree), under FORCED_SHARE_MAX.
+  (``held_serve``; int8 weights also against the forward of their
+  dequantized tree), under FORCED_SHARE_MAX, but for the MoE serves, whose
+  capacity can bind: phase 5's streams are held by phase 5c, granite's and
+  DBRX's by phases 10 and 16 at a capacity that never binds.
   Then the kernels line: one JSON object per ported kernel entry, and the
   last line: {"ok": true, "device": {...}}.
 
@@ -465,6 +482,28 @@ def ptxas_usage(reports: dict, mangled: str) -> dict:
     return out
 
 
+def ptxas_table(reports: dict) -> dict:
+    """Every kernel's registers and spill bytes from the build's
+    ``-Xptxas -v`` reports: mangled name -> "R regs, S spill stores, L
+    spill loads"."""
+    import re
+    out, fn = {}, None
+    for line in (ln for rep in reports.values() for ln in rep.splitlines()):
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if fn is not None and m:
+            out.setdefault(fn, {}).update(spill=f"{m.group(1)}/{m.group(2)}")
+        m = re.search(r"Used (\d+) registers", line)
+        if fn is not None and m:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+    return out
+
+
 def check_sass(counts) -> dict:
     """Hold each kernel of SASS_RULES to its rule; each must be found."""
     check(counts is not None, "no cuobjdump: tensor-core use unchecked")
@@ -566,6 +605,14 @@ PAGED_CASES = [(1, None, None, None, 128), (1, 64, None, None, 128),
                (1, None, (0, 1000, 2000, 4000), (1, 1, 1, 1), 128),
                (32, None, None, None, 64), (1, None, None, None, 96),
                (32, 64, None, None, 160), (32, None, None, None, 256)]
+# the widened geometry, any hd to 256 (kept apart, so that
+# ``tools/smoke_ab.py --no-geometry`` runs the rest on an older tree):
+# phi-2's hd 80 and phi-3-mini's 96 at T 1 and 32, and two head dims
+# whose pool rows no 16-byte copy can take (hd 100: 8-byte copies of bf16
+# rows, 4-byte of int8; hd 65: 2-byte and 1-byte plain loads)
+PAGED_GEOMETRY = [(32, None, None, None, 96), (1, None, None, None, 80),
+                  (32, None, None, None, 80), (32, None, None, None, 100),
+                  (32, None, None, None, 65)]
 # (Hq, Hkv, hd): granite's and DBRX's heads, groups of 3 and 6 query
 # heads, which no 16-row tile holds whole, stablelm-12b's (G=4 at hd 160,
 # padded to its variant's width) and qwen3-0.6b's (G=2), each at T 1 and
@@ -643,7 +690,8 @@ def check_paged_attention(torch, results):
         emit("kernels", **row)
         results.append(row)
 
-    cases = [(t, w, ln, sg, hd, 32, 4) for t, w, ln, sg, hd in PAGED_CASES]
+    cases = [(t, w, ln, sg, hd, 32, 4)
+             for t, w, ln, sg, hd in PAGED_CASES + PAGED_GEOMETRY]
     cases += [(t, None, None, None, hd, hq, hkv) for hq, hkv, hd in GQA_HEADS
               for t in (1, 32)]
     for int8 in (False, True):
@@ -725,6 +773,12 @@ FFN_CASES = [(128, 16, 2048, 768, 0), (128, 40, 2048, 768, 0),
              # granite's 24 local experts at C=4096, the second rank's
              # last 8 dead
              (24, 4096, 1536, 512, 8)]
+# the widened widths of the bf16 FFN (apart, as PAGED_GEOMETRY):
+# gpt-oss's (D = F = 2880: D off the 128-wide down tiles) at a serve's C
+# 16 and 40, and widths whose rows no 16-byte copy can take (D 330, F 201:
+# x and the weights staged with plain loads)
+FFN_GEOMETRY = [(8, 16, 2880, 2880, 0), (8, 40, 2880, 2880, 0),
+                (4, 16, 330, 201, 0)]
 # phase 9's per-rank shapes at B=1, S=2048 and capacity factor E_pad / K:
 # DBRX's 8 and 4 local experts and granite's 24 and 12 (the last rank's 8
 # router-dead) at C = 2048 (every schedule but a2a_pipelined, whose two
@@ -745,7 +799,7 @@ def check_moe_ffn(torch, results, dtypes=("float32", "bfloat16")):
     from repro_torch.kernels import cost, moe_gemm
     for dname in dtypes:
         dtype = getattr(torch, dname)
-        for e, c, d, f, dead in FFN_CASES + MESH_FFN_CASES:
+        for e, c, d, f, dead in FFN_CASES + MESH_FFN_CASES + FFN_GEOMETRY:
             if dtype == torch.float32 and (e, c, d, f,
                                            dead) in MESH_FFN_CASES:
                 continue
@@ -792,6 +846,12 @@ QUANT_CASES = [(128, 2048, 768, (16, 40), ("float32", "bfloat16")),
                # phase 9's quantized shards at 4 ranks: one local expert,
                # 256 slots of a (4, 16) block
                (1, 256, 512, (256,), ("float32",))]
+# the widened widths of the quantized bf16 FFN (apart, as
+# PAGED_GEOMETRY): gpt-oss's (2880 is 22.5 blocks of 128: the last block
+# padded with zero weights), and rows no 16-byte copy can take (D 330,
+# F 201)
+QUANT_GEOMETRY = [(8, 2880, 2880, (16, 40), ("float32", "bfloat16")),
+                  (4, 330, 201, (16,), ("bfloat16",))]
 
 
 def check_moe_ffn_quant(torch, results):
@@ -801,7 +861,7 @@ def check_moe_ffn_quant(torch, results):
     from repro_torch.core import quant
     from repro_torch.kernels import cost, moe_gemm
     for (e, d, f, caps, dtypes), (level, bits) in itertools.product(
-            QUANT_CASES, (("int8", 8), ("int4", 4))):
+            QUANT_CASES + QUANT_GEOMETRY, (("int8", 8), ("int4", 4))):
         g = torch.Generator(device="cuda").manual_seed(bits + e)
         mk = lambda shape, s: torch.randn(shape, generator=g,
                                           device="cuda") * s
@@ -892,6 +952,16 @@ FLASH_CASES = [(2, 2048, 32, 4, 128, True, None),
                (1, 2048, 28, 4, 128, True, None),
                (1, 2048, 32, 32, 64, True, None),
                (1, 4096, 5, 1, 256, True, 2048)]
+# the widened head dims of flash (apart, as PAGED_GEOMETRY):
+# phi-2's heads (MHA, hd 80) and phi-3-mini's (MHA, hd 96), on the
+# 128-wide instantiation, at a forward's B=2 S=2048 and one partial
+# tile; and an hd whose rows TMA cannot describe (100: bf16 runs on
+# zero-padded copies at 104)
+FLASH_GEOMETRY = [(2, 2048, 32, 32, 80, True, None),
+                  (2, 37, 32, 32, 80, True, None),
+                  (2, 2048, 32, 32, 96, True, None),
+                  (2, 37, 32, 32, 96, True, None),
+                  (2, 2048, 32, 32, 100, True, None)]
 
 
 def sdpa_call(torch, q, k, v, causal: bool, window):
@@ -918,7 +988,7 @@ def check_flash_attention(torch, results):
     FLASH_RMS_TOL in RMS).  k and v are views of one (B, S, 2 Hkv, hd)
     tensor, so the kernel reads them by strides."""
     from repro_torch.kernels import cost, flash_attn
-    for b, s, hq, hkv, hd, causal, window in FLASH_CASES:
+    for b, s, hq, hkv, hd, causal, window in FLASH_CASES + FLASH_GEOMETRY:
         for dtype in (torch.float32, torch.bfloat16):
             dname = str(dtype).split(".")[-1]
             g = torch.Generator(device="cuda").manual_seed(s + hd)
@@ -945,6 +1015,14 @@ def check_flash_attention(torch, results):
                        max_abs_err=err, max_rel_err=rel, rms_rel_err=rms,
                        kernel_ms=ms, plain_ms=plain_ms, bound_ms=bms,
                        bound_by=by)
+            hk = (flash_attn.staged_hd(dtype, hd)
+                  if hasattr(flash_attn, "staged_hd") else hd)
+            if hk != hd:
+                # the wrapper's zero-padded copies of q, k and v, part of
+                # kernel_ms
+                row.update(staged_hd=hk, staging_ms=time_ms(
+                    lambda: [flash_attn.pad_head_dim(t, hk)
+                             for t in (q, k, v)], 10))
             # the library's time beside every case (its error gated in
             # bf16; in fp32 printed: its kernel may round otherwise)
             run_l = sdpa_call(torch, q, k, v, causal, window)
@@ -1365,7 +1443,7 @@ def serve_phase(torch, cfg, phase: str, want: tuple, t_phase: float,
     peak = torch.cuda.max_memory_allocated()
     check(peak < 80e9, f"peak allocation {peak / 1e9:.2f} GB")
     t1 = time.perf_counter()
-    held = held_serve(torch, cfg, params, prompts, reqs, phase)
+    held = held_serve(torch, cfg, params, reqs, phase)
     held["seconds"] = time.perf_counter() - t1
     tp, tt, ms = eng.throughput(), eng.ttft(), eng.memory_stats()
     row = dict(arch=cfg.name, layers=cfg.num_layers, dtype=cfg.dtype,
@@ -1705,6 +1783,15 @@ TRAIN_SEED = 0
 # bf16 params and batch, relative
 TRAIN_KERNEL_LOSS_TOL = 1e-2
 TRAIN_PEAK_BYTES = 75e9
+# each full-width training's max_memory_allocated before the trainer's
+# expert FFN copied its weights to fp32 a block of experts at a time
+# (this script's run on NVIDIA H100 80GB HBM3, 700.00 W), printed beside this
+# run's.  Not gated: granite's step peaks in its backward outside the MoE
+# layer, at the same bytes with either FFN (``train_step_peaks``); the
+# blocked FFN's bound is gated on one layer (``check_train_ffn_peak``)
+TRAIN_PEAK_BEFORE = {"granite_moe_3b_a800m": 20011680256,
+                     "qwen3_0_6b": 16592459264,
+                     "recurrentgemma_2b": 28130055168}
 
 
 def check_train_reduced(torch) -> None:
@@ -1908,7 +1995,9 @@ def check_train_full(torch, arch: str, b: int, s: int, steps: int,
          losses=losses, grad_norms=gnorms, kernel_path_loss=kernel_loss,
          step0_vs_kernel_rel=abs(losses[0] - kernel_loss) / abs(kernel_loss),
          step_s=step_s, median_step_s=med, train_tok_per_s=b * s / med,
-         train_s=train_s, max_memory_allocated=peak, launches=launches,
+         train_s=train_s, max_memory_allocated=peak,
+         max_memory_allocated_before=TRAIN_PEAK_BEFORE.get(arch),
+         launches=launches,
          dead_experts_decay_only=dead_ok, ckpt_bytes=ckpt_bytes,
          ckpt_bit_exact=same, restore_s=restore_s,
          optimizer_device_ms=opt_ms,
@@ -2023,15 +2112,156 @@ def check_train_deterministic(torch) -> None:
          seconds=time.perf_counter() - t0, card=card())
 
 
+# C15 on the card: one MoE layer's forward and backward through the
+# trainer's expert FFN at full width (bf16; granite at phase 8's B=4,
+# S=2048, DBRX at B=1, S=2048), a block of experts at a time against the
+# whole-stack fp32 copies it replaced
+TRAIN_FFN_LAYERS = (("granite_moe_3b_a800m", 4, 2048), ("dbrx", 1, 2048))
+
+
+def _whole_copy_ffn(experts, xe, kernels=False):
+    """The form ``moe.expert_ffn(kernels=False)`` replaced: fp32 copies of
+    the three whole stacks, differentiated by autograd."""
+    import torch
+    import torch.nn.functional as F
+    xf = xe.float()
+    g = torch.bmm(xf, experts["w_gate"].float())
+    u = torch.bmm(xf, experts["w_up"].float())
+    h = (F.silu(g) * u).to(xe.dtype)
+    return torch.bmm(h.float(), experts["w_down"].float()).to(xe.dtype)
+
+
+def check_train_ffn_peak(torch) -> None:
+    """TRAIN_FFN_LAYERS: each layer's seeded weights and input (requiring
+    grad, as a trainer's activation does) through
+    ``expert_parallel.moe_layer(kernels=False)`` forward and backward,
+    once with the blocked expert FFN and once with the whole-copy form:
+    the peak of allocated bytes above the layer's own (its weights and
+    input), the time, and the largest gradient difference; the blocked
+    peak must be the lower."""
+    from repro_torch.core import expert_parallel, moe
+    t0 = time.perf_counter()
+    blocked = moe.expert_ffn
+    for arch, b, s in TRAIN_FFN_LAYERS:
+        cfg = full_config(arch, 1)
+        e, d, f = cfg.num_experts_padded, cfg.d_model, cfg.d_ff
+        g = torch.Generator("cuda").manual_seed(TRAIN_SEED)
+        mk = lambda shape, sc: (torch.randn(shape, generator=g,
+                                            device="cuda") * sc).to(
+            torch.bfloat16).requires_grad_()
+        layer = {"router": mk((d, e), d ** -0.5),
+                 "experts": {"w_gate": mk((e, d, f), d ** -0.5),
+                             "w_up": mk((e, d, f), d ** -0.5),
+                             "w_down": mk((e, f, d), f ** -0.5)}}
+        x = mk((b, s, d), 1.0)
+        leaves = [x, layer["router"], *layer["experts"].values()]
+        row = dict(arch=cfg.name, dtype="bfloat16", B=b, S=s, E=e, D=d, F=f,
+                   experts_per_block=moe.experts_per_block(d, f),
+                   stack_f32_bytes=3 * e * d * f * 4)
+        grads = {}
+        try:
+            for name, fn in (("blocked", blocked),
+                             ("whole_copy", _whole_copy_ffn)):
+                moe.expert_ffn = fn
+                for warm in (True, False):     # the second run measured
+                    for t in leaves:
+                        t.grad = None
+                    free_device(torch)
+                    base = torch.cuda.memory_allocated()
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    y, aux, _ = expert_parallel.moe_layer(cfg, layer, x,
+                                                          kernels=False)
+                    (y.float().square().mean() + aux).backward()
+                    torch.cuda.synchronize()
+                    del y, aux
+                row[f"{name}_s"] = time.perf_counter() - t1
+                row[f"{name}_peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                             - base)
+                grads[name] = [t.grad.clone() for t in leaves]
+        finally:
+            moe.expert_ffn = blocked
+        row["grad_max_abs_diff"] = max(
+            float((a.float() - c.float()).abs().max())
+            for a, c in zip(grads["blocked"], grads["whole_copy"]))
+        check(row["blocked_peak_bytes"] < row["whole_copy_peak_bytes"],
+              f"{arch}: the blocked expert FFN's layer peak "
+              f"{row['blocked_peak_bytes']} is not below the whole-copy "
+              f"form's {row['whole_copy_peak_bytes']}")
+        emit("train_ffn_peak", **row, card=card())
+        del layer, x, leaves, grads
+        free_device(torch)
+    emit("train_ffn_peak_phase", seconds=time.perf_counter() - t0)
+
+
+def train_step_peaks(torch) -> None:
+    """Where a granite training step (TRAIN_FULL[0]'s B, S and lr,
+    GRANITE_TRAIN_LAYERS layers, bf16, remat) peaks: the peak of
+    allocated bytes in its loss forward, its backward and its optimizer
+    update, each read apart, once with the blocked expert FFN and once
+    with the whole-copy form (one step each, from the same seeded
+    weights; the first step updates them in place)."""
+    from repro_torch import optim
+    from repro_torch.core import moe
+    from repro_torch.data.pipeline import Pipeline, PipelineConfig
+    from repro_torch.models.model import build_model
+    arch, b, s, _, lr = TRAIN_FULL[0]
+    cfg = full_config(arch, TRAIN_LAYERS.get(arch))
+    model = build_model(cfg, "cuda")
+    params = model.init(torch.Generator("cuda").manual_seed(TRAIN_SEED))
+    state = optim.init(params)
+    ocfg = optim.OptimizerConfig(lr=lr, total_steps=2, warmup_steps=1)
+    batch = {k: torch.as_tensor(v, device="cuda") for k, v in Pipeline(
+        PipelineConfig(seq_len=s, global_batch=b, vocab_size=cfg.vocab_size,
+                       seed=TRAIN_SEED)).next_batch().items()}
+    leaves = list(optim.adamw.tree_leaves(params))
+    blocked, row = moe.expert_ffn, {}
+    try:
+        for name, fn in (("blocked", blocked),
+                         ("whole_copy", _whole_copy_ffn)):
+            moe.expert_ffn = fn
+            free_device(torch)
+            peaks = {"resident": torch.cuda.memory_allocated()}
+            for p in leaves:
+                p.requires_grad_(True)
+            loss, _ = model.loss(params, batch, kernels=False)
+            torch.cuda.synchronize()
+            peaks["forward"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            loss.backward()
+            torch.cuda.synchronize()
+            peaks["backward"] = torch.cuda.max_memory_allocated()
+            grads = optim.adamw.tree_map(lambda p: p.grad, params)
+            for p in leaves:
+                p.requires_grad_(False)
+                p.grad = None
+            del loss
+            torch.cuda.reset_peak_memory_stats()
+            params, state, _ = optim.update(ocfg, grads, state, params)
+            torch.cuda.synchronize()
+            peaks["optimizer"] = torch.cuda.max_memory_allocated()
+            del grads
+            row[name] = peaks
+    finally:
+        moe.expert_ffn = blocked
+    emit("train_step_peaks", arch=cfg.name, layers=cfg.num_layers,
+         dtype=cfg.dtype, B=b, S=s, **row, card=card())
+    del params, state, leaves
+    free_device(torch)
+
+
 def check_train(torch, runs: dict) -> None:
     """Phase 8: the reduced archs trained on the card against the CPU,
     then granite-moe-3b-a800m and qwen3-0.6b trained at full width and
-    depth, then granite's determinism gate.  Fills ``runs``."""
+    depth, then granite's determinism gate and C15's layer peaks.  Fills
+    ``runs``."""
     t0 = time.perf_counter()
     check_train_reduced(torch)
     for arch, b, s, steps, lr in TRAIN_FULL:
         runs[f"{arch}_train"] = check_train_full(torch, arch, b, s, steps, lr)
     check_train_deterministic(torch)
+    check_train_ffn_peak(torch)
+    train_step_peaks(torch)
     emit("train_phase", seconds=time.perf_counter() - t0)
 
 
@@ -2203,35 +2433,24 @@ def dequantized(torch, params: dict) -> tuple:
     return dict(top, blocks=wrap(params["blocks"])), "layer_by_layer"
 
 
-# serves whose capacity-8 rerun phase 5c makes: it serves phase 5's
-# prompts on phase 5's weights at capacity factor 8 under both admissions
-# and holds every greedy stream to its forward
+# serves whose streams phase 5c holds: it serves phase 5's prompts on
+# phase 5's weights at capacity factor 8 under both admissions and holds
+# every greedy stream to its forward
 HELD_IN_5C = ("serve",)
 
 
-def held_serve(torch, cfg, params, prompts, reqs, phase: str) -> dict:
+def held_serve(torch, cfg, params, reqs, phase: str) -> dict:
     """``serve_phase``'s streams held to the forward of their own tokens
-    (``held_shares``).  Where the MoE capacity can bind, a serve drops
-    other tokens than any forward does, so the streams held are those of
-    the same traffic served again on the same weights at capacity factor
-    8 (a new engine; phase 5c's setting), and the phase's own streams are
-    counted against them; phase 5's are held in 5c (HELD_IN_5C)."""
-    from repro_torch.serving.engine import EngineConfig, ServingEngine
+    (``held_shares``): a dense arch's.  Where the MoE capacity can bind, a
+    serve drops other tokens than any forward does, so an MoE serve's
+    streams are not held here: phase 5's are held in 5c (HELD_IN_5C); the
+    other MoE serves' reruns at capacity factor 8 are cut for the run's
+    time, and granite's and DBRX's streams are held at a capacity that
+    never binds on a mesh (phase 10) and at full depth (DBRX, phase 16)."""
     if not cfg.is_moe:
         return held_shares(torch, cfg, params, reqs, phase)
-    if phase in HELD_IN_5C:
-        return {"held_in": "serve_resilience", "capacity_factor": 8.0}
-    wide = cfg.replace(capacity_factor=8.0)
-    eng = ServingEngine(wide, EngineConfig(**SERVE_ENGINE), params=params,
-                        device="cuda")
-    wide_reqs = serve_requests(eng, prompts, 16)
-    del eng
-    out = held_shares(torch, wide, params, wide_reqs, phase)
-    out["capacity_factor"] = 8.0
-    out["streams_equal_to_the_phase"] = sum(
-        list(a.generated) == list(b.generated)
-        for a, b in zip(reqs, wide_reqs))
-    return out
+    return {"held_in": "serve_resilience" if phase in HELD_IN_5C else None,
+            "capacity_factor": cfg.capacity_factor}
 
 
 def held_shares(torch, cfg, params, reqs, phase: str) -> dict:
@@ -2487,7 +2706,7 @@ def a2a_arithmetic(n: int, m: int):
     layer = expert_parallel.moe_layer
 
     def blockwise(cfg, layer_p, x, token_mask=None, mesh=None, kernels=True,
-                  batch_axes=None):
+                  batch_axes=None, aux=True):
         b, s, d = x.shape
         check(b == 1 and token_mask is None and mesh is None,
               "a2a_arithmetic models one row, no mask, one device")
@@ -2513,7 +2732,8 @@ def a2a_arithmetic(n: int, m: int):
                                     top_w[c:c + tc].to(y_tk.dtype),
                                     y_tk[c:c + tc])
                        for c in range(0, s, tc)])
-        return y.reshape(1, s, d), routs[0].aux_loss, top_idx
+        return (y.reshape(1, s, d), routs[0].aux_loss if aux else None,
+                top_idx)
     expert_parallel.moe_layer = blockwise
     try:
         yield
@@ -3040,7 +3260,7 @@ SM_SEED = 0
 SM_BUDGET_S = 150.0
 SM_TIMEOUT_S = 600
 SM_CF = 8.0                      # capacity never binds: 5c's setting
-SM_REDUCED_SCHEDULES = ("decentralized", "a2a")
+SM_REDUCED_SCHEDULES = ("decentralized", "a2a", "centralized")
 SM_REDUCED_ENGINE = dict(max_batch=2, max_cache=48, chunk_len=8,
                          page_size=4)
 # arch -> (layers, rank counts, schedules) at full width, bf16, paged,
@@ -3239,10 +3459,12 @@ def sm_rank_work(rank: int, world: int, store: str, go) -> dict:
                                 device="cuda").manual_seed(SM_SEED),
                             device="cuda", mesh=mesh)
         ops.reset_launch_counts()
+        mesh.reset_counters()
         out["reduced"][sched] = {
             "streams": [[int(t) for t in g] for g in serve(
                 eng, sm_reduced_prompts(cfg.vocab_size), 4)],
-            "launches": ops.launch_counts()}
+            "launches": ops.launch_counts(), "bytes": dict(mesh.bytes),
+            "collective_ms": {k: v * 1e3 for k, v in mesh.seconds.items()}}
     out["reduced_s"] = time.perf_counter() - t0
     for arch, (layers, ranks, scheds) in SM_FULL.items():
         if world not in ranks:
@@ -3391,10 +3613,20 @@ def sm_record(ranks: list, want: dict, runs: dict, full: dict,
     """Phase 10's gates on one group's results, and its rows: the reduced
     streams against the one-device engine's ``want``; each full case's
     streams identical on every rank, bytes and weight bytes as predicted,
-    the kernels launched on every rank.  Adds the group's launches to
-    ``runs`` and rank 0's rows to ``full`` (arch -> case/ranks -> row).
-    ``seconds``: the group's run, from its start to its last result."""
+    the kernels launched on every rank; no serve, reduced or full, under
+    any schedule, takes a mean of the aux loss (``collectives.AUX`` in
+    neither its bytes nor its collective time).  Adds the group's
+    launches to ``runs`` and rank 0's rows to ``full`` (arch -> case/ranks
+    -> row).  ``seconds``: the group's run, from its start to its last
+    result."""
+    from repro_torch.core import collectives
     n = len(ranks)
+
+    def no_aux(row, what):
+        check(collectives.AUX not in row["bytes"]
+              and collectives.AUX not in row["collective_ms"],
+              f"phase 10 {what}: the serve took an aux mean: bytes "
+              f"{row['bytes']}, ms {row['collective_ms']}")
     for sched in SM_REDUCED_SCHEDULES:
         for r, res in enumerate(ranks):
             got = res["reduced"][sched]
@@ -3405,6 +3637,13 @@ def sm_record(ranks: list, want: dict, runs: dict, full: dict,
             check_path_kernels(got["launches"],
                                ("moe_ffn", "paged_attention"),
                                f"serve_mesh reduced rank {r}")
+            no_aux(got, f"reduced {sched} rank {r} of {n}")
+    emit("serve_mesh_reduced", ranks=n, schedules=SM_REDUCED_SCHEDULES,
+         bytes_rank0={sched: ranks[0]["reduced"][sched]["bytes"]
+                      for sched in SM_REDUCED_SCHEDULES},
+         collective_ms_rank0={
+             sched: ranks[0]["reduced"][sched]["collective_ms"]
+             for sched in SM_REDUCED_SCHEDULES}, card=dev)
     runs[f"sm_reduced_{n}"] = _summed(
         [res["reduced"][s]["launches"] for res in ranks
          for s in SM_REDUCED_SCHEDULES])
@@ -3414,6 +3653,7 @@ def sm_record(ranks: list, want: dict, runs: dict, full: dict,
             check(row["streams"] == rows[0]["streams"],
                   f"phase 10 {case}: rank {r} of {n} streamed "
                   f"otherwise than rank 0")
+            no_aux(row, f"{case} rank {r} of {n}")
             check(row["bytes_as_predicted"],
                   f"phase 10 {case} rank {r}: bytes {row['bytes']} "
                   f"!= predicted {row['bytes_predicted']}")
@@ -3476,7 +3716,7 @@ def sm_record(ranks: list, want: dict, runs: dict, full: dict,
 
 TM_MESH = (2, 2)                 # (data, model): FSDP over data, EP over model
 TM_ARCH = "granite_moe_3b_a800m"
-TM_LAYERS = 4                    # of 32: the phase's budget
+TM_LAYERS = 2                    # of 32: the run's time
 TM_B, TM_S = 4, 2048
 # the mesh steps' schedules, in order (the params and moments keep their
 # train blocks across the switch: the layout does not depend on it)
@@ -5054,7 +5294,9 @@ def main() -> int:
              if "registers" in line or "spill" in line]
     counts = sass_mma_counts(path)
     emit("build", seconds=info["seconds"], cached=info["cached"],
-         library=path.name, ptxas=ptxas, tensor_core_instructions=counts,
+         library=path.name, ptxas=ptxas,
+         ptxas_by_kernel=ptxas_table(info["ptxas"]),
+         tensor_core_instructions=counts,
          sass_rules_held=check_sass(counts),
          # the hd-256 bf16 flash instantiation: its registers and spills
          # (the aim is none; printed, not gated; a cached library has no

@@ -190,7 +190,8 @@ def _route(cfg, layer_p, x2d, valid, mesh=None) -> router_lib.RouterOut:
 
 def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
               token_mask: torch.Tensor | None = None, mesh=None,
-              kernels: bool = True, batch_axes: tuple | None = None):
+              kernels: bool = True, batch_axes: tuple | None = None,
+              aux: bool = True):
     """x: (B, S, D) -> (y (B, S, D), aux_loss (), top_idx (B*S, K)).
 
     ``layer_p``: {"router": (D, E_pad), "experts": {"w_gate": (E_pad, D, F),
@@ -206,7 +207,10 @@ def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
     sequence, and ``aux`` the global aux loss.  ``top_idx`` is the
     pre-stripe routing decision with r > 1.  The rank's block is planned
     with its own capacity (and its own replica stripes and pipeline
-    chunks), as the reference's ``shard_map`` plans each device's block."""
+    chunks), as the reference's ``shard_map`` plans each device's block.
+
+    ``aux=False`` (the serving paths, which drop the aux loss): no
+    schedule takes its mean over the mesh, and ``aux_loss`` is None."""
     b, s, d = x.shape
     k = cfg.experts_per_token
     r = max(cfg.expert_replication, 1)
@@ -227,7 +231,8 @@ def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
         cap = moe_lib.round_capacity(b * s, k, cfg.num_experts_padded,
                                      cfg.capacity_factor)
         y = _local_moe(cfg, experts, x2d, rout, 0, cap, kernels)
-        return y.reshape(b, s, d), rout.aux_loss, rout.top_idx
+        return (y.reshape(b, s, d), rout.aux_loss if aux else None,
+                rout.top_idx)
 
     n_exp_shards = mesh.shape[EXPERT_AXIS]
     if r > 1:
@@ -247,13 +252,20 @@ def moe_layer(cfg, layer_p: dict, x: torch.Tensor,
         batch_axes = mesh_batch_axes(mesh)
     if token_mask is None:
         token_mask = torch.ones((b, s), dtype=torch.bool, device=x.device)
+    # each schedule returns (y, its router output, the axes its aux-loss
+    # mean runs over, top_idx)
     fn = {"decentralized": _decentralized, "centralized": _centralized,
           "a2a": _a2a, "a2a_pipelined": _a2a_pipelined}[cfg.expert_parallel]
-    y, aux, top_idx = fn(cfg, mesh, layer_p, x, token_mask,
-                         tuple(batch_axes), n_exp_shards, e_local, kernels)
+    y, rout, aux_axes, top_idx = fn(cfg, mesh, layer_p, x, token_mask,
+                                    tuple(batch_axes), n_exp_shards,
+                                    e_local, kernels)
+    aux_loss = None
+    if aux:
+        aux_loss = (collectives.pmean(rout.aux_loss, mesh, aux_axes)
+                    if aux_axes else rout.aux_loss)
     if y.shape[1] != s:
         y, top_idx = _unshard_seq(mesh, y, top_idx)
-    return y, aux, top_idx.reshape(b * s, k)
+    return y, aux_loss, top_idx.reshape(b * s, k)
 
 
 def _unshard_seq(mesh, y: torch.Tensor, top_idx: torch.Tensor):
@@ -318,9 +330,7 @@ def _decentralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
         e_start = idx * e_local
     y = _local_moe(cfg, layer_p["experts"], x2d, rout, e_start, cap, kernels)
     y = collectives.psum(y, mesh, EXPERT_AXIS)
-    aux = (collectives.pmean(rout.aux_loss, mesh, batch_axes) if batch_axes
-           else rout.aux_loss)
-    return (y.reshape(bl, sl, d), aux,
+    return (y.reshape(bl, sl, d), rout, batch_axes,
             routed.reshape(bl, sl, cfg.experts_per_token))
 
 
@@ -350,11 +360,9 @@ def _centralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
         # comm 2: reduce the partial sums, scatter back to sequence shards
         y = collectives.psum_scatter(y.reshape(bl, s, d), mesh, EXPERT_AXIS,
                                      dim=1)
-        aux = collectives.pmean(rout.aux_loss, mesh,
-                                (EXPERT_AXIS,) + batch_axes)
         # every shard routed the whole gathered block: keep its own slice
         ti = _seq_block(mesh, rout.top_idx.reshape(bl, s, k), n_shards)
-        return y, aux, ti
+        return y, rout, (EXPERT_AXIS,) + batch_axes, ti
 
     # decode fallback: psum (comm 1) + value-preserving ring permute (comm 2)
     x2d = x.reshape(bl * s, d)
@@ -365,9 +373,7 @@ def _centralized(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
     y = collectives.psum(y, mesh, EXPERT_AXIS)
     perm = [(i, (i + 1) % n_shards) for i in range(n_shards)]
     y = collectives.ppermute(y, mesh, EXPERT_AXIS, perm)  # identical values
-    aux = (collectives.pmean(rout.aux_loss, mesh, batch_axes) if batch_axes
-           else rout.aux_loss)
-    return y.reshape(bl, s, d), aux, top_idx.reshape(bl, s, k)
+    return y.reshape(bl, s, d), rout, batch_axes, top_idx.reshape(bl, s, k)
 
 
 # ---------------------------------------------------------------------------
@@ -427,8 +433,7 @@ def _a2a(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards, e_local,
                                 e_local, cap)
     y = _a2a_ffn_combine(cfg, mesh, layer_p["experts"], xe, slot_of,
                          rout.top_w, n_shards, e_local, cap, kernels)
-    aux = collectives.pmean(rout.aux_loss, mesh, (EXPERT_AXIS,) + batch_axes)
-    return (y.reshape(bl, s // n_shards, d), aux,
+    return (y.reshape(bl, s // n_shards, d), rout, (EXPERT_AXIS,) + batch_axes,
             rout.top_idx.reshape(bl, s // n_shards, cfg.experts_per_token))
 
 
@@ -480,6 +485,5 @@ def _a2a_pipelined(cfg, mesh, layer_p, x, token_mask, batch_axes, n_shards,
                                    so_i, wc[i], n_shards, e_local, cap,
                                    kernels))       # compute for chunk i
     y = torch.cat(ys, dim=0)
-    aux = collectives.pmean(rout.aux_loss, mesh, (EXPERT_AXIS,) + batch_axes)
-    return (y.reshape(bl, s // n_shards, d), aux,
+    return (y.reshape(bl, s // n_shards, d), rout, (EXPERT_AXIS,) + batch_axes,
             rout.top_idx.reshape(bl, s // n_shards, k))

@@ -11,9 +11,9 @@
 ``expert_ffn`` goes through ``kernels/ops.moe_ffn`` (the grouped expert
 FFN kernel on a CUDA tensor, its plain version on a CPU tensor, for raw or
 QuantTensor expert weights alike), or with ``kernels=False`` through the
-reference's jnp branch in torch ops, which autograd differentiates: the
-trainer's path (``launch/train.py``), as the reference trains with
-``use_kernel=False``.
+reference's jnp branch in torch ops, a block of experts at a time
+(``_ExpertFFN``, with its own backward): the trainer's path
+(``launch/train.py``), as the reference trains with ``use_kernel=False``.
 Out-of-range indices are clamped or routed to a spare buffer row
 explicitly (JAX clamps gathers and drops scatters silently).
 """
@@ -35,23 +35,109 @@ def round_capacity(tokens: int, k: int, num_experts: int,
     return max(multiple, math.ceil(raw / multiple) * multiple)
 
 
+# the trainer's expert FFN copies its weights to fp32 a block of experts
+# at a time: as many experts as hold their three matrices in this many
+# fp32 bytes (at least one).  Granite's 48 experts at D 1536, F 512 go 7
+# at a time (66.1 MB of copies, of 453.0 MB for the stack), DBRX's
+# 6144 x 10752 experts one at a time (793 MB, of 12.68 GB)
+FFN_BLOCK_BYTES = 1 << 26
+
+
+def experts_per_block(d: int, f: int) -> int:
+    """Experts a block of ``_ExpertFFN`` holds at widths D and F."""
+    return max(1, FFN_BLOCK_BYTES // (3 * d * f * 4))
+
+
+def _blocks(e: int, d: int, f: int):
+    step = experts_per_block(d, f)
+    return [slice(e0, min(e0 + step, e)) for e0 in range(0, e, step)]
+
+
+def _f32(w, rows: slice) -> torch.Tensor:
+    """An fp32 copy of experts ``rows`` of a stack (a QuantTensor's
+    dequantized to its own dtype first, ``_selected``)."""
+    return _selected(w, rows).float()
+
+
+class _ExpertFFN(torch.autograd.Function):
+    """The reference's jnp branch of the grouped SwiGLU FFN (g = x Wg and
+    u = x Wu as fp32 products of fp32 copies, h = silu(g) u rounded to
+    x's dtype, y = h Wd in fp32 rounded to x's dtype), computed a block of
+    experts at a time (``experts_per_block``), so no fp32 copy of a whole
+    stack is made.  The forward saves the inputs in their own dtypes,
+    never a copy; the backward copies each block again, recomputes its g,
+    u and h, and writes the gradients of the block's weights in the
+    weights' dtype, which is the gradient autograd takes through the
+    reference's convert and fp32 dot: fp32, cast once.  A QuantTensor
+    stack is dequantized a block at a time and has no gradient.  Every
+    product is a ``bmm``, so the gradients come out the same from run to
+    run."""
+
+    @staticmethod
+    def forward(ctx, xe, w_gate, w_up, w_down):
+        ws = (w_gate, w_up, w_down)
+        ctx.quant = tuple(w if isinstance(w, quant.QuantTensor) else None
+                          for w in ws)
+        ctx.save_for_backward(xe, *(None if q is not None else w
+                                    for w, q in zip(ws, ctx.quant)))
+        y = torch.empty_like(xe)
+        e, _, d = xe.shape
+        for rows in _blocks(e, d, w_gate.shape[-1]):
+            xf = xe[rows].float()
+            g = torch.bmm(xf, _f32(w_gate, rows))
+            u = torch.bmm(xf, _f32(w_up, rows))
+            h = (F.silu(g) * u).to(xe.dtype)
+            y[rows] = torch.bmm(h.float(), _f32(w_down, rows)).to(xe.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        xe, *saved = ctx.saved_tensors
+        wg, wu, wd = (q if q is not None else w
+                      for q, w in zip(ctx.quant, saved))
+        need = [ctx.needs_input_grad[i] and (i == 0 or ctx.quant[i - 1]
+                                             is None) for i in range(4)]
+        grads = [torch.empty_like(t) if n else None
+                 for t, n in zip((xe, wg, wu, wd), need)]
+        gx, gwg, gwu, gwd = grads
+        e, _, d = xe.shape
+        for rows in _blocks(e, d, wg.shape[-1]):
+            xf = xe[rows].float()
+            wgf, wuf, wdf = (_f32(w, rows) for w in (wg, wu, wd))
+            g, u = torch.bmm(xf, wgf), torch.bmm(xf, wuf)
+            s = F.silu(g)
+            gyf = gy[rows].float()
+            if gwd is not None:
+                h = (s * u).to(xe.dtype).float()
+                gwd[rows] = torch.bmm(h.transpose(1, 2), gyf).to(gwd.dtype)
+            # dh through h's rounding to x's dtype, as autograd takes it
+            gh = torch.bmm(gyf, wdf.transpose(1, 2)).to(xe.dtype).float()
+            gu = gh * s
+            gg = torch.ops.aten.silu_backward(gh * u, g)
+            if gwg is not None:
+                gwg[rows] = torch.bmm(xf.transpose(1, 2), gg).to(gwg.dtype)
+            if gwu is not None:
+                gwu[rows] = torch.bmm(xf.transpose(1, 2), gu).to(gwu.dtype)
+            if gx is not None:
+                gx[rows] = (torch.bmm(gg, wgf.transpose(1, 2))
+                            + torch.bmm(gu, wuf.transpose(1, 2))).to(gx.dtype)
+        return gx, gwg, gwu, gwd
+
+
 def expert_ffn(experts: dict, xe: torch.Tensor,
                kernels: bool = True) -> torch.Tensor:
     """Grouped SwiGLU FFN. xe: (E_local, C, D) -> (E_local, C, D).
 
-    ``kernels=False`` runs the reference's jnp branch: the products on fp32
-    copies of the operands (``qdot`` with fp32 outputs; a QuantTensor is
-    dequantized to its own dtype first), h rounded to xe's dtype, the
-    result in xe's dtype.  It reaches nothing in ``kernels/``."""
+    ``kernels=False`` runs the reference's jnp branch (``_ExpertFFN``: the
+    products on fp32 copies of the operands, a block of experts at a time;
+    a QuantTensor is dequantized to its own dtype first), h rounded to
+    xe's dtype, the result in xe's dtype.  It reaches nothing in
+    ``kernels/``."""
     if kernels:
         return ops.moe_ffn(xe, experts["w_gate"], experts["w_up"],
                            experts["w_down"])
-    w = lambda name: quant.materialize(experts[name]).float()
-    xf = xe.float()
-    g = torch.bmm(xf, w("w_gate"))
-    u = torch.bmm(xf, w("w_up"))
-    h = (F.silu(g) * u).to(xe.dtype)
-    return torch.bmm(h.float(), w("w_down")).to(xe.dtype)
+    return _ExpertFFN.apply(xe, experts["w_gate"], experts["w_up"],
+                            experts["w_down"])
 
 
 def dense_moe(experts: dict, x: torch.Tensor, top_idx: torch.Tensor,

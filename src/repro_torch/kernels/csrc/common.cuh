@@ -70,3 +70,10 @@ __device__ __forceinline__ void load16<__nv_bfloat16>(const __nv_bfloat16* p,
     }
   }
 }
+
+// The row stride of the bf16 FFN kernels' h scratch (E, C, stride): F
+// rounded up to 8, so every row starts 16-byte aligned
+// (kernels/moe_gemm.py::h_scratch_spec allocates it).
+__host__ __device__ __forceinline__ int ffn_h_stride(int F) {
+  return (F + 7) / 8 * 8;
+}

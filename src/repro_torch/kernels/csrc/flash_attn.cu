@@ -38,17 +38,22 @@
 // is applied only on tiles that need it: the diagonal, the window's edge
 // and the ragged end.
 //
-// Head dims 64, 128, 160 (stablelm-12b) and 256 (recurrentgemma-2b's local
-// attention: 10 query heads on one kv head, so 64 grouped rows hold 6.4
-// positions and a position's group can straddle two blocks).  hd 160 is not
-// a whole number
-// of the 64-dim rows of the swizzled tiles, so bf16 stages K and V as
-// three 64-dim boxes (192 dims) whose last 32 dims TMA fills with zeros
-// (past the tensor map's hd); S = Q K^T reads only the first 160 (10
-// 16-wide steps, Q needs no padding), and O += P V runs at N = 192
-// (m64n192k16: an MN-major operand of 128-byte swizzle covers N in whole
-// 64-wide atoms), whose last 32 columns are exact zeros and never written.
-// Its 96 O registers and 120 KB ring hold it to one block an SM.
+// Any head dim hd from 1 to 256 runs on the smallest of four
+// instantiations W = 64, 128, 192 and 256 that covers it (recurrentgemma-
+// 2b's local attention is hd 256: 10 query heads on one kv head, so 64
+// grouped rows hold 6.4 positions and a position's group can straddle two
+// blocks; stablelm-12b's hd 160, phi-2's 80 and phi-3-mini's 96 run
+// padded).  The kernel reads hd at run time: dims past hd are zero in the
+// staged Q, K and V (K and V as W / 64 boxes of 64 dims whose dims past
+// the tensor map's hd TMA fills with zeros), so they add exact zeros to
+// Q K^T, give exact-zero columns of O that are never written, and the
+// softmax scale (hd^-0.5, the caller's) and the output's row stride use the
+// true hd.  bf16's TMA maps need hd * 2 bytes a multiple of 16: for an hd
+// that is not a multiple of 8 the wrapper stages zero-padded copies of q,
+// k and v at the next multiple of 8 (kernels/flash_attn.py).  W = 192 runs
+// O += P V at N = 192 (m64n192k16: an MN-major operand of 128-byte swizzle
+// covers N in whole 64-wide atoms); its 96 O and 48 Q registers a thread
+// and 120 KB ring hold it to one block an SM.
 // hd 256's O accumulator (m64n256) is 128 fp32 registers a thread; with Q
 // in registers too (64 more) the S and P fragments would not fit the 255 a
 // thread may have, so hd 256 stages the block's Q once in a 32 KB swizzled
@@ -57,14 +62,15 @@
 // K/V ring that is 193 KB of shared memory, one block an SM.
 //
 // fp32 stays on the CUDA cores (flash_attention_f32): the port holds fp32
-// to 2e-5, which TF32 cannot meet.  q (once) and each K tile are staged
-// transposed in shared memory as fp32 ([hd][64 + 4]), V as [64][hd]; 256
-// threads form a 16 x 16 grid, each owning a 4 x 4 tile of logits and a
-// 4 x hd/16 tile of the accumulator (dims c*64 + 4 tx..+3 for each whole
-// 64 dims, then 2 tx..+1 of a 32-dim tail); row max and row sum are
-// reduced with warp shuffles.  At hd 256 the staged tiles take
-// 256*68*2 + 64*256 + 64*68 = 55,552 floats (222,208 bytes) of the 232,448
-// a block may have: one block an SM.
+// to 2e-5, which TF32 cannot meet.  It reads element by element, so any hd
+// runs on the same four widths W with no staging.  q (once) and each K
+// tile are staged transposed in shared memory as fp32 ([W][64 + 4]), V as
+// [64][W], dims past hd zero; 256 threads form a 16 x 16 grid, each owning
+// a 4 x 4 tile of logits and a 4 x W/16 tile of the accumulator (dims
+// c*64 + 4 tx..+3 for each 64 dims); row max and row sum are reduced with
+// warp shuffles.  At W 256 the staged tiles take 256*68*2 + 64*256 + 64*68
+// = 55,552 floats (222,208 bytes) of the 232,448 a block may have: one
+// block an SM.
 //
 // Rounding follows the reference (_kernel): logits are an fp32 dot times
 // hd^-0.5, masked logits are -1e30, p = exp(logit - m_new) with masked p
@@ -91,18 +97,17 @@ struct Strides {
   long long q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h;
 };
 
+// hd: the true head dim (<= the instantiation's width W, the template's
+// HD); scale: hd^-0.5
 struct Geometry {
-  int S, Hq, Hkv, causal, window;
+  int S, Hq, Hkv, hd, causal, window;
   float scale;
 };
 
-// Accumulator column c of thread tx (of kDims = HD / 16): float4 groups
-// over each whole 64 dims, then float2 pairs over a 32-dim tail.
-template <int HD>
+// Accumulator column c of thread tx (of kDims = HD / 16): float4 groups,
+// 4 tx..4 tx+3 of each 64 dims.
 __device__ __forceinline__ int acc_dim(int c, int tx) {
-  constexpr int kWhole = HD / 64 * 4;
-  return c < kWhole ? (c >> 2) * 64 + tx * 4 + (c & 3)
-                    : HD / 64 * 64 + tx * 2 + (c - kWhole);
+  return (c >> 2) * 64 + tx * 4 + (c & 3);
 }
 
 template <int HD>
@@ -121,7 +126,7 @@ __global__ void __launch_bounds__(kThreads)
                       const T* __restrict__ v, T* __restrict__ out,
                       Strides st, Geometry geo) {
   constexpr int kDims = HD / 16;   // accumulator columns per thread
-  static_assert(HD % 64 == 0 || HD % 64 == 32, "hd: whole 64s + 0 or 32");
+  static_assert(HD % 64 == 0, "the instantiation: whole 64s");
   extern __shared__ __align__(16) float sm[];
   float* qs = sm;                  // [HD][kLd]   q^T
   float* ks = qs + HD * kLd;       // [HD][kLd]   K^T
@@ -142,7 +147,7 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = tid; i < kRows * HD; i += kThreads) {
     const int r = i / HD, d = i - r * HD, row = r0 + r;
     float val = 0.f;
-    if (row < rows_total) {
+    if (row < rows_total && d < geo.hd) {
       const int pos = row / G, g = row - pos * G;
       val = Num<T>::to_f(qb[pos * st.q_s + (h * G + g) * st.q_h + d]);
     }
@@ -173,7 +178,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int i = tid; i < kKeys * HD; i += kThreads) {
       const int j = i / HD, d = i - j * HD, key = key0 + j;
       float kv = 0.f, vv = 0.f;
-      if (key < geo.S) {
+      if (key < geo.S && d < geo.hd) {
         kv = Num<T>::to_f(kb[key * st.k_s + d]);
         vv = Num<T>::to_f(vb[key * st.v_s + d]);
       }
@@ -260,16 +265,6 @@ __global__ void __launch_bounds__(kThreads)
             for (int e = 0; e < 4; ++e)
               acc[i][c4 * 4 + e] = fmaf(pr[i][jj], vv[e], acc[i][c4 * 4 + e]);
         }
-        if constexpr (HD % 64 != 0) {      // the 32-dim tail, 2 a thread
-          constexpr int c0 = HD / 64 * 4;
-          const float2 t = *reinterpret_cast<const float2*>(
-              vrow + HD / 64 * 64 + tx * 2);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[i][c0] = fmaf(pr[i][jj], t.x, acc[i][c0]);
-            acc[i][c0 + 1] = fmaf(pr[i][jj], t.y, acc[i][c0 + 1]);
-          }
-        }
       }
     }
   }
@@ -279,11 +274,12 @@ __global__ void __launch_bounds__(kThreads)
     if (pos[i] < 0) continue;
     const int row = r0 + ty * 4 + i, g = row - pos[i] * G;
     T* o = out + ((static_cast<long long>(b) * geo.S + pos[i]) * geo.Hq +
-                  h * G + g) * HD;
+                  h * G + g) * geo.hd;
     const float l = fmaxf(l_run[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kDims; ++c)
-      o[acc_dim<HD>(c, tx)] = Num<T>::from_f(acc[i][c] / l);
+      if (acc_dim(c, tx) < geo.hd)
+        o[acc_dim(c, tx)] = Num<T>::from_f(acc[i][c] / l);
   }
 }
 
@@ -320,19 +316,14 @@ constexpr int kKStages = 2;      // K ring: K_i is read in step i
 constexpr int kVStages = 3;      // V ring: V_i is read in step i + 1
 constexpr float kLog2e = 1.4426950408889634f;
 
-// K and V tiles hold whole 64-dim boxes: hd 160 is staged as 192 dims,
-// the last 32 zero-filled by TMA
-template <int HD>
-__host__ __device__ constexpr int padded_hd() {
-  return (HD + 63) / 64 * 64;
-}
-
+// K and V tiles hold the instantiation's HD / 64 whole 64-dim boxes, the
+// dims past the true hd zero-filled by TMA
 template <int HD>
 __host__ __device__ constexpr uint32_t tile_bytes() {
-  return 64 * padded_hd<HD>() * 2;   // 64 rows of the padded hd in bf16
+  return 64 * HD * 2;   // 64 rows of HD bf16
 }
 
-// hd 160's O accumulators (96 a thread) and 120 KB ring, and hd 256's
+// W 192's O accumulators (96 a thread) and 120 KB ring, and W 256's
 // (128 a thread) and 193 KB: one block an SM
 template <int HD>
 __host__ __device__ constexpr int min_blocks() {
@@ -364,8 +355,9 @@ __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
                          const __grid_constant__ CUtensorMap k_map,
                          const __grid_constant__ CUtensorMap v_map,
                          bf16* __restrict__ out, Strides st, Geometry geo) {
+  static_assert(HD % 64 == 0, "the instantiation: whole 64-dim boxes");
   constexpr uint32_t kTile = tile_bytes<HD>();
-  constexpr int kHP = padded_hd<HD>();        // P V's N: whole 64-dim boxes
+  constexpr int kHP = HD;                     // P V's N
   constexpr int kO = kHP / 2;                 // O accumulators a thread
   extern __shared__ uint8_t smem[];
   constexpr bool kQSmem = q_in_smem<HD>();
@@ -399,10 +391,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
   if constexpr (kQSmem) {
     // the block's 64 grouped rows of Q into the swizzled tile, 16 bytes a
     // copy: row r's dims 8c..8c+7 go to box c / 8, chunk c % 8 (rows past
-    // the end read as zero)
+    // the end and dims past hd read as zero)
     for (int i = t; i < 64 * HD / 8; i += kThreads) {
       const int r = i / (HD / 8), c = i - r * (HD / 8), row = r0 + r;
-      const bool ok = row < rows_total;
+      const bool ok = row < rows_total && 8 * c < geo.hd;
       const bf16* src =
           ok ? qb + (row % G) * st.q_h + (row / G) * st.q_s + 8 * c : qb;
       cp_async16(q_tile + (c >> 3) * (64 * 128) + swizzle128(r, c & 7), src,
@@ -443,9 +435,10 @@ __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
   const int ra = r0 + 16 * (t >> 5) + (lane >> 2), rb = ra + 8;
   const int pos_a = min(ra, rows_total - 1) / G;
   const int pos_b = min(rb, rows_total - 1) / G;
-  // Q stays in registers as the A operand of S = Q K^T (below hd 256):
+  // Q stays in registers as the A operand of S = Q K^T (below W 256):
   // per 16-wide step kk of hd, {row a, hd 16 kk + 2 (lane % 4) + 0..1},
-  // {row b, ...}, {row a, ... + 8}, {row b, ... + 8}
+  // {row b, ...}, {row a, ... + 8}, {row b, ... + 8}; dims past hd (a
+  // multiple of 8) are zero
   uint32_t qa[kQSmem ? 1 : HD / 16][4];
   if constexpr (!kQSmem) {
     const int d0 = 2 * (lane & 3);
@@ -457,10 +450,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
     };
 #pragma unroll
     for (int kk = 0; kk < HD / 16; ++kk) {
-      qa[kk][0] = ld(q_a + 16 * kk, ok_a);
-      qa[kk][1] = ld(q_b + 16 * kk, ok_b);
-      qa[kk][2] = ld(q_a + 16 * kk + 8, ok_a);
-      qa[kk][3] = ld(q_b + 16 * kk + 8, ok_b);
+      const bool lo = 16 * kk < geo.hd, hi = 16 * kk + 8 < geo.hd;
+      qa[kk][0] = ld(q_a + 16 * kk, ok_a && lo);
+      qa[kk][1] = ld(q_b + 16 * kk, ok_b && lo);
+      qa[kk][2] = ld(q_a + 16 * kk + 8, ok_a && hi);
+      qa[kk][3] = ld(q_b + 16 * kk + 8, ok_b && hi);
     }
   }
   float o[kO];
@@ -606,19 +600,21 @@ __global__ void __launch_bounds__(kThreads, min_blocks<HD>())
     if (row >= rows_total) continue;
     const int pos = row / G, g = row - pos * G;
     bf16* orow = out + ((static_cast<long long>(b) * geo.S + pos) * geo.Hq +
-                        h * G + g) * HD;
+                        h * G + g) * geo.hd;
     const float l = half ? l_b : l_a;
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j) {     // O's padding columns stay
+    for (int j = 0; j < HD / 8; ++j) {     // O's columns past hd stay
       const int d = 8 * j + 2 * (lane & 3);
-      *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
-          o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
+      if (8 * j < geo.hd)
+        *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(
+            o[4 * j + 2 * half] / l, o[4 * j + 2 * half + 1] / l);
     }
   }
 }
 
-// The TMA map of k or v (B, S, Hkv, HD) read by its strides (elements);
-// a box is 64 dims of one head at 64 positions of one batch row.
+// The TMA map of k or v (B, S, Hkv, hd) read by its strides (elements);
+// a box is 64 dims of one head at 64 positions of one batch row (dims at
+// or past hd read as zero).
 int kv_map(CUtensorMap* map, const bf16* base, long long b_stride,
            long long s_stride, long long h_stride, int B, int S, int Hkv,
            int hd) {
@@ -637,9 +633,10 @@ template <int HD>
 int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
            const Strides& st, int B, const Geometry& geo, cudaStream_t s) {
   CUtensorMap k_map, v_map;
-  int rc = kv_map(&k_map, k, st.k_b, st.k_s, st.k_h, B, geo.S, geo.Hkv, HD);
+  int rc = kv_map(&k_map, k, st.k_b, st.k_s, st.k_h, B, geo.S, geo.Hkv,
+                  geo.hd);
   if (rc != 0) return rc;
-  rc = kv_map(&v_map, v, st.v_b, st.v_s, st.v_h, B, geo.S, geo.Hkv, HD);
+  rc = kv_map(&v_map, v, st.v_b, st.v_s, st.v_h, B, geo.S, geo.Hkv, geo.hd);
   if (rc != 0) return rc;
   const size_t smem = smem_bytes<HD>();
   cudaError_t err = cudaFuncSetAttribute(
@@ -659,8 +656,9 @@ int launch(const bf16* q, const bf16* k, const bf16* v, bf16* out,
 }  // namespace
 
 // Strides are in elements; the head dim of q, k and v is contiguous (bf16:
-// base addresses and strides 16-byte aligned, which the wrapper checks).
-// window <= 0 means no window.
+// base addresses and strides 16-byte aligned and hd a multiple of 8, which
+// the wrapper sees to).  Any hd from 1 to 256 runs on the smallest
+// instantiation W that covers it.  window <= 0 means no window.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    void* out, long long q_b, long long q_s,
                                    long long q_h, long long k_b, long long k_s,
@@ -669,12 +667,12 @@ extern "C" int flash_attention_f32(const void* q, const void* k, const void* v,
                                    int hd, int causal, int window, float scale,
                                    void* stream) {
   const Strides st{q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h};
-  const Geometry geo{S, Hq, Hkv, causal, window, scale};
-  if (hd == 64) return launch<float, 64>(q, k, v, out, st, B, geo, stream);
-  if (hd == 128) return launch<float, 128>(q, k, v, out, st, B, geo, stream);
-  if (hd == 160) return launch<float, 160>(q, k, v, out, st, B, geo, stream);
-  if (hd == 256) return launch<float, 256>(q, k, v, out, st, B, geo, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry geo{S, Hq, Hkv, hd, causal, window, scale};
+  if (hd < 1 || hd > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 64) return launch<float, 64>(q, k, v, out, st, B, geo, stream);
+  if (hd <= 128) return launch<float, 128>(q, k, v, out, st, B, geo, stream);
+  if (hd <= 192) return launch<float, 192>(q, k, v, out, st, B, geo, stream);
+  return launch<float, 256>(q, k, v, out, st, B, geo, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
@@ -685,15 +683,16 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     int Hkv, int hd, int causal, int window,
                                     float scale, void* stream) {
   const Strides st{q_b, q_s, q_h, k_b, k_s, k_h, v_b, v_s, v_h};
-  const Geometry geo{S, Hq, Hkv, causal, window, scale};
+  const Geometry geo{S, Hq, Hkv, hd, causal, window, scale};
+  if (hd < 1 || hd > 256 || hd % 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* qp = static_cast<const bf16*>(q);
   const auto* kp = static_cast<const bf16*>(k);
   const auto* vp = static_cast<const bf16*>(v);
   auto* op = static_cast<bf16*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return tc::launch<64>(qp, kp, vp, op, st, B, geo, s);
-  if (hd == 128) return tc::launch<128>(qp, kp, vp, op, st, B, geo, s);
-  if (hd == 160) return tc::launch<160>(qp, kp, vp, op, st, B, geo, s);
-  if (hd == 256) return tc::launch<256>(qp, kp, vp, op, st, B, geo, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (hd <= 64) return tc::launch<64>(qp, kp, vp, op, st, B, geo, s);
+  if (hd <= 128) return tc::launch<128>(qp, kp, vp, op, st, B, geo, s);
+  if (hd <= 192) return tc::launch<192>(qp, kp, vp, op, st, B, geo, s);
+  return tc::launch<256>(qp, kp, vp, op, st, B, geo, s);
 }

@@ -56,6 +56,77 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                : "memory");
 }
 
+// 8-byte global -> shared copy (through L1), zero-filled when !valid.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 8 : 0)
+               : "memory");
+}
+
+// The widest copy (16, 8, 4, 2 or 1 bytes) that rows of ``row_bytes``
+// bytes laid end to end from a 16-byte-aligned base allow: a row's start
+// is a multiple of it, so is every copy's.
+__host__ __device__ __forceinline__ int copy_unit(int row_bytes) {
+  const int low = row_bytes & -row_bytes;
+  return low < 16 ? low : 16;
+}
+
+// ``unit`` bytes (a copy_unit) global -> shared, zero-filled when !valid:
+// cp.async for 16, 8 and 4 bytes; for 2 and 1 a plain load and store,
+// which the block sees after its next barrier as it sees the copies that
+// have landed (the source must be a mapped address whatever ``valid``).
+__device__ __forceinline__ void copy_unit_async(uint32_t dst, const void* src,
+                                                int unit, bool valid) {
+  if (unit == 16) {
+    cp_async16(dst, src, valid);
+  } else if (unit == 8) {
+    cp_async8(dst, src, valid);
+  } else if (unit == 4) {
+    cp_async4(dst, src, valid);
+  } else if (unit == 2) {
+    const uint16_t v = valid ? *static_cast<const uint16_t*>(src) : 0;
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
+  } else {
+    const uint16_t v = valid ? *static_cast<const uint8_t*>(src) : 0;
+    asm volatile("st.shared.u8 [%0], %1;\n" ::"r"(dst), "h"(v) : "memory");
+  }
+}
+
+// 16 bytes at ``src`` (any alignment) to shared ``dst`` (16-byte
+// aligned) with plain byte loads: the first ``valid`` bytes read, the rest
+// zero.  For rows whose starts a 16-byte copy cannot take.
+__device__ __forceinline__ void copy16_bytes(uint32_t dst, const void* src,
+                                             int valid) {
+  const uint8_t* p = static_cast<const uint8_t*>(src);
+  uint32_t w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    uint32_t v = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      if (4 * q + b < valid) v |= static_cast<uint32_t>(p[4 * q + b]) << 8 * b;
+    w[q] = v;
+  }
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+               : "memory");
+}
+
+// 16 bytes at ``src`` into shared ``dst``, the first ``valid`` read (none
+// when <= 0) and the rest zero: one cp.async where the source rows allow
+// 16-byte copies (``vec``; then ``valid`` is at most 0 or 16, or the
+// bytes past it are zeros in memory), else plain byte loads.  ``base``: a
+// mapped address for a copy that reads nothing.
+__device__ __forceinline__ void copy16_masked(uint32_t dst, const void* src,
+                                              int valid, bool vec,
+                                              const void* base) {
+  if (vec)
+    cp_async16(dst, valid > 0 ? src : base, valid > 0);
+  else
+    copy16_bytes(dst, src, valid);
+}
+
 // cp.async groups: close the copies issued so far into a group; wait
 // until at most N of this thread's groups are still in flight.
 __device__ __forceinline__ void cp_async_commit() {
@@ -83,6 +154,13 @@ __device__ __forceinline__ void mbar_fence_init() {
 __device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                    bar)
+               : "memory");
+}
+
+// A plain arrival (release: this thread's earlier shared-memory stores
+// are seen by the threads that wait on the phase).
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                : "memory");
 }
 

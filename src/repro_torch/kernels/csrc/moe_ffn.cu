@@ -35,8 +35,17 @@
 //   it against 128-token tiles and single slabs.
 //   Each output element is summed by one block in a fixed order (no
 //   atomics, no split-K).  Rows past C are zero-filled on load and never
-//   stored, so zero rows of x give exactly zero rows of y.  F must be a
-//   multiple of 64 and D of 128 (the wrapper checks).
+//   stored, so zero rows of x give exactly zero rows of y.
+//   Any D and F: the grids cover ceil(F / 64) and ceil(D / 128) blocks and
+//   the k loop ceil(K / 64) steps, and the edge tiles are zero-filled on
+//   load (cp.async with a zero source size for rows and columns out of
+//   range) and masked on store, so they add exact zeros through the same
+//   wgmma main loop.  h's rows are F rounded up to 8 (its pad columns are
+//   written, as exact zeros), so the down launch copies its tiles 16 bytes
+//   at a time whatever F; x and the weights are copied so where their rows
+//   allow (D and F multiples of 8, every public model), and otherwise a
+//   stage is staged with plain loads and stores and published to the
+//   warpgroup by a plain mbarrier arrival.
 //
 // fp32, on the CUDA cores (moe_ffn_f32): fp32 must not go through TF32
 // (the port holds it to 2e-5), so it is csrc/moe_f32.cuh's tiled fp32 FMA
@@ -72,10 +81,56 @@ constexpr size_t smem_bytes(int slabs, int n, int stages) {
          8 * stages;
 }
 
+// One block's operands: SLABS weight slabs, each (K, ldw) row-major from
+// the block's first column w[s], of whose 64 columns cols[s] are in range
+// (none when <= 0), and the activation rows a ((rows, lda) row-major,
+// rows past ``rows`` and columns past K read as zero).
+template <int SLABS>
+struct Operands {
+  const bf16* w[SLABS];
+  int cols[SLABS];
+  int ldw;
+  const bf16* a;
+  int rows, lda, K;
+};
+
+// Stage k0 .. k0 + 63 of an edge tile (rows past K, columns past a
+// slab's range) or of rows that no 16-byte copy takes (ldw or lda not a
+// multiple of 8) into ring stage ``st``: every 16-byte chunk predicated
+// (copy16_masked), then this thread's arrival on ``bar``.  Out of line,
+// so the full tiles' loads keep their registers.
+template <int N, int SLABS>
+__device__ __noinline__ void load_edge(uint32_t st, uint32_t bar,
+                                       Operands<SLABS> op, int k0) {
+  const bool wvec = op.ldw % 8 == 0, avec = op.lda % 8 == 0;
+  for (int i = threadIdx.x; i < kTile * 8; i += kThreads) {
+    const int r = i >> 3, j = i & 7;
+    const size_t off = static_cast<size_t>(k0 + r) * op.ldw + j * 8;
+#pragma unroll
+    for (int s = 0; s < SLABS; ++s)
+      copy16_masked(st + s * kSlab + swizzle128(r, j), op.w[s] + off,
+                    k0 + r < op.K ? 2 * min(op.cols[s] - j * 8, 8) : 0,
+                    wvec, op.w[s]);
+  }
+  for (int i = threadIdx.x; i < N * 8; i += kThreads) {
+    const int r = i >> 3, j = i & 7;
+    copy16_masked(st + SLABS * kSlab + swizzle128(r, j),
+                  op.a + static_cast<size_t>(r) * op.lda + k0 + j * 8,
+                  r < op.rows ? 2 * min(op.K - k0 - j * 8, 8) : 0, avec,
+                  op.a);
+  }
+  if (wvec && avec) {
+    mbar_arrive_cp_async(bar);
+  } else {   // plain stores too: this thread's copies land, then arrive
+    cp_async_commit();
+    cp_async_wait<0>();
+    mbar_arrive(bar);
+  }
+}
+
 // One block of   acc^T (64 x N) = W^T (64 x K) * A^T (K x N)   for each
-// weight of ``w`` (SLABS of them, each (K, ldw) row-major, the block's 64
-// columns starting at w[s]): the activation rows a (rows x K, row-major,
-// rows past ``rows`` read as zero) stream beside the slabs.
+// weight slab of an ``Operands``: the activation rows stream beside the
+// slabs.
 template <int N, int SLABS, int STAGES>
 struct Mainloop {
   static constexpr uint32_t kStage = SLABS * kSlab + N * 128;
@@ -93,32 +148,39 @@ struct Mainloop {
   }
 
   // Stage k of the K loop into ring slot ``slot``: SLABS slabs of 64 rows
-  // (k) by 64 columns, and N activation rows by 64 values of k.
-  __device__ void load(const bf16* const (&w)[SLABS], int ldw, const bf16* a,
-                       int rows, int lda, int k, int slot) {
+  // (k) by 64 columns, and N activation rows by 64 values of k.  A full
+  // tile whose rows 16-byte copies take is copied unpredicated but for
+  // the activation rows past ``rows`` (zero); any other through
+  // load_edge, its rows and columns out of range zero.
+  __device__ void load(const Operands<SLABS>& op, int k, int slot) {
     const uint32_t st = ring + slot * kStage;
     const int k0 = k * kTile;
+    if (k0 + kTile > op.K || op.cols[SLABS - 1] < kTile || op.ldw % 8 ||
+        op.lda % 8) {
+      load_edge<N, SLABS>(st, bars + 8 * slot, op, k0);
+      return;
+    }
     for (int i = threadIdx.x; i < kTile * 8; i += kThreads) {
       const int r = i >> 3, j = i & 7;
-      const size_t off = static_cast<size_t>(k0 + r) * ldw + j * 8;
+      const size_t off = static_cast<size_t>(k0 + r) * op.ldw + j * 8;
 #pragma unroll
       for (int s = 0; s < SLABS; ++s)
-        cp_async16(st + s * kSlab + swizzle128(r, j), w[s] + off, true);
+        cp_async16(st + s * kSlab + swizzle128(r, j), op.w[s] + off, true);
     }
     for (int i = threadIdx.x; i < N * 8; i += kThreads) {
       const int r = i >> 3, j = i & 7;
-      const bool ok = r < rows;
+      const bool ok = r < op.rows;
       cp_async16(st + SLABS * kSlab + swizzle128(r, j),
-                 ok ? a + static_cast<size_t>(r) * lda + k0 + j * 8 : a, ok);
+                 ok ? op.a + static_cast<size_t>(r) * op.lda + k0 + j * 8
+                    : op.a,
+                 ok);
     }
     mbar_arrive_cp_async(bars + 8 * slot);
   }
 
-  __device__ void run(const bf16* const (&w)[SLABS], int ldw, const bf16* a,
-                      int rows, int lda, int ksteps,
-                      float (&acc)[SLABS][N / 2]) {
-    for (int k = 0; k < STAGES - 1 && k < ksteps; ++k)
-      load(w, ldw, a, rows, lda, k, k);
+  __device__ void run(const Operands<SLABS>& op, float (&acc)[SLABS][N / 2]) {
+    const int ksteps = (op.K + kTile - 1) / kTile;
+    for (int k = 0; k < STAGES - 1 && k < ksteps; ++k) load(op, k, k);
     for (int k = 0; k < ksteps; ++k) {
       const int slot = k % STAGES;
       mbar_wait(bars + 8 * slot, (k / STAGES) & 1);
@@ -139,7 +201,7 @@ struct Mainloop {
       // step k - 1's products are done: its slot takes step k + STAGES - 1
       wgmma_wait<1>();
       if (k + STAGES - 1 < ksteps)
-        load(w, ldw, a, rows, lda, k + STAGES - 1, (k + STAGES - 1) % STAGES);
+        load(op, k + STAGES - 1, (k + STAGES - 1) % STAGES);
     }
     wgmma_wait<0>();
 #pragma unroll
@@ -147,7 +209,8 @@ struct Mainloop {
   }
 };
 
-// h[e, c, f0 + 64) = bf16(silu(x Wg) * (x Wu)) for one C-tile.
+// h[e, c, f0 + 64) = bf16(silu(x Wg) * (x Wu)) for one C-tile (columns
+// past F are exact zeros, written up to h's stride).
 template <int N, int STAGES>
 __global__ void __launch_bounds__(kThreads)
     moe_gate_up_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wg,
@@ -155,20 +218,22 @@ __global__ void __launch_bounds__(kThreads)
                        int C, int D, int F) {
   extern __shared__ uint8_t smem[];
   const int c0 = blockIdx.x * N, f0 = blockIdx.y * kTile, e = blockIdx.z;
+  const int Fh = ffn_h_stride(F);
   Mainloop<N, 2, STAGES> ml;
   ml.init(smem);
   const size_t we = static_cast<size_t>(e) * D * F + f0;
-  const bf16* const w[2] = {wg + we, wu + we};
+  const Operands<2> op{{wg + we, wu + we}, {F - f0, F - f0}, F,
+                       x + (static_cast<size_t>(e) * C + c0) * D, C - c0, D,
+                       D};
   float acc[2][N / 2];
-  ml.run(w, F, x + (static_cast<size_t>(e) * C + c0) * D, C - c0, D,
-         D / kTile, acc);
-  bf16* he = h + static_cast<size_t>(e) * C * F + f0;
+  ml.run(op, acc);
+  bf16* he = h + static_cast<size_t>(e) * C * Fh + f0;
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     const int c = c0 + wgmma_acc_col(i);
-    if (c < C) {
+    if (c < C && f0 + wgmma_acc_row(i) < Fh) {
       const float g = acc[0][i];
-      he[static_cast<size_t>(c) * F + wgmma_acc_row(i)] =
+      he[static_cast<size_t>(c) * Fh + wgmma_acc_row(i)] =
           __float2bfloat16(g / (1.f + expf(-g)) * acc[1][i]);
     }
   }
@@ -182,13 +247,15 @@ __global__ void __launch_bounds__(kThreads)
                     bf16* __restrict__ y, int C, int D, int F) {
   extern __shared__ uint8_t smem[];
   const int c0 = blockIdx.x * N, d0 = blockIdx.y * 2 * kTile, e = blockIdx.z;
+  const int Fh = ffn_h_stride(F);
   Mainloop<N, 2, STAGES> ml;
   ml.init(smem);
   const bf16* wde = wd + static_cast<size_t>(e) * F * D + d0;
-  const bf16* const w[2] = {wde, wde + kTile};
+  const Operands<2> op{{wde, wde + kTile}, {D - d0, D - d0 - kTile}, D,
+                       h + (static_cast<size_t>(e) * C + c0) * Fh, C - c0,
+                       Fh, F};
   float acc[2][N / 2];
-  ml.run(w, D, h + (static_cast<size_t>(e) * C + c0) * F, C - c0, F,
-         F / kTile, acc);
+  ml.run(op, acc);
   bf16* ye = y + static_cast<size_t>(e) * C * D + d0;
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
@@ -196,8 +263,9 @@ __global__ void __launch_bounds__(kThreads)
     if (c < C) {
 #pragma unroll
       for (int s = 0; s < 2; ++s)
-        ye[static_cast<size_t>(c) * D + s * kTile + wgmma_acc_row(i)] =
-            __float2bfloat16(acc[s][i]);
+        if (d0 + s * kTile + wgmma_acc_row(i) < D)
+          ye[static_cast<size_t>(c) * D + s * kTile + wgmma_acc_row(i)] =
+              __float2bfloat16(acc[s][i]);
     }
   }
 }
@@ -217,13 +285,13 @@ int launch_n(const bf16* x, const bf16* wg, const bf16* wu, const bf16* wd,
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned ctiles = (C + N - 1) / N;
   moe_gate_up_kernel<N, kStages>
-      <<<dim3(ctiles, F / kTile, E), kThreads, smem, s>>>(x, wg, wu, h, C, D,
-                                                           F);
+      <<<dim3(ctiles, (F + kTile - 1) / kTile, E), kThreads, smem, s>>>(
+          x, wg, wu, h, C, D, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   moe_down_kernel<N, kStages>
-      <<<dim3(ctiles, D / (2 * kTile), E), kThreads, smem, s>>>(h, wd, y, C,
-                                                                D, F);
+      <<<dim3(ctiles, (D + 2 * kTile - 1) / (2 * kTile), E), kThreads, smem,
+         s>>>(h, wd, y, C, D, F);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -231,8 +299,7 @@ int launch_n(const bf16* x, const bf16* wg, const bf16* wu, const bf16* wd,
 // 128, tiles of 160 where they pad less than tiles of 128 (C=320: two).
 int launch(const bf16* x, const bf16* wg, const bf16* wu, const bf16* wd,
            bf16* h, bf16* y, int E, int C, int D, int F, cudaStream_t s) {
-  if (D % (2 * kTile) || F % kTile)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (D < 1 || F < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (C <= 16) return launch_n<16>(x, wg, wu, wd, h, y, E, C, D, F, s);
   if (C <= 32) return launch_n<32>(x, wg, wu, wd, h, y, E, C, D, F, s);
   if (C <= 64) return launch_n<64>(x, wg, wu, wd, h, y, E, C, D, F, s);

@@ -11,9 +11,9 @@
 // Rounding follows the reference: each weight value becomes
 // T(float(q) * scale) (the reference's _dequant_tile then .astype(x.dtype))
 // before the fp32 product, and h is rounded to T before the down-projection.
-// Rows of an F or D that is not a multiple of qb are simply not visited:
-// the reference pads them with zero payload and zero scales, which adds
-// exact zeros.
+// Rows of an F or D that is not a multiple of qb are not visited (fp32)
+// or read as zeros (bf16): the reference pads them with zero payload and
+// zero scales, which adds exact zeros.
 //
 // Bound on an H100: at the main path's shape (E=128, C=16, D=2048, F=768)
 // the call reads 0.60 GB of int8 payload (0.30 GB int4) plus 19 MB of
@@ -41,10 +41,16 @@
 //   round), not HBM: int4 carries int8's work on half the bytes.  h =
 //   silu(g) * u goes to a bf16 scratch (E, C, F) between the launches.
 //   Products of two bf16 values are exact in fp32, so the result differs
-//   from the CUDA-core kernel only in summation order.  D must be a
-//   multiple of 128 and F of 64 (the wrapper checks).  Rows past C are
+//   from the CUDA-core kernel only in summation order.  Rows past C are
 //   zero-filled on load and never stored, so zero rows of x give exactly
-//   zero rows of y.
+//   zero rows of y.  Any D and F, as in csrc/moe_ffn.cu: ceil(F / 64) and
+//   ceil(D / 128) blocks, ceil(K / 64) k-steps, the edge tiles' payload,
+//   scale rows and activations zero-filled on load (so a K that is not a
+//   whole number of quant blocks reads as padded to whole blocks with zero
+//   weights, as the reference pads it) and their stores masked; the
+//   copies are 16 bytes wide where the rows allow (payload rows a
+//   multiple of 16 bytes, scale rows of 4 floats, x rows of 8 values) and
+//   plain loads and stores otherwise.
 //
 // fp32, on the CUDA cores (moe_ffn_quant_f32): fp32 must not go through
 //   TF32 (the port holds it to 2e-5), so it is csrc/moe_f32.cuh's tiled
@@ -98,11 +104,12 @@ size_t smem_bytes(int n, int srows, int stages) {
 }
 
 // Scale rows a 64-row k-step of a K-deep weight can touch: the most
-// distinct blocks floor(k / qb) over any step's rows.
+// distinct blocks floor(k / qb) over any step's 64 rows (the last step's
+// rows past K included: their scale rows are staged as zeros).
 int scale_rows(int K, int qb) {
   int most = 1;
   for (int k0 = 0; k0 < K; k0 += kTile)
-    most = std::max(most, (std::min(k0 + kTile, K) - 1) / qb - k0 / qb + 1);
+    most = std::max(most, (k0 + kTile - 1) / qb - k0 / qb + 1);
   return most;
 }
 
@@ -113,11 +120,78 @@ __device__ __forceinline__ uint32_t raw_off(int row, int col) {
   return row * 64 + ((((col >> 4) ^ (row >> 1)) & 3) << 4) + (col & 15);
 }
 
-// acc^T (64 x N) += W^T (64 x K) * A^T (K x N) for both weights of ``w``
-// (payload (K[/2], ldw) row-major, int8 or packed int4, with scales
-// (ceil(K / qb), ldw) fp32, each already offset to the block's 64
-// columns); the activation rows ``a`` (rows x K bf16, row-major, rows past
-// ``rows`` read as zero) stream beside the payload.  The weights never
+// One block's operands: both weights' payload (K rows of int8 or
+// ceil(K / 2) of packed int4, ldw bytes each) and scales
+// (ceil(K / qb) rows of ldw fp32), each from the block's first column, of
+// whose 64 columns cols[s] are in range; the activation rows a ((rows,
+// lda) bf16, rows past ``rows`` and columns past K read as zero).
+struct QuantOperands {
+  const int8_t* w[2];
+  const float* sc[2];
+  int cols[2];
+  int ldw;
+  const bf16* a;
+  int rows, lda, K;
+};
+
+// Stage k0 .. k0 + 63 of an edge tile (rows past K, columns past a slab's
+// range) or of rows that no 16-byte copy takes (payload rows not a
+// multiple of 16 bytes, scale rows of 4 floats, x rows of 8 values) into
+// ring stage ``st``: every 16-byte chunk predicated (copy16_masked), the
+// scale rows past the weight's last block zero, then this thread's
+// arrival on ``bar``.  Out of line, so the full tiles' loads keep their
+// registers.
+template <int N, int BITS>
+__device__ __noinline__ void load_quant_edge(uint32_t st, uint32_t bar,
+                                             int srows, int qb,
+                                             QuantOperands op, int k0) {
+  const bool avec = op.lda % 8 == 0, wvec = op.ldw % 16 == 0,
+             svec = op.ldw % 4 == 0;
+  for (int i = threadIdx.x; i < N * 8; i += kThreads) {
+    const int r = i >> 3, j = i & 7;
+    copy16_masked(st + swizzle128(r, j),
+                  op.a + static_cast<size_t>(r) * op.lda + k0 + j * 8,
+                  r < op.rows ? 2 * min(op.K - k0 - j * 8, 8) : 0, avec,
+                  op.a);
+  }
+  constexpr int kRawRows = BITS == 8 ? kTile : kTile / 2;
+  const int r0 = BITS == 8 ? k0 : k0 / 2;
+  const int prows = BITS == 8 ? op.K : (op.K + 1) / 2;
+  const uint32_t raw = st + N * 128;
+  for (int i = threadIdx.x; i < kRawRows * 4; i += kThreads) {
+    const int r = i >> 2, j = i & 3;
+    const size_t off = static_cast<size_t>(r0 + r) * op.ldw + j * 16;
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      copy16_masked(raw + s * raw_bytes<BITS>() + raw_off(r, j * 16),
+                    op.w[s] + off,
+                    r0 + r < prows ? min(op.cols[s] - j * 16, 16) : 0, wvec,
+                    op.w[s]);
+  }
+  const int b0 = k0 / qb, nblocks = (op.K + qb - 1) / qb;
+  const int nrows = (k0 + kTile - 1) / qb - b0 + 1;   // <= srows
+  const uint32_t scl = raw + 2 * raw_bytes<BITS>();
+  for (int i = threadIdx.x; i < nrows * 16; i += kThreads) {
+    const int r = i >> 4, j = i & 15;
+    const size_t off = static_cast<size_t>(b0 + r) * op.ldw + j * 4;
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      copy16_masked(scl + (s * srows + r) * kTile * 4 + j * 16,
+                    op.sc[s] + off,
+                    b0 + r < nblocks ? 4 * min(op.cols[s] - j * 4, 4) : 0,
+                    svec, op.sc[s]);
+  }
+  if (avec && wvec && svec) {
+    mbar_arrive_cp_async(bar);
+  } else {   // plain stores too: this thread's copies land, then arrive
+    cp_async_commit();
+    cp_async_wait<0>();
+    mbar_arrive(bar);
+  }
+}
+
+// acc^T (64 x N) += W^T (64 x K) * A^T (K x N) for both weights of a
+// ``QuantOperands``: the activation rows stream beside the payload.  The weights never
 // reach shared memory as bf16: each thread dequantizes its own part of
 // wgmma's register A operand.  Row m of the 64-row tile holds slab column
 // col(m) = 16 (m / 16) + 2 (m % 8) + (m % 16) / 8, so a thread's two rows
@@ -144,39 +218,47 @@ struct QuantMainloop {
     __syncthreads();
   }
 
-  // Step k (rows k0 = 64 k .. k0 + 63 of K) into ring slot ``slot``.
-  __device__ void load(const int8_t* const (&w)[2],
-                       const float* const (&sc)[2], int ldw, const bf16* a,
-                       int rows, int lda, int k, int slot) {
+  // Step k (rows k0 = 64 k .. k0 + 63 of K) into ring slot ``slot``.  A
+  // full tile whose rows 16-byte copies take is copied unpredicated but
+  // for the activation rows past ``rows`` (zero); any other through
+  // load_quant_edge, its rows and columns out of range zero.
+  __device__ void load(const QuantOperands& op, int k, int slot) {
     const uint32_t st = ring + slot * stage;
     const int k0 = k * kTile;
+    if (k0 + kTile > op.K || op.cols[1] < kTile || op.ldw % 16 ||
+        op.lda % 8) {
+      load_quant_edge<N, BITS>(st, bars + 8 * slot, srows, qb, op, k0);
+      return;
+    }
     for (int i = threadIdx.x; i < N * 8; i += kThreads) {
       const int r = i >> 3, j = i & 7;
-      const bool ok = r < rows;
+      const bool ok = r < op.rows;
       cp_async16(st + swizzle128(r, j),
-                 ok ? a + static_cast<size_t>(r) * lda + k0 + j * 8 : a, ok);
+                 ok ? op.a + static_cast<size_t>(r) * op.lda + k0 + j * 8
+                    : op.a,
+                 ok);
     }
     constexpr int kRawRows = BITS == 8 ? kTile : kTile / 2;
     const int r0 = BITS == 8 ? k0 : k0 / 2;
     const uint32_t raw = st + N * 128;
     for (int i = threadIdx.x; i < kRawRows * 4; i += kThreads) {
       const int r = i >> 2, j = i & 3;
-      const size_t off = static_cast<size_t>(r0 + r) * ldw + j * 16;
+      const size_t off = static_cast<size_t>(r0 + r) * op.ldw + j * 16;
 #pragma unroll
       for (int s = 0; s < 2; ++s)
         cp_async16(raw + s * raw_bytes<BITS>() + raw_off(r, j * 16),
-                   w[s] + off, true);
+                   op.w[s] + off, true);
     }
     const int b0 = k0 / qb;
     const int nrows = (k0 + kTile - 1) / qb - b0 + 1;   // <= srows
     const uint32_t scl = raw + 2 * raw_bytes<BITS>();
     for (int i = threadIdx.x; i < nrows * 16; i += kThreads) {
       const int r = i >> 4, j = i & 15;
-      const size_t off = static_cast<size_t>(b0 + r) * ldw + j * 4;
+      const size_t off = static_cast<size_t>(b0 + r) * op.ldw + j * 4;
 #pragma unroll
       for (int s = 0; s < 2; ++s)
-        cp_async16(scl + (s * srows + r) * kTile * 4 + j * 16, sc[s] + off,
-                   true);
+        cp_async16(scl + (s * srows + r) * kTile * 4 + j * 16,
+                   op.sc[s] + off, true);
     }
     mbar_arrive_cp_async(bars + 8 * slot);
   }
@@ -231,11 +313,9 @@ struct QuantMainloop {
     }
   }
 
-  __device__ void run(const int8_t* const (&w)[2], const float* const (&sc)[2],
-                      int ldw, const bf16* a, int rows, int lda, int ksteps,
-                      float (&acc)[2][N / 2]) {
-    for (int k = 0; k < STAGES && k < ksteps; ++k)
-      load(w, sc, ldw, a, rows, lda, k, k);
+  __device__ void run(const QuantOperands& op, float (&acc)[2][N / 2]) {
+    const int ksteps = (op.K + kTile - 1) / kTile;
+    for (int k = 0; k < STAGES && k < ksteps; ++k) load(op, k, k);
     uint32_t frag[4][2][4];
     for (int k = 0; k < ksteps; ++k) {
       const int slot = k % STAGES;
@@ -261,8 +341,7 @@ struct QuantMainloop {
         for (int s = 0; s < 2; ++s) fence_regs(frag[kk][s]);
       // every thread is past its own reads of the slot: it takes step
       // k + STAGES once all have arrived (the mbarrier counts them)
-      if (k + STAGES < ksteps)
-        load(w, sc, ldw, a, rows, lda, k + STAGES, slot);
+      if (k + STAGES < ksteps) load(op, k + STAGES, slot);
     }
   }
 };
@@ -293,23 +372,25 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<N, BITS>)
                              int qb, int srows) {
   extern __shared__ uint8_t smem[];
   const int c0 = blockIdx.x * N, f0 = blockIdx.y * kTile, e = blockIdx.z;
+  const int Fh = ffn_h_stride(F);
   QuantMainloop<N, BITS, STAGES> ml;
   ml.init(smem, srows, qb);
   const size_t we =
-      static_cast<size_t>(e) * (BITS == 8 ? D : D / 2) * F + f0;
+      static_cast<size_t>(e) * (BITS == 8 ? D : (D + 1) / 2) * F + f0;
   const size_t se = static_cast<size_t>(e) * ((D + qb - 1) / qb) * F + f0;
-  const int8_t* const w[2] = {wg + we, wu + we};
-  const float* const sc[2] = {wgs + se, wus + se};
+  const QuantOperands op{{wg + we, wu + we}, {wgs + se, wus + se},
+                         {F - f0, F - f0}, F,
+                         x + (static_cast<size_t>(e) * C + c0) * D, C - c0,
+                         D, D};
   float acc[2][N / 2];
-  ml.run(w, sc, F, x + (static_cast<size_t>(e) * C + c0) * D, C - c0, D,
-         D / kTile, acc);
-  bf16* he = h + static_cast<size_t>(e) * C * F + f0;
+  ml.run(op, acc);
+  bf16* he = h + static_cast<size_t>(e) * C * Fh + f0;
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
     const int c = c0 + wgmma_acc_col(i);
-    if (c < C) {
+    if (c < C && f0 + quant_acc_col(i) < Fh) {
       const float g = acc[0][i];
-      he[static_cast<size_t>(c) * F + quant_acc_col(i)] =
+      he[static_cast<size_t>(c) * Fh + quant_acc_col(i)] =
           __float2bfloat16(g / (1.f + expf(-g)) * acc[1][i]);
     }
   }
@@ -326,16 +407,18 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<N, BITS>)
                           int srows) {
   extern __shared__ uint8_t smem[];
   const int c0 = blockIdx.x * N, d0 = blockIdx.y * 2 * kTile, e = blockIdx.z;
+  const int Fh = ffn_h_stride(F);
   QuantMainloop<N, BITS, STAGES> ml;
   ml.init(smem, srows, qb);
   const int8_t* wde =
-      wd + static_cast<size_t>(e) * (BITS == 8 ? F : F / 2) * D + d0;
+      wd + static_cast<size_t>(e) * (BITS == 8 ? F : (F + 1) / 2) * D + d0;
   const float* sde = wds + static_cast<size_t>(e) * ((F + qb - 1) / qb) * D + d0;
-  const int8_t* const w[2] = {wde, wde + kTile};
-  const float* const sc[2] = {sde, sde + kTile};
+  const QuantOperands op{{wde, wde + kTile}, {sde, sde + kTile},
+                         {D - d0, D - d0 - kTile}, D,
+                         h + (static_cast<size_t>(e) * C + c0) * Fh, C - c0,
+                         Fh, F};
   float acc[2][N / 2];
-  ml.run(w, sc, D, h + (static_cast<size_t>(e) * C + c0) * F, C - c0, F,
-         F / kTile, acc);
+  ml.run(op, acc);
   bf16* ye = y + static_cast<size_t>(e) * C * D + d0;
 #pragma unroll
   for (int i = 0; i < N / 2; ++i) {
@@ -343,8 +426,9 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks<N, BITS>)
     if (c < C) {
 #pragma unroll
       for (int s = 0; s < 2; ++s)
-        ye[static_cast<size_t>(c) * D + s * kTile + quant_acc_col(i)] =
-            __float2bfloat16(acc[s][i]);
+        if (d0 + s * kTile + quant_acc_col(i) < D)
+          ye[static_cast<size_t>(c) * D + s * kTile + quant_acc_col(i)] =
+              __float2bfloat16(acc[s][i]);
     }
   }
 }
@@ -373,12 +457,14 @@ int launch_n(const Args& a, cudaStream_t s) {
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned ctiles = (a.C + N - 1) / N;
   moe_quant_gate_up_kernel<N, BITS, kStages>
-      <<<dim3(ctiles, a.F / kTile, a.E), kThreads, smem_up, s>>>(
+      <<<dim3(ctiles, (a.F + kTile - 1) / kTile, a.E), kThreads, smem_up,
+         s>>>(
           a.x, a.wg, a.wgs, a.wu, a.wus, a.h, a.C, a.D, a.F, a.qb, sr_up);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   moe_quant_down_kernel<N, BITS, kStages>
-      <<<dim3(ctiles, a.D / (2 * kTile), a.E), kThreads, smem_down, s>>>(
+      <<<dim3(ctiles, (a.D + 2 * kTile - 1) / (2 * kTile), a.E), kThreads,
+         smem_down, s>>>(
           a.h, a.wd, a.wds, a.y, a.C, a.D, a.F, a.qb, sr_down);
   return static_cast<int>(cudaGetLastError());
 }
@@ -435,7 +521,7 @@ extern "C" int moe_ffn_quant_bf16(const void* x, const void* wg,
                                   const void* wds, void* h, void* y, int E,
                                   int C, int D, int F, int bits, int qb,
                                   void* stream) {
-  if (qb < 2 || qb % 2 || D % (2 * tc::kTile) || F % tc::kTile)
+  if (qb < 2 || qb % 2 || D < 1 || F < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const tc::Args a{static_cast<const bf16*>(x),
                    static_cast<const int8_t*>(wg),

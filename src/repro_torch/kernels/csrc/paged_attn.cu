@@ -33,6 +33,16 @@
 //     dead slots cannot reach P.V; an int8 pool's payload and scales are
 //     staged raw and dequantized into the tile, each value rounded to q's
 //     type as T(float(q) * scale) (one scale per slot and kv head);
+//   * any head dim hd from 1 to 256: bf16 runs on the instantiation of
+//     width 64, 128 or 256 that covers it, fp32 on hd rounded up to 16
+//     (its width); Q, K, V and the int8 payload are staged with their dims
+//     past hd zero-filled up to the width, so they add exact zeros, and
+//     only hd columns are written.  A pool row starts at a multiple of
+//     hd * sizeof(element) bytes, so the copies are 16 bytes wide where
+//     that allows and 8, 4, 2 or 1 where it does not (copy_unit), in a
+//     kernel instantiated apart for such head dims (NARROW; bf16 at width
+//     256 only) so the common one keeps its 16-byte loops alone; the
+//     pools are read in place, never copied or padded;
 //   * bf16 (paged_attn_tc_kernel) runs both products on the tensor cores
 //     with mma.sync m16n8k16: each of the 4 warps takes 16 keys of the
 //     step for all 16 rows (decode pads its 8 rows to 16), keeps its own
@@ -131,14 +141,66 @@ __device__ __forceinline__ void slot_table(int* __restrict__ tab,
   }
 }
 
+// The narrow copies of a head dim whose rows no 16-byte copy takes (hd *
+// elt not a multiple of 16): ``width`` bytes a row at ``dst`` (a row every
+// ``ld`` bytes), its first hd * elt bytes read from ``row(i)`` (nullptr: a
+// zero row), the rest zero, in copies of copy_unit(hd * elt) bytes.
+template <typename Row>
+__device__ __forceinline__ void stage_narrow(uint32_t dst, int rows, int ld,
+                                             int width, int valid,
+                                             const void* any, Row row) {
+  const int unit = copy_unit(valid), upr = width / unit;
+  for (int u = threadIdx.x; u < rows * upr; u += kThreads) {
+    const int i = u / upr, o = (u - i * upr) * unit;
+    const char* src = row(i);
+    const bool ok = src != nullptr && o < valid;
+    copy_unit_async(dst + i * ld + o, ok ? src + o : any, unit, ok);
+  }
+}
+
+// The 64 keys of slot table ``tab`` of one pool (elements of ``elt``
+// bytes) through stage_narrow.
+__device__ __forceinline__ void load_keys_narrow(uint32_t dst, int ld, int width,
+                                              int elt, const char* pool,
+                                              const int* tab, int h,
+                                              Geometry g) {
+  const size_t rb = static_cast<size_t>(g.hd) * elt;
+  stage_narrow(dst, kKeys, ld * elt, width * elt, g.hd * elt, pool,
+               [&](int i) -> const char* {
+                 return tab[i] < 0 ? nullptr
+                                   : pool + (static_cast<size_t>(tab[i]) *
+                                                 g.Hkv + h) * rb;
+               });
+}
+
+// The tile's 16 grouped rows of q through stage_narrow (rows past T*G
+// zero).
+__device__ __forceinline__ void load_q_narrow(uint32_t dst, int ld, int width,
+                                           int elt, const char* q, int b,
+                                           int h, int r0, int TG,
+                                           Geometry g) {
+  stage_narrow(dst, kRows, ld * elt, width * elt, g.hd * elt, q,
+               [&](int r) -> const char* {
+                 return r0 + r < TG ? q + row_off(b, h, r0 + r, g) * elt
+                                    : nullptr;
+               });
+}
+
 // Stage the 64 keys of slot table ``tab`` of one pool into rows of ``ld``
 // elements at ``dst``: ``width`` elements a row, the first hd read, the
-// rest and the rows of slot -1 zero-filled.
-template <typename E>
+// rest and the rows of slot -1 zero-filled; 16 bytes a copy where the
+// pool's rows allow (hd * sizeof(E) a multiple of 16), else, in a NARROW
+// kernel, stage_narrow.
+template <bool NARROW, typename E>
 __device__ __forceinline__ void load_keys(uint32_t dst, int ld, int width,
                                           const E* __restrict__ pool,
                                           const int* __restrict__ tab, int h,
                                           const Geometry& g) {
+  if (NARROW && copy_unit(g.hd * sizeof(E)) < 16) {
+    load_keys_narrow(dst, ld, width, sizeof(E),
+                     reinterpret_cast<const char*>(pool), tab, h, g);
+    return;
+  }
   constexpr int kC = 16 / sizeof(E);
   const int cpr = width / kC;
   for (int u = threadIdx.x; u < kKeys * cpr; u += kThreads) {
@@ -149,6 +211,37 @@ __device__ __forceinline__ void load_keys(uint32_t dst, int ld, int width,
            : pool;
     cp_async16(dst + (i * ld + c * kC) * sizeof(E), src, ok);
   }
+}
+
+// Stage the tile's 16 grouped rows of q into rows of ``ld`` elements at
+// ``dst``: ``width`` a row, rows past T*G and columns past hd zero; 16
+// bytes a copy where q's rows allow, else, in a NARROW kernel,
+// stage_narrow.
+template <bool NARROW, typename T>
+__device__ __forceinline__ void load_q(uint32_t dst, int ld, int width,
+                                       const T* __restrict__ q, int b, int h,
+                                       int r0, int TG, const Geometry& g) {
+  if (NARROW && copy_unit(g.hd * sizeof(T)) < 16) {
+    load_q_narrow(dst, ld, width, sizeof(T),
+                  reinterpret_cast<const char*>(q), b, h, r0, TG, g);
+    return;
+  }
+  constexpr int kC = 16 / sizeof(T);
+  const int cpr = width / kC;
+  for (int u = threadIdx.x; u < kRows * cpr; u += kThreads) {
+    const int r = u / cpr, c = u - r * cpr, R = r0 + r;
+    const bool ok = R < TG && c * kC < g.hd;
+    cp_async16(dst + (r * ld + c * kC) * sizeof(T),
+               ok ? q + row_off(b, h, R, g) + c * kC : q, ok);
+  }
+}
+
+// Whether a launch over q of ``qelt``-byte and pools of ``pelt``-byte
+// elements needs the narrow copies (a row of hd that no 16-byte copy
+// takes): such a head dim runs on a kernel instantiated with NARROW, so
+// the common one keeps the 16-byte loops alone.
+inline bool narrow(int hd, int qelt, int pelt) {
+  return copy_unit(hd * qelt) < 16 || copy_unit(hd * pelt) < 16;
 }
 
 // The fp32 scales of the 64 keys of ``tab`` (zero for slot -1).
@@ -273,7 +366,7 @@ struct Smem {
 
 // three blocks an SM (shared memory allows three at hd 128): up to 168
 // registers, where the compiler's own choice of 128 spilled more
-template <typename P, int HD>
+template <typename P, int HD, bool NARROW>
 __global__ void __launch_bounds__(kThreads, 3)
     paged_attn_tc_kernel(const bf16* __restrict__ q,
                          const P* __restrict__ kpool,
@@ -307,26 +400,21 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int TG = geo.T * (geo.Hq / geo.Hkv);
 
   // Q, rows past T*G and columns past hd zero
-  for (int u = threadIdx.x; u < kRows * (HD / 8); u += kThreads) {
-    const int r = u / (HD / 8), c = u % (HD / 8), R = r0 + r;
-    const bool ok = R < TG && c * 8 < geo.hd;
-    cp_async16(qs + (r * L::kLd + c * 8) * 2,
-               ok ? q + row_off(b, h, R, geo) + c * 8 : q, ok);
-  }
+  load_q<NARROW>(qs, L::kLd, HD, q, b, h, r0, TG, geo);
   // step k's keys go to ring slot k % 2 through slot table k % 2, which
   // is filled a step ahead
   auto load = [&](int slot) {
     const int* tab = tabs + slot * kKeys;
     if constexpr (kInt8) {
       const uint32_t raw = kv + 2 * L::kTile + slot * L::kRaw;
-      load_keys<int8_t>(raw, HD, HD, kpool, tab, h, geo);
-      load_keys<int8_t>(raw + kKeys * HD, HD, HD, vpool, tab, h, geo);
+      load_keys<NARROW>(raw, HD, HD, kpool, tab, h, geo);
+      load_keys<NARROW>(raw + kKeys * HD, HD, HD, vpool, tab, h, geo);
       load_scales(raw + 2 * kKeys * HD, kscale, tab, h, geo);
       load_scales(raw + 2 * kKeys * HD + kKeys * 4, vscale, tab, h, geo);
     } else {
       const uint32_t st = kv + slot * 2 * L::kTile;
-      load_keys<bf16>(st, L::kLd, HD, kpool, tab, h, geo);
-      load_keys<bf16>(st + L::kTile, L::kLd, HD, vpool, tab, h, geo);
+      load_keys<NARROW>(st, L::kLd, HD, kpool, tab, h, geo);
+      load_keys<NARROW>(st + L::kTile, L::kLd, HD, vpool, tab, h, geo);
     }
   };
   slot_table(tabs, bt_row, js, je, geo);
@@ -484,12 +572,18 @@ __global__ void __launch_bounds__(kThreads, 3)
 #pragma unroll
       for (int w = 0; w < kWarps; ++w) acc[k2] += e[w] * mrow(w, r)[d + k2];
     }
-    write_row(b, h, R, d, seg, m, l, acc, 8, split, geo, out, part_acc,
-              part_ml, d == 0);
+    // a ragged last group only where hd is not a multiple of 8 (a NARROW
+    // kernel: q's bf16 rows take no 16-byte copy then)
+    if (!NARROW || d + 8 <= geo.hd)
+      write_row(b, h, R, d, seg, m, l, acc, 8, split, geo, out, part_acc,
+                part_ml, d == 0);
+    else
+      write_row(b, h, R, d, seg, m, l, acc, geo.hd - d, split, geo, out,
+                part_acc, part_ml, d == 0);
   }
 }
 
-template <typename P, int HD>
+template <typename P, int HD, bool NARROW>
 int launch_hd(const void* q, const void* kpool, const void* vpool,
               const void* kscale, const void* vscale, const void* bt,
               const void* lengths, const void* seg_lens, void* out,
@@ -497,12 +591,12 @@ int launch_hd(const void* q, const void* kpool, const void* vpool,
               cudaStream_t stream) {
   constexpr size_t smem = Smem<HD, std::is_same_v<P, int8_t>>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_attn_tc_kernel<P, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      paged_attn_tc_kernel<P, HD, NARROW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int TG = geo.T * (geo.Hq / geo.Hkv);
   const dim3 grid(B, geo.Hkv, (TG + kRows - 1) / kRows * geo.splits);
-  paged_attn_tc_kernel<P, HD><<<grid, kThreads, smem, stream>>>(
+  paged_attn_tc_kernel<P, HD, NARROW><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const P*>(kpool),
       static_cast<const P*>(vpool), static_cast<const float*>(kscale),
       static_cast<const float*>(vscale), static_cast<const int*>(bt),
@@ -512,20 +606,30 @@ int launch_hd(const void* q, const void* kpool, const void* vpool,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A narrow head dim runs on the 256-wide NARROW kernel whatever its
+// width (one instantiation a pool type, so the build stays short); the
+// others on the smallest width that covers them.
 template <typename P>
 int launch(const void* q, const void* kpool, const void* vpool,
            const void* kscale, const void* vscale, const void* bt,
            const void* lengths, const void* seg_lens, void* out,
            void* part_acc, void* part_ml, int B, const Geometry& geo,
            cudaStream_t stream) {
+  if (narrow(geo.hd, sizeof(bf16), sizeof(P)))
+    return launch_hd<P, 256, true>(q, kpool, vpool, kscale, vscale, bt,
+                                   lengths, seg_lens, out, part_acc, part_ml,
+                                   B, geo, stream);
   if (geo.hd <= 64)
-    return launch_hd<P, 64>(q, kpool, vpool, kscale, vscale, bt, lengths,
-                            seg_lens, out, part_acc, part_ml, B, geo, stream);
+    return launch_hd<P, 64, false>(q, kpool, vpool, kscale, vscale, bt,
+                                   lengths, seg_lens, out, part_acc, part_ml,
+                                   B, geo, stream);
   if (geo.hd <= 128)
-    return launch_hd<P, 128>(q, kpool, vpool, kscale, vscale, bt, lengths,
-                             seg_lens, out, part_acc, part_ml, B, geo, stream);
-  return launch_hd<P, 256>(q, kpool, vpool, kscale, vscale, bt, lengths,
-                           seg_lens, out, part_acc, part_ml, B, geo, stream);
+    return launch_hd<P, 128, false>(q, kpool, vpool, kscale, vscale, bt,
+                                    lengths, seg_lens, out, part_acc, part_ml,
+                                    B, geo, stream);
+  return launch_hd<P, 256, false>(q, kpool, vpool, kscale, vscale, bt,
+                                  lengths, seg_lens, out, part_acc, part_ml,
+                                  B, geo, stream);
 }
 
 }  // namespace tc
@@ -539,22 +643,28 @@ namespace f32 {
 
 constexpr int kMaxVec = 8;   // float4s of a row a lane owns: hd <= 256
 
+// The staged width of a row: hd rounded up to 16 (the int8 dequantize
+// reads 16 payload bytes at a time), its dims past hd zero.
+__host__ __device__ __forceinline__ int width(int hd) {
+  return (hd + 15) / 16 * 16;
+}
+
 // Shared memory (floats): Q (16 rows), then ``stages`` stages of K and V
 // (fp pools), or one K/V tile plus two stages of raw int8 K/V and their
-// scales; rows of hd + 4 floats (conflict-free float4 reads).
+// scales; rows of width(hd) + 4 floats (conflict-free float4 reads).
 struct Layout {
   int ld, stages;
   size_t q, tile, raw, bytes;
-  Layout(int hd, bool int8) : ld(hd + 4) {
+  Layout(int hd, bool int8) : ld(width(hd) + 4) {
     q = static_cast<size_t>(kRows) * ld * 4 + 2 * kKeys * 4;  // + tables
     tile = static_cast<size_t>(kKeys) * ld * 4;
-    raw = 2 * static_cast<size_t>(kKeys) * hd + 2 * kKeys * 4;
+    raw = 2 * static_cast<size_t>(kKeys) * width(hd) + 2 * kKeys * 4;
     stages = int8 || q + 4 * tile <= 232448 ? 2 : 1;
     bytes = q + (int8 ? 2 * tile + 2 * raw : 2 * stages * tile);
   }
 };
 
-template <typename P>
+template <typename P, bool NARROW>
 __global__ void __launch_bounds__(kThreads)
     paged_attn_f32_kernel(const float* __restrict__ q,
                           const P* __restrict__ kpool,
@@ -570,7 +680,7 @@ __global__ void __launch_bounds__(kThreads)
                           int stages) {
   constexpr bool kInt8 = std::is_same_v<P, int8_t>;
   extern __shared__ __align__(16) float fsm[];
-  const int hd = geo.hd, ld = hd + 4;
+  const int wd = width(geo.hd), ld = wd + 4;
   const size_t tile = static_cast<size_t>(kKeys) * ld;   // floats
   int* tabs = reinterpret_cast<int*>(fsm);              // [2][64] slots
   float* qs = fsm + 2 * kKeys;
@@ -591,26 +701,21 @@ __global__ void __launch_bounds__(kThreads)
   const int* bt_row = block_tables + static_cast<size_t>(b) * geo.NB;
   const int TG = geo.T * (geo.Hq / geo.Hkv);
 
-  for (int u = threadIdx.x; u < kRows * (hd / 4); u += kThreads) {
-    const int r = u / (hd / 4), c = u % (hd / 4), R = r0 + r;
-    const bool ok = R < TG;
-    cp_async16(qs_u + (r * ld + c * 4) * 4,
-               ok ? q + row_off(b, h, R, geo) + c * 4 : q, ok);
-  }
-  const size_t raw_bytes = 2 * static_cast<size_t>(kKeys) * hd + 2 * kKeys * 4;
+  load_q<NARROW>(qs_u, ld, wd, q, b, h, r0, TG, geo);
+  const size_t raw_bytes = 2 * static_cast<size_t>(kKeys) * wd + 2 * kKeys * 4;
   // step k's keys go to ring slot ``slot`` through slot table k % 2
   auto load = [&](int k, int slot) {
     const int* tab = tabs + (k & 1) * kKeys;
     if constexpr (kInt8) {
       const uint32_t raw = kv_u + 2 * tile * 4 + slot * raw_bytes;
-      load_keys<int8_t>(raw, hd, hd, kpool, tab, h, geo);
-      load_keys<int8_t>(raw + kKeys * hd, hd, hd, vpool, tab, h, geo);
-      load_scales(raw + 2 * kKeys * hd, kscale, tab, h, geo);
-      load_scales(raw + 2 * kKeys * hd + kKeys * 4, vscale, tab, h, geo);
+      load_keys<NARROW>(raw, wd, wd, kpool, tab, h, geo);
+      load_keys<NARROW>(raw + kKeys * wd, wd, wd, vpool, tab, h, geo);
+      load_scales(raw + 2 * kKeys * wd, kscale, tab, h, geo);
+      load_scales(raw + 2 * kKeys * wd + kKeys * 4, vscale, tab, h, geo);
     } else {
       const uint32_t st = kv_u + slot * 2 * tile * 4;
-      load_keys<float>(st, ld, hd, kpool, tab, h, geo);
-      load_keys<float>(st + tile * 4, ld, hd, vpool, tab, h, geo);
+      load_keys<NARROW>(st, ld, wd, kpool, tab, h, geo);
+      load_keys<NARROW>(st + tile * 4, ld, wd, vpool, tab, h, geo);
     }
   };
   slot_table(tabs, bt_row, js, je, geo);
@@ -622,7 +727,7 @@ __global__ void __launch_bounds__(kThreads)
   // lane group of 8 per row: row tid / 8; keys sub + 8 i; float4s sub + 8 n
   const int r = threadIdx.x >> 3, sub = threadIdx.x & 7, R = r0 + r;
   const int qp = row_pos(R, len, seg, geo);
-  const int nvec = hd / 4;
+  const int nvec = wd / 4;
   float4 acc[kMaxVec];
 #pragma unroll
   for (int n = 0; n < kMaxVec; ++n) acc[n] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -643,12 +748,12 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (kInt8) {
       const uint8_t* raw = reinterpret_cast<const uint8_t*>(kvs + 2 * tile) +
                            slot * raw_bytes;
-      const float* sc = reinterpret_cast<const float*>(raw + 2 * kKeys * hd);
+      const float* sc = reinterpret_cast<const float*>(raw + 2 * kKeys * wd);
       dequant_keys<float>(kvs, ld, reinterpret_cast<const int8_t*>(raw), sc,
-                          hd);
+                          wd);
       dequant_keys<float>(kvs + tile, ld,
-                          reinterpret_cast<const int8_t*>(raw + kKeys * hd),
-                          sc + kKeys, hd);
+                          reinterpret_cast<const int8_t*>(raw + kKeys * wd),
+                          sc + kKeys, wd);
       __syncthreads();
       kt = kvs;
       vt = kvs + tile;
@@ -727,12 +832,42 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int n = 0; n < kMaxVec; ++n) {
     const int d4 = sub + 8 * n;
-    if (d4 < nvec) {
+    if (4 * d4 < geo.hd) {
       const float a[4] = {acc[n].x, acc[n].y, acc[n].z, acc[n].w};
-      write_row(b, h, R, 4 * d4, seg, m_run, l_run, a, 4, split, geo, out,
-                part_acc, part_ml, d4 == 0);
+      // a ragged last group only where hd is not a multiple of 4 (a NARROW
+      // kernel: q's fp32 rows take no 16-byte copy then)
+      if (!NARROW || 4 * d4 + 4 <= geo.hd)
+        write_row(b, h, R, 4 * d4, seg, m_run, l_run, a, 4, split, geo, out,
+                  part_acc, part_ml, d4 == 0);
+      else
+        write_row(b, h, R, 4 * d4, seg, m_run, l_run, a, geo.hd - 4 * d4,
+                  split, geo, out, part_acc, part_ml, d4 == 0);
     }
   }
+}
+
+template <typename P, bool NARROW>
+int launch_n(const void* q, const void* kpool, const void* vpool,
+             const void* kscale, const void* vscale, const void* bt,
+             const void* lengths, const void* seg_lens, void* out,
+             void* part_acc, void* part_ml, int B, const Geometry& geo,
+             cudaStream_t stream) {
+  const Layout lay(geo.hd, std::is_same_v<P, int8_t>);
+  cudaError_t err = cudaFuncSetAttribute(
+      paged_attn_f32_kernel<P, NARROW>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(lay.bytes));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int TG = geo.T * (geo.Hq / geo.Hkv);
+  const dim3 grid(B, geo.Hkv, (TG + kRows - 1) / kRows * geo.splits);
+  paged_attn_f32_kernel<P, NARROW><<<grid, kThreads, lay.bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const P*>(kpool),
+      static_cast<const P*>(vpool), static_cast<const float*>(kscale),
+      static_cast<const float*>(vscale), static_cast<const int*>(bt),
+      static_cast<const int*>(lengths), static_cast<const int*>(seg_lens),
+      static_cast<float*>(out), static_cast<float*>(part_acc),
+      static_cast<float*>(part_ml), geo, lay.stages);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename P>
@@ -741,21 +876,12 @@ int launch(const void* q, const void* kpool, const void* vpool,
            const void* lengths, const void* seg_lens, void* out,
            void* part_acc, void* part_ml, int B, const Geometry& geo,
            cudaStream_t stream) {
-  const Layout lay(geo.hd, std::is_same_v<P, int8_t>);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attn_f32_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(lay.bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int TG = geo.T * (geo.Hq / geo.Hkv);
-  const dim3 grid(B, geo.Hkv, (TG + kRows - 1) / kRows * geo.splits);
-  paged_attn_f32_kernel<P><<<grid, kThreads, lay.bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const P*>(kpool),
-      static_cast<const P*>(vpool), static_cast<const float*>(kscale),
-      static_cast<const float*>(vscale), static_cast<const int*>(bt),
-      static_cast<const int*>(lengths), static_cast<const int*>(seg_lens),
-      static_cast<float*>(out), static_cast<float*>(part_acc),
-      static_cast<float*>(part_ml), geo, lay.stages);
-  return static_cast<int>(cudaGetLastError());
+  if (narrow(geo.hd, sizeof(float), sizeof(P)))
+    return launch_n<P, true>(q, kpool, vpool, kscale, vscale, bt, lengths,
+                             seg_lens, out, part_acc, part_ml, B, geo,
+                             stream);
+  return launch_n<P, false>(q, kpool, vpool, kscale, vscale, bt, lengths,
+                            seg_lens, out, part_acc, part_ml, B, geo, stream);
 }
 
 }  // namespace f32
@@ -821,7 +947,7 @@ int run(const void* q, const void* kpool, const void* vpool,
         const void* lengths, const void* seg_lens, void* out, void* part_acc,
         void* part_ml, int B, const Geometry& geo, void* stream_) {
   const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  if (geo.hd % 16 || geo.hd > 256 || geo.splits < 1 ||
+  if (geo.hd < 1 || geo.hd > 256 || geo.splits < 1 ||
       geo.splits > kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
   int err;

@@ -14,8 +14,9 @@ cores (wgmma, swap-AB: 64-column weight slabs as the M side, the C-tile of
 16 to 160 tokens as N) with the slabs streamed through a ring of
 shared-memory stages by asynchronous copies, in two launches per call: one
 writes h = silu(x Wg) * (x Wu), rounded to bf16, into a scratch
-(E, C, F) that the wrapper allocates, one multiplies it by Wd.  F must be
-a multiple of 64 and D of 128.  fp32 stays on the CUDA cores in
+(E, C, F rounded up to 8) that the wrapper allocates, one multiplies it by
+Wd.  Any D and F: the edge tiles are zero-filled on load and masked on
+store (``check_ffn_dims``).  fp32 stays on the CUDA cores in
 fp32 FMA (the port holds fp32 to 2e-5, which TF32 cannot meet), in the
 same two launches with h kept fp32 in its scratch: each launch is a tiled
 product (``csrc/moe_f32.cuh``) with D and F tiled through shared memory,
@@ -40,7 +41,6 @@ import torch.nn.functional as F
 from repro_torch.core import quant
 from repro_torch.kernels import build
 
-TILE = 64             # bf16 tensor-core kernel: F tile; D tiles by 2 * TILE
 _ENTRY = {torch.float32: "moe_ffn_f32", torch.bfloat16: "moe_ffn_bf16"}
 _ENTRY_QUANT = {torch.float32: "moe_ffn_quant_f32",
                 torch.bfloat16: "moe_ffn_quant_bf16"}
@@ -67,12 +67,12 @@ def ffn_entry(dtype: torch.dtype) -> str:
 def check_ffn_dims(d: int, f: int, dtype: torch.dtype,
                    who: str = "moe_ffn_kernel") -> None:
     """Raise unless the kernel for ``dtype`` takes widths D and F (the
-    same rule for the fp and the quantized FFN): bf16 tiles F by 64 and D
-    by 128 (its down-projection blocks own 128 columns of D); fp32 takes
-    any widths (its tiles mask the ragged edges)."""
-    if dtype == torch.bfloat16 and (d % (2 * TILE) or f % TILE):
-        raise ValueError(f"{who}: bf16 needs D a multiple of {2 * TILE} "
-                         f"and F of {TILE}, got D={d} F={f}")
+    same rule for the fp and the quantized FFN): both types take any
+    widths of at least 1, as the reference's kernels do (bf16 zero-fills
+    and masks its edge tiles, fp32's tiles mask the ragged edges)."""
+    if d < 1 or f < 1:
+        raise ValueError(f"{who}: D and F must be at least 1, got D={d} "
+                         f"F={f}")
 
 
 def check_quant_dims(d: int, f: int, bits: int, qb: int,
@@ -80,8 +80,9 @@ def check_quant_dims(d: int, f: int, bits: int, qb: int,
     """Raise unless the quantized kernel for ``dtype`` takes widths D and F
     with ``bits``-bit payload in blocks of ``qb``: int8 or int4 with an
     even block (int4 rows pair up within a block), any even block for bf16
-    (each value takes its own row's scale), and the widths of
-    ``check_ffn_dims``."""
+    (each value takes its own row's scale), and any widths
+    (``check_ffn_dims``; a width that is not a whole number of blocks
+    reads as padded with zero weights, as the reference pads it)."""
     if bits not in (4, 8) or qb < 2 or qb % 2:
         raise ValueError(f"moe_ffn_kernel_quant: bits={bits} block={qb} "
                          f"not supported")
@@ -92,7 +93,11 @@ def h_scratch_spec(e: int, c: int, f: int, dtype: torch.dtype
                    ) -> tuple[tuple[int, int, int], torch.dtype]:
     """Shape and dtype of the h scratch both kernels (fp and quantized
     weights) pass between their two launches: h in x's dtype, as the
-    reference rounds it (bf16, or fp32 for fp32)."""
+    reference rounds it (bf16, or fp32 for fp32); bf16's rows are F
+    rounded up to 8, so each starts 16-byte aligned
+    (``csrc/common.cuh::ffn_h_stride``; its pad columns hold zeros)."""
+    if dtype == torch.bfloat16:
+        f = -(-f // 8) * 8
     return (e, c, f), dtype
 
 

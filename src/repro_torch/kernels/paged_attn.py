@@ -11,7 +11,10 @@ contiguous ranges of the tile's live pages, 64 keys a step, staging each
 K/V page once for every query head of its group; with more than one split
 a second launch merges the blocks' partial softmax states.  bf16 runs both
 products on the tensor cores (``mma.sync``), fp32 on the CUDA cores (see
-the source note).
+the source note).  Any head dim from 1 to 256 runs (``check_geometry``):
+the kernel stages Q, K and V with their dims past hd zero-filled, 16 bytes
+a copy where the pool's rows allow and narrower where they do not; the
+pools, which are the caches, are read in place and never copied.
 
 Each wrapper launches the kernel on CUDA tensors and counts the call in
 its own ``launches``; ``paged_attention_plain`` is the page walk of
@@ -121,6 +124,16 @@ def split_keys(length: int, t_lo: int, t_hi: int, window: int | None,
     return max(a * ps, s_lo), min(e * ps, s_hi + 1)
 
 
+def check_geometry(hq: int, hkv: int, hd: int, num_pages: int, nb: int,
+                   who: str = "paged_attention") -> None:
+    """Raise unless the kernel takes these heads, pool and tables: whole
+    query groups, any hd from 1 to 256 (the widest instantiation), a
+    page and a table column."""
+    if hkv == 0 or hq % hkv or not 1 <= hd <= 256 or num_pages < 1 or nb < 1:
+        raise ValueError(f"{who}: unsupported geometry Hq={hq} Hkv={hkv} "
+                         f"hd={hd} (from 1 to 256) P={num_pages} NB={nb}")
+
+
 def _launch(entries: dict, q, k_pool, v_pool, scales, block_tables,
             lengths, seg_lens, window, who: str) -> torch.Tensor:
     """Check the operands and launch one of ``csrc/paged_attn.cu``'s
@@ -150,15 +163,11 @@ def _launch(entries: dict, q, k_pool, v_pool, scales, block_tables,
     if q.dtype not in entries:
         raise ValueError(f"{who}: dtype {q.dtype} is not ported (fp32 and "
                          f"bf16 queries)")
-    if (hkv == 0 or hq % hkv or hd % 16 or hd > 256 or num_pages < 1
-            or nb < 1):
-        raise ValueError(f"{who}: unsupported geometry Hq={hq} Hkv={hkv} "
-                         f"hd={hd} (a multiple of 16, at most 256) "
-                         f"P={num_pages} NB={nb}")
+    check_geometry(hq, hkv, hd, num_pages, nb, who)
     for name, x in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool)):
         if x.data_ptr() % 16:
             raise ValueError(f"{who}: {name} needs a 16-byte-aligned "
-                             f"address (16-byte copies)")
+                             f"address (its rows' copies are aligned to it)")
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out

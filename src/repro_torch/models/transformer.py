@@ -175,11 +175,10 @@ class ServeTP:
     rank's rows.  The cached steps run this rank's block of rows
     (``Model``'s entry points cut them over the data axes, as the
     reference's ``cache_pspec`` places the caches) from its own caches,
-    and the MoE layer runs ``cfg.expert_parallel`` over them with no
-    batch axes: the schedules use those only for the aux loss's mean,
-    which the serving paths drop (XLA removes the reference's as dead
-    code).  The ssm family's SSD block is replicated, as the reference's
-    serve rules leave it."""
+    and the MoE layer runs ``cfg.expert_parallel`` over them asking for
+    no aux loss, so no schedule takes its mean (the serving paths drop it,
+    and XLA removes the reference's as dead code).  The ssm family's SSD
+    block is replicated, as the reference's serve rules leave it."""
     mesh: object
     embed: bool
     head: bool
@@ -230,15 +229,16 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
     expert-parallel schedule.  On a serving mesh (``tp``, a ``ServeTP``)
     ``x`` and the cache are this rank's rows, the cached steps run
     tensor-parallel over "model" and the MoE layer the schedule over the
-    rank's rows (no aux mean); ``cp``: the contiguous cache is
+    rank's rows; ``cp``: the contiguous cache is
     sequence-sharded (the decode is ``attn_decode_step_cp``).
     ``mrope_pos`` (B, T, 3): the tokens' M-RoPE positions (vlm), or None.
-    Returns (x, aux, routed (B*T, K) or None but for the moe family)."""
+    Returns (x, aux, routed (B*T, K) or None but for the moe family); a
+    cached step's MoE layer computes no aux (None)."""
     h = layers.norm_apply(cfg.norm, layer_p["ln1"], x)
     ap = layer_p["attn"]
     at = tp.attn if tp is not None else None
     if tp is not None:
-        mesh, batch_axes = tp.mesh, ()
+        mesh = tp.mesh
     if cache_l is None:
         h = attention.attn_forward(ap, cfg, h, positions, window, kernels,
                                    mrope_pos)
@@ -265,9 +265,10 @@ def _attn_mlp_block(cfg, layer_p, x, positions, window, cache_l=None,
     h = layers.norm_apply(cfg.norm, layer_p["ln2"], x)
     if cfg.family == "moe":
         moe_p = {"router": layer_p["router"], "experts": layer_p["experts"]}
+        # the cached (serving) steps drop the aux loss: no mean of it
         h, aux, routed = expert_parallel.moe_layer(
             cfg, moe_p, h, token_mask, mesh=mesh, kernels=kernels,
-            batch_axes=batch_axes)
+            batch_axes=batch_axes, aux=cache_l is None)
     else:
         h = layers.mlp_apply(layer_p["mlp"], h, cfg.act,
                              tp.mlp if tp is not None else None)

@@ -358,15 +358,35 @@ def test_flash_plain_at_hd_160_matches_pallas(window):
 
 
 @pytest.mark.parametrize("hd,ok", [(64, True), (128, True), (160, True),
-                                   (256, True), (96, False), (320, False)])
+                                   (256, True), (96, True), (320, False),
+                                   (80, True), (112, True), (72, True),
+                                   (1, True), (257, False)])
 def test_flash_geometry_check(hd, ok):
-    """The kernel takes hd 64, 128, 160 and 256 and refuses any other (no
-    fallback to the plain version on the card)."""
+    """The kernel takes any hd from 1 to 256, as the reference's kernel
+    takes any (phi-2's 80, phi-3-mini's 96), and refuses a wider one (the
+    bf16 kernel's P.V is one wgmma of N <= 256; no fallback to the plain
+    version on the card)."""
     if ok:
         flash_attn.check_geometry(32, 8, hd)
     else:
         with pytest.raises(ValueError, match="unsupported geometry"):
             flash_attn.check_geometry(32, 8, hd)
+
+
+@pytest.mark.parametrize("hd,bf16_hd", [
+    (1, 8), (64, 64), (72, 72), (80, 80), (96, 96), (100, 104), (160, 160),
+    (200, 200), (255, 256)])
+def test_flash_staged_hd(hd, bf16_hd):
+    """bf16 reads zero-padded copies at the next multiple of 8 where hd is
+    not one (its TMA maps need rows of a multiple of 16 bytes), fp32 reads
+    hd as it is; the copies hold the values and zeros past them."""
+    assert flash_attn.staged_hd(torch.bfloat16, hd) == bf16_hd
+    assert flash_attn.staged_hd(torch.float32, hd) == hd
+    x = torch.randn(2, 3, 4, hd)[:, :, ::2]
+    got = flash_attn.pad_head_dim(x, bf16_hd)
+    assert got.is_contiguous() and got.shape == (2, 3, 2, bf16_hd)
+    assert torch.equal(got[..., :hd], x)
+    assert bool((got[..., hd:] == 0).all())
 
 
 # ---------------------------------------------------------------------------

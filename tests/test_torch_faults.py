@@ -12,6 +12,11 @@
 * Deterministic dispatch gradients: ``moe.dispatch_rows`` and
   ``moe.combine_rows`` against ``index_select``'s gradients, and a
   captured backward of ``dispatch_moe`` holding no atomic-add op.
+* The trainer's expert FFN a block of experts at a time
+  (``moe.expert_ffn(kernels=False)``): its output and every gradient bit
+  for bit those of the whole-stack fp32 copies it replaced, and one
+  reduced MoE layer's forward and backward peaking lower by at least the
+  stack's fp32 bytes less one block's.
 """
 import jax
 import jax.numpy as jnp
@@ -23,7 +28,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro.core import moe as jax_moe
 from repro.core import quant as jq
 from repro_torch.configs.base import ShapeSpec, get_config
-from repro_torch.core import moe, quant
+from repro_torch.core import expert_parallel, moe, quant
 from repro_torch.launch import dryrun, opcount, sharding
 from torch_archs import one_torch_thread  # noqa: F401  (autouse below)
 
@@ -325,3 +330,116 @@ def test_dispatch_moe_backward_has_no_atomic_adds():
     with _AtomicOps() as mode:
         xe.square().sum().backward()
     assert mode.seen
+
+
+# ---------------------------------------------------------------------------
+# the trainer's expert FFN, a block of experts at a time
+# ---------------------------------------------------------------------------
+
+def _whole_copy_ffn(experts, xe, kernels=False):
+    """The form ``moe.expert_ffn(kernels=False)`` replaced: fp32 copies of
+    the three whole stacks, differentiated by autograd."""
+    w = lambda name: quant.materialize(experts[name]).float()
+    xf = xe.float()
+    g = torch.bmm(xf, w("w_gate"))
+    u = torch.bmm(xf, w("w_up"))
+    h = (torch.nn.functional.silu(g) * u).to(xe.dtype)
+    return torch.bmm(h.float(), w("w_down")).to(xe.dtype)
+
+
+@pytest.mark.parametrize("level", LEVELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_blocked_expert_ffn_equals_whole_copy(level, dtype, monkeypatch):
+    """Two experts a block over six (one of them router-dead: an all-zero
+    slice whose gradients must stay exactly zero): the output, x's
+    gradient and each weight's gradient (raw stacks; a QuantTensor has
+    none) bit for bit the whole-copy form's, each in its own dtype."""
+    e, c, d, f = 6, 5, 32, 48
+    monkeypatch.setattr(moe, "FFN_BLOCK_BYTES", 2 * 3 * d * f * 4)
+    assert moe.experts_per_block(d, f) == 2
+    rng = np.random.default_rng(11)
+    shapes = {"w_gate": (e, d, f), "w_up": (e, d, f), "w_down": (e, f, d)}
+    x0 = rng.standard_normal((e, c, d)).astype(np.float32)
+    x0[-1] = 0
+    gy = torch.from_numpy(rng.standard_normal((e, c, d)).astype(
+        np.float32)).to(dtype)
+    gy[-1] = 0
+    base = {k: torch.from_numpy((rng.standard_normal(shape)
+                                 * shape[-2] ** -0.5).astype(np.float32))
+            for k, shape in shapes.items()}
+    out = []
+    for fn in (_whole_copy_ffn, moe.expert_ffn):
+        if level == "none":
+            ex = {k: v.to(dtype).requires_grad_() for k, v in base.items()}
+        else:
+            ex = {k: quant.quantize(v.to(dtype), level, block=16)
+                  for k, v in base.items()}
+        x = torch.from_numpy(x0).to(dtype).requires_grad_()
+        y = fn(ex, x, kernels=False)
+        y.backward(gy)
+        out.append([y.detach(), x.grad] + [
+            w.grad for w in ex.values() if isinstance(w, torch.Tensor)])
+    for want, got in zip(*out):
+        assert got.dtype == want.dtype == dtype
+        assert torch.equal(got, want)
+    for g in out[1][2:]:
+        assert bool((g[-1] == 0).all())
+
+
+def test_blocked_expert_ffn_lowers_the_layer_peak(monkeypatch):
+    """One reduced granite MoE layer (8 experts, D 256, F 512, bf16: the
+    dtype whose fp32 copies are real) through
+    ``expert_parallel.moe_layer(kernels=False)`` under ``opcount``'s
+    capture, one expert a block, against the whole-copy form:
+
+    * after the forward, the bytes it keeps for the backward fall by at
+      least the stack's fp32 bytes (the whole-copy form saves its three
+      copies; the blocked one saves none);
+    * the peak of the forward and backward falls by at least the stack's
+      fp32 bytes less one block's, less the stacks' gradients in their
+      own dtype: the blocked backward writes those whole before its first
+      block, where the whole-copy form had made only some of its own at
+      its peak (both end holding all of them);
+    * the gradients are the same, bit for bit."""
+    cfg = get_config("granite_moe_3b_a800m").reduced().replace(
+        num_experts=6, num_experts_padded=8, dtype="bfloat16")
+    e, d, f = cfg.num_experts_padded, cfg.d_model, cfg.d_ff
+    block = 3 * d * f * 4
+    monkeypatch.setattr(moe, "FFN_BLOCK_BYTES", block)
+    rng = np.random.default_rng(12)
+    mk = lambda shape, s: torch.from_numpy(
+        (rng.standard_normal(shape) * s).astype(np.float32)).to(
+        torch.bfloat16)
+    layer = {"router": mk((d, e), d ** -0.5),
+             "experts": {"w_gate": mk((e, d, f), d ** -0.5),
+                         "w_up": mk((e, d, f), d ** -0.5),
+                         "w_down": mk((e, f, d), f ** -0.5)}}
+    x0 = mk((2, 16, d), 1.0)
+
+    def forward():
+        # a layer's input is an activation: it takes a gradient too
+        p = {"router": layer["router"].clone().requires_grad_(),
+             "experts": {k: v.clone().requires_grad_()
+                         for k, v in layer["experts"].items()}}
+        x = x0.clone().requires_grad_()
+        y, aux, _ = expert_parallel.moe_layer(cfg, p, x, kernels=False)
+        return y.float().square().mean() + aux, p, x
+
+    def step():
+        loss, p, x = forward()
+        loss.backward()
+        return [x.grad, p["router"].grad] + [
+            p["experts"][k].grad for k in ("w_gate", "w_up", "w_down")]
+
+    kept_new = opcount.capture(forward).live_bytes
+    new = opcount.capture(step)
+    monkeypatch.setattr(moe, "expert_ffn", _whole_copy_ffn)
+    kept_old = opcount.capture(forward).live_bytes
+    old = opcount.capture(step)
+    for a, b in zip(old.result, new.result):
+        assert torch.equal(a, b)
+    stack = 3 * e * d * f * 4
+    grads = 3 * e * d * f * 2
+    assert kept_old - kept_new >= stack, (kept_old, kept_new)
+    assert old.peak_bytes - new.peak_bytes >= stack - block - grads, (
+        old.peak_bytes, new.peak_bytes)

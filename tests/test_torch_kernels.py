@@ -106,6 +106,23 @@ def test_paged_attention_int8_matches_jax(t, ps, window):
     assert np.all(got[~valid] == 0.0)
 
 
+@pytest.mark.parametrize("hd,ok", [(1, True), (80, True), (96, True),
+                                   (200, True), (256, True), (320, False)])
+def test_paged_geometry_check(hd, ok):
+    """The paged kernel takes any hd from 1 to 256 (its widest
+    instantiation), as the reference's kernel takes any, and refuses a
+    wider one; whole query groups, a page and a table column."""
+    from repro_torch.kernels import paged_attn
+    if ok:
+        paged_attn.check_geometry(32, 8, hd, 4, 2)
+    else:
+        with pytest.raises(ValueError, match="unsupported geometry"):
+            paged_attn.check_geometry(32, 8, hd, 4, 2)
+    for args in ((32, 6, 64, 4, 2), (32, 8, 64, 0, 2), (32, 8, 64, 4, 0)):
+        with pytest.raises(ValueError, match="unsupported geometry"):
+            paged_attn.check_geometry(*args)
+
+
 def test_paged_attention_int8_garbage_scales_masked():
     """Unreferenced pages of an int8 pool with NaN/Inf scales never reach
     a valid row."""
@@ -354,19 +371,23 @@ def test_kernel_wrappers_refuse_grad(entry):
 @pytest.mark.parametrize("d,f,dtype,ok", [
     (2048, 768, torch.bfloat16, True),      # qwen3-moe-30b-a3b
     (256, 512, torch.bfloat16, True),       # its reduced config
-    (96, 80, torch.bfloat16, False),
-    (2048, 700, torch.bfloat16, False),
-    (2040, 768, torch.bfloat16, False),
-    (192, 768, torch.bfloat16, False),      # D tiles by 128
+    (96, 80, torch.bfloat16, True),         # bf16: any widths
+    (2048, 700, torch.bfloat16, True),
+    (2040, 768, torch.bfloat16, True),
+    (192, 768, torch.bfloat16, True),       # D off the 128-wide tiles
     (96, 80, torch.float32, True),          # fp32: any widths
     (2048, 768, torch.float32, True),
     (2048, 2048, torch.float32, True),
     (6144, 10752, torch.float32, True),     # DBRX
+    (2880, 2880, torch.bfloat16, True),     # gpt-oss
+    (320, 201, torch.bfloat16, True),       # F not a multiple of 8
+    (0, 768, torch.bfloat16, False),
+    (2048, 0, torch.float32, False),
 ])
 def test_ffn_dims_check(d, f, dtype, ok):
-    """bf16 tiles F by 64 and D by 128 and raises on anything else (no
-    fallback); fp32 tiles D and F through shared memory and takes any
-    widths."""
+    """Both types take any widths, as the reference's kernel does (bf16
+    zero-fills and masks its edge tiles; fp32 tiles D and F through shared
+    memory), and raise only on an empty one (no fallback)."""
     from repro_torch.kernels import moe_gemm
     if ok:
         moe_gemm.check_ffn_dims(d, f, dtype)
@@ -525,23 +546,41 @@ def test_paged_split_combine_matches_plain(t, ps, window, splits):
     (256, 512, 8, 6, torch.bfloat16, True),
     (256, 512, 8, 3, torch.bfloat16, False),       # odd block
     (256, 512, 2, 128, torch.bfloat16, False),
-    (192, 512, 8, 128, torch.bfloat16, False),     # D tiles by 128
-    (256, 500, 8, 128, torch.bfloat16, False),     # F tiles by 64
+    (192, 512, 8, 128, torch.bfloat16, True),      # D off the 128-wide tiles
+    (256, 500, 8, 128, torch.bfloat16, True),      # F off the 64-wide tiles
+    (2880, 2880, 8, 128, torch.bfloat16, True),    # gpt-oss
+    (2880, 2880, 4, 128, torch.bfloat16, True),
+    (96, 80, 8, 32, torch.bfloat16, True),
+    (96, 80, 4, 32, torch.bfloat16, True),
     (96, 80, 8, 32, torch.float32, True),          # fp32: any widths
     (2048, 768, 4, 128, torch.float32, True),
     (6144, 10752, 8, 128, torch.float32, True),    # DBRX in fp32 too
     (6144, 10752, 4, 128, torch.float32, True),
 ])
 def test_quant_ffn_dims_check(d, f, bits, qb, dtype, ok):
-    """The quantized FFN's bf16 path takes the bf16 FFN's geometry (D % 128,
-    F % 64, any even block), so DBRX's widths fit; fp32 takes any widths
-    (and any even block)."""
+    """The quantized FFN takes any widths in both types, as the reference
+    does (a width that is not a whole number of blocks reads as padded
+    with zero weights), int8 or int4 in any even block; it raises on a
+    payload width or an odd block it never took."""
     from repro_torch.kernels import moe_gemm
     if ok:
         moe_gemm.check_quant_dims(d, f, bits, qb, dtype)
     else:
         with pytest.raises(ValueError, match="moe_ffn_kernel_quant"):
             moe_gemm.check_quant_dims(d, f, bits, qb, dtype)
+
+
+@pytest.mark.parametrize("f,bf16_rows", [(768, 768), (200, 200),
+                                         (201, 208), (75, 80)])
+def test_ffn_h_scratch_rows_are_16_byte_aligned(f, bf16_rows):
+    """bf16's h scratch rows are F rounded up to 8 (16 bytes), so the down
+    launch copies its tiles 16 bytes at a time whatever F
+    (``csrc/common.cuh::ffn_h_stride``); fp32's stay F."""
+    from repro_torch.kernels import moe_gemm
+    assert moe_gemm.h_scratch_spec(3, 5, f, torch.bfloat16) == (
+        (3, 5, bf16_rows), torch.bfloat16)
+    assert moe_gemm.h_scratch_spec(3, 5, f, torch.float32) == (
+        (3, 5, f), torch.float32)
 
 
 def test_quant_ffn_h_scratch_and_entries():

@@ -297,6 +297,22 @@ def test_unified_step_bytes_equal_the_prediction(runs, mesh_name, ep):
 
 
 @pytest.mark.parametrize("mesh_name", list(cases.MESHES))
+@pytest.mark.parametrize("ep", cases.ALL_SCHEDULES)
+def test_serving_books_no_aux_mean(runs, mesh_name, ep):
+    """A serving step asks the MoE layer for no aux loss, so no schedule
+    takes its mean over the mesh: a prefill block and a decode step under
+    each of the four schedules book no ``collectives.AUX`` bytes on any
+    rank (the forward on a mesh still does:
+    ``test_torch_expert_parallel.py``'s ``_check_bytes``), while the
+    step's own collectives ran."""
+    for rank, rec in enumerate(r[f"aux/{ep}"] for r in runs[mesh_name]):
+        assert sorted(rec) == [1, cases.BYTES_BLOCK[1]], rank
+        for t, nbytes in rec.items():
+            assert collectives.AUX not in nbytes, (rank, t, nbytes)
+            assert nbytes.get("all-reduce", 0) > 0, (rank, t, nbytes)
+
+
+@pytest.mark.parametrize("mesh_name", list(cases.MESHES))
 @pytest.mark.parametrize("quant", list(cases.CP_CACHE))
 def test_cp_decode_matches_jax(runs, mesh_name, quant):
     """``attn_decode_step_cp`` over each rank's sequence block of its

@@ -23,6 +23,7 @@ ARCHS = {"moe": ("qwen3_moe_30b_a3b", {}), "dense": ("qwen3_0_6b", {}),
                                           "qkv_bias": True}),
          "dense_f12": ("qwen3_0_6b", {"d_ff": 12})}
 SCHEDULES = ("decentralized", "a2a_pipelined")
+ALL_SCHEDULES = ("decentralized", "centralized", "a2a", "a2a_pipelined")
 # capacity never binds; int8 weights at block 64
 CFG = dict(capacity_factor=8.0, ep_microchunks=2)
 QUANT = {"fp32": {}, "int8": dict(weight_quant="int8", weight_quant_block=64),
@@ -271,6 +272,31 @@ def _rank_cases(rank, world, store, shape, params_path) -> dict:
         out[f"bytes/{ep}"] = {"bytes": dict(mesh.bytes),
                               "logits": logits.numpy(),
                               "pool_pages": cache["k"].shape[1]}
+    # every schedule's prefill block (T=4) and decode step (T=1: the
+    # centralized decode fallback, a2a's decentralized one): the bytes
+    # each step books, an aux mean's among them if a schedule took one
+    for ep in ALL_SCHEDULES:
+        cfg = port_config("moe", ep=ep)
+        params = bridge.from_jax_params(trees["moe"], cfg, "cpu", mesh=mesh,
+                                        mode="serve")
+        model = build_model(cfg, "cpu")
+        cache = model.init_paged_cache(8 // g, 4, mesh)
+        steps = {}
+        for tt, lengths, seg in ((t, [0, 3], [t, 2]), (1, [4, 5], [1, 1])):
+            tok = torch.from_numpy(np.random.default_rng(6).integers(
+                0, 500, (b, tt)).astype(np.int32))
+            batch = {"tokens": tok,
+                     "lengths": torch.tensor(lengths, dtype=torch.int32),
+                     "seg_lens": torch.tensor(seg, dtype=torch.int32),
+                     "block_tables": torch.tensor(
+                         [[0, 1, 2, 3], [4, 5, 6, 7]],
+                         dtype=torch.int32) % (8 // g)}
+            mesh.reset_counters()
+            with torch.no_grad():
+                model.forward_routed(params, batch, cache, context_len=16,
+                                     mesh=mesh)
+            steps[tt] = dict(mesh.bytes)
+        out[f"aux/{ep}"] = steps
     # context-parallel decode of one layer against the one-device step,
     # over a linear cache and over a ring, on this rank's rows
     from repro_torch.core.expert_parallel import batch_shard

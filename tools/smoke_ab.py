@@ -10,7 +10,8 @@ source tree, so that a parent tree and a change can be timed in turns
 checkout's by default); the phases, their cases, checks and bounds are this
 checkout's ``chip_smoke.py``.  PHASE is ``paged`` (phase 3's paged-attention
 cases and split sweep; the tree's wrapper must have ``num_splits``),
-``quant`` (phase 3's quantized-FFN cases), ``flash`` (phase 3's
+``quant`` (phase 3's quantized-FFN cases), ``ffn`` (phase 3's grouped-FFN
+cases, fp32 and bf16), ``flash`` (phase 3's
 flash-attention cases), ``chaos`` (phase 4c, run
 before any serve; the tree must have ``serving/chaos.py``), ``serve`` (phases 5, 6 and 5b:
 the full-width serve, forward and quantized serve, each with its profile
@@ -43,9 +44,12 @@ DBRX's widths, then phase 3b: fp32 DBRX at 2 layers through forward and
 loss with the CUDA-core FFN) or ``train_step`` (granite's bf16 trainer
 step at phase 8's shape, ``--repeat`` steps timed, then one profiled for
 the dispatch gathers' backward share: no gate, so a parent tree runs it
-too).  Prints the card's name and power limit, the build's ptxas lines
-and every row the phases print, each tagged with the label; exits non-zero
-if a phase fails.
+too).  ``--no-geometry`` leaves out phase 3's cases of the widened
+geometry (``PAGED_GEOMETRY``, ``FFN_GEOMETRY``, ``QUANT_GEOMETRY``,
+``FLASH_GEOMETRY``), which a tree whose kernels refuse it cannot run.
+Prints the card's name and power limit, the build's ptxas lines and every
+row the phases print, each tagged with the label; exits non-zero if a
+phase fails.
 """
 from __future__ import annotations
 
@@ -64,12 +68,17 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="change")
     ap.add_argument("--only", nargs="*", default=["paged", "quant"],
-                    choices=["paged", "quant", "flash", "chaos", "serve",
+                    choices=["paged", "quant", "ffn", "flash", "chaos",
+                             "serve",
                              "serve5", "train", "ep", "serve_mesh",
                              "train_mesh", "families", "modalities",
                              "families_mesh", "analysis",
                              "full_depth", "fp32_ffn", "train_step"])
     ap.add_argument("--repeat", type=int, default=3)
+    ap.add_argument("--no-geometry", action="store_true",
+                    help="leave out phase 3's cases of the widened "
+                         "geometry (for a tree whose kernels refuse "
+                         "them)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -90,14 +99,20 @@ def main() -> int:
     _, info = build.build()
     cs.emit("build", seconds=info["seconds"], ptxas=[
         line.strip() for rep in info["ptxas"].values()
-        for line in rep.splitlines() if "registers" in line or "spill" in line])
+        for line in rep.splitlines() if "registers" in line or "spill" in line],
+        ptxas_by_kernel=cs.ptxas_table(info["ptxas"]))
     build.library()
+    if args.no_geometry:
+        cs.PAGED_GEOMETRY = cs.FFN_GEOMETRY = cs.QUANT_GEOMETRY = []
+        cs.FLASH_GEOMETRY = []
     results = []
     if "paged" in args.only:
         cs.check_paged_attention(torch, results)
         cs.check_paged_sweep(torch)
     if "quant" in args.only:
         cs.check_moe_ffn_quant(torch, results)
+    if "ffn" in args.only:
+        cs.check_moe_ffn(torch, results)
     if "flash" in args.only:
         cs.check_flash_attention(torch, results)
     if "chaos" in args.only:
